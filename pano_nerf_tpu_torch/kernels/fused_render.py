@@ -1,0 +1,271 @@
+"""Whole eval render level on the H100: IPE + NerfMLP + compositing + normals.
+
+Replaces the TPU kernel `fused_render_level` (`_render_kernel`) of
+pano_nerf_tpu/kernels/fused_render.py:128-315. One call renders one level
+of a ray chunk: integrated positional encoding of the sample Gaussians, the
+full 8x256 trunk and heads with the viewdir encoding, softplus density and
+radiance, alpha compositing, expected distance, albedo and roughness, and
+on the fine level the per-sample density-gradient normals and their
+weighted average. Only per-ray products leave the kernel.
+
+What bounds it on an H100: tensor-core operations. A sample row costs
+611,328 MACs of MLP (1.22 MFLOP), plus 507,904 MACs (1.02 MFLOP) of normal
+chain on the fine level, against 32 B of input moments. A 128x256 panorama
+(32,768 rays x (56 + 56 + 10*5) rows) is 8.4 TFLOP: >= 8.5 ms at 989
+TFLOP/s dense bf16, while its inputs move in ~0.05 ms at 3.35 TB/s.
+
+Design (csrc/fused_render.cu): one 256-thread block per tile of <= 64
+sample rows (one ray at S=56, floor(64/S) rays at S=5); bf16 activations
+stay in shared memory between layers and every product runs on WMMA bf16
+tensor-core fragments with float32 accumulation; weights are read from
+global memory, where the 1.2 MB of bf16 weights stay resident in L2; the
+ReLU masks are kept as bits for the normal chain; compositing is a
+sequential float32 scan per ray.
+
+`fused_render_level` is the wrapper: it validates its inputs, runs the
+plain PyTorch version `fused_render_level_reference` for CPU tensors and
+launches the CUDA kernel for CUDA tensors (or raises). It counts its
+launches in `fused_render_level.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from pano_nerf_tpu_torch.kernels import build
+from pano_nerf_tpu_torch.models import normals as normals_lib
+from pano_nerf_tpu_torch.models.mlp import NerfMLP
+from pano_nerf_tpu_torch.ops import mip
+
+Tensor = torch.Tensor
+
+SOURCE = "fused_render.cu"
+TILE_ROWS = 64       # sample rows per block: the largest S the kernel takes
+OUT_FIXED = 17       # rgb(3) | acc | distance | albedo(3) | roughness |
+#                      normal(3) | ort | 0(4), then the S weights
+_W, _XF, _VF, _VK, _VW, _HP = 256, 96, 27, 288, 128, 16
+
+
+def softplus(x: Tensor) -> Tensor:
+    """log(1 + exp(x)) as max(x, 0) + log1p(exp(-|x|)), the kernel's form."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
+                         max_deg: int, deg_view: int) -> None:
+    """Raise ValueError unless the kernel's specialisation covers this
+    topology and sample count: 8x256 trunk with the skip at layer 4,
+    5-channel density head, 1x128 view branch, 16 IPE degrees, the deg-4
+    viewdir encoding with identity, and 1 <= S <= 64."""
+    want = dict(net_depth=8, net_width=_W, skip_index=4,
+                net_depth_condition=1, net_width_condition=_VW,
+                num_rgb_channels=3, num_density_channels=5, xyz_dim=_XF,
+                view_dim=_VF)
+    bad = {k: getattr(mlp, k) for k, v in want.items()
+           if getattr(mlp, k) != v}
+    if max_deg - min_deg != 16 or deg_view != 4:
+        bad["deg"] = (min_deg, max_deg, deg_view)
+    if bad:
+        raise ValueError(f"fused_render_level supports only the standard "
+                         f"topology {want}; got {bad}")
+    if not 1 <= num_samples <= TILE_ROWS:
+        raise ValueError(f"fused_render_level takes 1..{TILE_ROWS} samples "
+                         f"per ray, got {num_samples}")
+
+
+def _check_inputs(means: Tensor, covs: Tensor, viewdirs: Tensor,
+                  t_samples: Tensor, dirs: Tensor) -> Tuple[int, int]:
+    if means.ndim != 3 or means.shape[-1] != 3:
+        raise ValueError(f"means must be [R, S, 3], got {tuple(means.shape)}")
+    R, S = means.shape[:2]
+    shapes = dict(means=(means, (R, S, 3)), covs=(covs, (R, S, 3)),
+                  viewdirs=(viewdirs, (R, 3)),
+                  t_samples=(t_samples, (R, S + 1)), dirs=(dirs, (R, 3)))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != means.device:
+            raise ValueError(f"{name} is on {t.device}, means on "
+                             f"{means.device}")
+    if R == 0:
+        raise ValueError("fused_render_level needs at least one ray")
+    return R, S
+
+
+def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
+    """NerfMLP -> (bf16 weights, float32 biases) in the kernel's layout.
+
+    Weights keep torch's [out, in] layout, zero-padded to multiples of 16:
+    trunk 0..7 (layer 5 is [256, 352] over [h4 | x]), density [16, 256]
+    (rows 0..4), bottleneck [256, 256], view [128, 288] (columns 0..282),
+    color [16, 128] (rows 0..2). Biases: trunk 8x256, density 16,
+    bottleneck 256, view 128, color 16.
+    """
+    def pad(w: Tensor, rows: int, cols: int) -> Tensor:
+        return F.pad(w.detach().float(),
+                     (0, cols - w.shape[1], 0, rows - w.shape[0]))
+
+    ws = [seq[0].weight.detach().float() for seq in mlp.layers]
+    ws += [pad(mlp.density_layer.weight, _HP, _W),
+           mlp.extra_layer.weight.detach().float(),
+           pad(mlp.view_layers[0][0].weight, _VW, _VK),
+           pad(mlp.color_layer.weight, _HP, _VW)]
+    bs = [seq[0].bias.detach().float() for seq in mlp.layers]
+    bs += [F.pad(mlp.density_layer.bias.detach().float(), (0, _HP - 5)),
+           mlp.extra_layer.bias.detach().float(),
+           mlp.view_layers[0][0].bias.detach().float(),
+           F.pad(mlp.color_layer.bias.detach().float(), (0, _HP - 3))]
+    weights = torch.cat([w.reshape(-1) for w in ws]).to(torch.bfloat16)
+    return weights.contiguous(), torch.cat(bs).contiguous()
+
+
+def _kernel_library() -> ctypes.CDLL:
+    lib = build.load_library(SOURCE)
+    if not getattr(lib, "_pano_configured", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_render_level_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, i32, i32,
+            ptr]
+        lib.fused_render_level_launch.restype = i32
+        lib.fused_render_error_string.argtypes = [i32]
+        lib.fused_render_error_string.restype = ctypes.c_char_p
+        for name in ("fused_render_weight_count", "fused_render_bias_count"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib._pano_configured = True
+    return lib
+
+
+def _unpack(out: Tensor, S: int, need_normals: bool, need_extras: bool
+            ) -> Dict[str, Optional[Tensor]]:
+    res = dict(rgb=out[:, 0:3], acc=out[:, 3], distance=out[:, 4],
+               weights=out[:, OUT_FIXED:OUT_FIXED + S], normal=None,
+               albedo=None, roughness=None, ort=None)
+    if need_extras:
+        res["albedo"], res["roughness"] = out[:, 5:8], out[:, 8]
+    if need_normals:
+        res["normal"], res["ort"] = out[:, 9:12], out[:, 12]
+    return res
+
+
+def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
+                       viewdirs: Tensor, t_samples: Tensor, dirs: Tensor, *,
+                       min_deg: int, max_deg: int, deg_view: int,
+                       density_bias: float, rgb_padding: float,
+                       white_bkgd: bool, need_normals: bool,
+                       need_extras: bool,
+                       packed: Optional[Tuple[Tensor, Tensor]] = None
+                       ) -> Dict[str, Optional[Tensor]]:
+    """Render one level; returns per-ray products.
+
+    means, covs: [R, S, 3]; viewdirs: [R, 3] unit view directions;
+    t_samples: [R, S+1]; dirs: [R, 3] un-normalized ray directions (their
+    norm scales the deltas); all float32 and contiguous. `packed` is
+    `pack_params(mlp)`, computed here when not given. Returns rgb [R, 3],
+    acc [R], distance [R], weights [R, S] and, when asked for, normal
+    [R, 3], ort [R] (sum_s w_norm relu(n_s . d)^2), albedo [R, 3],
+    roughness [R]; float32.
+    """
+    R, S = _check_inputs(means, covs, viewdirs, t_samples, dirs)
+    check_kernel_support(mlp, S, min_deg, max_deg, deg_view)
+    if means.device.type == "cpu":
+        return fused_render_level_reference(
+            mlp, means, covs, viewdirs, t_samples, dirs, min_deg=min_deg,
+            max_deg=max_deg, deg_view=deg_view, density_bias=density_bias,
+            rgb_padding=rgb_padding, white_bkgd=white_bkgd,
+            need_normals=need_normals, need_extras=need_extras)
+    if means.device.type != "cuda":
+        raise ValueError(f"fused_render_level runs on cpu or cuda tensors, "
+                         f"got {means.device}")
+    if mlp.compute_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernel computes in bf16; got compute "
+                         f"dtype {mlp.compute_dtype} (train.precision)")
+    weights, biases = pack_params(mlp) if packed is None else packed
+    lib = _kernel_library()
+    if (weights.dtype != torch.bfloat16 or biases.dtype != torch.float32
+            or weights.numel() != lib.fused_render_weight_count()
+            or biases.numel() != lib.fused_render_bias_count()
+            or weights.device != means.device
+            or biases.device != means.device):
+        raise ValueError("packed parameters do not match the kernel layout")
+
+    t_mids = 0.5 * (t_samples[:, :-1] + t_samples[:, 1:])
+    delta = ((t_samples[:, 1:] - t_samples[:, :-1])
+             * torch.linalg.norm(dirs, dim=-1, keepdim=True))
+    mc = torch.cat([means.reshape(-1, 3), covs.reshape(-1, 3),
+                    delta.reshape(-1, 1), t_mids.reshape(-1, 1)],
+                   dim=1).contiguous()
+    rayinfo = torch.cat([viewdirs, t_samples[:, :1], t_samples[:, -1:],
+                         dirs], dim=1).contiguous()
+    out = torch.empty((R, OUT_FIXED + S), dtype=torch.float32,
+                      device=means.device)
+    stream = torch.cuda.current_stream(means.device).cuda_stream
+    err = lib.fused_render_level_launch(
+        mc.data_ptr(), rayinfo.data_ptr(), weights.data_ptr(),
+        biases.data_ptr(), out.data_ptr(), R, S, min_deg,
+        float(density_bias), float(rgb_padding), int(bool(white_bkgd)),
+        int(bool(need_normals)), int(bool(need_extras)), stream)
+    if err != 0:
+        raise RuntimeError("fused_render_level launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    fused_render_level.launches += 1
+    return _unpack(out, S, need_normals, need_extras)
+
+
+fused_render_level.launches = 0
+
+
+def fused_render_level_reference(mlp: NerfMLP, means: Tensor, covs: Tensor,
+                                 viewdirs: Tensor, t_samples: Tensor,
+                                 dirs: Tensor, *, min_deg: int, max_deg: int,
+                                 deg_view: int, density_bias: float,
+                                 rgb_padding: float, white_bkgd: bool,
+                                 need_normals: bool, need_extras: bool
+                                 ) -> Dict[str, Optional[Tensor]]:
+    """Plain PyTorch version of the kernel: IPE -> NerfMLP -> activations
+    -> `volumetric_rendering` -> the explicit normal chain.
+
+    The same function at the same arithmetic as the kernel: matmul
+    operands rounded to the MLP's compute dtype, float32 accumulation and
+    everything else in float32. Expectations divide by max(acc, 1e-12);
+    each sample normal is -d raw_sigma / d means over max(norm, 1e-12)
+    (the softplus factor cancels in the normalisation).
+    """
+    x = mip.integrated_pos_enc(means, covs, min_deg, max_deg)
+    v = mip.pos_enc(viewdirs, 0, deg_view, True)[:, None, :]
+    if need_normals:
+        raw_rgb, raw_density, g_enc = normals_lib.mlp_with_density_grad(
+            mlp, x, v)
+    else:
+        raw_rgb, raw_density = mlp(x, v)
+    density = softplus(raw_density[..., :1] + density_bias)
+    rgb = softplus(raw_rgb) * (1.0 + 2.0 * rgb_padding) - rgb_padding
+    comp_rgb, distance, acc, weights = mip.volumetric_rendering(
+        rgb, density, t_samples, dirs, white_bkgd)
+    inv_acc = 1.0 / torch.clamp(acc, min=1e-12)
+    res = dict(rgb=comp_rgb, acc=acc, distance=distance, weights=weights,
+               normal=None, albedo=None, roughness=None, ort=None)
+    if need_extras:
+        albedo = torch.sigmoid(raw_density[..., 1:4]) * 0.77 + 0.03
+        rough = softplus(raw_density[..., 4] - 1.0)
+        res["albedo"] = torch.sum(weights[..., None] * albedo, 1) * inv_acc[:, None]
+        res["roughness"] = torch.sum(weights * rough, 1) * inv_acc
+    if need_normals:
+        d_raw = normals_lib.density_means_grad(g_enc, x, min_deg, max_deg)
+        n_s = -d_raw / torch.clamp(torch.linalg.norm(d_raw, dim=-1,
+                                                     keepdim=True), min=1e-12)
+        n = torch.sum(weights[..., None] * n_s, 1) * inv_acc[:, None]
+        res["normal"] = n / torch.clamp(torch.linalg.norm(n, dim=-1,
+                                                          keepdim=True),
+                                        min=1e-12)
+        ndot = torch.sum(n_s * dirs[:, None, :], -1)
+        res["ort"] = torch.sum(weights * torch.relu(ndot) ** 2, 1) * inv_acc
+    return res

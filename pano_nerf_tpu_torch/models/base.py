@@ -1,0 +1,157 @@
+"""Hyperparameters, level outputs and sampling for the Pano-NeRF render.
+
+Counterpart of the eval subset of pano_nerf_tpu/models/base.py:
+`from_hparams`, `_sample_level` and `_env_samples`. The port has exactly one
+render path, the fused kernel's, so `from_hparams` refuses every config key
+that would need another path (`UNSUPPORTED`) with NotImplementedError
+naming the key, instead of silently rendering something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from pano_nerf_tpu_torch.core.rays import Rays
+from pano_nerf_tpu_torch.ops import mip
+
+Tensor = torch.Tensor
+
+
+class LevelOutput(NamedTuple):
+    """Per-level render products; optional fields are None when absent."""
+    rgb: Tensor                        # [B, 3] composited HDR radiance
+    distance: Tensor                   # [B] expected termination distance
+    acc: Tensor                        # [B] opacity
+    normal: Optional[Tensor] = None    # [B, 3] expected surface normal
+    albedo: Optional[Tensor] = None    # [B, 3] expected albedo
+    roughness: Optional[Tensor] = None  # [B] expected roughness
+    surf_rgb: Optional[Tensor] = None  # [B, 3] surface-rendered radiance
+    diffuse: Optional[Tensor] = None   # [B, 3] diffuse term
+    shading: Optional[Tensor] = None   # [B, 3] irradiance term
+
+
+# Config keys whose non-default value needs a render path the port does
+# not have: key -> predicate that is True when the value is unsupported.
+UNSUPPORTED: Dict[str, Callable] = {
+    "nerf.density_noise": lambda v: float(v) != 0.0,
+    "nerf.env_tight_rgb": lambda v: float(v) != 0.0,
+    "nerf.env_resample": bool,
+    "nerf.illum_field": bool,
+    "nerf.emissive_head": bool,
+    "nerf.chroma_head": bool,
+    "nerf.env_rotation": bool,
+    "nerf.env_importance": bool,
+    "nerf.env_sampling": lambda v: v not in ("auto", "fixed"),
+    "nerf.disable_integration": bool,
+    "nerf.use_viewdirs": lambda v: not bool(v),
+    "nerf.append_identity": lambda v: not bool(v),
+    "nerf.ray_shape": lambda v: v != "cone",
+    "nerf.num_levels": lambda v: int(v) != 2,
+    "nerf.mlp.net_depth": lambda v: int(v) != 8,
+    "nerf.mlp.net_width": lambda v: int(v) != 256,
+    "nerf.mlp.skip_index": lambda v: int(v) != 4,
+    "nerf.mlp.net_depth_condition": lambda v: int(v) != 1,
+    "nerf.mlp.net_width_condition": lambda v: int(v) != 128,
+    "nerf.mlp.num_rgb_channels": lambda v: int(v) != 3,
+    "nerf.min_deg_point": lambda v: int(v) != 0,
+    "nerf.max_deg_point": lambda v: int(v) != 16,
+    "nerf.deg_view": lambda v: int(v) != 4,
+    "val.randomized": bool,
+}
+
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f32": torch.float32, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfConfig:
+    """Static hyperparameters of the eval render (reference ctor names)."""
+    num_samples: int = 56
+    num_coarse_samples: int = 0
+    num_levels: int = 2
+    resample_padding: float = 0.01
+    disparity: bool = False
+    min_deg_point: int = 0
+    max_deg_point: int = 16
+    deg_view: int = 4
+    density_bias: float = -1.0
+    rgb_padding: float = 0.0
+    mlp_net_depth: int = 8
+    mlp_net_width: int = 256
+    mlp_net_depth_condition: int = 1
+    mlp_net_width_condition: int = 128
+    mlp_skip_index: int = 4
+    mlp_num_rgb_channels: int = 3
+    mlp_num_density_channels: int = 5
+    num_env_samples: int = 5
+    compute_dtype: torch.dtype = torch.bfloat16
+    eval_coarse_samples: int = 0
+    eval_fine_samples: int = 0
+    eval_env_samples: int = 0
+
+    @classmethod
+    def from_hparams(cls, hparams: dict) -> "NerfConfig":
+        """Build from a flat dot-key config; raise on unsupported keys."""
+        for key, unsupported in UNSUPPORTED.items():
+            if key in hparams and unsupported(hparams[key]):
+                raise NotImplementedError(
+                    f"{key}={hparams[key]!r} is not supported by the "
+                    "PyTorch/CUDA render path")
+        return cls(
+            num_samples=int(hparams["nerf.num_samples"]),
+            num_coarse_samples=int(hparams.get("nerf.num_coarse_samples", 0)),
+            num_levels=int(hparams["nerf.num_levels"]),
+            resample_padding=float(hparams["nerf.resample_padding"]),
+            disparity=bool(hparams["nerf.disparity"]),
+            min_deg_point=int(hparams["nerf.min_deg_point"]),
+            max_deg_point=int(hparams["nerf.max_deg_point"]),
+            deg_view=int(hparams["nerf.deg_view"]),
+            density_bias=float(hparams["nerf.density_bias"]),
+            rgb_padding=float(hparams["nerf.rgb_padding"]),
+            mlp_net_depth=int(hparams["nerf.mlp.net_depth"]),
+            mlp_net_width=int(hparams["nerf.mlp.net_width"]),
+            mlp_net_depth_condition=int(
+                hparams["nerf.mlp.net_depth_condition"]),
+            mlp_net_width_condition=int(
+                hparams["nerf.mlp.net_width_condition"]),
+            mlp_skip_index=int(hparams["nerf.mlp.skip_index"]),
+            mlp_num_rgb_channels=int(hparams["nerf.mlp.num_rgb_channels"]),
+            num_env_samples=int(hparams["nerf.num_env_samples"]),
+            compute_dtype=_DTYPES[str(hparams.get("train.precision",
+                                                  "bf16"))],
+            eval_coarse_samples=int(hparams.get("val.coarse_samples", 0)),
+            eval_fine_samples=int(hparams.get("val.fine_samples", 0)),
+            eval_env_samples=int(hparams.get("val.env_samples", 0)),
+        )
+
+    @property
+    def xyz_dim(self) -> int:
+        return (self.max_deg_point - self.min_deg_point) * 3 * 2
+
+    @property
+    def view_dim(self) -> int:
+        return self.deg_view * 3 * 2 + 3
+
+    def sample_level(self, rays: Rays, i_level: int,
+                     t_samples: Optional[Tensor], weights: Optional[Tensor]
+                     ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+        """Coarse: evenly spaced frustums; fine: blurpool resampling of the
+        coarse weights. The val.* sample overrides apply (eval counts)."""
+        if i_level == 0:
+            n = (self.eval_coarse_samples or self.num_coarse_samples
+                 or self.num_samples)
+            return mip.sample_along_rays(
+                rays.origins, rays.directions, rays.radii,
+                min(n, self.num_samples), rays.near, rays.far,
+                self.disparity)
+        return mip.resample_along_rays(
+            rays.origins, rays.directions, rays.radii, t_samples, weights,
+            self.resample_padding,
+            num_samples=self.eval_fine_samples or self.num_samples)
+
+    def env_samples(self) -> int:
+        """Samples per secondary (irradiance) env ray at eval."""
+        return self.eval_env_samples or self.num_env_samples

@@ -1,0 +1,218 @@
+"""mip-NeRF core math for the deterministic (eval) path.
+
+Counterpart of the eval subset of pano_nerf_tpu/ops/mip.py: conical
+frustum Gaussians, ray and env-ray sampling, blurpool inverse-CDF
+resampling, integrated and classic positional encodings, alpha
+compositing and `safe_normalize`. Everything is float32. The eval path is
+deterministic, so sampling takes no randomness here; stochastic sampling
+will take its uniforms as arguments.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def _linspace(stop: float, num: int, like: Tensor) -> Tensor:
+    """[0, stop] in `num` steps as i * (stop / (num - 1)): the float32
+    values of `jnp.linspace(0, 1, num)`."""
+    if num == 1:
+        return torch.zeros(1, dtype=torch.float32, device=like.device)
+    i = torch.arange(num, dtype=torch.float32, device=like.device)
+    u = i * torch.tensor(stop / (num - 1), dtype=torch.float32)
+    u[-1] = stop
+    return u
+
+
+def lift_gaussian(directions: Tensor, t_mean: Tensor, t_var: Tensor,
+                  r_var: Tensor) -> Tuple[Tensor, Tensor]:
+    """1-D Gaussians along rays -> diagonal 3-D Gaussians [..., N, 3]."""
+    mean = directions[..., None, :] * t_mean[..., :, None]
+    d_sq = directions ** 2
+    d_norm_sq = torch.sum(d_sq, dim=-1, keepdim=True) + 1e-10
+    null_outer_diag = 1.0 - d_sq / d_norm_sq
+    t_cov_diag = t_var[..., :, None] * d_sq[..., None, :]
+    xy_cov_diag = r_var[..., :, None] * null_outer_diag[..., None, :]
+    return mean, t_cov_diag + xy_cov_diag
+
+
+def conical_frustum_to_gaussian(directions: Tensor, t0: Tensor, t1: Tensor,
+                                base_radius: Tensor) -> Tuple[Tensor, Tensor]:
+    """Stable Gaussian approximation of conical frustums [t0, t1]."""
+    mu = (t0 + t1) / 2.0
+    hw = (t1 - t0) / 2.0
+    denom = 3.0 * mu ** 2 + hw ** 2
+    t_mean = mu + (2.0 * mu * hw ** 2) / denom
+    t_var = (hw ** 2) / 3.0 - (4.0 / 15.0) * (
+        (hw ** 4 * (12.0 * mu ** 2 - hw ** 2)) / denom ** 2)
+    r_var = base_radius ** 2 * ((mu ** 2) / 4.0 + (5.0 / 12.0) * hw ** 2
+                                - (4.0 / 15.0) * (hw ** 4) / denom)
+    return lift_gaussian(directions, t_mean, t_var, r_var)
+
+
+def cast_rays(t_samples: Tensor, origins: Tensor, directions: Tensor,
+              radii: Tensor) -> Tuple[Tensor, Tensor]:
+    """Fencepost distances [..., N+1] -> means, covs [..., N, 3]."""
+    means, covs = conical_frustum_to_gaussian(
+        directions, t_samples[..., :-1], t_samples[..., 1:], radii)
+    return means + origins[..., None, :], covs
+
+
+def sample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
+                      num_samples: int, near: Tensor, far: Tensor,
+                      disparity: bool = False
+                      ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """Evenly spaced frustums along [near, far] (randomized=False).
+
+    origins, directions: [B, 3]; radii, near, far: [B, 1]. Returns
+    t_samples [B, N+1], (means [B, N, 3], covs [B, N, 3]).
+    """
+    u = _linspace(1.0, num_samples + 1, origins)
+    if disparity:
+        t_edges = 1.0 / (1.0 / near * (1.0 - u) + 1.0 / far * u)
+    else:
+        t_edges = near + (far - near) * u
+    t_samples = t_edges.expand(origins.shape[:-1] + (num_samples + 1,))
+    return t_samples, cast_rays(t_samples, origins, directions, radii)
+
+
+def sample_env_rays(point_origins: Tensor, directions: Tensor,
+                    num_samples: int, near: Tensor, far: Tensor,
+                    radii: Tensor
+                    ) -> Tuple[Tensor, Tuple[Tensor, Tensor], Tensor]:
+    """Secondary (irradiance) rays from surface points toward env dirs.
+
+    point_origins: [B, 3]; directions: [D, 3]; near, far, radii: [D, 1].
+    Returns t_samples [B, D, S+1], (means, covs [B, D, S, 3]), dirs
+    [B, D, 3].
+    """
+    B, D = point_origins.shape[0], directions.shape[0]
+    u = _linspace(1.0, num_samples + 1, point_origins)
+    t_samples = (near + (far - near) * u).expand(B, D, num_samples + 1)
+    origins = point_origins[:, None, :].expand(B, D, 3)
+    dirs = directions[None].expand(B, D, 3)
+    radii_b = radii[None].expand(B, D, 1)
+    return t_samples, cast_rays(t_samples, origins, dirs, radii_b), dirs
+
+
+def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
+                                  num_samples: int) -> Tensor:
+    """Deterministic inverse-CDF samples of a piecewise-constant PDF.
+
+    bins: [B, N+1] sorted fenceposts; weights: [B, N]. The samples sit at
+    u = linspace(0, 1 - eps, num_samples); each u's CDF interval is found
+    with `searchsorted` (the CDF is non-decreasing and starts at 0).
+    """
+    eps = 1e-5
+    weight_sum = torch.sum(weights, dim=-1, keepdim=True)
+    padding = torch.clamp(eps - weight_sum, min=0.0)
+    weights = weights + padding / weights.shape[-1]
+    weight_sum = weight_sum + padding
+    pdf = weights / weight_sum
+    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
+                     torch.ones_like(cdf[..., :1])], dim=-1)   # [B, N+1]
+    u = _linspace(1.0 - _F32_EPS, num_samples, cdf)
+    u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    # Largest edge with cdf <= u below, the next edge above.
+    hi = torch.searchsorted(cdf.contiguous(), u, right=True)
+    hi = hi.clamp(max=cdf.shape[-1] - 1)
+    lo = hi - 1
+    bins_lo, bins_hi = bins.gather(-1, lo), bins.gather(-1, hi)
+    cdf_lo, cdf_hi = cdf.gather(-1, lo), cdf.gather(-1, hi)
+    denom = cdf_hi - cdf_lo
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_lo) / denom
+    return bins_lo + t * (bins_hi - bins_lo)
+
+
+def resample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
+                        t_samples: Tensor, weights: Tensor,
+                        resample_padding: float,
+                        num_samples: Optional[int] = None
+                        ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """Resample frustums in proportion to the blurpooled coarse weights.
+
+    `num_samples` sets the resampled sample count (default: as many as
+    the coarse level).
+    """
+    weights_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]],
+                            dim=-1)
+    weights_max = torch.maximum(weights_pad[..., :-1], weights_pad[..., 1:])
+    weights_blur = 0.5 * (weights_max[..., :-1] + weights_max[..., 1:])
+    weights_blur = weights_blur + resample_padding
+    new_t = sorted_piecewise_constant_pdf(
+        t_samples, weights_blur,
+        (num_samples + 1) if num_samples else t_samples.shape[-1])
+    return new_t, cast_rays(new_t, origins, directions, radii)
+
+
+def integrated_pos_enc(means: Tensor, covs_diag: Tensor, min_deg: int,
+                       max_deg: int) -> Tensor:
+    """Integrated positional encoding [..., 2 * 3 * (max_deg - min_deg)].
+
+    Feature order: degree-major then dimension, sin block then cos block
+    (cos(y) = sin(y + pi/2)). The phases 2^deg * mean are exact float32
+    products.
+    """
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=torch.float32,
+                                 device=means.device)
+    shape = means.shape[:-1] + (-1,)
+    y = (means[..., None, :] * scales[:, None]).reshape(shape)
+    y_var = (covs_diag[..., None, :] * (scales ** 2)[:, None]).reshape(shape)
+    x = torch.cat([y, y + 0.5 * math.pi], dim=-1)
+    x_var = torch.cat([y_var, y_var], dim=-1)
+    return torch.exp(-0.5 * x_var) * torch.sin(x)
+
+
+def pos_enc(x: Tensor, min_deg: int, max_deg: int,
+            append_identity: bool = True) -> Tensor:
+    """Classic NeRF encoding [x | sin(2^k x) | cos(2^k x)], degree-major."""
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=torch.float32,
+                                 device=x.device)
+    xb = (x[..., None, :] * scales[:, None]).reshape(x.shape[:-1] + (-1,))
+    four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+    if append_identity:
+        return torch.cat([x, four_feat], dim=-1)
+    return four_feat
+
+
+def volumetric_rendering(rgb: Tensor, density: Tensor, t_samples: Tensor,
+                         dirs: Tensor, white_bkgd: bool
+                         ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Alpha-composite samples along rays.
+
+    rgb [..., N, 3]; density [..., N, 1]; t_samples [..., N+1]; dirs
+    [..., 3] un-normalized (its norm scales the deltas). Returns comp_rgb
+    [..., 3], distance [...], acc [...], weights [..., N].
+    """
+    t_mids = 0.5 * (t_samples[..., :-1] + t_samples[..., 1:])
+    t_interval = t_samples[..., 1:] - t_samples[..., :-1]
+    delta = t_interval * torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    density_delta = density[..., 0] * delta
+    alpha = 1.0 - torch.exp(-density_delta)
+    trans = torch.exp(-torch.cat([
+        torch.zeros_like(density_delta[..., :1]),
+        torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
+    weights = alpha * trans
+    comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
+    acc = torch.sum(weights, dim=-1)
+    distance = torch.sum(weights * t_mids, dim=-1) / torch.clamp(acc, min=1e-10)
+    distance = torch.minimum(torch.maximum(distance, t_samples[..., 0]),
+                             t_samples[..., -1])
+    if white_bkgd:
+        comp_rgb = comp_rgb + (1.0 - acc[..., None])
+    return comp_rgb, distance, acc, weights
+
+
+def safe_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
+    """Unit vectors along the last axis; vectors shorter than eps -> 0."""
+    sq = torch.sum(x * x, dim=-1, keepdim=True)
+    norm = torch.sqrt(torch.clamp(sq, min=eps * eps))
+    return torch.where(sq >= eps * eps, x / norm, torch.zeros_like(x))

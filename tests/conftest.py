@@ -48,3 +48,8 @@ def make_rays(n, key=1, near=0.0, far=10.0):
         far=jnp.full((n, 1), far),
         noise_var=jnp.zeros((n, 1)),
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a host without one")

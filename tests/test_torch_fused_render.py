@@ -1,0 +1,167 @@
+"""The fused render kernel's plain version against the JAX Pallas kernel.
+
+`fused_render_level_reference` (what the port's wrapper runs on CPU
+tensors) is held against `pano_nerf_tpu.kernels.fused_render.
+fused_render_level` run in Pallas interpret mode, on the same bridged
+parameters and the same numpy-made inputs, at the kernel-vs-plain
+tolerances of tests/test_fused_render.py. The CUDA kernel itself is held
+against the plain version in tests/test_torch_cuda.py (on the card) and by
+`chip_smoke.py` at the main path's shapes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pano_nerf_tpu.core.rays import Rays as JaxRays
+from pano_nerf_tpu.kernels.fused_render import (
+    fused_render_level as jax_fused_render_level)
+from pano_nerf_tpu.models.pano_mip_nerf import PanoMipNeRF as JaxPanoMipNeRF
+from pano_nerf_tpu_torch.kernels import fused_render as fr
+from pano_nerf_tpu_torch.models.mlp import NerfMLP
+from pano_nerf_tpu_torch.utils.params import params_from_jax
+
+KW = dict(min_deg=0, max_deg=16, deg_view=4, density_bias=-1.0,
+          rgb_padding=0.0)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    model = JaxPanoMipNeRF(num_samples=8, num_env_samples=4,
+                           compute_dtype=jnp.bfloat16)
+    params = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    mlp = NerfMLP(96, 27, num_density_channels=5,
+                  compute_dtype=torch.bfloat16)
+    mlp.load_state_dict(params_from_jax(params))
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(12, 3)).astype(np.float32)
+    n = np.ones((12, 1), np.float32)
+    rays = JaxRays(origins=np.zeros((12, 3), np.float32), directions=d,
+                   viewdirs=d / np.linalg.norm(d, axis=-1, keepdims=True),
+                   radii=n * 0.01, lossmult=n, near=n * 0.0, far=n * 10.0,
+                   noise_var=n * 0.0)
+    t, (m, c) = model._sample_level(jax.random.PRNGKey(0), rays, 0, None,
+                                    None, False)
+    inputs = [np.asarray(a, np.float32) for a in
+              (m, c, rays.viewdirs, t, rays.directions)]
+    return params, mlp, inputs
+
+
+@pytest.mark.parametrize("need_normals", [False, True])
+def test_plain_version_matches_pallas_kernel(monkeypatch, setup,
+                                             need_normals):
+    monkeypatch.setenv("PANO_NERF_PALLAS_INTERPRET", "1")
+    params, mlp, inputs = setup
+    want = jax_fused_render_level(
+        params, *inputs, 5, 0, 16, 4, -1.0, 0.0, False, need_normals,
+        need_normals)
+    with torch.no_grad():
+        got = fr.fused_render_level(
+            mlp, *(torch.tensor(a) for a in inputs), white_bkgd=False,
+            need_normals=need_normals, need_extras=need_normals, **KW)
+    want = {k: None if v is None else np.asarray(v) for k, v in want.items()}
+    np.testing.assert_allclose(got["rgb"].numpy(), want["rgb"], atol=2e-2)
+    np.testing.assert_allclose(got["distance"].numpy(), want["distance"],
+                               atol=2e-2)
+    np.testing.assert_allclose(got["acc"].numpy(), want["acc"], atol=1e-2)
+    np.testing.assert_allclose(got["weights"].numpy(), want["weights"],
+                               atol=1e-2)
+    if not need_normals:
+        assert got["normal"] is None and got["albedo"] is None
+        return
+    cos = np.sum(got["normal"].numpy() * want["normal"], -1)
+    assert np.median(cos) > 0.998, np.median(cos)
+    assert np.all(cos > 0.85), cos.min()
+    np.testing.assert_allclose(got["albedo"].numpy(), want["albedo"],
+                               atol=2e-2)
+    np.testing.assert_allclose(got["roughness"].numpy(), want["roughness"],
+                               atol=2e-2)
+    np.testing.assert_allclose(got["ort"].numpy(), want["ort"], atol=2e-2)
+
+
+def _inputs(R=4, S=8):
+    g = torch.Generator().manual_seed(0)
+    t = torch.sort(torch.rand(R, S + 1, generator=g) * 5, -1).values
+    d = torch.randn(R, 3, generator=g)
+    return [torch.randn(R, S, 3, generator=g),
+            torch.rand(R, S, 3, generator=g) * 1e-3,
+            d / torch.linalg.norm(d, dim=-1, keepdim=True), t, d]
+
+
+def _call(mlp, args, **kw):
+    return fr.fused_render_level(mlp, *args, white_bkgd=False,
+                                 need_normals=True, need_extras=True,
+                                 **{**KW, **kw})
+
+
+@pytest.fixture(scope="module")
+def mlp256():
+    return NerfMLP(96, 27, num_density_channels=5,
+                   generator=torch.Generator().manual_seed(1))
+
+
+def test_wrapper_rejects_non_contiguous_input(mlp256):
+    args = _inputs()
+    args[0] = torch.randn(3, 4, 8).permute(1, 2, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        _call(mlp256, args)
+
+
+def test_wrapper_rejects_wrong_dtype(mlp256):
+    args = _inputs()
+    args[1] = args[1].double()
+    with pytest.raises(TypeError, match="float32"):
+        _call(mlp256, args)
+
+
+@pytest.mark.parametrize("S", [65, 80])
+def test_wrapper_rejects_unsupported_sample_count(mlp256, S):
+    with pytest.raises(ValueError, match="samples"):
+        _call(mlp256, _inputs(S=S))
+
+
+@pytest.mark.parametrize("change", [
+    dict(net_width=64), dict(skip_index=3), dict(num_density_channels=8),
+    dict(net_width_condition=64)])
+def test_wrapper_rejects_unsupported_topology(change):
+    mlp = NerfMLP(96, 27, **{"num_density_channels": 5, **change})
+    with pytest.raises(ValueError, match="topology"):
+        _call(mlp, _inputs())
+
+
+def test_wrapper_rejects_unsupported_encoding_degrees(mlp256):
+    with pytest.raises(ValueError, match="topology"):
+        _call(mlp256, _inputs(), deg_view=2)
+
+
+def test_wrapper_rejects_shape_mismatch(mlp256):
+    args = _inputs()
+    args[3] = args[3][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="t_samples"):
+        _call(mlp256, args)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching(mlp256):
+    before = fr.fused_render_level.launches
+    with torch.no_grad():
+        out = _call(mlp256, _inputs())
+    assert fr.fused_render_level.launches == before
+    assert out["rgb"].shape == (4, 3) and out["weights"].shape == (4, 8)
+    assert all(torch.isfinite(v).all() for v in out.values())
+
+
+def test_pack_params_layout(mlp256):
+    w, b = fr.pack_params(mlp256)
+    assert w.dtype == torch.bfloat16 and w.shape == (616_448,)
+    assert b.dtype == torch.float32 and b.shape == (2_464,)
+    off_wd = 256 * 96 + 4 * 256 * 256 + 256 * 352 + 2 * 256 * 256
+    wd = w[off_wd:off_wd + 16 * 256].reshape(16, 256)
+    assert torch.equal(wd[:5], mlp256.density_layer.weight.bfloat16())
+    assert not wd[5:].any()
+    off_wv = off_wd + 16 * 256 + 256 * 256
+    wv = w[off_wv:off_wv + 128 * 288].reshape(128, 288)
+    assert torch.equal(wv[:, :283], mlp256.view_layers[0][0].weight.bfloat16())
+    assert not wv[:, 283:].any()
+    assert torch.equal(b[8 * 256:8 * 256 + 5], mlp256.density_layer.bias)

@@ -1,0 +1,82 @@
+"""The port stands alone: no JAX, no pano_nerf_tpu, no silent CPU fallback."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pano_nerf_tpu_torch
+from pano_nerf_tpu_torch.core.config import load_config
+from pano_nerf_tpu_torch.core.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(pano_nerf_tpu_torch.__path__,
+                                          "pano_nerf_tpu_torch."))
+
+
+def test_every_module_is_listed():
+    assert "pano_nerf_tpu_torch.eval" in MODULES
+    assert "pano_nerf_tpu_torch.kernels.fused_render" in MODULES
+    assert len(MODULES) >= 25
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pano_nerf_tpu'))\n"
+        "print(repr(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.fixture()
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA card")
+
+
+def test_default_device_raises_without_a_card(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_render_system_without_cpu_request_raises(no_cuda):
+    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PanoNeRFSystem(hp)
+
+
+def test_eval_entry_point_without_cpu_request_raises(no_cuda, tmp_path):
+    from pano_nerf_tpu_torch import eval as port_eval
+    from pano_nerf_tpu_torch.data.synthetic import generate_scene
+    generate_scene(str(tmp_path / "s"), n_views=2, height=8, width=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.main(["--data_path", str(tmp_path / "s"), "--out_dir",
+                        str(tmp_path / "o"), "--init_seed", "0",
+                        "train.sample_num", "'n0'"])
+
+
+@pytest.mark.parametrize("key,value", [
+    ("nerf.density_noise", 1.0), ("nerf.env_tight_rgb", 0.01),
+    ("nerf.env_resample", True), ("nerf.illum_field", True),
+    ("nerf.emissive_head", True), ("nerf.chroma_head", True),
+    ("nerf.env_rotation", True), ("nerf.env_sampling", "stratified"),
+    ("nerf.mlp.net_depth", 6), ("val.randomized", True)])
+def test_unsupported_config_raises_naming_the_key(key, value):
+    from pano_nerf_tpu_torch.models.base import NerfConfig
+    hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
+    hp[key] = value
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        NerfConfig.from_hparams(hp)
