@@ -1,20 +1,21 @@
 """Panoramic EXR dataset: loading and equirectangular ray generation (numpy).
 
-Counterpart of pano_nerf_tpu/data/pano_dataset.py for rendering: the
-loaders, pose conventions, equirect ray geometry and env-direction set are
-the same numpy code. A dataset holds whole panoramas of either split; the
-training-time flat ray set and batch iterator come with the train step.
+Counterpart of pano_nerf_tpu/data/pano_dataset.py: the loaders, pose
+conventions, equirect ray geometry and env-direction set are the same
+numpy code. The val split holds whole panoramas; the train split holds
+the flattened ray set of its views (`_flatten_all`), which the trainer
+uploads to the device once and samples batches from there.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pano_nerf_tpu_torch.core.rays import Rays
+from pano_nerf_tpu_torch.core.rays import RAYS_KEYS, Rays
 from pano_nerf_tpu_torch.data.io_exr import read_exr
 
 
@@ -100,8 +101,10 @@ class PanoDataset:
     """EXR panorama quads (image/albedo/normal/depth) + equirect rays.
 
     `num` lists the training view ids: the train split holds them, the val
-    split every other view. `dataset[i]` is one whole panorama:
-    (Rays of [H, W, C] arrays, image, depth, normal, albedo).
+    split every other view. A val `dataset[i]` is one whole panorama:
+    (Rays of [H, W, C] arrays, image, depth, normal, albedo). The train
+    split is flattened: `rays` is a Rays of [num_rays, C] arrays and
+    `images` / `depths` / `normals` / `albedos` are [num_rays, C].
     """
 
     MATERIALS = ("image", "albedo", "normal", "depth")
@@ -125,6 +128,8 @@ class PanoDataset:
         self.meta_file = meta_file
         self._load_renderings()
         self._generate_rays()
+        if split == "train":
+            self._flatten_all()
 
     def _load_renderings(self) -> None:
         with open(os.path.join(self.data_dir, f"{self.meta_file}.json")) as fp:
@@ -198,13 +203,30 @@ class PanoDataset:
                 noise_var=noise_range.astype(np.float32).copy()))
         self.radii = self.rays[0].radii[0, 0, 0]
 
+    def _flatten_all(self) -> None:
+        def flat(xs: List[np.ndarray]) -> np.ndarray:
+            return np.concatenate([x.reshape(-1, x.shape[-1]) for x in xs], 0)
+
+        self.images = flat(self.images)
+        self.depths = flat(self.depths)
+        self.normals = flat(self.normals)
+        self.albedos = flat(self.albedos)
+        self.rays = Rays(*(flat([getattr(r, k) for r in self.rays])
+                           for k in RAYS_KEYS))
+        self.num_rays = self.images.shape[0]
+
     def generate_lit_rays(self, num: int = 10, near: float = 0.0,
                           far: float = 10.0) -> Rays:
         return generate_lit_rays(num, near, far, radius=float(self.radii))
 
     def __len__(self) -> int:
+        if self.split == "train":
+            return self.num_rays
         return len(self.images)
 
     def __getitem__(self, index: int):
-        return (self.rays[index], self.images[index], self.depths[index],
+        """val: one whole panorama; train: one ray of the flat set."""
+        rays = (Rays(*(getattr(self.rays, k)[index] for k in RAYS_KEYS))
+                if self.split == "train" else self.rays[index])
+        return (rays, self.images[index], self.depths[index],
                 self.normals[index], self.albedos[index])

@@ -2,8 +2,9 @@
 
 Each source under `pano_nerf_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into `build/pano_nerf_tpu_torch/` at the repository root
-and loaded with `ctypes`. The library name carries a hash of the source, so
-an edited source is rebuilt and a stale library is never loaded. Nothing
+and loaded with `ctypes`. The library name carries a hash of the source
+and of the shared headers (`csrc/*.cuh`), so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing
 is compiled when a module is imported: the first launch on a CUDA tensor
 builds, and a machine without `nvcc` raises there.
 """
@@ -38,7 +39,8 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1((CSRC / source).read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 

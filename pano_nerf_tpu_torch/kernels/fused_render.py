@@ -127,6 +127,28 @@ def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
     return weights.contiguous(), torch.cat(bs).contiguous()
 
 
+def unpack_params(mlp: NerfMLP, weights: Tensor, biases: Tensor
+                  ) -> Dict[str, Tensor]:
+    """Inverse of `pack_params` for flat tensors in its layout (gradients,
+    say): {parameter name of `mlp`: the unpadded slice}, in the flat
+    tensors' dtype."""
+    names = [f"layers.{i}.0" for i in range(len(mlp.layers))] + [
+        "density_layer", "extra_layer", "view_layers.0.0", "color_layer"]
+    padded = {"density_layer": (_HP, _W), "view_layers.0.0": (_VW, _VK),
+              "color_layer": (_HP, _VW)}
+    params = dict(mlp.named_parameters())
+    out, w_off, b_off = {}, 0, 0
+    for name in names:
+        w = params[f"{name}.weight"]
+        rows, cols = padded.get(name, tuple(w.shape))
+        block = weights[w_off:w_off + rows * cols].view(rows, cols)
+        out[f"{name}.weight"] = block[:w.shape[0], :w.shape[1]]
+        out[f"{name}.bias"] = biases[b_off:b_off + w.shape[0]]
+        w_off += rows * cols
+        b_off += rows
+    return out
+
+
 def _kernel_library() -> ctypes.CDLL:
     lib = build.load_library(SOURCE)
     if not getattr(lib, "_pano_configured", False):

@@ -1,10 +1,13 @@
-"""Hyperparameters, level outputs and sampling for the Pano-NeRF render.
+"""Hyperparameters, level outputs and sampling of the Pano-NeRF model.
 
-Counterpart of the eval subset of pano_nerf_tpu/models/base.py:
-`from_hparams`, `_sample_level` and `_env_samples`. The port has exactly one
-render path, the fused kernel's, so `from_hparams` refuses every config key
-that would need another path (`UNSUPPORTED`) with NotImplementedError
-naming the key, instead of silently rendering something else.
+Counterpart of pano_nerf_tpu/models/base.py: `from_hparams`,
+`_sample_level`, `_env_samples` and `_expected_normals`. The port has one
+eval path (the fused render kernel) and one training path (the fused MLP
+kernels), so `from_hparams` refuses every config key that would need
+another path (`UNSUPPORTED`) with NotImplementedError naming the key,
+instead of silently computing something else. The MLP widths are not
+config-checked: the CUDA kernels raise on widths they were not compiled
+for, while the plain versions on the CPU take any width.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ class LevelOutput(NamedTuple):
     surf_rgb: Optional[Tensor] = None  # [B, 3] surface-rendered radiance
     diffuse: Optional[Tensor] = None   # [B, 3] diffuse term
     shading: Optional[Tensor] = None   # [B, 3] irradiance term
+    ort_loss: Optional[Tensor] = None  # scalar orientation loss (training)
+    dist_loss: Optional[Tensor] = None  # scalar distortion loss (training)
+    rgb_alt: Optional[Tensor] = None   # [B, 3] same samples, random viewdir
 
 
 # Config keys whose non-default value needs a render path the port does
@@ -50,11 +56,10 @@ UNSUPPORTED: Dict[str, Callable] = {
     "nerf.append_identity": lambda v: not bool(v),
     "nerf.ray_shape": lambda v: v != "cone",
     "nerf.num_levels": lambda v: int(v) != 2,
+    "nerf.stop_resample_grad": lambda v: not bool(v),
     "nerf.mlp.net_depth": lambda v: int(v) != 8,
-    "nerf.mlp.net_width": lambda v: int(v) != 256,
     "nerf.mlp.skip_index": lambda v: int(v) != 4,
     "nerf.mlp.net_depth_condition": lambda v: int(v) != 1,
-    "nerf.mlp.net_width_condition": lambda v: int(v) != 128,
     "nerf.mlp.num_rgb_channels": lambda v: int(v) != 3,
     "nerf.min_deg_point": lambda v: int(v) != 0,
     "nerf.max_deg_point": lambda v: int(v) != 16,
@@ -152,6 +157,31 @@ class NerfConfig:
             self.resample_padding,
             num_samples=self.eval_fine_samples or self.num_samples)
 
+    def train_coarse_samples(self) -> int:
+        """Coarse samples of a training step: the coarse-only cut, never
+        more than the fine level's count."""
+        return min(self.num_coarse_samples or self.num_samples,
+                   self.num_samples)
+
     def env_samples(self) -> int:
         """Samples per secondary (irradiance) env ray at eval."""
         return self.eval_env_samples or self.num_env_samples
+
+
+def expected_normals(weights: Tensor, normals: Tensor, directions: Tensor,
+                     use_ort_loss: bool
+                     ) -> Tuple[Tensor, Optional[Tensor], Tensor]:
+    """Weight-average per-sample normals [B, N, 3]; optional orientation
+    loss mean_B sum_N w_norm relu(n . d)^2. Returns (normal [B, 3],
+    ort_loss, w_norm [B, N, 1]). `safe_normalize` keeps the backward
+    finite at a sample whose density gradient is exactly zero."""
+    w_norm = weights[..., None] / torch.sum(weights, dim=-1)[..., None, None]
+    normals = mip.safe_normalize(normals)
+    normal = mip.safe_normalize(torch.sum(w_norm * normals, dim=-2))
+    ort_loss = None
+    if use_ort_loss:
+        dot = torch.sum(normals * directions[..., None, :], dim=-1,
+                        keepdim=True)
+        ort_loss = torch.mean(torch.sum(w_norm * torch.relu(dot) ** 2,
+                                        dim=-2))
+    return normal, ort_loss, w_norm

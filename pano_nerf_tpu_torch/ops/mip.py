@@ -1,11 +1,13 @@
-"""mip-NeRF core math for the deterministic (eval) path.
+"""mip-NeRF core math: frustums, sampling, encodings, compositing.
 
-Counterpart of the eval subset of pano_nerf_tpu/ops/mip.py: conical
-frustum Gaussians, ray and env-ray sampling, blurpool inverse-CDF
-resampling, integrated and classic positional encodings, alpha
-compositing and `safe_normalize`. Everything is float32. The eval path is
-deterministic, so sampling takes no randomness here; stochastic sampling
-will take its uniforms as arguments.
+Counterpart of the eval and training subsets of pano_nerf_tpu/ops/mip.py:
+conical frustum Gaussians, stratified ray and env-ray sampling, blurpool
+inverse-CDF resampling, integrated and classic positional encodings,
+alpha compositing, the distortion loss and `safe_normalize`. Everything
+is float32. Randomness is injected: the randomized samplers take their
+standard uniforms as arguments (`t_rand`, `u_rand`), drawn by the caller
+(a `torch.Generator` in training, JAX's key schedule replayed in the
+tests), and are deterministic without them.
 """
 
 from __future__ import annotations
@@ -64,11 +66,22 @@ def cast_rays(t_samples: Tensor, origins: Tensor, directions: Tensor,
     return means + origins[..., None, :], covs
 
 
+def stratify(t_edges: Tensor, t_rand: Tensor) -> Tensor:
+    """Jitter sorted fenceposts within their local cells (`_stratify`):
+    t_rand holds standard uniforms of t_edges' shape."""
+    mids = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
+    upper = torch.cat([mids, t_edges[..., -1:]], dim=-1)
+    lower = torch.cat([t_edges[..., :1], mids], dim=-1)
+    return lower + (upper - lower) * t_rand
+
+
 def sample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
                       num_samples: int, near: Tensor, far: Tensor,
-                      disparity: bool = False
+                      disparity: bool = False,
+                      t_rand: Optional[Tensor] = None
                       ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-    """Evenly spaced frustums along [near, far] (randomized=False).
+    """Frustums along [near, far]: evenly spaced, or stratified by the
+    uniforms `t_rand` [B, N+1] (randomized=True).
 
     origins, directions: [B, 3]; radii, near, far: [B, 1]. Returns
     t_samples [B, N+1], (means [B, N, 3], covs [B, N, 3]).
@@ -79,14 +92,17 @@ def sample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
     else:
         t_edges = near + (far - near) * u
     t_samples = t_edges.expand(origins.shape[:-1] + (num_samples + 1,))
+    if t_rand is not None:
+        t_samples = stratify(t_samples, t_rand)
     return t_samples, cast_rays(t_samples, origins, directions, radii)
 
 
 def sample_env_rays(point_origins: Tensor, directions: Tensor,
                     num_samples: int, near: Tensor, far: Tensor,
-                    radii: Tensor
+                    radii: Tensor, t_rand: Optional[Tensor] = None
                     ) -> Tuple[Tensor, Tuple[Tensor, Tensor], Tensor]:
-    """Secondary (irradiance) rays from surface points toward env dirs.
+    """Secondary (irradiance) rays from surface points toward env dirs,
+    stratified per (ray, direction) by `t_rand` [B, D, S+1] when given.
 
     point_origins: [B, 3]; directions: [D, 3]; near, far, radii: [D, 1].
     Returns t_samples [B, D, S+1], (means, covs [B, D, S, 3]), dirs
@@ -95,6 +111,8 @@ def sample_env_rays(point_origins: Tensor, directions: Tensor,
     B, D = point_origins.shape[0], directions.shape[0]
     u = _linspace(1.0, num_samples + 1, point_origins)
     t_samples = (near + (far - near) * u).expand(B, D, num_samples + 1)
+    if t_rand is not None:
+        t_samples = stratify(t_samples, t_rand)
     origins = point_origins[:, None, :].expand(B, D, 3)
     dirs = directions[None].expand(B, D, 3)
     radii_b = radii[None].expand(B, D, 1)
@@ -102,11 +120,15 @@ def sample_env_rays(point_origins: Tensor, directions: Tensor,
 
 
 def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
-                                  num_samples: int) -> Tensor:
-    """Deterministic inverse-CDF samples of a piecewise-constant PDF.
+                                  num_samples: int,
+                                  u_rand: Optional[Tensor] = None) -> Tensor:
+    """Inverse-CDF samples of a piecewise-constant PDF.
 
-    bins: [B, N+1] sorted fenceposts; weights: [B, N]. The samples sit at
-    u = linspace(0, 1 - eps, num_samples); each u's CDF interval is found
+    bins: [B, N+1] sorted fenceposts; weights: [B, N]. Deterministic
+    samples sit at u = linspace(0, 1 - eps, num_samples); with the
+    uniforms `u_rand` [B, num_samples] they sit at (i + u_rand) / n, the
+    jitter scaled to [0, 1/n - eps) and u capped at 1 - eps, as in the
+    randomized branch of the JAX function. Each u's CDF interval is found
     with `searchsorted` (the CDF is non-decreasing and starts at 0).
     """
     eps = 1e-5
@@ -118,8 +140,14 @@ def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
     cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
                      torch.ones_like(cdf[..., :1])], dim=-1)   # [B, N+1]
-    u = _linspace(1.0 - _F32_EPS, num_samples, cdf)
-    u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    if u_rand is None:
+        u = _linspace(1.0 - _F32_EPS, num_samples, cdf)
+        u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    else:
+        step = 1.0 / num_samples
+        u = torch.arange(num_samples, dtype=torch.float32,
+                         device=cdf.device) * step
+        u = torch.clamp(u + u_rand * (step - _F32_EPS), max=1.0 - _F32_EPS)
     # Largest edge with cdf <= u below, the next edge above.
     hi = torch.searchsorted(cdf.contiguous(), u, right=True)
     hi = hi.clamp(max=cdf.shape[-1] - 1)
@@ -135,13 +163,19 @@ def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
 def resample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
                         t_samples: Tensor, weights: Tensor,
                         resample_padding: float,
-                        num_samples: Optional[int] = None
+                        num_samples: Optional[int] = None,
+                        u_rand: Optional[Tensor] = None
                         ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """Resample frustums in proportion to the blurpooled coarse weights.
 
     `num_samples` sets the resampled sample count (default: as many as
-    the coarse level).
+    the coarse level); `u_rand` [B, num_samples + 1] randomizes the
+    inverse-CDF positions. The new fenceposts carry no gradient
+    (`stop_resample_grad`); the frustums get gradients through the rays
+    only.
     """
+    weights = weights.detach()
+    t_samples = t_samples.detach()
     weights_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]],
                             dim=-1)
     weights_max = torch.maximum(weights_pad[..., :-1], weights_pad[..., 1:])
@@ -149,7 +183,7 @@ def resample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
     weights_blur = weights_blur + resample_padding
     new_t = sorted_piecewise_constant_pdf(
         t_samples, weights_blur,
-        (num_samples + 1) if num_samples else t_samples.shape[-1])
+        (num_samples + 1) if num_samples else t_samples.shape[-1], u_rand)
     return new_t, cast_rays(new_t, origins, directions, radii)
 
 
@@ -211,8 +245,28 @@ def volumetric_rendering(rgb: Tensor, density: Tensor, t_samples: Tensor,
     return comp_rgb, distance, acc, weights
 
 
+def distortion_loss(t_samples: Tensor, weights: Tensor) -> Tensor:
+    """Mip-NeRF 360 distortion loss on per-ray normalized distances,
+    sum_ij w_i w_j |m_i - m_j| + 1/3 sum_i w_i^2 (s_{i+1} - s_i), averaged
+    over rays. t_samples: [B, N+1]; weights: [B, N]."""
+    near = t_samples[..., :1]
+    far = t_samples[..., -1:]
+    s = (t_samples - near) / torch.clamp(far - near, min=1e-10)
+    mids = 0.5 * (s[..., 1:] + s[..., :-1])
+    intervals = s[..., 1:] - s[..., :-1]
+    dm = torch.abs(mids[..., :, None] - mids[..., None, :])
+    inter = torch.sum(weights[..., :, None] * weights[..., None, :] * dm,
+                      dim=(-2, -1))
+    intra = torch.sum(weights ** 2 * intervals, dim=-1) / 3.0
+    return torch.mean(inter + intra)
+
+
 def safe_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
-    """Unit vectors along the last axis; vectors shorter than eps -> 0."""
+    """Unit vectors along the last axis; vectors shorter than eps -> 0.
+
+    The squared norm is clamped before the sqrt, so the backward stays
+    finite at x = 0 (x / max(norm, eps) would NaN there through sqrt'(0)).
+    """
     sq = torch.sum(x * x, dim=-1, keepdim=True)
     norm = torch.sqrt(torch.clamp(sq, min=eps * eps))
     return torch.where(sq >= eps * eps, x / norm, torch.zeros_like(x))

@@ -1,0 +1,74 @@
+"""Train a Pano-NeRF radiance field on panoramic EXRs on the H100.
+
+Counterpart of the repository's `train.py` (same flags and trailing
+dot-key overrides; the experiment goes to `<out_dir>/<exp_name>/`, with
+exp_name = `<nerf.mlp_name>_<view ids>`):
+
+  python -m pano_nerf_tpu_torch.train --data_path SCENE --out_dir OUT \\
+      --config configs/panonerf.yaml [--init_seed N] [--device cuda|cpu] \\
+      [opts k v ...]
+
+Every MLP evaluation of a train step goes through the CUDA kernels 2 and
+3 (`kernels/fused_mlp_ipe.py`, `kernels/fused_mlp_normals.py`); validation
+renders through kernel 4. Re-running the same command resumes from the
+latest checkpoint under `<save_dir>/checkpoints/`. `--init_seed` seeds
+the weight initialization (default: the config's `seed`); the TPU
+dispatch knobs (`train.steps_per_call`, `train.scan_unroll`,
+`train.scoped_vmem_kib`, `nerf.fused_batch_threshold`) have no effect.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from pano_nerf_tpu_torch.core.config import parse_args
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--data_path", type=str, required=True,
+                        help="scene directory with transforms_all.json")
+    parser.add_argument("--out_dir", type=str, default="./exps/")
+    parser.add_argument("--range", nargs="+", type=float, default=[0, 10])
+    parser.add_argument("--config", default="./configs/default.yaml")
+    parser.add_argument("--meta_file", default="transforms_all")
+    parser.add_argument("--reform_cam", type=int, default=0)
+    parser.add_argument("--init_seed", type=int, default=None,
+                        help="weight-initialization seed (default: seed)")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("opts", nargs=argparse.REMAINDER,
+                        help="dot-key overrides: e.g. train.batch_size 1024")
+    return parser
+
+
+def prepare_hparams(hparams: dict) -> dict:
+    """Post-parse fixups of the JAX train script: view ids, exp_name, a
+    fractional surface start, save_dir (created)."""
+    if isinstance(hparams["train.sample_num"], str):
+        hparams["train.sample_num"] = [
+            int(x) for x in hparams["train.sample_num"][1:].split("_")]
+    hparams["exp_name"] = (
+        f"{hparams['nerf.mlp_name']}_"
+        + "_".join(str(x) for x in hparams["train.sample_num"]))
+    sss = hparams["train.surface_start_step"]
+    if 0 < sss < 1:
+        hparams["train.surface_start_step"] = int(
+            sss * hparams["optimizer.max_steps"])
+    hparams["save_dir"] = os.path.join(hparams["out_dir"], hparams["exp_name"])
+    os.makedirs(hparams["save_dir"], exist_ok=True)
+    return hparams
+
+
+def main(argv=None):
+    """Train; returns the Trainer (its hparams, system and datasets)."""
+    hparams = prepare_hparams(parse_args(build_parser(), argv))
+    from pano_nerf_tpu_torch.engine.trainer import Trainer
+    trainer = Trainer(hparams, device=hparams["device"],
+                      init_seed=hparams.get("init_seed"))
+    trainer.fit(resume_path=hparams.get("checkpoint.resume_path"))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -65,3 +65,68 @@ def test_fused_render_rejects_f32_compute_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="bf16"):
         fr.fused_render_level(mlp, *_inputs(2, 8, cuda_device), **KW,
                               need_normals=False, need_extras=False)
+
+
+def _mlp_rows(M, device, seed=0):
+    """Moments, viewdir encodings and a full-width MLP, as the JAX kernel
+    tests make them (means ~ 2 N(0,1), covs ~ 0.01 |N(0,1)|)."""
+    g = torch.Generator().manual_seed(seed)
+    means = torch.randn(M, 3, generator=g) * 2
+    covs = torch.randn(M, 3, generator=g).abs() * 0.01
+    v = torch.randn(M, 27, generator=g) * 0.5
+    mlp = NerfMLP(96, 27, num_density_channels=5,
+                  generator=torch.Generator().manual_seed(seed + 1))
+    return mlp.to(device), means.to(device), covs.to(device), v.to(device)
+
+
+def _grads(fn, mlp, means, covs, v):
+    """Outputs and the gradients of a loss on all of them: params (flat)
+    and means."""
+    mlp.zero_grad()
+    means = means.clone().requires_grad_(True)
+    outs = fn(mlp, means, covs, v, min_deg=0, max_deg=16)
+    loss = torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()
+    if len(outs) == 3:
+        loss = loss + torch.sin(0.1 * outs[2]).sum()
+    loss.backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
+    return [o.detach() for o in outs], flat, means.grad
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("M", [1000, 28672])
+def test_fused_mlp_kernels_match_plain_versions(cuda_device, normals, M):
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    kernel, plain, counter = (
+        (k3.fused_mlp_normals_apply, k3.fused_mlp_normals_reference,
+         k3.fused_mlp_normals_apply) if normals else
+        (k2.fused_mlp_ipe_apply, k2.fused_mlp_ipe_reference,
+         k2.fused_mlp_ipe_apply))
+    mlp, means, covs, v = _mlp_rows(M, cuda_device)
+    before = (counter.launches, counter.backward_launches)
+    got, g_got, m_got = _grads(kernel, mlp, means, covs, v)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.backward_launches) == (
+        before[0] + 1, before[1] + 2)
+    want, g_want, m_want = _grads(plain, mlp, means, covs, v)
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= 2e-2
+    if normals:
+        assert _rel(got[2], want[2]) < 0.08
+    assert _rel(g_got, g_want) < (5e-2 if normals else 2e-2)
+    assert _rel(m_got, m_want) < 5e-2
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernels_reject_f32_compute_on_the_card(cuda_device):
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    mlp, means, covs, v = _mlp_rows(8, cuda_device)
+    mlp.compute_dtype = torch.float32
+    with pytest.raises(ValueError, match="bf16"):
+        k2.fused_mlp_ipe_apply(mlp, means, covs, v, min_deg=0, max_deg=16)

@@ -21,7 +21,11 @@ MODULES = sorted(
 def test_every_module_is_listed():
     assert "pano_nerf_tpu_torch.eval" in MODULES
     assert "pano_nerf_tpu_torch.kernels.fused_render" in MODULES
-    assert len(MODULES) >= 25
+    for name in ("train", "kernels.fused_mlp_ipe", "kernels.fused_mlp_normals",
+                 "engine.losses", "engine.schedule", "engine.checkpoint",
+                 "engine.trainer"):
+        assert f"pano_nerf_tpu_torch.{name}" in MODULES, name
+    assert len(MODULES) >= 32
 
 
 def test_importing_the_port_loads_no_jax():
