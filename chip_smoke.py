@@ -12,11 +12,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
-   10240 x 5), and kernels 2 and 3 (`fused_mlp_ipe`, `fused_mlp_normals`),
+   10240 x 5); kernels 2 and 3 (`fused_mlp_ipe`, `fused_mlp_normals`),
    forward and backward, at the four calls of one train step at batch 512
-   (coarse 28,672 rows, fine 28,672, view consistency 28,672, env 25,600).
-   Prints the errors beside their tolerances, per-launch times of kernel
-   and plain version (CUDA events, warm-up excluded) and the bound.
+   (coarse 28,672 rows, fine 28,672, view consistency 28,672, env 25,600);
+   kernel 5 (`fused_render_train`), forward and backward with `save_acts`
+   off and on, at the levels it renders with the key on (coarse 512 x 56,
+   env 5,120 x 5), the spilled and recomputed runs equal; and kernel 1
+   (`fused_mlp_apply`) on the coarse level's 28,672 encoded rows. Prints
+   the errors beside their tolerances, per-launch times of kernel and
+   plain version (CUDA events, warm-up excluded) and the bound.
 3. Eval main path: a 4-view 512x1024 synthetic scene, rendered at
    `val.factor` 4 (128x256) by `python -m pano_nerf_tpu_torch.eval` (in
    process) with weights from `--init_seed`: 96 kernel-4 launches per val
@@ -31,14 +35,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through kernel 4, no plain-version call; every loss finite, the mean of
    the last 20 losses below that of the first 20. Prints train rays/s and
    ms per step.
+4b. The same with `nerf.use_train_render_kernel true`: per step 2 + 4
+   launches of kernel 5 (coarse and env), 1 + 2 of kernel 2 (view
+   consistency) and 1 + 2 of kernel 3; rays/s beside phase 4's.
 5. One train step on the card against the same step on the CPU (plain
    versions), from the same parameters, batch and numpy-made draws: loss
-   parts, and gradients as `check_train_step_against_cpu` says.
-6. Where the time goes in training: three steps under torch.profiler.
+   parts, and gradients as `check_train_step_against_cpu` says; 5b the
+   same with the key on.
+6. Where the time goes in training: three steps under torch.profiler; 6b
+   the same with the key on.
 
-The last lines are the card (nvidia-smi name, power limit), one JSON
-object with each kernel's numbers and `{"ok": true, "device": ...}`.
-No JAX is imported.
+Kernel 1 is a library function that no model path calls: its launches are
+counted in phases 3, 4 and 4b like the others' and must be 0. The last lines are the card (nvidia-smi name, power
+limit), one JSON object with each kernel's numbers and
+`{"ok": true, "device": ...}`. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet, 700 W)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 MLP_MACS = 611_328         # one NerfMLP row at full width
 NORMAL_MACS = 507_904      # the fine level's density-gradient chain per row
+TRUNK_MACS = 507_904       # the 8 trunk layers of one row (the chain's count)
 CONFIG = "configs/panonerf.yaml"
 TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=1e-2, albedo=2e-2,
            roughness=2e-2)
@@ -69,8 +80,10 @@ def card_line() -> str:
 def build_kernels():
     """Start every source's nvcc together, then wait for all."""
     from pano_nerf_tpu_torch.kernels import build
-    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe, fused_render
-    sources = [fused_render.SOURCE, fused_mlp_ipe.SOURCE]
+    from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
+                                             fused_render_train)
+    sources = [fused_render.SOURCE, fused_mlp_ipe.SOURCE,
+               fused_render_train.SOURCE]
     t0 = time.perf_counter()
     pending = [build.start_build(s) for s in sources]
     for p in pending:
@@ -147,17 +160,40 @@ def _main_path_inputs(model, env, dev, num_rays: int = 1024):
 
 
 def _bound_ms(args, kw, packed) -> float:
-    """Least time on the card: max(operations / bf16 peak, bytes / HBM)."""
-    means, _, _, _, _ = args
-    R, S = means.shape[:2]
-    rows = R * S
+    """Kernel 4's least time on the card: inputs read and outputs written
+    once, operations at the bf16 peak."""
+    R, S = args[0].shape[:2]
     macs = MLP_MACS + (NORMAL_MACS if kw["need_normals"] else 0)
-    flops = 2.0 * macs * rows
-    in_bytes = rows * 8 * 4 + R * 8 * 4 + sum(
-        t.numel() * t.element_size() for t in packed)
-    out_bytes = R * (17 + S) * 4
-    return 1e3 * max(flops / PEAK_BF16_FLOPS,
-                     (in_bytes + out_bytes) / PEAK_BYTES)
+    return _bound(macs * R * S, R * S * 8 * 4 + R * 8 * 4 + R * (17 + S) * 4
+                  + _packed_bytes(packed, False))
+
+
+def _entry(name: str, source: str, replaces: str) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"pano_nerf_tpu_torch/csrc/{source}",
+                replaces=f"pano_nerf_tpu/kernels/{replaces}", launches=None,
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                bound_by="operations", library_ms=None, per_shape={})
+
+
+def _add(e: dict, shape: str, ms: float, plain_ms: float, bound: float,
+         err: float, **extra) -> None:
+    e["per_shape"][shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 **extra)
+    e["ms"] += ms
+    e["plain_ms"] += plain_ms
+    e["bound_ms"] += bound
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+
+
+def _bound(macs: float, bytes_: float) -> float:
+    return 1e3 * max(2.0 * macs / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES)
+
+
+def _packed_bytes(packed, grads: bool) -> int:
+    """Packed weights read once; with `grads` their f32 gradients written."""
+    return sum(t.numel() * (t.element_size() + (4 if grads else 0))
+               for t in packed)
 
 
 def check_kernels(model, env, dev) -> dict:
@@ -167,12 +203,8 @@ def check_kernels(model, env, dev) -> dict:
     from pano_nerf_tpu_torch.kernels import fused_render as fr
     shapes = _main_path_inputs(model, env, dev)
     packed = fr.pack_params(model.mlp)
-    entry = dict(name="fused_render_level", route="cuda",
-                 source="pano_nerf_tpu_torch/csrc/fused_render.cu",
-                 replaces="pano_nerf_tpu/kernels/fused_render.py:248",
-                 launches=None, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                 bound_ms=0.0, bound_by="operations", library_ms=None,
-                 per_shape={})
+    entry = _entry("fused_render_level", "fused_render.cu",
+                   "fused_render.py:248")
     failures = []
     for name, (args, kw) in shapes.items():
         got = fr.fused_render_level(model.mlp, *args, packed=packed, **kw)
@@ -205,13 +237,9 @@ def check_kernels(model, env, dev) -> dict:
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms; errors "
               + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
               + "; tolerances " + json.dumps(TOL))
-        entry["per_shape"][name] = dict(R=R, S=S, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bound, errors=errs)
-        entry["ms"] += ms
-        entry["plain_ms"] += plain_ms
-        entry["bound_ms"] += bound
-        entry["max_abs_err"] = max(entry["max_abs_err"], max(
-            v for k, v in errs.items() if not k.startswith("normal")))
+        _add(entry, name, ms, plain_ms, bound, max(
+            v for k, v in errs.items() if not k.startswith("normal")),
+            R=R, S=S, errors=errs)
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
@@ -224,6 +252,7 @@ def drive_main_path(workdir: str) -> dict:
     from pano_nerf_tpu_torch import eval as eval_entry
     from pano_nerf_tpu_torch.data.synthetic import generate_scene
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
     from pano_nerf_tpu_torch.kernels import fused_render as fr
     scene = os.path.join(workdir, "scene")
     t0 = time.perf_counter()
@@ -240,10 +269,14 @@ def drive_main_path(workdir: str) -> dict:
     plain = fr.fused_render_level_reference
     fr.fused_render_level_reference = no_plain
     fr.fused_render_level.launches = 0
+    k1.fused_mlp_apply.launches = k1.fused_mlp_apply.backward_launches = 0
     try:
         metrics = eval_entry.main(argv)
     finally:
         launches = fr.fused_render_level.launches
+        k1_launches = dict(
+            fused_mlp_apply_fwd=k1.fused_mlp_apply.launches,
+            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches)
         fr.fused_render_level_reference = plain
     n = metrics["num_images"]
     if n < 1:
@@ -251,6 +284,9 @@ def drive_main_path(workdir: str) -> dict:
     if launches != 96 * n:
         raise AssertionError(f"{launches} kernel launches for {n} "
                              f"panoramas, expected {96 * n}")
+    if any(k1_launches.values()):
+        raise AssertionError(f"the eval path launched kernel 1: "
+                             f"{k1_launches}")
     for k, v in metrics.items():
         if isinstance(v, float) and v != v:
             raise AssertionError(f"metric {k} is NaN")
@@ -261,8 +297,10 @@ def drive_main_path(workdir: str) -> dict:
             raise AssertionError(f"{p}: {len(files)} files for {n} images")
     print(f"[main] {n} panoramas of 128x256: {launches} kernel launches, "
           f"{metrics['render_ms_per_pano']:.1f} ms per panorama, "
-          f"{metrics['rays_per_s']:.0f} rays/s on {metrics['device']}")
-    return dict(metrics=metrics, launches=launches, scene=scene)
+          f"{metrics['rays_per_s']:.0f} rays/s on {metrics['device']}; "
+          f"kernel 1 launches {json.dumps(k1_launches)}")
+    return dict(metrics=metrics, launches=launches, k1_launches=k1_launches,
+                scene=scene)
 
 
 def where_the_time_goes(scene: str) -> None:
@@ -342,7 +380,8 @@ def _train_shapes(model, env, dev, batch: int = 512):
     """The four kernel calls of one train step at full width, built the
     way the model builds them (random draws, plain version for the
     weights that place the fine samples): name -> (normals?, means, covs,
-    v_enc)."""
+    v_enc); and the two levels kernel 5 renders with the key on: name ->
+    (means, covs, viewdirs, t_samples, dirs)."""
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (
@@ -388,9 +427,17 @@ def _train_shapes(model, env, dev, batch: int = 512):
             surf, env.directions, cfg.num_env_samples, env.near, env.far,
             env.radii, t_rand=draws.t_env)
         d_alt = mip.safe_normalize(draws.d_alt)
+    B, D, S = lm.shape[:3]
+    flat_dirs = ld.reshape(B * D, 3).contiguous()
+    levels = {"coarse": (m0.contiguous(), c0.contiguous(), rays.viewdirs,
+                         t0.contiguous(), rays.directions),
+              "env": (lm.reshape(B * D, S, 3).contiguous(),
+                      lc.reshape(B * D, S, 3).contiguous(), flat_dirs,
+                      lt.reshape(B * D, S + 1).contiguous(), flat_dirs)}
     return {"coarse": (False, m0, c0, v), "fine": (True, m1, c1, v),
             "vc": (False, m1, c1, venc(d_alt)),
-            "env": (False, lm.contiguous(), lc.contiguous(), venc(ld))}
+            "env": (False, lm.contiguous(), lc.contiguous(),
+                    venc(ld))}, levels
 
 
 def _outs_and_grads(fn, mlp, means, covs, v_enc, **kw):
@@ -417,23 +464,18 @@ def _rel(a, b) -> float:
 
 def _train_bound_ms(normals: bool, direction: str, rows: int,
                     packed) -> float:
-    """max(operations / bf16 peak, bytes / HBM): inputs read once and
-    outputs written once."""
-    macs = (K3_MACS if normals else K2_MACS)[direction]
-    w_bytes = sum(t.numel() * t.element_size() for t in packed)
-    acts = 8 * 256 * 2 if normals else 0
+    """Kernels 2 and 3: inputs read once and outputs written once."""
+    acts = 12 + 8 * 256 * 2 if normals else 0   # dsig | saved activations
     if direction == "fwd":
-        row_bytes = 32 + 64 + 64 + (12 + acts if normals else 0)
-        bytes_ = rows * row_bytes + w_bytes
+        bytes_ = rows * (32 + 64 + 64 + acts) + _packed_bytes(packed, False)
     else:   # mc, v, cotangents (+ acts) in; d mc and f32 grads out
-        row_bytes = 32 + 64 + 64 + 32 + (12 + acts if normals else 0)
-        bytes_ = rows * row_bytes + w_bytes + 4 * sum(
-            t.numel() for t in packed)
-    return 1e3 * max(2.0 * macs * rows / PEAK_BF16_FLOPS,
-                     bytes_ / PEAK_BYTES)
+        bytes_ = (rows * (32 + 64 + 64 + 32 + acts)
+                  + _packed_bytes(packed, True))
+    return _bound((K3_MACS if normals else K2_MACS)[direction] * rows,
+                  bytes_)
 
 
-def check_train_kernels(model, env, dev) -> list:
+def check_train_kernels(model, dev, calls) -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
     the shapes of one train step; raises on a disagreement. Returns the
     four JSON entries (launches filled in by the train run)."""
@@ -446,21 +488,14 @@ def check_train_kernels(model, env, dev) -> list:
     kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
     packed = pack_params(mlp)
     lib = k2.kernel_library()
-    entries = {}
-    for name, src_line in (
-            ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
-            ("fused_mlp_ipe_bwd", "fused_mlp_ipe.py:237"),
-            ("fused_mlp_normals_fwd", "fused_mlp_normals.py:304"),
-            ("fused_mlp_normals_bwd", "fused_mlp_normals.py:331")):
-        entries[name] = dict(
-            name=name, route="cuda",
-            source="pano_nerf_tpu_torch/csrc/fused_mlp.cu",
-            replaces=f"pano_nerf_tpu/kernels/{src_line}", launches=None,
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-            bound_by="operations", library_ms=None, per_shape={})
+    entries = {name: _entry(name, "fused_mlp.cu", src_line)
+               for name, src_line in (
+                   ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
+                   ("fused_mlp_ipe_bwd", "fused_mlp_ipe.py:237"),
+                   ("fused_mlp_normals_fwd", "fused_mlp_normals.py:304"),
+                   ("fused_mlp_normals_bwd", "fused_mlp_normals.py:331"))}
     failures = []
-    for shape, (normals, means, covs, v_enc) in _train_shapes(
-            model, env, dev).items():
+    for shape, (normals, means, covs, v_enc) in calls.items():
         kern = k3.fused_mlp_normals_apply if normals else k2.fused_mlp_ipe_apply
         plain = (k3.fused_mlp_normals_reference if normals
                  else k2.fused_mlp_ipe_reference)
@@ -528,15 +563,10 @@ def check_train_kernels(model, env, dev) -> list:
         base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
         for direction, ms, pms in (("fwd", ms_f, plain_f),
                                    ("bwd", ms_b, plain_b)):
-            e = entries[f"{base}_{direction}"]
-            bound = _train_bound_ms(normals, direction, M, packed)
-            e["per_shape"][shape] = dict(rows=M, ms=ms, plain_ms=pms,
-                                         bound_ms=bound, errors=errs)
-            e["ms"] += ms
-            e["plain_ms"] += pms
-            e["bound_ms"] += bound
-            e["max_abs_err"] = max(e["max_abs_err"], errs[
-                "out_abs" if direction == "fwd" else "grad_abs"])
+            _add(entries[f"{base}_{direction}"], shape, ms, pms,
+                 _train_bound_ms(normals, direction, M, packed),
+                 errs["out_abs" if direction == "fwd" else "grad_abs"],
+                 rows=M, errors=errs)
         print(f"[kernel] {shape:6s} M={M} {'k3' if normals else 'k2'}: fwd "
               f"{ms_f:.3f} ms (plain {plain_f:.3f}, bound "
               f"{_train_bound_ms(normals, 'fwd', M, packed):.4f}), bwd "
@@ -550,23 +580,257 @@ def check_train_kernels(model, env, dev) -> list:
     return list(entries.values())
 
 
+# Kernel 5's weights are held tighter than the eval render's: at S = 56 a
+# typical weight is at most acc / 56 (about 0.018), and the backward
+# recomputes the weights inside the kernel, so only this check sees the
+# written ones. 2e-3 is a tenth of that; bf16 rounding of the density head
+# moves a weight by far less (under 3e-4 on an H100 at both shapes).
+K5_TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=2e-3,
+              grad_rel=2e-2, dmc_rel=5e-2, dt_rel=5e-2)
+K5_OUTS = ("rgb", "distance", "acc", "weights")
+
+
+def _level_grads(fn, mlp, args, coef, **kw):
+    """A train level's outputs and the gradients of a random-coefficient
+    loss on all four (a mean over the rays) w.r.t. the parameters (flat),
+    the means and the t_samples."""
+    import torch
+    mlp.zero_grad(set_to_none=True)
+    m = args[0].detach().clone().requires_grad_(True)
+    t = args[3].detach().clone().requires_grad_(True)
+    out = fn(mlp, m, args[1], args[2], t, args[4], **kw)
+    loss = sum(torch.sum(out[k] * c) for k, c in coef.items())
+    (loss / m.shape[0]).backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
+    mlp.zero_grad(set_to_none=True)
+    return {k: v.detach() for k, v in out.items()}, flat, m.grad, t.grad
+
+
+def check_train_render_kernel(model, dev, levels) -> list:
+    """Kernel 5 (forward and backward, `save_acts` off and on) vs its
+    plain version at the coarse (512 x 56) and env (5,120 x 5) levels of
+    one key-on train step; raises on a disagreement or when the spilled
+    and recomputed runs differ. Returns the two JSON entries."""
+    import types
+    import torch
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    from pano_nerf_tpu_torch.kernels.fused_render import pack_params
+    mlp, cfg = model.mlp, model.cfg
+    kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
+              deg_view=cfg.deg_view, density_bias=cfg.density_bias,
+              rgb_padding=cfg.rgb_padding, white_bkgd=False)
+    packed = pack_params(mlp)
+    fwd = _entry("fused_render_train_fwd", "fused_render_train.cu",
+                 "fused_render_train.py:358")
+    bwd = _entry("fused_render_train_bwd", "fused_render_train.cu",
+                 "fused_render_train.py:399")
+    failures = []
+    g = torch.Generator(device=dev).manual_seed(13)
+    for shape, args in levels.items():
+        R, S = args[0].shape[:2]
+        coef = {k: torch.randn(sh, generator=g, device=dev) for k, sh in (
+            ("rgb", (R, 3)), ("acc", (R,)), ("distance", (R,)),
+            ("weights", (R, S)))}
+        want, gp_want, gm_want, gt_want = _level_grads(
+            k5.fused_render_train_reference, mlp, args, coef, **kw)
+        runs = {}
+        for save_acts in (False, True):
+            runs[save_acts] = _level_grads(k5.fused_render_train, mlp, args,
+                                           coef, save_acts=save_acts,
+                                           packed=packed, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for save_acts, (got, gp, gm, gt) in runs.items():
+            sfx = "_spill" if save_acts else ""
+            for k in K5_OUTS:
+                errs[k + sfx] = float((got[k] - want[k]).abs().max())
+                if not errs[k + sfx] <= K5_TOL[k]:
+                    failures.append(f"{shape}.{k}{sfx}: "
+                                    f"{errs[k + sfx]:.3e} > {K5_TOL[k]}")
+            for k, (a, b) in dict(grad_rel=(gp, gp_want),
+                                  dmc_rel=(gm, gm_want),
+                                  dt_rel=(gt, gt_want)).items():
+                errs[k + sfx] = _rel(a, b)
+                if not errs[k + sfx] <= K5_TOL[k]:
+                    failures.append(f"{shape}.{k}{sfx}: "
+                                    f"{errs[k + sfx]:.3e} > {K5_TOL[k]}")
+            errs["grad_abs" + sfx] = float((gp - gp_want).abs().max())
+        same = all(torch.equal(runs[False][0][k], runs[True][0][k])
+                   for k in want) and torch.equal(runs[False][2],
+                                                  runs[True][2])
+        if not same:
+            failures.append(f"{shape}: save_acts changed the outputs or "
+                            "the moment gradients")
+
+        # Timing: the launches alone on the wrapper's inputs, then the
+        # plain version's forward and autograd backward.
+        lv = k5.Level(R, S, cfg.min_deg_point, cfg.density_bias,
+                      cfg.rgb_padding, False)
+        with torch.no_grad():
+            mc, clip, v = k5.level_rows(*args, cfg.deg_view)
+        g_out = torch.randn(R, k5.OUT8, device=dev)
+        g_w = torch.randn(R, S, device=dev)
+        dummy = types.SimpleNamespace(backward_launches=0)
+        ms = {}
+        for save_acts in (False, True):
+            ms["fwd", save_acts] = _time_ms(lambda: k5.launch_forward(
+                mc, clip, v, *packed, lv, save_acts), reps=20)
+            acts = k5.launch_forward(mc, clip, v, *packed, lv, save_acts)[2]
+            ms["bwd", save_acts] = _time_ms(lambda: k5.run_backward(
+                dummy, mlp, mc, clip, v, *packed, acts, g_out, g_w, lv),
+                reps=10)
+            del acts
+        with torch.no_grad():
+            plain_f = _time_ms(lambda: k5.fused_render_train_reference(
+                mlp, *args, **kw), reps=3)
+        m_req = args[0].detach().clone().requires_grad_(True)
+        outs = list(k5.fused_render_train_reference(
+            mlp, m_req, *args[1:], **kw).values())
+        cot = [torch.randn_like(o) for o in outs]
+        plain_b = _time_ms(lambda: torch.autograd.grad(
+            outs, list(mlp.parameters()) + [m_req], cot, retain_graph=True),
+            reps=3)
+        del outs
+        rows = R * S
+        per_ray = R * (2 + k5.OUT8 + S) * 4   # clip in; out, weights out
+        w_bytes = _packed_bytes(packed, False)
+        spill = 8 * 256 * 2
+        bounds = {("fwd", False): _bound(MLP_MACS * rows,
+                                         rows * 96 + per_ray + w_bytes),
+                  ("bwd", False): _bound(3 * MLP_MACS * rows,
+                                         rows * 128 + per_ray
+                                         + _packed_bytes(packed, True))}
+        bounds["fwd", True] = _bound(MLP_MACS * rows, rows * (96 + spill)
+                                     + per_ray + w_bytes)
+        bounds["bwd", True] = _bound((3 * MLP_MACS - TRUNK_MACS) * rows,
+                                     rows * (128 + spill) + per_ray
+                                     + _packed_bytes(packed, True))
+        _add(fwd, shape, ms["fwd", False], plain_f, bounds["fwd", False],
+             max(v for k, v in errs.items() if k in K5_OUTS), R=R, S=S,
+             ms_save_acts=ms["fwd", True],
+             bound_ms_save_acts=bounds["fwd", True], errors=errs)
+        _add(bwd, shape, ms["bwd", False], plain_b, bounds["bwd", False],
+             max(errs["grad_abs"], errs["grad_abs_spill"]), R=R, S=S,
+             ms_save_acts=ms["bwd", True],
+             bound_ms_save_acts=bounds["bwd", True])
+        print(f"[kernel] {shape:6s} R={R} S={S} k5: fwd {ms['fwd', False]:.3f}"
+              f" ms (save_acts {ms['fwd', True]:.3f}; plain {plain_f:.3f}, "
+              f"bound {bounds['fwd', False]:.4f}), bwd "
+              f"{ms['bwd', False]:.3f} ms (save_acts {ms['bwd', True]:.3f}; "
+              f"plain {plain_b:.3f}, bound {bounds['bwd', False]:.4f}); "
+              f"spilled == recomputed: {same}; errors "
+              + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + "; tolerances " + json.dumps(K5_TOL),
+              flush=True)
+    if failures:
+        raise AssertionError("fused_render_train disagrees with its plain "
+                             "version: " + "; ".join(failures))
+    return [fwd, bwd]
+
+
+K1_TOL = dict(out_abs=2e-2, grad_rel=2e-2, dx_rel=5e-2)
+
+
+def check_fused_mlp_kernel(model, dev, levels) -> list:
+    """Kernel 1 (forward and backward) vs its plain version on the IPE
+    features of the coarse level's 28,672 rows; raises on a disagreement.
+    Returns the two JSON entries (no model path launches kernel 1)."""
+    import types
+    import torch
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels.fused_render import pack_params
+    from pano_nerf_tpu_torch.ops import mip
+    mlp, cfg = model.mlp, model.cfg
+    means, covs, viewdirs = levels["coarse"][:3]
+    with torch.no_grad():
+        x = mip.integrated_pos_enc(means, covs, cfg.min_deg_point,
+                                   cfg.max_deg_point).reshape(-1, 96)
+        v_enc = mip.pos_enc(viewdirs, 0, cfg.deg_view, True)[:, None, :]
+        v_enc = v_enc.expand(*means.shape[:2], 27).reshape(-1, 27)
+    x, v_enc = x.contiguous(), v_enc.contiguous()
+    M = x.shape[0]
+    packed = pack_params(mlp)
+    res = []
+    for fn in (k1.fused_mlp_apply, k1.fused_mlp_apply_reference):
+        mlp.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_(True)
+        outs = fn(mlp, xr, v_enc)
+        ((torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()) / M
+         ).backward()
+        res.append(([o.detach() for o in outs], torch.cat(
+            [p.grad.reshape(-1) for p in mlp.parameters()]), xr.grad))
+    mlp.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    (got, gp, gx), (want, gp_want, gx_want) = res
+    errs = dict(out_abs=max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+                grad_rel=_rel(gp, gp_want), dx_rel=_rel(gx, gx_want),
+                grad_abs=float((gp - gp_want).abs().max()))
+    failures = [f"{k}: {errs[k]:.3e} > {tol}" for k, tol in K1_TOL.items()
+                if not errs[k] <= tol]
+
+    xb = x.to(torch.bfloat16)
+    v = k2.viewdir_rows(v_enc, (M,))
+    g = torch.randn(M, k2.OUT_W, device=dev)
+    dummy = types.SimpleNamespace(backward_launches=0)
+    ms_f = _time_ms(lambda: k1.launch_forward(xb, v, *packed), reps=20)
+    ms_b = _time_ms(lambda: k1.run_backward(dummy, mlp, xb, v, *packed, g),
+                    reps=10)
+    with torch.no_grad():
+        plain_f = _time_ms(lambda: k1.fused_mlp_apply_reference(
+            mlp, x, v_enc), reps=3)
+    x_req = x.clone().requires_grad_(True)
+    outs = k1.fused_mlp_apply_reference(mlp, x_req, v_enc)
+    cot = [torch.randn_like(o) for o in outs]
+    plain_b = _time_ms(lambda: torch.autograd.grad(
+        outs, list(mlp.parameters()) + [x_req], cot, retain_graph=True),
+        reps=3)
+    del outs
+    bound_f = _bound(MLP_MACS * M, M * (192 + 64 + 64)
+                     + _packed_bytes(packed, False))
+    bound_b = _bound(3 * MLP_MACS * M, M * (192 + 64 + 64 + 384)
+                     + _packed_bytes(packed, True))
+    fwd = _entry("fused_mlp_apply_fwd", "fused_mlp.cu", "fused_mlp.py:223")
+    bwd = _entry("fused_mlp_apply_bwd", "fused_mlp.cu", "fused_mlp.py:328")
+    _add(fwd, "coarse", ms_f, plain_f, bound_f, errs["out_abs"], rows=M,
+         errors=errs)
+    _add(bwd, "coarse", ms_b, plain_b, bound_b, errs["grad_abs"], rows=M)
+    print(f"[kernel] coarse M={M} k1: fwd {ms_f:.3f} ms (plain "
+          f"{plain_f:.3f}, bound {bound_f:.4f}), bwd {ms_b:.3f} ms (plain "
+          f"{plain_b:.3f}, bound {bound_b:.4f}); errors "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + "; tolerances " + json.dumps(K1_TOL), flush=True)
+    if failures:
+        raise AssertionError("fused_mlp_apply disagrees with its plain "
+                             "version: " + "; ".join(failures))
+    return [fwd, bwd]
+
+
 TRAIN_STEPS = 200
 
 
-def drive_train_path(workdir: str, scene: str) -> dict:
+def drive_train_path(workdir: str, scene: str,
+                     render_kernel: bool = False) -> dict:
     """Train 200 steps of the shipped config through the train entry point
-    (3 train views, 1 val view at train.factor 4); launch counts zeroed
-    just before and read just after, plain versions forbidden."""
+    (3 train views, 1 val view at train.factor 4), with
+    `nerf.use_train_render_kernel` off or on; launch counts zeroed just
+    before and read just after, plain versions forbidden."""
     import torch
     from pano_nerf_tpu_torch import train as train_entry
     from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
     from pano_nerf_tpu_torch.kernels import fused_render as fr
-    out = os.path.join(workdir, "train")
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    tag = "[train-k5]" if render_kernel else "[train]"
+    out = os.path.join(workdir, "train_k5" if render_kernel else "train")
     argv = ["--data_path", scene, "--out_dir", out, "--config", CONFIG,
             "--init_seed", "0", "train.sample_num", "'n0_1_2'",
             "optimizer.max_steps", str(TRAIN_STEPS), "log_every_n_step", "50"]
+    if render_kernel:
+        argv += ["nerf.use_train_render_kernel", "True"]
     losses = []
     make = PanoNeRFSystem.make_train_step
 
@@ -584,8 +848,11 @@ def drive_train_path(workdir: str, scene: str) -> dict:
 
     saved = [(m, n, getattr(m, n)) for m, n in (
         (k2, "fused_mlp_ipe_reference"), (k3, "fused_mlp_normals_reference"),
+        (k5, "fused_render_train_reference"),
+        (k1, "fused_mlp_apply_reference"),
         (fr, "fused_render_level_reference"))]
-    counters = (k2.fused_mlp_ipe_apply, k3.fused_mlp_normals_apply)
+    counters = (k1.fused_mlp_apply, k2.fused_mlp_ipe_apply,
+                k3.fused_mlp_normals_apply, k5.fused_render_train)
     for m, n, _ in saved:
         setattr(m, n, no_plain)
     PanoNeRFSystem.make_train_step = recording
@@ -599,10 +866,14 @@ def drive_train_path(workdir: str, scene: str) -> dict:
     finally:
         wall = time.perf_counter() - t0
         launches = dict(
+            fused_mlp_apply_fwd=k1.fused_mlp_apply.launches,
+            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches,
             fused_mlp_ipe_fwd=k2.fused_mlp_ipe_apply.launches,
             fused_mlp_ipe_bwd=k2.fused_mlp_ipe_apply.backward_launches,
             fused_mlp_normals_fwd=k3.fused_mlp_normals_apply.launches,
             fused_mlp_normals_bwd=k3.fused_mlp_normals_apply.backward_launches,
+            fused_render_train_fwd=k5.fused_render_train.launches,
+            fused_render_train_bwd=k5.fused_render_train.backward_launches,
             fused_render_level=fr.fused_render_level.launches)
         PanoNeRFSystem.make_train_step = make
         for m, n, f in saved:
@@ -614,14 +885,22 @@ def drive_train_path(workdir: str, scene: str) -> dict:
     if bad:
         raise AssertionError(f"non-finite loss at steps {bad[:10]}")
     first, last = sum(vals[:20]) / 20, sum(vals[-20:]) / 20
-    print(f"[train] mean loss of steps 1-20 {first:.6f}, of steps "
+    print(f"{tag} mean loss of steps 1-20 {first:.6f}, of steps "
           f"{TRAIN_STEPS - 19}-{TRAIN_STEPS} {last:.6f}")
     if not last < first:
         raise AssertionError("the loss did not fall over 200 steps")
-    want = dict(fused_mlp_ipe_fwd=3 * TRAIN_STEPS,
-                fused_mlp_ipe_bwd=6 * TRAIN_STEPS,
-                fused_mlp_normals_fwd=TRAIN_STEPS,
-                fused_mlp_normals_bwd=2 * TRAIN_STEPS)
+    # Per step: kernel 2 for coarse, view consistency and env (1 for view
+    # consistency alone with the key on, kernel 5 taking coarse and env),
+    # kernel 3 for the fine level; each backward is two launches. No model
+    # path calls kernel 1.
+    per_step = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
+                    fused_mlp_normals_fwd=1,
+                    fused_render_train_fwd=2 if render_kernel else 0,
+                    fused_mlp_apply_fwd=0)
+    want = {}
+    for k, n in per_step.items():
+        want[k] = n * TRAIN_STEPS
+        want[k.replace("_fwd", "_bwd")] = 2 * n * TRAIN_STEPS
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -642,7 +921,7 @@ def drive_train_path(workdir: str, scene: str) -> dict:
     # later ones.
     steady = rps[1:] if len(rps) > 1 else rps
     mean_rps = sum(steady) / len(steady)
-    print(f"[train] {TRAIN_STEPS} steps of batch {batch} on "
+    print(f"{tag} {TRAIN_STEPS} steps of batch {batch} on "
           f"{trainer.train_dataset.num_rays:,} rays ({wall:.1f} s with "
           f"validation): train rays/s per 50-step window "
           + ", ".join(f"{x:.1f}" for x in rps)
@@ -695,6 +974,7 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
     hp = trainer.hparams
     cfg = trainer.system.model.cfg
     ds = trainer.train_dataset
+    tag = "[check-k5]" if cfg.use_train_render_kernel else "[check]"
     rng = np.random.default_rng(5)
     idx = rng.integers(0, ds.num_rays, num_rays)
     D = int(hp["nerf.num_ray_samples"])
@@ -713,12 +993,12 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
     for k, want in cpu[0].items():
         got = card[0][k]
         err = abs(got - want) / max(abs(want), 1e-12)
-        print(f"[check] train step {k}: card {got:.6e} cpu {want:.6e} "
+        print(f"{tag} train step {k}: card {got:.6e} cpu {want:.6e} "
               f"(f32 {f32[0][k]:.6e}) rel {err:.3e}")
         if not (err <= 5e-2 or abs(got - want) <= 1e-9):
             failures.append(k)
     e_card, e_cpu = _rel(card[1], f32[1]), _rel(cpu[1], f32[1])
-    print(f"[check] train step gradients vs f32: card {e_card:.3e}, cpu "
+    print(f"{tag} train step gradients vs f32: card {e_card:.3e}, cpu "
           f"bf16 {e_cpu:.3e} (card must be <= 1.5x cpu); card vs cpu "
           f"{_rel(card[1], cpu[1]):.3e}")
     if not e_card <= 1.5 * e_cpu:
@@ -727,7 +1007,7 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
     card_p, cpu_p = (_one_step(hp_plain, dev, *args) for dev in ("cuda",
                                                                  "cpu"))
     e = _rel(card_p[1], cpu_p[1])
-    print(f"[check] train step gradients without the orientation and "
+    print(f"{tag} train step gradients without the orientation and "
           f"surface terms: card vs cpu rel-norm {e:.3e} (tolerance 5e-2)")
     if not e <= 5e-2:
         failures.append("grads without normal terms")
@@ -769,7 +1049,9 @@ def profile_train_step(trainer, steps: int = 3) -> None:
             one()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    _report_profile(prof, wall_us, f"{steps} train steps")
+    _report_profile(prof, wall_us, f"{steps} train steps" + (
+        " with the render kernel"
+        if system.model.cfg.use_train_render_kernel else ""))
 
 
 def _report_profile(prof, wall_us: float, what: str) -> None:
@@ -831,19 +1113,38 @@ def main() -> int:
                                             far=10.0, radius=0.0142), dev)
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
-    train_entries = check_train_kernels(model, env, dev)
+    calls, levels = _train_shapes(model, env, dev)
+    train_entries = check_train_kernels(model, dev, calls)
+    k5_entries = check_train_render_kernel(model, dev, levels)
+    k1_entries = check_fused_mlp_kernel(model, dev, levels)
+    del calls, levels
     with tempfile.TemporaryDirectory() as workdir:
         run = drive_main_path(workdir)
         where_the_time_goes(run["scene"])
         check_against_plain(run["scene"])
         train = drive_train_path(workdir, run["scene"])
+        train_k5 = drive_train_path(workdir, run["scene"],
+                                    render_kernel=True)
+        print(f"[train-k5] steady train rays/s with the key on "
+              f"{train_k5['rays_per_s']:.1f} vs off {train['rays_per_s']:.1f}"
+              f" (ms per step {512e3 / train_k5['rays_per_s']:.3f} vs "
+              f"{512e3 / train['rays_per_s']:.3f})", flush=True)
         check_train_step_against_cpu(train["trainer"])
+        check_train_step_against_cpu(train_k5["trainer"])
         profile_train_step(train["trainer"])
+        profile_train_step(train_k5["trainer"])
     entry["launches"] = run["launches"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
+    for e in k5_entries:
+        e["launches"] = train_k5["launches"][e["name"]]
+    for e in k1_entries:   # counted over all three main-path runs
+        e["launches"] = (run["k1_launches"][e["name"]]
+                         + train["launches"][e["name"]]
+                         + train_k5["launches"][e["name"]])
     print(f"[card] {card}")
-    print(json.dumps({"kernels": [entry] + train_entries}))
+    print(json.dumps({"kernels": k1_entries + train_entries + [entry]
+                      + k5_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,22 @@
-// IPE + NerfMLP forward and backward for training on the H100, with and
-// without the density-gradient chain.
+// NerfMLP forward and backward for training on the H100: on raw Gaussian
+// moments (with the IPE inside, with and without the density-gradient
+// chain) or on already-encoded features.
 //
-// Replaces two TPU kernels, one template each way (NORMALS):
-//  * NORMALS = false: `fused_mlp_ipe_apply` (pano_nerf_tpu/kernels/
-//    fused_mlp_ipe.py:268; `_fwd_kernel` :109, `_bwd_ipe_kernel` :124).
-//  * NORMALS = true: `fused_mlp_normals_apply` (pano_nerf_tpu/kernels/
+// Replaces three TPU kernels, one template variant each way (Variant):
+//  * IPE: `fused_mlp_ipe_apply` (pano_nerf_tpu/kernels/fused_mlp_ipe.py:268;
+//    `_fwd_kernel` :109, `_bwd_ipe_kernel` :124).
+//  * NORMALS: `fused_mlp_normals_apply` (pano_nerf_tpu/kernels/
 //    fused_mlp_normals.py:369; `_sigma_grad_chain` :71, `_fwd_kernel` :94,
 //    `_bwd_kernel` :132). The forward also returns d raw_sigma / d means and
 //    saves the 8 trunk activations (bf16 [M, 8*256]) for the backward.
+//  * ENCODED: `fused_mlp_apply` (pano_nerf_tpu/kernels/fused_mlp.py:363;
+//    `_fwd_kernel` :198, `_bwd_kernel` :238). The input is x [M, 96] bf16
+//    IPE features instead of moments, and the backward writes d x [M, 96]
+//    f32 instead of d moments.
 //
-// Rows are Gaussian moments mc [M, 8] = means(3) | covs(3) | pad(2), f32,
-// and per-row viewdir encodings v [M, 32] bf16 (27 used). The output slab
-// is [M, 16] f32: raw rgb (3) | raw density (5) | 0.
+// Rows are Gaussian moments mc [M, 8] = means(3) | covs(3) | pad(2), f32
+// (or x for ENCODED), and per-row viewdir encodings v [M, 32] bf16 (27
+// used). The output slab is [M, 16] f32: raw rgb (3) | raw density (5) | 0.
 //
 // What bounds it on an H100: tensor-core operations. A row costs 611,328
 // MACs forward (+507,904 for the chain), against 96 B of inputs; the
@@ -25,7 +30,8 @@
 //   layer reads [h4 | x] as one K=352 operand); products are WMMA 16x16x16
 //   bf16 fragments with f32 accumulate, the weight fragment read from
 //   global memory (L2-resident). Epilogues round to bf16 where the TPU
-//   kernel does, and keep ReLU masks as bits.
+//   kernel does, and keep ReLU masks as bits. The per-tile steps live in
+//   mlp_rows.cuh, shared with kernel 5 (fused_render_train.cu).
 // * Weight gradients: blocks run in parallel and in no order, so the TPU
 //   kernel's in-order `+=` over the grid has no counterpart. The backward
 //   row kernel writes every operand of every weight-gradient product
@@ -48,35 +54,19 @@
 // Built with nvcc for sm_90a into a shared library with a plain C entry
 // point (pano_nerf_tpu_torch/kernels/build.py).
 
-#include "nerf_mlp.cuh"
+#include "mlp_rows.cuh"
 
 namespace {
 
 using namespace nerf_mlp;
 
-constexpr int VP = 32;   // viewdir encoding width, padded (27 used)
-constexpr int OUT_W = 16;  // output slab: rgb(3) | density(5) | 0(8)
+enum Variant { IPE = 0, NORMALS = 1, ENCODED = 2 };
+
 constexpr int WG_CHUNK = 2048;      // rows per weight-gradient grid row
 
-// Columns of the backward's operand rows (bf16, all multiples of 16).
-constexpr int O_X = 0;                // IPE features x
-constexpr int O_A = O_X + XF;         // trunk activations a_0..a_7
-constexpr int O_BTL = O_A + 8 * W;    // bottleneck
-constexpr int O_V = O_BTL + W;        // viewdir encoding
-constexpr int O_HV = O_V + VP;        // view-branch activation
-constexpr int O_DZ = O_HV + VW;       // trunk cotangents dz_0..dz_7
-constexpr int O_GD = O_DZ + 8 * W;    // density-head cotangent (16)
-constexpr int O_DBTL = O_GD + HP;     // bottleneck cotangent
-constexpr int O_DZV = O_DBTL + W;     // view-branch cotangent
-constexpr int O_GR = O_DZV + VW;      // color-head cotangent (16)
-constexpr int OPW_IPE = O_GR + HP;
-constexpr int O_CGX = OPW_IPE;        // walk: cotangent of g_x
-constexpr int O_C = O_CGX + XF;       // walk: c_0..c_6
-constexpr int O_SZ = O_C + 7 * W;     // chain: sz_0..sz_7
-constexpr int OPW_NRM = O_SZ + 8 * W;
-
 struct FwdParams {
-  const float* mc;   // [M, 8]
+  const float* mc;   // [M, 8]        (IPE, NORMALS)
+  const bf16* x;     // [M, 96]       (ENCODED)
   const bf16* v;     // [M, 32]
   const bf16* w;
   const float* b;
@@ -88,6 +78,7 @@ struct FwdParams {
 
 struct BwdParams {
   const float* mc;
+  const bf16* x;
   const bf16* v;
   const bf16* w;
   const float* b;
@@ -95,7 +86,8 @@ struct BwdParams {
   const float* q;     // [M, 3] cotangent of dsig (NORMALS)
   const bf16* acts;   // [M, 8 * 256] saved by the forward (NORMALS)
   bf16* ops;          // [grid * 64, OPW] operand rows
-  float* dmc;         // [M, 8]
+  float* dmc;         // [M, 8]   (IPE, NORMALS)
+  float* dx;          // [M, 96]  (ENCODED)
   float* dw;          // [W_TOTAL] f32, zeroed; this kernel adds dWd's sigma row
   float* db;          // [B_TOTAL] f32, zeroed
   int M, min_deg;
@@ -120,140 +112,33 @@ struct SmemB {
   float dmc[TM * 8];
 };
 
-__device__ __forceinline__ bool mask_bit(const uint32_t* mask, int layer,
-                                         int r, int c) {
-  return (mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
-}
-
-// att * cos(y) of IPE feature j, from the f32 features att * sin(y): the
-// cos block is the sin block shifted by pi/2, so it is the other half.
-__device__ __forceinline__ float att_cos(const float* x32row, int j) {
-  return j < XP ? x32row[j + XP] : -x32row[j - XP];
-}
-
-__device__ __forceinline__ float deg_scale(int j, int min_deg) {
-  return ldexpf(1.f, (j % XP) / 3 + min_deg);
-}
-
-// Sum `ncols` bf16 columns of a [64 x ncols] shared tile over its rows and
-// add the sums to dst (one atomic per column and tile).
-__device__ void colsum_atomic(const bf16* A, int lda, int ncols, float* dst) {
-  for (int c = threadIdx.x; c < ncols; c += NT) {
-    float s = 0.f;
-    for (int r = 0; r < TM; ++r) s += __bfloat162float(A[r * lda + c]);
-    atomicAdd(dst + c, s);
-  }
-}
-
-// Load the moments of the tile into stage[0 : 64*8] (zero past M) and
-// build the IPE features: f32 in x32, bf16 at act columns 256..351.
-__device__ void load_ipe(const float* mc, int M, int row0, int min_deg,
-                         float* stage, float* x32, bf16* act) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < TM * 8; i += NT) {
-    const int r = i >> 3;
-    stage[i] = row0 + r < M ? mc[(size_t)(row0 + r) * 8 + (i & 7)] : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < TM * XF; i += NT) {
-    const int r = i / XF, j = i % XF;
-    const int jj = j % XP;
-    const int deg = jj / 3 + min_deg, dim = jj % 3;
-    float y = stage[r * 8 + dim] * ldexpf(1.f, deg);
-    if (j >= XP) y = y + 1.57079632679489662f;
-    const float var = stage[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
-    const float f = expf(-0.5f * var) * sinf(y);
-    x32[r * XF + j] = f;
-    act[r * ACT_LD + W + j] = __float2bfloat16(f);
-  }
-  __syncthreads();
-}
-
-// Trunk layer epilogue: act = bf16(relu(stage + bias)), ReLU mask bits.
-// Optionally copies the activation to `copy` (row stride ld_copy), rows
-// < nrows_copy only.
-__device__ void relu_epilogue(const float* stage, const float* bias,
-                              bf16* act, uint32_t* mask, int layer,
-                              bf16* copy, size_t ld_copy, int nrows_copy) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;  // a warp covers 32 columns of a row
-    const bf16 h = __float2bfloat16(fmaxf(stage[r * ST_LD + c] + bias[c], 0.f));
-    act[r * ACT_LD + c] = h;
-    const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-    if (lane == 0) mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] = bits;
-    if (copy != nullptr && r < nrows_copy) copy[r * ld_copy + c] = h;
-  }
-  __syncthreads();
-}
-
-template <bool NORMALS>
+template <int VAR>
 __global__ void __launch_bounds__(NT, 1) fused_mlp_fwd_kernel(FwdParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemF& s = *reinterpret_cast<SmemF*>(smem_raw);
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TM;
-  const int nrows = min(TM, p.M - row0);
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  const int nrows = min(TM, p.M - (int)row0);
 
-  load_ipe(p.mc, p.M, row0, p.min_deg, s.stage, s.x32, s.act);
-
-  // ---- trunk: 8 x (Linear + ReLU), skip input [h4 | x] into layer 5 ----
-  for (int layer = 0; layer < 8; ++layer) {
-    const bf16* A = layer == 0 ? s.act + W : s.act;
-    const int K = trunk_in(layer);
-    tile_matmul<wmma::col_major>(A, ACT_LD, K, p.w + trunk_offset(layer), K,
-                                 W, s.stage, ST_LD);
-    __syncthreads();
-    bf16* copy = (NORMALS && p.acts != nullptr)
-                     ? p.acts + (size_t)row0 * 8 * W + layer * W : nullptr;
-    relu_epilogue(s.stage, p.b + OFF_BT + layer * W, s.act, s.mask, layer,
-                  copy, 8 * W, nrows);
+  if constexpr (VAR == ENCODED) {
+    load_encoded(p.x, row0, nrows, s.act);
+  } else {
+    load_ipe(p.mc, row0, nrows, p.min_deg, s.stage, s.x32, s.act);
   }
-
-  // ---- heads: density (stage columns 256..271) and bottleneck ----
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, p.w + OFF_WD, W, HP,
-                               s.stage + W, ST_LD);
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, p.w + OFF_WB, W, W, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    s.act[r * ACT_LD + c] = __float2bfloat16(s.stage[r * ST_LD + c] + p.b[OFF_BB + c]);
-  }
-  for (int i = tid; i < TM * VP; i += NT) {
-    const int r = i / VP, j = i % VP;
-    s.act[r * ACT_LD + W + j] =
-        r < nrows ? p.v[(size_t)(row0 + r) * VP + j] : __float2bfloat16(0.f);
-  }
-  // Raw density (+ bias) kept in the stage's spare columns 272..276.
-  for (int i = tid; i < TM * NDC; i += NT) {
-    const int r = i / NDC, c = i % NDC;
-    s.stage[r * ST_LD + W + HP + c] = s.stage[r * ST_LD + W + c] + p.b[OFF_BD + c];
-  }
-  __syncthreads();
-
-  // ---- view branch (Linear + ReLU) and color head ----
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VK, p.w + OFF_WV, VK, VW,
-                               s.stage, ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    s.act[r * ACT_LD + c] =
-        __float2bfloat16(fmaxf(s.stage[r * ST_LD + c] + p.b[OFF_BV + c], 0.f));
-  }
-  __syncthreads();
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VW, p.w + OFF_WC, VW, HP,
-                               s.stage, ST_LD);
-  __syncthreads();
+  bf16* copy = (VAR == NORMALS && p.acts != nullptr) ? p.acts + row0 * 8 * W
+                                                     : nullptr;
+  trunk_forward(s, p.w, p.b, copy, 8 * W, nrows);
+  heads_forward<false>(s, p.w, p.b, p.v + row0 * VP, nrows, true, nullptr,
+                       0);
   for (int i = tid; i < nrows * OUT_W; i += NT) {
     const int r = i / OUT_W, c = i % OUT_W;
     const float* st = s.stage + r * ST_LD;
     float o = 0.f;
-    if (c < 3) o = st[c] + p.b[OFF_BC + c];
+    if (c < 3) o = st[c];
     else if (c < 3 + NDC) o = st[W + HP + c - 3];
-    p.out[(size_t)(row0 + r) * OUT_W + c] = o;
+    p.out[(row0 + r) * OUT_W + c] = o;
   }
-  if constexpr (!NORMALS) return;
+  if constexpr (VAR != NORMALS) return;
   __syncthreads();
 
   // ---- d raw_sigma / d means: sz-chain through the masked trunk ----
@@ -289,188 +174,58 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_fwd_kernel(FwdParams p) {
         acc += gx * att_cos(s.x32 + r * XF, j) * ldexpf(1.f, deg + p.min_deg);
       }
     }
-    p.dsig[(size_t)(row0 + r) * 3 + d] = acc;
+    p.dsig[(row0 + r) * 3 + d] = acc;
   }
 }
 
-template <bool NORMALS>
+template <int VAR>
 __global__ void __launch_bounds__(NT, 1) fused_mlp_bwd_kernel(BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemB& s = *reinterpret_cast<SmemB*>(smem_raw);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int row0 = blockIdx.x * TM;
-  const int nrows = min(TM, p.M - row0);
-  constexpr int OPW = NORMALS ? OPW_NRM : OPW_IPE;
-  bf16* ops = p.ops + (size_t)row0 * OPW;  // this tile's 64 operand rows
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  const int nrows = min(TM, p.M - (int)row0);
+  constexpr int OPW = VAR == NORMALS ? OPW_NRM : OPW_IPE;
+  bf16* ops = p.ops + row0 * OPW;  // this tile's 64 operand rows
 
-  // ---- inputs: cotangents (zero past M), moments, IPE ----
+  // ---- inputs: cotangents (zero past M), moments and IPE, or x ----
   for (int i = tid; i < TM * OUT_W; i += NT) {
     const int r = i / OUT_W;
-    s.g[i] = r < nrows ? p.g[(size_t)(row0 + r) * OUT_W + i % OUT_W] : 0.f;
+    s.g[i] = r < nrows ? p.g[(row0 + r) * OUT_W + i % OUT_W] : 0.f;
   }
-  if constexpr (NORMALS) {
+  if constexpr (VAR == NORMALS) {
     for (int i = tid; i < TM * 4; i += NT) {
       const int r = i >> 2, d = i & 3;
-      s.q[i] = (r < nrows && d < 3) ? p.q[(size_t)(row0 + r) * 3 + d] : 0.f;
+      s.q[i] = (r < nrows && d < 3) ? p.q[(row0 + r) * 3 + d] : 0.f;
     }
   }
   for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
-  load_ipe(p.mc, p.M, row0, p.min_deg, s.stage, s.x32, s.act);
+  if constexpr (VAR == ENCODED) {
+    load_encoded(p.x, row0, nrows, s.act);
+  } else {
+    load_ipe(p.mc, row0, nrows, p.min_deg, s.stage, s.x32, s.act);
+  }
   for (int i = tid; i < TM * XF; i += NT) {
     const int r = i / XF, j = i % XF;
     ops[(size_t)r * OPW + O_X + j] = s.act[r * ACT_LD + W + j];
   }
 
   // ---- trunk activations: saved (NORMALS) or recomputed ----
-  for (int layer = 0; layer < 8; ++layer) {
-    if constexpr (NORMALS) {
-      for (int i = tid; i < TM * W; i += NT) {
-        const int r = i / W, c = i % W;
-        const bf16 h = r < nrows ? p.acts[(size_t)(row0 + r) * 8 * W + layer * W + c]
-                                 : __float2bfloat16(0.f);
-        const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-        if (lane == 0) s.mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] = bits;
-        ops[(size_t)r * OPW + O_A + layer * W + c] = h;
-        if (layer == 7) s.act[r * ACT_LD + c] = h;
-      }
-      __syncthreads();
-    } else {
-      const bf16* A = layer == 0 ? s.act + W : s.act;
-      const int K = trunk_in(layer);
-      tile_matmul<wmma::col_major>(A, ACT_LD, K, p.w + trunk_offset(layer), K,
-                                   W, s.stage, ST_LD);
-      __syncthreads();
-      relu_epilogue(s.stage, p.b + OFF_BT + layer * W, s.act, s.mask, layer,
-                    ops + O_A + layer * W, OPW, TM);
-    }
+  if constexpr (VAR == NORMALS) {
+    trunk_load(s, p.acts + row0 * 8 * W, nrows, ops, OPW);
+  } else {
+    trunk_forward(s, p.w, p.b, ops + O_A, OPW, TM);
   }
+  // ---- heads forward (operand rows, masks of hv), then the backward ----
+  heads_forward<true>(s, p.w, p.b, p.v + row0 * VP, nrows, false, ops, OPW);
+  mlp_backward(s, p.w, ops, OPW, p.db);
+  if constexpr (VAR == ENCODED) {
+    for (int i = tid; i < nrows * XF; i += NT) p.dx[row0 * XF + i] = s.dx[i];
+    return;
+  }
+  ipe_backward(s, p.min_deg);
 
-  // ---- heads forward: bottleneck, view branch (masks of hv) ----
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, p.w + OFF_WB, W, W, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    const bf16 h = __float2bfloat16(s.stage[r * ST_LD + c] + p.b[OFF_BB + c]);
-    s.act[r * ACT_LD + c] = h;
-    ops[(size_t)r * OPW + O_BTL + c] = h;
-  }
-  for (int i = tid; i < TM * VP; i += NT) {
-    const int r = i / VP, j = i % VP;
-    const bf16 v = r < nrows ? p.v[(size_t)(row0 + r) * VP + j] : __float2bfloat16(0.f);
-    s.act[r * ACT_LD + W + j] = v;
-    ops[(size_t)r * OPW + O_V + j] = v;
-  }
-  __syncthreads();
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VK, p.w + OFF_WV, VK, VW,
-                               s.stage, ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    const bf16 h =
-        __float2bfloat16(fmaxf(s.stage[r * ST_LD + c] + p.b[OFF_BV + c], 0.f));
-    const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-    if (lane == 0) s.hvmask[r * (VW / 32) + (c >> 5)] = bits;
-    ops[(size_t)r * OPW + O_HV + c] = h;
-  }
-  __syncthreads();
-
-  // ---- heads backward ----
-  // Color-head cotangent (bf16, columns 0..2 of 16) as the A operand.
-  for (int i = tid; i < TM * HP; i += NT) {
-    const int r = i / HP, c = i % HP;
-    const bf16 gr = __float2bfloat16(c < 3 ? s.g[r * OUT_W + c] : 0.f);
-    s.act[r * ACT_LD + c] = gr;
-    ops[(size_t)r * OPW + O_GR + c] = gr;
-  }
-  // Head biases take the f32 cotangent: d bc, d bd.
-  if (tid < 3 + NDC) {
-    float acc = 0.f;
-    for (int r = 0; r < TM; ++r) acc += s.g[r * OUT_W + tid];
-    atomicAdd(p.db + (tid < 3 ? OFF_BC + tid : OFF_BD + tid - 3), acc);
-  }
-  __syncthreads();
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, HP, p.w + OFF_WC, VW, VW,
-                               s.stage, ST_LD);  // d hv = gr @ Wc
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    const bool on = (s.hvmask[r * (VW / 32) + (c >> 5)] >> (c & 31)) & 1u;
-    const bf16 dz = __float2bfloat16(on ? s.stage[r * ST_LD + c] : 0.f);
-    s.act[r * ACT_LD + c] = dz;
-    ops[(size_t)r * OPW + O_DZV + c] = dz;
-  }
-  __syncthreads();
-  colsum_atomic(s.act, ACT_LD, VW, p.db + OFF_BV);
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, VW, p.w + OFF_WV, VK, W,
-                               s.stage, ST_LD);  // d btl = dzv @ Wv[:, :256]
-  __syncthreads();
-  // A operand [gd (16) | dbtl (256)] against the stacked [Wd ; Wb]
-  // (contiguous in the packed layout): d a_7 in one K=272 product.
-  for (int i = tid; i < TM * (HP + W); i += NT) {
-    const int r = i / (HP + W), c = i % (HP + W);
-    bf16 h;
-    if (c < HP) {
-      h = __float2bfloat16(c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f);
-      ops[(size_t)r * OPW + O_GD + c] = h;
-    } else {
-      h = __float2bfloat16(s.stage[r * ST_LD + c - HP]);
-      ops[(size_t)r * OPW + O_DBTL + c - HP] = h;
-    }
-    s.act[r * ACT_LD + c] = h;
-  }
-  __syncthreads();
-  colsum_atomic(s.act + HP, ACT_LD, W, p.db + OFF_BB);
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, HP + W, p.w + OFF_WD, W, W,
-                               s.stage, ST_LD);
-  __syncthreads();
-
-  // ---- trunk backward ----
-  for (int i = tid; i < TM * XF; i += NT) s.dx[i] = 0.f;
-  for (int layer = 7; layer >= 0; --layer) {
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      const bf16 dz = __float2bfloat16(mask_bit(s.mask, layer, r, c)
-                                           ? s.stage[r * ST_LD + c] : 0.f);
-      s.act[r * ACT_LD + c] = dz;
-      ops[(size_t)r * OPW + O_DZ + layer * W + c] = dz;
-    }
-    __syncthreads();
-    colsum_atomic(s.act, ACT_LD, W, p.db + OFF_BT + layer * W);
-    const int K = trunk_in(layer);
-    tile_matmul<wmma::row_major>(s.act, ACT_LD, W, p.w + trunk_offset(layer),
-                                 K, K, s.stage, ST_LD);
-    __syncthreads();
-    if (layer == 5 || layer == 0) {
-      const int c0 = layer == 5 ? W : 0;
-      for (int i = tid; i < TM * XF; i += NT) {
-        const int r = i / XF, j = i % XF;
-        s.dx[i] += s.stage[r * ST_LD + c0 + j];
-      }
-      __syncthreads();
-    }
-  }
-  // IPE backward of dx: cot_y = dx * att cos(y), cot_var = -dx * x / 2.
-  for (int i = tid; i < TM * 6; i += NT) {
-    const int r = i / 6, k = i % 6, d = k % 3;
-    float acc = 0.f;
-    for (int deg = 0; deg < XP / 3; ++deg) {
-      for (int half = 0; half < 2; ++half) {
-        const int j = half * XP + deg * 3 + d;
-        const float dxj = s.dx[r * XF + j];
-        if (k < 3) {
-          acc += dxj * att_cos(s.x32 + r * XF, j) * ldexpf(1.f, deg + p.min_deg);
-        } else {
-          acc += -0.5f * dxj * s.x32[r * XF + j] * ldexpf(1.f, 2 * (deg + p.min_deg));
-        }
-      }
-    }
-    s.dmc[r * 8 + k] += acc;
-  }
-  __syncthreads();
-
-  if constexpr (NORMALS) {
+  if constexpr (VAR == NORMALS) {
     // ---- recompute the sz-chain from the masks (as the forward) ----
     for (int i = tid; i < TM * W; i += NT) {
       const int r = i / W, c = i % W;
@@ -552,7 +307,7 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_bwd_kernel(BwdParams p) {
   }
 
   for (int i = tid; i < nrows * 8; i += NT) {
-    p.dmc[(size_t)row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
+    p.dmc[row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
   }
 }
 
@@ -620,6 +375,24 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
+template <int VAR>
+cudaError_t launch_forward(const FwdParams& p, cudaStream_t st) {
+  const int smem = (int)sizeof(SmemF);
+  cudaError_t err = set_smem(fused_mlp_fwd_kernel<VAR>, smem);
+  if (err != cudaSuccess) return err;
+  fused_mlp_fwd_kernel<VAR><<<(p.M + TM - 1) / TM, NT, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int VAR>
+cudaError_t launch_backward(const BwdParams& p, cudaStream_t st) {
+  const int smem = (int)sizeof(SmemB);
+  cudaError_t err = set_smem(fused_mlp_bwd_kernel<VAR>, smem);
+  if (err != cudaSuccess) return err;
+  fused_mlp_bwd_kernel<VAR><<<(p.M + TM - 1) / TM, NT, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -633,13 +406,13 @@ const char* fused_mlp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Forward over M rows; `acts` may be null (NORMALS only: saved trunk
-// activations for the backward). Returns a cudaError_t (0 = ok).
+// Forward over M rows of moments; `acts` may be null (NORMALS only: saved
+// trunk activations for the backward). Returns a cudaError_t (0 = ok).
 int fused_mlp_forward(const float* mc, const void* v, const void* weights,
                       const float* biases, float* out, float* dsig, void* acts,
                       int M, int min_deg, int normals, void* stream) {
   if (M <= 0) return (int)cudaErrorInvalidValue;
-  FwdParams p;
+  FwdParams p = {};
   p.mc = mc;
   p.v = static_cast<const bf16*>(v);
   p.w = static_cast<const bf16*>(weights);
@@ -649,20 +422,24 @@ int fused_mlp_forward(const float* mc, const void* v, const void* weights,
   p.acts = static_cast<bf16*>(acts);
   p.M = M;
   p.min_deg = min_deg;
-  const int grid = (M + TM - 1) / TM;
-  const int smem = (int)sizeof(SmemF);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (normals) {
-    err = set_smem(fused_mlp_fwd_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_fwd_kernel<true><<<grid, NT, smem, st>>>(p);
-  } else {
-    err = set_smem(fused_mlp_fwd_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_fwd_kernel<false><<<grid, NT, smem, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  return (int)(normals ? launch_forward<NORMALS>(p, st)
+                       : launch_forward<IPE>(p, st));
+}
+
+// Forward over M rows of encoded features x [M, 96] bf16 (kernel 1).
+int fused_mlp_encoded_forward(const void* x, const void* v,
+                              const void* weights, const float* biases,
+                              float* out, int M, void* stream) {
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  FwdParams p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.v = static_cast<const bf16*>(v);
+  p.w = static_cast<const bf16*>(weights);
+  p.b = biases;
+  p.out = out;
+  p.M = M;
+  return (int)launch_forward<ENCODED>(p, static_cast<cudaStream_t>(stream));
 }
 
 // Backward row pass: writes dmc, the operand rows `ops` ([ceil(M/64)*64,
@@ -674,7 +451,7 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
                             void* ops, float* dmc, float* dw, float* db, int M,
                             int min_deg, int normals, void* stream) {
   if (M <= 0) return (int)cudaErrorInvalidValue;
-  BwdParams p;
+  BwdParams p = {};
   p.mc = mc;
   p.v = static_cast<const bf16*>(v);
   p.w = static_cast<const bf16*>(weights);
@@ -688,24 +465,34 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
   p.db = db;
   p.M = M;
   p.min_deg = min_deg;
-  const int grid = (M + TM - 1) / TM;
-  const int smem = (int)sizeof(SmemB);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (normals) {
-    err = set_smem(fused_mlp_bwd_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_bwd_kernel<true><<<grid, NT, smem, st>>>(p);
-  } else {
-    err = set_smem(fused_mlp_bwd_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_mlp_bwd_kernel<false><<<grid, NT, smem, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  return (int)(normals ? launch_backward<NORMALS>(p, st)
+                       : launch_backward<IPE>(p, st));
 }
 
-// Weight-gradient pass over the operand rows of fused_mlp_backward_rows:
-// adds every packed weight's gradient into the f32 buffer dw.
+// Backward row pass of kernel 1: writes dx [M, 96] f32, the operand rows
+// (fused_mlp_ops_width(0) wide) and adds the bias gradients into db.
+int fused_mlp_encoded_backward_rows(const void* x, const void* v,
+                                    const void* weights, const float* biases,
+                                    const float* g, void* ops, float* dx,
+                                    float* db, int M, void* stream) {
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  BwdParams p = {};
+  p.x = static_cast<const bf16*>(x);
+  p.v = static_cast<const bf16*>(v);
+  p.w = static_cast<const bf16*>(weights);
+  p.b = biases;
+  p.g = g;
+  p.ops = static_cast<bf16*>(ops);
+  p.dx = dx;
+  p.db = db;
+  p.M = M;
+  return (int)launch_backward<ENCODED>(p, static_cast<cudaStream_t>(stream));
+}
+
+// Weight-gradient pass over the operand rows of a backward row pass (this
+// library's or fused_render_train's): adds every packed weight's gradient
+// into the f32 buffer dw. M is the number of operand rows.
 int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
                            void* stream) {
   if (M <= 0) return (int)cudaErrorInvalidValue;

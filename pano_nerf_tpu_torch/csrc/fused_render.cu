@@ -72,14 +72,6 @@ struct Params {
   int white_bkgd, need_normals, need_extras;
 };
 
-__device__ __forceinline__ float softplusf(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
 __global__ void __launch_bounds__(NT, 1) fused_render_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);

@@ -1,6 +1,7 @@
-// Shared by the port's CUDA kernels (fused_render.cu, fused_mlp.cu): the
-// NerfMLP specialisation they are compiled for, the packed weight layout
-// of kernels/fused_render.py `pack_params`, and the 64-row WMMA product.
+// Shared by the port's CUDA kernels (fused_render.cu, fused_mlp.cu,
+// fused_render_train.cu): the NerfMLP specialisation they are compiled
+// for, the packed weight layout of kernels/fused_render.py `pack_params`,
+// the 64-row WMMA product and the activations.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,15 @@ constexpr int OFF_BB = OFF_BD + HP;     // 256
 constexpr int OFF_BV = OFF_BB + W;      // 128
 constexpr int OFF_BC = OFF_BV + VW;     // 16
 constexpr int B_TOTAL = OFF_BC + HP;
+
+// Accurate softplus and sigmoid (expf / log1pf; no fast-math intrinsics).
+__device__ __forceinline__ float softplusf(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
 
 __device__ __forceinline__ int trunk_offset(int layer) {
   if (layer == 0) return OFF_W0;

@@ -25,7 +25,6 @@ Tensor = torch.Tensor
 # Keys whose value needs a training path the port does not have.
 TRAIN_UNSUPPORTED: Dict[str, Callable] = {
     "train.randomized": lambda v: not bool(v),
-    "nerf.use_train_render_kernel": bool,
     "nerf.point_normals": bool,
     "nerf.env_distill_samples": lambda v: int(v) > 0,
     "parallel.num_devices": lambda v: v is not None and int(v) > 1,
@@ -104,10 +103,12 @@ class PanoNeRFSystem:
 
         One optimizer step on a ray batch (flat [B, ...] tensors on the
         system's device), as the JAX `make_train_step`: randomized forward
-        (kernels 2 and 3 on the card), `pano_losses`, backward, the
-        global-norm clip (`optimizer.grad_clip`, 0 = none), the learning
-        rate of `state.step`, Adam. The parts are detached tensors; read
-        them only when needed (reading waits for the device).
+        (kernels 2 and 3 on the card, and kernel 5 for the coarse level and
+        the env queries with `nerf.use_train_render_kernel`),
+        `pano_losses`, backward, the global-norm clip
+        (`optimizer.grad_clip`, 0 = none), the learning rate of
+        `state.step`, Adam. The parts are detached tensors; read them only
+        when needed (reading waits for the device).
         """
         check_train_config(self.hparams)
         if self.env_rays is None and enable_surf:

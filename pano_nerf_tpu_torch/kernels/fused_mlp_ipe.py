@@ -124,7 +124,11 @@ def kernel_library() -> ctypes.CDLL:
         lib.fused_mlp_backward_rows.argtypes = [ptr] * 11 + [i32, i32, i32,
                                                              ptr]
         lib.fused_mlp_weight_grads.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.fused_mlp_encoded_forward.argtypes = [ptr] * 5 + [i32, ptr]
+        lib.fused_mlp_encoded_backward_rows.argtypes = [ptr] * 8 + [i32, ptr]
         for fn in ("fused_mlp_forward", "fused_mlp_backward_rows",
+                   "fused_mlp_encoded_forward",
+                   "fused_mlp_encoded_backward_rows",
                    "fused_mlp_weight_grads", "fused_mlp_weight_count",
                    "fused_mlp_bias_count", "fused_mlp_tile_rows",
                    "fused_mlp_ops_width"):
@@ -166,9 +170,50 @@ def rows_of(means: Tensor, covs: Tensor, v_enc: Tensor,
     M = means.numel() // 3
     mc = torch.cat([means.reshape(M, 3), covs.reshape(M, 3),
                     means.new_zeros(M, 2)], dim=1)
-    v = v_enc.detach().expand(*lead, _VF).reshape(M, _VF)
-    v = F.pad(v, (0, V_PAD - _VF)).to(torch.bfloat16).contiguous()
-    return mc, v
+    return mc, viewdir_rows(v_enc, lead)
+
+
+def viewdir_rows(v_enc: Tensor, lead: Sequence[int]) -> Tensor:
+    """The viewdir encoding [..., 27], broadcast to the leading dims `lead`,
+    as kernel rows [M, 32] bf16 (27 used); no gradient."""
+    v = v_enc.detach().expand(*lead, _VF).reshape(-1, _VF)
+    return F.pad(v, (0, V_PAD - _VF)).to(torch.bfloat16).contiguous()
+
+
+def backward_buffers(lib: ctypes.CDLL, weights: Tensor, biases: Tensor,
+                     rows: int, normals: bool
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Scratch of a backward: the bf16 operand rows [rows, width] of the
+    weight-gradient pass and the zeroed f32 weight and bias gradients."""
+    dev = weights.device
+    ops = torch.empty((rows, lib.fused_mlp_ops_width(int(normals))),
+                      dtype=torch.bfloat16, device=dev)
+    dw = torch.zeros(weights.numel(), dtype=torch.float32, device=dev)
+    db = torch.zeros(biases.numel(), dtype=torch.float32, device=dev)
+    return ops, dw, db
+
+
+def tile_rows(lib: ctypes.CDLL, M: int) -> int:
+    """M rounded up to whole 64-row tiles."""
+    tile = lib.fused_mlp_tile_rows()
+    return -(-M // tile) * tile
+
+
+def weight_grads(lib: ctypes.CDLL, counter, mlp: NerfMLP, ops: Tensor,
+                 dw: Tensor, db: Tensor, normals: bool = False
+                 ) -> Dict[str, Tensor]:
+    """The weight-gradient pass over the operand rows `ops` of a backward
+    row pass (this library's or kernel 5's), counted on `counter`; returns
+    {parameter name: gradient}."""
+    stream = torch.cuda.current_stream(ops.device).cuda_stream
+    check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
+        ops.data_ptr(), dw.data_ptr(), ops.shape[0], int(normals), stream))
+    counter.backward_launches += 1
+    # Weight gradients are rounded to bf16 (the packed weights' type), as
+    # the TPU kernels' `dw.astype(p.dtype)`; bias gradients stay f32.
+    return {name: g.to(torch.bfloat16).float() if name.endswith(
+        "weight") else g.clone()
+        for name, g in unpack_params(mlp, dw, db).items()}
 
 
 def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,
@@ -178,15 +223,10 @@ def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,
     """Backward row pass + weight-gradient pass; returns (d mc [M, 8],
     {parameter name: gradient})."""
     M = mc.shape[0]
-    tile = lib.fused_mlp_tile_rows()
-    rows = -(-M // tile) * tile
-    dev = mc.device
-    ops = torch.empty((rows, lib.fused_mlp_ops_width(int(normals))),
-                      dtype=torch.bfloat16, device=dev)
-    dmc = torch.empty((M, 8), dtype=torch.float32, device=dev)
-    dw = torch.zeros(weights.numel(), dtype=torch.float32, device=dev)
-    db = torch.zeros(biases.numel(), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ops, dw, db = backward_buffers(lib, weights, biases, tile_rows(lib, M),
+                                   normals)
+    dmc = torch.empty((M, 8), dtype=torch.float32, device=mc.device)
+    stream = torch.cuda.current_stream(mc.device).cuda_stream
     check_launch(lib, "fused_mlp backward", lib.fused_mlp_backward_rows(
         mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
         g.data_ptr(), q.data_ptr() if q is not None else None,
@@ -194,14 +234,7 @@ def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,
         dmc.data_ptr(), dw.data_ptr(), db.data_ptr(), M, min_deg,
         int(normals), stream))
     counter.backward_launches += 1
-    check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
-        ops.data_ptr(), dw.data_ptr(), M, int(normals), stream))
-    counter.backward_launches += 1
-    # Weight gradients are rounded to bf16 (the packed weights' type), as
-    # the TPU kernels' `dw.astype(p.dtype)`; bias gradients stay f32.
-    return dmc, {name: g.to(torch.bfloat16).float() if name.endswith(
-        "weight") else g.clone()
-        for name, g in unpack_params(mlp, dw, db).items()}
+    return dmc, weight_grads(lib, counter, mlp, ops, dw, db, normals)
 
 
 class _FusedMlpIpe(torch.autograd.Function):

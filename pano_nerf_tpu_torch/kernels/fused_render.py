@@ -77,26 +77,28 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
                          f"per ray, got {num_samples}")
 
 
-def _check_inputs(means: Tensor, covs: Tensor, viewdirs: Tensor,
-                  t_samples: Tensor, dirs: Tensor) -> Tuple[int, int]:
+def check_inputs(name: str, means: Tensor, covs: Tensor, viewdirs: Tensor,
+                 t_samples: Tensor, dirs: Tensor) -> Tuple[int, int]:
+    """Validate one level's ray inputs (shapes, float32, contiguous, one
+    device); returns (R, S)."""
     if means.ndim != 3 or means.shape[-1] != 3:
         raise ValueError(f"means must be [R, S, 3], got {tuple(means.shape)}")
     R, S = means.shape[:2]
     shapes = dict(means=(means, (R, S, 3)), covs=(covs, (R, S, 3)),
                   viewdirs=(viewdirs, (R, 3)),
                   t_samples=(t_samples, (R, S + 1)), dirs=(dirs, (R, 3)))
-    for name, (t, shape) in shapes.items():
+    for arg, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+            raise ValueError(f"{arg} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+            raise TypeError(f"{arg} must be float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{arg} must be contiguous")
         if t.device != means.device:
-            raise ValueError(f"{name} is on {t.device}, means on "
+            raise ValueError(f"{arg} is on {t.device}, means on "
                              f"{means.device}")
     if R == 0:
-        raise ValueError("fused_render_level needs at least one ray")
+        raise ValueError(f"{name} needs at least one ray")
     return R, S
 
 
@@ -196,7 +198,8 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
     [R, 3], ort [R] (sum_s w_norm relu(n_s . d)^2), albedo [R, 3],
     roughness [R]; float32.
     """
-    R, S = _check_inputs(means, covs, viewdirs, t_samples, dirs)
+    R, S = check_inputs("fused_render_level", means, covs, viewdirs,
+                        t_samples, dirs)
     check_kernel_support(mlp, S, min_deg, max_deg, deg_view)
     if means.device.type == "cpu":
         return fused_render_level_reference(

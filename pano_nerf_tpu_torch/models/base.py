@@ -3,8 +3,10 @@
 Counterpart of pano_nerf_tpu/models/base.py: `from_hparams`,
 `_sample_level`, `_env_samples` and `_expected_normals`. The port has one
 eval path (the fused render kernel) and one training path (the fused MLP
-kernels), so `from_hparams` refuses every config key that would need
-another path (`UNSUPPORTED`) with NotImplementedError naming the key,
+kernels, with the whole-level training kernel for the coarse level and
+env queries when `use_train_render_kernel` is on), so `from_hparams`
+refuses every config key that would need another path (`UNSUPPORTED`)
+with NotImplementedError naming the key,
 instead of silently computing something else. The MLP widths are not
 config-checked: the CUDA kernels raise on widths they were not compiled
 for, while the plain versions on the CPU take any width.
@@ -96,6 +98,14 @@ class NerfConfig:
     eval_coarse_samples: int = 0
     eval_fine_samples: int = 0
     eval_env_samples: int = 0
+    # Training: render the coarse level and the env queries through the
+    # whole-level kernel 5 (`kernels/fused_render_train.py`), spilling its
+    # trunk activations for the backward with `train_kernel_save_acts`.
+    # `train_kernel_scope` ("all" | "coarse" | "env") picks the subgraphs;
+    # as in the JAX package it is a field, not a config key.
+    use_train_render_kernel: bool = False
+    train_kernel_save_acts: bool = False
+    train_kernel_scope: str = "all"
 
     @classmethod
     def from_hparams(cls, hparams: dict) -> "NerfConfig":
@@ -130,6 +140,10 @@ class NerfConfig:
             eval_coarse_samples=int(hparams.get("val.coarse_samples", 0)),
             eval_fine_samples=int(hparams.get("val.fine_samples", 0)),
             eval_env_samples=int(hparams.get("val.env_samples", 0)),
+            use_train_render_kernel=bool(
+                hparams.get("nerf.use_train_render_kernel", False)),
+            train_kernel_save_acts=bool(
+                hparams.get("nerf.train_kernel_save_acts", False)),
         )
 
     @property

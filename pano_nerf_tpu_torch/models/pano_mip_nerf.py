@@ -11,7 +11,11 @@ Two forwards, each with one path:
   Coarse, env and view-consistency queries go through kernel 2
   (`kernels.fused_mlp_ipe`), the fine level with its density gradient
   through kernel 3 (`kernels.fused_mlp_normals`); compositing, losses and
-  shading are plain torch. Its randomness comes in as `TrainDraws`.
+  shading are plain torch. With `use_train_render_kernel` (the JAX
+  package's :290-330 and :569-583) the coarse level and the env queries
+  are instead rendered whole, compositing included, by kernel 5
+  (`kernels.fused_render_train`), as `train_kernel_scope` selects. Its
+  randomness comes in as `TrainDraws`.
 
 The eval forward runs every MLP evaluation through
 `kernels.fused_render.fused_render_level`, three launches per ray chunk:
@@ -39,6 +43,7 @@ from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
     fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.kernels.fused_render import (fused_render_level,
                                                       softplus)
+from pano_nerf_tpu_torch.kernels.fused_render_train import fused_render_train
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
                                              expected_normals)
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
@@ -167,7 +172,7 @@ class PanoMipNeRF(nn.Module):
         rays: [B, ...]; env_rays: [D, ...] fixed env directions with their
         solid angles in `lossmult`; `packed` is the kernels' packed
         parameters (`fused_render.pack_params(self.mlp)`), shared by the
-        four kernel calls of the step.
+        kernel calls of the step.
         """
         cfg = self.cfg
         kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
@@ -176,16 +181,34 @@ class PanoMipNeRF(nn.Module):
         def venc(d: Tensor) -> Tensor:
             return mip.pos_enc(d, 0, cfg.deg_view, True)[..., None, :]
 
+        def kernel_level(scope: str) -> bool:
+            return (cfg.use_train_render_kernel
+                    and cfg.train_kernel_scope in ("all", scope))
+
+        def render_level(means, covs, viewdirs, t_samples, dirs, white):
+            r = fused_render_train(
+                self.mlp, means.contiguous(), covs.contiguous(),
+                viewdirs.contiguous(), t_samples.contiguous(),
+                dirs.contiguous(), deg_view=cfg.deg_view,
+                density_bias=cfg.density_bias, rgb_padding=cfg.rgb_padding,
+                white_bkgd=white, save_acts=cfg.train_kernel_save_acts, **kw)
+            return r["rgb"], r["distance"], r["acc"], r["weights"]
+
         # ---- coarse level ----
         t0, (m0, c0) = mip.sample_along_rays(
             rays.origins, rays.directions, rays.radii,
             cfg.train_coarse_samples(), rays.near, rays.far, cfg.disparity,
             t_rand=draws.t_coarse)
         v = venc(rays.viewdirs)
-        raw_rgb, raw_density = fused_mlp_ipe_apply(self.mlp, m0, c0, v, **kw)
-        comp, dist, acc, w0 = mip.volumetric_rendering(
-            self._rgb(raw_rgb), self._density(raw_density[..., :1]), t0,
-            rays.directions, white_bkgd)
+        if kernel_level("coarse"):
+            comp, dist, acc, w0 = render_level(m0, c0, rays.viewdirs, t0,
+                                               rays.directions, white_bkgd)
+        else:
+            raw_rgb, raw_density = fused_mlp_ipe_apply(self.mlp, m0, c0, v,
+                                                       **kw)
+            comp, dist, acc, w0 = mip.volumetric_rendering(
+                self._rgb(raw_rgb), self._density(raw_density[..., :1]), t0,
+                rays.directions, white_bkgd)
         ret = [LevelOutput(rgb=comp, distance=dist, acc=acc,
                            dist_loss=mip.distortion_loss(t0, w0))]
 
@@ -232,11 +255,19 @@ class PanoMipNeRF(nn.Module):
                 surf_origins, env_rays.directions, cfg.num_env_samples,
                 env_rays.near, env_rays.far, env_rays.radii,
                 t_rand=draws.t_env)
-            e_rgb, e_density = fused_mlp_ipe_apply(self.mlp, lm, lc,
-                                                   venc(lit_dirs), **kw)
-            env_rgb = mip.volumetric_rendering(
-                self._rgb(e_rgb), self._density(e_density[..., :1]), lit_t,
-                lit_dirs, white_bkgd=False)[0]
+            if kernel_level("env"):
+                B, D, S2 = lm.shape[:3]
+                flat_dirs = lit_dirs.reshape(B * D, 3)
+                env_rgb = render_level(
+                    lm.reshape(B * D, S2, 3), lc.reshape(B * D, S2, 3),
+                    flat_dirs, lit_t.reshape(B * D, S2 + 1), flat_dirs,
+                    False)[0].reshape(B, D, 3)
+            else:
+                e_rgb, e_density = fused_mlp_ipe_apply(self.mlp, lm, lc,
+                                                       venc(lit_dirs), **kw)
+                env_rgb = mip.volumetric_rendering(
+                    self._rgb(e_rgb), self._density(e_density[..., :1]),
+                    lit_t, lit_dirs, white_bkgd=False)[0]
             surf_rgb, diffuse, _, shade = shading.surface_rendering(
                 env_rgb, albedo, normal, lit_dirs, env_rays.lossmult)
             out.update(albedo=albedo, surf_rgb=surf_rgb, diffuse=diffuse,

@@ -130,3 +130,98 @@ def test_fused_mlp_kernels_reject_f32_compute_on_the_card(cuda_device):
     mlp.compute_dtype = torch.float32
     with pytest.raises(ValueError, match="bf16"):
         k2.fused_mlp_ipe_apply(mlp, means, covs, v, min_deg=0, max_deg=16)
+
+
+def _render_grads(fn, mlp, args, white_bkgd, **kw):
+    """Outputs of a train level and the gradients of a random-coefficient
+    loss on all four w.r.t. the parameters (flat), means and t_samples."""
+    g = torch.Generator().manual_seed(5)
+    R, S = args[0].shape[:2]
+    coef = {k: torch.randn(shape, generator=g).to(args[0].device)
+            for k, shape in (("rgb", (R, 3)), ("acc", (R,)),
+                             ("distance", (R,)), ("weights", (R, S)))}
+    mlp.zero_grad()
+    means = args[0].clone().requires_grad_(True)
+    t = args[3].clone().requires_grad_(True)
+    out = fn(mlp, means, args[1], args[2], t, args[4],
+             **dict(KW, white_bkgd=white_bkgd), **kw)
+    sum(torch.sum(out[k] * c) for k, c in coef.items()).backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
+    return {k: v.detach() for k, v in out.items()}, flat, means.grad, t.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,white_bkgd", [
+    (37, 56, False), (37, 56, True), (131, 5, False), (13, 5, False)])
+def test_fused_render_train_kernels_match_plain_version(cuda_device, R, S,
+                                                        white_bkgd):
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    mlp = NerfMLP(96, 27, num_density_channels=5,
+                  generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    args = _inputs(R, S, cuda_device)
+    args[3][R // 2] = 1.0  # one empty ray: all samples at one depth
+    want, gp_want, gm_want, gt_want = _render_grads(
+        k5.fused_render_train_reference, mlp, args, white_bkgd)
+    runs = {}
+    for save_acts in (False, True):
+        before = (k5.fused_render_train.launches,
+                  k5.fused_render_train.backward_launches)
+        runs[save_acts] = _render_grads(k5.fused_render_train, mlp, args,
+                                        white_bkgd, save_acts=save_acts)
+        torch.cuda.synchronize()
+        assert (k5.fused_render_train.launches,
+                k5.fused_render_train.backward_launches) == (
+            before[0] + 1, before[1] + 2)
+        got, gp, gm, gt = runs[save_acts]
+        # Weights at 2e-3, a tenth of a typical weight at S = 56: the
+        # backward recomputes them, so only this check sees the written ones.
+        for k, tol in (("rgb", 2e-2), ("distance", 2e-2), ("acc", 1e-2),
+                       ("weights", 2e-3)):
+            torch.testing.assert_close(got[k], want[k], atol=tol, rtol=0)
+        assert _rel(gp, gp_want) < 2e-2
+        assert _rel(gm, gm_want) < 5e-2 and _rel(gt, gt_want) < 5e-2
+        assert not gm[R // 2].any() and torch.isfinite(gt).all()
+    for k in want:
+        assert torch.equal(runs[False][0][k], runs[True][0][k]), k
+    assert torch.equal(runs[False][2], runs[True][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1000, 28672])
+def test_fused_mlp_apply_kernels_match_plain_version(cuda_device, M):
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(M, 96, generator=g) * 0.5).to(cuda_device)
+    v = (torch.randn(M, 27, generator=g) * 0.5).to(cuda_device)
+    mlp = NerfMLP(96, 27, num_density_channels=5,
+                  generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    res = []
+    for fn in (k1.fused_mlp_apply, k1.fused_mlp_apply_reference):
+        before = (k1.fused_mlp_apply.launches,
+                  k1.fused_mlp_apply.backward_launches)
+        mlp.zero_grad()
+        xr = x.clone().requires_grad_(True)
+        outs = fn(mlp, xr, v)
+        (torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()).backward()
+        torch.cuda.synchronize()
+        launched = (k1.fused_mlp_apply.launches - before[0],
+                    k1.fused_mlp_apply.backward_launches - before[1])
+        assert launched == ((1, 2) if fn is k1.fused_mlp_apply else (0, 0))
+        res.append(([o.detach() for o in outs], torch.cat(
+            [p.grad.reshape(-1) for p in mlp.parameters()]), xr.grad))
+    (got, gp, gx), (want, gp_want, gx_want) = res
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-2
+    assert _rel(gp, gp_want) < 2e-2
+    assert _rel(gx, gx_want) < 5e-2
+
+
+@pytest.mark.cuda
+def test_fused_mlp_apply_rejects_other_density_counts_on_the_card(
+        cuda_device):
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    mlp = NerfMLP(96, 27, num_density_channels=4).to(cuda_device)
+    x = torch.zeros(8, 96, device=cuda_device)
+    v = torch.zeros(8, 27, device=cuda_device)
+    with pytest.raises(ValueError, match="num_density_channels"):
+        k1.fused_mlp_apply(mlp, x, v)

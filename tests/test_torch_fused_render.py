@@ -143,6 +143,12 @@ def test_wrapper_rejects_shape_mismatch(mlp256):
         _call(mlp256, args)
 
 
+def test_wrapper_rejects_an_empty_batch_naming_the_kernel(mlp256):
+    with pytest.raises(ValueError,
+                       match="fused_render_level needs at least one ray"):
+        _call(mlp256, _inputs(R=0))
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching(mlp256):
     before = fr.fused_render_level.launches
     with torch.no_grad():

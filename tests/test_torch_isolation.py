@@ -22,6 +22,7 @@ def test_every_module_is_listed():
     assert "pano_nerf_tpu_torch.eval" in MODULES
     assert "pano_nerf_tpu_torch.kernels.fused_render" in MODULES
     for name in ("train", "kernels.fused_mlp_ipe", "kernels.fused_mlp_normals",
+                 "kernels.fused_mlp", "kernels.fused_render_train",
                  "engine.losses", "engine.schedule", "engine.checkpoint",
                  "engine.trainer"):
         assert f"pano_nerf_tpu_torch.{name}" in MODULES, name

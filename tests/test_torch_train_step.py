@@ -10,6 +10,12 @@ stratification from keys[0], resampling jitter from keys[2], env
 stratification from keys[-1]; `fold_in(step_key, 0x5C)` for the
 view-consistency direction). A small model (width 64, 16 rays, 8 + 8
 samples, 4 env directions x 4 samples) keeps it fast.
+
+With `nerf.use_train_render_kernel` the port renders the coarse level and
+the env queries through kernel 5 (`fused_render_train`, its plain version
+here). JAX does so too in bf16, with its Pallas kernel in interpret mode;
+in f32 its kernel topology check (bf16 only) sends it down the standard
+path, which computes the same function.
 """
 
 import os
@@ -77,8 +83,11 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def _run_both(precision):
-    opts = OPTS + ["train.precision", f"'{precision}'"]
+KERNEL5 = ["nerf.use_train_render_kernel", "True"]
+
+
+def _run_both(precision, extra=()):
+    opts = OPTS + ["train.precision", f"'{precision}'", *extra]
     jhp = jax_load_config(CONFIG, opts)
     jsys = JaxSystem(jhp)
     jsys.set_env_rays(jax_lit(num=D, far=10.0))
@@ -126,7 +135,10 @@ def _leaves(tree):
 
 
 def test_train_step_matches_jax_in_f32():
-    j_parts, j_grads, j_new, parts, grads, new, hp = _run_both("f32")
+    _check_f32(*_run_both("f32"))
+
+
+def _check_f32(j_parts, j_grads, j_new, parts, grads, new, hp):
     names = ("loss", "vol_coarse", "vol_fine", "vol_surface", "chrom",
              "ort", "dist", "sat", "vc")
     assert set(names) <= set(parts)
@@ -151,13 +163,80 @@ def test_train_step_tracks_jax_in_bf16():
     round matmul operands only, as the kernels do. So the step is held
     loosely: loss parts within 3% and gradients within 10% (rel-norm per
     leaf), which still catches any term or wiring that is off."""
-    j_parts, j_grads, _, parts, grads, _, _ = _run_both("bf16")
+    _check_bf16(*_run_both("bf16"))
+
+
+def _check_bf16(j_parts, j_grads, _, parts, grads, *rest):
     for k in ("loss", "vol_coarse", "vol_fine", "vol_surface", "vc"):
         want, got = float(j_parts[k]), float(parts[k])
         assert abs(got - want) <= 3e-2 * abs(want), (k, got, want)
     jg, pg = _leaves(j_grads), _leaves(grads)
     for k in jg:
         assert _rel(pg[k], jg[k]) < 0.1, k
+
+
+def test_train_render_kernel_step_matches_jax_in_f32():
+    _check_f32(*_run_both("f32", KERNEL5))
+
+
+def test_train_render_kernel_step_tracks_jax_in_bf16(monkeypatch):
+    """Both through kernel 5 (JAX's Pallas kernel in interpret mode), held
+    as `test_train_step_tracks_jax_in_bf16` holds the standard step."""
+    monkeypatch.setenv("PANO_NERF_PALLAS_INTERPRET", "1")
+    _check_bf16(*_run_both("bf16", KERNEL5))
+
+
+def _port_step(extra, scope="all"):
+    """One f32 port step on the test batch; returns (loss parts, grads)."""
+    import dataclasses
+    hp = load_config(CONFIG, OPTS + ["train.precision", "'f32'", *extra])
+    psys = PanoNeRFSystem(hp, device="cpu")
+    model = psys.model
+    model.cfg = dataclasses.replace(model.cfg, train_kernel_scope=scope)
+    psys.set_env_rays(generate_lit_rays(D, 0.0, 10.0))
+    rays_np, rgbs_np = _batch()
+    parts = psys.make_train_step(True)(
+        psys.create_state(), rays_to_tensors(rays_np, torch.device("cpu")),
+        torch.tensor(rgbs_np), _draws(jax.random.PRNGKey(7), 0))
+    return parts, {n: p.grad.numpy() for n, p in model.mlp.named_parameters()}
+
+
+@pytest.mark.parametrize("scope", ["all", "coarse", "env"])
+def test_train_render_kernel_on_equals_off_in_f32(scope, monkeypatch):
+    """Kernel 5 computes the function of the standard path's coarse level
+    and env queries, so in f32 the step's loss parts and gradients agree
+    under each `train_kernel_scope`; and kernel 5's plain version ran once
+    for each subgraph the scope selects."""
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    calls = []
+    plain = k5.fused_render_train_reference
+
+    def counted(mlp, means, *a, **k):
+        calls.append(tuple(means.shape))
+        return plain(mlp, means, *a, **k)
+
+    monkeypatch.setattr(k5, "fused_render_train_reference", counted)
+    off_parts, off_grads = _port_step([])
+    assert calls == []
+    on_parts, on_grads = _port_step(KERNEL5, scope)
+    assert calls == dict(all=[(B, N, 3), (B * D, S, 3)], coarse=[(B, N, 3)],
+                         env=[(B * D, S, 3)])[scope]
+    for k, v in off_parts.items():
+        want, got = float(v), float(on_parts[k])
+        assert abs(got - want) <= 1e-5 * abs(want) + 1e-9, (k, got, want)
+    for n, g in off_grads.items():
+        assert _rel(on_grads[n], g) < 1e-4, n
+
+
+def test_fused_mlp_apply_takes_five_density_channels_on_the_card():
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    from pano_nerf_tpu_torch.models.mlp import NerfMLP
+    k1.check_kernel_support(NerfMLP(96, 27, num_density_channels=5),
+                            torch.device("cuda"))
+    six = NerfMLP(96, 27, num_density_channels=6)
+    k1.check_kernel_support(six, torch.device("cpu"))
+    with pytest.raises(ValueError, match="num_density_channels"):
+        k1.check_kernel_support(six, torch.device("cuda"))
 
 
 def test_clip_scale_is_exactly_one_under_the_bound():
@@ -229,7 +308,7 @@ def test_randomized_sampling_matches_jax():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("nerf.use_train_render_kernel", True), ("nerf.point_normals", True),
+    ("nerf.point_normals", True),
     ("nerf.env_distill_samples", 4), ("loss.scale_distill", 0.1),
     ("loss.env_distill", 0.1), ("loss.illum_distill", 0.1),
     ("loss.vc_chroma", 0.1), ("loss.vc_sat_mask", True),
