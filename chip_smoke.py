@@ -18,9 +18,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel 5 (`fused_render_train`), forward and backward with `save_acts`
    off and on, at the levels it renders with the key on (coarse 512 x 56,
    env 5,120 x 5), the spilled and recomputed runs equal; and kernel 1
-   (`fused_mlp_apply`) on the coarse level's 28,672 encoded rows. Prints
-   the errors beside their tolerances, per-launch times of kernel and
-   plain version (CUDA events, warm-up excluded) and the bound.
+   (`fused_mlp_apply`) on the coarse level's 28,672 encoded rows. Every
+   backward is also timed as its two passes: the row pass alone, then the
+   weight-gradient pass on the operand rows that row pass wrote, held
+   against `weight_grads_reference` on the same rows (rel-norm 1e-4 per
+   weight) and timed beside torch.matmul on the same products (the
+   yardstick, `library_ms`; the port never calls it), each pass beside
+   its own bound. Prints the errors beside their tolerances, per-launch
+   times of kernel and plain version (CUDA events, warm-up excluded) and
+   the bounds.
 3. Eval main path: a 4-view 512x1024 synthetic scene, rendered at
    `val.factor` 4 (128x256) by `python -m pano_nerf_tpu_torch.eval` (in
    process) with weights from `--init_seed`: 96 kernel-4 launches per val
@@ -31,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    200 steps of the shipped config on the same scene (3 train views, 1 val
    view, `train.factor` 4). Launch counts are zeroed just before and read
    just after: 3 + 6 launches of kernel 2 (forward; backward row pass and
-   weight-gradient pass) and 1 + 2 of kernel 3 per step, the validations
+   weight-gradient pass) and 1 + 2 of kernel 3 per step (4 of them the
+   weight-gradient pass, counted also on its own), the validations
    through kernel 4, no plain-version call; every loss finite, the mean of
    the last 20 losses below that of the first 20. Prints train rays/s and
    ms per step.
@@ -46,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the same with the key on.
 
 Kernel 1 is a library function that no model path calls: its launches are
-counted in phases 3, 4 and 4b like the others' and must be 0. The last lines are the card (nvidia-smi name, power
+counted in phases 3, 4 and 4b like the others' and must be 0. The
+weight-gradient pass (`fused_mlp_weight_grads`), shared by the backward
+of kernels 1, 2, 3 and 5, has its own entry. The last lines are the card (nvidia-smi name, power
 limit), one JSON object with each kernel's numbers and
 `{"ok": true, "device": ...}`. No JAX is imported.
 """
@@ -91,9 +100,16 @@ def build_kernels():
     print(f"[build] {len(sources)} source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     for src, (log, secs) in build.BUILD_LOGS.items():
+        injected = 0
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "C7519" in line:   # wgmma register-use hint, one per site
+                injected += 1
+            elif ("registers" in line or "spill" in line
+                  or "setmaxnreg" in line or "warning" in line):
                 print(f"[build] {src}: {line.strip()}")
+        if injected:
+            print(f"[build] {src}: {injected} warpgroup.arrive insertions "
+                  f"(ptxas C7519)")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -196,6 +212,81 @@ def _packed_bytes(packed, grads: bool) -> int:
                for t in packed)
 
 
+# The weight-gradient pass against its plain version on the same operand
+# rows: only the order of the f32 sums differs.
+WGRAD_TOL = 1e-4   # rel-norm per weight parameter
+
+
+def _wgrad_library(ops, normals: bool):
+    """The yardstick of the weight-gradient pass: its products as
+    torch.matmul (cuBLAS, bf16 in, f32 accumulate, bf16 out) on bf16
+    slices of the same operand rows, one call per product (an addmm_ for
+    a NORMALS trunk weight's second pair). The port never calls it."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    jobs = k2.wgrad_jobs(normals)
+
+    def call():
+        for b1, a1, b2, a2, n, k, _, _ in jobs:
+            r = ops[:, b1:b1 + n].t() @ ops[:, a1:a1 + k]
+            if b2 >= 0:
+                r.addmm_(ops[:, b2:b2 + n].t(), ops[:, a2:a2 + k])
+    return call
+
+
+def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
+                       shape: str, failures: list) -> dict:
+    """The weight-gradient kernel on the operand rows `ops` that a row
+    pass just wrote: held against `weight_grads_reference` per weight
+    parameter, timed beside its plain version, its bound (the `rows` real
+    operand rows read once, not the buffer's idle tile rows; f32 dw
+    written once) and the
+    torch.matmul yardstick. Adds the shape to `entry`; returns the
+    numbers."""
+    import torch
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels.fused_render import unpack_params
+    lib = k2.kernel_library()
+    dw = torch.zeros(k2.W_TOTAL, device=ops.device)
+    k2.launch_weight_grads(lib, ops, dw, normals)
+    want = k2.weight_grads_reference(ops, normals)
+    torch.cuda.synchronize()
+    db = torch.zeros(lib.fused_mlp_bias_count(), device=ops.device)
+    got_p, want_p = unpack_params(mlp, dw, db), unpack_params(mlp, want, db)
+    rel = 0.0
+    for name, w in want_p.items():
+        if name.endswith("weight"):
+            if float(torch.linalg.norm(w)) == 0.0:
+                rel = max(rel, float(got_p[name].abs().max()))
+            else:
+                rel = max(rel, _rel(got_p[name], w))
+    err = float((dw - want).abs().max())
+    if not rel <= WGRAD_TOL:
+        failures.append(f"{shape}.wgrad_rel: {rel:.3e} > {WGRAD_TOL}")
+    ms = _time_ms(lambda: k2.launch_weight_grads(lib, ops, dw, normals),
+                  reps=20)
+    plain_ms = _time_ms(lambda: k2.weight_grads_reference(ops, normals),
+                        reps=3)
+    library_ms = _time_ms(_wgrad_library(ops, normals), reps=20)
+    macs = (MLP_MACS + (NORMAL_MACS if normals else 0)) * rows
+    bound = _bound(macs, rows * ops.shape[1] * 2 + k2.W_TOTAL * 4)
+    _add(entry, shape, ms, plain_ms, bound, err, rows=rows,
+         buffer_rows=ops.shape[0],
+         library_ms=library_ms, rel=rel)
+    entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
+    return dict(ms=ms, bound=bound, library_ms=library_ms, rel=rel)
+
+
+def _wgrad_entry() -> dict:
+    e = _entry("fused_mlp_weight_grads", "fused_mlp.cu",
+               "fused_mlp_ipe.py:237")
+    e["bound_by"] = "bytes"
+    e["shared_by"] = ("the backward of kernels 1, 2, 3 and 5 (TPU: the "
+                      "dW accumulation inside fused_mlp.py:328, "
+                      "fused_mlp_ipe.py:237, fused_mlp_normals.py:331, "
+                      "fused_render_train.py:399)")
+    return e
+
+
 def check_kernels(model, env, dev) -> dict:
     """Kernel vs plain version at the main path's shapes; raises on a
     disagreement. Returns the kernel's JSON entry."""
@@ -253,6 +344,7 @@ def drive_main_path(workdir: str) -> dict:
     from pano_nerf_tpu_torch.data.synthetic import generate_scene
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_render as fr
     scene = os.path.join(workdir, "scene")
     t0 = time.perf_counter()
@@ -270,13 +362,15 @@ def drive_main_path(workdir: str) -> dict:
     fr.fused_render_level_reference = no_plain
     fr.fused_render_level.launches = 0
     k1.fused_mlp_apply.launches = k1.fused_mlp_apply.backward_launches = 0
+    k2.weight_grads.launches = 0
     try:
         metrics = eval_entry.main(argv)
     finally:
         launches = fr.fused_render_level.launches
         k1_launches = dict(
             fused_mlp_apply_fwd=k1.fused_mlp_apply.launches,
-            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches)
+            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches,
+            fused_mlp_weight_grads=k2.weight_grads.launches)
         fr.fused_render_level_reference = plain
     n = metrics["num_images"]
     if n < 1:
@@ -285,7 +379,7 @@ def drive_main_path(workdir: str) -> dict:
         raise AssertionError(f"{launches} kernel launches for {n} "
                              f"panoramas, expected {96 * n}")
     if any(k1_launches.values()):
-        raise AssertionError(f"the eval path launched kernel 1: "
+        raise AssertionError(f"the eval path launched a training kernel: "
                              f"{k1_launches}")
     for k, v in metrics.items():
         if isinstance(v, float) and v != v:
@@ -298,7 +392,7 @@ def drive_main_path(workdir: str) -> dict:
     print(f"[main] {n} panoramas of 128x256: {launches} kernel launches, "
           f"{metrics['render_ms_per_pano']:.1f} ms per panorama, "
           f"{metrics['rays_per_s']:.0f} rays/s on {metrics['device']}; "
-          f"kernel 1 launches {json.dumps(k1_launches)}")
+          f"kernel 1 and weight-gradient launches {json.dumps(k1_launches)}")
     return dict(metrics=metrics, launches=launches, k1_launches=k1_launches,
                 scene=scene)
 
@@ -374,6 +468,11 @@ HEADS_MACS = 65_536 + 36_224   # bottleneck + view layer
 K2_MACS = dict(fwd=MLP_MACS, bwd=3 * MLP_MACS)
 K3_MACS = dict(fwd=MLP_MACS + NORMAL_MACS,
                bwd=2 * MLP_MACS + 3 * NORMAL_MACS + HEADS_MACS)
+# The backward's row pass alone (the weight-gradient pass does the rest):
+# kernel 2 recomputes the forward and runs the data gradients; kernel 3
+# recomputes the heads, runs the data gradients, the chain and the walk.
+ROW_MACS = {False: 2 * MLP_MACS,
+            True: MLP_MACS + 2 * NORMAL_MACS + HEADS_MACS}
 
 
 def _train_shapes(model, env, dev, batch: int = 512):
@@ -475,10 +574,12 @@ def _train_bound_ms(normals: bool, direction: str, rows: int,
                   bytes_)
 
 
-def check_train_kernels(model, dev, calls) -> list:
+def check_train_kernels(model, dev, calls, wentry: dict) -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
-    the shapes of one train step; raises on a disagreement. Returns the
-    four JSON entries (launches filled in by the train run)."""
+    the shapes of one train step, and the weight-gradient pass on each
+    backward's own operand rows (into `wentry`); raises on a
+    disagreement. Returns the four JSON entries (launches filled in by
+    the train run)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -550,6 +651,20 @@ def check_train_kernels(model, dev, calls) -> list:
 
         ms_f = _time_ms(fwd, reps=20)
         ms_b = _time_ms(bwd, reps=10)
+        # The two passes alone: the row pass, then the weight-gradient
+        # pass on the operand rows it wrote.
+        ops, dw_r, db_r = k2.backward_buffers(lib, *packed,
+                                              k2.tile_rows(lib, M), normals)
+        dmc_r = torch.empty((M, 8), device=dev)
+        ms_r = _time_ms(lambda: k2.launch_backward_rows(
+            lib, mc, v, *packed, g, q, acts, ops, dmc_r, dw_r, db_r,
+            cfg.min_deg_point, normals), reps=10)
+        bound_r = _bound(ROW_MACS[normals] * M, M * (
+            32 + 64 + 64 + 32 + (12 + 8 * 256 * 2 if normals else 0))
+            + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
+        wg = check_weight_grads(mlp, ops, normals, M, wentry,
+                                f"k{3 if normals else 2}_{shape}", failures)
+        del ops, dw_r, db_r, dmc_r
         with torch.no_grad():
             plain_f = _time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
                                reps=3)
@@ -561,19 +676,28 @@ def check_train_kernels(model, dev, calls) -> list:
             p_outs, params, cot, retain_graph=True), reps=3)
         del p_outs
         base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
+        passes = dict(row_ms=ms_r, row_bound_ms=bound_r, wgrad_ms=wg["ms"],
+                      wgrad_bound_ms=wg["bound"],
+                      wgrad_library_ms=wg["library_ms"])
         for direction, ms, pms in (("fwd", ms_f, plain_f),
                                    ("bwd", ms_b, plain_b)):
             _add(entries[f"{base}_{direction}"], shape, ms, pms,
                  _train_bound_ms(normals, direction, M, packed),
                  errs["out_abs" if direction == "fwd" else "grad_abs"],
-                 rows=M, errors=errs)
+                 rows=M, errors=errs,
+                 **(passes if direction == "bwd" else {}))
         print(f"[kernel] {shape:6s} M={M} {'k3' if normals else 'k2'}: fwd "
               f"{ms_f:.3f} ms (plain {plain_f:.3f}, bound "
               f"{_train_bound_ms(normals, 'fwd', M, packed):.4f}), bwd "
               f"{ms_b:.3f} ms (plain {plain_b:.3f}, bound "
-              f"{_train_bound_ms(normals, 'bwd', M, packed):.4f}); errors "
+              f"{_train_bound_ms(normals, 'bwd', M, packed):.4f}) = row "
+              f"pass {ms_r:.4f} ms (its bound {bound_r:.4f}) + weight "
+              f"gradients {wg['ms']:.4f} ms (its bound {wg['bound']:.4f}, "
+              f"torch.matmul {wg['library_ms']:.4f}, rel vs plain "
+              f"{wg['rel']:.2e}); errors "
               + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
-              + "; tolerances " + json.dumps(TRAIN_TOL), flush=True)
+              + "; tolerances " + json.dumps(TRAIN_TOL)
+              + f", wgrad_rel {WGRAD_TOL}", flush=True)
     if failures:
         raise AssertionError("training kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
@@ -606,13 +730,15 @@ def _level_grads(fn, mlp, args, coef, **kw):
     return {k: v.detach() for k, v in out.items()}, flat, m.grad, t.grad
 
 
-def check_train_render_kernel(model, dev, levels) -> list:
+def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
     """Kernel 5 (forward and backward, `save_acts` off and on) vs its
     plain version at the coarse (512 x 56) and env (5,120 x 5) levels of
-    one key-on train step; raises on a disagreement or when the spilled
+    one key-on train step, and the weight-gradient pass on its operand
+    rows (into `wentry`); raises on a disagreement or when the spilled
     and recomputed runs differ. Returns the two JSON entries."""
     import types
     import torch
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_render_train as k5
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
     mlp, cfg = model.mlp, model.cfg
@@ -672,6 +798,7 @@ def check_train_render_kernel(model, dev, levels) -> list:
         g_w = torch.randn(R, S, device=dev)
         dummy = types.SimpleNamespace(backward_launches=0)
         ms = {}
+        tiles = k5.kernel_library().fused_render_train_blocks(R, S)
         for save_acts in (False, True):
             ms["fwd", save_acts] = _time_ms(lambda: k5.launch_forward(
                 mc, clip, v, *packed, lv, save_acts), reps=20)
@@ -679,7 +806,18 @@ def check_train_render_kernel(model, dev, levels) -> list:
             ms["bwd", save_acts] = _time_ms(lambda: k5.run_backward(
                 dummy, mlp, mc, clip, v, *packed, acts, g_out, g_w, lv),
                 reps=10)
-            del acts
+            # The row pass alone, then (once) the weight-gradient pass on
+            # the operand rows it wrote.
+            ops, _, db_r = k2.backward_buffers(k2.kernel_library(), *packed,
+                                               tiles * k5.TILE_ROWS, False)
+            dmc_r = torch.empty((R * S, 8), device=dev)
+            ms["rows", save_acts] = _time_ms(lambda: k5.launch_backward_rows(
+                mc, clip, v, *packed, acts, g_out, g_w, lv, ops, dmc_r, db_r),
+                reps=10)
+            if not save_acts:
+                wg = check_weight_grads(mlp, ops, False, R * S, wentry,
+                                        f"k5_{shape}", failures)
+            del acts, ops, db_r, dmc_r
         with torch.no_grad():
             plain_f = _time_ms(lambda: k5.fused_render_train_reference(
                 mlp, *args, **kw), reps=3)
@@ -705,6 +843,12 @@ def check_train_render_kernel(model, dev, levels) -> list:
         bounds["bwd", True] = _bound((3 * MLP_MACS - TRUNK_MACS) * rows,
                                      rows * (128 + spill) + per_ray
                                      + _packed_bytes(packed, True))
+        ops_bytes = rows * k2.OPW_IPE * 2   # real rows, not idle tile rows
+        for save_acts in (False, True):
+            bounds["rows", save_acts] = _bound(
+                (2 * MLP_MACS - (TRUNK_MACS if save_acts else 0)) * rows,
+                rows * (128 + (spill if save_acts else 0)) + per_ray
+                + ops_bytes + w_bytes)
         _add(fwd, shape, ms["fwd", False], plain_f, bounds["fwd", False],
              max(v for k, v in errs.items() if k in K5_OUTS), R=R, S=S,
              ms_save_acts=ms["fwd", True],
@@ -712,12 +856,23 @@ def check_train_render_kernel(model, dev, levels) -> list:
         _add(bwd, shape, ms["bwd", False], plain_b, bounds["bwd", False],
              max(errs["grad_abs"], errs["grad_abs_spill"]), R=R, S=S,
              ms_save_acts=ms["bwd", True],
-             bound_ms_save_acts=bounds["bwd", True])
+             bound_ms_save_acts=bounds["bwd", True],
+             row_ms=ms["rows", False], row_bound_ms=bounds["rows", False],
+             row_ms_save_acts=ms["rows", True],
+             row_bound_ms_save_acts=bounds["rows", True],
+             wgrad_ms=wg["ms"], wgrad_bound_ms=wg["bound"],
+             wgrad_library_ms=wg["library_ms"])
         print(f"[kernel] {shape:6s} R={R} S={S} k5: fwd {ms['fwd', False]:.3f}"
               f" ms (save_acts {ms['fwd', True]:.3f}; plain {plain_f:.3f}, "
               f"bound {bounds['fwd', False]:.4f}), bwd "
               f"{ms['bwd', False]:.3f} ms (save_acts {ms['bwd', True]:.3f}; "
-              f"plain {plain_b:.3f}, bound {bounds['bwd', False]:.4f}); "
+              f"plain {plain_b:.3f}, bound {bounds['bwd', False]:.4f}) = "
+              f"row pass {ms['rows', False]:.4f} ms (save_acts "
+              f"{ms['rows', True]:.4f}; its bound "
+              f"{bounds['rows', False]:.4f} / {bounds['rows', True]:.4f}) + "
+              f"weight gradients {wg['ms']:.4f} ms (its bound "
+              f"{wg['bound']:.4f}, torch.matmul {wg['library_ms']:.4f}, "
+              f"rel vs plain {wg['rel']:.2e}); "
               f"spilled == recomputed: {same}; errors "
               + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
               + "; tolerances " + json.dumps(K5_TOL),
@@ -731,9 +886,10 @@ def check_train_render_kernel(model, dev, levels) -> list:
 K1_TOL = dict(out_abs=2e-2, grad_rel=2e-2, dx_rel=5e-2)
 
 
-def check_fused_mlp_kernel(model, dev, levels) -> list:
+def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
     """Kernel 1 (forward and backward) vs its plain version on the IPE
-    features of the coarse level's 28,672 rows; raises on a disagreement.
+    features of the coarse level's 28,672 rows, and the weight-gradient
+    pass on its operand rows (into `wentry`); raises on a disagreement.
     Returns the two JSON entries (no model path launches kernel 1)."""
     import types
     import torch
@@ -777,6 +933,17 @@ def check_fused_mlp_kernel(model, dev, levels) -> list:
     ms_f = _time_ms(lambda: k1.launch_forward(xb, v, *packed), reps=20)
     ms_b = _time_ms(lambda: k1.run_backward(dummy, mlp, xb, v, *packed, g),
                     reps=10)
+    lib = k2.kernel_library()
+    ops, _, db_r = k2.backward_buffers(lib, *packed, k2.tile_rows(lib, M),
+                                       False)
+    dx_r = torch.empty((M, 96), device=dev)
+    ms_r = _time_ms(lambda: k1.launch_backward_rows(xb, v, *packed, g, ops,
+                                                    dx_r, db_r), reps=10)
+    bound_r = _bound(2 * MLP_MACS * M, M * (192 + 64 + 64 + 384)
+                     + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
+    wg = check_weight_grads(mlp, ops, False, M, wentry, "k1_coarse",
+                            failures)
+    del ops, db_r, dx_r
     with torch.no_grad():
         plain_f = _time_ms(lambda: k1.fused_mlp_apply_reference(
             mlp, x, v_enc), reps=3)
@@ -795,10 +962,15 @@ def check_fused_mlp_kernel(model, dev, levels) -> list:
     bwd = _entry("fused_mlp_apply_bwd", "fused_mlp.cu", "fused_mlp.py:328")
     _add(fwd, "coarse", ms_f, plain_f, bound_f, errs["out_abs"], rows=M,
          errors=errs)
-    _add(bwd, "coarse", ms_b, plain_b, bound_b, errs["grad_abs"], rows=M)
+    _add(bwd, "coarse", ms_b, plain_b, bound_b, errs["grad_abs"], rows=M,
+         row_ms=ms_r, row_bound_ms=bound_r, wgrad_ms=wg["ms"],
+         wgrad_bound_ms=wg["bound"], wgrad_library_ms=wg["library_ms"])
     print(f"[kernel] coarse M={M} k1: fwd {ms_f:.3f} ms (plain "
           f"{plain_f:.3f}, bound {bound_f:.4f}), bwd {ms_b:.3f} ms (plain "
-          f"{plain_b:.3f}, bound {bound_b:.4f}); errors "
+          f"{plain_b:.3f}, bound {bound_b:.4f}) = row pass {ms_r:.4f} ms "
+          f"(its bound {bound_r:.4f}) + weight gradients {wg['ms']:.4f} ms "
+          f"(its bound {wg['bound']:.4f}, torch.matmul "
+          f"{wg['library_ms']:.4f}, rel vs plain {wg['rel']:.2e}); errors "
           + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
           + "; tolerances " + json.dumps(K1_TOL), flush=True)
     if failures:
@@ -859,6 +1031,7 @@ def drive_train_path(workdir: str, scene: str,
     for c in counters:
         c.launches = c.backward_launches = 0
     fr.fused_render_level.launches = 0
+    k2.weight_grads.launches = 0
     t0 = time.perf_counter()
     try:
         trainer = train_entry.main(argv)
@@ -874,7 +1047,8 @@ def drive_train_path(workdir: str, scene: str,
             fused_mlp_normals_bwd=k3.fused_mlp_normals_apply.backward_launches,
             fused_render_train_fwd=k5.fused_render_train.launches,
             fused_render_train_bwd=k5.fused_render_train.backward_launches,
-            fused_render_level=fr.fused_render_level.launches)
+            fused_render_level=fr.fused_render_level.launches,
+            fused_mlp_weight_grads=k2.weight_grads.launches)
         PanoNeRFSystem.make_train_step = make
         for m, n, f in saved:
             setattr(m, n, f)
@@ -901,6 +1075,9 @@ def drive_train_path(workdir: str, scene: str,
     for k, n in per_step.items():
         want[k] = n * TRAIN_STEPS
         want[k.replace("_fwd", "_bwd")] = 2 * n * TRAIN_STEPS
+    # One weight-gradient pass per backward: 4 per step either way.
+    want["fused_mlp_weight_grads"] = sum(
+        n for k, n in per_step.items()) * TRAIN_STEPS
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -1052,32 +1229,107 @@ def profile_train_step(trainer, steps: int = 3) -> None:
     _report_profile(prof, wall_us, f"{steps} train steps" + (
         " with the render kernel"
         if system.model.cfg.use_train_render_kernel else ""))
+    if not system.model.cfg.use_train_render_kernel:
+        adam_grads_ab(state.optimizer)
+
+
+def _is_annotation(e) -> bool:
+    """A user range mirrored onto the device timeline (torch.optim's
+    `Optimizer.step#Adam.step`): it spans kernels and the idle time
+    between them, so it is no device work of its own."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.name.startswith(
+        "Optimizer.")
+
+
+def _union_us(spans) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _device_split(prof):
+    """(kernel events, {annotation name: (count, span us, kernel-busy us
+    inside the spans)}) of a profile's device timeline."""
+    import torch
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in cuda if not _is_annotation(e)]
+    ranges = [(e.time_range.start, e.time_range.end) for e in kernels]
+    notes = {}
+    for e in cuda:
+        if _is_annotation(e):
+            a, b = e.time_range.start, e.time_range.end
+            inside = _union_us((max(x, a), min(y, b)) for x, y in ranges
+                               if x < b and y > a)
+            n, span, k = notes.get(e.name, (0, 0.0, 0.0))
+            notes[e.name] = (n + 1, span + b - a, k + inside)
+    return kernels, notes
 
 
 def _report_profile(prof, wall_us: float, what: str) -> None:
-    import torch
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, notes = _device_split(prof)
     if not kernels:
         print("[time] the profiler recorded no device events: device busy "
               "share not measured")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of the kernels' intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     print(f"[time] {what}: host wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy / wall_us):.1f}%, {len(kernels)} device events")
+          f"{100 * (1 - busy / wall_us):.1f}%, {len(kernels)} device events "
+          f"(kernels, copies and fills; user ranges apart)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"[time]   {t / 1e3:9.3f} ms  {n:5d} x  {name[:90]}")
+    for name, (n, span, inside) in notes.items():
+        print(f"[time]   range {name}: {n} x, span {span / 1e3:.3f} ms on "
+              f"the device, of which kernels busy {inside / 1e3:.3f} ms")
 
+
+def adam_grads_ab(optimizer, steps: int = 5, rounds: int = 3) -> None:
+    """Adam's device cost with the gradients as a train step leaves them
+    against the same gradients cloned into fresh contiguous tensors, in
+    alternating rounds: whether views of the weight-gradient pass's packed
+    buffer reach the optimizer, and what they cost it (torch.profiler,
+    `steps` optimizer steps per round; the step changes the weights, so
+    run it last)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.grad is not None]
+    left = [p.grad for p in params]
+    cloned = [g.clone(memory_format=torch.contiguous_format) for g in left]
+    views = sum(g._base is not None for g in left)
+    strided = sum(not g.is_contiguous() for g in left)
+    print(f"[adam] {len(params)} gradients after a step: {views} views of "
+          f"another tensor, {strided} not contiguous", flush=True)
+    for r in range(2 * rounds):
+        how, grads = (("as left by the step", left) if r % 2 == 0
+                      else ("cloned", cloned))
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                optimizer.step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / steps
+        kernels, notes = _device_split(prof)
+        busy = _union_us((e.time_range.start, e.time_range.end)
+                         for e in kernels) / 1e3 / steps
+        span = sum(v[1] for v in notes.values()) / 1e3 / steps
+        print(f"[adam] round {r // 2 + 1}, gradients {how}: "
+              f"{len(kernels)} device events in {steps} steps, device busy "
+              f"{busy:.4f} ms, range span {span:.4f} ms, host wall "
+              f"{wall:.4f} ms per step", flush=True)
 
 
 def main() -> int:
@@ -1114,9 +1366,12 @@ def main() -> int:
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
     calls, levels = _train_shapes(model, env, dev)
-    train_entries = check_train_kernels(model, dev, calls)
-    k5_entries = check_train_render_kernel(model, dev, levels)
-    k1_entries = check_fused_mlp_kernel(model, dev, levels)
+    wentry = _wgrad_entry()
+    train_entries = check_train_kernels(model, dev, calls, wentry)
+    k5_entries = check_train_render_kernel(model, dev, levels, wentry)
+    k1_entries = check_fused_mlp_kernel(model, dev, levels, wentry)
+    if wentry["max_abs_err"] != wentry["max_abs_err"]:
+        raise AssertionError("weight-gradient pass gave NaN")
     del calls, levels
     with tempfile.TemporaryDirectory() as workdir:
         run = drive_main_path(workdir)
@@ -1138,12 +1393,12 @@ def main() -> int:
         e["launches"] = train["launches"][e["name"]]
     for e in k5_entries:
         e["launches"] = train_k5["launches"][e["name"]]
-    for e in k1_entries:   # counted over all three main-path runs
+    for e in k1_entries + [wentry]:   # counted over all three runs
         e["launches"] = (run["k1_launches"][e["name"]]
                          + train["launches"][e["name"]]
                          + train_k5["launches"][e["name"]])
     print(f"[card] {card}")
-    print(json.dumps({"kernels": k1_entries + train_entries + [entry]
+    print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

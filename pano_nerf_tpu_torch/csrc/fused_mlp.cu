@@ -18,38 +18,38 @@
 // (or x for ENCODED), and per-row viewdir encodings v [M, 32] bf16 (27
 // used). The output slab is [M, 16] f32: raw rgb (3) | raw density (5) | 0.
 //
-// What bounds it on an H100: tensor-core operations. A row costs 611,328
-// MACs forward (+507,904 for the chain), against 96 B of inputs; the
-// backward adds the data and weight gradients (x2) and, for NORMALS, the
-// adjoint walk of the chain. See kernels/fused_mlp_ipe.py for the counts.
+// The backward is two launches, and each has its own bound on an H100:
+// * The row pass (fused_mlp_bwd_kernel) recomputes the forward (or loads
+//   the saved trunk, NORMALS), runs the data gradients and, for NORMALS,
+//   the chain and its adjoint walk: tensor-core operations, 1.22 M MACs
+//   per row for IPE (0.035 ms per 28,672 rows at 989 TFLOP/s) and 2.0 M
+//   for NORMALS; and it writes every operand of every weight-gradient
+//   product as bf16 rows (`ops`: 10 KB per row IPE, 17.5 KB NORMALS, so
+//   >= 0.086 / 0.153 ms at 3.35 TB/s). The bytes bound it.
+// * The weight-gradient pass (fused_mlp_wgrad_kernel) reads `ops` once
+//   and does the 0.6 M (IPE) / 1.1 M (NORMALS) weight-gradient MACs per
+//   row: bytes again, the same 0.086 / 0.153 ms.
+// Blocks run in parallel and in no order, so the TPU kernel's in-order
+// `+=` of dW over the grid has no counterpart; the operand rows are the
+// price of that, against a weight-gradient reduction inside the row pass
+// that would need 616 K f32 partials per 64-row tile.
 //
-// Design (first, simple version):
-// * Forward and backward "row" kernels take one block of 256 threads per
-//   tile of 64 rows. Activations stay in shared memory as bf16 tiles
-//   [64 x (256 | 96)] (the IPE features at columns 256..351, so the skip
-//   layer reads [h4 | x] as one K=352 operand); products are WMMA 16x16x16
-//   bf16 fragments with f32 accumulate, the weight fragment read from
-//   global memory (L2-resident). Epilogues round to bf16 where the TPU
-//   kernel does, and keep ReLU masks as bits. The per-tile steps live in
-//   mlp_rows.cuh, shared with kernel 5 (fused_render_train.cu).
-// * Weight gradients: blocks run in parallel and in no order, so the TPU
-//   kernel's in-order `+=` over the grid has no counterpart. The backward
-//   row kernel writes every operand of every weight-gradient product
-//   (bf16, one row of `ops` per sample row) and a second kernel computes
-//   dW = dZ^T A over the rows, one 64x64 output tile per block and one
-//   chunk of 2048 rows per grid row, adding its partial tile into a zeroed
-//   f32 buffer with atomicAdd. Bias gradients are per-tile column sums
-//   added the same way. The order of the atomics varies between runs, so
-//   weight gradients vary in the last bits of f32 (the wrapper then rounds
-//   them to bf16, as both JAX paths do).
-// * For NORMALS each trunk weight gets two contributions, the standard
-//   backward (dz_i^T a_{i-1}) and the adjoint walk (sz_i^T c_{i-1}); the
-//   weight-gradient kernel sums both pairs into one accumulator.
-// * Ragged last tile: rows past M are loaded as zeros (inputs, cotangents
-//   and saved activations), so their dz, sz and c rows are exactly zero and
-//   add nothing to any weight gradient.
-// * IPE phases are exact power-of-two products (ldexpf) with the accurate
-//   sinf/expf; do not build with --use_fast_math.
+// Design. Row kernels (mlp_rows.cuh has the details): one block of two
+// consumer warpgroups and a producer warpgroup per 64-row tile; wgmma products
+// with the activation tile in 128-byte-swizzled shared memory as A and the
+// weights streamed by TMA through a 3-slice ring; epilogues from
+// registers; 64-column operand rows written by TMA stores of the tile.
+// Epilogues round to bf16 where the TPU kernel does, and keep ReLU masks
+// as bits. The weight-gradient pass is a TMA + wgmma GEMM (below). For
+// NORMALS each trunk weight gets two contributions, the standard backward
+// (dz_i^T a_{i-1}) and the adjoint walk (sz_i^T c_{i-1}), summed in one
+// accumulator. Ragged last tile: rows past M are loaded as zeros (inputs,
+// cotangents and saved activations), so their dz, sz and c rows are
+// exactly zero and add nothing to any weight gradient. The f32 reductions
+// across blocks (bias sums, dW partials) are atomic, so gradients vary in
+// the last f32 bits between runs; the wrapper rounds weight gradients to
+// bf16, as both JAX paths do. IPE phases are exact power-of-two products
+// (ldexpf) with the accurate sinf/expf; do not build with --use_fast_math.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C entry
 // point (pano_nerf_tpu_torch/kernels/build.py).
@@ -61,8 +61,6 @@ namespace {
 using namespace nerf_mlp;
 
 enum Variant { IPE = 0, NORMALS = 1, ENCODED = 2 };
-
-constexpr int WG_CHUNK = 2048;      // rows per weight-gradient grid row
 
 struct FwdParams {
   const float* mc;   // [M, 8]        (IPE, NORMALS)
@@ -84,7 +82,6 @@ struct BwdParams {
   const float* b;
   const float* g;     // [M, 16] cotangent of the output slab
   const float* q;     // [M, 3] cotangent of dsig (NORMALS)
-  const bf16* acts;   // [M, 8 * 256] saved by the forward (NORMALS)
   bf16* ops;          // [grid * 64, OPW] operand rows
   float* dmc;         // [M, 8]   (IPE, NORMALS)
   float* dx;          // [M, 96]  (ENCODED)
@@ -94,278 +91,426 @@ struct BwdParams {
 };
 
 struct SmemF {
-  bf16 act[TM * ACT_LD];
-  float stage[TM * ST_LD];
+  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) unsigned char ring[RING * SLICE];
+  uint32_t mask[8 * 2 * NT];
   float x32[TM * XF];
-  uint32_t mask[8 * TM * MASK_WORDS];
+  float gx[TM * XF];       // NORMALS: d raw_sigma / d x
+  float mc[TM * 8];
+  float heads[TM * OUT_W];
+  uint64_t full[RING], empty[RING], io;
 };
 
 struct SmemB {
-  bf16 act[TM * ACT_LD];
-  float stage[TM * ST_LD];
+  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) unsigned char ring[RING * SLICE];
+  uint32_t mask[8 * 2 * NT];
+  uint32_t hvmask[NT];
   float x32[TM * XF];
   float dx[TM * XF];      // d x; later the cotangent of c1 (NORMALS)
-  uint32_t mask[8 * TM * MASK_WORDS];
-  uint32_t hvmask[TM * (VW / 32)];
   float g[TM * OUT_W];
   float q[TM * 4];
   float dmc[TM * 8];
+  float mc[TM * 8];
+  uint64_t full[RING], empty[RING], io;
 };
 
-template <int VAR>
-__global__ void __launch_bounds__(NT, 1) fused_mlp_fwd_kernel(FwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemF& s = *reinterpret_cast<SmemF*>(smem_raw);
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * TM;
-  const int nrows = min(TM, p.M - (int)row0);
+template <class Smem>
+__device__ Smem& smem_of(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                  ~uintptr_t(1023));
+}
 
-  if constexpr (VAR == ENCODED) {
-    load_encoded(p.x, row0, nrows, s.act);
-  } else {
-    load_ipe(p.mc, row0, nrows, p.min_deg, s.stage, s.x32, s.act);
+// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..255.
+template <class Smem>
+__device__ void chain_start(Smem& s, const bf16* w) {
+  const int g = wg();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int c = g * 128 + frag_col(i);
+    s.act[act_off(frag_row(i), c)] =
+        mask_bit(s.mask, 7, i) ? w[OFF_WD + c] : __float2bfloat16(0.f);
   }
-  bf16* copy = (VAR == NORMALS && p.acts != nullptr) ? p.acts + row0 * 8 * W
-                                                     : nullptr;
-  trunk_forward(s, p.w, p.b, copy, 8 * W, nrows);
-  heads_forward<false>(s, p.w, p.b, p.v + row0 * VP, nrows, true, nullptr,
-                       0);
-  for (int i = tid; i < nrows * OUT_W; i += NT) {
-    const int r = i / OUT_W, c = i % OUT_W;
-    const float* st = s.stage + r * ST_LD;
-    float o = 0.f;
-    if (c < 3) o = st[c];
-    else if (c < 3 + NDC) o = st[W + HP + c - 3];
-    p.out[(row0 + r) * OUT_W + c] = o;
+}
+
+// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..255.
+template <class Smem>
+__device__ void masked_epilogue(Smem& s, const float (&acc)[64], int layer) {
+  const int g = wg();
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    act_put2(s.act, frag_row(i), g * 128 + frag_col(i),
+             mask_bit(s.mask, layer, i) ? acc[i] : 0.f,
+             mask_bit(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
+  }
+}
+
+template <int VAR, bool PRODUCER>
+__device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
+                         Pipe<PRODUCER>& pp, size_t row0, int nrows) {
+  const int tid = threadIdx.x;
+  if constexpr (!PRODUCER) {
+    if constexpr (VAR == ENCODED) {
+      load_encoded(s, p.x, row0, nrows);
+    } else {
+      load_ipe(s, p.mc, row0, nrows, p.min_deg);
+    }
+  }
+  const TrunkOut spill{&maps.acts, nullptr, 0, 0, (int)row0, 0};
+  trunk_forward(pp, s, p.b,
+                VAR == NORMALS && p.acts != nullptr ? &spill : nullptr);
+  heads_forward<false, true>(pp, s, p.b, p.v + row0 * VP, nrows, nullptr, 0,
+                             nullptr, 0);
+  if constexpr (!PRODUCER) {
+    for (int i = tid; i < nrows * OUT_W; i += NT) {
+      const int c = i % OUT_W;
+      p.out[row0 * OUT_W + i] = c < 3 + NDC ? s.heads[i] : 0.f;
+    }
   }
   if constexpr (VAR != NORMALS) return;
-  __syncthreads();
 
   // ---- d raw_sigma / d means: sz-chain through the masked trunk ----
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    s.act[r * ACT_LD + c] = mask_bit(s.mask, 7, r, c) ? p.w[OFF_WD + c]
-                                                      : __float2bfloat16(0.f);
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+    chain_start(s, p.w);
+    post_epilogue();
   }
-  __syncthreads();
+  float acc[64], part[32];
+  const int g = wg();
   for (int layer = 7; layer >= 0; --layer) {
-    const int K = trunk_in(layer);
-    // Layer 5's columns 256..351 are the skip gradient; they stay in the
-    // stage for the fold (later layers write only columns < 256).
-    tile_matmul<wmma::row_major>(s.act, ACT_LD, W, p.w + trunk_offset(layer),
-                                 K, K, s.stage, ST_LD);
-    __syncthreads();
-    if (layer == 0) break;
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      s.act[r * ACT_LD + c] = mask_bit(s.mask, layer - 1, r, c)
-                                  ? __float2bfloat16(s.stage[r * ST_LD + c])
-                                  : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < nrows * 3; i += NT) {
-    const int r = i / 3, d = i % 3;
-    float acc = 0.f;
-    for (int deg = 0; deg < XP / 3; ++deg) {
-      for (int half = 0; half < 2; ++half) {
-        const int j = half * XP + deg * 3 + d;
-        const float gx = s.stage[r * ST_LD + j] + s.stage[r * ST_LD + W + j];
-        acc += gx * att_cos(s.x32 + r * XF, j) * ldexpf(1.f, deg + p.min_deg);
+    if (layer == 5 || layer == 0) {  // g_x: layer 5's skip columns + layer 0
+      mm<64, 1>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128), part,
+                s.act, 0);
+      if constexpr (!PRODUCER) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int j = g * 64 + frag_col(i);
+          if (j < XF) {
+            float* d = s.gx + frag_row(i) * XF + j;
+            *d = layer == 5 ? part[i] : *d + part[i];
+          }
+        }
       }
     }
-    p.dsig[(row0 + r) * 3 + d] = acc;
+    if (layer == 0) break;
+    mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+    if constexpr (!PRODUCER) {
+      pre_epilogue();
+      masked_epilogue(s, acc, layer - 1);
+      post_epilogue();
+    }
+  }
+  if constexpr (!PRODUCER) {
+    consumer_sync();
+    for (int i = tid; i < nrows * 3; i += NT) {
+      const int r = i / 3, d = i % 3;
+      float a = 0.f;
+      for (int deg = 0; deg < XP / 3; ++deg) {
+        for (int half = 0; half < 2; ++half) {
+          const int j = half * XP + deg * 3 + d;
+          a += s.gx[r * XF + j] * att_cos(s.x32 + r * XF, j) *
+               ldexpf(1.f, deg + p.min_deg);
+        }
+      }
+      p.dsig[(row0 + r) * 3 + d] = a;
+    }
   }
 }
 
 template <int VAR>
-__global__ void __launch_bounds__(NT, 1) fused_mlp_bwd_kernel(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemB& s = *reinterpret_cast<SmemB*>(smem_raw);
-  const int tid = threadIdx.x;
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    fused_mlp_fwd_kernel(const __grid_constant__ Maps maps,
+                         const __grid_constant__ FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemF& s = smem_of<SmemF>(smem_raw);
+  pipe_init(s);
   const size_t row0 = (size_t)blockIdx.x * TM;
   const int nrows = min(TM, p.M - (int)row0);
+  run_roles(s, &maps, [&](auto& pp) { fwd_tile<VAR>(s, p, maps, pp, row0, nrows); });
+}
+
+template <int VAR, bool PRODUCER>
+__device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
+                         Pipe<PRODUCER>& pp, size_t row0, int nrows) {
+  const int tid = threadIdx.x;
   constexpr int OPW = VAR == NORMALS ? OPW_NRM : OPW_IPE;
   bf16* ops = p.ops + row0 * OPW;  // this tile's 64 operand rows
+  const int orow = (int)row0;
 
   // ---- inputs: cotangents (zero past M), moments and IPE, or x ----
-  for (int i = tid; i < TM * OUT_W; i += NT) {
-    const int r = i / OUT_W;
-    s.g[i] = r < nrows ? p.g[(row0 + r) * OUT_W + i % OUT_W] : 0.f;
-  }
-  if constexpr (VAR == NORMALS) {
-    for (int i = tid; i < TM * 4; i += NT) {
-      const int r = i >> 2, d = i & 3;
-      s.q[i] = (r < nrows && d < 3) ? p.q[(row0 + r) * 3 + d] : 0.f;
+  if constexpr (!PRODUCER) {
+    for (int i = tid; i < TM * OUT_W; i += NT) {
+      const int r = i / OUT_W;
+      s.g[i] = r < nrows ? p.g[(row0 + r) * OUT_W + i % OUT_W] : 0.f;
     }
-  }
-  for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
-  if constexpr (VAR == ENCODED) {
-    load_encoded(p.x, row0, nrows, s.act);
-  } else {
-    load_ipe(p.mc, row0, nrows, p.min_deg, s.stage, s.x32, s.act);
-  }
-  for (int i = tid; i < TM * XF; i += NT) {
-    const int r = i / XF, j = i % XF;
-    ops[(size_t)r * OPW + O_X + j] = s.act[r * ACT_LD + W + j];
+    if constexpr (VAR == NORMALS) {
+      for (int i = tid; i < TM * 4; i += NT) {
+        const int r = i >> 2, d = i & 3;
+        s.q[i] = (r < nrows && d < 3) ? p.q[(row0 + r) * 3 + d] : 0.f;
+      }
+    }
+    for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
+    if constexpr (VAR == ENCODED) {
+      load_encoded(s, p.x, row0, nrows);
+    } else {
+      load_ipe(s, p.mc, row0, nrows, p.min_deg);
+    }
+    copy_cols(s.act, W, XF, ops + O_X, OPW, TM);
   }
 
   // ---- trunk activations: saved (NORMALS) or recomputed ----
   if constexpr (VAR == NORMALS) {
-    trunk_load(s, p.acts + row0 * 8 * W, nrows, ops, OPW);
+    if constexpr (!PRODUCER) trunk_load(s, &maps.acts, orow, nrows, &maps.ops, orow);
   } else {
-    trunk_forward(s, p.w, p.b, ops + O_A, OPW, TM);
+    const TrunkOut out{&maps.ops, nullptr, 0, O_A, orow, 0};
+    trunk_forward(pp, s, p.b, &out);
   }
   // ---- heads forward (operand rows, masks of hv), then the backward ----
-  heads_forward<true>(s, p.w, p.b, p.v + row0 * VP, nrows, false, ops, OPW);
-  mlp_backward(s, p.w, ops, OPW, p.db);
+  heads_forward<true, false>(pp, s, p.b, p.v + row0 * VP, nrows, &maps.ops,
+                             orow, ops, OPW);
+  mlp_backward(pp, s, p.db, &maps.ops, orow, ops, OPW);
   if constexpr (VAR == ENCODED) {
-    for (int i = tid; i < nrows * XF; i += NT) p.dx[row0 * XF + i] = s.dx[i];
+    if constexpr (!PRODUCER) {
+      for (int i = tid; i < nrows * XF; i += NT) p.dx[row0 * XF + i] = s.dx[i];
+    }
     return;
   }
-  ipe_backward(s, p.min_deg);
+  if constexpr (!PRODUCER) ipe_backward(s, p.min_deg);
 
   if constexpr (VAR == NORMALS) {
+    const int g = wg();
     // ---- recompute the sz-chain from the masks (as the forward) ----
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      const bf16 sz = mask_bit(s.mask, 7, r, c) ? p.w[OFF_WD + c]
-                                                : __float2bfloat16(0.f);
-      s.act[r * ACT_LD + c] = sz;
-      ops[(size_t)r * OPW + O_SZ + 7 * W + c] = sz;
+    if constexpr (!PRODUCER) {
+      pre_epilogue();
+      chain_start(s, p.w);
+      post_epilogue();
+      store_blocks(s.act, 0, 4, &maps.ops, O_SZ + 7 * W, orow);
     }
-    __syncthreads();
+    float acc[64], sk5[32], sk0[32];
     for (int layer = 7; layer >= 0; --layer) {
-      const int K = trunk_in(layer);
-      tile_matmul<wmma::row_major>(s.act, ACT_LD, W, p.w + trunk_offset(layer),
-                                   K, K, s.stage, ST_LD);
-      __syncthreads();
-      if (layer == 0) break;
-      for (int i = tid; i < TM * W; i += NT) {
-        const int r = i / W, c = i % W;
-        const bf16 sz = mask_bit(s.mask, layer - 1, r, c)
-                            ? __float2bfloat16(s.stage[r * ST_LD + c])
-                            : __float2bfloat16(0.f);
-        s.act[r * ACT_LD + c] = sz;
-        ops[(size_t)r * OPW + O_SZ + (layer - 1) * W + c] = sz;
+      if (layer == 5) mm<64, 1>(pp, trunk_prod(5, true, W, 128), sk5, s.act, 0);
+      if (layer == 0) {
+        mm<64, 1>(pp, trunk_prod(0, true, 0, 128), sk0, s.act, 0);
+        break;
       }
-      __syncthreads();
+      mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+      if constexpr (!PRODUCER) {
+        pre_epilogue();
+        masked_epilogue(s, acc, layer - 1);
+        post_epilogue();
+        store_blocks(s.act, 0, 4, &maps.ops, O_SZ + (layer - 1) * W, orow);
+      }
     }
-    // g_x (rounded to bf16 as the TPU backward does); cotangents of the
-    // IPE-side products: cot_dy = q . sel_y, cot_gx = cot_dy * c1 (bf16,
-    // the walk's input at act columns 256..351), cot_c1 = cot_dy * g_x.
-    for (int i = tid; i < TM * XF; i += NT) {
-      const int r = i / XF, j = i % XF;
-      const float gx = __bfloat162float(__float2bfloat16(
-          s.stage[r * ST_LD + j] + s.stage[r * ST_LD + W + j]));
-      const float cot_dy = s.q[r * 4 + (j % XP) % 3] * deg_scale(j, p.min_deg);
-      const bf16 cgx = __float2bfloat16(cot_dy * att_cos(s.x32 + r * XF, j));
-      s.act[r * ACT_LD + W + j] = cgx;
-      ops[(size_t)r * OPW + O_CGX + j] = cgx;
-      s.dx[i] = cot_dy * gx;  // cot_c1
-    }
-    __syncthreads();
-    // IPE backward of cot_c1: cot_y -= cot_c1 * x, cot_var -= cot_c1 * c1 / 2.
-    for (int i = tid; i < TM * 6; i += NT) {
-      const int r = i / 6, k = i % 6, d = k % 3;
-      float acc = 0.f;
-      for (int deg = 0; deg < XP / 3; ++deg) {
-        for (int half = 0; half < 2; ++half) {
-          const int j = half * XP + deg * 3 + d;
-          const float cc = s.dx[r * XF + j];
-          if (k < 3) {
-            acc -= cc * s.x32[r * XF + j] * ldexpf(1.f, deg + p.min_deg);
-          } else {
-            acc -= 0.5f * cc * att_cos(s.x32 + r * XF, j) *
-                   ldexpf(1.f, 2 * (deg + p.min_deg));
+    if constexpr (!PRODUCER) {
+      // g_x (rounded to bf16 as the TPU backward does); cotangents of the
+      // IPE-side products: cot_dy = q . sel_y, cot_gx = cot_dy * c1 (bf16,
+      // the walk's input at act columns 256..351), cot_c1 = cot_dy * g_x.
+      pre_epilogue();
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int j = g * 64 + frag_col(i), r = frag_row(i);
+        if (j < XF) {
+          float cg[2];
+          for (int h = 0; h < 2; ++h) {
+            const float gx = __bfloat162float(
+                __float2bfloat16(sk5[i + h] + sk0[i + h]));
+            const float cot_dy =
+                s.q[r * 4 + ((j + h) % XP) % 3] * deg_scale(j + h, p.min_deg);
+            cg[h] = cot_dy * att_cos(s.x32 + r * XF, j + h);
+            s.dx[r * XF + j + h] = cot_dy * gx;  // cot_c1
           }
+          act_put2(s.act, r, W + j, cg[0], cg[1]);
         }
       }
-      s.dmc[r * 8 + k] += acc;
+      post_epilogue();
+      copy_cols(s.act, W, XF, ops + O_CGX, OPW, TM);
+      // IPE backward of cot_c1: cot_y -= cot_c1 * x, cot_var -= cot_c1 c1 / 2.
+      for (int i = tid; i < TM * 6; i += NT) {
+        const int r = i / 6, k = i % 6, d = k % 3;
+        float a = 0.f;
+        for (int deg = 0; deg < XP / 3; ++deg) {
+          for (int half = 0; half < 2; ++half) {
+            const int j = half * XP + deg * 3 + d;
+            const float cc = s.dx[r * XF + j];
+            if (k < 3) {
+              a -= cc * s.x32[r * XF + j] * ldexpf(1.f, deg + p.min_deg);
+            } else {
+              a -= 0.5f * cc * att_cos(s.x32 + r * XF, j) *
+                   ldexpf(1.f, 2 * (deg + p.min_deg));
+            }
+          }
+        }
+        s.dmc[r * 8 + k] += a;
+      }
     }
     // ---- the adjoint walk, forward through the trunk ----
     // c_i = bf16(m_i * (c_{i-1} @ W_i^T)), with [c_4 | cot_gx] into layer 5
     // and cot_gx into layer 0.
     for (int layer = 0; layer < 8; ++layer) {
-      const bf16* A = layer == 0 ? s.act + W : s.act;
-      const int K = trunk_in(layer);
-      tile_matmul<wmma::col_major>(A, ACT_LD, K, p.w + trunk_offset(layer), K,
-                                   W, s.stage, ST_LD);
-      __syncthreads();
-      for (int i = tid; i < TM * W; i += NT) {
-        const int r = i / W, c = i % W;
-        const bf16 cv = __float2bfloat16(mask_bit(s.mask, layer, r, c)
-                                             ? s.stage[r * ST_LD + c] : 0.f);
-        s.act[r * ACT_LD + c] = cv;
-        if (layer < 7) ops[(size_t)r * OPW + O_C + layer * W + c] = cv;
+      mm<128, 0>(pp, trunk_prod(layer, false), acc, s.act, layer == 0 ? W : 0);
+      if constexpr (!PRODUCER) {
+        pre_epilogue();
+        masked_epilogue(s, acc, layer);
+        post_epilogue();
+        if (layer < 7) store_blocks(s.act, 0, 4, &maps.ops, O_C + layer * W, orow);
       }
-      __syncthreads();
     }
     // s_7 is Wd's sigma row broadcast over the rows: its gradient is the
     // column sum of c_7.
-    colsum_atomic(s.act, ACT_LD, W, p.dw + OFF_WD);
+    if constexpr (!PRODUCER) colsum_atomic(s.act, 0, W, p.dw + OFF_WD);
   }
-
-  for (int i = tid; i < nrows * 8; i += NT) {
-    p.dmc[row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
+  if constexpr (!PRODUCER) {
+    consumer_sync();
+    for (int i = tid; i < nrows * 8; i += NT) {
+      p.dmc[row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
+    }
   }
 }
 
+template <int VAR>
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    fused_mlp_bwd_kernel(const __grid_constant__ Maps maps,
+                         const __grid_constant__ BwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemB& s = smem_of<SmemB>(smem_raw);
+  pipe_init(s);
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  const int nrows = min(TM, p.M - (int)row0);
+  run_roles(s, &maps, [&](auto& pp) { bwd_tile<VAR>(s, p, maps, pp, row0, nrows); });
+}
+
 // ---- weight gradients: dW[n, k] += sum_m B[m, n] A[m, k] (+ B2, A2) ----
+//
+// One block per (output tile of 128 fan-out rows x up to 256 fan-in
+// columns, chunk of operand rows). One thread of a producer warpgroup
+// streams the tile's operand slabs through a 4-stage ring by TMA (boxes of
+// 64 rows x 64 columns, 128-byte swizzle): per stage 64 rows of B (two
+// boxes, 128 columns) and of A (up to four boxes). Two consumer warpgroups each own
+// 64 output rows and run wgmma m64n256k16 on them, both operands MN-major
+// in shared memory (the reduction runs over the rows of `ops`), f32
+// accumulators in registers. The partial tile goes through shared memory
+// into the zeroed f32 dw by bulk reduce-add (cp.reduce.async.bulk), one
+// row of up to 1 KB per instruction. The jobs (which operand columns make
+// which packed weight) come from the caller: kernels/fused_mlp_ipe.py
+// `wgrad_jobs`, the one table the plain version runs too.
 
 struct Job {
   int b1, a1, b2, a2;  // operand column offsets in `ops` (b2 < 0: no pair 2)
-  int n, k;            // output rows (fan-out) and columns (fan-in)
+  int n, k;            // output rows (fan-out) and columns (fan-in, <= 256)
   int out, ldo;        // output offset in the packed f32 buffer, row stride
 };
 constexpr int MAX_JOBS = 16;
+constexpr int WG_NS = 4;                    // ring stages
+constexpr int WG_BOX = 64 * 64 * 2;         // one TMA box, bytes
+constexpr int WG_STAGE = 6 * WG_BOX;        // 2 boxes of B + 4 of A
+constexpr int WG_ST_LD = 264;               // f32 partial-tile row stride
+constexpr int WG_SMEM = WG_NS * WG_STAGE + 1024;
+constexpr int WG_THREADS = 384;             // 2 consumer warpgroups + producer
 
 struct WgradParams {
-  const bf16* ops;
   float* dw;
-  int ld, rows, njobs;
+  int rows, chunk_rows, njobs;
   Job jobs[MAX_JOBS];
-  int tile_start[MAX_JOBS + 1];
+  int tile_start[MAX_JOBS + 1];  // first output tile of each job
 };
 
-__global__ void __launch_bounds__(NT) fused_mlp_wgrad_kernel(WgradParams p) {
-  __shared__ __align__(32) float scratch[NWARP][16 * 16];
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    fused_mlp_wgrad_kernel(const __grid_constant__ CUtensorMap ops_map,
+                           const __grid_constant__ WgradParams p) {
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_NS], empty[WG_NS];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
   const int t = blockIdx.x;
   int j = 0;
   while (t >= p.tile_start[j + 1]) ++j;
   const Job jb = p.jobs[j];
-  const int tiles_k = (jb.k + 63) / 64;
-  const int tn = (t - p.tile_start[j]) / tiles_k;
-  const int tk = (t - p.tile_start[j]) % tiles_k;
-  const int m0 = blockIdx.y * WG_CHUNK;
-  const int m1 = min(p.rows, m0 + WG_CHUNK);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int sub = warp; sub < 16; sub += NWARP) {
-    const int n0 = tn * 64 + (sub >> 2) * 16;
-    const int k0 = tk * 64 + (sub & 3) * 16;
-    if (n0 >= jb.n || k0 >= jb.k) continue;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int pair = 0; pair < 2; ++pair) {
-      const int bo = pair == 0 ? jb.b1 : jb.b2;
-      const int ao = pair == 0 ? jb.a1 : jb.a2;
-      if (bo < 0) continue;
-      for (int m = m0; m < m1; m += 16) {
-        const bf16* row = p.ops + (size_t)m * p.ld;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, row + bo + n0, p.ld);  // B^T: [n x m]
-        wmma::load_matrix_sync(fb, row + ao + k0, p.ld);  // A:   [m x k]
-        wmma::mma_sync(acc, fa, fb, acc);
+  const int n0 = (t - p.tile_start[j]) * 128;
+  const int m0 = blockIdx.y * p.chunk_rows;
+  const int steps = (min(p.rows, m0 + p.chunk_rows) - m0) / 64;
+  const int niter = (jb.b2 >= 0 ? 2 : 1) * steps;
+  const int nb = jb.n - n0 > 64 ? 2 : 1;  // boxes of B (64 output rows each)
+  const int na = (jb.k + 63) / 64;         // boxes of A
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < WG_NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---- producer warpgroup: one thread issues TMA ----
+    hopper::reg_dealloc<40>();
+    if (tid == 256) {
+      for (int it = 0; it < niter; ++it) {
+        const int st = it % WG_NS;
+        if (it >= WG_NS) hopper::mbar_wait(&empty[st], ((it / WG_NS) - 1) & 1);
+        const int pair = it / steps;
+        const int row = m0 + (it % steps) * 64;
+        const int bo = pair ? jb.b2 : jb.b1, ao = pair ? jb.a2 : jb.a1;
+        unsigned char* buf = ring + st * WG_STAGE;
+        hopper::mbar_expect_tx(&full[st], (nb + na) * WG_BOX);
+        for (int i = 0; i < nb; ++i) {
+          hopper::tma_load(buf + i * WG_BOX, &ops_map, &full[st],
+                           bo + n0 + 64 * i, row);
+        }
+        for (int i = 0; i < na; ++i) {
+          hopper::tma_load(buf + (2 + i) * WG_BOX, &ops_map, &full[st],
+                           ao + 64 * i, row);
+        }
       }
     }
-    wmma::store_matrix_sync(scratch[warp], acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      atomicAdd(p.dw + jb.out + (size_t)(n0 + (e >> 4)) * jb.ldo + k0 + (e & 15),
-                scratch[warp][e]);
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 output rows each ----
+  hopper::reg_alloc<232>();
+  const int g = tid >> 7;
+  const bool active = n0 + 64 * g < jb.n;
+  float acc[128];
+  for (int it = 0; it < niter; ++it) {
+    const int st = it % WG_NS;
+    hopper::mbar_wait(&full[st], (it / WG_NS) & 1);
+    if (active) {
+      const unsigned char* buf = ring + st * WG_STAGE;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // 16 operand rows per product
+        const uint64_t da = hopper::desc_sw128(buf + g * WG_BOX + ks * 2048,
+                                               WG_BOX, 1024);
+        const uint64_t db = hopper::desc_sw128(buf + 2 * WG_BOX + ks * 2048,
+                                               WG_BOX, 1024);
+        hopper::wgmma<256, 1, 1>(acc, da, db, it > 0 || ks > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait();
     }
     __syncwarp();
+    if ((tid & 31) == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+  // ---- partial tile -> shared memory -> bulk reduce-add into dw ----
+  hopper::named_sync(1, 256);  // every consumer is done with the ring
+  float* stg = reinterpret_cast<float*>(ring);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r = g * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    const int c = 8 * jj + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(stg + r * WG_ST_LD + c) =
+        make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    *reinterpret_cast<float2*>(stg + (r + 8) * WG_ST_LD + c) =
+        make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(1, 256);
+  if (tid < 128 && n0 + tid < jb.n) {
+    hopper::bulk_reduce_add(p.dw + jb.out + (size_t)(n0 + tid) * jb.ldo,
+                            stg + tid * WG_ST_LD, jb.k * 4);
+    hopper::bulk_commit();
+    hopper::bulk_wait();
   }
 }
 
@@ -377,19 +522,36 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
 
 template <int VAR>
 cudaError_t launch_forward(const FwdParams& p, cudaStream_t st) {
-  const int smem = (int)sizeof(SmemF);
-  cudaError_t err = set_smem(fused_mlp_fwd_kernel<VAR>, smem);
+  Maps maps;
+  cudaError_t err = make_weight_maps(&maps, p.w);
+  if (err == cudaSuccess && p.acts != nullptr) {
+    err = hopper::make_map(&maps.acts, p.acts, p.M, 8 * W, 8 * W);
+  }
+  const int smem = (int)sizeof(SmemF) + 1024;
+  if (err == cudaSuccess) err = set_smem(fused_mlp_fwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_fwd_kernel<VAR><<<(p.M + TM - 1) / TM, NT, smem, st>>>(p);
+  fused_mlp_fwd_kernel<VAR><<<(p.M + TM - 1) / TM, ROW_THREADS, smem, st>>>(
+      maps, p);
   return cudaGetLastError();
 }
 
 template <int VAR>
-cudaError_t launch_backward(const BwdParams& p, cudaStream_t st) {
-  const int smem = (int)sizeof(SmemB);
-  cudaError_t err = set_smem(fused_mlp_bwd_kernel<VAR>, smem);
+cudaError_t launch_backward(const BwdParams& p, const bf16* acts,
+                            cudaStream_t st) {
+  const int tiles = (p.M + TM - 1) / TM;
+  const int opw = VAR == NORMALS ? OPW_NRM : OPW_IPE;
+  Maps maps;
+  cudaError_t err = make_weight_maps(&maps, p.w);
+  if (err == cudaSuccess) {
+    err = hopper::make_map(&maps.ops, p.ops, (uint64_t)tiles * TM, opw, opw);
+  }
+  if (err == cudaSuccess && VAR == NORMALS) {
+    err = hopper::make_map(&maps.acts, acts, p.M, 8 * W, 8 * W);
+  }
+  const int smem = (int)sizeof(SmemB) + 1024;
+  if (err == cudaSuccess) err = set_smem(fused_mlp_bwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_bwd_kernel<VAR><<<(p.M + TM - 1) / TM, NT, smem, st>>>(p);
+  fused_mlp_bwd_kernel<VAR><<<tiles, ROW_THREADS, smem, st>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -458,7 +620,6 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
   p.b = biases;
   p.g = g;
   p.q = q;
-  p.acts = static_cast<const bf16*>(acts);
   p.ops = static_cast<bf16*>(ops);
   p.dmc = dmc;
   p.dw = dw;
@@ -466,8 +627,10 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
   p.M = M;
   p.min_deg = min_deg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(normals ? launch_backward<NORMALS>(p, st)
-                       : launch_backward<IPE>(p, st));
+  if (normals && acts == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)(normals ? launch_backward<NORMALS>(
+                             p, static_cast<const bf16*>(acts), st)
+                       : launch_backward<IPE>(p, nullptr, st));
 }
 
 // Backward row pass of kernel 1: writes dx [M, 96] f32, the operand rows
@@ -487,58 +650,64 @@ int fused_mlp_encoded_backward_rows(const void* x, const void* v,
   p.dx = dx;
   p.db = db;
   p.M = M;
-  return (int)launch_backward<ENCODED>(p, static_cast<cudaStream_t>(stream));
+  return (int)launch_backward<ENCODED>(p, nullptr,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // Weight-gradient pass over the operand rows of a backward row pass (this
 // library's or fused_render_train's): adds every packed weight's gradient
-// into the f32 buffer dw. M is the number of operand rows.
+// into the f32 buffer dw. M is the number of operand rows (a multiple of
+// 64: rows past the batch are zero). `jobs` is the job table, njobs rows of
+// {b1, a1, b2, a2, n, k, out, ldo} in host memory: B is the fan-out side
+// (cotangent columns), A the fan-in side (layer inputs), b2 < 0 for one
+// pair. The caller builds it from kernels/fused_mlp_ipe.py `wgrad_jobs`,
+// the table the plain version and the CPU tests use; it is checked here
+// against the operand width and the packed layout.
 int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
-                           void* stream) {
-  if (M <= 0) return (int)cudaErrorInvalidValue;
-  const int nrm = normals != 0;
-  const int none = -1;
-  // {b1, a1, b2, a2, n, k, out, ldo}: B is the fan-out side (cotangents),
-  // A the fan-in side (layer inputs).
-  const Job jobs[] = {
-      {O_DZ + 0 * W, O_X, nrm ? O_SZ + 0 * W : none, O_CGX, W, XF, OFF_W0, XF},
-      {O_DZ + 1 * W, O_A + 0 * W, nrm ? O_SZ + 1 * W : none, O_C + 0 * W, W, W,
-       OFF_W1 + 0 * W * W, W},
-      {O_DZ + 2 * W, O_A + 1 * W, nrm ? O_SZ + 2 * W : none, O_C + 1 * W, W, W,
-       OFF_W1 + 1 * W * W, W},
-      {O_DZ + 3 * W, O_A + 2 * W, nrm ? O_SZ + 3 * W : none, O_C + 2 * W, W, W,
-       OFF_W1 + 2 * W * W, W},
-      {O_DZ + 4 * W, O_A + 3 * W, nrm ? O_SZ + 4 * W : none, O_C + 3 * W, W, W,
-       OFF_W1 + 3 * W * W, W},
-      {O_DZ + 5 * W, O_A + 4 * W, nrm ? O_SZ + 5 * W : none, O_C + 4 * W, W, W,
-       OFF_W5, W + XF},
-      {O_DZ + 5 * W, O_X, nrm ? O_SZ + 5 * W : none, O_CGX, W, XF, OFF_W5 + W,
-       W + XF},
-      {O_DZ + 6 * W, O_A + 5 * W, nrm ? O_SZ + 6 * W : none, O_C + 5 * W, W, W,
-       OFF_W6 + 0 * W * W, W},
-      {O_DZ + 7 * W, O_A + 6 * W, nrm ? O_SZ + 7 * W : none, O_C + 6 * W, W, W,
-       OFF_W6 + 1 * W * W, W},
-      {O_GD, O_A + 7 * W, none, none, HP, W, OFF_WD, W},
-      {O_DBTL, O_A + 7 * W, none, none, W, W, OFF_WB, W},
-      {O_DZV, O_BTL, none, none, VW, W, OFF_WV, VK},
-      {O_DZV, O_V, none, none, VW, VP, OFF_WV + W, VK},
-      {O_GR, O_HV, none, none, HP, VW, OFF_WC, VW},
-  };
-  WgradParams p;
-  p.ops = static_cast<const bf16*>(ops);
-  p.dw = dw;
-  p.ld = nrm ? OPW_NRM : OPW_IPE;
-  p.rows = ((M + TM - 1) / TM) * TM;
-  p.njobs = (int)(sizeof(jobs) / sizeof(jobs[0]));
-  p.tile_start[0] = 0;
-  for (int j = 0; j < p.njobs; ++j) {
-    p.jobs[j] = jobs[j];
-    p.tile_start[j + 1] = p.tile_start[j] +
-                          ((jobs[j].n + 63) / 64) * ((jobs[j].k + 63) / 64);
+                           const int* jobs, int njobs, void* stream) {
+  if (M <= 0 || M % TM != 0 || jobs == nullptr || njobs <= 0 ||
+      njobs > MAX_JOBS) {
+    return (int)cudaErrorInvalidValue;
   }
-  for (int j = p.njobs + 1; j <= MAX_JOBS; ++j) p.tile_start[j] = 1 << 30;
-  dim3 grid(p.tile_start[p.njobs], (p.rows + WG_CHUNK - 1) / WG_CHUNK);
-  fused_mlp_wgrad_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const int ld = normals ? OPW_NRM : OPW_IPE;
+  WgradParams p = {};
+  p.tile_start[0] = 0;
+  for (int j = 0; j < njobs; ++j) {
+    const int* r = jobs + 8 * j;
+    const Job jb = {r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7]};
+    const bool pair2 = jb.b2 >= 0;
+    // Columns inside the rows; k <= 256 (one wgmma N) and out, ldo, k in
+    // whole 16-byte pieces of dw (bulk reduce-add); the output inside dw.
+    const bool ok =
+        jb.n > 0 && jb.k > 0 && jb.k <= 256 && jb.k % 4 == 0 &&
+        jb.b1 >= 0 && jb.b1 + jb.n <= ld && jb.a1 >= 0 && jb.a1 + jb.k <= ld &&
+        (!pair2 || (jb.b2 + jb.n <= ld && jb.a2 >= 0 && jb.a2 + jb.k <= ld)) &&
+        jb.out >= 0 && jb.out % 4 == 0 && jb.ldo >= jb.k && jb.ldo % 4 == 0 &&
+        (long long)jb.out + (long long)(jb.n - 1) * jb.ldo + jb.k <= W_TOTAL;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    p.jobs[j] = jb;
+    p.tile_start[j + 1] = p.tile_start[j] + (jb.n + 127) / 128;
+  }
+  for (int j = njobs + 1; j <= MAX_JOBS; ++j) p.tile_start[j] = 1 << 30;
+  p.dw = dw;
+  p.rows = M;
+  p.njobs = njobs;
+  CUtensorMap map;
+  cudaError_t err = hopper::make_map(&map, ops, M, ld, ld);
+  if (err != cudaSuccess) return (int)err;
+  // Reduction across row chunks: one bulk f32 reduce-add per output row
+  // and block into dw. At one block per SM (194 KB of shared memory), as
+  // many chunks as fill one wave of the 132 SMs: 24 tiles x 5 chunks =
+  // 120 blocks, so ~3 MB of f32 partials (0.5-0.8 M element adds) instead
+  // of a workspace and a second launch.
+  const int tiles = p.tile_start[p.njobs];
+  const int chunks = max(1, min(132 / tiles, M / TM));
+  p.chunk_rows = ((M / TM + chunks - 1) / chunks) * TM;
+  err = set_smem(fused_mlp_wgrad_kernel, WG_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(tiles, (M + p.chunk_rows - 1) / p.chunk_rows);
+  fused_mlp_wgrad_kernel<<<grid, WG_THREADS, WG_SMEM,
+                           static_cast<cudaStream_t>(stream)>>>(map, p);
   return (int)cudaGetLastError();
 }
 

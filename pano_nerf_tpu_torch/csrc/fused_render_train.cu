@@ -28,15 +28,19 @@
 // MACs per sample row forward and 3 x 611,328 backward, against 96 B of
 // inputs per row; compositing is O(S) per ray.
 //
-// Design (first, simple version):
+// Design:
 // * Ray-aligned tiles: compositing needs a whole ray in one block, so a
-//   block of 256 threads takes floor(64 / S) rays (one at S = 56, twelve
-//   at S = 5) as at most 64 sample rows; rows past the tile's rays load as
-//   zeros and get a zero cotangent, so their operand rows add nothing to
-//   any weight gradient. At S = 56 the tile wastes 8 of 64 rows.
-// * The MLP runs as in fused_mlp.cu (WMMA bf16, f32 accumulate, bf16
-//   activations in shared memory, weights from L2). Compositing and its
-//   adjoint are sequential f32 scans, one thread per ray.
+//   block takes floor(64 / S) rays (one at S = 56, twelve at S = 5) as at
+//   most 64 sample rows; rows past the tile's rays load as zeros and get a
+//   zero cotangent, so their operand rows add nothing to any weight
+//   gradient. At S = 56 the tile wastes 8 of 64 rows.
+// * The MLP runs on the steps of mlp_rows.cuh, as kernels 1-3 do: two
+//   consumer warpgroups on wgmma products with weights streamed by TMA
+//   from a producer warpgroup, epilogues from registers, operand rows written
+//   by TMA stores of the activation tile. The optional trunk spill
+//   (`acts`) is written with 16-byte stores (a ray tile's rows are not a
+//   whole 64-row box) and read back by TMA. Compositing and its adjoint
+//   are sequential f32 scans, one thread per ray.
 // * Accurate expf / log1pf for softplus and sigmoid; no --use_fast_math
 //   (IPE phases reach ~1e5). e^{-dd - tau} underflows to 0 for large dd,
 //   never to NaN.
@@ -75,76 +79,91 @@ struct Params {
 };
 
 struct SmemF {
-  bf16 act[TM * ACT_LD];
-  float stage[TM * ST_LD];
+  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) unsigned char ring[RING * SLICE];
+  uint32_t mask[8 * 2 * NT];
   float x32[TM * XF];
-  uint32_t mask[8 * TM * MASK_WORDS];
+  float mc[TM * 8];
+  float heads[TM * OUT_W];
   float row[NROW * TM];
   float clip[TM * 2];
+  uint64_t full[RING], empty[RING], io;
 };
 
 struct SmemB {
-  bf16 act[TM * ACT_LD];
-  float stage[TM * ST_LD];
+  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) unsigned char ring[RING * SLICE];
+  uint32_t mask[8 * 2 * NT];
+  uint32_t hvmask[NT];
   float x32[TM * XF];
   float dx[TM * XF];
-  uint32_t mask[8 * TM * MASK_WORDS];
-  uint32_t hvmask[TM * (VW / 32)];
   float g[TM * OUT_W];
   float dmc[TM * 8];
+  float mc[TM * 8];
+  float heads[TM * OUT_W];
   float row[NROW * TM];
   float clip[TM * 2];
+  uint64_t full[RING], empty[RING], io;
 };
+
+template <class Smem>
+__device__ Smem& smem_of(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                  ~uintptr_t(1023));
+}
 
 // The tile's inputs and MLP forward: moments (delta and t_mid kept per
 // row), clip bounds, IPE, trunk, heads; then the per-row activations.
 // The forward (BWD false) spills the trunk to p.acts when that is
 // non-null; the backward loads the spill from p.acts when non-null, else
-// recomputes the trunk, and writes the forward operand rows to `ops`.
-template <bool BWD, class Smem>
-__device__ void tile_forward(Smem& s, const Params& p, size_t row0, int ray0,
-                             int nrays, int nrows, bf16* ops) {
+// recomputes the trunk, and writes the forward operand rows (`ops` the
+// tile's first operand row, ops_row0 its row in maps.ops).
+template <bool BWD, bool PRODUCER, class Smem>
+__device__ void tile_forward(Pipe<PRODUCER>& pp, Smem& s, const Params& p,
+                             const Maps& maps, size_t row0, int ray0,
+                             int nrays, int nrows, bf16* ops, int ops_row0) {
   const int tid = threadIdx.x;
   float* rowf = s.row;
-  load_ipe(p.mc, row0, nrows, p.min_deg, s.stage, s.x32, s.act);
-  for (int r = tid; r < TM; r += NT) {
-    rowf[R_DELTA * TM + r] = s.stage[r * 8 + 6];
-    rowf[R_TMID * TM + r] = s.stage[r * 8 + 7];
-  }
-  for (int i = tid; i < TM * 2; i += NT) {
-    s.clip[i] = i < nrays * 2 ? p.clip[(size_t)ray0 * 2 + i] : 0.f;
-  }
-  if constexpr (BWD) {
-    for (int i = tid; i < TM * XF; i += NT) {
-      const int r = i / XF, j = i % XF;
-      ops[(size_t)r * OPW_IPE + O_X + j] = s.act[r * ACT_LD + W + j];
+  if constexpr (!PRODUCER) {
+    load_ipe(s, p.mc, row0, nrows, p.min_deg);
+    for (int r = tid; r < TM; r += NT) {
+      rowf[R_DELTA * TM + r] = s.mc[r * 8 + 6];
+      rowf[R_TMID * TM + r] = s.mc[r * 8 + 7];
     }
+    for (int i = tid; i < TM * 2; i += NT) {
+      s.clip[i] = i < nrays * 2 ? p.clip[(size_t)ray0 * 2 + i] : 0.f;
+    }
+    if constexpr (BWD) copy_cols(s.act, W, XF, ops + O_X, OPW_IPE, TM);
   }
-  __syncthreads();  // the moments in the stage are read before the trunk
   if constexpr (BWD) {
     if (p.acts != nullptr) {
-      trunk_load(s, p.acts + row0 * 8 * W, nrows, ops, OPW_IPE);
+      if constexpr (!PRODUCER) {
+        trunk_load(s, &maps.acts, (int)row0, nrows, &maps.ops, ops_row0);
+      }
     } else {
-      trunk_forward(s, p.w, p.b, ops + O_A, OPW_IPE, TM);
+      const TrunkOut out{&maps.ops, nullptr, 0, O_A, ops_row0, 0};
+      trunk_forward(pp, s, p.b, &out);
     }
   } else {
-    trunk_forward(s, p.w, p.b,
-                  p.acts != nullptr ? p.acts + row0 * 8 * W : nullptr, 8 * W,
-                  nrows);
+    const TrunkOut spill{nullptr, p.acts + row0 * 8 * W, 8 * W, 0, 0, nrows};
+    trunk_forward(pp, s, p.b, p.acts != nullptr ? &spill : nullptr);
   }
-  heads_forward<BWD>(s, p.w, p.b, p.v + row0 * VP, nrows, true, ops, OPW_IPE);
-  for (int r = tid; r < TM; r += NT) {
-    const float* st = s.stage + r * ST_LD;
-    const float sig = st[W + HP] + p.density_bias;
-    rowf[R_SIG * TM + r] = sig;
-    rowf[R_DD * TM + r] = softplusf(sig) * rowf[R_DELTA * TM + r];
-    for (int c = 0; c < 3; ++c) {
-      rowf[(R_RAW + c) * TM + r] = st[c];
-      rowf[(R_RGB + c) * TM + r] =
-          softplusf(st[c]) * (1.f + 2.f * p.rgb_padding) - p.rgb_padding;
+  heads_forward<BWD, true>(pp, s, p.b, p.v + row0 * VP, nrows, &maps.ops,
+                           ops_row0, ops, OPW_IPE);
+  if constexpr (!PRODUCER) {
+    for (int r = tid; r < TM; r += NT) {
+      const float* h = s.heads + r * OUT_W;
+      const float sig = h[3] + p.density_bias;
+      rowf[R_SIG * TM + r] = sig;
+      rowf[R_DD * TM + r] = softplusf(sig) * rowf[R_DELTA * TM + r];
+      for (int c = 0; c < 3; ++c) {
+        rowf[(R_RAW + c) * TM + r] = h[c];
+        rowf[(R_RGB + c) * TM + r] =
+            softplusf(h[c]) * (1.f + 2.f * p.rgb_padding) - p.rgb_padding;
+      }
     }
+    consumer_sync();
   }
-  __syncthreads();
 }
 
 // Compositing of ray q of the tile (one thread): fills R_W and R_TAU and
@@ -168,15 +187,25 @@ __device__ void composite(float* rowf, int q, int S, float* acc, float* N,
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) train_fwd_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemF& s = *reinterpret_cast<SmemF*>(smem_raw);
+__device__ void composite_rays(SmemF& s, const Params& p, int ray0,
+                               int nrays);
+
+template <bool PRODUCER>
+__device__ void fwd_tile(Pipe<PRODUCER>& pp, SmemF& s, const Params& p,
+                         const Maps& maps) {
   const int S = p.S;
   const int ray0 = blockIdx.x * p.rpb;
   const int nrays = min(p.rpb, p.R - ray0);
   const size_t row0 = (size_t)ray0 * S;
-  tile_forward<false>(s, p, row0, ray0, nrays, nrays * S, nullptr);
+  tile_forward<false>(pp, s, p, maps, row0, ray0, nrays, nrays * S, nullptr,
+                      0);
+  if constexpr (!PRODUCER) composite_rays(s, p, ray0, nrays);
+}
 
+// The tile's compositing, one thread per ray: weights and the output row.
+__device__ void composite_rays(SmemF& s, const Params& p, int ray0,
+                               int nrays) {
+  const int S = p.S;
   for (int q = threadIdx.x; q < nrays; q += NT) {
     float acc, N, rgb[3];
     composite(s.row, q, S, &acc, &N, rgb);
@@ -190,59 +219,83 @@ __global__ void __launch_bounds__(NT, 1) train_fwd_kernel(Params p) {
   }
 }
 
-__global__ void __launch_bounds__(NT, 1) train_bwd_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemB& s = *reinterpret_cast<SmemB*>(smem_raw);
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    train_fwd_kernel(const __grid_constant__ Maps maps,
+                     const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemF& s = smem_of<SmemF>(smem_raw);
+  pipe_init(s);
+  run_roles(s, &maps, [&](auto& pp) { fwd_tile(pp, s, p, maps); });
+}
+
+template <bool PRODUCER>
+__device__ void bwd_tile(Pipe<PRODUCER>& pp, SmemB& s, const Params& p,
+                         const Maps& maps) {
   const int tid = threadIdx.x;
   const int S = p.S;
   const int ray0 = blockIdx.x * p.rpb;
   const int nrays = min(p.rpb, p.R - ray0);
   const int nrows = nrays * S;
   const size_t row0 = (size_t)ray0 * S;
-  bf16* ops = p.ops + (size_t)blockIdx.x * TM * OPW_IPE;
+  const int ops_row0 = blockIdx.x * TM;
+  bf16* ops = p.ops + (size_t)ops_row0 * OPW_IPE;
   float* rowf = s.row;
 
-  for (int i = tid; i < TM * OUT_W; i += NT) s.g[i] = 0.f;
-  for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
-  tile_forward<true>(s, p, row0, ray0, nrays, nrows, ops);
+  if constexpr (!PRODUCER) {
+    for (int i = tid; i < TM * OUT_W; i += NT) s.g[i] = 0.f;
+    for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
+  }
+  tile_forward<true>(pp, s, p, maps, row0, ray0, nrays, nrows, ops, ops_row0);
 
   // ---- per-ray adjoints: one thread per ray ----
-  const float scale = 1.f + 2.f * p.rgb_padding;
-  for (int q = tid; q < nrays; q += NT) {
-    float acc, N, rgb[3];
-    composite(rowf, q, S, &acc, &N, rgb);
-    const size_t ray = (size_t)ray0 + q;
-    const float* g8 = p.g8 + ray * 8;
-    const float D = fmaxf(acc, 1e-10f);
-    const float dist = N / D;
-    const float cd = (dist > s.clip[q * 2] && dist < s.clip[q * 2 + 1]) ? g8[4] : 0.f;
-    const float cot_N = cd / D;
-    float cot_acc = g8[3] - (acc > 1e-10f ? cd * N / (D * D) : 0.f);
-    if (p.white_bkgd) cot_acc -= g8[0] + g8[1] + g8[2];
-    float suffix = 0.f;  // sum_{s > i} cot_w_s w_s
-    for (int k = S - 1; k >= 0; --k) {
-      const int r = q * S + k;
-      const float w = rowf[R_W * TM + r];
-      const float dd = rowf[R_DD * TM + r];
-      const float sig = rowf[R_SIG * TM + r];
-      float cw = cot_acc + cot_N * rowf[R_TMID * TM + r] + p.gw[ray * S + k];
-      for (int c = 0; c < 3; ++c) cw += g8[c] * rowf[(R_RGB + c) * TM + r];
-      const float cot_dd = cw * expf(-dd - rowf[R_TAU * TM + r]) - suffix;
-      suffix += cw * w;
-      for (int c = 0; c < 3; ++c) {
-        s.g[r * OUT_W + c] =
-            g8[c] * w * sigmoidf(rowf[(R_RAW + c) * TM + r]) * scale;
+  if constexpr (!PRODUCER) {
+    const float scale = 1.f + 2.f * p.rgb_padding;
+    for (int q = tid; q < nrays; q += NT) {
+      float acc, N, rgb[3];
+      composite(rowf, q, S, &acc, &N, rgb);
+      const size_t ray = (size_t)ray0 + q;
+      const float* g8 = p.g8 + ray * 8;
+      const float D = fmaxf(acc, 1e-10f);
+      const float dist = N / D;
+      const float cd = (dist > s.clip[q * 2] && dist < s.clip[q * 2 + 1]) ? g8[4] : 0.f;
+      const float cot_N = cd / D;
+      float cot_acc = g8[3] - (acc > 1e-10f ? cd * N / (D * D) : 0.f);
+      if (p.white_bkgd) cot_acc -= g8[0] + g8[1] + g8[2];
+      float suffix = 0.f;  // sum_{s > i} cot_w_s w_s
+      for (int k = S - 1; k >= 0; --k) {
+        const int r = q * S + k;
+        const float w = rowf[R_W * TM + r];
+        const float dd = rowf[R_DD * TM + r];
+        const float sig = rowf[R_SIG * TM + r];
+        float cw = cot_acc + cot_N * rowf[R_TMID * TM + r] + p.gw[ray * S + k];
+        for (int c = 0; c < 3; ++c) cw += g8[c] * rowf[(R_RGB + c) * TM + r];
+        const float cot_dd = cw * expf(-dd - rowf[R_TAU * TM + r]) - suffix;
+        suffix += cw * w;
+        for (int c = 0; c < 3; ++c) {
+          s.g[r * OUT_W + c] =
+              g8[c] * w * sigmoidf(rowf[(R_RAW + c) * TM + r]) * scale;
+        }
+        s.g[r * OUT_W + 3] = cot_dd * sigmoidf(sig) * rowf[R_DELTA * TM + r];
+        s.dmc[r * 8 + 6] = cot_dd * softplusf(sig);
+        s.dmc[r * 8 + 7] = cot_N * w;
       }
-      s.g[r * OUT_W + 3] = cot_dd * sigmoidf(sig) * rowf[R_DELTA * TM + r];
-      s.dmc[r * 8 + 6] = cot_dd * softplusf(sig);
-      s.dmc[r * 8 + 7] = cot_N * w;
     }
+    consumer_sync();
   }
-  __syncthreads();
+  mlp_backward(pp, s, p.db, &maps.ops, ops_row0, ops, OPW_IPE);
+  if constexpr (!PRODUCER) {
+    ipe_backward(s, p.min_deg);
+    for (int i = tid; i < nrows * 8; i += NT) p.dmc[row0 * 8 + i] = s.dmc[i];
+  }
+}
 
-  mlp_backward(s, p.w, ops, OPW_IPE, p.db);
-  ipe_backward(s, p.min_deg);
-  for (int i = tid; i < nrows * 8; i += NT) p.dmc[row0 * 8 + i] = s.dmc[i];
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    train_bwd_kernel(const __grid_constant__ Maps maps,
+                     const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemB& s = smem_of<SmemB>(smem_raw);
+  pipe_init(s);
+  run_roles(s, &maps, [&](auto& pp) { bwd_tile(pp, s, p, maps); });
 }
 
 Params make_params(const float* mc, const float* clip, const void* v,
@@ -292,11 +345,16 @@ int fused_render_train_forward(const float* mc, const float* clip,
                          density_bias, rgb_padding, white_bkgd);
   p.out = out;
   p.weights = weights_out;
-  const int smem = (int)sizeof(SmemF);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  Maps maps;
+  cudaError_t err = make_weight_maps(&maps, p.w);
+  const int smem = (int)sizeof(SmemF) + 1024;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
   if (err != cudaSuccess) return (int)err;
-  train_fwd_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  train_fwd_kernel<<<grid, ROW_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -322,11 +380,23 @@ int fused_render_train_backward_rows(const float* mc, const float* clip,
   p.ops = static_cast<bf16*>(ops);
   p.dmc = dmc;
   p.db = db;
-  const int smem = (int)sizeof(SmemB);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  Maps maps;
+  cudaError_t err = make_weight_maps(&maps, p.w);
+  if (err == cudaSuccess) {
+    err = hopper::make_map(&maps.ops, ops, (uint64_t)grid * TM, OPW_IPE,
+                           OPW_IPE);
+  }
+  if (err == cudaSuccess && acts != nullptr) {
+    err = hopper::make_map(&maps.acts, acts, (uint64_t)R * S, 8 * W, 8 * W);
+  }
+  const int smem = (int)sizeof(SmemB) + 1024;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
   if (err != cudaSuccess) return (int)err;
-  train_bwd_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  train_bwd_kernel<<<grid, ROW_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }
 

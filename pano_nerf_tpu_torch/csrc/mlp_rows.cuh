@@ -5,19 +5,54 @@
 // the column layout of the operand rows that the weight-gradient pass of
 // fused_mlp.cu reduces.
 //
-// Each function works on one tile of TM = 64 rows held in shared memory
-// by a block of NT threads; it is called by every thread of the block and
-// ends in __syncthreads() where a later step reads what it wrote. `Smem`
-// is any struct with the members the function names (act, stage, x32,
-// dx, mask, hvmask, g, dmc), so a kernel allocates only what it uses.
+// What bounds a row kernel on an H100: the forward, tensor-core operations
+// (611 K MACs per row against 96 B of inputs); the backward row pass, the
+// operand rows it writes (10 KB per row for kernel 2, 17.5 KB for kernel
+// 3) at about the time of its 1.2-2.0 M MACs per row. So the products
+// must run near the tensor cores' rate and the writes leave as whole
+// blocks. The design does it the Hopper way:
+// * A block is two consumer warpgroups (NT = 256 threads) and a
+//   producer warpgroup (one thread of it issues the weight loads). Every
+//   product is a warpgroup product (wgmma m64nNk16, f32 accumulators in
+//   registers): the 64-row activation tile is the A operand, and the two
+//   warpgroups split the output columns.
+// * Weights do not depend on the data, so the producer streams them
+//   through a 3-stage ring of 32 KB slices (64 K-rows of the product, up
+//   to four TMA boxes of 64 x 64 bf16, 128-byte swizzle) with mbarrier
+//   completion, and keeps the next product's first slices in flight
+//   while the consumers run an epilogue. A weight is read K-major for
+//   x @ W^T and MN-major (wgmma's transpose) for s @ W.
+// * The activation tile (64 rows x 384 columns bf16, six 8 KB blocks of
+//   64 columns) is kept in the same 128-byte-swizzled layout that the
+//   wgmma descriptor and the TMA boxes use, so epilogues write it from
+//   registers and a TMA store copies a block straight into the operand
+//   rows (64-column operands; the narrow ones go out as 16-byte stores).
+// * Epilogues work from registers: bias, ReLU or saved mask, bf16
+//   rounding where the TPU kernels round. ReLU masks are kept in the
+//   accumulator's own fragment order (two words per thread and layer), so
+//   the backward's thread finds the bits of its own elements.
+// * The producer runs the same tile program as the consumers, compiled
+//   with PRODUCER = true: it issues each product's weight slices and
+//   skips everything else, so the two sides cannot disagree on the order.
+//
+// Each step works on one tile of TM = 64 rows and is called by every
+// consumer thread; `Smem` is any struct with the members the step names,
+// so a kernel allocates only what it uses. Consumers synchronise among
+// themselves with named barrier 1 (consumer_sync), never __syncthreads.
 #pragma once
 
+#include "hopper.cuh"
 #include "nerf_mlp.cuh"
 
 namespace nerf_mlp {
 
 constexpr int VP = 32;     // viewdir encoding width, padded (27 used)
 constexpr int OUT_W = 16;  // raw output slab: rgb(3) | density(5) | 0(8)
+constexpr int ROW_THREADS = NT + 128;  // two consumer warpgroups + producer
+constexpr int RING = 3;               // weight-slice stages
+constexpr int BOX = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
+constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
+constexpr int ACT_BLOCKS = 6;         // activation tile: 6 x 64 columns
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x
@@ -36,9 +71,237 @@ constexpr int O_C = O_CGX + XF;       // walk: c_0..c_6
 constexpr int O_SZ = O_C + 7 * W;     // chain: sz_0..sz_7
 constexpr int OPW_NRM = O_SZ + 8 * W;
 
+// Tensor maps of the packed weights (row-major [out, in] matrices; layers
+// 1-4 and 6-7 stacked, Wd right above Wb) and of the tile's global rows.
+enum MapId { M_W0, M_W14, M_W5, M_W67, M_WDB, M_WV, M_WC, NW_MAPS };
+struct Maps {
+  CUtensorMap w[NW_MAPS];
+  CUtensorMap ops;   // operand rows [rows, OPW] (backward row passes)
+  CUtensorMap acts;  // trunk spill [M, 8 * 256] (kernel 3)
+};
+
+// The weight maps over the packed buffer (host).
+inline cudaError_t make_weight_maps(Maps* m, const bf16* w) {
+  struct { int id, off, rows, cols; } spec[NW_MAPS] = {
+      {M_W0, OFF_W0, W, XF},        {M_W14, OFF_W1, 4 * W, W},
+      {M_W5, OFF_W5, W, W + XF},    {M_W67, OFF_W6, 2 * W, W},
+      {M_WDB, OFF_WD, HP + W, W},   {M_WV, OFF_WV, VW, VK},
+      {M_WC, OFF_WC, HP, VW}};
+  for (const auto& s : spec) {
+    cudaError_t err =
+        hopper::make_map(&m->w[s.id], w + s.off, s.rows, s.cols, s.cols);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// One product's weights: map, first K row / column of the slab, first N
+// row / column, K and N (the columns of the output).
+struct Prod {
+  int map, k0, n0, K, N;
+};
+
+// Trunk layer `layer` as a forward product (x @ W^T) or as the backward
+// product s @ W over output columns n0 .. n0 + N - 1 of W's fan-in.
+__device__ __forceinline__ Prod trunk_prod(int layer, bool backward,
+                                           int n0 = 0, int N = W) {
+  const int map = layer == 0 ? M_W0 : layer <= 4 ? M_W14 : layer == 5 ? M_W5
+                                                                      : M_W67;
+  const int base = layer == 0 ? 0 : layer <= 4 ? (layer - 1) * W
+                                               : layer == 5 ? 0 : (layer - 6) * W;
+  if (!backward) return Prod{map, 0, base, trunk_in(layer), W};
+  return Prod{map, base, n0, W, N};
+}
+
+// ---- the activation tile: 128-byte-swizzled blocks of 64 columns ----
+
+__device__ __forceinline__ int act_off(int r, int c) {  // in elements
+  return (c >> 6) * 4096 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+__device__ __forceinline__ bf16 act_get(const bf16* act, int r, int c) {
+  return act[act_off(r, c)];
+}
+__device__ __forceinline__ void act_put2(bf16* act, int r, int c, float lo,
+                                         float hi) {  // c even
+  *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, c)) =
+      __floats2bfloat162_rn(lo, hi);
+}
+// 16 bytes (8 columns c .. c + 7, c % 8 == 0) of row r.
+__device__ __forceinline__ uint4& act_chunk(bf16* act, int r, int c) {
+  return *reinterpret_cast<uint4*>(act + act_off(r, c));
+}
+
+__device__ __forceinline__ void consumer_sync() { hopper::named_sync(1, NT); }
+
+// Thread-local view of a wgmma accumulator of NW columns (per warpgroup):
+// element i sits at row frag_row(i), column frag_col(i) of the warpgroup's
+// output columns.
+__device__ __forceinline__ int frag_row(int i) {
+  const int t = threadIdx.x & 127;
+  return (t >> 5) * 16 + ((t & 31) >> 2) + ((i & 2) ? 8 : 0);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return (i >> 2) * 8 + 2 * (threadIdx.x & 3) + (i & 1);
+}
+__device__ __forceinline__ int wg() { return threadIdx.x >> 7; }
+
+// ---- the weight ring ----
+
+template <bool PRODUCER>
+struct Pipe {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned char* ring;
+  const Maps* maps;
+  int it;  // slices consumed (or issued) so far
+};
+
+template <class Smem>
+__device__ void pipe_init(Smem& s) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RING; ++i) {
+      hopper::mbar_init(&s.full[i], 1);
+      hopper::mbar_init(&s.empty[i], NT / 32);  // one arrival per warp
+    }
+    hopper::mbar_init(&s.io, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+template <bool PRODUCER, class Smem>
+__device__ Pipe<PRODUCER> make_pipe(Smem& s, const Maps* maps) {
+  return Pipe<PRODUCER>{s.full, s.empty, s.ring, maps, 0};
+}
+
+// acc (+)= A @ B for this warpgroup's NW output columns: A is the
+// activation tile from column acol (a multiple of 16; K columns), B the
+// product's weights, K-major for TB = 0 (x @ W^T), MN-major for TB = 1
+// (s @ W; NW a multiple of 64). The producer issues the slices instead.
+template <int NW, int TB, bool PRODUCER>
+__device__ void mm(Pipe<PRODUCER>& pp, const Prod& pd, float (&acc)[NW / 2],
+                   const bf16* act, int acol, bool accumulate = false) {
+  const int nsl = (pd.K + 63) / 64;
+  if constexpr (PRODUCER) {
+    const int nbox = (pd.N + 63) / 64;
+    const CUtensorMap* map = &pp.maps->w[pd.map];
+    for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
+      const int st = pp.it % RING;
+      if (pp.it >= RING) hopper::mbar_wait(&pp.empty[st], ((pp.it / RING) - 1) & 1);
+      unsigned char* buf = pp.ring + st * SLICE;
+      hopper::mbar_expect_tx(&pp.full[st], nbox * BOX);
+      for (int b = 0; b < nbox; ++b) {
+        if (TB == 0) {
+          hopper::tma_load(buf + b * BOX, map, &pp.full[st], pd.k0 + 64 * kk,
+                           pd.n0 + 64 * b);
+        } else {
+          hopper::tma_load(buf + b * BOX, map, &pp.full[st], pd.n0 + 64 * b,
+                           pd.k0 + 64 * kk);
+        }
+      }
+    }
+  } else {
+    static_assert(TB == 0 || NW % 64 == 0, "MN-major splits need 64 columns");
+    const int g = wg();
+    for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
+      const int st = pp.it % RING;
+      hopper::mbar_wait(&pp.full[st], (pp.it / RING) & 1);
+      const unsigned char* buf = pp.ring + st * SLICE;
+      const int steps = min(4, (pd.K - 64 * kk + 15) / 16);
+      hopper::wgmma_fence();
+      for (int ks = 0; ks < steps; ++ks) {
+        const int c = acol + 64 * kk + 16 * ks;
+        const uint64_t da = hopper::desc_sw128(act + act_off(0, c), 16, 1024);
+        const uint64_t db =
+            TB == 0 ? hopper::desc_sw128(buf + g * NW * 128 + ks * 32, 16, 1024)
+                    : hopper::desc_sw128(buf + (g * NW / 64) * BOX + ks * 2048,
+                                         BOX, 1024);
+        // The product's first step overwrites acc unless it accumulates.
+        hopper::wgmma<NW, 0, TB>(acc, da, db, accumulate || kk > 0 || ks > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait();
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&pp.empty[st]);
+    }
+  }
+}
+
+// Role split of a row kernel after pipe_init: the producer warpgroup
+// drops to 40 registers and one of its threads runs `tile` as the
+// producer; the consumer warpgroups take 232 (the wgmma accumulators of a
+// product and of the skip columns stay in registers) and run it as
+// consumers, then wait for their last TMA stores. A whole producer
+// warpgroup keeps the register pool exact: 128 x 40 + 256 x 232 = 64,512.
+template <class Smem, class Tile>
+__device__ __forceinline__ void run_roles(Smem& s, const Maps* maps,
+                                          Tile tile) {
+  if (threadIdx.x >= NT) {
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == NT) {
+      Pipe<true> pp = make_pipe<true>(s, maps);
+      tile(pp);
+    }
+  } else {
+    hopper::reg_alloc<232>();
+    Pipe<false> pp = make_pipe<false>(s, maps);
+    tile(pp);
+    if (threadIdx.x == 0) hopper::bulk_wait();
+  }
+}
+
+// Before an epilogue overwrites the activation tile: every consumer's
+// products have read it, and the last TMA store of it has too.
+__device__ __forceinline__ void pre_epilogue() {
+  if (threadIdx.x == 0) hopper::bulk_wait_read();
+  consumer_sync();
+}
+// After an epilogue: its shared-memory writes are visible to the products
+// and TMA stores that read them, and to every consumer.
+__device__ __forceinline__ void post_epilogue() {
+  hopper::fence_proxy_async();
+  consumer_sync();
+}
+
+// TMA store of activation blocks b0 .. b0 + nb - 1 to the global rows of
+// `map` at column col, row row0 (rows past the map's end are dropped).
+__device__ __forceinline__ void store_blocks(const bf16* act, int b0, int nb,
+                                             const CUtensorMap* map, int col,
+                                             int row0) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < nb; ++b) {
+      hopper::tma_store(map, act + (b0 + b) * 4096, col + 64 * b, row0);
+    }
+    hopper::bulk_commit();
+  }
+}
+
+// 16-byte copy of activation columns c0 .. c0 + ncols - 1 (multiples of
+// 8) of rows < nrows to dst (row stride ld elements).
+__device__ void copy_cols(const bf16* act, int c0, int ncols, bf16* dst,
+                          size_t ld, int nrows) {
+  const int chunks = ncols / 8;
+  for (int i = threadIdx.x; i < nrows * chunks; i += NT) {
+    const int r = i / chunks, c = c0 + (i % chunks) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ld + c - c0) =
+        act_chunk(const_cast<bf16*>(act), r, c);
+  }
+}
+
+// Sum `ncols` bf16 columns from c0 of the tile over its rows and add the
+// sums to dst (one atomic per column and tile).
+__device__ void colsum_atomic(const bf16* act, int c0, int ncols, float* dst) {
+  for (int c = threadIdx.x; c < ncols; c += NT) {
+    float s = 0.f;
+    for (int r = 0; r < TM; ++r) s += __bfloat162float(act_get(act, r, c0 + c));
+    atomicAdd(dst + c, s);
+  }
+}
+
 __device__ __forceinline__ bool mask_bit(const uint32_t* mask, int layer,
-                                         int r, int c) {
-  return (mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
+                                         int i) {  // own element i of 64
+  return (mask[(layer * 2 + (i >> 5)) * NT + threadIdx.x] >> (i & 31)) & 1u;
 }
 
 // att * cos(y) of IPE feature j, from the f32 features att * sin(y): the
@@ -51,261 +314,323 @@ __device__ __forceinline__ float deg_scale(int j, int min_deg) {
   return ldexpf(1.f, (j % XP) / 3 + min_deg);
 }
 
-// Sum `ncols` bf16 columns of a [64 x ncols] shared tile over its rows and
-// add the sums to dst (one atomic per column and tile).
-__device__ void colsum_atomic(const bf16* A, int lda, int ncols, float* dst) {
-  for (int c = threadIdx.x; c < ncols; c += NT) {
-    float s = 0.f;
-    for (int r = 0; r < TM; ++r) s += __bfloat162float(A[r * lda + c]);
-    atomicAdd(dst + c, s);
-  }
-}
+// ---- steps ----
 
-// Load the moments of rows row0 .. row0 + nrows - 1 into stage[0 : 64*8]
-// (zero past nrows) and build the IPE features: f32 in x32, bf16 at act
-// columns 256..351. All 8 lanes of mc stay in the stage until the next
-// product overwrites it.
-__device__ void load_ipe(const float* mc, size_t row0, int nrows, int min_deg,
-                         float* stage, float* x32, bf16* act) {
+// Load the moments of rows row0 .. row0 + nrows - 1 into s.mc (zero past
+// nrows) and build the IPE features: f32 in x32, bf16 at act columns
+// 256..351.
+template <class Smem>
+__device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
+                         int min_deg) {
   const int tid = threadIdx.x;
   for (int i = tid; i < TM * 8; i += NT) {
     const int r = i >> 3;
-    stage[i] = r < nrows ? mc[(row0 + r) * 8 + (i & 7)] : 0.f;
+    s.mc[i] = r < nrows ? mc[(row0 + r) * 8 + (i & 7)] : 0.f;
   }
-  __syncthreads();
-  for (int i = tid; i < TM * XF; i += NT) {
-    const int r = i / XF, j = i % XF;
-    const int jj = j % XP;
-    const int deg = jj / 3 + min_deg, dim = jj % 3;
-    float y = stage[r * 8 + dim] * ldexpf(1.f, deg);
-    if (j >= XP) y = y + 1.57079632679489662f;
-    const float var = stage[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
-    const float f = expf(-0.5f * var) * sinf(y);
-    x32[r * XF + j] = f;
-    act[r * ACT_LD + W + j] = __float2bfloat16(f);
+  consumer_sync();
+  for (int i = tid; i < TM * XF / 2; i += NT) {
+    const int r = i / (XF / 2), j = 2 * (i % (XF / 2));
+    float f[2];
+    for (int h = 0; h < 2; ++h) {
+      const int jj = (j + h) % XP;
+      const int deg = jj / 3 + min_deg, dim = jj % 3;
+      float y = s.mc[r * 8 + dim] * ldexpf(1.f, deg);
+      if (j + h >= XP) y = y + 1.57079632679489662f;
+      const float var = s.mc[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
+      f[h] = expf(-0.5f * var) * sinf(y);
+      s.x32[r * XF + j + h] = f[h];
+    }
+    act_put2(s.act, r, W + j, f[0], f[1]);
   }
-  __syncthreads();
+  hopper::fence_proxy_async();
+  consumer_sync();
 }
 
 // Load already-encoded bf16 features x [., 96] into act columns 256..351
 // (zero past nrows).
-__device__ void load_encoded(const bf16* x, size_t row0, int nrows, bf16* act) {
-  for (int i = threadIdx.x; i < TM * XF; i += NT) {
-    const int r = i / XF, j = i % XF;
-    act[r * ACT_LD + W + j] =
-        r < nrows ? x[(row0 + r) * XF + j] : __float2bfloat16(0.f);
+template <class Smem>
+__device__ void load_encoded(Smem& s, const bf16* x, size_t row0, int nrows) {
+  for (int i = threadIdx.x; i < TM * XF / 8; i += NT) {
+    const int r = i / (XF / 8), c = 8 * (i % (XF / 8));
+    act_chunk(s.act, r, W + c) =
+        r < nrows ? *reinterpret_cast<const uint4*>(x + (row0 + r) * XF + c)
+                  : make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();
+  hopper::fence_proxy_async();
+  consumer_sync();
 }
 
-// Trunk layer epilogue: act = bf16(relu(stage + bias)), ReLU mask bits.
-// Optionally copies the activation to `copy` (row stride ld_copy), rows
-// < nrows_copy only.
-__device__ void relu_epilogue(const float* stage, const float* bias,
-                              bf16* act, uint32_t* mask, int layer,
-                              bf16* copy, size_t ld_copy, int nrows_copy) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;  // a warp covers 32 columns of a row
-    const bf16 h = __float2bfloat16(fmaxf(stage[r * ST_LD + c] + bias[c], 0.f));
-    act[r * ACT_LD + c] = h;
-    const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-    if (lane == 0) mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] = bits;
-    if (copy != nullptr && r < nrows_copy) copy[r * ld_copy + c] = h;
+// Where the trunk's activations go besides the tile: a TMA map (rows past
+// its end dropped) or rows < nrows of a plain [., ld] buffer; `col` is
+// the first column of layer 0.
+struct TrunkOut {
+  const CUtensorMap* map;
+  bf16* ptr;
+  size_t ld;
+  int col, row0, nrows;
+};
+
+// Trunk layer epilogue from the accumulator: act = bf16(relu(acc + bias)),
+// ReLU mask bits in fragment order.
+template <class Smem>
+__device__ void relu_epilogue(Smem& s, const float (&acc)[64],
+                              const float* bias, int layer) {
+  const int g = wg();
+  uint32_t m0 = 0, m1 = 0;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = frag_row(i), c = g * 128 + frag_col(i);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(
+        fmaxf(acc[i] + bias[c], 0.f), fmaxf(acc[i + 1] + bias[c + 1], 0.f));
+    *reinterpret_cast<__nv_bfloat162*>(s.act + act_off(r, c)) = h;
+    const uint32_t bits = (__low2float(h) > 0.f ? 1u : 0u) |
+                          (__high2float(h) > 0.f ? 2u : 0u);
+    if (i < 32) m0 |= bits << i; else m1 |= bits << (i - 32);
   }
-  __syncthreads();
+  s.mask[(layer * 2 + 0) * NT + threadIdx.x] = m0;
+  s.mask[(layer * 2 + 1) * NT + threadIdx.x] = m1;
 }
 
 // Trunk: 8 x (Linear + ReLU) on the features at act columns 256..351, the
 // skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..255 and
-// the ReLU masks. With `copy` non-null, layer i's activation is also
-// written to copy + i * 256 (row stride ld_copy, rows < nrows_copy).
-template <class Smem>
-__device__ void trunk_forward(Smem& s, const bf16* w, const float* b,
-                              bf16* copy, size_t ld_copy, int nrows_copy) {
+// the ReLU masks; layer i's activation also goes to `out` (if any) at
+// column out.col + 256 i.
+template <bool PRODUCER, class Smem>
+__device__ void trunk_forward(Pipe<PRODUCER>& pp, Smem& s, const float* b,
+                              const TrunkOut* out) {
+  float acc[64];
   for (int layer = 0; layer < 8; ++layer) {
-    const bf16* A = layer == 0 ? s.act + W : s.act;
-    const int K = trunk_in(layer);
-    tile_matmul<wmma::col_major>(A, ACT_LD, K, w + trunk_offset(layer), K, W,
-                                 s.stage, ST_LD);
-    __syncthreads();
-    relu_epilogue(s.stage, b + OFF_BT + layer * W, s.act, s.mask, layer,
-                  copy != nullptr ? copy + layer * W : nullptr, ld_copy,
-                  nrows_copy);
+    mm<128, 0>(pp, trunk_prod(layer, false), acc, s.act, layer == 0 ? W : 0);
+    if constexpr (!PRODUCER) {
+      pre_epilogue();
+      relu_epilogue(s, acc, b + OFF_BT + layer * W, layer);
+      post_epilogue();
+      if (out != nullptr) {
+        if (out->map != nullptr) {
+          store_blocks(s.act, 0, 4, out->map, out->col + layer * W, out->row0);
+        } else {
+          copy_cols(s.act, 0, W, out->ptr + out->col + layer * W, out->ld,
+                    out->nrows);
+        }
+      }
+    }
   }
 }
 
-// The trunk's activations from a bf16 spill [rows, 8 * 256] (acts points
-// at the tile's first row; zero past nrows): masks, operand rows O_A and
-// a_7 in act columns 0..255, as trunk_forward leaves them.
+// The trunk's activations from a bf16 spill (TMA map `acts` [M, 8 * 256],
+// the tile's first row row0; zero past nrows): masks, operand rows O_A
+// (map `ops`, row ops_row0) and a_7 in act columns 0..255, as
+// trunk_forward leaves them.
 template <class Smem>
-__device__ void trunk_load(Smem& s, const bf16* acts, int nrows, bf16* ops,
-                           int opw) {
-  const int lane = threadIdx.x & 31;
+__device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
+                           int nrows, const CUtensorMap* ops, int ops_row0) {
+  const int tid = threadIdx.x, g = wg();
   for (int layer = 0; layer < 8; ++layer) {
-    for (int i = threadIdx.x; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      const bf16 h = r < nrows ? acts[(size_t)r * 8 * W + layer * W + c]
-                               : __float2bfloat16(0.f);
-      const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-      if (lane == 0) s.mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] = bits;
-      ops[(size_t)r * opw + O_A + layer * W + c] = h;
-      if (layer == 7) s.act[r * ACT_LD + c] = h;
+    pre_epilogue();  // the previous layer's store has read the tile
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&s.io, 4 * BOX);
+      for (int b = 0; b < 4; ++b) {
+        hopper::tma_load(s.act + b * 4096, acts, &s.io, layer * W + 64 * b,
+                         row0);
+      }
     }
-    __syncthreads();
+    hopper::mbar_wait(&s.io, layer & 1);
+    if (nrows < TM) {
+      for (int i = tid; i < (TM - nrows) * (W / 8); i += NT) {
+        act_chunk(s.act, nrows + i / (W / 8), 8 * (i % (W / 8))) =
+            make_uint4(0, 0, 0, 0);
+      }
+      hopper::fence_proxy_async();
+      consumer_sync();
+    }
+    uint32_t m0 = 0, m1 = 0;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = frag_row(i), c = g * 128 + frag_col(i);
+      const __nv_bfloat162 h =
+          *reinterpret_cast<const __nv_bfloat162*>(s.act + act_off(r, c));
+      const uint32_t bits = (__low2float(h) > 0.f ? 1u : 0u) |
+                            (__high2float(h) > 0.f ? 2u : 0u);
+      if (i < 32) m0 |= bits << i; else m1 |= bits << (i - 32);
+    }
+    s.mask[(layer * 2 + 0) * NT + tid] = m0;
+    s.mask[(layer * 2 + 1) * NT + tid] = m1;
+    consumer_sync();
+    store_blocks(s.act, 0, 4, ops, O_A + layer * W, ops_row0);
   }
 }
 
 // Heads on a_7 (act columns 0..255) and the viewdir codes v (v points at
 // the tile's first row, [., 32] bf16; zero past nrows): bottleneck and
-// view branch. With `outputs`, also the density and color heads: on
-// return the stage holds raw rgb (+ bias) in columns 0..2 and raw density
-// (+ bias) in columns 272..276. With OPS, the bottleneck, the viewdir
-// codes and the view-branch activation go to their operand rows and the
-// view branch's ReLU mask to s.hvmask.
-template <bool OPS, class Smem>
-__device__ void heads_forward(Smem& s, const bf16* w, const float* b,
-                              const bf16* v, int nrows, bool outputs,
-                              bf16* ops, int opw) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (outputs) {
-    tile_matmul<wmma::col_major>(s.act, ACT_LD, W, w + OFF_WD, W, HP,
-                                 s.stage + W, ST_LD);
+// view branch. With OUT, also the density and color heads: on return
+// s.heads [64 x 16] f32 holds raw rgb (+ bias) in columns 0..2 and raw
+// density (+ bias) in columns 3..7. With OPS, the bottleneck, the viewdir
+// codes and the view-branch activation go to their operand rows (map
+// `ops`, row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves
+// the view-branch activation in act columns 0..127.
+template <bool OPS, bool OUT, bool PRODUCER, class Smem>
+__device__ void heads_forward(Pipe<PRODUCER>& pp, Smem& s, const float* b,
+                              const bf16* v, int nrows, const CUtensorMap* ops,
+                              int ops_row0, bf16* ops_rows, int opw) {
+  const int tid = threadIdx.x, g = wg();
+  float hd[4];
+  if constexpr (OUT) mm<8, 0>(pp, Prod{M_WDB, 0, 0, W, HP}, hd, s.act, 0);
+  float acc[64];
+  mm<128, 0>(pp, Prod{M_WDB, 0, HP, W, W}, acc, s.act, 0);
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = frag_row(i), c = g * 128 + frag_col(i);
+      act_put2(s.act, r, c, acc[i] + b[OFF_BB + c], acc[i + 1] + b[OFF_BB + c + 1]);
+    }
+    if constexpr (OUT) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = frag_row(i), c = g * 8 + frag_col(i);
+        if (c < NDC) s.heads[r * OUT_W + 3 + c] = hd[i] + b[OFF_BD + c];
+      }
+    }
+    for (int i = tid; i < TM * VP / 8; i += NT) {
+      const int r = i / (VP / 8), c = 8 * (i % (VP / 8));
+      const uint4 vv = r < nrows ? *reinterpret_cast<const uint4*>(v + r * VP + c)
+                                 : make_uint4(0, 0, 0, 0);
+      act_chunk(s.act, r, W + c) = vv;
+      if constexpr (OPS) {
+        *reinterpret_cast<uint4*>(ops_rows + (size_t)r * opw + O_V + c) = vv;
+      }
+    }
+    post_epilogue();
+    if constexpr (OPS) store_blocks(s.act, 0, 4, ops, O_BTL, ops_row0);
   }
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, w + OFF_WB, W, W, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    const bf16 h = __float2bfloat16(s.stage[r * ST_LD + c] + b[OFF_BB + c]);
-    s.act[r * ACT_LD + c] = h;
-    if constexpr (OPS) ops[(size_t)r * opw + O_BTL + c] = h;
+  float hv[32];
+  mm<64, 0>(pp, Prod{M_WV, 0, 0, VK, VW}, hv, s.act, 0);
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+    uint32_t m = 0;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = frag_row(i), c = g * 64 + frag_col(i);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(
+          fmaxf(hv[i] + b[OFF_BV + c], 0.f), fmaxf(hv[i + 1] + b[OFF_BV + c + 1], 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(s.act + act_off(r, c)) = h;
+      m |= ((__low2float(h) > 0.f ? 1u : 0u) | (__high2float(h) > 0.f ? 2u : 0u)) << i;
+    }
+    if constexpr (OPS) s.hvmask[tid] = m;
+    post_epilogue();
+    if constexpr (OPS) store_blocks(s.act, 0, 2, ops, O_HV, ops_row0);
   }
-  for (int i = tid; i < TM * VP; i += NT) {
-    const int r = i / VP, j = i % VP;
-    const bf16 vv = r < nrows ? v[(size_t)r * VP + j] : __float2bfloat16(0.f);
-    s.act[r * ACT_LD + W + j] = vv;
-    if constexpr (OPS) ops[(size_t)r * opw + O_V + j] = vv;
-  }
-  if (outputs) {
-    // Raw density (+ bias) kept in the stage's spare columns 272..276
-    // while the view branch reuses 0..127.
-    for (int i = tid; i < TM * NDC; i += NT) {
-      const int r = i / NDC, c = i % NDC;
-      s.stage[r * ST_LD + W + HP + c] = s.stage[r * ST_LD + W + c] + b[OFF_BD + c];
+  if constexpr (OUT) {
+    float rgb[4];
+    mm<8, 0>(pp, Prod{M_WC, 0, 0, VW, HP}, rgb, s.act, 0);
+    if constexpr (!PRODUCER) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = frag_row(i), c = g * 8 + frag_col(i);
+        if (c < 3) s.heads[r * OUT_W + c] = rgb[i] + b[OFF_BC + c];
+      }
+      consumer_sync();
     }
   }
-  __syncthreads();
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VK, w + OFF_WV, VK, VW, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    const bf16 h =
-        __float2bfloat16(fmaxf(s.stage[r * ST_LD + c] + b[OFF_BV + c], 0.f));
-    if (outputs) s.act[r * ACT_LD + c] = h;
-    if constexpr (OPS) {
-      const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-      if (lane == 0) s.hvmask[r * (VW / 32) + (c >> 5)] = bits;
-      ops[(size_t)r * opw + O_HV + c] = h;
-    }
-  }
-  __syncthreads();
-  if (!outputs) return;
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VW, w + OFF_WC, VW, HP, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * 3; i += NT) {
-    const int r = i / 3, c = i % 3;
-    s.stage[r * ST_LD + c] += b[OFF_BC + c];
-  }
-  __syncthreads();
 }
 
 // MLP backward from the head cotangent s.g ([64 x 16] f32: rgb 0..2,
 // density 3..7; zero on rows that must add nothing), after trunk_* and
 // heads_forward filled the masks and the forward operand rows. Writes the
-// cotangent operand rows, adds the bias gradients into db and leaves
-// d x (f32 [64 x 96]) in s.dx.
-template <class Smem>
-__device__ void mlp_backward(Smem& s, const bf16* w, bf16* ops, int opw,
-                             float* db) {
-  const int tid = threadIdx.x;
-  // ---- heads backward ----
-  // Color-head cotangent (bf16, columns 0..2 of 16) as the A operand.
-  for (int i = tid; i < TM * HP; i += NT) {
-    const int r = i / HP, c = i % HP;
-    const bf16 gr = __float2bfloat16(c < 3 ? s.g[r * OUT_W + c] : 0.f);
-    s.act[r * ACT_LD + c] = gr;
-    ops[(size_t)r * opw + O_GR + c] = gr;
-  }
-  // Head biases take the f32 cotangent: d bc, d bd.
-  if (tid < 3 + NDC) {
-    float acc = 0.f;
-    for (int r = 0; r < TM; ++r) acc += s.g[r * OUT_W + tid];
-    atomicAdd(db + (tid < 3 ? OFF_BC + tid : OFF_BD + tid - 3), acc);
-  }
-  __syncthreads();
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, HP, w + OFF_WC, VW, VW, s.stage,
-                               ST_LD);  // d hv = gr @ Wc
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    const bool on = (s.hvmask[r * (VW / 32) + (c >> 5)] >> (c & 31)) & 1u;
-    const bf16 dz = __float2bfloat16(on ? s.stage[r * ST_LD + c] : 0.f);
-    s.act[r * ACT_LD + c] = dz;
-    ops[(size_t)r * opw + O_DZV + c] = dz;
-  }
-  __syncthreads();
-  colsum_atomic(s.act, ACT_LD, VW, db + OFF_BV);
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, VW, w + OFF_WV, VK, W, s.stage,
-                               ST_LD);  // d btl = dzv @ Wv[:, :256]
-  __syncthreads();
-  // A operand [gd (16) | dbtl (256)] against the stacked [Wd ; Wb]
-  // (contiguous in the packed layout): d a_7 in one K=272 product.
-  for (int i = tid; i < TM * (HP + W); i += NT) {
-    const int r = i / (HP + W), c = i % (HP + W);
-    bf16 h;
-    if (c < HP) {
-      h = __float2bfloat16(c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f);
-      ops[(size_t)r * opw + O_GD + c] = h;
-    } else {
-      h = __float2bfloat16(s.stage[r * ST_LD + c - HP]);
-      ops[(size_t)r * opw + O_DBTL + c - HP] = h;
+// cotangent operand rows (map `ops`, row ops_row0; `ops_rows` the tile's
+// first operand row, for the narrow columns), adds the bias gradients
+// into db and leaves d x (f32 [64 x 96]) in s.dx.
+template <bool PRODUCER, class Smem>
+__device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
+                             const CUtensorMap* ops, int ops_row0,
+                             bf16* ops_rows, int opw) {
+  const int tid = threadIdx.x, g = wg();
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+    // Color-head cotangent (bf16, columns 0..2 of 16) as the A operand.
+    for (int i = tid; i < TM * HP / 2; i += NT) {
+      const int r = i / (HP / 2), c = 2 * (i % (HP / 2));
+      act_put2(s.act, r, c, c < 3 ? s.g[r * OUT_W + c] : 0.f,
+               c + 1 < 3 ? s.g[r * OUT_W + c + 1] : 0.f);
     }
-    s.act[r * ACT_LD + c] = h;
+    // Head biases take the f32 cotangent: d bc, d bd.
+    if (tid < 3 + NDC) {
+      float a = 0.f;
+      for (int r = 0; r < TM; ++r) a += s.g[r * OUT_W + tid];
+      atomicAdd(db + (tid < 3 ? OFF_BC + tid : OFF_BD + tid - 3), a);
+    }
+    post_epilogue();
+    copy_cols(s.act, 0, HP, ops_rows + O_GR, opw, TM);
   }
-  __syncthreads();
-  colsum_atomic(s.act + HP, ACT_LD, W, db + OFF_BB);
-  tile_matmul<wmma::row_major>(s.act, ACT_LD, HP + W, w + OFF_WD, W, W,
-                               s.stage, ST_LD);
-  __syncthreads();
+  float hv[32];
+  mm<64, 1>(pp, Prod{M_WC, 0, 0, HP, VW}, hv, s.act, 0);  // d hv = gr @ Wc
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+    const uint32_t m = s.hvmask[tid];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = frag_row(i), c = g * 64 + frag_col(i);
+      act_put2(s.act, r, c, (m >> i) & 1u ? hv[i] : 0.f,
+               (m >> (i + 1)) & 1u ? hv[i + 1] : 0.f);
+    }
+    post_epilogue();
+    store_blocks(s.act, 0, 2, ops, O_DZV, ops_row0);
+    colsum_atomic(s.act, 0, VW, db + OFF_BV);
+  }
+  float acc[64];
+  mm<128, 1>(pp, Prod{M_WV, 0, 0, VW, W}, acc, s.act, 0);  // d btl = dzv @ Wv
+  if constexpr (!PRODUCER) {
+    pre_epilogue();
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      act_put2(s.act, frag_row(i), g * 128 + frag_col(i), acc[i], acc[i + 1]);
+    }
+    for (int i = tid; i < TM * HP / 2; i += NT) {  // gd at columns 256..271
+      const int r = i / (HP / 2), c = 2 * (i % (HP / 2));
+      act_put2(s.act, r, W + c, c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f,
+               c + 1 < NDC ? s.g[r * OUT_W + 4 + c] : 0.f);
+    }
+    post_epilogue();
+    store_blocks(s.act, 0, 4, ops, O_DBTL, ops_row0);
+    copy_cols(s.act, W, HP, ops_rows + O_GD, opw, TM);
+    colsum_atomic(s.act, 0, W, db + OFF_BB);
+  }
+  // d a_7 = dbtl @ Wb + gd @ Wd.
+  mm<128, 1>(pp, Prod{M_WDB, HP, 0, W, W}, acc, s.act, 0);
+  mm<128, 1>(pp, Prod{M_WDB, 0, 0, HP, W}, acc, s.act, W, true);
 
   // ---- trunk backward ----
-  for (int i = tid; i < TM * XF; i += NT) s.dx[i] = 0.f;
+  float skip[32];
   for (int layer = 7; layer >= 0; --layer) {
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      const bf16 dz = __float2bfloat16(mask_bit(s.mask, layer, r, c)
-                                           ? s.stage[r * ST_LD + c] : 0.f);
-      s.act[r * ACT_LD + c] = dz;
-      ops[(size_t)r * opw + O_DZ + layer * W + c] = dz;
-    }
-    __syncthreads();
-    colsum_atomic(s.act, ACT_LD, W, db + OFF_BT + layer * W);
-    const int K = trunk_in(layer);
-    tile_matmul<wmma::row_major>(s.act, ACT_LD, W, w + trunk_offset(layer), K,
-                                 K, s.stage, ST_LD);
-    __syncthreads();
-    if (layer == 5 || layer == 0) {
-      const int c0 = layer == 5 ? W : 0;
-      for (int i = tid; i < TM * XF; i += NT) {
-        const int r = i / XF, j = i % XF;
-        s.dx[i] += s.stage[r * ST_LD + c0 + j];
+    if constexpr (!PRODUCER) {
+      pre_epilogue();
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        act_put2(s.act, frag_row(i), g * 128 + frag_col(i),
+                 mask_bit(s.mask, layer, i) ? acc[i] : 0.f,
+                 mask_bit(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
       }
-      __syncthreads();
+      post_epilogue();
+      store_blocks(s.act, 0, 4, ops, O_DZ + layer * W, ops_row0);
+      colsum_atomic(s.act, 0, W, db + OFF_BT + layer * W);
     }
+    if (layer == 5 || layer == 0) {  // d x: the skip columns, or layer 0's
+      mm<64, 1>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128), skip,
+                s.act, 0);
+      if constexpr (!PRODUCER) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int j = g * 64 + frag_col(i);
+          if (j < XF) {
+            float* d = s.dx + frag_row(i) * XF + j;
+            *d = layer == 5 ? skip[i] : *d + skip[i];
+          }
+        }
+      }
+    }
+    if (layer > 0) mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
   }
+  if constexpr (!PRODUCER) consumer_sync();
 }
 
 // IPE backward of s.dx: cot_y = dx * att cos(y), cot_var = -dx * x / 2,
@@ -328,7 +653,7 @@ __device__ void ipe_backward(Smem& s, int min_deg) {
     }
     s.dmc[r * 8 + k] += acc;
   }
-  __syncthreads();
+  consumer_sync();
 }
 
 }  // namespace nerf_mlp

@@ -1,7 +1,8 @@
 // Shared by the port's CUDA kernels (fused_render.cu, fused_mlp.cu,
 // fused_render_train.cu): the NerfMLP specialisation they are compiled
-// for, the packed weight layout of kernels/fused_render.py `pack_params`,
-// the 64-row WMMA product and the activations.
+// for, the packed weight layout of kernels/fused_render.py `pack_params`
+// and the activations; and the 64-row WMMA product of the eval kernel
+// (fused_render.cu; the training kernels use mlp_rows.cuh's wgmma steps).
 #pragma once
 
 #include <cuda_bf16.h>

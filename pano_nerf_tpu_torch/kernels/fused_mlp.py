@@ -16,7 +16,7 @@ data and weight gradients), against 192 B of bf16 inputs per row.
 Design (csrc/fused_mlp.cu, template variant ENCODED): the row kernels of
 kernel 2 with the IPE replaced by a load of the bf16 features; the
 backward row pass writes d x (f32) instead of d moments and the same
-operand rows, which the unchanged weight-gradient pass reduces.
+operand rows, which kernel 2's weight-gradient pass reduces.
 
 `fused_mlp_apply` is the wrapper: the plain version
 `fused_mlp_apply_reference` (NerfMLP on the encoded rows, torch autograd)
@@ -115,14 +115,23 @@ def run_backward(counter, mlp: NerfMLP, xb: Tensor, v: Tensor,
     ops, dw, db = k2.backward_buffers(lib, weights, biases,
                                       k2.tile_rows(lib, M), False)
     dx = torch.empty((M, _XF), dtype=torch.float32, device=xb.device)
+    launch_backward_rows(xb, v, weights, biases, g, ops, dx, db)
+    counter.backward_launches += 1
+    return dx, k2.weight_grads(lib, counter, mlp, ops, dw, db)
+
+
+def launch_backward_rows(xb: Tensor, v: Tensor, weights: Tensor,
+                         biases: Tensor, g: Tensor, ops: Tensor, dx: Tensor,
+                         db: Tensor) -> None:
+    """One launch of the backward row pass: writes d x and the operand
+    rows `ops`, adds the bias gradients into db. Not counted."""
+    lib = k2.kernel_library()
     k2.check_launch(lib, "fused_mlp backward",
                     lib.fused_mlp_encoded_backward_rows(
                         xb.data_ptr(), v.data_ptr(), weights.data_ptr(),
                         biases.data_ptr(), g.data_ptr(), ops.data_ptr(),
-                        dx.data_ptr(), db.data_ptr(), M,
+                        dx.data_ptr(), db.data_ptr(), xb.shape[0],
                         torch.cuda.current_stream(xb.device).cuda_stream))
-    counter.backward_launches += 1
-    return dx, k2.weight_grads(lib, counter, mlp, ops, dw, db)
 
 
 class _FusedMlp(torch.autograd.Function):

@@ -9,21 +9,33 @@ view branch. The backward returns the gradient of the moments (the env
 queries need it: their means depend on the fine level's distance) and of
 every weight and bias; the viewdir encoding gets none.
 
-What bounds it on an H100: tensor-core operations. A row is 611,328 MACs
-forward; the backward recomputes the forward and adds the data and weight
-gradients, 3 x 611,328 MACs, against 96 B of inputs and 64 B of
-cotangent. At batch 512 a train step runs it on 82,944 rows (coarse
-28,672, env 25,600, view consistency 28,672): ~0.1 TFLOP forward and
-~0.3 TFLOP backward, >= 0.4 ms at 989 TFLOP/s dense bf16.
+What bounds it on an H100. The forward: tensor-core operations, 611,328
+MACs per row against 96 B of inputs and 64 B out (0.035 ms per 28,672
+rows at 989 TFLOP/s dense bf16). The backward is two launches, each with
+its own floor. The row pass recomputes the forward and runs the data
+gradients (2 x 611,328 MACs per row, 0.071 ms per 28,672 rows) and writes
+every operand of every weight-gradient product as bf16 rows (`ops`, 5,024
+columns = 10 KB per row: 288 MB, >= 0.086 ms at 3.35 TB/s): bytes bound
+it. The weight-gradient pass reads those rows once (>= 0.086 ms) for
+611,328 MACs per row. The function's own bound, which leaves the operand
+rows out, is 0.106 ms at 28,672 rows.
 
-Design (csrc/fused_mlp.cu, template NORMALS=false): 64-row tiles, bf16
-activations in shared memory, WMMA bf16 products with f32 accumulation,
-weights read from L2. The backward's row kernel writes every operand of
-the weight-gradient products (bf16 rows); a second kernel reduces
-dW = dZ^T A over the rows in 64x64 output tiles and 2048-row chunks,
-adding partial tiles with atomicAdd into a zeroed f32 buffer. The order of
-those atomics varies between runs, so weight gradients vary in the last
-f32 bits; they are then rounded to bf16 as both JAX paths round them.
+Design (csrc/fused_mlp.cu, template IPE; steps in csrc/mlp_rows.cuh):
+the row kernels run one 64-row tile per block on warpgroup `wgmma`
+products, the activation tile in 128-byte-swizzled shared memory as the A
+operand, the weights streamed by TMA from a producer warpgroup through a
+3-slice ring, epilogues from registers and 64-column operand rows
+written by TMA stores. The weight-gradient pass is a TMA + `wgmma` GEMM:
+128 x 256 output tiles, both operands MN-major in shared memory (the
+reduction runs over the rows), a 4-stage ring fed by a producer warpgroup,
+row chunks split over one wave of blocks and reduced into a zeroed f32
+buffer by bulk reduce-add. The order of those reductions varies between
+runs, so weight gradients vary in the last f32 bits; they are then
+rounded to bf16 as both JAX paths round them. `wgrad_jobs` is the pass's
+job table: the kernel takes it from here at every launch, and its plain
+version `weight_grads_reference` runs the same table on the same operand
+rows. The O_* columns mirror the layout the CUDA row passes write
+(`csrc/mlp_rows.cuh`); `kernel_library` checks the widths against it.
 
 `fused_mlp_ipe_apply` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_mlp_ipe_reference` (IPE -> NerfMLP, torch
@@ -31,13 +43,14 @@ autograd for the backward) for CPU tensors and the CUDA kernels for CUDA
 tensors, or raises. It counts forward launches in
 `fused_mlp_ipe_apply.launches` and backward launches (row pass and
 weight-gradient pass, two per backward) in
-`fused_mlp_ipe_apply.backward_launches`.
+`fused_mlp_ipe_apply.backward_launches`; every weight-gradient pass (of
+kernels 1, 2, 3 and 5) also counts in `weight_grads.launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,7 +136,8 @@ def kernel_library() -> ctypes.CDLL:
         lib.fused_mlp_forward.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
         lib.fused_mlp_backward_rows.argtypes = [ptr] * 11 + [i32, i32, i32,
                                                              ptr]
-        lib.fused_mlp_weight_grads.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.fused_mlp_weight_grads.argtypes = [ptr, ptr, i32, i32, ptr, i32,
+                                               ptr]
         lib.fused_mlp_encoded_forward.argtypes = [ptr] * 5 + [i32, ptr]
         lib.fused_mlp_encoded_backward_rows.argtypes = [ptr] * 8 + [i32, ptr]
         for fn in ("fused_mlp_forward", "fused_mlp_backward_rows",
@@ -139,6 +153,14 @@ def kernel_library() -> ctypes.CDLL:
         lib.fused_mlp_ops_width.argtypes = [i32]
         lib.fused_mlp_error_string.argtypes = [i32]
         lib.fused_mlp_error_string.restype = ctypes.c_char_p
+        # The job table and the plain version index the operand rows and
+        # the packed weights by this module's constants.
+        got = (lib.fused_mlp_ops_width(0), lib.fused_mlp_ops_width(1),
+               lib.fused_mlp_weight_count())
+        if got != (OPW_IPE, OPW_NRM, W_TOTAL):
+            raise RuntimeError(f"{SOURCE} lays out operand rows and weights "
+                               f"as {got}, this module as "
+                               f"{(OPW_IPE, OPW_NRM, W_TOTAL)}")
         lib._pano_configured = True
     return lib
 
@@ -193,10 +215,123 @@ def backward_buffers(lib: ctypes.CDLL, weights: Tensor, biases: Tensor,
     return ops, dw, db
 
 
+# Columns of the backward's bf16 operand rows (csrc/mlp_rows.cuh): every
+# operand of every weight-gradient product, one row per sample row.
+O_X = 0                       # MLP input features x (96)
+O_A = O_X + _XF               # trunk activations a_0..a_7
+O_BTL = O_A + 8 * _W          # bottleneck
+O_V = O_BTL + _W              # viewdir encoding (32)
+O_HV = O_V + V_PAD            # view-branch activation (128)
+O_DZ = O_HV + _VW             # trunk cotangents dz_0..dz_7
+O_GD = O_DZ + 8 * _W          # density-head cotangent (16)
+O_DBTL = O_GD + 16            # bottleneck cotangent
+O_DZV = O_DBTL + _W           # view-branch cotangent
+O_GR = O_DZV + _VW            # color-head cotangent (16)
+OPW_IPE = O_GR + 16
+O_CGX = OPW_IPE               # walk: cotangent of g_x (96)
+O_C = O_CGX + _XF             # walk: c_0..c_6
+O_SZ = O_C + 7 * _W           # chain: sz_0..sz_7
+OPW_NRM = O_SZ + 8 * _W
+# Packed weights (csrc/nerf_mlp.cuh), offsets in elements.
+OFF_W0 = 0
+OFF_W1 = OFF_W0 + _W * _XF
+OFF_W5 = OFF_W1 + 4 * _W * _W
+OFF_W6 = OFF_W5 + _W * (_W + _XF)
+OFF_WD = OFF_W6 + 2 * _W * _W
+OFF_WB = OFF_WD + 16 * _W
+OFF_WV = OFF_WB + _W * _W
+OFF_WC = OFF_WV + _VW * 288
+W_TOTAL = OFF_WC + 16 * _VW
+
+
+def wgrad_jobs(normals: bool) -> List[Tuple[int, ...]]:
+    """The weight-gradient products of a backward, the job table that
+    `launch_weight_grads` hands the CUDA pass (`fused_mlp_weight_grads`)
+    and `weight_grads_reference` runs: (b1, a1, b2, a2, n, k, out, ldo),
+    dW[n, k] += B1^T A1 (+ B2^T A2) over the rows, B the fan-out side
+    (cotangent columns), A the fan-in side (layer inputs), written at
+    `out` with row stride `ldo` in the packed layout; b2 < 0: one pair.
+    NORMALS adds the chain's sz_i against the walk's c_{i-1} to each
+    trunk weight."""
+    def pair(i, a_col):   # chain column and walk column of trunk layer i
+        return (O_SZ + i * _W, a_col) if normals else (-1, -1)
+    trunk = [(O_DZ, O_X, *pair(0, O_CGX), _W, _XF, OFF_W0, _XF)]
+    for i in range(1, 5):
+        trunk.append((O_DZ + i * _W, O_A + (i - 1) * _W,
+                      *pair(i, O_C + (i - 1) * _W), _W, _W,
+                      OFF_W1 + (i - 1) * _W * _W, _W))
+    trunk += [(O_DZ + 5 * _W, O_A + 4 * _W, *pair(5, O_C + 4 * _W), _W, _W,
+               OFF_W5, _W + _XF),
+              (O_DZ + 5 * _W, O_X, *pair(5, O_CGX), _W, _XF, OFF_W5 + _W,
+               _W + _XF)]
+    for i in (6, 7):
+        trunk.append((O_DZ + i * _W, O_A + (i - 1) * _W,
+                      *pair(i, O_C + (i - 1) * _W), _W, _W,
+                      OFF_W6 + (i - 6) * _W * _W, _W))
+    return trunk + [
+        (O_GD, O_A + 7 * _W, -1, -1, 16, _W, OFF_WD, _W),
+        (O_DBTL, O_A + 7 * _W, -1, -1, _W, _W, OFF_WB, _W),
+        (O_DZV, O_BTL, -1, -1, _VW, _W, OFF_WV, 288),
+        (O_DZV, O_V, -1, -1, _VW, V_PAD, OFF_WV + _W, 288),
+        (O_GR, O_HV, -1, -1, 16, _VW, OFF_WC, _VW)]
+
+
+def weight_grads_reference(ops: Tensor, normals: bool) -> Tensor:
+    """Plain version of the weight-gradient pass: the packed f32 weight
+    gradients [W_TOTAL] of the operand rows `ops` [rows, OPW] (bf16 or
+    f32), one f32 matmul per job (a NORMALS trunk job stacks its two
+    pairs along the rows). Tests and chip_smoke.py hold the kernel
+    against it; no main-path code calls it. The walk's part of Wd's sigma
+    row (the column sum of c_7) is added by the row pass, not here."""
+    width = OPW_NRM if normals else OPW_IPE
+    if ops.ndim != 2 or ops.shape[1] != width:
+        raise ValueError(f"ops must be [rows, {width}], got "
+                         f"{tuple(ops.shape)}")
+    o = ops.float()
+    dw = torch.zeros(W_TOTAL, dtype=torch.float32, device=ops.device)
+    for b1, a1, b2, a2, n, k, out, ldo in wgrad_jobs(normals):
+        b, a = o[:, b1:b1 + n], o[:, a1:a1 + k]
+        if b2 >= 0:
+            b = torch.cat([b, o[:, b2:b2 + n]], 0)
+            a = torch.cat([a, o[:, a2:a2 + k]], 0)
+        dw.as_strided((n, k), (ldo, 1), out).add_(b.t() @ a)
+    return dw
+
+
 def tile_rows(lib: ctypes.CDLL, M: int) -> int:
     """M rounded up to whole 64-row tiles."""
     tile = lib.fused_mlp_tile_rows()
     return -(-M // tile) * tile
+
+
+def launch_weight_grads(lib: ctypes.CDLL, ops: Tensor, dw: Tensor,
+                        normals: bool) -> None:
+    """One launch of the CUDA weight-gradient pass: adds the packed weight
+    gradients of the operand rows `ops` [rows, OPW] bf16 (rows a multiple
+    of 64) into the f32 buffer dw [W_TOTAL]. Not counted."""
+    width = OPW_NRM if normals else OPW_IPE
+    if (ops.dtype != torch.bfloat16 or ops.ndim != 2
+            or ops.shape[1] != width or ops.shape[0] % 64
+            or not ops.is_contiguous() or dw.dtype != torch.float32
+            or dw.numel() != W_TOTAL or not dw.is_contiguous()):
+        raise ValueError(f"weight gradients need bf16 ops [64 k, {width}] "
+                         f"and f32 dw [{W_TOTAL}]")
+    jobs = _job_table(normals)
+    stream = torch.cuda.current_stream(ops.device).cuda_stream
+    check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
+        ops.data_ptr(), dw.data_ptr(), ops.shape[0], int(normals), jobs,
+        len(jobs) // 8, stream))
+
+
+_JOB_TABLES: Dict[bool, ctypes.Array] = {}
+
+
+def _job_table(normals: bool) -> ctypes.Array:
+    """`wgrad_jobs(normals)` flattened into a C int array, made once."""
+    if normals not in _JOB_TABLES:
+        flat = [v for job in wgrad_jobs(normals) for v in job]
+        _JOB_TABLES[normals] = (ctypes.c_int * len(flat))(*flat)
+    return _JOB_TABLES[normals]
 
 
 def weight_grads(lib: ctypes.CDLL, counter, mlp: NerfMLP, ops: Tensor,
@@ -205,15 +340,34 @@ def weight_grads(lib: ctypes.CDLL, counter, mlp: NerfMLP, ops: Tensor,
     """The weight-gradient pass over the operand rows `ops` of a backward
     row pass (this library's or kernel 5's), counted on `counter`; returns
     {parameter name: gradient}."""
-    stream = torch.cuda.current_stream(ops.device).cuda_stream
-    check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
-        ops.data_ptr(), dw.data_ptr(), ops.shape[0], int(normals), stream))
+    launch_weight_grads(lib, ops, dw, normals)
     counter.backward_launches += 1
+    weight_grads.launches += 1
     # Weight gradients are rounded to bf16 (the packed weights' type), as
-    # the TPU kernels' `dw.astype(p.dtype)`; bias gradients stay f32.
-    return {name: g.to(torch.bfloat16).float() if name.endswith(
-        "weight") else g.clone()
-        for name, g in unpack_params(mlp, dw, db).items()}
+    # the TPU kernels' `dw.astype(p.dtype)`, in one pass over the packed
+    # buffer; bias gradients stay f32. The gradients are views of these
+    # per-call buffers.
+    return unpack_params(mlp, dw.to(torch.bfloat16).float(), db)
+
+
+weight_grads.launches = 0
+
+
+def launch_backward_rows(lib: ctypes.CDLL, mc: Tensor, v: Tensor,
+                         weights: Tensor, biases: Tensor, g: Tensor,
+                         q: Optional[Tensor], acts: Optional[Tensor],
+                         ops: Tensor, dmc: Tensor, dw: Tensor, db: Tensor,
+                         min_deg: int, normals: bool) -> None:
+    """One launch of the backward row pass: writes dmc and the operand
+    rows `ops`, adds the bias gradients (and NORMALS' walk part of Wd's
+    sigma row) into db / dw. Not counted."""
+    stream = torch.cuda.current_stream(mc.device).cuda_stream
+    check_launch(lib, "fused_mlp backward", lib.fused_mlp_backward_rows(
+        mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+        g.data_ptr(), q.data_ptr() if q is not None else None,
+        acts.data_ptr() if acts is not None else None, ops.data_ptr(),
+        dmc.data_ptr(), dw.data_ptr(), db.data_ptr(), mc.shape[0], min_deg,
+        int(normals), stream))
 
 
 def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,
@@ -226,13 +380,8 @@ def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,
     ops, dw, db = backward_buffers(lib, weights, biases, tile_rows(lib, M),
                                    normals)
     dmc = torch.empty((M, 8), dtype=torch.float32, device=mc.device)
-    stream = torch.cuda.current_stream(mc.device).cuda_stream
-    check_launch(lib, "fused_mlp backward", lib.fused_mlp_backward_rows(
-        mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
-        g.data_ptr(), q.data_ptr() if q is not None else None,
-        acts.data_ptr() if acts is not None else None, ops.data_ptr(),
-        dmc.data_ptr(), dw.data_ptr(), db.data_ptr(), M, min_deg,
-        int(normals), stream))
+    launch_backward_rows(lib, mc, v, weights, biases, g, q, acts, ops, dmc,
+                         dw, db, min_deg, normals)
     counter.backward_launches += 1
     return dmc, weight_grads(lib, counter, mlp, ops, dw, db, normals)
 

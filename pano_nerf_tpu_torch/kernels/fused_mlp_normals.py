@@ -23,11 +23,15 @@ What bounds it on an H100: tensor-core operations. Forward: 611,328 +
 (3 x 507,904) and the heads' recompute (101,760). At batch 512 the fine
 level is 28,672 rows: ~64 GFLOP forward, ~163 GFLOP backward.
 
-Design (csrc/fused_mlp.cu, template NORMALS=true): as kernel 2; the
-forward saves the 8 trunk activations as bf16 [M, 8*256] when a gradient
-is needed (as the TPU kernel's `save_residuals`), and the backward
-recomputes the sz-chain from their ReLU masks instead of storing it. The
-weight-gradient pass sums both contributions of each trunk weight.
+Design (csrc/fused_mlp.cu, template NORMALS): as kernel 2; the forward
+saves the 8 trunk activations as bf16 [M, 8*256] when a gradient is
+needed (as the TPU kernel's `save_residuals`, by TMA stores of the
+activation tile), and the backward's row pass loads them back by TMA
+(masks built from shared memory) and recomputes the sz-chain from their
+ReLU masks instead of storing it. Its operand rows are 8,960 columns
+(17.5 KB per row: 514 MB at 28,672 rows, >= 0.153 ms to write and as
+much to read back); the weight-gradient pass sums both contributions of
+each trunk weight in one accumulator.
 
 `fused_mlp_normals_apply` is the wrapper (plain version for CPU tensors,
 the CUDA kernels for CUDA tensors, or raise); its launches are counted in

@@ -19,13 +19,14 @@ inputs per row); compositing is O(S) per ray. At batch 512 the coarse
 level is 512 x 56 = 28,672 rows and the env queries 5,120 x 5 = 25,600.
 
 Design (csrc/fused_render_train.cu, sharing csrc/mlp_rows.cuh with
-kernels 1-3): one 256-thread block per tile of floor(64 / S) whole rays,
-so compositing stays inside a block (at S = 56 a tile is one ray and 8 of
-its 64 rows idle); the MLP on WMMA bf16 fragments with f32 accumulate;
-compositing and its adjoint as sequential f32 scans, one thread per ray.
-The backward is two launches: the row pass (recompute, or load the bf16
-trunk spill of `save_acts`, then the adjoints) writes the operand rows of
-the weight-gradient pass of csrc/fused_mlp.cu, which reduces them; weight
+kernels 1-3): one block of two consumer warpgroups and a producer warpgroup
+per tile of floor(64 / S) whole rays, so compositing stays inside a block
+(at S = 56 a tile is one ray and 8 of its 64 rows idle); the MLP on
+`wgmma` products with TMA-streamed weights; compositing and its adjoint
+as sequential f32 scans, one thread per ray. The backward is two
+launches: the row pass (recompute, or load the bf16 trunk spill of
+`save_acts` by TMA, then the adjoints) writes the operand rows of the
+weight-gradient pass of csrc/fused_mlp.cu, which reduces them; weight
 gradients are rounded to bf16 as the TPU kernel's are.
 
 `fused_render_train` is the wrapper: its plain version
@@ -141,22 +142,35 @@ def run_backward(counter, mlp: NerfMLP, mc: Tensor, clip: Tensor, v: Tensor,
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Backward row pass + weight-gradient pass, both counted on `counter`;
     returns (d mc [R*S, 8], {parameter name: gradient})."""
-    lib, mlp_lib = kernel_library(), k2.kernel_library()
+    mlp_lib = k2.kernel_library()
     ops, dw, db = k2.backward_buffers(
         mlp_lib, weights, biases,
-        lib.fused_render_train_blocks(lv.R, lv.S) * TILE_ROWS, False)
+        kernel_library().fused_render_train_blocks(lv.R, lv.S) * TILE_ROWS,
+        False)
     dmc = torch.empty((lv.R * lv.S, 8), dtype=torch.float32,
                       device=mc.device)
-    err = lib.fused_render_train_backward_rows(
+    launch_backward_rows(mc, clip, v, weights, biases, acts, g_out, g_w, lv,
+                         ops, dmc, db)
+    counter.backward_launches += 1
+    return dmc, k2.weight_grads(mlp_lib, counter, mlp, ops, dw, db)
+
+
+def launch_backward_rows(mc: Tensor, clip: Tensor, v: Tensor,
+                         weights: Tensor, biases: Tensor,
+                         acts: Optional[Tensor], g_out: Tensor, g_w: Tensor,
+                         lv: Level, ops: Tensor, dmc: Tensor, db: Tensor
+                         ) -> None:
+    """One launch of the backward row pass: writes d mc and the operand
+    rows `ops` (64 per block), adds the bias gradients into db. Not
+    counted."""
+    err = kernel_library().fused_render_train_backward_rows(
         mc.data_ptr(), clip.data_ptr(), v.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
         acts.data_ptr() if acts is not None else None, ops.data_ptr(),
         dmc.data_ptr(), db.data_ptr(), lv.R, lv.S, lv.min_deg,
         lv.density_bias, lv.rgb_padding, int(lv.white_bkgd),
         torch.cuda.current_stream(mc.device).cuda_stream)
-    k2.check_launch(mlp_lib, "fused_render_train backward", err)
-    counter.backward_launches += 1
-    return dmc, k2.weight_grads(mlp_lib, counter, mlp, ops, dw, db)
+    k2.check_launch(k2.kernel_library(), "fused_render_train backward", err)
 
 
 class _FusedRenderTrain(torch.autograd.Function):

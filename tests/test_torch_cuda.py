@@ -225,3 +225,50 @@ def test_fused_mlp_apply_rejects_other_density_counts_on_the_card(
     v = torch.zeros(8, 27, device=cuda_device)
     with pytest.raises(ValueError, match="num_density_channels"):
         k1.fused_mlp_apply(mlp, x, v)
+
+
+def _job_blocks(dw, normals):
+    """The packed weight gradient per job of the weight-gradient pass."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    return [dw.as_strided((n, k), (ldo, 1), out)
+            for _, _, _, _, n, k, out, ldo in k2.wgrad_jobs(normals)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("rows", [1088, 28672])
+def test_weight_grad_kernel_matches_plain_version(cuda_device, normals,
+                                                  rows):
+    """The TMA + wgmma weight-gradient pass against its plain version on
+    the same bf16 operand rows: only the order of the f32 sums differs,
+    so rel-norm 1e-4 per job."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    width = k2.OPW_NRM if normals else k2.OPW_IPE
+    g = torch.Generator(device=cuda_device).manual_seed(rows + normals)
+    ops = torch.randn(rows, width, generator=g, device=cuda_device,
+                      dtype=torch.float32).to(torch.bfloat16)
+    dw = torch.zeros(k2.W_TOTAL, device=cuda_device)
+    k2.launch_weight_grads(k2.kernel_library(), ops, dw, normals)
+    want = k2.weight_grads_reference(ops, normals)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(_job_blocks(dw, normals),
+                                   _job_blocks(want, normals))):
+        assert _rel(a, b) <= 1e-4, i
+
+
+@pytest.mark.cuda
+def test_weight_grad_kernel_refuses_a_bad_job_table(cuda_device):
+    """A job wider than one wgmma N (256 fan-in columns) is refused
+    before launch, and the wrapper raises."""
+    import ctypes
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    lib = k2.kernel_library()
+    ops = torch.zeros(64, k2.OPW_IPE, dtype=torch.bfloat16,
+                      device=cuda_device)
+    dw = torch.zeros(k2.W_TOTAL, device=cuda_device)
+    bad = (ctypes.c_int * 8)(k2.O_DZ, k2.O_A, -1, -1, 256, 288, 0, 288)
+    err = lib.fused_mlp_weight_grads(
+        ops.data_ptr(), dw.data_ptr(), 64, 0, bad, 1,
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    with pytest.raises(RuntimeError, match="weight gradients"):
+        k2.check_launch(lib, "fused_mlp weight gradients", err)
