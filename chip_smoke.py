@@ -112,7 +112,7 @@ def build_kernels():
                   f"(ptxas C7519)")
 
 
-def _time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int) -> float:
     import torch
     fn()
     fn()
@@ -127,7 +127,7 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _main_path_inputs(model, env, dev, num_rays: int = 1024):
+def main_path_inputs(model, env, dev, num_rays: int = 1024):
     """The three launch shapes of one chunk, built the way the model
     builds them (coarse march, resampled fine march, env march) from
     random primary rays inside a scene-sized box."""
@@ -193,13 +193,18 @@ def _entry(name: str, source: str, replaces: str) -> dict:
 
 
 def _add(e: dict, shape: str, ms: float, plain_ms: float, bound: float,
-         err: float, **extra) -> None:
+         err: float, total: bool = True, **extra) -> None:
+    """Record one shape; `total` adds its times into the entry's sums (a
+    shape the main path does not launch, such as a ragged twin, stays
+    out of them but not out of max_abs_err)."""
     e["per_shape"][shape] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                  **extra)
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    if not total:
+        return
     e["ms"] += ms
     e["plain_ms"] += plain_ms
     e["bound_ms"] += bound
-    e["max_abs_err"] = max(e["max_abs_err"], err)
 
 
 def _bound(macs: float, bytes_: float) -> float:
@@ -262,11 +267,11 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     err = float((dw - want).abs().max())
     if not rel <= WGRAD_TOL:
         failures.append(f"{shape}.wgrad_rel: {rel:.3e} > {WGRAD_TOL}")
-    ms = _time_ms(lambda: k2.launch_weight_grads(lib, ops, dw, normals),
+    ms = time_ms(lambda: k2.launch_weight_grads(lib, ops, dw, normals),
                   reps=20)
-    plain_ms = _time_ms(lambda: k2.weight_grads_reference(ops, normals),
+    plain_ms = time_ms(lambda: k2.weight_grads_reference(ops, normals),
                         reps=3)
-    library_ms = _time_ms(_wgrad_library(ops, normals), reps=20)
+    library_ms = time_ms(_wgrad_library(ops, normals), reps=20)
     macs = (MLP_MACS + (NORMAL_MACS if normals else 0)) * rows
     bound = _bound(macs, rows * ops.shape[1] * 2 + k2.W_TOTAL * 4)
     _add(entry, shape, ms, plain_ms, bound, err, rows=rows,
@@ -292,7 +297,10 @@ def check_kernels(model, env, dev) -> dict:
     disagreement. Returns the kernel's JSON entry."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_render as fr
-    shapes = _main_path_inputs(model, env, dev)
+    shapes = main_path_inputs(model, env, dev)
+    # A ragged last tile: 1023 rays of the fine level (2 rays per tile).
+    args, kw = shapes["fine"]
+    shapes["fine_ragged"] = ([a[:1023].contiguous() for a in args], kw)
     packed = fr.pack_params(model.mlp)
     entry = _entry("fused_render_level", "fused_render.cu",
                    "fused_render.py:248")
@@ -318,19 +326,28 @@ def check_kernels(model, env, dev) -> dict:
                 failures.append(f"{name}.normal cos median "
                                 f"{errs['normal_cos_median']:.5f} min "
                                 f"{errs['normal_cos_min']:.5f}")
-        ms = _time_ms(lambda: fr.fused_render_level(
+        ms = time_ms(lambda: fr.fused_render_level(
             model.mlp, *args, packed=packed, **kw), reps=20)
-        plain_ms = _time_ms(lambda: fr.fused_render_level_reference(
+        plain_ms = time_ms(lambda: fr.fused_render_level_reference(
             model.mlp, *args, **kw), reps=5)
         bound = _bound_ms(args, kw, packed)
         R, S = args[0].shape[:2]
-        print(f"[kernel] {name:6s} R={R} S={S}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms; errors "
+        # Weights crossing L2 -> shared memory, modelled (no counter of L2
+        # traffic is read): tiles x the bytes of the TMA boxes one tile
+        # loads, over the measured time.
+        tiles = fr.plan_tiles(R, S).num_tiles
+        wbytes = tiles * fr.weight_bytes_per_tile(kw["need_normals"])
+        print(f"[kernel] {name:11s} R={R} S={S}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms; modelled weight "
+              f"bytes {tiles} tiles x "
+              f"{fr.weight_bytes_per_tile(kw['need_normals'])} B of TMA "
+              f"boxes = {wbytes / 1e9:.3f} GB / measured ms = "
+              f"{wbytes / ms / 1e9:.3f} TB/s; errors "
               + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
               + "; tolerances " + json.dumps(TOL))
         _add(entry, name, ms, plain_ms, bound, max(
             v for k, v in errs.items() if not k.startswith("normal")),
-            R=R, S=S, errors=errs)
+            total=not name.endswith("_ragged"), R=R, S=S, errors=errs)
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
@@ -475,7 +492,7 @@ ROW_MACS = {False: 2 * MLP_MACS,
             True: MLP_MACS + 2 * NORMAL_MACS + HEADS_MACS}
 
 
-def _train_shapes(model, env, dev, batch: int = 512):
+def train_shapes(model, env, dev, batch: int = 512):
     """The four kernel calls of one train step at full width, built the
     way the model builds them (random draws, plain version for the
     weights that place the fine samples): name -> (normals?, means, covs,
@@ -649,14 +666,14 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
             k2.run_backward(lib, dummy, mlp, mc, v, packed[0], packed[1], g,
                             q, acts, cfg.min_deg_point, normals)
 
-        ms_f = _time_ms(fwd, reps=20)
-        ms_b = _time_ms(bwd, reps=10)
+        ms_f = time_ms(fwd, reps=20)
+        ms_b = time_ms(bwd, reps=10)
         # The two passes alone: the row pass, then the weight-gradient
         # pass on the operand rows it wrote.
         ops, dw_r, db_r = k2.backward_buffers(lib, *packed,
                                               k2.tile_rows(lib, M), normals)
         dmc_r = torch.empty((M, 8), device=dev)
-        ms_r = _time_ms(lambda: k2.launch_backward_rows(
+        ms_r = time_ms(lambda: k2.launch_backward_rows(
             lib, mc, v, *packed, g, q, acts, ops, dmc_r, dw_r, db_r,
             cfg.min_deg_point, normals), reps=10)
         bound_r = _bound(ROW_MACS[normals] * M, M * (
@@ -666,13 +683,13 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
                                 f"k{3 if normals else 2}_{shape}", failures)
         del ops, dw_r, db_r, dmc_r
         with torch.no_grad():
-            plain_f = _time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
+            plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
                                reps=3)
         m_req = means.detach().clone().requires_grad_(True)
         p_outs = plain(mlp, m_req, covs, v_enc, **kw)
         cot = [torch.randn_like(o) for o in p_outs]
         params = list(mlp.parameters()) + [m_req]
-        plain_b = _time_ms(lambda: torch.autograd.grad(
+        plain_b = time_ms(lambda: torch.autograd.grad(
             p_outs, params, cot, retain_graph=True), reps=3)
         del p_outs
         base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
@@ -800,10 +817,10 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
         ms = {}
         tiles = k5.kernel_library().fused_render_train_blocks(R, S)
         for save_acts in (False, True):
-            ms["fwd", save_acts] = _time_ms(lambda: k5.launch_forward(
+            ms["fwd", save_acts] = time_ms(lambda: k5.launch_forward(
                 mc, clip, v, *packed, lv, save_acts), reps=20)
             acts = k5.launch_forward(mc, clip, v, *packed, lv, save_acts)[2]
-            ms["bwd", save_acts] = _time_ms(lambda: k5.run_backward(
+            ms["bwd", save_acts] = time_ms(lambda: k5.run_backward(
                 dummy, mlp, mc, clip, v, *packed, acts, g_out, g_w, lv),
                 reps=10)
             # The row pass alone, then (once) the weight-gradient pass on
@@ -811,7 +828,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
             ops, _, db_r = k2.backward_buffers(k2.kernel_library(), *packed,
                                                tiles * k5.TILE_ROWS, False)
             dmc_r = torch.empty((R * S, 8), device=dev)
-            ms["rows", save_acts] = _time_ms(lambda: k5.launch_backward_rows(
+            ms["rows", save_acts] = time_ms(lambda: k5.launch_backward_rows(
                 mc, clip, v, *packed, acts, g_out, g_w, lv, ops, dmc_r, db_r),
                 reps=10)
             if not save_acts:
@@ -819,13 +836,13 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
                                         f"k5_{shape}", failures)
             del acts, ops, db_r, dmc_r
         with torch.no_grad():
-            plain_f = _time_ms(lambda: k5.fused_render_train_reference(
+            plain_f = time_ms(lambda: k5.fused_render_train_reference(
                 mlp, *args, **kw), reps=3)
         m_req = args[0].detach().clone().requires_grad_(True)
         outs = list(k5.fused_render_train_reference(
             mlp, m_req, *args[1:], **kw).values())
         cot = [torch.randn_like(o) for o in outs]
-        plain_b = _time_ms(lambda: torch.autograd.grad(
+        plain_b = time_ms(lambda: torch.autograd.grad(
             outs, list(mlp.parameters()) + [m_req], cot, retain_graph=True),
             reps=3)
         del outs
@@ -930,14 +947,14 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
     v = k2.viewdir_rows(v_enc, (M,))
     g = torch.randn(M, k2.OUT_W, device=dev)
     dummy = types.SimpleNamespace(backward_launches=0)
-    ms_f = _time_ms(lambda: k1.launch_forward(xb, v, *packed), reps=20)
-    ms_b = _time_ms(lambda: k1.run_backward(dummy, mlp, xb, v, *packed, g),
+    ms_f = time_ms(lambda: k1.launch_forward(xb, v, *packed), reps=20)
+    ms_b = time_ms(lambda: k1.run_backward(dummy, mlp, xb, v, *packed, g),
                     reps=10)
     lib = k2.kernel_library()
     ops, _, db_r = k2.backward_buffers(lib, *packed, k2.tile_rows(lib, M),
                                        False)
     dx_r = torch.empty((M, 96), device=dev)
-    ms_r = _time_ms(lambda: k1.launch_backward_rows(xb, v, *packed, g, ops,
+    ms_r = time_ms(lambda: k1.launch_backward_rows(xb, v, *packed, g, ops,
                                                     dx_r, db_r), reps=10)
     bound_r = _bound(2 * MLP_MACS * M, M * (192 + 64 + 64 + 384)
                      + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
@@ -945,12 +962,12 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
                             failures)
     del ops, db_r, dx_r
     with torch.no_grad():
-        plain_f = _time_ms(lambda: k1.fused_mlp_apply_reference(
+        plain_f = time_ms(lambda: k1.fused_mlp_apply_reference(
             mlp, x, v_enc), reps=3)
     x_req = x.clone().requires_grad_(True)
     outs = k1.fused_mlp_apply_reference(mlp, x_req, v_enc)
     cot = [torch.randn_like(o) for o in outs]
-    plain_b = _time_ms(lambda: torch.autograd.grad(
+    plain_b = time_ms(lambda: torch.autograd.grad(
         outs, list(mlp.parameters()) + [x_req], cot, retain_graph=True),
         reps=3)
     del outs
@@ -1365,7 +1382,7 @@ def main() -> int:
                                             far=10.0, radius=0.0142), dev)
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
-    calls, levels = _train_shapes(model, env, dev)
+    calls, levels = train_shapes(model, env, dev)
     wentry = _wgrad_entry()
     train_entries = check_train_kernels(model, dev, calls, wentry)
     k5_entries = check_train_render_kernel(model, dev, levels, wentry)

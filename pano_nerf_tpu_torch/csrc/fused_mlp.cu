@@ -121,30 +121,6 @@ __device__ Smem& smem_of(unsigned char* raw) {
                                   ~uintptr_t(1023));
 }
 
-// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..255.
-template <class Smem>
-__device__ void chain_start(Smem& s, const bf16* w) {
-  const int g = wg();
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int c = g * 128 + frag_col(i);
-    s.act[act_off(frag_row(i), c)] =
-        mask_bit(s.mask, 7, i) ? w[OFF_WD + c] : __float2bfloat16(0.f);
-  }
-}
-
-// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..255.
-template <class Smem>
-__device__ void masked_epilogue(Smem& s, const float (&acc)[64], int layer) {
-  const int g = wg();
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    act_put2(s.act, frag_row(i), g * 128 + frag_col(i),
-             mask_bit(s.mask, layer, i) ? acc[i] : 0.f,
-             mask_bit(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
-  }
-}
-
 template <int VAR, bool PRODUCER>
 __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
                          Pipe<PRODUCER>& pp, size_t row0, int nrows) {
@@ -170,36 +146,17 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
   if constexpr (VAR != NORMALS) return;
 
   // ---- d raw_sigma / d means: sz-chain through the masked trunk ----
-  if constexpr (!PRODUCER) {
-    pre_epilogue();
-    chain_start(s, p.w);
-    post_epilogue();
-  }
-  float acc[64], part[32];
   const int g = wg();
-  for (int layer = 7; layer >= 0; --layer) {
-    if (layer == 5 || layer == 0) {  // g_x: layer 5's skip columns + layer 0
-      mm<64, 1>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128), part,
-                s.act, 0);
-      if constexpr (!PRODUCER) {
+  density_chain(pp, s, p.w, [&](int layer, const float (&part)[32]) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int j = g * 64 + frag_col(i);
-          if (j < XF) {
-            float* d = s.gx + frag_row(i) * XF + j;
-            *d = layer == 5 ? part[i] : *d + part[i];
-          }
-        }
+    for (int i = 0; i < 32; ++i) {
+      const int j = g * 64 + frag_col(i);
+      if (j < XF) {
+        float* d = s.gx + frag_row(i) * XF + j;
+        *d = layer == 5 ? part[i] : *d + part[i];
       }
     }
-    if (layer == 0) break;
-    mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
-    if constexpr (!PRODUCER) {
-      pre_epilogue();
-      masked_epilogue(s, acc, layer - 1);
-      post_epilogue();
-    }
-  }
+  });
   if constexpr (!PRODUCER) {
     consumer_sync();
     for (int i = tid; i < nrows * 3; i += NT) {

@@ -8,57 +8,72 @@
 //
 // What bounds it on an H100: tensor-core operations. One sample row costs
 // 611,328 MACs of MLP (1.22 MFLOP) plus 507,904 MACs (1.02 MFLOP) of the
-// normal chain on the fine level, against 32 B of input moments; the
-// bf16 weights (1.23 MB) are read by every block but stay L2-resident.
-// At 989 TFLOP/s dense bf16 a 128x256 panorama (32,768 rays x (56 + 56 +
-// 50) rows) needs >= 8.5 ms; its inputs move in ~0.05 ms at 3.35 TB/s.
+// normal chain on the fine level, against 32 B of input moments. The
+// bf16 weights stay in L2, but every tile streams them from L2 into
+// shared memory once (1.31 MB of TMA boxes for the MLP, 1.05 MB more for
+// the chain), so the rows that share one weight byte set the L2 traffic.
 //
-// Design (first, simple version):
-// * One block of 256 threads per tile of <= 64 sample rows: one ray at
-//   S=56, floor(64/S) rays at S=5. Rows beyond the tile's rays are zeroed
-//   at the source and never enter a reduction.
-// * Activations stay in shared memory as bf16 [64 x (256 | 96)]: columns
-//   256..351 hold the IPE features, so the skip layer reads [h4 | x] as
-//   one K=352 operand. Products go through WMMA 16x16x16 bf16 fragments
-//   with f32 accumulate; each warp owns 16-wide output column tiles over
-//   all 64 rows and reads the weight fragment straight from global
-//   memory (L2). Accumulators land in an f32 staging tile; the epilogue
-//   adds the f32 bias, applies ReLU, rounds to bf16 and records the ReLU
-//   mask as bits for the normal chain (8 x 64 x 256 bits).
-// * IPE phases are exact power-of-two products (ldexpf) and use the
-//   accurate sinf/expf: the phases reach ~1e5, so fast-math intrinsics
-//   would garble the high degrees. Do not build with --use_fast_math.
-// * Compositing is a sequential f32 scan over S by one thread per ray.
-// * The normal chain walks the trunk backwards with the saved masks,
-//   sz_i = mask_i * s (bf16), s = sz_i @ W_i, then folds d raw_sigma /
-//   d features back to the means through the closed-form IPE Jacobian.
+// Design (Hopper):
+// * A tile is up to 128 sample rows of whole rays, floor(128 / S) rays
+//   (2 at S = 56, 25 at S = 5); rows past the tile's rays load zero
+//   moments and enter no reduction. The last tile may hold fewer rays.
+// * Row split (mlp_rows.cuh): two consumer warpgroups each own a 64-row
+//   activation tile in 128-byte-swizzled shared memory and compute all
+//   output columns of every product with wgmma m64nNk16 (N up to 256, f32
+//   accumulators in registers), so each weight slice in shared memory
+//   feeds 128 rows, twice the rows of the training kernels' column split.
+//   A producer warpgroup streams the weights by TMA (make_weight_maps,
+//   32 KB slices of 64 K-rows x up to 256 columns) with mbarrier
+//   completion, running the same tile program compiled as producer
+//   (run_roles: setmaxnreg gives the consumers 240 registers and the
+//   producer 24, which the 128 accumulators per thread need; at 232 they
+//   spilled more and ran slower, and a 288-thread block with a producer
+//   warp compiles to 168 registers for every thread and spilled far more).
+// * Persistent: one block per SM walks the tiles (tile t, t + gridDim.x,
+//   ...), so the ring stays primed across tiles and one tile's
+//   compositing overlaps the next one's first weight loads.
+// * The forward reuses the column-split steps in their row-split form:
+//   load_ipe, trunk_forward, heads_forward (the viewdir codes are built
+//   from each ray's direction as the heads ask for them) and, on the
+//   fine level, density_chain, the chain kernel 3's forward runs too.
+// * Shared memory (the budget decides the ring): activation tiles 2 x 48
+//   KB, per-row and per-ray scalars ~25 KB, and on the fine level the ReLU
+//   masks, 8 layers x 128 rows x 256 bits = 32 KB in fragment order (128
+//   accumulators per thread leave no registers for them). So the kernel
+//   comes in two layouts (template NRM): the fine level with the masks and
+//   a 2-slice ring, the coarse and env levels with a 3-slice ring in the
+//   masks' room. Neither has room for an f32 copy of the 128 x 96 IPE
+//   features (48 KB): the chain's fold recomputes att cos / att sin from
+//   the six moments of a row, with the very expressions load_ipe uses, so
+//   its values equal the features the column-split fold reads.
+// * g_x is folded straight from the accumulators of layer 5's skip
+//   columns and layer 0 (a thread holds feature j and j + 48 of its rows,
+//   the sin and cos of one degree and dimension), reduced over the four
+//   lanes of a row, into d raw_sigma / d means per row.
+// * Compositing, the expectations and the normal average are sequential
+//   f32 scans, one thread per ray, as in kernel 5's `composite`.
+// * IPE phases are exact power-of-two products (ldexpf) with the accurate
+//   sinf/expf: the phases reach ~1e5, so fast-math intrinsics would garble
+//   the high degrees. Do not build with --use_fast_math. bf16 rounding
+//   where the TPU kernel rounds (every product operand).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C entry
-// point (pano_nerf_tpu_torch/kernels/build.py); wgmma/TMA come later.
+// point (pano_nerf_tpu_torch/kernels/build.py).
 
-#include "nerf_mlp.cuh"
+#include "mlp_rows.cuh"
 
 namespace {
 
 using namespace nerf_mlp;
 
-constexpr int VF = 27;   // viewdir encoding: identity + 4 degrees x 3 x 2
+constexpr int VF = 27;        // viewdir encoding: identity + 4 degrees x 3 x 2
 constexpr int OUT_FIXED = 17;
+constexpr int TR = 2 * TM;    // sample rows per tile
 
-// Per-row scalars (f32 [NROW][TM]).
+// Per-row scalars (f32 [NROW][TR]).
 enum {
-  R_DELTA, R_TMID, R_DD, R_W, R_RGB, R_ALB = R_RGB + 3, R_ROUGH = R_ALB + 3,
-  R_SIG, R_N = R_SIG + 1, R_ORT = R_N + 3, NROW
-};
-
-struct Smem {
-  bf16 act[TM * ACT_LD];
-  float stage[TM * ST_LD];
-  float x32[TM * XF];
-  uint32_t mask[8 * TM * MASK_WORDS];
-  float row[NROW * TM];
-  float ray[TM * 8];
-  float acc[TM];
+  R_DD, R_W, R_RGB, R_ALB = R_RGB + 3, R_ROUGH = R_ALB + 3, R_N = R_ROUGH + 1,
+  R_ORT = R_N + 3, NROW
 };
 
 struct Params {
@@ -67,136 +82,86 @@ struct Params {
   const bf16* w;
   const float* b;
   float* out;            // [R, 17 + S]
-  int R, S, rpb, min_deg;
+  int R, S, rpt, ntiles, min_deg;
   float density_bias, rgb_padding;
-  int white_bkgd, need_normals, need_extras;
+  int white_bkgd, need_extras;
 };
 
-__global__ void __launch_bounds__(NT, 1) fused_render_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int S = p.S;
-  const int ray0 = blockIdx.x * p.rpb;
-  const int nrays = min(p.rpb, p.R - ray0);
-  const int nrows = nrays * S;
-  const size_t row0 = (size_t)ray0 * S;
-  float* rowf = s.row;
+// NRM: the fine level's layout, with the chain's ReLU masks and a
+// 2-slice ring; without normals the masks' room goes to a third slice.
+template <bool NRM>
+struct Smem {
+  static constexpr int NS = NRM ? 2 : 3;  // weight-slice stages
+  alignas(1024) bf16 act[2 * ACT_ELEMS];
+  alignas(1024) unsigned char ring[NS * SLICE];
+  uint32_t mask[NRM ? 8 * 4 * NT : 1];
+  float mc[TR * 8];
+  float heads[TR * OUT_W];
+  float row[NROW * TR];
+  float ray[TR * 8];
+  float dsig[TR * 4];
+  float acc[TR];
+  uint64_t full[NS], empty[NS], io;
+};
 
-  // ---- inputs: per-ray info and per-row moments (zero past the tile) ----
-  for (int i = tid; i < TM * 8; i += NT) {
-    const int q = i >> 3;
-    s.ray[i] = q < nrays ? p.rayinfo[(size_t)(ray0 + q) * 8 + (i & 7)] : 0.f;
-    const int r = i >> 3;
-    s.stage[i] = r < nrows ? p.mc[(row0 + r) * 8 + (i & 7)] : 0.f;
-  }
-  __syncthreads();
-  for (int r = tid; r < TM; r += NT) {
-    rowf[R_DELTA * TM + r] = s.stage[r * 8 + 6];
-    rowf[R_TMID * TM + r] = s.stage[r * 8 + 7];
-  }
-  // Integrated positional encoding: feature j is degree-major then dim,
-  // sin block then cos block (cos(y) = sin(y + pi/2)).
-  for (int i = tid; i < TM * XF; i += NT) {
-    const int r = i / XF, j = i % XF;
-    const int jj = j % XP;
-    const int deg = jj / 3 + p.min_deg, dim = jj % 3;
-    float y = s.stage[r * 8 + dim] * ldexpf(1.f, deg);
-    if (j >= XP) y = y + 1.57079632679489662f;
-    const float var = s.stage[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
-    const float f = expf(-0.5f * var) * sinf(y);
-    s.x32[r * XF + j] = f;
-    s.act[r * ACT_LD + W + j] = __float2bfloat16(f);
-  }
-  __syncthreads();
+template <class Sm>
+__device__ Sm& smem_of(unsigned char* raw) {
+  return *reinterpret_cast<Sm*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                ~uintptr_t(1023));
+}
 
-  // ---- trunk: 8 x (Linear + ReLU), skip input [h4 | x] into layer 5 ----
-  for (int layer = 0; layer < 8; ++layer) {
-    const bf16* A = layer == 0 ? s.act + W : s.act;
-    const int K = trunk_in(layer);
-    tile_matmul<wmma::col_major>(A, ACT_LD, K, p.w + trunk_offset(layer), K,
-                                 W, s.stage, ST_LD);
-    __syncthreads();
-    const float* bias = p.b + OFF_BT + layer * W;
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;  // a warp covers 32 columns of a row
-      const bf16 h = __float2bfloat16(fmaxf(s.stage[r * ST_LD + c] + bias[c], 0.f));
-      s.act[r * ACT_LD + c] = h;
-      const unsigned bits = __ballot_sync(0xffffffffu, __bfloat162float(h) > 0.f);
-      if (lane == 0) s.mask[(layer * TM + r) * MASK_WORDS + (c >> 5)] = bits;
-    }
-    __syncthreads();
-  }
-
-  // ---- heads: density (cols 256..271 of the stage) and bottleneck ----
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, p.w + OFF_WD, W, HP,
-                               s.stage + W, ST_LD);
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, W, p.w + OFF_WB, W, W, s.stage,
-                               ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    s.act[r * ACT_LD + c] = __float2bfloat16(s.stage[r * ST_LD + c] + p.b[OFF_BB + c]);
-  }
-  // Viewdir encoding [d | sin(2^k d) | cos(2^k d)], k = 0..3, zero rows past
-  // the tile, zero pad columns 27..31.
-  for (int i = tid; i < TM * 32; i += NT) {
-    const int r = i >> 5, j = i & 31;
-    float v = 0.f;
-    if (r < nrows && j < VF) {
-      const float* d = s.ray + (r / S) * 8;
-      if (j < 3) {
-        v = d[j];
-      } else {
-        const int jj = (j - 3) % 12;
-        float arg = d[jj % 3] * ldexpf(1.f, jj / 3);
-        if (j >= 15) arg = arg + 1.57079632679489662f;
-        v = sinf(arg);
+// Viewdir codes [d | sin(2^k d) | cos(2^k d)], k = 0..3, zero in columns
+// 27..31, of tile row r, from its ray's direction (s.ray).
+struct ViewCodes {
+  const float* ray;
+  int S;
+  __device__ uint4 operator()(int r, int c) const {
+    const float* d = ray + (r / S) * 8;
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      float v[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int j = c + e + k;
+        v[k] = 0.f;
+        if (j < 3) {
+          v[k] = d[j];
+        } else if (j < VF) {
+          const int jj = (j - 3) % 12;
+          float arg = d[jj % 3] * ldexpf(1.f, jj / 3);
+          if (j >= 15) arg = arg + 1.57079632679489662f;
+          v[k] = sinf(arg);
+        }
       }
+      h[e / 2] = __floats2bfloat162_rn(v[0], v[1]);
     }
-    s.act[r * ACT_LD + W + j] = __float2bfloat16(v);
+    return u;
   }
-  __syncthreads();
-  // Raw density channels (+ bias) per row, kept in the stage's spare
-  // columns 272..276 while the view branch reuses 0..127.
-  for (int i = tid; i < TM * NDC; i += NT) {
-    const int r = i / NDC, c = i % NDC;
-    s.stage[r * ST_LD + W + HP + c] = s.stage[r * ST_LD + W + c] + p.b[OFF_BD + c];
-  }
-  __syncthreads();
+};
 
-  // ---- view branch (Linear + ReLU) and color head ----
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VK, p.w + OFF_WV, VK, VW,
-                               s.stage, ST_LD);
-  __syncthreads();
-  for (int i = tid; i < TM * VW; i += NT) {
-    const int r = i / VW, c = i % VW;
-    s.act[r * ACT_LD + c] =
-        __float2bfloat16(fmaxf(s.stage[r * ST_LD + c] + p.b[OFF_BV + c], 0.f));
-  }
-  __syncthreads();
-  tile_matmul<wmma::col_major>(s.act, ACT_LD, VW, p.w + OFF_WC, VW, HP,
-                               s.stage, ST_LD);
-  __syncthreads();
-
-  // ---- per-sample activations ----
-  for (int r = tid; r < TM; r += NT) {
-    const float* st = s.stage + r * ST_LD;
-    const float* dens = st + W + HP;
-    rowf[R_DD * TM + r] = softplusf(dens[0] + p.density_bias) * rowf[R_DELTA * TM + r];
-    rowf[R_SIG * TM + r] = dens[0];
+// Per-row activations, then compositing: one thread per ray, sequential
+// over its samples; writes the slab's fixed columns and weights.
+template <class Sm>
+__device__ void composite_tile(Sm& s, const Params& p, int ray0,
+                               int nrays) {
+  const int tid = threadIdx.x, S = p.S;
+  float* rowf = s.row;
+  consumer_sync();  // the heads of both warpgroups
+  if (tid < TR) {
+    const float* h = s.heads + tid * OUT_W;
+    const float* dens = h + 3;
+    rowf[R_DD * TR + tid] =
+        softplusf(dens[0] + p.density_bias) * s.mc[tid * 8 + 6];
     for (int k = 0; k < 3; ++k) {
-      const float raw = st[k] + p.b[OFF_BC + k];
-      rowf[(R_RGB + k) * TM + r] =
-          softplusf(raw) * (1.f + 2.f * p.rgb_padding) - p.rgb_padding;
-      rowf[(R_ALB + k) * TM + r] = sigmoidf(dens[1 + k]) * 0.77f + 0.03f;
+      rowf[(R_RGB + k) * TR + tid] =
+          softplusf(h[k]) * (1.f + 2.f * p.rgb_padding) - p.rgb_padding;
+      rowf[(R_ALB + k) * TR + tid] = sigmoidf(dens[1 + k]) * 0.77f + 0.03f;
     }
-    rowf[R_ROUGH * TM + r] = softplusf(dens[4] - 1.f);
+    rowf[R_ROUGH * TR + tid] = softplusf(dens[4] - 1.f);
   }
-  __syncthreads();
-
-  // ---- compositing: one thread per ray, sequential over samples ----
+  consumer_sync();
   const int out_w = OUT_FIXED + S;
   for (int q = tid; q < nrays; q += NT) {
     float tau = 0.f, acc = 0.f, dist = 0.f, rough = 0.f;
@@ -204,17 +169,17 @@ __global__ void __launch_bounds__(NT, 1) fused_render_kernel(Params p) {
     float* o = p.out + (size_t)(ray0 + q) * out_w;
     for (int k = 0; k < S; ++k) {
       const int r = q * S + k;
-      const float dd = rowf[R_DD * TM + r];
+      const float dd = rowf[R_DD * TR + r];
       const float w = (1.f - expf(-dd)) * expf(-tau);
       tau += dd;
-      rowf[R_W * TM + r] = w;
+      rowf[R_W * TR + r] = w;
       o[OUT_FIXED + k] = w;
       acc += w;
-      dist += w * rowf[R_TMID * TM + r];
-      rough += w * rowf[R_ROUGH * TM + r];
+      dist += w * s.mc[r * 8 + 7];
+      rough += w * rowf[R_ROUGH * TR + r];
       for (int c = 0; c < 3; ++c) {
-        rgb[c] += w * rowf[(R_RGB + c) * TM + r];
-        alb[c] += w * rowf[(R_ALB + c) * TM + r];
+        rgb[c] += w * rowf[(R_RGB + c) * TR + r];
+        alb[c] += w * rowf[(R_ALB + c) * TR + r];
       }
     }
     const float* ri = s.ray + q * 8;
@@ -227,66 +192,84 @@ __global__ void __launch_bounds__(NT, 1) fused_render_kernel(Params p) {
     for (int c = 9; c < OUT_FIXED; ++c) o[c] = 0.f;
     s.acc[q] = acc;
   }
-  if (!p.need_normals) return;  // uniform across the block
-  __syncthreads();
+}
 
-  // ---- normals: d raw_sigma / d means through the masked trunk ----
-  // sz_7 = mask_7 * (density kernel's sigma row).
-  for (int i = tid; i < TM * W; i += NT) {
-    const int r = i / W, c = i % W;
-    const bool on = (s.mask[(7 * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
-    s.act[r * ACT_LD + c] = on ? p.w[OFF_WD + c] : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-  for (int layer = 7; layer >= 0; --layer) {
-    const int K = trunk_in(layer);
-    // [64 x 256] @ W_layer [256 x K]: layer 5's columns 256..351 are the
-    // skip gradient, left in the stage for layer 0 (later layers write
-    // only columns < 256).
-    tile_matmul<wmma::row_major>(s.act, ACT_LD, W, p.w + trunk_offset(layer), K,
-                                 K, s.stage, ST_LD);
-    __syncthreads();
-    if (layer == 0) break;
-    for (int i = tid; i < TM * W; i += NT) {
-      const int r = i / W, c = i % W;
-      const bool on =
-          (s.mask[((layer - 1) * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
-      s.act[r * ACT_LD + c] = on ? __float2bfloat16(s.stage[r * ST_LD + c])
-                                 : __float2bfloat16(0.f);
+// Fold one part of g_x (layer 5's skip columns or layer 0's product, 128
+// columns of which 96 are features) through the IPE Jacobian into
+// d raw_sigma / d means (s.dsig, per tile row): d feat_sin / d mean =
+// 2^deg att cos(y), d feat_cos / d mean = -2^deg att sin(y).
+__device__ void fold_gx(Smem<true>& s, int min_deg, int layer,
+                        const float (&part)[64]) {
+  const int rb = row0_of<true>();
+  float g[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* m = s.mc + (rb + frag_row(2 * h)) * 8;
+#pragma unroll
+    for (int jb = 0; jb < 6; ++jb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * jb + 2 * h + e;  // feature j < 48; i + 24 is j + 48
+        const int j = frag_col(i);
+        const int deg = j / 3 + min_deg, dim = j % 3;
+        const float y = m[dim] * ldexpf(1.f, deg);
+        const float att = expf(-0.5f * (m[3 + dim] * ldexpf(1.f, 2 * deg)));
+        const float ac = att * sinf(y + 1.57079632679489662f);
+        const float as = att * sinf(y);
+        g[h][dim] += (part[i] * ac - part[i + 24] * as) * ldexpf(1.f, deg);
+      }
     }
-    __syncthreads();
   }
-  // Fold through the IPE: d feat_sin / d mean = 2^deg att cos(y),
-  // d feat_cos / d mean = -2^deg att sin(y); att*cos is the other half of
-  // the features.
-  for (int r = tid; r < TM; r += NT) {
-    float g[3] = {0.f, 0.f, 0.f};
-    for (int j = 0; j < XF; ++j) {
-      const int jj = j % XP;
-      const float gx = s.stage[r * ST_LD + j] + s.stage[r * ST_LD + W + j];
-      const float ac = j < XP ? s.x32[r * XF + j + XP] : -s.x32[r * XF + j - XP];
-      g[jj % 3] += gx * ac * ldexpf(1.f, jj / 3 + p.min_deg);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float v = g[h][d];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      g[h][d] = v;
     }
+  }
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* o = s.dsig + (rb + frag_row(2 * h)) * 4;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) o[d] = layer == 5 ? g[h][d] : o[d] + g[h][d];
+    }
+  }
+}
+
+// Per-row normals from d raw_sigma / d means, then their weighted average
+// per ray.
+__device__ void normals_tile(Smem<true>& s, const Params& p, int ray0, int nrays,
+                             int nrows) {
+  const int tid = threadIdx.x, S = p.S;
+  float* rowf = s.row;
+  consumer_sync();  // s.dsig of both warpgroups
+  if (tid < nrows) {
+    const float* g = s.dsig + tid * 4;
     const float nrm = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
     const float inv = 1.f / fmaxf(nrm, 1e-12f);
-    const float* d = s.ray + (r < nrows ? r / S : 0) * 8 + 5;
+    const float* d = s.ray + (tid / S) * 8 + 5;
     float ndot = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float n = -g[c] * inv;
-      rowf[(R_N + c) * TM + r] = n;
+      rowf[(R_N + c) * TR + tid] = n;
       ndot += n * d[c];
     }
     const float o = fmaxf(ndot, 0.f);
-    rowf[R_ORT * TM + r] = o * o;
+    rowf[R_ORT * TR + tid] = o * o;
   }
-  __syncthreads();
+  consumer_sync();
+  const int out_w = OUT_FIXED + S;
   for (int q = tid; q < nrays; q += NT) {
     float n[3] = {0.f, 0.f, 0.f}, ort = 0.f;
     for (int k = 0; k < S; ++k) {
       const int r = q * S + k;
-      const float w = rowf[R_W * TM + r];
-      for (int c = 0; c < 3; ++c) n[c] += w * rowf[(R_N + c) * TM + r];
-      ort += w * rowf[R_ORT * TM + r];
+      const float w = rowf[R_W * TR + r];
+      for (int c = 0; c < 3; ++c) n[c] += w * rowf[(R_N + c) * TR + r];
+      ort += w * rowf[R_ORT * TR + r];
     }
     const float inv = 1.f / fmaxf(s.acc[q], 1e-12f);
     for (int c = 0; c < 3; ++c) n[c] *= inv;
@@ -297,12 +280,75 @@ __global__ void __launch_bounds__(NT, 1) fused_render_kernel(Params p) {
   }
 }
 
+// Tile t: rays t * rpt .. (as many as are left), rows in ray-major order.
+template <bool NRM, bool PRODUCER, int NS>
+__device__ void render_tile(Pipe<PRODUCER, NS>& pp, Smem<NRM>& s,
+                            const Params& p, int t) {
+  const int ray0 = t * p.rpt;
+  const int nrays = min(p.rpt, p.R - ray0);
+  const int nrows = nrays * p.S;
+  const size_t row0 = (size_t)ray0 * p.S;
+  if constexpr (!PRODUCER) {
+    consumer_sync();  // the previous tile is done with every scalar
+    for (int i = threadIdx.x; i < TR * 8; i += NT) {
+      const int q = i >> 3;
+      s.ray[i] = q < nrays ? p.rayinfo[(size_t)(ray0 + q) * 8 + (i & 7)] : 0.f;
+    }
+    consumer_sync();
+    load_ipe<true>(s, p.mc, row0, nrows, p.min_deg);
+  }
+  trunk_forward<true, NRM>(pp, s, p.b, nullptr);
+  heads_forward<false, true, true>(pp, s, p.b, ViewCodes{s.ray, p.S}, nrows,
+                                   nullptr, 0, nullptr, 0);
+  if constexpr (!PRODUCER) composite_tile(s, p, ray0, nrays);
+  if constexpr (NRM) {
+    density_chain<true>(pp, s, p.w, [&](int layer, const float (&part)[64]) {
+      fold_gx(s, p.min_deg, layer, part);
+    });
+    if constexpr (!PRODUCER) normals_tile(s, p, ray0, nrays, nrows);
+  }
+}
+
+template <bool NRM>
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+    fused_render_kernel(const __grid_constant__ Maps maps,
+                        const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem<NRM>& s = smem_of<Smem<NRM>>(smem_raw);
+  pipe_init(s);
+  run_roles<24, 240>(s, &maps, [&](auto& pp) {
+    for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+      render_tile(pp, s, p, t);
+    }
+  });
+}
+
+template <bool NRM>
+cudaError_t launch(const Maps& maps, const Params& p, cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem<NRM>) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_render_kernel<NRM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int grid = p.ntiles < sms ? p.ntiles : sms;
+  fused_render_kernel<NRM><<<grid, ROW_THREADS, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int fused_render_weight_count() { return W_TOTAL; }
 int fused_render_bias_count() { return B_TOTAL; }
+
+// Rays per tile at S samples per ray (0: S not taken).
+int fused_render_tile_rays(int S) { return S >= 1 && S <= TM ? TR / S : 0; }
 
 const char* fused_render_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -316,10 +362,6 @@ int fused_render_level_launch(const float* mc, const float* rayinfo,
                               int white_bkgd, int need_normals,
                               int need_extras, void* stream) {
   if (R <= 0 || S <= 0 || S > TM) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   Params p;
   p.mc = mc;
   p.rayinfo = rayinfo;
@@ -328,16 +370,19 @@ int fused_render_level_launch(const float* mc, const float* rayinfo,
   p.out = out;
   p.R = R;
   p.S = S;
-  p.rpb = TM / S;
+  p.rpt = fused_render_tile_rays(S);
+  p.ntiles = (R + p.rpt - 1) / p.rpt;
   p.min_deg = min_deg;
   p.density_bias = density_bias;
   p.rgb_padding = rgb_padding;
   p.white_bkgd = white_bkgd;
-  p.need_normals = need_normals;
   p.need_extras = need_extras;
-  const int grid = (R + p.rpb - 1) / p.rpb;
-  fused_render_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  Maps maps;
+  cudaError_t err = make_weight_maps(&maps, p.w);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(need_normals ? launch<true>(maps, p, st)
+                            : launch<false>(maps, p, st));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Hopper building blocks of the port's training kernels (fused_mlp.cu,
-// fused_render_train.cu): mbarriers, TMA loads and stores of 64x64 bf16
+// Hopper building blocks of the port's kernels (fused_render.cu,
+// fused_mlp.cu, fused_render_train.cu): mbarriers, TMA loads and stores of 64x64 bf16
 // boxes in the 128-byte swizzle, bulk f32 reduction into global memory,
 // warpgroup matrix products (wgmma) with their shared-memory descriptors,
 // and the host-side tensor map of a bf16 matrix. Written from the PTX ISA
@@ -163,6 +163,23 @@ struct Wgmma<8> {
         "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };

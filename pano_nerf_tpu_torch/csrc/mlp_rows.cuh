@@ -1,9 +1,9 @@
-// The per-tile pieces of the training row kernels, shared by fused_mlp.cu
-// (kernels 1, 2 and 3) and fused_render_train.cu (kernel 5): the IPE of
-// the moments, the trunk (computed, or loaded from a bf16 spill), the
-// heads, the MLP backward from a head cotangent and the IPE adjoint, and
-// the column layout of the operand rows that the weight-gradient pass of
-// fused_mlp.cu reduces.
+// The per-tile pieces of the row kernels, shared by fused_mlp.cu (kernels
+// 1, 2 and 3), fused_render_train.cu (kernel 5) and fused_render.cu
+// (kernel 4): the IPE of the moments, the trunk (computed, or loaded from
+// a bf16 spill), the heads, the density-gradient chain, the MLP backward
+// from a head cotangent and the IPE adjoint, and the column layout of the
+// operand rows that the weight-gradient pass of fused_mlp.cu reduces.
 //
 // What bounds a row kernel on an H100: the forward, tensor-core operations
 // (611 K MACs per row against 96 B of inputs); the backward row pass, the
@@ -35,10 +35,22 @@
 //   with PRODUCER = true: it issues each product's weight slices and
 //   skips everything else, so the two sides cannot disagree on the order.
 //
-// Each step works on one tile of TM = 64 rows and is called by every
-// consumer thread; `Smem` is any struct with the members the step names,
-// so a kernel allocates only what it uses. Consumers synchronise among
-// themselves with named barrier 1 (consumer_sync), never __syncthreads.
+// Two ways to share a product between the consumer warpgroups, chosen by
+// a step's template flag ROWS:
+// * column split (ROWS = false, the training kernels): one tile of TM = 64
+//   rows, the A operand of both warpgroups; each computes half of the
+//   output columns, so each weight slice feeds 64 rows.
+// * row split (ROWS = true, kernel 4): a tile of 2 x 64 rows, each
+//   warpgroup owns one 64-row activation tile (s.act + wg() * ACT_ELEMS)
+//   and computes all output columns of every product (m64nNk16, N up to
+//   256, 128 accumulators per thread), so each weight slice feeds 128
+//   rows. Per-row scalars are indexed by tile row 64 wg() + r, masks hold
+//   4 words per thread and layer, and a warpgroup synchronises only with
+//   itself (named barrier 2 + wg()).
+// Each step is called by every consumer thread; `Smem` is any struct with
+// the members the step names, so a kernel allocates only what it uses.
+// Consumers synchronise among themselves with named barriers (1: all
+// consumers, consumer_sync), never __syncthreads.
 #pragma once
 
 #include "hopper.cuh"
@@ -53,6 +65,7 @@ constexpr int RING = 3;               // weight-slice stages
 constexpr int BOX = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
 constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
 constexpr int ACT_BLOCKS = 6;         // activation tile: 6 x 64 columns
+constexpr int ACT_ELEMS = TM * 64 * ACT_BLOCKS;  // one 64-row tile
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x
@@ -146,9 +159,52 @@ __device__ __forceinline__ int frag_col(int i) {
 }
 __device__ __forceinline__ int wg() { return threadIdx.x >> 7; }
 
+// ---- the two splits (see the header) ----
+
+// Output columns of an N-wide product that one warpgroup computes.
+template <bool ROWS>
+__host__ __device__ constexpr int wg_cols(int n) {
+  return ROWS ? n : n / 2;
+}
+// The first of them.
+template <bool ROWS>
+__device__ __forceinline__ int col0(int n) {
+  return ROWS ? 0 : wg() * (n / 2);
+}
+// The tile row of the warpgroup's A row 0.
+template <bool ROWS>
+__device__ __forceinline__ int row0_of() {
+  return ROWS ? wg() * TM : 0;
+}
+// The warpgroup's A operand (activation tile).
+template <bool ROWS>
+__device__ __forceinline__ bf16* tile_act(bf16* act) {
+  return ROWS ? act + wg() * ACT_ELEMS : act;
+}
+// Rows of the warpgroup's A tile that hold data, of a tile's nrows.
+template <bool ROWS>
+__device__ __forceinline__ int own_rows(int nrows) {
+  return ROWS ? min(max(nrows - row0_of<true>(), 0), TM) : nrows;
+}
+// Threads that fill one A tile, and this thread's index among them.
+template <bool ROWS>
+constexpr int FILL = ROWS ? 128 : NT;
+template <bool ROWS>
+__device__ __forceinline__ int fill_tid() {
+  return ROWS ? (threadIdx.x & 127) : threadIdx.x;
+}
+template <bool ROWS>
+__device__ __forceinline__ void tile_sync() {
+  if (ROWS) {
+    hopper::named_sync(2 + wg(), 128);
+  } else {
+    hopper::named_sync(1, NT);
+  }
+}
+
 // ---- the weight ring ----
 
-template <bool PRODUCER>
+template <bool PRODUCER, int NS = RING>
 struct Pipe {
   uint64_t* full;
   uint64_t* empty;
@@ -157,10 +213,16 @@ struct Pipe {
   int it;  // slices consumed (or issued) so far
 };
 
+// A kernel's ring has as many stages as its Smem has `full` barriers.
+template <class Smem>
+__host__ __device__ constexpr int ring_stages() {
+  return sizeof(Smem::full) / sizeof(uint64_t);
+}
+
 template <class Smem>
 __device__ void pipe_init(Smem& s) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < RING; ++i) {
+    for (int i = 0; i < ring_stages<Smem>(); ++i) {
       hopper::mbar_init(&s.full[i], 1);
       hopper::mbar_init(&s.empty[i], NT / 32);  // one arrival per warp
     }
@@ -171,24 +233,29 @@ __device__ void pipe_init(Smem& s) {
 }
 
 template <bool PRODUCER, class Smem>
-__device__ Pipe<PRODUCER> make_pipe(Smem& s, const Maps* maps) {
-  return Pipe<PRODUCER>{s.full, s.empty, s.ring, maps, 0};
+__device__ Pipe<PRODUCER, ring_stages<Smem>()> make_pipe(Smem& s,
+                                                         const Maps* maps) {
+  return Pipe<PRODUCER, ring_stages<Smem>()>{s.full, s.empty, s.ring, maps,
+                                             0};
 }
 
-// acc (+)= A @ B for this warpgroup's NW output columns: A is the
-// activation tile from column acol (a multiple of 16; K columns), B the
-// product's weights, K-major for TB = 0 (x @ W^T), MN-major for TB = 1
-// (s @ W; NW a multiple of 64). The producer issues the slices instead.
-template <int NW, int TB, bool PRODUCER>
-__device__ void mm(Pipe<PRODUCER>& pp, const Prod& pd, float (&acc)[NW / 2],
-                   const bf16* act, int acol, bool accumulate = false) {
+// acc (+)= A @ B for this warpgroup's NW output columns (column split:
+// columns wg() * NW ..; row split: all of them, up to 256): A is the
+// warpgroup's activation tile from column acol (a multiple of 16; K
+// columns), B the product's weights, K-major for TB = 0 (x @ W^T),
+// MN-major for TB = 1 (s @ W; NW a multiple of 64). The producer issues
+// the slices instead.
+template <int NW, int TB, bool ROWS = false, bool PRODUCER, int NS>
+__device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
+                   float (&acc)[NW / 2], const bf16* act, int acol,
+                   bool accumulate = false) {
   const int nsl = (pd.K + 63) / 64;
   if constexpr (PRODUCER) {
     const int nbox = (pd.N + 63) / 64;
     const CUtensorMap* map = &pp.maps->w[pd.map];
     for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
-      const int st = pp.it % RING;
-      if (pp.it >= RING) hopper::mbar_wait(&pp.empty[st], ((pp.it / RING) - 1) & 1);
+      const int st = pp.it % NS;
+      if (pp.it >= NS) hopper::mbar_wait(&pp.empty[st], ((pp.it / NS) - 1) & 1);
       unsigned char* buf = pp.ring + st * SLICE;
       hopper::mbar_expect_tx(&pp.full[st], nbox * BOX);
       for (int b = 0; b < nbox; ++b) {
@@ -203,10 +270,10 @@ __device__ void mm(Pipe<PRODUCER>& pp, const Prod& pd, float (&acc)[NW / 2],
     }
   } else {
     static_assert(TB == 0 || NW % 64 == 0, "MN-major splits need 64 columns");
-    const int g = wg();
+    const int bcol = ROWS ? 0 : wg() * NW;  // first B column
     for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
-      const int st = pp.it % RING;
-      hopper::mbar_wait(&pp.full[st], (pp.it / RING) & 1);
+      const int st = pp.it % NS;
+      hopper::mbar_wait(&pp.full[st], (pp.it / NS) & 1);
       const unsigned char* buf = pp.ring + st * SLICE;
       const int steps = min(4, (pd.K - 64 * kk + 15) / 16);
       hopper::wgmma_fence();
@@ -214,8 +281,8 @@ __device__ void mm(Pipe<PRODUCER>& pp, const Prod& pd, float (&acc)[NW / 2],
         const int c = acol + 64 * kk + 16 * ks;
         const uint64_t da = hopper::desc_sw128(act + act_off(0, c), 16, 1024);
         const uint64_t db =
-            TB == 0 ? hopper::desc_sw128(buf + g * NW * 128 + ks * 32, 16, 1024)
-                    : hopper::desc_sw128(buf + (g * NW / 64) * BOX + ks * 2048,
+            TB == 0 ? hopper::desc_sw128(buf + bcol * 128 + ks * 32, 16, 1024)
+                    : hopper::desc_sw128(buf + (bcol / 64) * BOX + ks * 2048,
                                          BOX, 1024);
         // The product's first step overwrites acc unless it accumulates.
         hopper::wgmma<NW, 0, TB>(acc, da, db, accumulate || kk > 0 || ks > 0);
@@ -229,39 +296,44 @@ __device__ void mm(Pipe<PRODUCER>& pp, const Prod& pd, float (&acc)[NW / 2],
 }
 
 // Role split of a row kernel after pipe_init: the producer warpgroup
-// drops to 40 registers and one of its threads runs `tile` as the
-// producer; the consumer warpgroups take 232 (the wgmma accumulators of a
+// drops to PR registers and one of its threads runs `tile` as the
+// producer; the consumer warpgroups take CR (the wgmma accumulators of a
 // product and of the skip columns stay in registers) and run it as
 // consumers, then wait for their last TMA stores. A whole producer
-// warpgroup keeps the register pool exact: 128 x 40 + 256 x 232 = 64,512.
-template <class Smem, class Tile>
+// warpgroup keeps the register pool exact: 128 x 40 + 256 x 232 = 64,512
+// (column split), 128 x 24 + 256 x 240 = 64,512 (row split, whose 128
+// accumulators per thread spill less with 240).
+template <int PR = 40, int CR = 232, class Smem, class Tile>
 __device__ __forceinline__ void run_roles(Smem& s, const Maps* maps,
                                           Tile tile) {
   if (threadIdx.x >= NT) {
-    hopper::reg_dealloc<40>();
+    hopper::reg_dealloc<PR>();
     if (threadIdx.x == NT) {
-      Pipe<true> pp = make_pipe<true>(s, maps);
+      auto pp = make_pipe<true>(s, maps);
       tile(pp);
     }
   } else {
-    hopper::reg_alloc<232>();
-    Pipe<false> pp = make_pipe<false>(s, maps);
+    hopper::reg_alloc<CR>();
+    auto pp = make_pipe<false>(s, maps);
     tile(pp);
     if (threadIdx.x == 0) hopper::bulk_wait();
   }
 }
 
-// Before an epilogue overwrites the activation tile: every consumer's
-// products have read it, and the last TMA store of it has too.
+// Before an epilogue overwrites the activation tile: every product of
+// the consumers that share it has read it, and the last TMA store of it
+// has too (row-split tiles are never stored).
+template <bool ROWS = false>
 __device__ __forceinline__ void pre_epilogue() {
-  if (threadIdx.x == 0) hopper::bulk_wait_read();
-  consumer_sync();
+  if (!ROWS && threadIdx.x == 0) hopper::bulk_wait_read();
+  tile_sync<ROWS>();
 }
 // After an epilogue: its shared-memory writes are visible to the products
-// and TMA stores that read them, and to every consumer.
+// and TMA stores that read them, and to the consumers that share them.
+template <bool ROWS = false>
 __device__ __forceinline__ void post_epilogue() {
   hopper::fence_proxy_async();
-  consumer_sync();
+  tile_sync<ROWS>();
 }
 
 // TMA store of activation blocks b0 .. b0 + nb - 1 to the global rows of
@@ -299,9 +371,11 @@ __device__ void colsum_atomic(const bf16* act, int c0, int ncols, float* dst) {
   }
 }
 
+// Own element i (of 32 MW) of a layer's ReLU mask, in fragment order.
+template <int MW = 2>
 __device__ __forceinline__ bool mask_bit(const uint32_t* mask, int layer,
-                                         int i) {  // own element i of 64
-  return (mask[(layer * 2 + (i >> 5)) * NT + threadIdx.x] >> (i & 31)) & 1u;
+                                         int i) {
+  return (mask[(layer * MW + (i >> 5)) * NT + threadIdx.x] >> (i & 31)) & 1u;
 }
 
 // att * cos(y) of IPE feature j, from the f32 features att * sin(y): the
@@ -316,34 +390,39 @@ __device__ __forceinline__ float deg_scale(int j, int min_deg) {
 
 // ---- steps ----
 
-// Load the moments of rows row0 .. row0 + nrows - 1 into s.mc (zero past
-// nrows) and build the IPE features: f32 in x32, bf16 at act columns
-// 256..351.
-template <class Smem>
+// Load the moments of the tile's rows row0 .. row0 + nrows - 1 into s.mc
+// (by tile row; zero past nrows) and build the IPE features: bf16 at act
+// columns 256..351 and, column split, f32 in x32 (a row-split kernel
+// recomputes them where it needs them: 128 rows of x32 do not fit beside
+// its tiles).
+template <bool ROWS = false, class Smem>
 __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
                          int min_deg) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < TM * 8; i += NT) {
+  const int tid = fill_tid<ROWS>(), rb = row0_of<ROWS>();
+  const int own = own_rows<ROWS>(nrows);
+  bf16* act = tile_act<ROWS>(s.act);
+  float* m = s.mc + rb * 8;
+  for (int i = tid; i < TM * 8; i += FILL<ROWS>) {
     const int r = i >> 3;
-    s.mc[i] = r < nrows ? mc[(row0 + r) * 8 + (i & 7)] : 0.f;
+    m[i] = r < own ? mc[(row0 + rb + r) * 8 + (i & 7)] : 0.f;
   }
-  consumer_sync();
-  for (int i = tid; i < TM * XF / 2; i += NT) {
+  tile_sync<ROWS>();
+  for (int i = tid; i < TM * XF / 2; i += FILL<ROWS>) {
     const int r = i / (XF / 2), j = 2 * (i % (XF / 2));
     float f[2];
     for (int h = 0; h < 2; ++h) {
       const int jj = (j + h) % XP;
       const int deg = jj / 3 + min_deg, dim = jj % 3;
-      float y = s.mc[r * 8 + dim] * ldexpf(1.f, deg);
+      float y = m[r * 8 + dim] * ldexpf(1.f, deg);
       if (j + h >= XP) y = y + 1.57079632679489662f;
-      const float var = s.mc[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
+      const float var = m[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
       f[h] = expf(-0.5f * var) * sinf(y);
-      s.x32[r * XF + j + h] = f[h];
+      if constexpr (!ROWS) s.x32[r * XF + j + h] = f[h];
     }
-    act_put2(s.act, r, W + j, f[0], f[1]);
+    act_put2(act, r, W + j, f[0], f[1]);
   }
   hopper::fence_proxy_async();
-  consumer_sync();
+  tile_sync<ROWS>();
 }
 
 // Load already-encoded bf16 features x [., 96] into act columns 256..351
@@ -370,42 +449,55 @@ struct TrunkOut {
   int col, row0, nrows;
 };
 
-// Trunk layer epilogue from the accumulator: act = bf16(relu(acc + bias)),
-// ReLU mask bits in fragment order.
-template <class Smem>
-__device__ void relu_epilogue(Smem& s, const float (&acc)[64],
+// Trunk layer epilogue from the accumulator (NA of its elements per
+// thread): act = bf16(relu(acc + bias)) and, with MASKS, the ReLU mask
+// bits in fragment order (NA / 32 words per thread and layer).
+template <bool ROWS = false, bool MASKS = true, class Smem, int NA>
+__device__ void relu_epilogue(Smem& s, const float (&acc)[NA],
                               const float* bias, int layer) {
-  const int g = wg();
-  uint32_t m0 = 0, m1 = 0;
+  constexpr int MW = NA / 32;
+  bf16* act = tile_act<ROWS>(s.act);
+  const int c0 = col0<ROWS>(W);
+  uint32_t m[MW];
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int r = frag_row(i), c = g * 128 + frag_col(i);
+  for (int k = 0; k < MW; ++k) m[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NA; i += 2) {
+    const int r = frag_row(i), c = c0 + frag_col(i);
     const __nv_bfloat162 h = __floats2bfloat162_rn(
         fmaxf(acc[i] + bias[c], 0.f), fmaxf(acc[i + 1] + bias[c + 1], 0.f));
-    *reinterpret_cast<__nv_bfloat162*>(s.act + act_off(r, c)) = h;
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, c)) = h;
     const uint32_t bits = (__low2float(h) > 0.f ? 1u : 0u) |
                           (__high2float(h) > 0.f ? 2u : 0u);
-    if (i < 32) m0 |= bits << i; else m1 |= bits << (i - 32);
+    m[i >> 5] |= bits << (i & 31);
   }
-  s.mask[(layer * 2 + 0) * NT + threadIdx.x] = m0;
-  s.mask[(layer * 2 + 1) * NT + threadIdx.x] = m1;
+  if constexpr (MASKS) {
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+      s.mask[(layer * MW + k) * NT + threadIdx.x] = m[k];
+    }
+  }
 }
 
 // Trunk: 8 x (Linear + ReLU) on the features at act columns 256..351, the
 // skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..255 and
 // the ReLU masks; layer i's activation also goes to `out` (if any) at
-// column out.col + 256 i.
-template <bool PRODUCER, class Smem>
-__device__ void trunk_forward(Pipe<PRODUCER>& pp, Smem& s, const float* b,
+// column out.col + 256 i (column split only). Without MASKS (a kernel
+// that runs no chain) the masks are not kept.
+template <bool ROWS = false, bool MASKS = true, bool PRODUCER, int NS,
+          class Smem>
+__device__ void trunk_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
                               const TrunkOut* out) {
-  float acc[64];
+  constexpr int NW = wg_cols<ROWS>(W);
+  float acc[NW / 2];
+  bf16* act = tile_act<ROWS>(s.act);
   for (int layer = 0; layer < 8; ++layer) {
-    mm<128, 0>(pp, trunk_prod(layer, false), acc, s.act, layer == 0 ? W : 0);
+    mm<NW, 0, ROWS>(pp, trunk_prod(layer, false), acc, act, layer == 0 ? W : 0);
     if constexpr (!PRODUCER) {
-      pre_epilogue();
-      relu_epilogue(s, acc, b + OFF_BT + layer * W, layer);
-      post_epilogue();
-      if (out != nullptr) {
+      pre_epilogue<ROWS>();
+      relu_epilogue<ROWS, MASKS>(s, acc, b + OFF_BT + layer * W, layer);
+      post_epilogue<ROWS>();
+      if (!ROWS && out != nullptr) {
         if (out->map != nullptr) {
           store_blocks(s.act, 0, 4, out->map, out->col + layer * W, out->row0);
         } else {
@@ -460,76 +552,159 @@ __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
   }
 }
 
-// Heads on a_7 (act columns 0..255) and the viewdir codes v (v points at
-// the tile's first row, [., 32] bf16; zero past nrows): bottleneck and
-// view branch. With OUT, also the density and color heads: on return
-// s.heads [64 x 16] f32 holds raw rgb (+ bias) in columns 0..2 and raw
-// density (+ bias) in columns 3..7. With OPS, the bottleneck, the viewdir
-// codes and the view-branch activation go to their operand rows (map
-// `ops`, row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves
-// the view-branch activation in act columns 0..127.
-template <bool OPS, bool OUT, bool PRODUCER, class Smem>
-__device__ void heads_forward(Pipe<PRODUCER>& pp, Smem& s, const float* b,
-                              const bf16* v, int nrows, const CUtensorMap* ops,
+// 16 bytes (codes c .. c + 7) of the viewdir codes of tile row r: from a
+// [., 32] bf16 buffer at the tile's first row, or from a callable
+// src(r, c) that builds them.
+__device__ __forceinline__ uint4 vcodes(const bf16* v, int r, int c) {
+  return *reinterpret_cast<const uint4*>(v + r * VP + c);
+}
+template <class F>
+__device__ __forceinline__ uint4 vcodes(const F& src, int r, int c) {
+  return src(r, c);
+}
+
+// Heads on a_7 (act columns 0..255) and the viewdir codes v (see vcodes;
+// zero past nrows): bottleneck and view branch. With OUT, also the
+// density and color heads: on return s.heads [tile rows x 16] f32 holds
+// raw rgb (+ bias) in columns 0..2 and raw density (+ bias) in columns
+// 3..7. With OPS (column split only), the bottleneck, the viewdir codes
+// and the view-branch activation go to their operand rows (map `ops`,
+// row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves the
+// view-branch activation in act columns 0..127.
+template <bool OPS, bool OUT, bool ROWS = false, bool PRODUCER, int NS,
+          class Smem, class VSrc>
+__device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
+                              const VSrc& v, int nrows, const CUtensorMap* ops,
                               int ops_row0, bf16* ops_rows, int opw) {
-  const int tid = threadIdx.x, g = wg();
-  float hd[4];
-  if constexpr (OUT) mm<8, 0>(pp, Prod{M_WDB, 0, 0, W, HP}, hd, s.act, 0);
-  float acc[64];
-  mm<128, 0>(pp, Prod{M_WDB, 0, HP, W, W}, acc, s.act, 0);
+  static_assert(!(OPS && ROWS), "operand rows are written column split");
+  constexpr int NH = wg_cols<ROWS>(HP), NB = wg_cols<ROWS>(W),
+                NV = wg_cols<ROWS>(VW);
+  const int tid = fill_tid<ROWS>(), rb = row0_of<ROWS>();
+  const int own = own_rows<ROWS>(nrows);
+  bf16* act = tile_act<ROWS>(s.act);
+  float hd[NH / 2];
+  if constexpr (OUT) mm<NH, 0, ROWS>(pp, Prod{M_WDB, 0, 0, W, HP}, hd, act, 0);
+  float acc[NB / 2];
+  mm<NB, 0, ROWS>(pp, Prod{M_WDB, 0, HP, W, W}, acc, act, 0);
   if constexpr (!PRODUCER) {
-    pre_epilogue();
+    pre_epilogue<ROWS>();
+    const int cb = col0<ROWS>(W);
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int r = frag_row(i), c = g * 128 + frag_col(i);
-      act_put2(s.act, r, c, acc[i] + b[OFF_BB + c], acc[i + 1] + b[OFF_BB + c + 1]);
+    for (int i = 0; i < NB / 2; i += 2) {
+      const int r = frag_row(i), c = cb + frag_col(i);
+      act_put2(act, r, c, acc[i] + b[OFF_BB + c], acc[i + 1] + b[OFF_BB + c + 1]);
     }
     if constexpr (OUT) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = frag_row(i), c = g * 8 + frag_col(i);
+      for (int i = 0; i < NH / 2; ++i) {
+        const int r = rb + frag_row(i), c = col0<ROWS>(HP) + frag_col(i);
         if (c < NDC) s.heads[r * OUT_W + 3 + c] = hd[i] + b[OFF_BD + c];
       }
     }
-    for (int i = tid; i < TM * VP / 8; i += NT) {
+    for (int i = tid; i < TM * VP / 8; i += FILL<ROWS>) {
       const int r = i / (VP / 8), c = 8 * (i % (VP / 8));
-      const uint4 vv = r < nrows ? *reinterpret_cast<const uint4*>(v + r * VP + c)
-                                 : make_uint4(0, 0, 0, 0);
-      act_chunk(s.act, r, W + c) = vv;
+      const uint4 vv = r < own ? vcodes(v, rb + r, c) : make_uint4(0, 0, 0, 0);
+      act_chunk(act, r, W + c) = vv;
       if constexpr (OPS) {
         *reinterpret_cast<uint4*>(ops_rows + (size_t)r * opw + O_V + c) = vv;
       }
     }
-    post_epilogue();
+    post_epilogue<ROWS>();
     if constexpr (OPS) store_blocks(s.act, 0, 4, ops, O_BTL, ops_row0);
   }
-  float hv[32];
-  mm<64, 0>(pp, Prod{M_WV, 0, 0, VK, VW}, hv, s.act, 0);
+  float hv[NV / 2];
+  mm<NV, 0, ROWS>(pp, Prod{M_WV, 0, 0, VK, VW}, hv, act, 0);
   if constexpr (!PRODUCER) {
-    pre_epilogue();
+    pre_epilogue<ROWS>();
+    const int cv = col0<ROWS>(VW);
     uint32_t m = 0;
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = frag_row(i), c = g * 64 + frag_col(i);
+    for (int i = 0; i < NV / 2; i += 2) {
+      const int r = frag_row(i), c = cv + frag_col(i);
       const __nv_bfloat162 h = __floats2bfloat162_rn(
           fmaxf(hv[i] + b[OFF_BV + c], 0.f), fmaxf(hv[i + 1] + b[OFF_BV + c + 1], 0.f));
-      *reinterpret_cast<__nv_bfloat162*>(s.act + act_off(r, c)) = h;
-      m |= ((__low2float(h) > 0.f ? 1u : 0u) | (__high2float(h) > 0.f ? 2u : 0u)) << i;
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, c)) = h;
+      if constexpr (OPS) {
+        m |= ((__low2float(h) > 0.f ? 1u : 0u) | (__high2float(h) > 0.f ? 2u : 0u)) << i;
+      }
     }
-    if constexpr (OPS) s.hvmask[tid] = m;
-    post_epilogue();
+    if constexpr (OPS) s.hvmask[threadIdx.x] = m;
+    post_epilogue<ROWS>();
     if constexpr (OPS) store_blocks(s.act, 0, 2, ops, O_HV, ops_row0);
   }
   if constexpr (OUT) {
-    float rgb[4];
-    mm<8, 0>(pp, Prod{M_WC, 0, 0, VW, HP}, rgb, s.act, 0);
+    float rgb[NH / 2];
+    mm<NH, 0, ROWS>(pp, Prod{M_WC, 0, 0, VW, HP}, rgb, act, 0);
     if constexpr (!PRODUCER) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = frag_row(i), c = g * 8 + frag_col(i);
+      for (int i = 0; i < NH / 2; ++i) {
+        const int r = rb + frag_row(i), c = col0<ROWS>(HP) + frag_col(i);
         if (c < 3) s.heads[r * OUT_W + c] = rgb[i] + b[OFF_BC + c];
       }
-      consumer_sync();
+      tile_sync<ROWS>();
+    }
+  }
+}
+
+// ---- the density-gradient chain (kernels 3 and 4) ----
+
+// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..255.
+template <bool ROWS = false, class Smem>
+__device__ void chain_start(Smem& s, const bf16* w) {
+  constexpr int NA = wg_cols<ROWS>(W) / 2, MW = NA / 32;
+  bf16* act = tile_act<ROWS>(s.act);
+  const int cb = col0<ROWS>(W);
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int c = cb + frag_col(i);
+    act[act_off(frag_row(i), c)] =
+        mask_bit<MW>(s.mask, 7, i) ? w[OFF_WD + c] : __float2bfloat16(0.f);
+  }
+}
+
+// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..255.
+template <bool ROWS = false, class Smem, int NA>
+__device__ void masked_epilogue(Smem& s, const float (&acc)[NA], int layer) {
+  constexpr int MW = NA / 32;
+  bf16* act = tile_act<ROWS>(s.act);
+  const int cb = col0<ROWS>(W);
+#pragma unroll
+  for (int i = 0; i < NA; i += 2) {
+    act_put2(act, frag_row(i), cb + frag_col(i),
+             mask_bit<MW>(s.mask, layer, i) ? acc[i] : 0.f,
+             mask_bit<MW>(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
+  }
+}
+
+// d raw_sigma / d x through the masked trunk, after trunk_forward left its
+// masks: sz_7 = m_7 Wd[0], sz_{i-1} = bf16(m_{i-1} (sz_i @ W_i)). The
+// parts of g_x = d raw_sigma / d x come out as the skip columns of layer
+// 5's product and layer 0's product (128 columns, 96 used), each handed
+// to sink(layer, part) in accumulator order (layer 5 first, then 0); the
+// sink folds them.
+template <bool ROWS = false, bool PRODUCER, int NS, class Smem, class Sink>
+__device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
+                              Sink sink) {
+  constexpr int NW = wg_cols<ROWS>(W), NX = wg_cols<ROWS>(128);
+  bf16* act = tile_act<ROWS>(s.act);
+  if constexpr (!PRODUCER) {
+    pre_epilogue<ROWS>();
+    chain_start<ROWS>(s, w);
+    post_epilogue<ROWS>();
+  }
+  float acc[NW / 2], part[NX / 2];
+  for (int layer = 7; layer >= 0; --layer) {
+    if (layer == 5 || layer == 0) {  // g_x: layer 5's skip columns + layer 0
+      mm<NX, 1, ROWS>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128),
+                      part, act, 0);
+      if constexpr (!PRODUCER) sink(layer, part);
+    }
+    if (layer == 0) break;
+    mm<NW, 1, ROWS>(pp, trunk_prod(layer, true), acc, act, 0);
+    if constexpr (!PRODUCER) {
+      pre_epilogue<ROWS>();
+      masked_epilogue<ROWS>(s, acc, layer - 1);
+      post_epilogue<ROWS>();
     }
   }
 }

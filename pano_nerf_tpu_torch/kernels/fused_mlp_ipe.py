@@ -353,6 +353,28 @@ def weight_grads(lib: ctypes.CDLL, counter, mlp: NerfMLP, ops: Tensor,
 weight_grads.launches = 0
 
 
+def launch_forward(lib: ctypes.CDLL, mc: Tensor, v: Tensor, weights: Tensor,
+                   biases: Tensor, min_deg: int, normals: bool,
+                   save_acts: bool = False
+                   ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """One forward launch of the library `lib`; returns out [M, OUT_W]
+    and, with `normals`, d sigma / d x [M, 3] and (with `save_acts`) the
+    bf16 trunk spill [M, 2048]. Not counted."""
+    M, dev = mc.shape[0], mc.device
+    out = torch.empty((M, OUT_W), dtype=torch.float32, device=dev)
+    dsig = (torch.empty((M, 3), dtype=torch.float32, device=dev)
+            if normals else None)
+    acts = (torch.empty((M, 8 * 256), dtype=torch.bfloat16, device=dev)
+            if normals and save_acts else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check_launch(lib, "fused_mlp forward", lib.fused_mlp_forward(
+        mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+        out.data_ptr(), dsig.data_ptr() if normals else None,
+        acts.data_ptr() if acts is not None else None, M, min_deg,
+        int(normals), stream))
+    return out, dsig, acts
+
+
 def launch_backward_rows(lib: ctypes.CDLL, mc: Tensor, v: Tensor,
                          weights: Tensor, biases: Tensor, g: Tensor,
                          q: Optional[Tensor], acts: Optional[Tensor],
@@ -390,14 +412,8 @@ class _FusedMlpIpe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg = meta
-        lib = kernel_library()
-        M = mc.shape[0]
-        out = torch.empty((M, OUT_W), dtype=torch.float32, device=mc.device)
-        stream = torch.cuda.current_stream(mc.device).cuda_stream
-        check_launch(lib, "fused_mlp_ipe forward", lib.fused_mlp_forward(
-            mc.data_ptr(), v.data_ptr(), weights.data_ptr(),
-            biases.data_ptr(), out.data_ptr(), None, None, M, min_deg, 0,
-            stream))
+        out, _, _ = launch_forward(kernel_library(), mc, v, weights, biases,
+                                   min_deg, normals=False)
         fused_mlp_ipe_apply.launches += 1
         ctx.meta = meta
         ctx.save_for_backward(mc, v, weights, biases)

@@ -56,21 +56,9 @@ class _FusedMlpNormals(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg, save_acts = meta
-        lib = k2.kernel_library()
-        M = mc.shape[0]
-        dev = mc.device
-        out = torch.empty((M, k2.OUT_W), dtype=torch.float32, device=dev)
-        dsig = torch.empty((M, 3), dtype=torch.float32, device=dev)
-        acts = (torch.empty((M, 8 * 256), dtype=torch.bfloat16, device=dev)
-                if save_acts else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        k2.check_launch(lib, "fused_mlp_normals forward",
-                        lib.fused_mlp_forward(
-                            mc.data_ptr(), v.data_ptr(), weights.data_ptr(),
-                            biases.data_ptr(), out.data_ptr(),
-                            dsig.data_ptr(),
-                            acts.data_ptr() if save_acts else None, M,
-                            min_deg, 1, stream))
+        out, dsig, acts = k2.launch_forward(k2.kernel_library(), mc, v,
+                                            weights, biases, min_deg,
+                                            normals=True, save_acts=save_acts)
         fused_mlp_normals_apply.launches += 1
         ctx.meta = meta
         if save_acts:

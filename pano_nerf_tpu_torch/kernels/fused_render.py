@@ -14,13 +14,15 @@ chain on the fine level, against 32 B of input moments. A 128x256 panorama
 (32,768 rays x (56 + 56 + 10*5) rows) is 8.4 TFLOP: >= 8.5 ms at 989
 TFLOP/s dense bf16, while its inputs move in ~0.05 ms at 3.35 TB/s.
 
-Design (csrc/fused_render.cu): one 256-thread block per tile of <= 64
-sample rows (one ray at S=56, floor(64/S) rays at S=5); bf16 activations
-stay in shared memory between layers and every product runs on WMMA bf16
-tensor-core fragments with float32 accumulation; weights are read from
-global memory, where the 1.2 MB of bf16 weights stay resident in L2; the
-ReLU masks are kept as bits for the normal chain; compositing is a
-sequential float32 scan per ray.
+Design (csrc/fused_render.cu): tiles of <= 128 sample rows of whole rays
+(`plan_tiles`: 2 rays at S=56, 25 at S=5), walked by one persistent
+block per SM; two consumer warpgroups each own 64 rows and run every
+product on `wgmma` (bf16 operands from shared memory, float32
+accumulators in registers) over all its output columns, while a producer
+warpgroup streams the bf16 weights from L2 by TMA through a 2-stage ring,
+so each weight byte in shared memory serves 128 rows; the ReLU masks are
+kept as bits for the normal chain; compositing is a sequential float32
+scan per ray.
 
 `fused_render_level` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_render_level_reference` for CPU tensors and
@@ -31,7 +33,7 @@ launches in `fused_render_level.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +46,8 @@ from pano_nerf_tpu_torch.ops import mip
 Tensor = torch.Tensor
 
 SOURCE = "fused_render.cu"
-TILE_ROWS = 64       # sample rows per block: the largest S the kernel takes
+TILE_ROWS = 128      # sample rows per tile (whole rays only)
+MAX_SAMPLES = 64     # the largest S the kernel takes
 OUT_FIXED = 17       # rgb(3) | acc | distance | albedo(3) | roughness |
 #                      normal(3) | ort | 0(4), then the S weights
 _W, _XF, _VF, _VK, _VW, _HP = 256, 96, 27, 288, 128, 16
@@ -72,9 +75,35 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
     if bad:
         raise ValueError(f"fused_render_level supports only the standard "
                          f"topology {want}; got {bad}")
-    if not 1 <= num_samples <= TILE_ROWS:
-        raise ValueError(f"fused_render_level takes 1..{TILE_ROWS} samples "
+    if not 1 <= num_samples <= MAX_SAMPLES:
+        raise ValueError(f"fused_render_level takes 1..{MAX_SAMPLES} samples "
                          f"per ray, got {num_samples}")
+
+
+class TilePlan(NamedTuple):
+    """How one launch cuts R rays of S samples into tiles of whole rays."""
+    rays_per_tile: int
+    num_tiles: int
+    R: int
+
+    def rays(self, t: int) -> Tuple[int, int]:
+        """The rays [first, end) of tile t, as the kernel indexes them
+        (`ray0 = t * rpt`); the last tile may hold fewer."""
+        if not 0 <= t < self.num_tiles:
+            raise IndexError(f"tile {t} of {self.num_tiles}")
+        first = t * self.rays_per_tile
+        return first, min(first + self.rays_per_tile, self.R)
+
+
+def plan_tiles(R: int, S: int) -> TilePlan:
+    """The kernel's tiling: floor(TILE_ROWS / S) whole rays per tile (at
+    most TILE_ROWS rows), ceil(R / that) tiles. `kernel_library` checks
+    once, for every S, that the library cuts the same way
+    (`fused_render_tile_rays`)."""
+    if R < 1 or not 1 <= S <= MAX_SAMPLES:
+        raise ValueError(f"no tiling for R={R}, S={S}")
+    per = TILE_ROWS // S
+    return TilePlan(per, -(-R // per), R)
 
 
 def check_inputs(name: str, means: Tensor, covs: Tensor, viewdirs: Tensor,
@@ -100,6 +129,23 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, viewdirs: Tensor,
     if R == 0:
         raise ValueError(f"{name} needs at least one ray")
     return R, S
+
+
+# (K, N) of every product a tile streams from L2 as 64 x 64 bf16 TMA
+# boxes: trunk 0..7, density, bottleneck, view, color; then the fine
+# level's chain (layers 7..1, the skip columns of layer 5, layer 0).
+_BOX_BYTES = 64 * 64 * 2
+_MLP_PRODUCTS = ([(_XF, _W)] + [(_W, _W)] * 4 + [(_W + _XF, _W)]
+                 + [(_W, _W)] * 2 + [(_W, _HP), (_W, _W), (_VK, _VW),
+                                     (_VW, _HP)])
+_CHAIN_PRODUCTS = [(_W, _W)] * 7 + [(_W, 128)] * 2
+
+
+def weight_bytes_per_tile(need_normals: bool) -> int:
+    """Bytes of weights one tile moves from L2 into shared memory (whole
+    TMA boxes, zero-filled edges included)."""
+    prods = _MLP_PRODUCTS + (_CHAIN_PRODUCTS if need_normals else [])
+    return sum(-(-k // 64) * -(-n // 64) * _BOX_BYTES for k, n in prods)
 
 
 def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
@@ -151,7 +197,7 @@ def unpack_params(mlp: NerfMLP, weights: Tensor, biases: Tensor
     return out
 
 
-def _kernel_library() -> ctypes.CDLL:
+def kernel_library() -> ctypes.CDLL:
     lib = build.load_library(SOURCE)
     if not getattr(lib, "_pano_configured", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -161,9 +207,17 @@ def _kernel_library() -> ctypes.CDLL:
         lib.fused_render_level_launch.restype = i32
         lib.fused_render_error_string.argtypes = [i32]
         lib.fused_render_error_string.restype = ctypes.c_char_p
+        lib.fused_render_tile_rays.argtypes = [i32]
+        lib.fused_render_tile_rays.restype = i32
         for name in ("fused_render_weight_count", "fused_render_bias_count"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
+        bad = {S: lib.fused_render_tile_rays(S)
+               for S in range(1, MAX_SAMPLES + 1)
+               if lib.fused_render_tile_rays(S) != TILE_ROWS // S}
+        if bad:
+            raise RuntimeError(f"{SOURCE} cuts tiles unlike plan_tiles: "
+                               f"rays per tile by S {bad}")
         lib._pano_configured = True
     return lib
 
@@ -178,6 +232,42 @@ def _unpack(out: Tensor, S: int, need_normals: bool, need_extras: bool
     if need_normals:
         res["normal"], res["ort"] = out[:, 9:12], out[:, 12]
     return res
+
+
+def level_rows(means: Tensor, covs: Tensor, viewdirs: Tensor,
+               t_samples: Tensor, dirs: Tensor) -> Tuple[Tensor, Tensor]:
+    """The kernel's inputs: per-row moments [R*S, 8] (means | covs |
+    delta | t_mid) and per-ray info [R, 8] (viewdir | t_0 | t_S | dir)."""
+    t_mids = 0.5 * (t_samples[:, :-1] + t_samples[:, 1:])
+    delta = ((t_samples[:, 1:] - t_samples[:, :-1])
+             * torch.linalg.norm(dirs, dim=-1, keepdim=True))
+    mc = torch.cat([means.reshape(-1, 3), covs.reshape(-1, 3),
+                    delta.reshape(-1, 1), t_mids.reshape(-1, 1)],
+                   dim=1).contiguous()
+    rayinfo = torch.cat([viewdirs, t_samples[:, :1], t_samples[:, -1:],
+                         dirs], dim=1).contiguous()
+    return mc, rayinfo
+
+
+def launch_level(lib: ctypes.CDLL, mc: Tensor, rayinfo: Tensor,
+                 weights: Tensor, biases: Tensor, R: int, S: int, *,
+                 min_deg: int, density_bias: float, rgb_padding: float,
+                 white_bkgd: bool, need_normals: bool, need_extras: bool
+                 ) -> Tensor:
+    """One launch of the library `lib` on rows from `level_rows`; returns
+    the slab [R, 17 + S]. Not counted."""
+    out = torch.empty((R, OUT_FIXED + S), dtype=torch.float32,
+                      device=mc.device)
+    stream = torch.cuda.current_stream(mc.device).cuda_stream
+    err = lib.fused_render_level_launch(
+        mc.data_ptr(), rayinfo.data_ptr(), weights.data_ptr(),
+        biases.data_ptr(), out.data_ptr(), R, S, min_deg,
+        float(density_bias), float(rgb_padding), int(bool(white_bkgd)),
+        int(bool(need_normals)), int(bool(need_extras)), stream)
+    if err != 0:
+        raise RuntimeError("fused_render_level launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    return out
 
 
 def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
@@ -214,7 +304,7 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
         raise ValueError("the CUDA kernel computes in bf16; got compute "
                          f"dtype {mlp.compute_dtype} (train.precision)")
     weights, biases = pack_params(mlp) if packed is None else packed
-    lib = _kernel_library()
+    lib = kernel_library()
     if (weights.dtype != torch.bfloat16 or biases.dtype != torch.float32
             or weights.numel() != lib.fused_render_weight_count()
             or biases.numel() != lib.fused_render_bias_count()
@@ -222,25 +312,11 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
             or biases.device != means.device):
         raise ValueError("packed parameters do not match the kernel layout")
 
-    t_mids = 0.5 * (t_samples[:, :-1] + t_samples[:, 1:])
-    delta = ((t_samples[:, 1:] - t_samples[:, :-1])
-             * torch.linalg.norm(dirs, dim=-1, keepdim=True))
-    mc = torch.cat([means.reshape(-1, 3), covs.reshape(-1, 3),
-                    delta.reshape(-1, 1), t_mids.reshape(-1, 1)],
-                   dim=1).contiguous()
-    rayinfo = torch.cat([viewdirs, t_samples[:, :1], t_samples[:, -1:],
-                         dirs], dim=1).contiguous()
-    out = torch.empty((R, OUT_FIXED + S), dtype=torch.float32,
-                      device=means.device)
-    stream = torch.cuda.current_stream(means.device).cuda_stream
-    err = lib.fused_render_level_launch(
-        mc.data_ptr(), rayinfo.data_ptr(), weights.data_ptr(),
-        biases.data_ptr(), out.data_ptr(), R, S, min_deg,
-        float(density_bias), float(rgb_padding), int(bool(white_bkgd)),
-        int(bool(need_normals)), int(bool(need_extras)), stream)
-    if err != 0:
-        raise RuntimeError("fused_render_level launch failed: "
-                           + lib.fused_render_error_string(err).decode())
+    mc, rayinfo = level_rows(means, covs, viewdirs, t_samples, dirs)
+    out = launch_level(lib, mc, rayinfo, weights, biases, R, S,
+                       min_deg=min_deg, density_bias=density_bias,
+                       rgb_padding=rgb_padding, white_bkgd=white_bkgd,
+                       need_normals=need_normals, need_extras=need_extras)
     fused_render_level.launches += 1
     return _unpack(out, S, need_normals, need_extras)
 

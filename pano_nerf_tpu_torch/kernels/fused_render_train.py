@@ -116,11 +116,13 @@ def level_rows(means: Tensor, covs: Tensor, viewdirs: Tensor,
 
 
 def launch_forward(mc: Tensor, clip: Tensor, v: Tensor, weights: Tensor,
-                   biases: Tensor, lv: Level, save_acts: bool
+                   biases: Tensor, lv: Level, save_acts: bool,
+                   lib: Optional[ctypes.CDLL] = None
                    ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """One forward launch; returns out [R, 8], weights [R, S] and, with
-    `save_acts`, the bf16 trunk spill [R*S, 2048]. Not counted."""
-    lib = kernel_library()
+    """One forward launch (of `lib`, by default this package's library);
+    returns out [R, 8], weights [R, S] and, with `save_acts`, the bf16
+    trunk spill [R*S, 2048]. Not counted."""
+    lib = kernel_library() if lib is None else lib
     dev = mc.device
     out = torch.empty((lv.R, OUT8), dtype=torch.float32, device=dev)
     w = torch.empty((lv.R, lv.S), dtype=torch.float32, device=dev)
@@ -158,12 +160,13 @@ def run_backward(counter, mlp: NerfMLP, mc: Tensor, clip: Tensor, v: Tensor,
 def launch_backward_rows(mc: Tensor, clip: Tensor, v: Tensor,
                          weights: Tensor, biases: Tensor,
                          acts: Optional[Tensor], g_out: Tensor, g_w: Tensor,
-                         lv: Level, ops: Tensor, dmc: Tensor, db: Tensor
-                         ) -> None:
-    """One launch of the backward row pass: writes d mc and the operand
-    rows `ops` (64 per block), adds the bias gradients into db. Not
-    counted."""
-    err = kernel_library().fused_render_train_backward_rows(
+                         lv: Level, ops: Tensor, dmc: Tensor, db: Tensor,
+                         lib: Optional[ctypes.CDLL] = None) -> None:
+    """One launch of the backward row pass (of `lib`, by default this
+    package's library): writes d mc and the operand rows `ops` (64 per
+    block), adds the bias gradients into db. Not counted."""
+    lib = kernel_library() if lib is None else lib
+    err = lib.fused_render_train_backward_rows(
         mc.data_ptr(), clip.data_ptr(), v.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
         acts.data_ptr() if acts is not None else None, ops.data_ptr(),

@@ -37,7 +37,8 @@ def _inputs(R, S, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S,need_normals", [
-    (37, 56, False), (37, 56, True), (131, 5, False), (3, 64, True)])
+    (37, 56, False), (37, 56, True), (131, 5, False), (3, 64, True),
+    (1023, 56, True), (10239, 5, False), (300, 1, True)])
 def test_fused_render_kernel_matches_plain_version(cuda_device, R, S,
                                                    need_normals):
     mlp = NerfMLP(96, 27, num_density_channels=5,

@@ -171,3 +171,81 @@ def test_pack_params_layout(mlp256):
     assert torch.equal(wv[:, :283], mlp256.view_layers[0][0].weight.bfloat16())
     assert not wv[:, 283:].any()
     assert torch.equal(b[8 * 256:8 * 256 + 5], mlp256.density_layer.bias)
+
+
+@pytest.mark.parametrize("S", [56, 5, 64, 1])
+@pytest.mark.parametrize("extra", [0, 1, -1])
+def test_tile_plan_covers_every_ray_once_in_whole_rays(S, extra):
+    """The kernel's tiling (csrc/fused_render.cu, checked against the
+    library once when it is loaded): whole rays only, at most 128 rows per
+    tile, every ray in exactly one tile, only the last tile short."""
+    per = fr.TILE_ROWS // S
+    R = 7 * per + extra
+    plan = fr.plan_tiles(R, S)
+    assert plan.rays_per_tile == per
+    assert plan.rays_per_tile * S <= fr.TILE_ROWS
+    assert (plan.rays_per_tile + 1) * S > fr.TILE_ROWS
+    seen = []
+    for t in range(plan.num_tiles):
+        first, end = plan.rays(t)
+        assert 0 < end - first <= plan.rays_per_tile
+        if t < plan.num_tiles - 1:
+            assert end - first == plan.rays_per_tile
+        seen.extend(range(first, end))
+    assert seen == list(range(R))
+    with pytest.raises(IndexError):
+        plan.rays(plan.num_tiles)
+
+
+def test_tile_plan_at_the_eval_shapes():
+    """Coarse and fine levels of a 1024-ray chunk at S = 56 (2 rays,
+    112 of 128 rows) and its env queries, 10,240 x 5 (25 rays, 125 rows),
+    and their ragged twins."""
+    assert fr.plan_tiles(1024, 56)[:2] == (2, 512)
+    assert fr.plan_tiles(1023, 56)[:2] == (2, 512)
+    assert fr.plan_tiles(10240, 5)[:2] == (25, 410)
+    assert fr.plan_tiles(10239, 5)[:2] == (25, 410)
+    assert fr.plan_tiles(10239, 5).rays(409) == (10225, 10239)
+
+
+@pytest.mark.parametrize("R, S", [(0, 5), (10, 0), (10, 65)])
+def test_tile_plan_rejects_what_the_kernel_does_not_take(R, S):
+    with pytest.raises(ValueError):
+        fr.plan_tiles(R, S)
+
+
+class _FakeLibrary:
+    """Stands in for the built library: only what `kernel_library` asks."""
+
+    def __init__(self, tile_rows):
+        # Functions, not methods: `kernel_library` sets their argtypes.
+        self.fused_render_level_launch = lambda *a: 0
+        self.fused_render_error_string = lambda code: b""
+        self.fused_render_weight_count = lambda: 0
+        self.fused_render_bias_count = lambda: 0
+        self.fused_render_tile_rays = lambda S: tile_rows // S
+
+
+@pytest.mark.parametrize("tile_rows, ok", [(fr.TILE_ROWS, True), (64, False)])
+def test_kernel_library_refuses_a_library_that_tiles_otherwise(
+        monkeypatch, tile_rows, ok):
+    """The library's own tiling (`fused_render_tile_rays`) is checked
+    against `plan_tiles` at every S once, when the library is loaded;
+    64-row tiles (the earlier kernel's) are refused."""
+    lib = _FakeLibrary(tile_rows)
+    monkeypatch.setattr(fr.build, "load_library", lambda source: lib)
+    if ok:
+        assert fr.kernel_library() is lib
+        assert fr.kernel_library() is lib
+    else:
+        with pytest.raises(RuntimeError, match="cuts tiles unlike"):
+            fr.kernel_library()
+
+
+def test_weight_bytes_per_tile_counts_whole_boxes(mlp256):
+    """The MLP's 160 TMA boxes of 8 KB per tile (1.233 MB of weights,
+    padded to whole boxes) and the chain's 128 more on the fine level."""
+    w, _ = fr.pack_params(mlp256)
+    assert fr.weight_bytes_per_tile(False) == 160 * 8192
+    assert fr.weight_bytes_per_tile(True) == 288 * 8192
+    assert fr.weight_bytes_per_tile(False) >= w.numel() * 2

@@ -32,7 +32,7 @@ def test_every_module_is_listed():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {MODULES + ['chip_smoke']!r}:\n"
+        f"for m in {MODULES + ['chip_smoke', 'scripts.torch_kernel_ab']!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pano_nerf_tpu'))\n"

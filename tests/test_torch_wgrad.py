@@ -7,8 +7,9 @@ dW = B^T A over the rows (job table of `fused_mlp_weight_grads`). Here the
 operand rows of a small batch are filled from the plain MLP's activations
 and cotangents (for NORMALS also the chain's sz and the walk's c), and
 `weight_grads_reference` of them is held against torch autograd's weight
-gradients of `fused_mlp_ipe_reference` / `fused_mlp_normals_reference` in
-f32 (rel-norm 1e-5 per parameter), and against the JAX Pallas kernels'
+gradients of `fused_mlp_ipe_reference` / `fused_mlp_normals_reference`
+(the chain in float64 on both sides, the pass in f32; rel-norm 1e-5 per
+parameter), and against the JAX Pallas kernels'
 weight gradients (interpret mode) at the tolerances of
 tests/test_torch_fused_mlp_ipe.py (2e-2) and test_torch_fused_mlp_normals.py
 (5e-2). The CUDA pass is held against the same plain version on the card
@@ -55,11 +56,15 @@ def operand_rows(mlp, d, normals, dt=torch.float32):
     activations, the MLP backward from the head cotangents and, for
     NORMALS, the chain sz_i = m_i s_i and the walk c_i of the dsig
     cotangent q. `dt` bf16 rounds where the kernels round (every product
-    operand and every operand row), f32 rounds nothing. Also returns the
+    operand and every operand row), f32 rounds nothing; the rows are
+    computed in the MLP's parameter dtype (float64 for the autograd
+    check). Also returns the
     column sum of c_7, the walk's part of Wd's sigma row (the row pass
     adds it into dw itself)."""
     R = lambda t: round_to(t, dt)
-    means, covs = torch.tensor(d["means"]), torch.tensor(d["covs"])
+    ft = mlp.layers[0][0].weight.dtype   # float64 for the autograd check
+    T = lambda a: torch.tensor(a, dtype=ft)
+    means, covs = T(d["means"]), T(d["covs"])
     M = means.shape[0]
     x32 = mip.integrated_pos_enc(means, covs, 0, 16)
     x = R(x32)
@@ -73,10 +78,10 @@ def operand_rows(mlp, d, normals, dt=torch.float32):
     Wd, Wb = R(mlp.density_layer.weight), R(mlp.extra_layer.weight)
     Wv, Wc = R(mlp.view_layers[0][0].weight), R(mlp.color_layer.weight)
     btl = R(a7 @ Wb.t() + mlp.extra_layer.bias)
-    v = R(torch.tensor(d["v"]))
+    v = R(T(d["v"]))
     hv = R(torch.relu(torch.cat([btl, v], -1) @ Wv.t()
                       + mlp.view_layers[0][0].bias))
-    gr, gd = R(torch.tensor(d["g_rgb"])), R(torch.tensor(d["g_den"]))
+    gr, gd = R(T(d["g_rgb"])), R(T(d["g_den"]))
     dzv = R((gr @ Wc) * (hv > 0))
     dbtl = R((dzv @ Wv)[:, :W])
     da = gd @ Wd + dbtl @ Wb
@@ -84,7 +89,7 @@ def operand_rows(mlp, d, normals, dt=torch.float32):
     for i in range(7, -1, -1):
         dz[i] = R(da * (acts[i] > 0))
         da = (dz[i] @ Ws[i])[:, :W]
-    ops = torch.zeros(M, k2.OPW_NRM if normals else k2.OPW_IPE)
+    ops = torch.zeros(M, k2.OPW_NRM if normals else k2.OPW_IPE, dtype=ft)
 
     def put(col, t):
         ops[:, col:col + t.shape[1]] = t
@@ -107,8 +112,8 @@ def operand_rows(mlp, d, normals, dt=torch.float32):
         sz = R(s * (acts[i] > 0))
         put(k2.O_SZ + i * W, sz)
         s = (sz @ Ws[i])[:, :W]
-    q = torch.tensor(d["q"])
-    scale = 2.0 ** torch.arange(16, dtype=torch.float32).repeat_interleave(3)
+    q = T(d["q"])
+    scale = 2.0 ** torch.arange(16, dtype=ft).repeat_interleave(3)
     qs = q.repeat(1, 16) * scale
     cgx = R(torch.cat([qs * x32[:, 48:], -qs * x32[:, :48]], -1))
     put(k2.O_CGX, cgx)
@@ -123,20 +128,20 @@ def operand_rows(mlp, d, normals, dt=torch.float32):
 
 def _autograd_grads(mlp, d, normals):
     """Weight gradients of sum(g . outputs) (+ q . dsig) by torch autograd
-    of the plain version, in f32."""
+    of the plain version, in the MLP's parameter dtype."""
     mlp.zero_grad(set_to_none=True)
-    args = (torch.tensor(d["means"]), torch.tensor(d["covs"]),
-            torch.tensor(d["v"]))
+    T = lambda a: torch.tensor(a, dtype=mlp.layers[0][0].weight.dtype)
+    args = (T(d["means"]), T(d["covs"]), T(d["v"]))
     if normals:
         rgb, den, dsig = k3.fused_mlp_normals_reference(
             mlp, *args, min_deg=0, max_deg=16)
-        extra = torch.sum(dsig * torch.tensor(d["q"]))
+        extra = torch.sum(dsig * T(d["q"]))
     else:
         rgb, den = k2.fused_mlp_ipe_reference(mlp, *args, min_deg=0,
                                               max_deg=16)
         extra = 0.0
-    (torch.sum(rgb * torch.tensor(d["g_rgb"]))
-     + torch.sum(den * torch.tensor(d["g_den"])) + extra).backward()
+    (torch.sum(rgb * T(d["g_rgb"]))
+     + torch.sum(den * T(d["g_den"])) + extra).backward()
     return {n: p.grad.clone() for n, p in mlp.named_parameters()
             if n.endswith("weight")}
 
@@ -159,12 +164,19 @@ def _rel(a, b):
 @pytest.mark.parametrize("normals", [False, True])
 @pytest.mark.parametrize("M", [192, 77])
 def test_reference_matches_autograd_weight_grads(M, normals):
+    """The chain (activations, cotangents, sz, c) runs in float64 on both
+    sides, so only what is under test rounds: the operand rows to f32 and
+    `weight_grads_reference`'s f32 products. Run in f32, two chains of 8
+    layers sum in orders that MKL picks by host CPU and thread count, and
+    layer 0's gradient differs between them by up to ~1e-5 on its own."""
     _, mlp, d = _setup(M)
+    mlp.double()
     want = _autograd_grads(mlp, d, normals)
     got = _reference_grads(mlp, d, normals)
     assert set(got) == set(want)
     for name in want:
-        assert _rel(got[name], want[name]) < 1e-5, name
+        rel = _rel(got[name], want[name])
+        assert rel < 1e-5, f"{name}: rel-norm {rel:.3e} >= 1e-5"
 
 
 @pytest.fixture()
