@@ -29,31 +29,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the bounds.
 3. Eval main path: a 4-view 512x1024 synthetic scene, rendered at
    `val.factor` 4 (128x256) by `python -m pano_nerf_tpu_torch.eval` (in
-   process) with weights from `--init_seed`: 96 kernel-4 launches per val
-   panorama, no plain-version call, all 11 products, finite metrics; then
-   one panorama under torch.profiler (device busy/idle share, top kernels)
-   and a small render held against the plain version on the CPU.
+   process) with weights from `--init_seed`: each 1,024-ray chunk one
+   replay of the chunk's CUDA graph, 96 kernel-4 launches per val
+   panorama (plus the capture's eager warm-up chunks, counted apart), no
+   plain-version call, all 11 products, finite metrics; then the first
+   panorama through the graph held against the eager chunks (f32 atol
+   1e-4), ms per panorama of both in turns, one of each under
+   torch.profiler (device busy/idle share, top kernels), and a small
+   render held against the plain version on the CPU.
 4. Train main path: `python -m pano_nerf_tpu_torch.train` (in process),
    200 steps of the shipped config on the same scene (3 train views, 1 val
-   view, `train.factor` 4). Launch counts are zeroed just before and read
-   just after: 3 + 6 launches of kernel 2 (forward; backward row pass and
-   weight-gradient pass) and 1 + 2 of kernel 3 per step (4 of them the
-   weight-gradient pass, counted also on its own), the validations
-   through kernel 4, no plain-version call; every loss finite, the mean of
-   the last 20 losses below that of the first 20. Prints train rays/s and
-   ms per step.
+   view, `train.factor` 4), `train.steps_per_call` 8: groups of 8 steps
+   and single steps at the log edges, each dispatch one CUDA graph
+   replay. Launch counts are zeroed just before and read just after: 3 +
+   6 launches of kernel 2 (forward; backward row pass and weight-gradient
+   pass) and 1 + 2 of kernel 3 per step (4 of them the weight-gradient
+   pass, counted also on its own), plus the captures' eager warm-up
+   steps, the validations through kernel 4, no plain-version call; every
+   step's loss finite, the mean of the last 20 losses below that of the
+   first 20. Prints train rays/s and ms per step.
 4b. The same with `nerf.use_train_render_kernel true`: per step 2 + 4
    launches of kernel 5 (coarse and env), 1 + 2 of kernel 2 (view
    consistency) and 1 + 2 of kernel 3; rays/s beside phase 4's.
-5. One train step on the card against the same step on the CPU (plain
-   versions), from the same parameters, batch and numpy-made draws: loss
-   parts, and gradients as `check_train_step_against_cpu` says; 5b the
-   same with the key on.
-6. Where the time goes in training: three steps under torch.profiler; 6b
-   the same with the key on.
+3b. The 200-step checkpoint of phase 4 rendered as in phase 3, through
+   `--ckpt_dir`, graph against eager on the trained weights.
+5. For phases 4 and 4b each (5b: key on): one train step on the card
+   against the same step on the CPU (plain versions), from the same
+   parameters, batch and numpy-made draws: loss parts, and gradients as
+   `check_train_step_against_cpu` says; 16 steps from one state as two
+   replays of the 8-step graph against four eager runs, held to twice
+   the eager-vs-eager spread (`check_graphed_against_eager`); ms per step
+   and train rays/s of the 8-step graph, the one-step graph and eager
+   steps, in turns.
+6. Where the time goes in training: 16 steps under torch.profiler,
+   graphed and eager, with the launch counters held against the kernels
+   the profiler saw by name; 6b the same with the key on.
 
 Kernel 1 is a library function that no model path calls: its launches are
-counted in phases 3, 4 and 4b like the others' and must be 0. The
+counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
 weight-gradient pass (`fused_mlp_weight_grads`), shared by the backward
 of kernels 1, 2, 3 and 5, has its own entry. The last lines are the card (nvidia-smi name, power
 limit), one JSON object with each kernel's numbers and
@@ -354,92 +367,160 @@ def check_kernels(model, env, dev) -> dict:
     return entry
 
 
-def drive_main_path(workdir: str) -> dict:
-    """Render every val panorama through the eval entry point; returns
-    the eval metrics and the launch count of the run."""
+def drive_main_path(workdir: str, scene: str, weights: list,
+                    step: int = 0) -> dict:
+    """Render every val panorama through the eval entry point (graphed:
+    one chunk-graph replay per 1,024-ray chunk); returns the eval metrics
+    and the launch counts of the run. `weights` are the entry's weight
+    arguments (`--init_seed 0`, or `--ckpt_dir` of a training run)."""
     from pano_nerf_tpu_torch import eval as eval_entry
-    from pano_nerf_tpu_torch.data.synthetic import generate_scene
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
-    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
-    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import counters
     from pano_nerf_tpu_torch.kernels import fused_render as fr
-    scene = os.path.join(workdir, "scene")
-    t0 = time.perf_counter()
-    generate_scene(scene, n_views=4, height=512, width=1024, seed=0)
-    print(f"[main] scene 4 x 512x1024 written in "
-          f"{time.perf_counter() - t0:.1f} s")
-    out = os.path.join(workdir, "eval")
-    argv = ["--data_path", scene, "--out_dir", out, "--init_seed", "0",
-            "--config", CONFIG, "train.sample_num", "'n0_1'"]
+    out = os.path.join(workdir, "eval_" + "_".join(weights[:1]).strip("-"))
+    argv = (["--data_path", scene, "--out_dir", out] + weights
+            + ["--config", CONFIG, "train.sample_num", "'n0_1'"])
 
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran on the main path")
 
     plain = fr.fused_render_level_reference
     fr.fused_render_level_reference = no_plain
-    fr.fused_render_level.launches = 0
-    k1.fused_mlp_apply.launches = k1.fused_mlp_apply.backward_launches = 0
-    k2.weight_grads.launches = 0
+    counters.reset_launch_counts()
     try:
         metrics = eval_entry.main(argv)
     finally:
-        launches = fr.fused_render_level.launches
-        k1_launches = dict(
-            fused_mlp_apply_fwd=k1.fused_mlp_apply.launches,
-            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches,
-            fused_mlp_weight_grads=k2.weight_grads.launches)
+        launches = counters.launch_counts()
+        warmup = dict(counters.WARMUP)
         fr.fused_render_level_reference = plain
     n = metrics["num_images"]
     if n < 1:
         raise AssertionError("no val panorama was rendered")
-    if launches != 96 * n:
-        raise AssertionError(f"{launches} kernel launches for {n} "
-                             f"panoramas, expected {96 * n}")
-    if any(k1_launches.values()):
+    if metrics["step"] != step:
+        raise AssertionError(f"rendered step {metrics['step']}, expected "
+                             f"{step}")
+    # 96 per panorama; the chunk graph's capture first ran eager warm-up
+    # chunks (counted apart).
+    want = 96 * n + warmup.get("fused_render_level", 0)
+    if launches["fused_render_level"] != want:
+        raise AssertionError(f"{launches['fused_render_level']} kernel "
+                             f"launches for {n} panoramas, expected {want} "
+                             f"(warm-up {warmup})")
+    others = {k: v for k, v in launches.items() if k != "fused_render_level"}
+    if any(others.values()):
         raise AssertionError(f"the eval path launched a training kernel: "
-                             f"{k1_launches}")
+                             f"{others}")
     for k, v in metrics.items():
         if isinstance(v, float) and v != v:
             raise AssertionError(f"metric {k} is NaN")
-    tree = os.path.join(out, "eval_000000")
+    tree = os.path.join(out, f"eval_{step:06d}")
     for p in PRODUCTS:
         files = os.listdir(os.path.join(tree, p))
         if len(files) != n:
             raise AssertionError(f"{p}: {len(files)} files for {n} images")
-    print(f"[main] {n} panoramas of 128x256: {launches} kernel launches, "
-          f"{metrics['render_ms_per_pano']:.1f} ms per panorama, "
+    print(f"[main] {' '.join(weights)}: {n} panoramas of 128x256 through "
+          f"the chunk graph: {launches['fused_render_level']} kernel "
+          f"launches ({96 * n} replayed + {want - 96 * n} in the capture's "
+          f"warm-up), {metrics['render_ms_per_pano']:.1f} ms per panorama, "
           f"{metrics['rays_per_s']:.0f} rays/s on {metrics['device']}; "
-          f"kernel 1 and weight-gradient launches {json.dumps(k1_launches)}")
-    return dict(metrics=metrics, launches=launches, k1_launches=k1_launches,
-                scene=scene)
+          f"other kernels' launches {json.dumps(others)}", flush=True)
+    return dict(metrics=metrics, launches=launches)
 
 
-def where_the_time_goes(scene: str) -> None:
-    """Profile one more render of the first val panorama (torch.profiler,
-    CPU + CUDA) and print the device's busy and idle share of the render's
-    host wall time and the kernels that took the most device time."""
+def make_scene(workdir: str) -> str:
+    from pano_nerf_tpu_torch.data.synthetic import generate_scene
+    scene = os.path.join(workdir, "scene")
+    t0 = time.perf_counter()
+    generate_scene(scene, n_views=4, height=512, width=1024, seed=0)
+    print(f"[main] scene 4 x 512x1024 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return scene
+
+
+def eager_render(system, rays, enable_surf: bool = True) -> dict:
+    """The eval render op by op (the reference of the chunk graph): each
+    chunk through `render_chunk` on the current weights, then one copy to
+    the host."""
+    import torch
+    from pano_nerf_tpu_torch.core.rays import rays_map
+    from pano_nerf_tpu_torch.engine.system import render_products
+    from pano_nerf_tpu_torch.kernels.fused_render import pack_params
+    chunk = system.val_chunk_size
+    n = rays.origins.shape[0]
+    pad = (-n) % chunk
+    rays = rays_map(lambda x: torch.cat(
+        [x, x[-1:].expand(pad, x.shape[-1])], 0), rays)
+    names = render_products(enable_surf)
+    with torch.no_grad():
+        packed = pack_params(system.model.mlp)
+        outs = [system.render_chunk(rays_map(
+            lambda x: x[i:i + chunk].contiguous(), rays), packed,
+            enable_surf) for i in range(0, n + pad, chunk)]
+        host = torch.cat(outs, 0)[:n].cpu()
+    parts, col = {}, 0
+    for name, width in names:
+        parts[name] = host[:, col:col + width]
+        col += width
+    return parts
+
+
+def where_the_time_goes(scene: str, params=None, tag: str = "[eval]"
+                        ) -> None:
+    """The first val panorama rendered through the chunk graph and op by
+    op, on the same weights (from `--init_seed 0`, or the MLP state dict
+    `params`): the graph's products held against the eager ones (f32 atol
+    1e-4); ms per panorama of each, in turns (graph, eager, eager,
+    graph), 3 renders a turn; then one of each under torch.profiler
+    (device busy and idle share of the host wall time, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pano_nerf_tpu_torch.core.config import load_config
+    from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
     from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
-    from pano_nerf_tpu_torch.engine import validation as V
     from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
     hp = load_config(CONFIG)
     ds = PanoDataset(scene, split="val", factor=hp["val.factor"], num=[0, 1])
     system = PanoNeRFSystem(hp, device="cuda", init_seed=0)
     system.set_env_rays(ds.generate_lit_rays(
         num=hp["nerf.num_ray_samples"], near=0.0, far=10.0))
-    render_fn = system.make_render_image()
+    if params is not None:
+        system.model.mlp.load_state_dict(params)
     dev = torch.device("cuda")
-    rays = ds[0][0]
-    V.render_full_pano(render_fn, None, rays, ds.h, ds.w, dev)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        V.render_full_pano(render_fn, None, rays, ds.h, ds.w, dev)
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    _report_profile(prof, wall_us, f"one {ds.h}x{ds.w} panorama")
+    flat = rays_to_tensors(rays_map(lambda x: x.reshape(-1, x.shape[-1]),
+                                    ds[0][0]), dev)
+    render_fn = system.make_render_image()
+    graphed = render_fn(None, flat)
+    eager = eager_render(system, flat)
+    errs = {k: float((graphed[k] - eager[k]).abs().max()) for k in eager}
+    print(f"{tag} chunk graph vs eager chunks, max abs err per product "
+          f"(f32 tolerance 1e-4): " + json.dumps(errs), flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"the chunk graph's render differs from the "
+                             f"eager render: {bad}")
+    modes = {"graph": lambda: render_fn(None, flat),
+             "eager": lambda: eager_render(system, flat)}
+    times = {m: [] for m in modes}
+    for m in ("graph", "eager", "eager", "graph"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            modes[m]()   # ends in the device-to-host copy
+            times[m].append(1e3 * (time.perf_counter() - t0))
+    rays = ds.h * ds.w
+    for m, ts in times.items():
+        ms = sum(ts) / len(ts)
+        print(f"{tag} {m}: {ms:.3f} ms per {ds.h}x{ds.w} panorama "
+              f"({min(ts):.3f}-{max(ts):.3f} over {len(ts)} renders) = "
+              f"{1e3 * rays / ms:.1f} eval rays/s", flush=True)
+    for m, fn in modes.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        _report_profile(prof, wall_us, f"one {ds.h}x{ds.w} panorama, {m}")
 
 
 def check_against_plain(scene: str) -> None:
@@ -997,17 +1078,36 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
 
 
 TRAIN_STEPS = 200
+# Kernel launches of one train step (kernel 2 for coarse, view
+# consistency and env, 1 for view consistency alone with the key on,
+# kernel 5 taking coarse and env; kernel 3 for the fine level; each
+# backward is two launches, the row pass and the weight-gradient pass; no
+# model path calls kernel 1).
+def per_step_launches(render_kernel: bool) -> dict:
+    fwd = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
+               fused_mlp_normals_fwd=1,
+               fused_render_train_fwd=2 if render_kernel else 0,
+               fused_mlp_apply_fwd=0)
+    want = dict(fwd)
+    for k, n in fwd.items():
+        want[k.replace("_fwd", "_bwd")] = 2 * n
+    want["fused_mlp_weight_grads"] = sum(fwd.values())   # 4 either way
+    return want
 
 
 def drive_train_path(workdir: str, scene: str,
                      render_kernel: bool = False) -> dict:
     """Train 200 steps of the shipped config through the train entry point
-    (3 train views, 1 val view at train.factor 4), with
-    `nerf.use_train_render_kernel` off or on; launch counts zeroed just
-    before and read just after, plain versions forbidden."""
+    (3 train views, 1 val view at train.factor 4, `train.steps_per_call`
+    8: groups of 8 steps and single steps, each dispatch one CUDA graph
+    replay), with `nerf.use_train_render_kernel` off or on; launch counts
+    zeroed just before and read just after, plain versions forbidden,
+    every step's loss recorded (a dispatch returns the losses of all its
+    steps)."""
     import torch
     from pano_nerf_tpu_torch import train as train_entry
     from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    from pano_nerf_tpu_torch.kernels import counters
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
@@ -1020,16 +1120,18 @@ def drive_train_path(workdir: str, scene: str,
             "optimizer.max_steps", str(TRAIN_STEPS), "log_every_n_step", "50"]
     if render_kernel:
         argv += ["nerf.use_train_render_kernel", "True"]
-    losses = []
-    make = PanoNeRFSystem.make_train_step
+    losses, dispatches, graphs = [], [], []
+    make = PanoNeRFSystem.make_train_step_device_data
 
-    def recording(self, enable_surf):
-        step = make(self, enable_surf)
+    def recording(self, state, dataset, gen, surf, batch, k=1):
+        run = make(self, state, dataset, gen, surf, batch, k)
+        graphs.append(run.graph)
 
-        def wrapped(*a):
-            parts = step(*a)
-            losses.append(parts["loss"])
-            return parts
+        def wrapped(st):
+            parts, step_losses = run(st)
+            losses.append(step_losses.clone())
+            dispatches.append(k)
+            return parts, step_losses
         return wrapped
 
     def no_plain(*a, **k):
@@ -1040,68 +1142,53 @@ def drive_train_path(workdir: str, scene: str,
         (k5, "fused_render_train_reference"),
         (k1, "fused_mlp_apply_reference"),
         (fr, "fused_render_level_reference"))]
-    counters = (k1.fused_mlp_apply, k2.fused_mlp_ipe_apply,
-                k3.fused_mlp_normals_apply, k5.fused_render_train)
     for m, n, _ in saved:
         setattr(m, n, no_plain)
-    PanoNeRFSystem.make_train_step = recording
-    for c in counters:
-        c.launches = c.backward_launches = 0
-    fr.fused_render_level.launches = 0
-    k2.weight_grads.launches = 0
+    PanoNeRFSystem.make_train_step_device_data = recording
+    counters.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         trainer = train_entry.main(argv)
         torch.cuda.synchronize()
     finally:
         wall = time.perf_counter() - t0
-        launches = dict(
-            fused_mlp_apply_fwd=k1.fused_mlp_apply.launches,
-            fused_mlp_apply_bwd=k1.fused_mlp_apply.backward_launches,
-            fused_mlp_ipe_fwd=k2.fused_mlp_ipe_apply.launches,
-            fused_mlp_ipe_bwd=k2.fused_mlp_ipe_apply.backward_launches,
-            fused_mlp_normals_fwd=k3.fused_mlp_normals_apply.launches,
-            fused_mlp_normals_bwd=k3.fused_mlp_normals_apply.backward_launches,
-            fused_render_train_fwd=k5.fused_render_train.launches,
-            fused_render_train_bwd=k5.fused_render_train.backward_launches,
-            fused_render_level=fr.fused_render_level.launches,
-            fused_mlp_weight_grads=k2.weight_grads.launches)
-        PanoNeRFSystem.make_train_step = make
+        launches = counters.launch_counts()
+        warmup = dict(counters.WARMUP)
+        PanoNeRFSystem.make_train_step_device_data = make
         for m, n, f in saved:
             setattr(m, n, f)
-    vals = [float(x) for x in torch.stack(losses).cpu()]
-    if len(vals) != TRAIN_STEPS:
+    vals = [float(x) for x in torch.cat(losses).cpu()]
+    if len(vals) != TRAIN_STEPS or sum(dispatches) != TRAIN_STEPS:
         raise AssertionError(f"{len(vals)} steps ran, expected {TRAIN_STEPS}")
+    replays = sum(g.replays for g in graphs)
+    if replays != len(dispatches):
+        raise AssertionError(f"{len(dispatches)} dispatches but {replays} "
+                             f"graph replays")
+    if dispatches.count(8) < 20:
+        raise AssertionError(f"too few 8-step groups: {dispatches}")
     bad = [i for i, x in enumerate(vals) if not x == x or abs(x) == float("inf")]
     if bad:
         raise AssertionError(f"non-finite loss at steps {bad[:10]}")
     first, last = sum(vals[:20]) / 20, sum(vals[-20:]) / 20
-    print(f"{tag} mean loss of steps 1-20 {first:.6f}, of steps "
-          f"{TRAIN_STEPS - 19}-{TRAIN_STEPS} {last:.6f}")
+    print(f"{tag} {len(dispatches)} dispatches ({dispatches.count(8)} groups "
+          f"of 8 steps, {dispatches.count(1)} single steps) through "
+          f"{len(graphs)} captured graphs; mean loss of steps 1-20 "
+          f"{first:.6f}, of steps {TRAIN_STEPS - 19}-{TRAIN_STEPS} "
+          f"{last:.6f}")
     if not last < first:
         raise AssertionError("the loss did not fall over 200 steps")
-    # Per step: kernel 2 for coarse, view consistency and env (1 for view
-    # consistency alone with the key on, kernel 5 taking coarse and env),
-    # kernel 3 for the fine level; each backward is two launches. No model
-    # path calls kernel 1.
-    per_step = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
-                    fused_mlp_normals_fwd=1,
-                    fused_render_train_fwd=2 if render_kernel else 0,
-                    fused_mlp_apply_fwd=0)
-    want = {}
-    for k, n in per_step.items():
-        want[k] = n * TRAIN_STEPS
-        want[k.replace("_fwd", "_bwd")] = 2 * n * TRAIN_STEPS
-    # One weight-gradient pass per backward: 4 per step either way.
-    want["fused_mlp_weight_grads"] = sum(
-        n for k, n in per_step.items()) * TRAIN_STEPS
-    for k, n in want.items():
-        if launches[k] != n:
+    # Per step, plus what the captures' eager warm-up steps launched (and
+    # the eval chunk graph's warm-up chunks): exact.
+    for k, n in per_step_launches(render_kernel).items():
+        if launches[k] != n * TRAIN_STEPS + warmup.get(k, 0):
             raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{TRAIN_STEPS} steps, expected {n}")
-    if launches["fused_render_level"] < 96:
-        raise AssertionError("the final validation did not run through "
-                             "fused_render_level")
+                                 f"{TRAIN_STEPS} steps, expected {n} per "
+                                 f"step + {warmup.get(k, 0)} in warm-ups")
+    val_launches = launches["fused_render_level"] - warmup.get(
+        "fused_render_level", 0)
+    if val_launches != 96 * 2:   # the sanity pass and the final one
+        raise AssertionError(f"{val_launches} kernel-4 launches in the "
+                             f"two validations, expected 192")
     save_dir = trainer.hparams["save_dir"]
     with open(os.path.join(save_dir, "metrics.jsonl")) as fp:
         recs = [json.loads(line) for line in fp]
@@ -1111,19 +1198,148 @@ def drive_train_path(workdir: str, scene: str,
         raise AssertionError(f"validations at {[r['step'] for r in vals_recs]}")
     rps = [r["rays_per_sec"] for r in train_recs]
     batch = int(trainer.hparams["train.batch_size"])
-    # The first window includes the kernels' first launches; report the
-    # later ones.
+    # The first window includes the captures; report the later ones.
     steady = rps[1:] if len(rps) > 1 else rps
     mean_rps = sum(steady) / len(steady)
     print(f"{tag} {TRAIN_STEPS} steps of batch {batch} on "
           f"{trainer.train_dataset.num_rays:,} rays ({wall:.1f} s with "
-          f"validation): train rays/s per 50-step window "
+          f"validation and captures): train rays/s per 50-step window "
           + ", ".join(f"{x:.1f}" for x in rps)
           + f"; steady {mean_rps:.1f} rays/s = {1e3 * batch / mean_rps:.3f} "
           f"ms per step; launches " + json.dumps(launches)
+          + " of which warm-up " + json.dumps(warmup)
           + f"; final val psnr_ldr_vol {vals_recs[-1]['psnr_ldr_vol']:.3f}",
           flush=True)
-    return dict(launches=launches, trainer=trainer, rays_per_s=mean_rps)
+    return dict(launches=launches, trainer=trainer, rays_per_s=mean_rps,
+                save_dir=save_dir)
+
+
+def _train_inputs(trainer):
+    import torch
+    from pano_nerf_tpu_torch.core.rays import rays_to_tensors
+    ds, dev = trainer.train_dataset, trainer.system.device
+    return (rays_to_tensors(ds.rays, dev),
+            torch.as_tensor(ds.images, dtype=torch.float32).to(dev))
+
+
+def time_train_modes(trainer, steps: int = 48) -> dict:
+    """ms per train step and train rays/s of the 8-step graph, the
+    one-step graph and eager steps, on the trained system, in turns
+    (8, 1, eager, eager, 1, 8) of `steps` steps each; each turn ends in a
+    device sync."""
+    import torch
+    system = trainer.system
+    batch = int(trainer.hparams["train.batch_size"])
+    data = _train_inputs(trainer)
+    gen = torch.Generator(device=system.device).manual_seed(21)
+    state = system.create_state()
+    graph8, graph1 = (system.make_graphed_train_step(state, data, gen, True,
+                                                     batch, k) for k in (8, 1))
+    one = system.make_device_step(data, gen, True, batch)
+    for fn in (graph8, graph1):
+        fn(state)   # capture
+    one(state)
+    modes = {"graph, 8 steps per replay":
+             lambda: [graph8(state) for _ in range(steps // 8)],
+             "graph, 1 step per replay":
+             lambda: [graph1(state) for _ in range(steps)],
+             "eager": lambda: [one(state) for _ in range(steps)]}
+    names = list(modes)
+    times = {m: [] for m in modes}
+    for m in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        modes[m]()
+        torch.cuda.synchronize()
+        times[m].append(1e3 * (time.perf_counter() - t0) / steps)
+    tag = ("[time-k5]" if system.model.cfg.use_train_render_kernel
+           else "[time]")
+    res = {}
+    for m, ts in times.items():
+        ms = sum(ts) / len(ts)
+        res[m] = ms
+        print(f"{tag} {m}: {ms:.3f} ms per train step ("
+              + " / ".join(f"{t:.3f}" for t in ts) + f" in two turns of "
+              f"{steps} steps) = {1e3 * batch / ms:.1f} train rays/s",
+              flush=True)
+    return res
+
+
+# Graphed steps are held against eager steps from the same state and
+# generator: the weight-gradient pass adds f32 partials from unordered
+# blocks, so two eager runs already differ in the last bits, and Adam's
+# normalisation of tiny gradients grows that over the steps. The spread is
+# measured in the same call: four eager runs, the largest distance of the
+# six pairs. The graph's median distance to the four runs must stay within
+# twice it, or within f32 rounding (1e-6 rel) where the spread is smaller:
+# a graph that drew other numbers, read a stale learning rate or lost a
+# step lands orders of magnitude further off.
+GRAPH_STEPS = 16
+EAGER_RUNS = 4
+
+
+def _within_spread(graph, eager, dist, floor):
+    """(spread, the graph's median distance, tolerance, pass?) for the
+    eager runs `eager` and the graphed run `graph` under `dist`."""
+    import statistics
+    spread = max(dist(a, b) for i, a in enumerate(eager)
+                 for b in eager[:i])
+    got = statistics.median(dist(graph, e) for e in eager)
+    tol = max(2 * spread, floor)
+    return spread, got, tol, got <= tol
+
+
+def check_graphed_against_eager(trainer) -> None:
+    """16 steps from one state (the trained weights, a fresh Adam, one
+    generator seed) four times eagerly and once as two replays of the
+    8-step graph: parameters (rel-norm) and every step's loss."""
+    import torch
+    system = trainer.system
+    batch = int(trainer.hparams["train.batch_size"])
+    data = _train_inputs(trainer)
+    mlp = system.model.mlp
+    start = {k: v.detach().clone() for k, v in mlp.state_dict().items()}
+
+    def run(graphed: bool):
+        mlp.load_state_dict(start)
+        state = system.create_state()
+        gen = torch.Generator(device=system.device).manual_seed(31)
+        if graphed:
+            fn = system.make_graphed_train_step(state, data, gen, True, batch,
+                                                8)
+            losses = torch.cat([fn(state)[1].clone()
+                                for _ in range(GRAPH_STEPS // 8)])
+        else:
+            one = system.make_device_step(data, gen, True, batch)
+            losses = torch.stack([one(state)["loss"]
+                                  for _ in range(GRAPH_STEPS)])
+        if state.step != GRAPH_STEPS or int(state.step_t) != GRAPH_STEPS:
+            raise AssertionError(f"step counts {state.step}, "
+                                 f"{int(state.step_t)} after {GRAPH_STEPS}")
+        flat = torch.cat([p.detach().reshape(-1) for p in mlp.parameters()])
+        return flat.clone(), losses.cpu(), gen.get_state()
+
+    eager = [run(False) for _ in range(EAGER_RUNS)]
+    graph = run(True)
+    mlp.load_state_dict(start)
+    loss_scale = float(eager[0][1].abs().max())
+    params = _within_spread(graph, eager, lambda a, b: _rel(a[0], b[0]),
+                            1e-6)
+    loss = _within_spread(graph, eager,
+                          lambda a, b: float((a[1] - b[1]).abs().max()),
+                          1e-6 * loss_scale)
+    same_gen = all(torch.equal(graph[2], e[2]) for e in eager)
+    tag = ("[graph-k5]" if system.model.cfg.use_train_render_kernel
+           else "[graph]")
+    print(f"{tag} {GRAPH_STEPS} steps from one state: eager vs eager "
+          f"spread ({EAGER_RUNS} runs, largest of the pairs) params "
+          f"rel-norm {params[0]:.3e}, per-step loss {loss[0]:.3e}; graphed "
+          f"vs eager (median over the runs) params {params[1]:.3e} "
+          f"(tolerance {params[2]:.3e}), loss {loss[1]:.3e} (tolerance "
+          f"{loss[2]:.3e}); generator states equal: {same_gen}", flush=True)
+    if not (params[3] and loss[3] and same_gen):
+        raise AssertionError("graphed train steps differ from eager ones "
+                             "beyond the eager-vs-eager spread")
 
 
 def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
@@ -1210,43 +1426,79 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
                              f"in {failures}")
 
 
-def profile_train_step(trainer, steps: int = 3) -> None:
-    """torch.profiler over `steps` train steps of the trained system: the
-    device's busy and idle share of the host wall time and the top device
-    ops."""
+# Kernel name in the profiler -> (launch counter, launches of the counter
+# per kernel): a backward counts its row pass and its weight-gradient
+# pass, so each row-pass kernel stands for two of its counter's launches.
+PROFILED_KERNELS = {
+    "fused_mlp_fwd_kernel<0>": ("fused_mlp_ipe_fwd", 1),
+    "fused_mlp_bwd_kernel<0>": ("fused_mlp_ipe_bwd", 2),
+    "fused_mlp_fwd_kernel<1>": ("fused_mlp_normals_fwd", 1),
+    "fused_mlp_bwd_kernel<1>": ("fused_mlp_normals_bwd", 2),
+    "fused_mlp_fwd_kernel<2>": ("fused_mlp_apply_fwd", 1),
+    "fused_mlp_bwd_kernel<2>": ("fused_mlp_apply_bwd", 2),
+    "train_fwd_kernel": ("fused_render_train_fwd", 1),
+    "train_bwd_kernel": ("fused_render_train_bwd", 2),
+    "fused_render_kernel": ("fused_render_level", 1),
+    "fused_mlp_wgrad_kernel": ("fused_mlp_weight_grads", 1),
+}
+
+
+def profile_train_step(trainer, steps: int = 16) -> None:
+    """torch.profiler over `steps` train steps of the trained system, as
+    two replays of the 8-step graph and as eager steps (each after its
+    own warm-up): the device's busy and idle share of the host wall time
+    and the top device ops; the launch counters' increments over the
+    graphed window held against the kernels the profiler saw by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
+    from pano_nerf_tpu_torch.kernels import counters
     system = trainer.system
     hp = trainer.hparams
-    dev = system.device
-    ds = trainer.train_dataset
-    rays_all = rays_to_tensors(ds.rays, dev)
-    rgbs_all = torch.as_tensor(ds.images).to(dev)
-    batch, D = int(hp["train.batch_size"]), int(hp["nerf.num_ray_samples"])
-    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = int(hp["train.batch_size"])
+    data = _train_inputs(trainer)
+    gen = torch.Generator(device=system.device).manual_seed(3)
     state = system.create_state()
-    step_fn = system.make_train_step(True)
-
-    def one():
-        idx = torch.randint(0, ds.num_rays, (batch,), generator=gen,
-                            device=dev)
-        step_fn(state, rays_map(lambda x: x[idx], rays_all), rgbs_all[idx],
-                system.model.make_draws(batch, D, gen))
-
-    one()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            one()
+    graphed = system.make_graphed_train_step(state, data, gen, True, batch,
+                                             8)
+    one = system.make_device_step(data, gen, True, batch)
+    k5 = system.model.cfg.use_train_render_kernel
+    what = f"{steps} train steps" + (" with the render kernel" if k5 else "")
+    for mode in ("graph", "eager"):
+        fn = ((lambda: graphed(state)) if mode == "graph"
+              else (lambda: one(state)))
+        calls = steps // 8 if mode == "graph" else steps
+        fn()
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    _report_profile(prof, wall_us, f"{steps} train steps" + (
-        " with the render kernel"
-        if system.model.cfg.use_train_render_kernel else ""))
-    if not system.model.cfg.use_train_render_kernel:
+        before = counters.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        after = counters.launch_counts()
+        _report_profile(prof, wall_us, f"{what}, {mode}")
+        counted = {k: after[k] - before[k] for k in after}
+        seen = {name: 0 for name in PROFILED_KERNELS}
+        for e in _device_split(prof)[0]:
+            for name in PROFILED_KERNELS:
+                if name in e.name:
+                    seen[name] += 1
+        from_trace = {}
+        for name, (counter, per) in PROFILED_KERNELS.items():
+            from_trace[counter] = from_trace.get(counter, 0) + per * seen[
+                name]
+        want = {k: n * steps for k, n in per_step_launches(k5).items()}
+        want["fused_render_level"] = 0
+        print(f"[time] {what}, {mode}: launch counters "
+              + json.dumps(counted) + "; from the profiler's kernel names "
+              + json.dumps(from_trace), flush=True)
+        if counted != want or from_trace != want:
+            raise AssertionError(f"{mode} steps: launch counters "
+                                 f"{counted} and profiled kernels "
+                                 f"{from_trace} disagree with {want}")
+    if not k5:
         adam_grads_ab(state.optimizer)
 
 
@@ -1391,29 +1643,34 @@ def main() -> int:
         raise AssertionError("weight-gradient pass gave NaN")
     del calls, levels
     with tempfile.TemporaryDirectory() as workdir:
-        run = drive_main_path(workdir)
-        where_the_time_goes(run["scene"])
-        check_against_plain(run["scene"])
-        train = drive_train_path(workdir, run["scene"])
-        train_k5 = drive_train_path(workdir, run["scene"],
-                                    render_kernel=True)
+        scene = make_scene(workdir)
+        run = drive_main_path(workdir, scene, ["--init_seed", "0"])
+        where_the_time_goes(scene)
+        check_against_plain(scene)
+        train = drive_train_path(workdir, scene)
+        train_k5 = drive_train_path(workdir, scene, render_kernel=True)
         print(f"[train-k5] steady train rays/s with the key on "
               f"{train_k5['rays_per_s']:.1f} vs off {train['rays_per_s']:.1f}"
               f" (ms per step {512e3 / train_k5['rays_per_s']:.3f} vs "
               f"{512e3 / train['rays_per_s']:.3f})", flush=True)
-        check_train_step_against_cpu(train["trainer"])
-        check_train_step_against_cpu(train_k5["trainer"])
-        profile_train_step(train["trainer"])
-        profile_train_step(train_k5["trainer"])
-    entry["launches"] = run["launches"]
+        trained = drive_main_path(workdir, scene,
+                                  ["--ckpt_dir", train["save_dir"]],
+                                  step=TRAIN_STEPS)
+        where_the_time_goes(scene, params=train["trainer"].ckpt.restore(
+            map_location=dev)["params"], tag="[eval-trained]")
+        for t in (train, train_k5):
+            check_train_step_against_cpu(t["trainer"])
+            check_graphed_against_eager(t["trainer"])
+            time_train_modes(t["trainer"])
+            profile_train_step(t["trainer"])
+    entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
     for e in k5_entries:
         e["launches"] = train_k5["launches"][e["name"]]
-    for e in k1_entries + [wentry]:   # counted over all three runs
-        e["launches"] = (run["k1_launches"][e["name"]]
-                         + train["launches"][e["name"]]
-                         + train_k5["launches"][e["name"]])
+    for e in k1_entries + [wentry]:   # counted over all four runs
+        e["launches"] = sum(r["launches"][e["name"]]
+                            for r in (run, trained, train, train_k5))
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries}))

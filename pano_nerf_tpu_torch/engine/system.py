@@ -2,21 +2,27 @@
 
 Counterpart of pano_nerf_tpu/engine/system.py: `PanoNeRFSystem.
 make_train_step` (one optimizer step on a ray batch, Adam on
-`mip_lr_decay` behind the global-norm clip) and `make_render_image`
-(chunked by `BaseSystem._chunked`).
+`mip_lr_decay` behind the global-norm clip),
+`make_train_step_device_data` (the batch drawn on the device from the
+resident ray set, K steps per dispatch: `_jit_steps`) and
+`make_render_image` (chunked by `BaseSystem._chunked`). Where JAX jits, the
+port captures CUDA graphs on the card (`engine/graphs.py`): the K-step
+train dispatch and the eval chunk; the eager step stays as the body that
+is captured, and is what runs on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
 from pano_nerf_tpu_torch.core.device import resolve_device
 from pano_nerf_tpu_torch.core.rays import Rays, rays_map, rays_to_tensors
 from pano_nerf_tpu_torch.engine import losses as losses_lib
-from pano_nerf_tpu_torch.engine.schedule import mip_lr_decay
+from pano_nerf_tpu_torch.engine.graphs import CapturedGraph
+from pano_nerf_tpu_torch.engine.schedule import lr_table
 from pano_nerf_tpu_torch.kernels.fused_render import pack_params
 from pano_nerf_tpu_torch.models.pano_mip_nerf import PanoMipNeRF, TrainDraws
 
@@ -56,10 +62,66 @@ def clip_by_global_norm_(params: List[Tensor], max_norm: float) -> Tensor:
 
 @dataclasses.dataclass
 class TrainState:
-    """The mutable training state: step count and optimizer (whose
-    parameters are the model's)."""
+    """The mutable training state: the step count, the optimizer (whose
+    parameters are the model's) and, on the card, the step count as a
+    device tensor (`step_t`, int64), which a CUDA graph reads and
+    advances where it cannot read a Python int."""
     step: int
     optimizer: torch.optim.Optimizer
+    step_t: Optional[torch.Tensor] = None
+
+
+def rollback_point(state: TrainState, params: List[Tensor],
+                   gen: torch.Generator) -> Callable[[], None]:
+    """Returns restore(): puts the parameters, Adam's state, `step_t`,
+    `state.step` and the generator back as they are now, in place (a CUDA
+    graph keeps the tensors it captured). Adam state that did not exist
+    yet is zeroed, which is where a fresh Adam starts."""
+    saved = [p.detach().clone() for p in params]
+    moments = {p: {k: v.clone() for k, v in state.optimizer.state[p].items()}
+               for p in params if p in state.optimizer.state}
+    step, gen_state = state.step, gen.get_state()
+    step_t = None if state.step_t is None else state.step_t.clone()
+
+    def restore() -> None:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+                for k, t in state.optimizer.state.get(p, {}).items():
+                    if p in moments:
+                        t.copy_(moments[p][k])
+                    else:
+                        t.zero_()
+            if step_t is not None:
+                state.step_t.copy_(step_t)
+        state.step = step
+        gen.set_state(gen_state)
+
+    return restore
+
+
+def _k_steps(one: Callable, k: int) -> Callable:
+    """run(state) -> (loss parts of the last step, losses [k]): `k` calls
+    of the step `one`."""
+    def run(state: TrainState) -> Tuple[Dict[str, Tensor], Tensor]:
+        losses = []
+        for _ in range(k):
+            parts = one(state)
+            losses.append(parts["loss"])
+        return parts, torch.stack(losses)
+
+    return run
+
+
+def render_products(enable_surf: bool) -> List[Tuple[str, int]]:
+    """What `make_render_image` returns per ray, in its order: (name,
+    channels)."""
+    products = [("rgb_coarse", 3), ("dep_coarse", 1), ("rgb_fine", 3),
+                ("dep_fine", 1), ("normal", 3)]
+    if enable_surf:
+        products += [("albedo", 3), ("roughness", 1), ("surf_rgb", 3),
+                     ("shading", 3)]
+    return products
 
 
 class PanoNeRFSystem:
@@ -85,6 +147,11 @@ class PanoNeRFSystem:
         self.val_chunk_size = int(hparams["val.chunk_size"])
         self.env_rays: Optional[Rays] = None
 
+    @property
+    def graphed(self) -> bool:
+        """Whether steps and chunks run as CUDA graphs (on the card)."""
+        return self.device.type == "cuda"
+
     def create_state(self) -> TrainState:
         """Step 0 and a fresh Adam over the MLP's parameters.
 
@@ -92,11 +159,30 @@ class PanoNeRFSystem:
         square root, no weight decay): torch.optim.Adam computes the same
         update, lr * m_hat / (sqrt(v_hat) + eps); checked against the JAX
         step in tests/test_torch_train_step.py. The learning rate is set
-        from the schedule before each step.
+        from the schedule before each step. On the card Adam is
+        `capturable` (its step counts and the learning rate are device
+        tensors, so a CUDA graph can hold it) in graphed and eager steps
+        alike; torch refuses `capturable` on the CPU, which keeps the
+        plain form.
         """
-        return TrainState(step=0, optimizer=torch.optim.Adam(
-            self.model.mlp.parameters(), lr=0.0, betas=(0.9, 0.999),
-            eps=1e-8))
+        return TrainState(
+            step=0, optimizer=torch.optim.Adam(
+                self.model.mlp.parameters(), lr=0.0, betas=(0.9, 0.999),
+                eps=1e-8, capturable=self.graphed),
+            step_t=(torch.zeros((), dtype=torch.int64, device=self.device)
+                    if self.graphed else None))
+
+    def restore_state(self, state: TrainState, saved: Mapping) -> None:
+        """Load a checkpoint's parameters, optimizer state and step into
+        `state` (the optimizer's tensors are replaced: a graph that holds
+        them must be captured again)."""
+        self.model.mlp.load_state_dict(saved["params"])
+        opt = saved["optimizer"]   # saved on the card or on the CPU
+        state.optimizer.load_state_dict(dict(opt, param_groups=[
+            dict(g, capturable=self.graphed) for g in opt["param_groups"]]))
+        state.step = int(saved["step"])
+        if state.step_t is not None:
+            state.step_t.fill_(state.step)
 
     def make_train_step(self, enable_surf: bool) -> Callable:
         """Returns train_step(state, rays, rgbs, draws) -> loss parts.
@@ -106,9 +192,11 @@ class PanoNeRFSystem:
         (kernels 2 and 3 on the card, and kernel 5 for the coarse level and
         the env queries with `nerf.use_train_render_kernel`),
         `pano_losses`, backward, the global-norm clip
-        (`optimizer.grad_clip`, 0 = none), the learning rate of
-        `state.step`, Adam. The parts are detached tensors; read them only
-        when needed (reading waits for the device).
+        (`optimizer.grad_clip`, 0 = none), the learning rate of the step
+        (read at `state.step_t` on the device where there is one), Adam.
+        The parts are detached tensors; read them only when needed
+        (reading waits for the device). No host read happens inside, so a
+        CUDA graph can capture it.
         """
         check_train_config(self.hparams)
         if self.env_rays is None and enable_surf:
@@ -117,11 +205,12 @@ class PanoNeRFSystem:
         use_ort = hp["loss.ort_loss"] > 0
         use_vc = float(hp.get("loss.view_consistency", 0.0)) > 0
         clip = float(hp.get("optimizer.grad_clip", 0.0))
-        schedule = mip_lr_decay(
+        lrs = torch.as_tensor(lr_table(
             float(hp["optimizer.lr_init"]), float(hp["optimizer.lr_final"]),
             int(hp["optimizer.max_steps"]),
             int(hp["optimizer.lr_delay_steps"]),
-            float(hp["optimizer.lr_delay_mult"]))
+            float(hp["optimizer.lr_delay_mult"]))).to(self.device)
+        last = lrs.shape[0] - 1
         params = list(model.mlp.parameters())
 
         def train_step(state: TrainState, rays: Rays, rgbs: Tensor,
@@ -137,8 +226,14 @@ class PanoNeRFSystem:
             parts["loss"].backward()
             if clip > 0:
                 clip_by_global_norm_(params, clip)
+            if state.step_t is None:
+                lr = float(lrs[min(state.step, last)])
+            else:
+                lr = lrs.index_select(0, state.step_t.clamp(max=last)
+                                      .view(1))[0]
+                state.step_t += 1
             for group in state.optimizer.param_groups:
-                group["lr"] = schedule(state.step)
+                group["lr"] = lr
             state.optimizer.step()
             state.step += 1
             return {k: v.detach() for k, v in parts.items()
@@ -146,50 +241,163 @@ class PanoNeRFSystem:
 
         return train_step
 
+    def make_device_step(self, dataset: Tuple[Rays, Tensor],
+                         gen: torch.Generator, enable_surf: bool,
+                         batch_size: int) -> Callable:
+        """Returns device_step(state) -> loss parts: one train step on a
+        batch drawn on the device, the JAX `one_step` of
+        `make_train_step_device_data`. `dataset` is the flattened training
+        set on the device (Rays [N, ...], rgbs [N, C]); the batch is drawn
+        uniformly with replacement, then the step's random numbers, all
+        from `gen`."""
+        rays_all, rgbs_all = dataset
+        n = rgbs_all.shape[0]
+        num_dirs = int(self.hparams["nerf.num_ray_samples"])
+        step = self.make_train_step(enable_surf)
+
+        def device_step(state: TrainState) -> Dict[str, Tensor]:
+            idx = torch.randint(0, n, (batch_size,), generator=gen,
+                                device=self.device)
+            rays = rays_map(lambda x: x[idx], rays_all)
+            draws = self.model.make_draws(batch_size, num_dirs, gen)
+            return step(state, rays, rgbs_all[idx], draws)
+
+        return device_step
+
+    def make_train_step_device_data(self, state: TrainState,
+                                    dataset: Tuple[Rays, Tensor],
+                                    gen: torch.Generator, enable_surf: bool,
+                                    batch_size: int, steps_per_call: int = 1
+                                    ) -> Callable:
+        """Returns run(state) -> (loss parts, losses [K]): K =
+        `steps_per_call` steps of `make_device_step` per call, the JAX
+        `make_train_step_device_data`. The parts are the last step's (as
+        JAX returns them); `losses` holds every step's loss. On the card
+        the K steps are one CUDA graph (`make_graphed_train_step`), bound
+        to `state`; on the CPU they run eagerly, one after the other."""
+        if self.graphed:
+            return self.make_graphed_train_step(state, dataset, gen,
+                                                enable_surf, batch_size,
+                                                steps_per_call)
+        return _k_steps(self.make_device_step(dataset, gen, enable_surf,
+                                              batch_size), steps_per_call)
+
+    def make_graphed_train_step(self, state: TrainState,
+                                dataset: Tuple[Rays, Tensor],
+                                gen: torch.Generator, enable_surf: bool,
+                                batch_size: int, steps: int) -> Callable:
+        """The K-step dispatch as one CUDA graph, the counterpart of JAX's
+        `_jit_steps` (`lax.scan` of `steps` steps; 1: the jitted step).
+
+        The graph holds `steps` copies of the whole step: the batch draw
+        and the step's random numbers on `gen` (registered with the
+        graph), the gather from the resident ray set, `pack_params`, the
+        forward, `pano_losses`, backward, the clip, the learning rate at
+        `state.step_t` and Adam. It is captured at the first call (see
+        `engine/graphs.py`: the warm-up steps are rolled back in place:
+        parameters, Adam's state, `step_t`, `state.step` and the
+        generator) and replayed at every call after; `state.step`
+        advances by `steps`. Returns run(state) -> (loss parts of the last
+        step, losses [steps]), static tensors overwritten by the next
+        replay."""
+        one = self.make_device_step(dataset, gen, enable_surf, batch_size)
+        params = list(self.model.mlp.parameters())
+        body = _k_steps(one, steps)
+        graph = CapturedGraph(lambda: body(state), warmup=lambda: one(state),
+                              snapshot=lambda: rollback_point(state, params,
+                                                              gen),
+                              generators=(gen,))
+
+        def run(st: TrainState) -> Tuple[Dict[str, Tensor], Tensor]:
+            if st is not state:
+                raise ValueError("a graphed train step runs on the state "
+                                 "it was made for")
+            out = graph()
+            state.step += steps
+            return out
+
+        run.graph = graph
+        return run
+
     def set_env_rays(self, env_rays) -> None:
         """Env directions: a Rays of numpy arrays, [D, ...]."""
         self.env_rays = rays_to_tensors(env_rays, self.device)
 
+    def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
+                                                              Tensor]],
+                     enable_surf: bool = True) -> Tensor:
+        """The eval forward of one chunk of rays: [chunk, C], the products
+        of `render_products(enable_surf)` side by side. The body the eval
+        chunk graph captures."""
+        c, f = self.model(rays, self.env_rays, self.white_bkgd, enable_surf,
+                          packed=packed)
+        cols = [c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
+                f.normal]
+        if enable_surf:
+            cols += [f.albedo, f.roughness[:, None], f.surf_rgb, f.shading]
+        return torch.cat([x.float() for x in cols], 1)
+
     def make_render_image(self, enable_surf: bool = True) -> Callable:
-        """Returns render_fn(params, rays) -> dict of [N, C] tensors.
+        """Returns render_fn(params, rays) -> dict of [N, C] host tensors.
 
         `params` is the MLP's state_dict (loaded into the model first) or
         None to keep the current weights; `rays` are flat [N, ...] tensors
         on the system's device. Rays are rendered `val.chunk_size` at a
-        time; the last chunk is padded with the last ray, and the padding
-        is dropped from the products.
+        time (the last chunk padded with the last ray) into one [N, C]
+        buffer on the device, which comes to the host in one copy. On the
+        card each chunk is a replay of one CUDA graph of `render_chunk`
+        (captured at the first call): the chunk is copied into its static
+        input rays, and the weights are packed into its static weight
+        buffer once per call, so each call renders the current weights.
         """
         if self.env_rays is None and enable_surf:
             raise RuntimeError("call set_env_rays() first")
         model, chunk = self.model, self.val_chunk_size
+        names = render_products(enable_surf)
+        graph: Optional[CapturedGraph] = None
+        static_rays: Optional[Rays] = None
+        static_packed: Optional[Tuple[Tensor, Tensor]] = None
 
         @torch.no_grad()
         def render_fn(params: Optional[Mapping[str, Tensor]], rays: Rays
                       ) -> Dict[str, Tensor]:
+            nonlocal graph, static_rays, static_packed
             if params is not None:
                 model.mlp.load_state_dict(params)
-            packed = (pack_params(model.mlp)
-                      if self.device.type == "cuda" else None)
             n = rays.origins.shape[0]
             pad = (-n) % chunk
             if pad:
                 rays = rays_map(lambda x: torch.cat(
                     [x, x[-1:].expand(pad, x.shape[-1])], 0), rays)
-            parts = []
+            slab = torch.empty((n + pad, sum(w for _, w in names)),
+                               device=self.device)
+            packed = (pack_params(model.mlp)
+                      if self.device.type == "cuda" else None)
+            if self.graphed and graph is None:
+                static_rays = rays_map(lambda x: x[:chunk].clone(), rays)
+                static_packed = tuple(t.clone() for t in packed)
+                graph = CapturedGraph(lambda: self.render_chunk(
+                    static_rays, static_packed, enable_surf))
+            if self.graphed:
+                for dst, src in zip(static_packed, packed):
+                    dst.copy_(src)
             for start in range(0, n + pad, chunk):
-                chunk_rays = rays_map(
-                    lambda x: x[start:start + chunk].contiguous(), rays)
-                c, f = model(chunk_rays, self.env_rays, self.white_bkgd,
-                             enable_surf, packed=packed)
-                out = dict(rgb_coarse=c.rgb, dep_coarse=c.distance[:, None],
-                           rgb_fine=f.rgb, dep_fine=f.distance[:, None],
-                           normal=f.normal)
-                if enable_surf:
-                    out.update(albedo=f.albedo,
-                               roughness=f.roughness[:, None],
-                               surf_rgb=f.surf_rgb, shading=f.shading)
-                parts.append(out)
-            return {k: torch.cat([p[k] for p in parts], 0)[:n]
-                    for k in parts[0]}
+                chunk_rays = rays_map(lambda x: x[start:start + chunk],
+                                      rays)
+                if self.graphed:
+                    for dst, src in zip(static_rays, chunk_rays):
+                        dst.copy_(src)
+                    out = graph()
+                else:
+                    out = self.render_chunk(rays_map(
+                        lambda x: x.contiguous(), chunk_rays), packed,
+                        enable_surf)
+                slab[start:start + chunk].copy_(out)
+            host = slab[:n].cpu()
+            parts, col = {}, 0
+            for name, width in names:
+                parts[name] = host[:, col:col + width]
+                col += width
+            return parts
 
         return render_fn

@@ -1,19 +1,26 @@
 """The training loop: device-resident data, train steps, validation,
 checkpoints, and recovery from non-finite steps.
 
-Counterpart of pano_nerf_tpu/engine/trainer.py (`Trainer.fit`), one step
-per Python iteration (the TPU package's `lax.scan` grouping of steps has no
-counterpart): the flattened training ray set is uploaded to the device
-once and each step samples its batch there, uniformly with replacement,
-from a `torch.Generator` seeded from `seed + 1` that also draws the step's
-random numbers. Scalars go to stdout and `metrics.jsonl` (with
-`rays_per_sec`) every `log_every_n_step`; validation renders through the
-eval path (kernel 4 on the card) with a one-image sanity pass at step 0,
-every `val.check_every_n_epoch` x 1000 steps and at the end, each followed
-by a checkpoint. A non-finite loss is triaged as in the JAX trainer: a
-false alarm when the parameters are finite, else a rewind to the last
-checkpoint with a re-seeded stream (`train.nan_recovery` times), else an
-abort that names the last good checkpoint.
+Counterpart of pano_nerf_tpu/engine/trainer.py (`Trainer.fit`): the
+flattened training ray set is uploaded to the device once and each step
+samples its batch there, uniformly with replacement, from a
+`torch.Generator` seeded from `seed + 1` that also draws the step's random
+numbers. Steps are dispatched as in JAX: `train.steps_per_call` (K) steps
+per call where `group_ok` allows it (no log or validation boundary inside
+the group, no change of the surface flag, no group past `max_steps`),
+single steps at the edges and through the cooldown after a recovery; on
+the card each dispatch is the replay of a CUDA graph (one per surface flag
+and K, captured at first use and again after every restore), on the CPU K
+eager steps. Scalars (the last step's of a dispatch, as in JAX) go to
+stdout and `metrics.jsonl` (with `rays_per_sec`) every `log_every_n_step`;
+validation renders through the eval path (kernel 4 on the card) with a
+one-image sanity pass at step 0, every `val.check_every_n_epoch` x 1000
+steps and at the end, each followed by a checkpoint. A non-finite loss is
+triaged as in the JAX trainer: a false alarm when the parameters are
+finite, else a rewind to the last checkpoint with a re-seeded stream
+(`train.nan_recovery` times) and single steps for one log period, else an
+abort that names the last good checkpoint. JAX's profiler window
+(`profile_dir`) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,12 +28,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
+from pano_nerf_tpu_torch.core.rays import rays_to_tensors
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.engine import validation as val_lib
 from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
@@ -35,6 +42,22 @@ from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem, TrainState
 
 def _all_finite(tensors) -> bool:
     return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
+def group_ok(step: int, spc: int, max_steps: int, log_every: int,
+             val_every: int, surface_start_step: int,
+             steps_with_surface: bool) -> bool:
+    """True when the K = `spc` steps [step, step + K) may run as one
+    dispatch: they cross no log or validation boundary, the surface flag
+    is constant over them and they end by `max_steps` (JAX's `_group_ok`;
+    its profiler edges have no counterpart here)."""
+    if spc <= 1 or step + spc > max_steps:
+        return False
+    for cad in (log_every, val_every):
+        if step // cad != (step + spc - 1) // cad:
+            return False
+    return not (steps_with_surface
+                and step < surface_start_step <= step + spc - 1)
 
 
 class Trainer:
@@ -124,10 +147,8 @@ class Trainer:
     def _restore(self, state: TrainState, gen: torch.Generator,
                  ckpt: Checkpointer) -> None:
         saved = ckpt.restore(map_location=self.device)
-        self.system.model.mlp.load_state_dict(saved["params"])
-        state.optimizer.load_state_dict(saved["optimizer"])
+        self.system.restore_state(state, saved)
         gen.set_state(saved["generator"].cpu())
-        state.step = int(saved["step"])
 
     def fit(self, resume_path: Optional[str] = None,
             sanity_val: bool = True) -> None:
@@ -144,34 +165,49 @@ class Trainer:
         start_step = state.step
 
         ds = self.train_dataset
-        rays_all = rays_to_tensors(ds.rays, self.device)
-        rgbs_all = torch.as_tensor(ds.images, dtype=torch.float32).to(
-            self.device)
-        n_rays = ds.num_rays
         batch = int(hp["train.batch_size"])
-        num_dirs = int(hp["nerf.num_ray_samples"])
-        step_surf = system.make_train_step(True) if self.use_surface else None
-        step_plain = system.make_train_step(False)
-        print(f"[data] device-resident ({n_rays:,} rays on {self.device})",
-              flush=True)
+        spc = max(1, int(hp.get("train.steps_per_call", 8)))
+        steps_fns: Dict[Tuple[bool, int], Callable] = {}
+        dataset = None
+
+        def build_device_fns():
+            """(Re)upload the ray set and drop the step functions, which
+            are made (on the card: captured) again at first use over the
+            fresh buffers and the restored state: JAX's
+            `build_device_fns`."""
+            nonlocal dataset
+            steps_fns.clear()
+            dataset = (rays_to_tensors(ds.rays, self.device),
+                       torch.as_tensor(ds.images, dtype=torch.float32).to(
+                           self.device))
+
+        def run_steps(surf: bool, k: int):
+            if (surf, k) not in steps_fns:
+                steps_fns[surf, k] = system.make_train_step_device_data(
+                    state, dataset, gen, surf, batch, k)
+            return steps_fns[surf, k](state)
+
+        build_device_fns()
+        print(f"[data] device-resident ({ds.num_rays:,} rays on "
+              f"{self.device}" + (f", {spc} steps/dispatch" if spc > 1
+                                  else "") + ")", flush=True)
 
         if sanity_val and start_step == 0:
             self.validate(step=0, max_images=1)
 
         nan_retries_left = int(hp.get("train.nan_recovery", 2))
-        nan_retry, nan_failed_step = 0, -1
+        nan_retry, nan_failed_step, nan_cooldown_until = 0, -1, -1
         t0 = self._sync_clock()
         rays_done = 0
         params = list(system.model.mlp.parameters())
         while state.step < self.max_steps:
             surf = self.use_surface and state.step >= self.surface_start_step
-            idx = torch.randint(0, n_rays, (batch,), generator=gen,
-                                device=self.device)
-            rays = rays_map(lambda x: x[idx], rays_all)
-            draws = system.model.make_draws(batch, num_dirs, gen)
-            parts = (step_surf if surf else step_plain)(state, rays,
-                                                        rgbs_all[idx], draws)
-            rays_done += batch
+            k = (spc if state.step >= nan_cooldown_until and group_ok(
+                state.step, spc, self.max_steps, self.log_every,
+                self.val_every, self.surface_start_step, self.use_surface)
+                 else 1)
+            parts, _ = run_steps(surf, k)
+            rays_done += batch * k
 
             if state.step % self.log_every == 0:
                 scalars = {k: float(v) for k, v in parts.items()}
@@ -200,21 +236,26 @@ class Trainer:
                                 f"{self.ckpt.directory}")
                         nan_retry += 1
                         nan_failed_step = state.step
-                        data_finite = _all_finite([rgbs_all, *rays_all])
+                        # Single steps through one log period (JAX: a
+                        # different executable mix is part of the cure).
+                        nan_cooldown_until = state.step + self.log_every
+                        data_finite = _all_finite([dataset[1], *dataset[0]])
                         self._log({"step": state.step, "kind": "nan_recovery",
                                    "retry": nan_retry,
                                    "restored_step": restored,
                                    "device_data_finite": data_finite,
                                    **scalars})
                         failed_at = state.step
+                        build_device_fns()
                         self._restore(state, gen, self.ckpt)
                         # A re-rolled batch stream from the restored state.
                         gen.manual_seed(seed + 1 + 7919 * nan_retry)
                         print(f"[recover] non-finite loss at step "
                               f"{failed_at}; restored step {state.step} "
                               f"(retry {nan_retry}/{nan_retries_left}, "
-                              f"re-rolled batch stream, device data "
-                              f"finite: {data_finite})")
+                              f"re-rolled batch stream, single-step "
+                              f"cooldown to {nan_cooldown_until}, device "
+                              f"data finite: {data_finite})")
                         t0, rays_done = self._sync_clock(), 0
                         continue
                 else:

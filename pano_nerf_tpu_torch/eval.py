@@ -8,12 +8,17 @@ mean metrics, with the render's device time per panorama and rays/s.
 
 Usage:
   python -m pano_nerf_tpu_torch.eval --data_path SCENE --out_dir OUT \
-      (--params params.npz | --init_seed N) [--config configs/panonerf.yaml]
-      [--max_images N] [--device cuda|cpu] [opts k v ...]
+      (--ckpt_dir EXP [--step N] | --params params.npz | --init_seed N)
+      [--config configs/panonerf.yaml] [--max_images N]
+      [--device cuda|cpu] [opts k v ...]
 
-`--params` is a JAX-layout parameter tree flattened into an `.npz`
-(utils/params.py shows the one-line export); `--init_seed` renders freshly
-initialized weights from that seed instead.
+`--ckpt_dir` is a run of `python -m pano_nerf_tpu_torch.train` (its
+`<out_dir>/<exp_name>`): the weights of its checkpoint `--step` (default:
+the latest) under `checkpoints/` are rendered, as scripts/eval.py restores
+a JAX run. `--params` is a JAX-layout parameter tree flattened into an
+`.npz` (utils/params.py shows the one-line export); `--init_seed` renders
+freshly initialized weights from that seed instead. The products go to
+`eval_<step>/`: the restored step, else `--step` (default 0).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from pano_nerf_tpu_torch.core.config import parse_args
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.engine import validation as val_lib
+from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
 from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
 from pano_nerf_tpu_torch.utils.params import load_npz, params_from_jax
 
@@ -40,12 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="scene directory with transforms_all.json")
     parser.add_argument("--out_dir", required=True)
     group = parser.add_mutually_exclusive_group(required=True)
+    group.add_argument("--ckpt_dir",
+                       help="a port training run (checkpoints/ inside)")
     group.add_argument("--params", help="JAX-layout parameter tree (.npz)")
     group.add_argument("--init_seed", type=int,
                        help="render freshly initialized weights")
     parser.add_argument("--config", default="./configs/panonerf.yaml")
-    parser.add_argument("--step", type=int, default=0,
-                        help="step number for the eval_<step> directory")
+    parser.add_argument("--step", type=int, default=None,
+                        help="checkpoint step to restore (default: the "
+                        "latest); without --ckpt_dir, the step number of "
+                        "the eval_<step> directory (default: 0)")
     parser.add_argument("--max_images", type=int, default=None)
     parser.add_argument("--range", nargs="+", type=float, default=[0, 10])
     parser.add_argument("--meta_file", default="transforms_all")
@@ -81,10 +91,20 @@ def evaluate(hparams: dict, device: Optional[str] = None) -> Dict[str, float]:
     near, far = hparams["range"]
     system.set_env_rays(train_set.generate_lit_rays(
         num=hparams["nerf.num_ray_samples"], near=0.0, far=float(far)))
-    params = (params_from_jax(load_npz(hparams["params"]))
-              if hparams.get("params") else None)
+    step = hparams.get("step")
+    if hparams.get("ckpt_dir"):
+        saved = Checkpointer(os.path.join(hparams["ckpt_dir"],
+                                          "checkpoints")).restore(
+            step, map_location=system.device)
+        params, step = saved["params"], int(saved["step"])
+        print(f"[eval] restored step {step} from {hparams['ckpt_dir']}"
+              f"/checkpoints", flush=True)
+    else:
+        params = (params_from_jax(load_npz(hparams["params"]))
+                  if hparams.get("params") else None)
+    step = step or 0
     render_fn = system.make_render_image(enable_surf=True)
-    save_dir = os.path.join(hparams["out_dir"], f"eval_{hparams['step']:06d}")
+    save_dir = os.path.join(hparams["out_dir"], f"eval_{step:06d}")
 
     n = len(val_set)
     if hparams.get("max_images") is not None:
@@ -112,7 +132,7 @@ def evaluate(hparams: dict, device: Optional[str] = None) -> Dict[str, float]:
         for k, v in m.items():
             agg.setdefault(k, []).append(v)
     means = {k: float(np.mean(v)) for k, v in agg.items()}
-    means.update(step=hparams["step"], kind="eval", num_images=n,
+    means.update(step=step, kind="eval", num_images=n,
                  device=(torch.cuda.get_device_name(system.device)
                          if system.device.type == "cuda" else "cpu"),
                  render_ms_per_pano=1e3 * render_s / max(n, 1),

@@ -28,7 +28,7 @@ def _linspace(stop: float, num: int, like: Tensor) -> Tensor:
         return torch.zeros(1, dtype=torch.float32, device=like.device)
     i = torch.arange(num, dtype=torch.float32, device=like.device)
     u = i * torch.tensor(stop / (num - 1), dtype=torch.float32)
-    u[-1] = stop
+    u[-1:].fill_(stop)
     return u
 
 

@@ -83,5 +83,7 @@ def hdr_to_ldr(color: Union[np.ndarray, Tensor], gamma: float = 2.2,
 
 def compute_illumination(x: Tensor) -> Tensor:
     """Rec.709 luma of channels-last RGB, [..., 1]."""
-    op = torch.tensor(_LUMA, dtype=x.dtype, device=x.device)
-    return torch.sum(x * op, dim=-1, keepdim=True)
+    # Channel by channel: a tensor of the weights would be a host-to-device
+    # copy, which a CUDA graph cannot capture.
+    return (x[..., 0:1] * _LUMA[0] + x[..., 1:2] * _LUMA[1]
+            + x[..., 2:3] * _LUMA[2])

@@ -9,12 +9,16 @@ exp_name = `<nerf.mlp_name>_<view ids>`):
       [opts k v ...]
 
 Every MLP evaluation of a train step goes through the CUDA kernels 2 and
-3 (`kernels/fused_mlp_ipe.py`, `kernels/fused_mlp_normals.py`); validation
-renders through kernel 4. Re-running the same command resumes from the
-latest checkpoint under `<save_dir>/checkpoints/`. `--init_seed` seeds
-the weight initialization (default: the config's `seed`); the TPU
-dispatch knobs (`train.steps_per_call`, `train.scan_unroll`,
-`train.scoped_vmem_kib`, `nerf.fused_batch_threshold`) have no effect.
+3 (`kernels/fused_mlp_ipe.py`, `kernels/fused_mlp_normals.py`), and 5
+with `nerf.use_train_render_kernel`; validation renders through kernel 4.
+On the card the steps run as CUDA graphs, `train.steps_per_call` of them
+per replay where the cadences allow (`engine/trainer.py`), and each
+validation chunk is a graph replay. Re-running the same command resumes
+from the latest checkpoint under `<save_dir>/checkpoints/`. `--init_seed`
+seeds the weight initialization (default: the config's `seed`). The TPU
+knobs `train.scan_unroll` (a graph holds every step's kernels already),
+`train.scoped_vmem_kib`, `nerf.fused_batch_threshold` and
+`nerf.train_kernel_rows` have no effect.
 """
 
 from __future__ import annotations

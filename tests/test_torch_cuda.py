@@ -273,3 +273,154 @@ def test_weight_grad_kernel_refuses_a_bad_job_table(cuda_device):
         torch.cuda.current_stream(cuda_device).cuda_stream)
     with pytest.raises(RuntimeError, match="weight gradients"):
         k2.check_launch(lib, "fused_mlp weight gradients", err)
+
+
+def _graph_system(cuda_device, render_kernel, n_rays=16384):
+    """The shipped config at full width on the card, random weights, and
+    a random resident ray set of `n_rays` rays inside a scene-sized box."""
+    import os
+    from pano_nerf_tpu_torch.core.config import load_config
+    from pano_nerf_tpu_torch.core.rays import Rays
+    from pano_nerf_tpu_torch.data.pano_dataset import generate_lit_rays
+    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hp = load_config(os.path.join(repo, "configs", "panonerf.yaml"),
+                     ["val.chunk_size", "256"])
+    hp["nerf.use_train_render_kernel"] = render_kernel
+    system = PanoNeRFSystem(hp, device=cuda_device, init_seed=0)
+    system.set_env_rays(generate_lit_rays(hp["nerf.num_ray_samples"],
+                                          far=10.0, radius=0.0142))
+    g = torch.Generator().manual_seed(1)
+    d = torch.randn(n_rays, 3, generator=g)
+    ones = torch.ones(n_rays, 1)
+    rays = Rays(origins=(torch.rand(n_rays, 3, generator=g) - 0.5) * 0.6,
+                directions=d,
+                viewdirs=d / torch.linalg.norm(d, dim=-1, keepdim=True),
+                radii=ones * 0.0142, lossmult=ones, near=ones * 0.0,
+                far=ones * 10.0, noise_var=ones * 0.0)
+    rays = Rays(*(x.to(cuda_device).contiguous() for x in rays))
+    rgbs = torch.rand(n_rays, 3, generator=g).to(cuda_device)
+    return system, (rays, rgbs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("render_kernel", [False, True])
+def test_graphed_train_steps_match_eager(cuda_device, render_kernel):
+    """16 steps at batch 512 from one state as two replays of an 8-step
+    CUDA graph and, four times, eagerly (as chip_smoke.py holds them on
+    the trained system): the generator ends in the same state, and the
+    graph's median distance to the eager runs (parameters, per-step
+    losses) is at most twice the largest eager-vs-eager distance (the
+    weight-gradient pass sums unordered f32 partials, and Adam amplifies
+    that over the steps) or f32 rounding; each replay adds one capture's
+    worth of launches to the counters."""
+    import statistics
+    from pano_nerf_tpu_torch.kernels import counters
+    system, data = _graph_system(cuda_device, render_kernel)
+    mlp = system.model.mlp
+    start = {k: v.clone() for k, v in mlp.state_dict().items()}
+
+    def run(graphed):
+        mlp.load_state_dict(start)
+        state = system.create_state()
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        if graphed:
+            fn = system.make_train_step_device_data(state, data, gen, True,
+                                                    512, 8)
+            first = fn(state)[1].clone()
+            before = counters.launch_counts()
+            losses = torch.cat([first, fn(state)[1].clone()])
+            after = counters.launch_counts()
+            assert fn.graph.replays == 2
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == fn.graph.launches
+        else:
+            one = system.make_device_step(data, gen, True, 512)
+            losses = torch.stack([one(state)["loss"] for _ in range(16)])
+        assert state.step == 16 and int(state.step_t) == 16
+        flat = torch.cat([p.detach().reshape(-1) for p in mlp.parameters()])
+        return flat.clone(), losses.cpu(), gen.get_state()
+
+    eager = [run(False) for _ in range(4)]
+    graph = run(True)
+    assert bool(torch.isfinite(graph[1]).all())
+    assert all(torch.equal(graph[2], e[2]) for e in eager)
+    for dist, floor in (
+            (lambda a, b: _rel(a[0], b[0]), 1e-6),
+            (lambda a, b: float((a[1] - b[1]).abs().max()),
+             1e-6 * float(eager[0][1].abs().max()))):
+        spread = max(dist(a, b) for i, a in enumerate(eager)
+                     for b in eager[:i])
+        got = statistics.median(dist(graph, e) for e in eager)
+        assert got <= max(2 * spread, floor), (got, spread)
+
+
+@pytest.mark.cuda
+def test_eval_chunk_graph_matches_eager_chunks(cuda_device):
+    """A ragged 600-ray render through the chunk graph (3 replays of a
+    256-ray chunk) against `render_chunk` run eagerly on the same chunks,
+    f32 atol 1e-4; new weights are seen by the next call."""
+    from pano_nerf_tpu_torch.core.rays import rays_map
+    from pano_nerf_tpu_torch.kernels.fused_render import pack_params
+    system, (rays, _) = _graph_system(cuda_device, False)
+    rays = rays_map(lambda x: x[:600].contiguous(), rays)
+    render_fn = system.make_render_image()
+
+    def eager():
+        padded = rays_map(lambda x: torch.cat(
+            [x, x[-1:].expand(168, x.shape[-1])], 0), rays)
+        with torch.no_grad():
+            packed = pack_params(system.model.mlp)
+            return torch.cat([system.render_chunk(rays_map(
+                lambda x: x[i:i + 256].contiguous(), padded), packed)
+                for i in range(0, 768, 256)])[:600].cpu()
+
+    for _ in range(2):
+        got = render_fn(None, rays)
+        want = eager()
+        got = torch.cat([got[k] for k in got], 1)
+        assert got.shape == want.shape == (600, 21)
+        assert float((got - want).abs().max()) <= 1e-4
+        with torch.no_grad():
+            for p in system.model.mlp.parameters():
+                p.mul_(0.9)
+
+
+@pytest.mark.cuda
+def test_resumed_graphed_run_continues_the_random_stream(cuda_device,
+                                                         tmp_path):
+    """16 graphed steps (K = 4) in one run, and 8 then a resume to 16 (the
+    second trainer restores the checkpoint, then captures its graphs):
+    the same generator state and step at the end, the same log steps, and
+    losses within the weight-gradient pass's run-to-run noise."""
+    import json
+    import os
+    from pano_nerf_tpu_torch import train as train_entry
+    from pano_nerf_tpu_torch.data.synthetic import generate_scene
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scene = str(tmp_path / "scene")
+    generate_scene(scene, n_views=3, height=32, width=64, seed=0)
+
+    def fit(out, steps):
+        return train_entry.main([
+            "--data_path", scene, "--out_dir", out, "--config",
+            os.path.join(repo, "configs", "panonerf.yaml"), "--init_seed",
+            "0", "train.factor", "1", "val.factor", "1", "train.sample_num",
+            "'n0_1'", "train.batch_size", "64", "log_every_n_step", "4",
+            "val.check_every_n_epoch", "1", "train.steps_per_call", "4",
+            "optimizer.max_steps", str(steps)])
+
+    straight = fit(str(tmp_path / "a"), 16)
+    fit(str(tmp_path / "b"), 8)
+    resumed = fit(str(tmp_path / "b"), 16)
+    a, b = straight.ckpt.restore(), resumed.ckpt.restore()
+    assert a["step"] == b["step"] == 16
+    assert torch.equal(a["generator"], b["generator"])
+    losses = []
+    for out in ("a", "b"):
+        with open(os.path.join(str(tmp_path / out), "panonerf_0_1",
+                               "metrics.jsonl")) as fp:
+            recs = [r for r in map(json.loads, fp) if r["kind"] == "train"]
+        assert [r["step"] for r in recs] == [4, 8, 12, 16]
+        losses.append([r["loss"] for r in recs])
+    assert max(abs(x - y) / abs(y) for x, y in zip(*losses)) < 0.05
