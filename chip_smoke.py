@@ -1,4 +1,6 @@
-"""Drive the PyTorch/CUDA port's render and train paths on one H100.
+"""Drive the PyTorch/CUDA port's render and train paths on one H100:
+Pano-NeRF (`configs/panonerf.yaml`) and the mip-NeRF baseline
+(`configs/mipnerf.yaml`).
 
 Run from the repository root on a machine with the card:
 
@@ -6,9 +8,10 @@ Run from the repository root on a machine with the card:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. Build every CUDA source of the port from `pano_nerf_tpu_torch/csrc/`
-   (one nvcc per source, all started together) and print the build time
-   and the compiler's register/spill report.
+1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
+   (one nvcc per source, and `fused_mlp.cu` once per density-channel
+   count, 5 and 1; all started together) and print the build time and
+   the compiler's register/spill report.
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
@@ -64,11 +67,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. Where the time goes in training: 16 steps under torch.profiler,
    graphed and eager, with the launch counters held against the kernels
    the profiler saw by name; 6b the same with the key on.
+2m. Kernels 2 and 3 built for one density channel (mip-NeRF) vs their
+   plain versions, full `configs/mipnerf.yaml` width: a train step at
+   batch 2048 (2048 x 64 = 131,072 rows per level: coarse and fine on
+   kernel 2, fine on kernel 3 as with the orientation loss), forward and
+   backward, outputs and every gradient, the density head's apart; an
+   eval chunk of 4,096 rays (262,144 rows: coarse on kernel 2, fine on
+   kernel 3's forward), forward. Times, bounds and the weight-gradient
+   pass as in phase 2. (Run right after phase 2.)
+7. mip-NeRF eval: `python -m pano_nerf_tpu_torch.eval --config
+   configs/mipnerf.yaml` (in process) on the phase-3 scene: each
+   4,096-ray chunk one replay, 8 launches of kernel 2 and 8 of kernel 3
+   per val panorama (plus the capture's warm-up, counted apart), no
+   plain-version call, the 8-product tree, finite metrics; graph vs
+   eager chunks (f32 atol 1e-4), ms per panorama, profile, and a small
+   render against the plain version on the CPU.
+8. mip-NeRF train: `python -m pano_nerf_tpu_torch.train --config
+   configs/mipnerf.yaml`, 200 steps at batch 2048, `train.steps_per_call`
+   8: per step 2 forward and 4 backward launches of kernel 2 (2 of them
+   the weight-gradient pass), no kernel 3; every loss finite and falling;
+   8b the 200-step checkpoint served through `eval --ckpt_dir`; then one
+   step on the card against the CPU, graphed against eager, ms per step
+   in turns and the profile, as phases 5 and 6. 8c: 24 steps with
+   `loss.ort_loss 0.1` (kernel 3 forward and backward on the fine level).
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
 weight-gradient pass (`fused_mlp_weight_grads`), shared by the backward
-of kernels 1, 2, 3 and 5, has its own entry. The last lines are the card (nvidia-smi name, power
+of kernels 1, 2, 3 and 5, has its own entry; kernels 2 and 3 at one
+density channel have entries of their own (`_c1`), with the launches of
+the mip-NeRF runs. The last lines are the card (nvidia-smi name, power
 limit), one JSON object with each kernel's numbers and
 `{"ok": true, "device": ...}`. No JAX is imported.
 """
@@ -88,6 +116,7 @@ MLP_MACS = 611_328         # one NerfMLP row at full width
 NORMAL_MACS = 507_904      # the fine level's density-gradient chain per row
 TRUNK_MACS = 507_904       # the 8 trunk layers of one row (the chain's count)
 CONFIG = "configs/panonerf.yaml"
+MIP_CONFIG = "configs/mipnerf.yaml"
 TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=1e-2, albedo=2e-2,
            roughness=2e-2)
 
@@ -100,17 +129,19 @@ def card_line() -> str:
 
 
 def build_kernels():
-    """Start every source's nvcc together, then wait for all."""
+    """Start every library's nvcc together (each source, and `fused_mlp.cu`
+    once per density-channel count), then wait for all."""
     from pano_nerf_tpu_torch.kernels import build
     from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
                                              fused_render_train)
-    sources = [fused_render.SOURCE, fused_mlp_ipe.SOURCE,
-               fused_render_train.SOURCE]
+    builds = ([(fused_render.SOURCE, ()), (fused_render_train.SOURCE, ())]
+              + [(fused_mlp_ipe.SOURCE, d)
+                 for d in fused_mlp_ipe.BUILDS.values()])
     t0 = time.perf_counter()
-    pending = [build.start_build(s) for s in sources]
+    pending = [build.start_build(*b) for b in builds]
     for p in pending:
         build.finish_build(p)
-    print(f"[build] {len(sources)} source(s) in "
+    print(f"[build] {len(builds)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for src, (log, secs) in build.BUILD_LOGS.items():
         injected = 0
@@ -252,18 +283,20 @@ def _wgrad_library(ops, normals: bool):
 
 
 def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
-                       shape: str, failures: list) -> dict:
+                       shape: str, failures: list, ndc: int = 5) -> dict:
     """The weight-gradient kernel on the operand rows `ops` that a row
     pass just wrote: held against `weight_grads_reference` per weight
     parameter, timed beside its plain version, its bound (the `rows` real
     operand rows read once, not the buffer's idle tile rows; f32 dw
     written once) and the
-    torch.matmul yardstick. Adds the shape to `entry`; returns the
+    torch.matmul yardstick, launched from the library built for `ndc`
+    density channels. Adds the shape to `entry` (into its sums at 5
+    channels, the shapes of the entry's earlier rows); returns the
     numbers."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels.fused_render import unpack_params
-    lib = k2.kernel_library()
+    lib = k2.kernel_library(ndc)
     dw = torch.zeros(k2.W_TOTAL, device=ops.device)
     k2.launch_weight_grads(lib, ops, dw, normals)
     want = k2.weight_grads_reference(ops, normals)
@@ -287,10 +320,10 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     library_ms = time_ms(_wgrad_library(ops, normals), reps=20)
     macs = (MLP_MACS + (NORMAL_MACS if normals else 0)) * rows
     bound = _bound(macs, rows * ops.shape[1] * 2 + k2.W_TOTAL * 4)
-    _add(entry, shape, ms, plain_ms, bound, err, rows=rows,
-         buffer_rows=ops.shape[0],
-         library_ms=library_ms, rel=rel)
-    entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
+    _add(entry, shape, ms, plain_ms, bound, err, total=ndc == 5, rows=rows,
+         buffer_rows=ops.shape[0], library_ms=library_ms, rel=rel)
+    if ndc == 5:
+        entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
     return dict(ms=ms, bound=bound, library_ms=library_ms, rel=rel)
 
 
@@ -367,63 +400,100 @@ def check_kernels(model, env, dev) -> dict:
     return entry
 
 
+# Kernel launches per 128x256 val panorama (32,768 rays) of each system:
+# Pano-NeRF 3 of kernel 4 per 1,024-ray chunk; mip-NeRF one of kernel 2
+# (coarse) and one of kernel 3's forward (fine) per 4,096-ray chunk.
+EVAL_LAUNCHES = {CONFIG: {"fused_render_level": 96},
+                 MIP_CONFIG: {"fused_mlp_ipe_fwd": 8,
+                              "fused_mlp_normals_fwd": 8}}
+
+
+def forbid_plain_versions():
+    """Make every kernel's plain version raise (a main path must not
+    reach one); returns the function that puts them back."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    from pano_nerf_tpu_torch.kernels import fused_render as fr
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on the main path")
+
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (k2, "fused_mlp_ipe_reference"), (k3, "fused_mlp_normals_reference"),
+        (k5, "fused_render_train_reference"),
+        (k1, "fused_mlp_apply_reference"),
+        (fr, "fused_render_level_reference"))]
+    for m, n, _ in saved:
+        setattr(m, n, no_plain)
+
+    def restore():
+        for m, n, f in saved:
+            setattr(m, n, f)
+    return restore
+
+
 def drive_main_path(workdir: str, scene: str, weights: list,
-                    step: int = 0) -> dict:
+                    step: int = 0, config: str = CONFIG) -> dict:
     """Render every val panorama through the eval entry point (graphed:
-    one chunk-graph replay per 1,024-ray chunk); returns the eval metrics
-    and the launch counts of the run. `weights` are the entry's weight
-    arguments (`--init_seed 0`, or `--ckpt_dir` of a training run)."""
+    one chunk-graph replay per `val.chunk_size` rays) with the system of
+    `config`; returns the eval metrics and the launch counts of the run.
+    `weights` are the entry's weight arguments (`--init_seed 0`, or
+    `--ckpt_dir` of a training run)."""
     from pano_nerf_tpu_torch import eval as eval_entry
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
     from pano_nerf_tpu_torch.kernels import counters
-    from pano_nerf_tpu_torch.kernels import fused_render as fr
-    out = os.path.join(workdir, "eval_" + "_".join(weights[:1]).strip("-"))
+    mip = config == MIP_CONFIG
+    out = os.path.join(workdir, ("mip_" if mip else "") + "eval_"
+                       + "_".join(weights[:1]).strip("-"))
     argv = (["--data_path", scene, "--out_dir", out] + weights
-            + ["--config", CONFIG, "train.sample_num", "'n0_1'"])
-
-    def no_plain(*a, **k):
-        raise AssertionError("the plain version ran on the main path")
-
-    plain = fr.fused_render_level_reference
-    fr.fused_render_level_reference = no_plain
+            + ["--config", config, "train.sample_num", "'n0_1'"])
+    restore = forbid_plain_versions()
     counters.reset_launch_counts()
     try:
         metrics = eval_entry.main(argv)
     finally:
         launches = counters.launch_counts()
         warmup = dict(counters.WARMUP)
-        fr.fused_render_level_reference = plain
+        restore()
     n = metrics["num_images"]
     if n < 1:
         raise AssertionError("no val panorama was rendered")
     if metrics["step"] != step:
         raise AssertionError(f"rendered step {metrics['step']}, expected "
                              f"{step}")
-    # 96 per panorama; the chunk graph's capture first ran eager warm-up
+    # Per panorama; the chunk graph's capture first ran eager warm-up
     # chunks (counted apart).
-    want = 96 * n + warmup.get("fused_render_level", 0)
-    if launches["fused_render_level"] != want:
-        raise AssertionError(f"{launches['fused_render_level']} kernel "
-                             f"launches for {n} panoramas, expected {want} "
-                             f"(warm-up {warmup})")
-    others = {k: v for k, v in launches.items() if k != "fused_render_level"}
-    if any(others.values()):
-        raise AssertionError(f"the eval path launched a training kernel: "
-                             f"{others}")
+    per_pano = EVAL_LAUNCHES[config]
+    for k in launches:
+        want = per_pano.get(k, 0) * n + warmup.get(k, 0)
+        if launches[k] != want:
+            raise AssertionError(f"{k}: {launches[k]} launches for {n} "
+                                 f"panoramas, expected {want} (warm-up "
+                                 f"{warmup})")
     for k, v in metrics.items():
         if isinstance(v, float) and v != v:
             raise AssertionError(f"metric {k} is NaN")
     tree = os.path.join(out, f"eval_{step:06d}")
-    for p in PRODUCTS:
+    products = [p for p in PRODUCTS if not (mip and p in (
+        "pred_hdr_surf", "pred_ldr_surf", "pred_albedo"))]
+    if sorted(os.listdir(tree)) != sorted(products):
+        raise AssertionError(f"product tree {sorted(os.listdir(tree))}")
+    for p in products:
         files = os.listdir(os.path.join(tree, p))
         if len(files) != n:
             raise AssertionError(f"{p}: {len(files)} files for {n} images")
-    print(f"[main] {' '.join(weights)}: {n} panoramas of 128x256 through "
-          f"the chunk graph: {launches['fused_render_level']} kernel "
-          f"launches ({96 * n} replayed + {want - 96 * n} in the capture's "
-          f"warm-up), {metrics['render_ms_per_pano']:.1f} ms per panorama, "
-          f"{metrics['rays_per_s']:.0f} rays/s on {metrics['device']}; "
-          f"other kernels' launches {json.dumps(others)}", flush=True)
+    counted = {k: launches[k] for k in per_pano}
+    print(f"[main{'-mip' if mip else ''}] {config} {' '.join(weights)}: "
+          f"{n} panoramas of 128x256 through the chunk graph: launches "
+          f"{json.dumps(counted)} ({json.dumps(per_pano)} per panorama + "
+          f"the capture's warm-up {json.dumps(warmup)}), "
+          f"{len(products)} products, {metrics['render_ms_per_pano']:.1f} "
+          f"ms per panorama, {metrics['rays_per_s']:.0f} rays/s on "
+          f"{metrics['device']}; other kernels' launches "
+          + json.dumps({k: v for k, v in launches.items()
+                        if k not in per_pano}), flush=True)
     return dict(metrics=metrics, launches=launches)
 
 
@@ -443,14 +513,13 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
     the host."""
     import torch
     from pano_nerf_tpu_torch.core.rays import rays_map
-    from pano_nerf_tpu_torch.engine.system import render_products
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
     chunk = system.val_chunk_size
     n = rays.origins.shape[0]
     pad = (-n) % chunk
     rays = rays_map(lambda x: torch.cat(
         [x, x[-1:].expand(pad, x.shape[-1])], 0), rays)
-    names = render_products(enable_surf)
+    names = system.render_products(enable_surf)
     with torch.no_grad():
         packed = pack_params(system.model.mlp)
         outs = [system.render_chunk(rays_map(
@@ -464,33 +533,44 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
     return parts
 
 
-def where_the_time_goes(scene: str, params=None, tag: str = "[eval]"
-                        ) -> None:
-    """The first val panorama rendered through the chunk graph and op by
-    op, on the same weights (from `--init_seed 0`, or the MLP state dict
-    `params`): the graph's products held against the eager ones (f32 atol
-    1e-4); ms per panorama of each, in turns (graph, eager, eager,
-    graph), 3 renders a turn; then one of each under torch.profiler
-    (device busy and idle share of the host wall time, top kernels)."""
+def _eval_system(scene: str, config: str, dev: str, factor=None):
+    """The system of `config` on `dev` with weights from seed 0 (env rays
+    set where it has them) and the scene's val split at `factor`
+    (default `val.factor`)."""
+    from pano_nerf_tpu_torch.core.config import load_config
+    from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
+    from pano_nerf_tpu_torch.engine.system import build_system
+    hp = load_config(config)
+    ds = PanoDataset(scene, split="val", num=[0, 1],
+                     factor=hp["val.factor"] if factor is None else factor)
+    system = build_system(hp, device=dev, init_seed=0)
+    if system.surface:
+        system.set_env_rays(ds.generate_lit_rays(
+            num=hp["nerf.num_ray_samples"], near=0.0, far=10.0))
+    return system, ds
+
+
+def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
+                        config: str = CONFIG) -> None:
+    """The first val panorama rendered by the system of `config` through
+    the chunk graph and op by op, on the same weights (from `--init_seed
+    0`, or the MLP state dict `params`): the graph's products held
+    against the eager ones (f32 atol 1e-4); ms per panorama of each, in
+    turns (graph, eager, eager, graph), 3 renders a turn; then one of each
+    under torch.profiler (device busy and idle share of the host wall
+    time, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
-    from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
-    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
-    hp = load_config(CONFIG)
-    ds = PanoDataset(scene, split="val", factor=hp["val.factor"], num=[0, 1])
-    system = PanoNeRFSystem(hp, device="cuda", init_seed=0)
-    system.set_env_rays(ds.generate_lit_rays(
-        num=hp["nerf.num_ray_samples"], near=0.0, far=10.0))
+    system, ds = _eval_system(scene, config, "cuda")
     if params is not None:
         system.model.mlp.load_state_dict(params)
     dev = torch.device("cuda")
     flat = rays_to_tensors(rays_map(lambda x: x.reshape(-1, x.shape[-1]),
                                     ds[0][0]), dev)
-    render_fn = system.make_render_image()
+    render_fn = system.make_render_image(system.surface)
     graphed = render_fn(None, flat)
-    eager = eager_render(system, flat)
+    eager = eager_render(system, flat, system.surface)
     errs = {k: float((graphed[k] - eager[k]).abs().max()) for k in eager}
     print(f"{tag} chunk graph vs eager chunks, max abs err per product "
           f"(f32 tolerance 1e-4): " + json.dumps(errs), flush=True)
@@ -499,7 +579,7 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]"
         raise AssertionError(f"the chunk graph's render differs from the "
                              f"eager render: {bad}")
     modes = {"graph": lambda: render_fn(None, flat),
-             "eager": lambda: eager_render(system, flat)}
+             "eager": lambda: eager_render(system, flat, system.surface)}
     times = {m: [] for m in modes}
     for m in ("graph", "eager", "eager", "graph"):
         for _ in range(3):
@@ -523,34 +603,31 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]"
         _report_profile(prof, wall_us, f"one {ds.h}x{ds.w} panorama, {m}")
 
 
-def check_against_plain(scene: str) -> None:
-    """A 16x32 view of the scene rendered on the card (kernel) and on the
-    CPU (plain version) with the same weights must agree."""
+def check_against_plain(scene: str, config: str = CONFIG,
+                        tag: str = "[check]") -> None:
+    """A 16x32 view of the scene rendered by the system of `config` on the
+    card (kernels) and on the CPU (plain versions) with the same weights
+    must agree."""
     import numpy as np
     import torch
-    from pano_nerf_tpu_torch.core.config import load_config
-    from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
     from pano_nerf_tpu_torch.engine import validation as V
-    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
-    hp = load_config(CONFIG)
-    ds = PanoDataset(scene, split="val", factor=32, num=[0, 1])
     out = {}
     for dev in ("cuda", "cpu"):
-        system = PanoNeRFSystem(hp, device=dev, init_seed=0)
-        system.set_env_rays(ds.generate_lit_rays(
-            num=hp["nerf.num_ray_samples"], near=0.0, far=10.0))
-        out[dev] = V.render_full_pano(system.make_render_image(), None,
-                                      ds[0][0], ds.h, ds.w,
-                                      torch.device(dev))
+        system, ds = _eval_system(scene, config, dev, factor=32)
+        out[dev] = V.render_full_pano(
+            system.make_render_image(system.surface), None, ds[0][0], ds.h,
+            ds.w, torch.device(dev))
     for k in ("rgb_fine", "dep_fine", "rgb_coarse", "dep_coarse",
               "albedo", "roughness"):
+        if k not in out["cpu"]:
+            continue
         err = float(np.abs(out["cuda"][k] - out["cpu"][k]).max())
-        print(f"[check] {k}: kernel vs plain max abs err {err:.3e}")
+        print(f"{tag} {k}: kernel vs plain max abs err {err:.3e}")
         if not err <= 5e-2:
             raise AssertionError(f"{k}: kernel render differs from the "
                                  f"plain render by {err}")
     cos = np.sum(out["cuda"]["normal"] * out["cpu"]["normal"], -1)
-    print(f"[check] normal cos median {np.median(cos):.5f}")
+    print(f"{tag} normal cos median {np.median(cos):.5f}")
     if not np.median(cos) > 0.99:
         raise AssertionError("normals of kernel and plain render disagree")
 
@@ -637,10 +714,79 @@ def train_shapes(model, env, dev, batch: int = 512):
                     venc(ld))}, levels
 
 
+MIP_BATCH = 2048    # configs/mipnerf.yaml train.batch_size
+MIP_CHUNK = 4096    # configs/mipnerf.yaml val.chunk_size
+MIP_EVAL = ("eval_coarse", "eval_fine")
+
+
+def _random_rays(n: int, seed: int, dev):
+    """`n` random primary rays from inside a scene-sized box."""
+    import torch
+    from pano_nerf_tpu_torch.core.rays import Rays
+    g = torch.Generator().manual_seed(seed)
+    d = torch.randn(n, 3, generator=g)
+    ones = torch.ones(n, 1)
+    rays = Rays(origins=(torch.rand(n, 3, generator=g) - 0.5) * 0.6,
+                directions=d, viewdirs=d / torch.linalg.norm(d, dim=-1,
+                                                             keepdim=True),
+                radii=ones * 0.0142, lossmult=ones, near=ones * 0.0,
+                far=ones * 10.0, noise_var=ones * 0.0)
+    return Rays(*(x.to(dev).contiguous() for x in rays))
+
+
+def mip_shapes(model, dev) -> dict:
+    """The kernel calls of the mip-NeRF paths at full width, built the way
+    `models/mip_nerf.py` builds them (plain version for the weights that
+    place the fine samples): a train step at batch 2048, 2048 x 64 =
+    131,072 rows per level (coarse and fine on kernel 2; the fine level on
+    kernel 3 with the orientation loss on), and an eval chunk of 4,096
+    rays, 262,144 rows per level (coarse on kernel 2, fine on kernel 3's
+    forward). name -> (normals?, means, covs, v_enc)."""
+    import torch
+    from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (
+        fused_mlp_ipe_reference)
+    from pano_nerf_tpu_torch.ops import mip
+    cfg = model.cfg
+    kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
+
+    def weights(rays, t, m, c, v):
+        raw_rgb, raw_den = fused_mlp_ipe_reference(model.mlp, m, c, v, **kw)
+        return mip.volumetric_rendering(
+            model._rgb(raw_rgb), model._density(raw_den[..., :1]), t,
+            rays.directions, False)[3]
+
+    calls = {}
+    with torch.no_grad():
+        rays = _random_rays(MIP_BATCH, 11, dev)
+        draws = model.make_draws(
+            MIP_BATCH, torch.Generator(device=dev).manual_seed(12))
+        v = model._venc(rays.viewdirs)
+        t0, (m0, c0) = mip.sample_along_rays(
+            rays.origins, rays.directions, rays.radii,
+            cfg.train_coarse_samples(), rays.near, rays.far, cfg.disparity,
+            t_rand=draws.t_coarse)
+        t1, (m1, c1) = mip.resample_along_rays(
+            rays.origins, rays.directions, rays.radii, t0,
+            weights(rays, t0, m0, c0, v), cfg.resample_padding,
+            num_samples=cfg.num_samples, u_rand=draws.u_fine)
+        calls.update(train_coarse=(False, m0, c0, v),
+                     train_fine=(False, m1, c1, v),
+                     train_fine_ort=(True, m1, c1, v))
+        rays = _random_rays(MIP_CHUNK, 7, dev)
+        v = model._venc(rays.viewdirs)
+        t0, (m0, c0) = cfg.sample_level(rays, 0, None, None)
+        _, (m1, c1) = cfg.sample_level(rays, 1, t0,
+                                       weights(rays, t0, m0, c0, v))
+        calls.update(eval_coarse=(False, m0, c0, v),
+                     eval_fine=(True, m1, c1, v))
+    return {k: (n, m.contiguous(), c.contiguous(), v)
+            for k, (n, m, c, v) in calls.items()}
+
+
 def _outs_and_grads(fn, mlp, means, covs, v_enc, **kw):
     """Outputs and the gradients of a loss on every output (a mean over
-    the rows, so the gradients are O(1)), w.r.t. the parameters (flat) and
-    the means."""
+    the rows, so the gradients are O(1)), w.r.t. the parameters (flat),
+    the means and, apart, the density head (weight and bias, flat)."""
     import torch
     mlp.zero_grad(set_to_none=True)
     m = means.detach().clone().requires_grad_(True)
@@ -650,8 +796,10 @@ def _outs_and_grads(fn, mlp, means, covs, v_enc, **kw):
         loss = loss + torch.sin(0.1 * outs[2]).sum()
     (loss / outs[0][..., 0].numel()).backward()
     flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
+    head = torch.cat([mlp.density_layer.weight.grad.reshape(-1),
+                      mlp.density_layer.bias.grad])
     mlp.zero_grad(set_to_none=True)
-    return [o.detach() for o in outs], flat, m.grad
+    return [o.detach() for o in outs], flat, m.grad, head
 
 
 def _rel(a, b) -> float:
@@ -660,9 +808,11 @@ def _rel(a, b) -> float:
 
 
 def _train_bound_ms(normals: bool, direction: str, rows: int,
-                    packed) -> float:
-    """Kernels 2 and 3: inputs read once and outputs written once."""
-    acts = 12 + 8 * 256 * 2 if normals else 0   # dsig | saved activations
+                    packed, save_acts: bool = True) -> float:
+    """Kernels 2 and 3: inputs read once and outputs written once (kernel
+    3's forward writes its trunk for the backward only with
+    `save_acts`, as in training; the eval render saves nothing)."""
+    acts = (12 + (8 * 256 * 2 if save_acts else 0)) if normals else 0
     if direction == "fwd":
         bytes_ = rows * (32 + 64 + 64 + acts) + _packed_bytes(packed, False)
     else:   # mc, v, cotangents (+ acts) in; d mc and f32 grads out
@@ -672,12 +822,16 @@ def _train_bound_ms(normals: bool, direction: str, rows: int,
                   bytes_)
 
 
-def check_train_kernels(model, dev, calls, wentry: dict) -> list:
+def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
+                        forward_only=(), tag: str = "[kernel]") -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
-    the shapes of one train step, and the weight-gradient pass on each
-    backward's own operand rows (into `wentry`); raises on a
-    disagreement. Returns the four JSON entries (launches filled in by
-    the train run)."""
+    the shapes `calls` (name -> (normals?, means, covs, v_enc)) of the
+    model's main path, built for its `ndc` density channels, and the
+    weight-gradient pass on each backward's own operand rows (into
+    `wentry`); the shapes in `forward_only` are eval shapes, run forward
+    only and without saved activations. Raises on a disagreement. Returns
+    the four JSON entries (launches filled in by the main path's runs;
+    names carry `_c1` at one channel)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -686,8 +840,9 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
     mlp, cfg = model.mlp, model.cfg
     kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
     packed = pack_params(mlp)
-    lib = k2.kernel_library()
-    entries = {name: _entry(name, "fused_mlp.cu", src_line)
+    lib = k2.kernel_library(ndc)
+    sfx = "" if ndc == 5 else f"_c{ndc}"
+    entries = {name: _entry(name + sfx, "fused_mlp.cu", src_line)
                for name, src_line in (
                    ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
                    ("fused_mlp_ipe_bwd", "fused_mlp_ipe.py:237"),
@@ -698,22 +853,34 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
         kern = k3.fused_mlp_normals_apply if normals else k2.fused_mlp_ipe_apply
         plain = (k3.fused_mlp_normals_reference if normals
                  else k2.fused_mlp_ipe_reference)
-        got, g_got, m_got = _outs_and_grads(kern, mlp, means, covs, v_enc,
-                                            packed=packed, **kw)
-        want, g_want, m_want = _outs_and_grads(plain, mlp, means, covs,
-                                               v_enc, **kw)
+        train = shape not in forward_only
+        if train:
+            got, g_got, m_got, h_got = _outs_and_grads(
+                kern, mlp, means, covs, v_enc, packed=packed, **kw)
+            want, g_want, m_want, h_want = _outs_and_grads(
+                plain, mlp, means, covs, v_enc, **kw)
+        else:
+            with torch.no_grad():
+                got = kern(mlp, means, covs, v_enc, packed=packed, **kw)
+                want = plain(mlp, means, covs, v_enc, **kw)
         torch.cuda.synchronize()
+        if got[1].shape[-1] != ndc:
+            raise AssertionError(f"{shape}: {got[1].shape[-1]} density "
+                                 f"channels, expected {ndc}")
         out_err = max(float((a - b).abs().max())
                       for a, b in zip(got[:2], want[:2]))
-        errs = dict(out_abs=out_err, grad_rel=_rel(g_got, g_want),
-                    grad_abs=float((g_got - g_want).abs().max()),
-                    dmc_rel=_rel(m_got, m_want))
+        errs = dict(out_abs=out_err)
+        grad_tol = TRAIN_TOL["grad_rel_k3" if normals else "grad_rel_k2"]
+        checks = [("out_abs", TRAIN_TOL["out_abs"])]
+        if train:
+            errs.update(grad_rel=_rel(g_got, g_want),
+                        grad_abs=float((g_got - g_want).abs().max()),
+                        head_rel=_rel(h_got, h_want),
+                        dmc_rel=_rel(m_got, m_want))
+            checks += [("grad_rel", grad_tol), ("head_rel", grad_tol),
+                       ("dmc_rel", TRAIN_TOL["dmc_rel"])]
         if normals:
             errs["dsig_rel"] = _rel(got[2], want[2])
-        grad_tol = TRAIN_TOL["grad_rel_k3" if normals else "grad_rel_k2"]
-        checks = [("out_abs", TRAIN_TOL["out_abs"]), ("grad_rel", grad_tol),
-                  ("dmc_rel", TRAIN_TOL["dmc_rel"])]
-        if normals:
             checks.append(("dsig_rel", TRAIN_TOL["dsig_rel"]))
         for k, tol in checks:
             if not errs[k] <= tol:
@@ -728,7 +895,7 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
         out = torch.empty((M, 16), device=dev)
         dsig = torch.empty((M, 3), device=dev)
         acts = (torch.empty((M, 2048), dtype=torch.bfloat16, device=dev)
-                if normals else None)
+                if normals and train else None)
         stream = torch.cuda.current_stream().cuda_stream
 
         def fwd():
@@ -736,8 +903,26 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
                 mc.data_ptr(), v.data_ptr(), packed[0].data_ptr(),
                 packed[1].data_ptr(), out.data_ptr(),
                 dsig.data_ptr() if normals else None,
-                acts.data_ptr() if normals else None, M, cfg.min_deg_point,
-                int(normals), stream))
+                acts.data_ptr() if acts is not None else None, M,
+                cfg.min_deg_point, int(normals), stream))
+
+        if not train:
+            ms_f = time_ms(fwd, reps=20)
+            with torch.no_grad():
+                plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc,
+                                                **kw), reps=3)
+            bound_f = _train_bound_ms(normals, "fwd", M, packed,
+                                      save_acts=False)
+            base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
+            _add(entries[f"{base}_fwd"], shape, ms_f, plain_f, bound_f,
+                 errs["out_abs"], rows=M, errors=errs)
+            print(f"{tag} {shape:12s} M={M} {'k3' if normals else 'k2'} "
+                  f"C={ndc}: fwd {ms_f:.3f} ms (plain {plain_f:.3f}, bound "
+                  f"{bound_f:.4f}); errors "
+                  + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                  + "; tolerances " + json.dumps(TRAIN_TOL), flush=True)
+            del out, dsig
+            continue
 
         g = torch.randn(M, 16, device=dev)
         q = torch.randn(M, 3, device=dev) if normals else None
@@ -761,7 +946,8 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
             32 + 64 + 64 + 32 + (12 + 8 * 256 * 2 if normals else 0))
             + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
         wg = check_weight_grads(mlp, ops, normals, M, wentry,
-                                f"k{3 if normals else 2}_{shape}", failures)
+                                f"k{3 if normals else 2}{sfx}_{shape}",
+                                failures, ndc=ndc)
         del ops, dw_r, db_r, dmc_r
         with torch.no_grad():
             plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
@@ -784,8 +970,8 @@ def check_train_kernels(model, dev, calls, wentry: dict) -> list:
                  errs["out_abs" if direction == "fwd" else "grad_abs"],
                  rows=M, errors=errs,
                  **(passes if direction == "bwd" else {}))
-        print(f"[kernel] {shape:6s} M={M} {'k3' if normals else 'k2'}: fwd "
-              f"{ms_f:.3f} ms (plain {plain_f:.3f}, bound "
+        print(f"{tag} {shape:6s} M={M} {'k3' if normals else 'k2'} "
+              f"C={ndc}: fwd {ms_f:.3f} ms (plain {plain_f:.3f}, bound "
               f"{_train_bound_ms(normals, 'fwd', M, packed):.4f}), bwd "
               f"{ms_b:.3f} ms (plain {plain_b:.3f}, bound "
               f"{_train_bound_ms(normals, 'bwd', M, packed):.4f}) = row "
@@ -1078,50 +1264,75 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
 
 
 TRAIN_STEPS = 200
-# Kernel launches of one train step (kernel 2 for coarse, view
+MIP_ORT_STEPS = 24   # phase 8c: the orientation-loss variant
+
+
+# Kernel launches of one train step. Pano-NeRF: kernel 2 for coarse, view
 # consistency and env, 1 for view consistency alone with the key on,
-# kernel 5 taking coarse and env; kernel 3 for the fine level; each
-# backward is two launches, the row pass and the weight-gradient pass; no
-# model path calls kernel 1).
-def per_step_launches(render_kernel: bool) -> dict:
-    fwd = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
-               fused_mlp_normals_fwd=1,
-               fused_render_train_fwd=2 if render_kernel else 0,
-               fused_mlp_apply_fwd=0)
+# kernel 5 taking coarse and env; kernel 3 for the fine level. mip-NeRF:
+# kernel 2 for both levels, or for the coarse one and kernel 3 for the
+# fine one with the orientation loss (`ort`). Each backward is two
+# launches, the row pass and the weight-gradient pass; no model path
+# calls kernel 1.
+def per_step_launches(render_kernel: bool, mip: bool = False,
+                      ort: bool = False) -> dict:
+    if mip:
+        fwd = dict(fused_mlp_ipe_fwd=1 if ort else 2,
+                   fused_mlp_normals_fwd=1 if ort else 0,
+                   fused_render_train_fwd=0, fused_mlp_apply_fwd=0)
+    else:
+        fwd = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
+                   fused_mlp_normals_fwd=1,
+                   fused_render_train_fwd=2 if render_kernel else 0,
+                   fused_mlp_apply_fwd=0)
     want = dict(fwd)
     for k, n in fwd.items():
         want[k.replace("_fwd", "_bwd")] = 2 * n
-    want["fused_mlp_weight_grads"] = sum(fwd.values())   # 4 either way
+    want["fused_mlp_weight_grads"] = sum(fwd.values())
     return want
 
 
+def _family(system) -> dict:
+    """What the checks need to know of a system: its tag suffix and its
+    launches per train step."""
+    cfg = system.model.cfg
+    mip = not system.surface
+    ort = mip and system.hparams["loss.ort_loss"] > 0
+    k5 = cfg.use_train_render_kernel and not mip
+    sfx = ("-mip" + ("-ort" if ort else "")) if mip else (
+        "-k5" if k5 else "")
+    return dict(mip=mip, k5=k5, sfx=sfx,
+                per_step=per_step_launches(k5, mip, ort))
+
+
 def drive_train_path(workdir: str, scene: str,
-                     render_kernel: bool = False) -> dict:
-    """Train 200 steps of the shipped config through the train entry point
-    (3 train views, 1 val view at train.factor 4, `train.steps_per_call`
-    8: groups of 8 steps and single steps, each dispatch one CUDA graph
-    replay), with `nerf.use_train_render_kernel` off or on; launch counts
-    zeroed just before and read just after, plain versions forbidden,
-    every step's loss recorded (a dispatch returns the losses of all its
-    steps)."""
+                     render_kernel: bool = False, config: str = CONFIG,
+                     opts=(), steps: int = TRAIN_STEPS) -> dict:
+    """Train `steps` steps of `config` through the train entry point (3
+    train views, 1 val view at train.factor 4, `train.steps_per_call` 8:
+    groups of 8 steps and single steps, each dispatch one CUDA graph
+    replay), with `nerf.use_train_render_kernel` off or on and the
+    overrides `opts`; launch counts zeroed just before and read just
+    after, plain versions forbidden, every step's loss recorded (a
+    dispatch returns the losses of all its steps); over 200 steps the
+    loss must fall."""
     import torch
     from pano_nerf_tpu_torch import train as train_entry
-    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    from pano_nerf_tpu_torch.engine.system import BaseSystem
     from pano_nerf_tpu_torch.kernels import counters
-    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
-    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
-    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
-    from pano_nerf_tpu_torch.kernels import fused_render as fr
-    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
-    tag = "[train-k5]" if render_kernel else "[train]"
-    out = os.path.join(workdir, "train_k5" if render_kernel else "train")
-    argv = ["--data_path", scene, "--out_dir", out, "--config", CONFIG,
+    mip = config == MIP_CONFIG
+    name = ("mip" if mip else "train") + ("_k5" if render_kernel else "") + (
+        "_" + "_".join(str(o) for o in opts).replace(".", "") if opts
+        else "")
+    out = os.path.join(workdir, name)
+    argv = ["--data_path", scene, "--out_dir", out, "--config", config,
             "--init_seed", "0", "train.sample_num", "'n0_1_2'",
-            "optimizer.max_steps", str(TRAIN_STEPS), "log_every_n_step", "50"]
+            "optimizer.max_steps", str(steps), "log_every_n_step", "50",
+            *opts]
     if render_kernel:
         argv += ["nerf.use_train_render_kernel", "True"]
     losses, dispatches, graphs = [], [], []
-    make = PanoNeRFSystem.make_train_step_device_data
+    make = BaseSystem.make_train_step_device_data
 
     def recording(self, state, dataset, gen, surf, batch, k=1):
         run = make(self, state, dataset, gen, surf, batch, k)
@@ -1134,17 +1345,8 @@ def drive_train_path(workdir: str, scene: str,
             return parts, step_losses
         return wrapped
 
-    def no_plain(*a, **k):
-        raise AssertionError("a plain version ran on the main path")
-
-    saved = [(m, n, getattr(m, n)) for m, n in (
-        (k2, "fused_mlp_ipe_reference"), (k3, "fused_mlp_normals_reference"),
-        (k5, "fused_render_train_reference"),
-        (k1, "fused_mlp_apply_reference"),
-        (fr, "fused_render_level_reference"))]
-    for m, n, _ in saved:
-        setattr(m, n, no_plain)
-    PanoNeRFSystem.make_train_step_device_data = recording
+    restore = forbid_plain_versions()
+    BaseSystem.make_train_step_device_data = recording
     counters.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -1154,17 +1356,18 @@ def drive_train_path(workdir: str, scene: str,
         wall = time.perf_counter() - t0
         launches = counters.launch_counts()
         warmup = dict(counters.WARMUP)
-        PanoNeRFSystem.make_train_step_device_data = make
-        for m, n, f in saved:
-            setattr(m, n, f)
+        BaseSystem.make_train_step_device_data = make
+        restore()
+    family = _family(trainer.system)
+    tag = f"[train{family['sfx']}]"
     vals = [float(x) for x in torch.cat(losses).cpu()]
-    if len(vals) != TRAIN_STEPS or sum(dispatches) != TRAIN_STEPS:
-        raise AssertionError(f"{len(vals)} steps ran, expected {TRAIN_STEPS}")
+    if len(vals) != steps or sum(dispatches) != steps:
+        raise AssertionError(f"{len(vals)} steps ran, expected {steps}")
     replays = sum(g.replays for g in graphs)
     if replays != len(dispatches):
         raise AssertionError(f"{len(dispatches)} dispatches but {replays} "
                              f"graph replays")
-    if dispatches.count(8) < 20:
+    if dispatches.count(8) < steps // 8 - 5:
         raise AssertionError(f"too few 8-step groups: {dispatches}")
     bad = [i for i, x in enumerate(vals) if not x == x or abs(x) == float("inf")]
     if bad:
@@ -1173,40 +1376,42 @@ def drive_train_path(workdir: str, scene: str,
     print(f"{tag} {len(dispatches)} dispatches ({dispatches.count(8)} groups "
           f"of 8 steps, {dispatches.count(1)} single steps) through "
           f"{len(graphs)} captured graphs; mean loss of steps 1-20 "
-          f"{first:.6f}, of steps {TRAIN_STEPS - 19}-{TRAIN_STEPS} "
-          f"{last:.6f}")
-    if not last < first:
-        raise AssertionError("the loss did not fall over 200 steps")
-    # Per step, plus what the captures' eager warm-up steps launched (and
-    # the eval chunk graph's warm-up chunks): exact.
-    for k, n in per_step_launches(render_kernel).items():
-        if launches[k] != n * TRAIN_STEPS + warmup.get(k, 0):
-            raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{TRAIN_STEPS} steps, expected {n} per "
-                                 f"step + {warmup.get(k, 0)} in warm-ups")
-    val_launches = launches["fused_render_level"] - warmup.get(
-        "fused_render_level", 0)
-    if val_launches != 96 * 2:   # the sanity pass and the final one
-        raise AssertionError(f"{val_launches} kernel-4 launches in the "
-                             f"two validations, expected 192")
+          f"{first:.6f}, of steps {steps - 19}-{steps} {last:.6f}")
+    if steps >= TRAIN_STEPS and not last < first:
+        raise AssertionError(f"the loss did not fall over {steps} steps")
+    # Per step, per val panorama (the sanity pass and the final one), plus
+    # what the captures' eager warm-up steps and chunks launched: exact.
+    per_step, per_pano = family["per_step"], EVAL_LAUNCHES[config]
+    for k in launches:
+        want = (per_step.get(k, 0) * steps + per_pano.get(k, 0) * 2
+                + warmup.get(k, 0))
+        if launches[k] != want:
+            raise AssertionError(
+                f"{k}: {launches[k]} launches in {steps} steps and two "
+                f"validations, expected {per_step.get(k, 0)} per step + "
+                f"{per_pano.get(k, 0)} per panorama + "
+                f"{warmup.get(k, 0)} in warm-ups")
     save_dir = trainer.hparams["save_dir"]
     with open(os.path.join(save_dir, "metrics.jsonl")) as fp:
         recs = [json.loads(line) for line in fp]
     train_recs = [r for r in recs if r["kind"] == "train"]
     vals_recs = [r for r in recs if r["kind"] == "val"]
-    if [r["step"] for r in vals_recs] != [0, TRAIN_STEPS]:
+    if [r["step"] for r in vals_recs] != [0, steps]:
         raise AssertionError(f"validations at {[r['step'] for r in vals_recs]}")
     rps = [r["rays_per_sec"] for r in train_recs]
     batch = int(trainer.hparams["train.batch_size"])
     # The first window includes the captures; report the later ones.
     steady = rps[1:] if len(rps) > 1 else rps
-    mean_rps = sum(steady) / len(steady)
-    print(f"{tag} {TRAIN_STEPS} steps of batch {batch} on "
+    mean_rps = sum(steady) / len(steady) if steady else None
+    rate = ("no 50-step window" if mean_rps is None else
+            "train rays/s per 50-step window "
+            + ", ".join(f"{x:.1f}" for x in rps)
+            + f"; steady {mean_rps:.1f} rays/s = "
+            f"{1e3 * batch / mean_rps:.3f} ms per step")
+    print(f"{tag} {steps} steps of batch {batch} on "
           f"{trainer.train_dataset.num_rays:,} rays ({wall:.1f} s with "
-          f"validation and captures): train rays/s per 50-step window "
-          + ", ".join(f"{x:.1f}" for x in rps)
-          + f"; steady {mean_rps:.1f} rays/s = {1e3 * batch / mean_rps:.3f} "
-          f"ms per step; launches " + json.dumps(launches)
+          f"validation and captures): {rate}; launches "
+          + json.dumps(launches)
           + " of which warm-up " + json.dumps(warmup)
           + f"; final val psnr_ldr_vol {vals_recs[-1]['psnr_ldr_vol']:.3f}",
           flush=True)
@@ -1252,8 +1457,7 @@ def time_train_modes(trainer, steps: int = 48) -> dict:
         modes[m]()
         torch.cuda.synchronize()
         times[m].append(1e3 * (time.perf_counter() - t0) / steps)
-    tag = ("[time-k5]" if system.model.cfg.use_train_render_kernel
-           else "[time]")
+    tag = f"[time{_family(system)['sfx']}]"
     res = {}
     for m, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -1329,8 +1533,7 @@ def check_graphed_against_eager(trainer) -> None:
                           lambda a, b: float((a[1] - b[1]).abs().max()),
                           1e-6 * loss_scale)
     same_gen = all(torch.equal(graph[2], e[2]) for e in eager)
-    tag = ("[graph-k5]" if system.model.cfg.use_train_render_kernel
-           else "[graph]")
+    tag = f"[graph{_family(system)['sfx']}]"
     print(f"{tag} {GRAPH_STEPS} steps from one state: eager vs eager "
           f"spread ({EAGER_RUNS} runs, largest of the pairs) params "
           f"rel-norm {params[0]:.3e}, per-step loss {loss[0]:.3e}; graphed "
@@ -1343,23 +1546,24 @@ def check_graphed_against_eager(trainer) -> None:
 
 
 def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
-    """One train step (clip off) on `dev`; returns (loss parts, flat
-    gradient on the CPU)."""
+    """One train step (clip off) on `dev` of the config's system, with the
+    draws `draws_np` (numpy, of the system's draws type); returns (loss
+    parts, flat gradient on the CPU)."""
     import numpy as np
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
-    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
-    from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
-    system = PanoNeRFSystem(dict(hp, **{"optimizer.grad_clip": 0.0}),
-                            device=dev)
+    from pano_nerf_tpu_torch.engine.system import build_system
+    system = build_system(dict(hp, **{"optimizer.grad_clip": 0.0}),
+                          device=dev)
     system.model.mlp.load_state_dict(state_dict)
-    D = int(hp["nerf.num_ray_samples"])
-    system.set_env_rays(ds.generate_lit_rays(num=D, near=0.0, far=10.0))
+    if system.surface:
+        D = int(hp["nerf.num_ray_samples"])
+        system.set_env_rays(ds.generate_lit_rays(num=D, near=0.0, far=10.0))
     T = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
     rays = Rays(*(T(getattr(ds.rays, k)[idx]) for k in Rays._fields))
     parts = system.make_train_step(True)(
         system.create_state(), rays, T(ds.images[idx]),
-        TrainDraws(*(T(x) for x in draws_np)))
+        type(draws_np)(*(T(x) for x in draws_np)))
     grads = torch.cat([p.grad.reshape(-1).cpu() for p in
                        system.model.mlp.parameters()])
     return {k: float(v) for k, v in parts.items()}, grads
@@ -1380,19 +1584,22 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
     two normal-dependent terms the card's and the CPU's bf16 gradients
     must agree at rel-norm 5e-2."""
     import numpy as np
+    from pano_nerf_tpu_torch.models.mip_nerf import MipDraws
     from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
     hp = trainer.hparams
     cfg = trainer.system.model.cfg
     ds = trainer.train_dataset
-    tag = "[check-k5]" if cfg.use_train_render_kernel else "[check]"
+    tag = f"[check{_family(trainer.system)['sfx']}]"
     rng = np.random.default_rng(5)
     idx = rng.integers(0, ds.num_rays, num_rays)
     D = int(hp["nerf.num_ray_samples"])
-    draws_np = TrainDraws(
-        t_coarse=rng.random((num_rays, cfg.train_coarse_samples() + 1)),
-        u_fine=rng.random((num_rays, cfg.num_samples + 1)),
+    t_coarse = rng.random((num_rays, cfg.train_coarse_samples() + 1))
+    u_fine = rng.random((num_rays, cfg.num_samples + 1))
+    draws_np = (TrainDraws(
+        t_coarse=t_coarse, u_fine=u_fine,
         t_env=rng.random((num_rays, D, cfg.num_env_samples + 1)),
-        d_alt=rng.normal(size=(num_rays, 3)))
+        d_alt=rng.normal(size=(num_rays, 3))) if trainer.system.surface
+        else MipDraws(t_coarse=t_coarse, u_fine=u_fine))
     sd = {k: v.detach().cpu().clone() for k, v in
           trainer.system.model.mlp.state_dict().items()}
     args = (sd, ds, idx, draws_np)
@@ -1418,7 +1625,8 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
                                                                  "cpu"))
     e = _rel(card_p[1], cpu_p[1])
     print(f"{tag} train step gradients without the orientation and "
-          f"surface terms: card vs cpu rel-norm {e:.3e} (tolerance 5e-2)")
+          f"surface terms (mip-NeRF's shipped loss has neither): card vs "
+          f"cpu rel-norm {e:.3e} (tolerance 5e-2)")
     if not e <= 5e-2:
         failures.append("grads without normal terms")
     if failures:
@@ -1461,8 +1669,10 @@ def profile_train_step(trainer, steps: int = 16) -> None:
     graphed = system.make_graphed_train_step(state, data, gen, True, batch,
                                              8)
     one = system.make_device_step(data, gen, True, batch)
-    k5 = system.model.cfg.use_train_render_kernel
-    what = f"{steps} train steps" + (" with the render kernel" if k5 else "")
+    family = _family(system)
+    what = f"{steps} train steps" + dict(
+        [("-k5", " with the render kernel"), ("-mip", " of mip-NeRF")]).get(
+            family["sfx"], "")
     for mode in ("graph", "eager"):
         fn = ((lambda: graphed(state)) if mode == "graph"
               else (lambda: one(state)))
@@ -1489,7 +1699,7 @@ def profile_train_step(trainer, steps: int = 16) -> None:
         for name, (counter, per) in PROFILED_KERNELS.items():
             from_trace[counter] = from_trace.get(counter, 0) + per * seen[
                 name]
-        want = {k: n * steps for k, n in per_step_launches(k5).items()}
+        want = {k: n * steps for k, n in family["per_step"].items()}
         want["fused_render_level"] = 0
         print(f"[time] {what}, {mode}: launch counters "
               + json.dumps(counted) + "; from the profiler's kernel names "
@@ -1498,7 +1708,7 @@ def profile_train_step(trainer, steps: int = 16) -> None:
             raise AssertionError(f"{mode} steps: launch counters "
                                  f"{counted} and profiled kernels "
                                  f"{from_trace} disagree with {want}")
-    if not k5:
+    if family["sfx"] == "":
         adam_grads_ab(state.optimizer)
 
 
@@ -1625,6 +1835,7 @@ def main() -> int:
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.core.rays import rays_to_tensors
     from pano_nerf_tpu_torch.data.pano_dataset import generate_lit_rays
+    from pano_nerf_tpu_torch.models.mip_nerf import MipNeRF
     from pano_nerf_tpu_torch.models.pano_mip_nerf import PanoMipNeRF
     dev = torch.device("cuda")
     hp = load_config(CONFIG)
@@ -1639,9 +1850,15 @@ def main() -> int:
     train_entries = check_train_kernels(model, dev, calls, wentry)
     k5_entries = check_train_render_kernel(model, dev, levels, wentry)
     k1_entries = check_fused_mlp_kernel(model, dev, levels, wentry)
+    del calls, levels
+    mip_model = MipNeRF.from_hparams(
+        load_config(MIP_CONFIG), torch.Generator().manual_seed(0)).to(dev)
+    mip_entries = check_train_kernels(
+        mip_model, dev, mip_shapes(mip_model, dev), wentry, ndc=1,
+        forward_only=MIP_EVAL, tag="[kernel-mip]")
+    del mip_model
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
-    del calls, levels
     with tempfile.TemporaryDirectory() as workdir:
         scene = make_scene(workdir)
         run = drive_main_path(workdir, scene, ["--init_seed", "0"])
@@ -1663,17 +1880,42 @@ def main() -> int:
             check_graphed_against_eager(t["trainer"])
             time_train_modes(t["trainer"])
             profile_train_step(t["trainer"])
+        del train["trainer"], train_k5["trainer"]
+        # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
+        # 8c: with the orientation loss, kernel 3 forward and backward).
+        mip_run = drive_main_path(workdir, scene, ["--init_seed", "0"],
+                                  config=MIP_CONFIG)
+        where_the_time_goes(scene, tag="[eval-mip]", config=MIP_CONFIG)
+        check_against_plain(scene, MIP_CONFIG, tag="[check-mip]")
+        mip_train = drive_train_path(workdir, scene, config=MIP_CONFIG)
+        mip_trained = drive_main_path(workdir, scene,
+                                      ["--ckpt_dir", mip_train["save_dir"]],
+                                      step=TRAIN_STEPS, config=MIP_CONFIG)
+        where_the_time_goes(scene, params=mip_train["trainer"].ckpt.restore(
+            map_location=dev)["params"], tag="[eval-mip-trained]",
+            config=MIP_CONFIG)
+        check_train_step_against_cpu(mip_train["trainer"])
+        check_graphed_against_eager(mip_train["trainer"])
+        time_train_modes(mip_train["trainer"])
+        profile_train_step(mip_train["trainer"])
+        mip_ort = drive_train_path(workdir, scene, config=MIP_CONFIG,
+                                   opts=("loss.ort_loss", "0.1"),
+                                   steps=MIP_ORT_STEPS)
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
     for e in k5_entries:
         e["launches"] = train_k5["launches"][e["name"]]
-    for e in k1_entries + [wentry]:   # counted over all four runs
+    mip_runs = (mip_run, mip_trained, mip_train, mip_ort)
+    for e in mip_entries:   # the one-channel build, over the mip-NeRF runs
+        e["launches"] = sum(r["launches"][e["name"][:-3]] for r in mip_runs)
+    for e in k1_entries + [wentry]:   # counted over all eight runs
         e["launches"] = sum(r["launches"][e["name"]]
-                            for r in (run, trained, train, train_k5))
+                            for r in (run, trained, train, train_k5)
+                            + mip_runs)
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
-                      + k5_entries}))
+                      + k5_entries + mip_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,11 @@
 //
 // Rows are Gaussian moments mc [M, 8] = means(3) | covs(3) | pad(2), f32
 // (or x for ENCODED), and per-row viewdir encodings v [M, 32] bf16 (27
-// used). The output slab is [M, 16] f32: raw rgb (3) | raw density (5) | 0.
+// used). The output slab is [M, 16] f32: raw rgb (3) | raw density (NDC)
+// | 0. NDC, the density channels, is fixed per build (nerf_mlp.cuh): the
+// library is built once with 5 (Pano-NeRF) and once with 1 (mip-NeRF);
+// the backward zeroes the head cotangent past NDC, so padded lanes add
+// nothing to the density head's gradient.
 //
 // The backward is two launches, and each has its own bound on an H100:
 // * The row pass (fused_mlp_bwd_kernel) recomputes the forward (or loads
@@ -520,6 +524,7 @@ int fused_mlp_weight_count() { return W_TOTAL; }
 int fused_mlp_bias_count() { return B_TOTAL; }
 int fused_mlp_tile_rows() { return TM; }
 int fused_mlp_ops_width(int normals) { return normals ? OPW_NRM : OPW_IPE; }
+int fused_mlp_density_channels() { return NDC; }
 
 const char* fused_mlp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -50,6 +50,8 @@
 
 #include "mlp_rows.cuh"
 
+static_assert(nerf_mlp::NDC == 5, "built for the 5-channel density head");
+
 namespace {
 
 using namespace nerf_mlp;

@@ -567,7 +567,7 @@ __device__ __forceinline__ uint4 vcodes(const F& src, int r, int c) {
 // zero past nrows): bottleneck and view branch. With OUT, also the
 // density and color heads: on return s.heads [tile rows x 16] f32 holds
 // raw rgb (+ bias) in columns 0..2 and raw density (+ bias) in columns
-// 3..7. With OPS (column split only), the bottleneck, the viewdir codes
+// 3..3+NDC-1. With OPS (column split only), the bottleneck, the viewdir codes
 // and the view-branch activation go to their operand rows (map `ops`,
 // row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves the
 // view-branch activation in act columns 0..127.
@@ -710,7 +710,8 @@ __device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
 }
 
 // MLP backward from the head cotangent s.g ([64 x 16] f32: rgb 0..2,
-// density 3..7; zero on rows that must add nothing), after trunk_* and
+// density 3..3+NDC-1, the lanes past them read as zero; zero on rows that
+// must add nothing), after trunk_* and
 // heads_forward filled the masks and the forward operand rows. Writes the
 // cotangent operand rows (map `ops`, row ops_row0; `ops_rows` the tile's
 // first operand row, for the narrow columns), adds the bias gradients

@@ -19,7 +19,15 @@ constexpr int XP = 48;   // half of XF (the sin block)
 constexpr int VK = 288;  // view-layer input: bottleneck 256 + 27, padded
 constexpr int VW = 128;  // view-branch width
 constexpr int HP = 16;   // padded head width (density 5, color 3)
-constexpr int NDC = 5;   // density channels: sigma | albedo(3) | roughness
+// Density channels of the head: 5 for Pano-NeRF (sigma | albedo(3) |
+// roughness), 1 for mip-NeRF (sigma). A compile-time parameter of the row
+// passes, set per build (-DNERF_NDC=1 or 5; kernels/build.py); the padded
+// head (HP) and the packed layout are the same for both.
+#ifndef NERF_NDC
+#define NERF_NDC 5
+#endif
+constexpr int NDC = NERF_NDC;
+static_assert(NDC >= 1 && NDC <= HP - 3, "the head holds rgb and density");
 constexpr int TM = 64;   // sample rows of one warpgroup product's A tile
 constexpr int NT = 256;  // consumer threads per block (two warpgroups)
 

@@ -1,13 +1,15 @@
-"""Training losses of the Pano-NeRF system.
+"""Training losses of the Pano-NeRF and mip-NeRF systems.
 
 Counterpart of pano_nerf_tpu/engine/losses.py over the terms that
-`configs/panonerf.yaml` turns on: coarse / fine / surface volume losses on
-tone-mapped LDR (ground truth quantized to 8 bits, predictions tone-mapped
-without the clamp), the albedo chromaticity prior, the orientation loss,
-the distortion loss, the saturation runaway guard and the luma
-view-consistency tie. Loss keys whose non-default value needs a term the
+`configs/panonerf.yaml` turns on (`pano_losses`): coarse / fine / surface
+volume losses on tone-mapped LDR (ground truth quantized to 8 bits,
+predictions tone-mapped without the clamp), the albedo chromaticity
+prior, the orientation loss, the distortion loss, the saturation runaway
+guard and the luma view-consistency tie; and the mip-NeRF baseline's
+(`mipnerf_losses`). Loss keys whose non-default value needs a term the
 port does not have raise NotImplementedError naming the key
-(`check_loss_config`).
+(`check_loss_config`); the baseline reads only its own keys
+(`check_mipnerf_loss_config`).
 """
 
 from __future__ import annotations
@@ -68,6 +70,19 @@ def check_loss_config(hparams: dict) -> None:
             raise NotImplementedError(
                 f"{key}={hparams[key]!r} is not supported by the "
                 "PyTorch/CUDA train step")
+
+
+# The loss keys `mipnerf_losses` reads; it ignores every other loss key,
+# as the JAX baseline does.
+MIPNERF_KEYS = ("loss.coarse_loss_mult", "loss.ort_loss")
+
+
+def check_mipnerf_loss_config(hparams: dict) -> None:
+    """Raise KeyError naming the first loss key of the baseline that the
+    config lacks."""
+    for key in MIPNERF_KEYS:
+        if key not in hparams:
+            raise KeyError(f"{key}: the mip-NeRF loss needs it")
 
 
 def masked_mse(pred: Tensor, target: Tensor, mask: Tensor) -> Tensor:
@@ -149,5 +164,27 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
                             torch.log1p(torch.relu(fine.rgb)), mask)
         loss = loss + w_vc * vc
         parts["vc"] = vc
+    parts["loss"] = loss
+    return parts
+
+
+def mipnerf_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
+                   hparams: Dict) -> Dict[str, Optional[Tensor]]:
+    """The mip-NeRF baseline's loss over [coarse, fine] LevelOutputs: LDR
+    MSE of both levels against the 8-bit quantized ground truth (the
+    predictions tone-mapped with the clamp), the coarse one weighted by
+    `loss.coarse_loss_mult`, plus `loss.ort_loss` x the fine orientation
+    loss when that weight is positive. Returns 'loss' and each component
+    (`ort` None when off)."""
+    coarse, fine = outputs[0], outputs[-1]
+    ldr_gt = hdr_to_ldr(rgbs_gt, quantize=True)
+    vol_coarse = masked_mse(hdr_to_ldr(coarse.rgb), ldr_gt, mask)
+    vol_fine = masked_mse(hdr_to_ldr(fine.rgb), ldr_gt, mask)
+    loss = hparams["loss.coarse_loss_mult"] * vol_coarse + vol_fine
+    parts: Dict[str, Optional[Tensor]] = dict(vol_coarse=vol_coarse,
+                                              vol_fine=vol_fine, ort=None)
+    if fine.ort_loss is not None and hparams["loss.ort_loss"] > 0:
+        loss = loss + hparams["loss.ort_loss"] * fine.ort_loss
+        parts["ort"] = fine.ort_loss
     parts["loss"] = loss
     return parts

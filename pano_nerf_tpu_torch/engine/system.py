@@ -1,20 +1,23 @@
-"""The Pano-NeRF system: model, env rays, the train step and the renderer.
+"""The training systems: model, the train step and the renderer.
 
-Counterpart of pano_nerf_tpu/engine/system.py: `PanoNeRFSystem.
-make_train_step` (one optimizer step on a ray batch, Adam on
-`mip_lr_decay` behind the global-norm clip),
-`make_train_step_device_data` (the batch drawn on the device from the
-resident ray set, K steps per dispatch: `_jit_steps`) and
-`make_render_image` (chunked by `BaseSystem._chunked`). Where JAX jits, the
-port captures CUDA graphs on the card (`engine/graphs.py`): the K-step
-train dispatch and the eval chunk; the eager step stays as the body that
-is captured, and is what runs on the CPU.
+Counterpart of pano_nerf_tpu/engine/system.py: `BaseSystem` (the device,
+Adam on `mip_lr_decay` behind the global-norm clip, the state), the two
+systems `PanoNeRFSystem` (env rays, the surface path) and `MipNeRFSystem`
+(the LDR-supervised baseline) with their `make_train_step` (one optimizer
+step on a ray batch), `make_train_step_device_data` (the batch drawn on
+the device from the resident ray set, K steps per dispatch: `_jit_steps`)
+and `make_render_image` (chunked by `BaseSystem._chunked`), and
+`build_system`, keyed on `nerf.mlp_name`. Where JAX jits, the port
+captures CUDA graphs on the card (`engine/graphs.py`): the K-step train
+dispatch and the eval chunk; the eager step stays as the body that is
+captured, and is what runs on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -24,7 +27,7 @@ from pano_nerf_tpu_torch.engine import losses as losses_lib
 from pano_nerf_tpu_torch.engine.graphs import CapturedGraph
 from pano_nerf_tpu_torch.engine.schedule import lr_table
 from pano_nerf_tpu_torch.kernels.fused_render import pack_params
-from pano_nerf_tpu_torch.models.pano_mip_nerf import PanoMipNeRF, TrainDraws
+from pano_nerf_tpu_torch.models import build_model
 
 Tensor = torch.Tensor
 
@@ -39,13 +42,13 @@ TRAIN_UNSUPPORTED: Dict[str, Callable] = {
 
 def check_train_config(hparams: Dict) -> None:
     """Raise NotImplementedError naming the first key that needs a
-    training path the port lacks (model keys are checked by NerfConfig)."""
+    training path the port lacks (model keys are checked by NerfConfig,
+    loss keys by the system's `_check_losses`)."""
     for key, unsupported in TRAIN_UNSUPPORTED.items():
         if key in hparams and unsupported(hparams[key]):
             raise NotImplementedError(
                 f"{key}={hparams[key]!r} is not supported by the "
                 "PyTorch/CUDA train step")
-    losses_lib.check_loss_config(hparams)
 
 
 def clip_by_global_norm_(params: List[Tensor], max_norm: float) -> Tensor:
@@ -124,28 +127,71 @@ def render_products(enable_surf: bool) -> List[Tuple[str, int]]:
     return products
 
 
-class PanoNeRFSystem:
-    """Holds the model on its device and renders images in chunks.
+class BaseSystem:
+    """Holds a model on its device, its train step and its renderer.
 
     `device` defaults to the CUDA card; pass "cpu" for the plain PyTorch
-    path. `init_seed` seeds the `torch.Generator` of the Xavier init.
+    path. `init_seed` seeds the `torch.Generator` of the Xavier init. A
+    subclass names its family (`mlp_name`), says whether it has the
+    surface path (`surface`) and supplies the forward and loss of a train
+    step, the draws of a step, the render of a chunk and its products.
     """
+
+    mlp_name = ""
+    surface = False   # env rays and the surface products (Pano-NeRF)
 
     def __init__(self, hparams: Dict,
                  device: Optional[Union[str, torch.device]] = None,
                  init_seed: int = 0):
-        if hparams["nerf.mlp_name"] != "panonerf":
-            raise NotImplementedError(
-                f"nerf.mlp_name={hparams['nerf.mlp_name']!r}: the port "
-                "renders the 'panonerf' system only")
+        if hparams["nerf.mlp_name"] != self.mlp_name:
+            raise ValueError(
+                f"nerf.mlp_name={hparams['nerf.mlp_name']!r}: "
+                f"{type(self).__name__} serves {self.mlp_name!r}; "
+                "build_system picks the system")
         self.hparams = hparams = losses_lib.prepare_hparams(hparams)
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(init_seed))
-        self.model = PanoMipNeRF.from_hparams(hparams, gen).to(self.device)
+        self.model = build_model(hparams, gen).to(self.device)
         self.model.eval()
         self.white_bkgd = bool(hparams["train.white_bkgd"])
         self.val_chunk_size = int(hparams["val.chunk_size"])
-        self.env_rays: Optional[Rays] = None
+
+    # ---- the family's parts ----
+
+    def _check_ready(self, enable_surf: bool) -> None:
+        """Raise if a step or render with `enable_surf` lacks an input."""
+
+    def _check_losses(self) -> None:
+        """Raise on a loss key the family's loss cannot honour."""
+        raise NotImplementedError
+
+    def _train_forward(self, rays: Rays, draws: Any, enable_surf: bool,
+                       packed: Optional[Tuple[Tensor, Tensor]]
+                       ) -> Sequence:
+        raise NotImplementedError
+
+    def _losses(self, outs: Sequence, rgbs: Tensor, mask: Tensor,
+                enable_surf: bool) -> Dict[str, Optional[Tensor]]:
+        raise NotImplementedError
+
+    def make_draws(self, batch: int, gen: torch.Generator) -> Any:
+        """One step's random numbers, drawn on `gen`'s device."""
+        raise NotImplementedError
+
+    def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
+        """What `make_render_image` returns per ray, in its order: (name,
+        channels)."""
+        raise NotImplementedError
+
+    def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
+                                                              Tensor]],
+                     enable_surf: bool = True) -> Tensor:
+        """The eval forward of one chunk of rays: [chunk, C], the products
+        of `render_products(enable_surf)` side by side. The body the eval
+        chunk graph captures."""
+        raise NotImplementedError
+
+    # ---- shared ----
 
     @property
     def graphed(self) -> bool:
@@ -188,10 +234,9 @@ class PanoNeRFSystem:
         """Returns train_step(state, rays, rgbs, draws) -> loss parts.
 
         One optimizer step on a ray batch (flat [B, ...] tensors on the
-        system's device), as the JAX `make_train_step`: randomized forward
-        (kernels 2 and 3 on the card, and kernel 5 for the coarse level and
-        the env queries with `nerf.use_train_render_kernel`),
-        `pano_losses`, backward, the global-norm clip
+        system's device), as the JAX `make_train_step`: the family's
+        randomized forward (`_train_forward`, the kernels on the card) and
+        loss (`_losses`), backward, the global-norm clip
         (`optimizer.grad_clip`, 0 = none), the learning rate of the step
         (read at `state.step_t` on the device where there is one), Adam.
         The parts are detached tensors; read them only when needed
@@ -199,11 +244,9 @@ class PanoNeRFSystem:
         CUDA graph can capture it.
         """
         check_train_config(self.hparams)
-        if self.env_rays is None and enable_surf:
-            raise RuntimeError("call set_env_rays() first")
+        self._check_losses()
+        self._check_ready(enable_surf)
         hp, model = self.hparams, self.model
-        use_ort = hp["loss.ort_loss"] > 0
-        use_vc = float(hp.get("loss.view_consistency", 0.0)) > 0
         clip = float(hp.get("optimizer.grad_clip", 0.0))
         lrs = torch.as_tensor(lr_table(
             float(hp["optimizer.lr_init"]), float(hp["optimizer.lr_final"]),
@@ -214,15 +257,13 @@ class PanoNeRFSystem:
         params = list(model.mlp.parameters())
 
         def train_step(state: TrainState, rays: Rays, rgbs: Tensor,
-                       draws: TrainDraws) -> Dict[str, Tensor]:
+                       draws: Any) -> Dict[str, Tensor]:
             packed = (pack_params(model.mlp)
                       if self.device.type == "cuda" else None)
             state.optimizer.zero_grad(set_to_none=True)
-            outs = model.train_forward(
-                rays, self.env_rays, draws, self.white_bkgd, enable_surf,
-                use_ort, use_vc, packed=packed)
-            parts = losses_lib.pano_losses(outs, rgbs[..., :3],
-                                           rays.lossmult, hp, enable_surf)
+            outs = self._train_forward(rays, draws, enable_surf, packed)
+            parts = self._losses(outs, rgbs[..., :3], rays.lossmult,
+                                 enable_surf)
             parts["loss"].backward()
             if clip > 0:
                 clip_by_global_norm_(params, clip)
@@ -252,14 +293,13 @@ class PanoNeRFSystem:
         from `gen`."""
         rays_all, rgbs_all = dataset
         n = rgbs_all.shape[0]
-        num_dirs = int(self.hparams["nerf.num_ray_samples"])
         step = self.make_train_step(enable_surf)
 
         def device_step(state: TrainState) -> Dict[str, Tensor]:
             idx = torch.randint(0, n, (batch_size,), generator=gen,
                                 device=self.device)
             rays = rays_map(lambda x: x[idx], rays_all)
-            draws = self.model.make_draws(batch_size, num_dirs, gen)
+            draws = self.make_draws(batch_size, gen)
             return step(state, rays, rgbs_all[idx], draws)
 
         return device_step
@@ -292,7 +332,7 @@ class PanoNeRFSystem:
         The graph holds `steps` copies of the whole step: the batch draw
         and the step's random numbers on `gen` (registered with the
         graph), the gather from the resident ray set, `pack_params`, the
-        forward, `pano_losses`, backward, the clip, the learning rate at
+        forward, the loss, backward, the clip, the learning rate at
         `state.step_t` and Adam. It is captured at the first call (see
         `engine/graphs.py`: the warm-up steps are rolled back in place:
         parameters, Adam's state, `step_t`, `state.step` and the
@@ -319,24 +359,6 @@ class PanoNeRFSystem:
         run.graph = graph
         return run
 
-    def set_env_rays(self, env_rays) -> None:
-        """Env directions: a Rays of numpy arrays, [D, ...]."""
-        self.env_rays = rays_to_tensors(env_rays, self.device)
-
-    def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
-                                                              Tensor]],
-                     enable_surf: bool = True) -> Tensor:
-        """The eval forward of one chunk of rays: [chunk, C], the products
-        of `render_products(enable_surf)` side by side. The body the eval
-        chunk graph captures."""
-        c, f = self.model(rays, self.env_rays, self.white_bkgd, enable_surf,
-                          packed=packed)
-        cols = [c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
-                f.normal]
-        if enable_surf:
-            cols += [f.albedo, f.roughness[:, None], f.surf_rgb, f.shading]
-        return torch.cat([x.float() for x in cols], 1)
-
     def make_render_image(self, enable_surf: bool = True) -> Callable:
         """Returns render_fn(params, rays) -> dict of [N, C] host tensors.
 
@@ -350,10 +372,9 @@ class PanoNeRFSystem:
         input rays, and the weights are packed into its static weight
         buffer once per call, so each call renders the current weights.
         """
-        if self.env_rays is None and enable_surf:
-            raise RuntimeError("call set_env_rays() first")
+        self._check_ready(enable_surf)
         model, chunk = self.model, self.val_chunk_size
-        names = render_products(enable_surf)
+        names = self.render_products(enable_surf)
         graph: Optional[CapturedGraph] = None
         static_rays: Optional[Rays] = None
         static_packed: Optional[Tuple[Tensor, Tensor]] = None
@@ -401,3 +422,109 @@ class PanoNeRFSystem:
             return parts
 
         return render_fn
+
+
+class PanoNeRFSystem(BaseSystem):
+    """Pano-NeRF: the surface path's env rays (`set_env_rays`), the
+    Pano-NeRF train forward (kernels 2 and 3 on the card, and kernel 5 for
+    the coarse level and the env queries with
+    `nerf.use_train_render_kernel`) and `pano_losses`; the eval render
+    through kernel 4, 5 products or (`enable_surf`) 9."""
+
+    mlp_name = "panonerf"
+    surface = True
+
+    def __init__(self, hparams: Dict,
+                 device: Optional[Union[str, torch.device]] = None,
+                 init_seed: int = 0):
+        super().__init__(hparams, device, init_seed)
+        self.env_rays: Optional[Rays] = None
+
+    def set_env_rays(self, env_rays) -> None:
+        """Env directions: a Rays of numpy arrays, [D, ...]."""
+        self.env_rays = rays_to_tensors(env_rays, self.device)
+
+    def _check_ready(self, enable_surf: bool) -> None:
+        if self.env_rays is None and enable_surf:
+            raise RuntimeError("call set_env_rays() first")
+
+    def _check_losses(self) -> None:
+        losses_lib.check_loss_config(self.hparams)
+
+    def _train_forward(self, rays, draws, enable_surf, packed):
+        hp = self.hparams
+        return self.model.train_forward(
+            rays, self.env_rays, draws, self.white_bkgd, enable_surf,
+            hp["loss.ort_loss"] > 0,
+            float(hp.get("loss.view_consistency", 0.0)) > 0, packed=packed)
+
+    def _losses(self, outs, rgbs, mask, enable_surf):
+        return losses_lib.pano_losses(outs, rgbs, mask, self.hparams,
+                                      enable_surf)
+
+    def make_draws(self, batch: int, gen: torch.Generator):
+        return self.model.make_draws(
+            batch, int(self.hparams["nerf.num_ray_samples"]), gen)
+
+    def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
+        return render_products(enable_surf)
+
+    def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
+                                                              Tensor]],
+                     enable_surf: bool = True) -> Tensor:
+        c, f = self.model(rays, self.env_rays, self.white_bkgd, enable_surf,
+                          packed=packed)
+        cols = [c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
+                f.normal]
+        if enable_surf:
+            cols += [f.albedo, f.roughness[:, None], f.surf_rgb, f.shading]
+        return torch.cat([x.float() for x in cols], 1)
+
+
+class MipNeRFSystem(BaseSystem):
+    """The mip-NeRF baseline (JAX `MipNeRFSystem`): no env rays and no
+    surface path (`enable_surf` is ignored, as JAX's trainer does for
+    it); the train forward through kernel 2 on both levels (kernel 3 on
+    the fine one with `loss.ort_loss` > 0) and `mipnerf_losses`; the eval
+    render through kernel 2 (coarse) and kernel 3's forward (fine, with
+    the normal), 5 products."""
+
+    mlp_name = "mipnerf"
+
+    def _check_losses(self) -> None:
+        losses_lib.check_mipnerf_loss_config(self.hparams)
+
+    def _train_forward(self, rays, draws, enable_surf, packed):
+        return self.model.train_forward(
+            rays, draws, self.white_bkgd,
+            self.hparams["loss.ort_loss"] > 0, packed=packed)
+
+    def _losses(self, outs, rgbs, mask, enable_surf):
+        return losses_lib.mipnerf_losses(outs, rgbs, mask, self.hparams)
+
+    def make_draws(self, batch: int, gen: torch.Generator):
+        return self.model.make_draws(batch, gen)
+
+    def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
+        return render_products(False)
+
+    def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
+                                                              Tensor]],
+                     enable_surf: bool = False) -> Tensor:
+        c, f = self.model(rays, self.white_bkgd, packed=packed)
+        return torch.cat([x.float() for x in (
+            c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
+            f.normal)], 1)
+
+
+SYSTEMS = {cls.mlp_name: cls for cls in (PanoNeRFSystem, MipNeRFSystem)}
+
+
+def build_system(hparams: Dict,
+                 device: Optional[Union[str, torch.device]] = None,
+                 init_seed: int = 0) -> BaseSystem:
+    """The system of `nerf.mlp_name` (JAX's `build_system`)."""
+    name = hparams["nerf.mlp_name"]
+    if name not in SYSTEMS:
+        raise ValueError(f"Unknown system {name!r}")
+    return SYSTEMS[name](hparams, device, init_seed)

@@ -1,11 +1,12 @@
 """The training loop: device-resident data, train steps, validation,
 checkpoints, and recovery from non-finite steps.
 
-Counterpart of pano_nerf_tpu/engine/trainer.py (`Trainer.fit`): the
-flattened training ray set is uploaded to the device once and each step
-samples its batch there, uniformly with replacement, from a
-`torch.Generator` seeded from `seed + 1` that also draws the step's random
-numbers. Steps are dispatched as in JAX: `train.steps_per_call` (K) steps
+Counterpart of pano_nerf_tpu/engine/trainer.py (`Trainer.fit`), for
+either family (`build_system`; only Pano-NeRF has env rays and the
+surface flag): the flattened training ray set is uploaded to the device
+once and each step samples its batch there, uniformly with replacement,
+from a `torch.Generator` seeded from `seed + 1` that also draws the
+step's random numbers. Steps are dispatched as in JAX: `train.steps_per_call` (K) steps
 per call where `group_ok` allows it (no log or validation boundary inside
 the group, no change of the surface flag, no group past `max_steps`),
 single steps at the edges and through the cooldown after a recovery; on
@@ -13,7 +14,8 @@ the card each dispatch is the replay of a CUDA graph (one per surface flag
 and K, captured at first use and again after every restore), on the CPU K
 eager steps. Scalars (the last step's of a dispatch, as in JAX) go to
 stdout and `metrics.jsonl` (with `rays_per_sec`) every `log_every_n_step`;
-validation renders through the eval path (kernel 4 on the card) with a
+validation renders through the eval path (on the card kernel 4 for
+Pano-NeRF, kernels 2 and 3 for mip-NeRF) with a
 one-image sanity pass at step 0, every `val.check_every_n_epoch` x 1000
 steps and at the end, each followed by a checkpoint. A non-finite loss is
 triaged as in the JAX trainer: a false alarm when the parameters are
@@ -37,7 +39,7 @@ from pano_nerf_tpu_torch.core.rays import rays_to_tensors
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.engine import validation as val_lib
 from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
-from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem, TrainState
+from pano_nerf_tpu_torch.engine.system import TrainState, build_system
 
 
 def _all_finite(tensors) -> bool:
@@ -73,10 +75,13 @@ class Trainer:
                                                   0))
         self.use_surface = bool(hparams.get("train.surface", True))
         seed = int(hparams["seed"])
-        self.system = PanoNeRFSystem(
+        self.system = build_system(
             hparams, device=device,
             init_seed=seed if init_seed is None else init_seed)
         self.device = self.system.device
+        # Only Pano-NeRF has the surface path and its env rays; the
+        # baseline ignores `train.surface` (JAX's `steps_with_surface`).
+        self.steps_with_surface = self.use_surface and self.system.surface
 
         data = dict(num=hparams["train.sample_num"], range=hparams["range"],
                     meta_file=hparams.get("meta_file", "transforms_all"),
@@ -89,9 +94,10 @@ class Trainer:
             hparams["data_path"], split="val",
             white_bkgd=hparams["val.white_bkgd"],
             factor=hparams["val.factor"], **data)
-        self.system.set_env_rays(self.train_dataset.generate_lit_rays(
-            num=hparams["nerf.num_ray_samples"], near=0.0,
-            far=float(hparams["range"][1])))
+        if self.system.surface:
+            self.system.set_env_rays(self.train_dataset.generate_lit_rays(
+                num=hparams["nerf.num_ray_samples"], near=0.0,
+                far=float(hparams["range"][1])))
         self.ckpt = Checkpointer(
             os.path.join(self.save_dir, "checkpoints"),
             keep_every_n_steps=int(hparams.get(
@@ -111,7 +117,8 @@ class Trainer:
         """Render every val panorama (or the first `max_images`), save the
         products under `<tag>_<step>/`, log and return the mean metrics."""
         if self._render_fn is None:
-            self._render_fn = self.system.make_render_image(enable_surf=True)
+            self._render_fn = self.system.make_render_image(
+                enable_surf=self.system.surface)
         near, far = self.hparams["range"]
         save_dir = os.path.join(self.save_dir, f"{tag}_{step:06d}")
         n = len(self.val_dataset)
@@ -201,10 +208,12 @@ class Trainer:
         rays_done = 0
         params = list(system.model.mlp.parameters())
         while state.step < self.max_steps:
-            surf = self.use_surface and state.step >= self.surface_start_step
+            surf = (self.steps_with_surface
+                    and state.step >= self.surface_start_step)
             k = (spc if state.step >= nan_cooldown_until and group_ok(
                 state.step, spc, self.max_steps, self.log_every,
-                self.val_every, self.surface_start_step, self.use_surface)
+                self.val_every, self.surface_start_step,
+                self.steps_with_surface)
                  else 1)
             parts, _ = run_steps(surf, k)
             rays_done += batch * k

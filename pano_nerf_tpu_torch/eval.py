@@ -1,10 +1,13 @@
 """Render and evaluate the validation panoramas of a scene on the H100.
 
 Counterpart of scripts/eval.py (`Trainer.validate`): every val panorama is
-rendered through the chunked renderer (the CUDA fused render kernel), the
-solid-angle-weighted metric family is computed, and the 11-product image
-tree is written under `<out_dir>/eval_<step>/`. Prints one JSON line of
-mean metrics, with the render's device time per panorama and rays/s.
+rendered through the chunked renderer of the config's system
+(`nerf.mlp_name`: Pano-NeRF through the CUDA fused render kernel,
+mip-NeRF through kernels 2 and 3), the solid-angle-weighted metric family
+is computed, and the image tree is written under
+`<out_dir>/eval_<step>/` (11 products for Pano-NeRF, 8 for mip-NeRF,
+which has no surface path). Prints one JSON line of mean metrics, with
+the render's time per panorama and rays/s.
 
 Usage:
   python -m pano_nerf_tpu_torch.eval --data_path SCENE --out_dir OUT \
@@ -36,7 +39,7 @@ from pano_nerf_tpu_torch.core.config import parse_args
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.engine import validation as val_lib
 from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
-from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+from pano_nerf_tpu_torch.engine.system import build_system
 from pano_nerf_tpu_torch.utils.params import load_npz, params_from_jax
 
 
@@ -86,11 +89,12 @@ def evaluate(hparams: dict, device: Optional[str] = None) -> Dict[str, float]:
                                hparams["train.white_bkgd"]})
     val_set = PanoDataset(hparams["data_path"], split="val",
                           factor=hparams["val.factor"], **data)
-    system = PanoNeRFSystem(hparams, device=device,
-                            init_seed=hparams.get("init_seed") or 0)
+    system = build_system(hparams, device=device,
+                          init_seed=hparams.get("init_seed") or 0)
     near, far = hparams["range"]
-    system.set_env_rays(train_set.generate_lit_rays(
-        num=hparams["nerf.num_ray_samples"], near=0.0, far=float(far)))
+    if system.surface:
+        system.set_env_rays(train_set.generate_lit_rays(
+            num=hparams["nerf.num_ray_samples"], near=0.0, far=float(far)))
     step = hparams.get("step")
     if hparams.get("ckpt_dir"):
         saved = Checkpointer(os.path.join(hparams["ckpt_dir"],
@@ -103,7 +107,7 @@ def evaluate(hparams: dict, device: Optional[str] = None) -> Dict[str, float]:
         params = (params_from_jax(load_npz(hparams["params"]))
                   if hparams.get("params") else None)
     step = step or 0
-    render_fn = system.make_render_image(enable_surf=True)
+    render_fn = system.make_render_image(enable_surf=system.surface)
     save_dir = os.path.join(hparams["out_dir"], f"eval_{step:06d}")
 
     n = len(val_set)

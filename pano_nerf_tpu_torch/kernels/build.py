@@ -2,9 +2,12 @@
 
 Each source under `pano_nerf_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into `build/pano_nerf_tpu_torch/` at the repository root
-and loaded with `ctypes`. The library name carries a hash of the source
-and of the shared headers (`csrc/*.cuh`), so an edited source or header is
-rebuilt and a stale library is never loaded. Nothing
+and loaded with `ctypes`. A source may be built more than once with
+different preprocessor definitions (`defines`, e.g. `("NERF_NDC=1",)`),
+each into a library of its own. The library name carries the definitions
+and a hash of the source, the shared headers (`csrc/*.cuh`), the flags and
+the definitions, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing
 is compiled when a module is imported: the first launch on a CUDA tensor
 builds, and a machine without `nvcc` raises there.
 """
@@ -18,15 +21,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pano_nerf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-# Compiler output (ptxas register/spill report) and build seconds, by source.
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+# Compiler output (ptxas register/spill report) and build seconds, by
+# library (`build_name`).
 BUILD_LOGS: Dict[str, Tuple[str, float]] = {}
 
 
@@ -38,37 +42,49 @@ def find_nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path(source: str) -> Path:
+def build_name(source: str, defines: Sequence[str] = ()) -> str:
+    """The source's stem and its definitions: `fused_mlp_nerf_ndc1`."""
+    tags = [d.replace("=", "").lower() for d in defines]
+    return "_".join([Path(source).stem] + tags)
+
+
+def library_path(source: str, defines: Sequence[str] = ()) -> Path:
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
     digest = hashlib.sha1((CSRC / source).read_bytes() + headers
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+                          + flags.encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{build_name(source, defines)}_{digest}.so"
 
 
 class PendingBuild(NamedTuple):
     source: str
+    defines: Tuple[str, ...]
     proc: subprocess.Popen
     tmp: Path
     start: float
 
 
-def start_build(source: str) -> Optional[PendingBuild]:
-    """Start compiling `source` unless its library is already built.
+def start_build(source: str, defines: Sequence[str] = ()
+                ) -> Optional[PendingBuild]:
+    """Start compiling `source` with the preprocessor definitions
+    `defines` unless its library is already built.
 
     Returns the running compiler, or None when nothing needs building.
-    Several sources can be started together and awaited with
+    Several builds can be started together and awaited with
     `finish_build`, so their compiles run in parallel.
     """
-    out = library_path(source)
+    defines = tuple(defines)
+    out = library_path(source, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           str(tmp), str(CSRC / source)]
     start = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return PendingBuild(source, proc, tmp, start)
+    return PendingBuild(source, defines, proc, tmp, start)
 
 
 def finish_build(pending: Optional[PendingBuild]) -> None:
@@ -77,18 +93,21 @@ def finish_build(pending: Optional[PendingBuild]) -> None:
         return
     log, _ = pending.proc.communicate()
     seconds = time.perf_counter() - pending.start
+    name = build_name(pending.source, pending.defines)
     if pending.proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {pending.source} "
+        raise RuntimeError(f"nvcc failed on {name} "
                            f"(exit {pending.proc.returncode}):\n{log}")
-    os.replace(pending.tmp, library_path(pending.source))
-    BUILD_LOGS[pending.source] = (log, seconds)
+    os.replace(pending.tmp, library_path(pending.source, pending.defines))
+    BUILD_LOGS[name] = (log, seconds)
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library compiled from `source`."""
-    lib = _LIBS.get(source)
+def load_library(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the library compiled from `source` with
+    the preprocessor definitions `defines`."""
+    key = (source, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        finish_build(start_build(source))
-        lib = ctypes.CDLL(str(library_path(source)))
-        _LIBS[source] = lib
+        finish_build(start_build(source, key[1]))
+        lib = ctypes.CDLL(str(library_path(source, key[1])))
+        _LIBS[key] = lib
     return lib

@@ -4,10 +4,11 @@ Replaces the TPU kernel `fused_mlp_ipe_apply` of
 pano_nerf_tpu/kernels/fused_mlp_ipe.py:268 (`_fwd_kernel` :109,
 `_bwd_ipe_kernel` :124-199). One call evaluates the MLP on raw Gaussian
 moments: the integrated positional encoding is computed in the kernel, then
-the 8x256 trunk, the 5-channel density head, the bottleneck and the 1x128
-view branch. The backward returns the gradient of the moments (the env
-queries need it: their means depend on the fine level's distance) and of
-every weight and bias; the viewdir encoding gets none.
+the 8x256 trunk, the density head (C = 5 channels for Pano-NeRF, 1 for
+mip-NeRF), the bottleneck and the 1x128 view branch. The backward returns
+the gradient of the moments (the env queries need it: their means depend
+on the fine level's distance) and of every weight and bias; the viewdir
+encoding gets none.
 
 What bounds it on an H100. The forward: tensor-core operations, 611,328
 MACs per row against 96 B of inputs and 64 B out (0.035 ms per 28,672
@@ -37,6 +38,16 @@ version `weight_grads_reference` runs the same table on the same operand
 rows. The O_* columns mirror the layout the CUDA row passes write
 (`csrc/mlp_rows.cuh`); `kernel_library` checks the widths against it.
 
+The density-channel count C is a compile-time constant of the CUDA
+source (`NDC` in csrc/nerf_mlp.cuh): `fused_mlp.cu` is built once per
+count in `BUILDS` (5 and 1), each a library of its own, and
+`kernel_library(C)` loads the one for C. Both keep the padded 16-lane
+head and the packed layout: the forward writes raw density into lanes
+3..3+C-1 of the output slab and zeros past them, and the backward reads
+the head cotangent of those lanes only, so the padded rows of the packed
+density head get zero gradient and `unpack_params` returns the [C, 256]
+head.
+
 `fused_mlp_ipe_apply` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_mlp_ipe_reference` (IPE -> NerfMLP, torch
 autograd for the backward) for CPU tensors and the CUDA kernels for CUDA
@@ -64,7 +75,10 @@ from pano_nerf_tpu_torch.ops import mip
 Tensor = torch.Tensor
 
 SOURCE = "fused_mlp.cu"
-OUT_W = 16     # output slab: raw rgb (3) | raw density (5) | 0
+# Density-channel count -> the preprocessor definitions of its build of
+# SOURCE (5 is the header's default): Pano-NeRF's 5, mip-NeRF's 1.
+BUILDS = {5: (), 1: ("NERF_NDC=1",)}
+OUT_W = 16     # output slab: raw rgb (3) | raw density (C) | 0
 V_PAD = 32     # viewdir encoding, padded (27 used)
 _W, _VW, _XF, _VF = 256, 128, 96, 27
 
@@ -74,18 +88,21 @@ def check_kernel_support(mlp: NerfMLP, min_deg: int, max_deg: int,
     """Raise ValueError unless the kernels' specialisation covers `mlp`.
 
     The topology (8-deep trunk with the skip at layer 4, one view layer,
-    3 rgb and 5 density channels, 16 IPE degrees, the 27-wide viewdir
-    encoding) is required on every device. The widths (256 trunk, 128 view
-    branch) and bf16 compute are what the CUDA kernels are compiled for;
-    the plain version on the CPU takes any width.
+    3 rgb channels, 16 IPE degrees, the 27-wide viewdir encoding) is
+    required on every device. The widths (256 trunk, 128 view branch),
+    the density-channel counts of `BUILDS` (1 and 5) and bf16 compute are
+    what the CUDA kernels are compiled for; the plain version on the CPU
+    takes any width and any count.
     """
     want = dict(net_depth=8, skip_index=4, net_depth_condition=1,
-                num_rgb_channels=3, num_density_channels=5,
-                xyz_dim=_XF, view_dim=_VF)
+                num_rgb_channels=3, xyz_dim=_XF, view_dim=_VF)
     if device.type == "cuda":
         want.update(net_width=_W, net_width_condition=_VW)
     bad = {k: getattr(mlp, k) for k, v in want.items()
            if getattr(mlp, k) != v}
+    if device.type == "cuda" and mlp.num_density_channels not in BUILDS:
+        want["num_density_channels"] = tuple(sorted(BUILDS))
+        bad["num_density_channels"] = mlp.num_density_channels
     if max_deg - min_deg != 16:
         bad["deg"] = (min_deg, max_deg)
     if bad:
@@ -129,8 +146,12 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, v_enc: Tensor
     return lead
 
 
-def kernel_library() -> ctypes.CDLL:
-    lib = build.load_library(SOURCE)
+def kernel_library(num_density_channels: int = 5) -> ctypes.CDLL:
+    """The library of SOURCE built for `num_density_channels` (a key of
+    `BUILDS`), built at first use and configured once."""
+    defines = BUILDS[num_density_channels]
+    lib = (build.load_library(SOURCE, defines) if defines
+           else build.load_library(SOURCE))
     if not getattr(lib, "_pano_configured", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fused_mlp_forward.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
@@ -145,10 +166,10 @@ def kernel_library() -> ctypes.CDLL:
                    "fused_mlp_encoded_backward_rows",
                    "fused_mlp_weight_grads", "fused_mlp_weight_count",
                    "fused_mlp_bias_count", "fused_mlp_tile_rows",
-                   "fused_mlp_ops_width"):
+                   "fused_mlp_ops_width", "fused_mlp_density_channels"):
             getattr(lib, fn).restype = i32
         for fn in ("fused_mlp_weight_count", "fused_mlp_bias_count",
-                   "fused_mlp_tile_rows"):
+                   "fused_mlp_tile_rows", "fused_mlp_density_channels"):
             getattr(lib, fn).argtypes = []
         lib.fused_mlp_ops_width.argtypes = [i32]
         lib.fused_mlp_error_string.argtypes = [i32]
@@ -161,6 +182,11 @@ def kernel_library() -> ctypes.CDLL:
             raise RuntimeError(f"{SOURCE} lays out operand rows and weights "
                                f"as {got}, this module as "
                                f"{(OPW_IPE, OPW_NRM, W_TOTAL)}")
+        if lib.fused_mlp_density_channels() != num_density_channels:
+            raise RuntimeError(
+                f"{SOURCE} built with {defines} has "
+                f"{lib.fused_mlp_density_channels()} density channels, "
+                f"not {num_density_channels}")
         lib._pano_configured = True
     return lib
 
@@ -412,8 +438,9 @@ class _FusedMlpIpe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg = meta
-        out, _, _ = launch_forward(kernel_library(), mc, v, weights, biases,
-                                   min_deg, normals=False)
+        out, _, _ = launch_forward(kernel_library(mlp.num_density_channels),
+                                   mc, v, weights, biases, min_deg,
+                                   normals=False)
         fused_mlp_ipe_apply.launches += 1
         ctx.meta = meta
         ctx.save_for_backward(mc, v, weights, biases)
@@ -424,8 +451,9 @@ class _FusedMlpIpe(torch.autograd.Function):
         mc, v, weights, biases = ctx.saved_tensors
         mlp, min_deg = ctx.meta
         dmc, grads = run_backward(
-            kernel_library(), fused_mlp_ipe_apply, mlp, mc, v, weights,
-            biases, g.contiguous(), None, None, min_deg, normals=False)
+            kernel_library(mlp.num_density_channels), fused_mlp_ipe_apply,
+            mlp, mc, v, weights, biases, g.contiguous(), None, None, min_deg,
+            normals=False)
         names = [n for n, _ in mlp.named_parameters()]
         return (dmc, None, None, None, None) + tuple(grads[n] for n in names)
 
@@ -440,19 +468,22 @@ def fused_mlp_ipe_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
     encoding of the same rank, broadcastable to the moments' leading dims.
     `packed` is `fused_render.pack_params(mlp)`, computed here when not
     given (pass it to share one packing between calls of a step). Returns
-    raw_rgb [..., 3] and raw_density [..., 5], float32.
+    raw_rgb [..., 3] and raw_density [..., C], float32 (C =
+    `mlp.num_density_channels`).
     """
     lead = check_inputs("fused_mlp_ipe_apply", means, covs, v_enc)
     check_kernel_support(mlp, min_deg, max_deg, means.device)
     if means.device.type == "cpu":
         return fused_mlp_ipe_reference(mlp, means, covs, v_enc,
                                        min_deg=min_deg, max_deg=max_deg)
-    lib = kernel_library()
+    C = mlp.num_density_channels
+    lib = kernel_library(C)
     weights, biases = packed_for(mlp, packed, means.device, lib)
     mc, v = rows_of(means, covs, v_enc, lead)
     out = _FusedMlpIpe.apply(mc, v, weights, biases, (mlp, min_deg),
                              *[p for _, p in mlp.named_parameters()])
-    return (out[:, :3].reshape(*lead, 3), out[:, 3:8].reshape(*lead, 5))
+    return (out[:, :3].reshape(*lead, 3),
+            out[:, 3:3 + C].reshape(*lead, C))
 
 
 fused_mlp_ipe_apply.launches = 0

@@ -23,8 +23,9 @@ What bounds it on an H100: tensor-core operations. Forward: 611,328 +
 (3 x 507,904) and the heads' recompute (101,760). At batch 512 the fine
 level is 28,672 rows: ~64 GFLOP forward, ~163 GFLOP backward.
 
-Design (csrc/fused_mlp.cu, template NORMALS): as kernel 2; the forward
-saves the 8 trunk activations as bf16 [M, 8*256] when a gradient is
+Design (csrc/fused_mlp.cu, template NORMALS): as kernel 2, built for
+C = 5 and C = 1 density channels (the chain differentiates channel 0);
+the forward saves the 8 trunk activations as bf16 [M, 8*256] when a gradient is
 needed (as the TPU kernel's `save_residuals`, by TMA stores of the
 activation tile), and the backward's row pass loads them back by TMA
 (masks built from shared memory) and recomputes the sz-chain from their
@@ -56,9 +57,9 @@ class _FusedMlpNormals(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg, save_acts = meta
-        out, dsig, acts = k2.launch_forward(k2.kernel_library(), mc, v,
-                                            weights, biases, min_deg,
-                                            normals=True, save_acts=save_acts)
+        out, dsig, acts = k2.launch_forward(
+            k2.kernel_library(mlp.num_density_channels), mc, v, weights,
+            biases, min_deg, normals=True, save_acts=save_acts)
         fused_mlp_normals_apply.launches += 1
         ctx.meta = meta
         if save_acts:
@@ -76,8 +77,9 @@ class _FusedMlpNormals(torch.autograd.Function):
         g = mc.new_zeros(M, k2.OUT_W) if g is None else g.contiguous()
         q = mc.new_zeros(M, 3) if q is None else q.contiguous()
         dmc, grads = k2.run_backward(
-            k2.kernel_library(), fused_mlp_normals_apply, mlp, mc, v,
-            weights, biases, g, q, acts, min_deg, normals=True)
+            k2.kernel_library(mlp.num_density_channels),
+            fused_mlp_normals_apply, mlp, mc, v, weights, biases, g, q, acts,
+            min_deg, normals=True)
         names = [n for n, _ in mlp.named_parameters()]
         return (dmc, None, None, None, None) + tuple(grads[n] for n in names)
 
@@ -90,14 +92,16 @@ def fused_mlp_normals_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
     (first order).
 
     Arguments as `fused_mlp_ipe.fused_mlp_ipe_apply`. Returns raw_rgb
-    [..., 3], raw_density [..., 5] and d_raw_sigma [..., 3], float32.
+    [..., 3], raw_density [..., C] (C = `mlp.num_density_channels`, 5 or
+    1 on the card) and d_raw_sigma [..., 3] (of channel 0), float32.
     """
     lead = k2.check_inputs("fused_mlp_normals_apply", means, covs, v_enc)
     k2.check_kernel_support(mlp, min_deg, max_deg, means.device)
     if means.device.type == "cpu":
         return fused_mlp_normals_reference(mlp, means, covs, v_enc,
                                            min_deg=min_deg, max_deg=max_deg)
-    lib = k2.kernel_library()
+    C = mlp.num_density_channels
+    lib = k2.kernel_library(C)
     weights, biases = k2.packed_for(mlp, packed, means.device, lib)
     mc, v = k2.rows_of(means, covs, v_enc, lead)
     params = [p for _, p in mlp.named_parameters()]
@@ -105,7 +109,7 @@ def fused_mlp_normals_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
         mc.requires_grad or any(p.requires_grad for p in params))
     out, dsig = _FusedMlpNormals.apply(mc, v, weights, biases,
                                        (mlp, min_deg, save_acts), *params)
-    return (out[:, :3].reshape(*lead, 3), out[:, 3:8].reshape(*lead, 5),
+    return (out[:, :3].reshape(*lead, 3), out[:, 3:3 + C].reshape(*lead, C),
             dsig.reshape(*lead, 3))
 
 

@@ -153,9 +153,10 @@ def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
 
     Weights keep torch's [out, in] layout, zero-padded to multiples of 16:
     trunk 0..7 (layer 5 is [256, 352] over [h4 | x]), density [16, 256]
-    (rows 0..4), bottleneck [256, 256], view [128, 288] (columns 0..282),
-    color [16, 128] (rows 0..2). Biases: trunk 8x256, density 16,
-    bottleneck 256, view 128, color 16.
+    (rows 0..C-1: C = 5 for Pano-NeRF, 1 for mip-NeRF), bottleneck
+    [256, 256], view [128, 288] (columns 0..282), color [16, 128] (rows
+    0..2). Biases: trunk 8x256, density 16, bottleneck 256, view 128,
+    color 16.
     """
     def pad(w: Tensor, rows: int, cols: int) -> Tensor:
         return F.pad(w.detach().float(),
@@ -167,7 +168,8 @@ def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
            pad(mlp.view_layers[0][0].weight, _VW, _VK),
            pad(mlp.color_layer.weight, _HP, _VW)]
     bs = [seq[0].bias.detach().float() for seq in mlp.layers]
-    bs += [F.pad(mlp.density_layer.bias.detach().float(), (0, _HP - 5)),
+    bs += [F.pad(mlp.density_layer.bias.detach().float(),
+                 (0, _HP - mlp.num_density_channels)),
            mlp.extra_layer.bias.detach().float(),
            mlp.view_layers[0][0].bias.detach().float(),
            F.pad(mlp.color_layer.bias.detach().float(), (0, _HP - 3))]

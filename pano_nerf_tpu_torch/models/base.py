@@ -1,10 +1,12 @@
-"""Hyperparameters, level outputs and sampling of the Pano-NeRF model.
+"""Hyperparameters, level outputs and sampling of the two model families.
 
 Counterpart of pano_nerf_tpu/models/base.py: `from_hparams`,
-`_sample_level`, `_env_samples` and `_expected_normals`. The port has one
-eval path (the fused render kernel) and one training path (the fused MLP
-kernels, with the whole-level training kernel for the coarse level and
-env queries when `use_train_render_kernel` is on), so `from_hparams`
+`_sample_level`, `_env_samples` and `_expected_normals`, shared by
+Pano-NeRF (`models/pano_mip_nerf.py`) and the mip-NeRF baseline
+(`models/mip_nerf.py`). Each model has one eval path and one training
+path through the fused kernels (for Pano-NeRF's eval the whole-level
+render kernel, and the whole-level training kernel for the coarse level
+and env queries when `use_train_render_kernel` is on), so `from_hparams`
 refuses every config key that would need another path (`UNSUPPORTED`)
 with NotImplementedError naming the key,
 instead of silently computing something else. The MLP widths are not
@@ -18,8 +20,11 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from pano_nerf_tpu_torch.core.rays import Rays
+from pano_nerf_tpu_torch.kernels.fused_render import softplus
+from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
 
 Tensor = torch.Tensor
@@ -92,7 +97,10 @@ class NerfConfig:
     mlp_net_width_condition: int = 128
     mlp_skip_index: int = 4
     mlp_num_rgb_channels: int = 3
-    mlp_num_density_channels: int = 5
+    # Set by the model class, never by the config (as in JAX, whose
+    # `from_hparams` does not read `nerf.mlp.num_density_channels`):
+    # mip-NeRF keeps this default of 1, Pano-NeRF forces 5.
+    mlp_num_density_channels: int = 1
     num_env_samples: int = 5
     compute_dtype: torch.dtype = torch.bfloat16
     eval_coarse_samples: int = 0
@@ -108,8 +116,10 @@ class NerfConfig:
     train_kernel_scope: str = "all"
 
     @classmethod
-    def from_hparams(cls, hparams: dict) -> "NerfConfig":
-        """Build from a flat dot-key config; raise on unsupported keys."""
+    def from_hparams(cls, hparams: dict, **overrides) -> "NerfConfig":
+        """Build from a flat dot-key config; raise on unsupported keys.
+        `overrides` are fields the model class sets (its density-channel
+        count)."""
         for key, unsupported in UNSUPPORTED.items():
             if key in hparams and unsupported(hparams[key]):
                 raise NotImplementedError(
@@ -144,6 +154,7 @@ class NerfConfig:
                 hparams.get("nerf.use_train_render_kernel", False)),
             train_kernel_save_acts=bool(
                 hparams.get("nerf.train_kernel_save_acts", False)),
+            **overrides,
         )
 
     @property
@@ -180,6 +191,37 @@ class NerfConfig:
     def env_samples(self) -> int:
         """Samples per secondary (irradiance) env ray at eval."""
         return self.eval_env_samples or self.num_env_samples
+
+
+class NerfModel(nn.Module):
+    """What both models share: the config, the NerfMLP it specifies (the
+    density-channel count from the model class) and the activations of
+    the raw outputs."""
+
+    def __init__(self, cfg: NerfConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp = NerfMLP(
+            xyz_dim=cfg.xyz_dim, view_dim=cfg.view_dim,
+            net_depth=cfg.mlp_net_depth, net_width=cfg.mlp_net_width,
+            net_depth_condition=cfg.mlp_net_depth_condition,
+            net_width_condition=cfg.mlp_net_width_condition,
+            skip_index=cfg.mlp_skip_index,
+            num_rgb_channels=cfg.mlp_num_rgb_channels,
+            num_density_channels=cfg.mlp_num_density_channels,
+            compute_dtype=cfg.compute_dtype, generator=generator)
+
+    def _rgb(self, raw_rgb: Tensor) -> Tensor:
+        pad = self.cfg.rgb_padding
+        return softplus(raw_rgb) * (1.0 + 2.0 * pad) - pad
+
+    def _density(self, raw_sigma: Tensor) -> Tensor:
+        return softplus(raw_sigma + self.cfg.density_bias)
+
+    def _venc(self, dirs: Tensor) -> Tensor:
+        """The viewdir encoding [..., 1, 27] of directions [..., 3]."""
+        return mip.pos_enc(dirs, 0, self.cfg.deg_view, True)[..., None, :]
 
 
 def expected_normals(weights: Tensor, normals: Tensor, directions: Tensor,

@@ -27,7 +27,9 @@ The eval forward runs every MLP evaluation through
    fixed env direction, `num_env_samples` frustums each, composited and
    integrated against a Lambertian BRDF.
 
-The MLP's 5 density channels are density | albedo(3) | roughness.
+The MLP's 5 density channels are density | albedo(3) | roughness: the
+model class sets the count (`from_hparams`), as JAX's `PanoMipNeRF`
+does, whatever `nerf.mlp.num_density_channels` says.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
-from torch import nn
 
 from pano_nerf_tpu_torch.core.rays import Rays
 from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
@@ -45,8 +46,7 @@ from pano_nerf_tpu_torch.kernels.fused_render import (fused_render_level,
                                                       softplus)
 from pano_nerf_tpu_torch.kernels.fused_render_train import fused_render_train
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
-                                             expected_normals)
-from pano_nerf_tpu_torch.models.mlp import NerfMLP
+                                             NerfModel, expected_normals)
 from pano_nerf_tpu_torch.ops import mip, shading
 
 Tensor = torch.Tensor
@@ -61,26 +61,14 @@ class TrainDraws(NamedTuple):
     d_alt: Tensor     # [B, 3] standard normals: view-consistency direction
 
 
-class PanoMipNeRF(nn.Module):
-    def __init__(self, cfg: NerfConfig,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.cfg = cfg
-        self.mlp = NerfMLP(
-            xyz_dim=cfg.xyz_dim, view_dim=cfg.view_dim,
-            net_depth=cfg.mlp_net_depth, net_width=cfg.mlp_net_width,
-            net_depth_condition=cfg.mlp_net_depth_condition,
-            net_width_condition=cfg.mlp_net_width_condition,
-            skip_index=cfg.mlp_skip_index,
-            num_rgb_channels=cfg.mlp_num_rgb_channels,
-            num_density_channels=cfg.mlp_num_density_channels,
-            compute_dtype=cfg.compute_dtype, generator=generator)
-
+class PanoMipNeRF(NerfModel):
     @classmethod
     def from_hparams(cls, hparams: dict,
                      generator: Optional[torch.Generator] = None
                      ) -> "PanoMipNeRF":
-        return cls(NerfConfig.from_hparams(hparams), generator)
+        return cls(NerfConfig.from_hparams(hparams,
+                                           mlp_num_density_channels=5),
+                   generator)
 
     def forward(self, rays: Rays, env_rays: Rays, white_bkgd: bool,
                 enable_surf: bool,
@@ -154,13 +142,6 @@ class PanoMipNeRF(nn.Module):
             t_env=rand(batch, num_dirs, s + 1),
             d_alt=torch.randn((batch, 3), generator=generator, device=dev))
 
-    def _rgb(self, raw_rgb: Tensor) -> Tensor:
-        pad = self.cfg.rgb_padding
-        return softplus(raw_rgb) * (1.0 + 2.0 * pad) - pad
-
-    def _density(self, raw_sigma: Tensor) -> Tensor:
-        return softplus(raw_sigma + self.cfg.density_bias)
-
     def train_forward(self, rays: Rays, env_rays: Rays, draws: TrainDraws,
                       white_bkgd: bool, enable_surf: bool,
                       use_ort_loss: bool, use_vc_loss: bool,
@@ -177,9 +158,6 @@ class PanoMipNeRF(nn.Module):
         cfg = self.cfg
         kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
                   packed=packed)
-
-        def venc(d: Tensor) -> Tensor:
-            return mip.pos_enc(d, 0, cfg.deg_view, True)[..., None, :]
 
         def kernel_level(scope: str) -> bool:
             return (cfg.use_train_render_kernel
@@ -199,7 +177,7 @@ class PanoMipNeRF(nn.Module):
             rays.origins, rays.directions, rays.radii,
             cfg.train_coarse_samples(), rays.near, rays.far, cfg.disparity,
             t_rand=draws.t_coarse)
-        v = venc(rays.viewdirs)
+        v = self._venc(rays.viewdirs)
         if kernel_level("coarse"):
             comp, dist, acc, w0 = render_level(m0, c0, rays.viewdirs, t0,
                                                rays.directions, white_bkgd)
@@ -239,8 +217,8 @@ class PanoMipNeRF(nn.Module):
             # with stop-gradient weights: a full re-evaluation through
             # kernel 2 (kernel 3 does not return the bottleneck).
             d_alt = mip.safe_normalize(draws.d_alt)
-            raw_alt, _ = fused_mlp_ipe_apply(self.mlp, m1, c1, venc(d_alt),
-                                             **kw)
+            raw_alt, _ = fused_mlp_ipe_apply(self.mlp, m1, c1,
+                                             self._venc(d_alt), **kw)
             rgb_alt = torch.sum(w1.detach()[..., None] * self._rgb(raw_alt),
                                 dim=-2)
             if white_bkgd:
@@ -263,8 +241,8 @@ class PanoMipNeRF(nn.Module):
                     flat_dirs, lit_t.reshape(B * D, S2 + 1), flat_dirs,
                     False)[0].reshape(B, D, 3)
             else:
-                e_rgb, e_density = fused_mlp_ipe_apply(self.mlp, lm, lc,
-                                                       venc(lit_dirs), **kw)
+                e_rgb, e_density = fused_mlp_ipe_apply(
+                    self.mlp, lm, lc, self._venc(lit_dirs), **kw)
                 env_rgb = mip.volumetric_rendering(
                     self._rgb(e_rgb), self._density(e_density[..., :1]),
                     lit_t, lit_dirs, white_bkgd=False)[0]

@@ -1,4 +1,4 @@
-"""Train a Pano-NeRF radiance field on panoramic EXRs on the H100.
+"""Train a Pano-NeRF or mip-NeRF radiance field on panoramas on the H100.
 
 Counterpart of the repository's `train.py` (same flags and trailing
 dot-key overrides; the experiment goes to `<out_dir>/<exp_name>/`, with
@@ -8,9 +8,13 @@ exp_name = `<nerf.mlp_name>_<view ids>`):
       --config configs/panonerf.yaml [--init_seed N] [--device cuda|cpu] \\
       [opts k v ...]
 
-Every MLP evaluation of a train step goes through the CUDA kernels 2 and
-3 (`kernels/fused_mlp_ipe.py`, `kernels/fused_mlp_normals.py`), and 5
-with `nerf.use_train_render_kernel`; validation renders through kernel 4.
+The config's `nerf.mlp_name` picks the system (`engine/system.py`
+`build_system`): 'panonerf' or 'mipnerf' (`configs/mipnerf.yaml`, the
+baseline with one density channel). Every MLP evaluation of a train step
+goes through the CUDA kernels 2 and 3 (`kernels/fused_mlp_ipe.py`,
+`kernels/fused_mlp_normals.py`, built for 5 or 1 density channels), and
+for Pano-NeRF 5 with `nerf.use_train_render_kernel`; validation renders
+through kernel 4 (Pano-NeRF) or kernels 2 and 3 (mip-NeRF).
 On the card the steps run as CUDA graphs, `train.steps_per_call` of them
 per replay where the cadences allow (`engine/trainer.py`), and each
 validation chunk is a graph replay. Re-running the same command resumes

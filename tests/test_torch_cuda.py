@@ -68,14 +68,15 @@ def test_fused_render_rejects_f32_compute_on_the_card(cuda_device):
                               need_normals=False, need_extras=False)
 
 
-def _mlp_rows(M, device, seed=0):
-    """Moments, viewdir encodings and a full-width MLP, as the JAX kernel
-    tests make them (means ~ 2 N(0,1), covs ~ 0.01 |N(0,1)|)."""
+def _mlp_rows(M, device, seed=0, C=5):
+    """Moments, viewdir encodings and a full-width MLP with C density
+    channels, as the JAX kernel tests make them (means ~ 2 N(0,1), covs ~
+    0.01 |N(0,1)|)."""
     g = torch.Generator().manual_seed(seed)
     means = torch.randn(M, 3, generator=g) * 2
     covs = torch.randn(M, 3, generator=g).abs() * 0.01
     v = torch.randn(M, 27, generator=g) * 0.5
-    mlp = NerfMLP(96, 27, num_density_channels=5,
+    mlp = NerfMLP(96, 27, num_density_channels=C,
                   generator=torch.Generator().manual_seed(seed + 1))
     return mlp.to(device), means.to(device), covs.to(device), v.to(device)
 
@@ -122,6 +123,58 @@ def test_fused_mlp_kernels_match_plain_versions(cuda_device, normals, M):
         assert _rel(got[2], want[2]) < 0.08
     assert _rel(g_got, g_want) < (5e-2 if normals else 2e-2)
     assert _rel(m_got, m_want) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("M", [1000, 131072])
+def test_one_channel_kernels_match_plain_versions(cuda_device, normals, M):
+    """Kernels 2 and 3 built for mip-NeRF's one density channel, at a
+    ragged M and at a batch-2048 level (2048 x 64 rows): outputs, every
+    gradient and, apart, the density head's (its 15 padded rows must add
+    nothing), at kernel 2 and 3's tolerances."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    kernel, plain, counter = (
+        (k3.fused_mlp_normals_apply, k3.fused_mlp_normals_reference,
+         k3.fused_mlp_normals_apply) if normals else
+        (k2.fused_mlp_ipe_apply, k2.fused_mlp_ipe_reference,
+         k2.fused_mlp_ipe_apply))
+    mlp, means, covs, v = _mlp_rows(M, cuda_device, C=1)
+    heads = {}
+
+    def run(fn):
+        got = _grads(fn, mlp, means, covs, v)
+        heads[fn] = torch.cat([mlp.density_layer.weight.grad.reshape(-1),
+                               mlp.density_layer.bias.grad])
+        return got
+
+    before = (counter.launches, counter.backward_launches)
+    got, g_got, m_got = run(kernel)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.backward_launches) == (
+        before[0] + 1, before[1] + 2)
+    want, g_want, m_want = run(plain)
+    assert got[1].shape == want[1].shape == (M, 1)
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= 2e-2
+    if normals:
+        assert _rel(got[2], want[2]) < 0.08
+    tol = 5e-2 if normals else 2e-2
+    assert _rel(g_got, g_want) < tol
+    assert _rel(heads[kernel], heads[plain]) < tol
+    assert _rel(m_got, m_want) < 5e-2
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernels_refuse_other_density_counts_on_the_card(
+        cuda_device):
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    mlp, means, covs, v = _mlp_rows(8, cuda_device, C=4)
+    for fn in (k2.fused_mlp_ipe_apply, k3.fused_mlp_normals_apply):
+        with pytest.raises(ValueError, match="num_density_channels"):
+            fn(mlp, means, covs, v, min_deg=0, max_deg=16)
 
 
 @pytest.mark.cuda
@@ -275,21 +328,23 @@ def test_weight_grad_kernel_refuses_a_bad_job_table(cuda_device):
         k2.check_launch(lib, "fused_mlp weight gradients", err)
 
 
-def _graph_system(cuda_device, render_kernel, n_rays=16384):
-    """The shipped config at full width on the card, random weights, and
-    a random resident ray set of `n_rays` rays inside a scene-sized box."""
+def _graph_system(cuda_device, render_kernel, n_rays=16384,
+                  config="panonerf.yaml"):
+    """A shipped config at full width on the card, random weights, and a
+    random resident ray set of `n_rays` rays inside a scene-sized box."""
     import os
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.data.pano_dataset import generate_lit_rays
-    from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+    from pano_nerf_tpu_torch.engine.system import build_system
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    hp = load_config(os.path.join(repo, "configs", "panonerf.yaml"),
+    hp = load_config(os.path.join(repo, "configs", config),
                      ["val.chunk_size", "256"])
     hp["nerf.use_train_render_kernel"] = render_kernel
-    system = PanoNeRFSystem(hp, device=cuda_device, init_seed=0)
-    system.set_env_rays(generate_lit_rays(hp["nerf.num_ray_samples"],
-                                          far=10.0, radius=0.0142))
+    system = build_system(hp, device=cuda_device, init_seed=0)
+    if system.surface:
+        system.set_env_rays(generate_lit_rays(hp["nerf.num_ray_samples"],
+                                              far=10.0, radius=0.0142))
     g = torch.Generator().manual_seed(1)
     d = torch.randn(n_rays, 3, generator=g)
     ones = torch.ones(n_rays, 1)
@@ -314,9 +369,21 @@ def test_graphed_train_steps_match_eager(cuda_device, render_kernel):
     weight-gradient pass sums unordered f32 partials, and Adam amplifies
     that over the steps) or f32 rounding; each replay adds one capture's
     worth of launches to the counters."""
+    system, data = _graph_system(cuda_device, render_kernel)
+    _check_graphed_against_eager(cuda_device, system, data, 512)
+
+
+@pytest.mark.cuda
+def test_graphed_mipnerf_train_steps_match_eager(cuda_device):
+    """The same for `configs/mipnerf.yaml` at its batch of 2048 (kernels 2
+    and 3 at one density channel)."""
+    system, data = _graph_system(cuda_device, False, config="mipnerf.yaml")
+    _check_graphed_against_eager(cuda_device, system, data, 2048)
+
+
+def _check_graphed_against_eager(cuda_device, system, data, batch):
     import statistics
     from pano_nerf_tpu_torch.kernels import counters
-    system, data = _graph_system(cuda_device, render_kernel)
     mlp = system.model.mlp
     start = {k: v.clone() for k, v in mlp.state_dict().items()}
 
@@ -326,7 +393,7 @@ def test_graphed_train_steps_match_eager(cuda_device, render_kernel):
         gen = torch.Generator(device=cuda_device).manual_seed(5)
         if graphed:
             fn = system.make_train_step_device_data(state, data, gen, True,
-                                                    512, 8)
+                                                    batch, 8)
             first = fn(state)[1].clone()
             before = counters.launch_counts()
             losses = torch.cat([first, fn(state)[1].clone()])
@@ -335,7 +402,7 @@ def test_graphed_train_steps_match_eager(cuda_device, render_kernel):
             assert {k: after[k] - before[k] for k in after
                     if after[k] != before[k]} == fn.graph.launches
         else:
-            one = system.make_device_step(data, gen, True, 512)
+            one = system.make_device_step(data, gen, True, batch)
             losses = torch.stack([one(state)["loss"] for _ in range(16)])
         assert state.step == 16 and int(state.step_t) == 16
         flat = torch.cat([p.detach().reshape(-1) for p in mlp.parameters()])
@@ -360,9 +427,22 @@ def test_eval_chunk_graph_matches_eager_chunks(cuda_device):
     """A ragged 600-ray render through the chunk graph (3 replays of a
     256-ray chunk) against `render_chunk` run eagerly on the same chunks,
     f32 atol 1e-4; new weights are seen by the next call."""
+    system, (rays, _) = _graph_system(cuda_device, False)
+    _check_chunk_graph(system, rays, 21)
+
+
+@pytest.mark.cuda
+def test_mipnerf_chunk_graph_matches_eager_chunks(cuda_device):
+    """The same for `configs/mipnerf.yaml`: 5 products (11 columns) per
+    ray, through kernel 2 (coarse) and kernel 3's forward (fine)."""
+    system, (rays, _) = _graph_system(cuda_device, False,
+                                      config="mipnerf.yaml")
+    _check_chunk_graph(system, rays, 11)
+
+
+def _check_chunk_graph(system, rays, width):
     from pano_nerf_tpu_torch.core.rays import rays_map
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
-    system, (rays, _) = _graph_system(cuda_device, False)
     rays = rays_map(lambda x: x[:600].contiguous(), rays)
     render_fn = system.make_render_image()
 
@@ -379,7 +459,7 @@ def test_eval_chunk_graph_matches_eager_chunks(cuda_device):
         got = render_fn(None, rays)
         want = eager()
         got = torch.cat([got[k] for k in got], 1)
-        assert got.shape == want.shape == (600, 21)
+        assert got.shape == want.shape == (600, width)
         assert float((got - want).abs().max()) <= 1e-4
         with torch.no_grad():
             for p in system.model.mlp.parameters():

@@ -4,9 +4,10 @@
 (IPE -> NerfMLP, torch autograd); the JAX `fused_mlp_ipe_apply` runs its
 Pallas forward and hand-written backward in interpret mode, as
 tests/test_fused_normals.py does. Full width, bridged parameters, M = 192
-and a ragged M. Tolerances: forward atol 5e-3, parameter gradients of a
-loss on every output rel-norm 2e-2, moment gradients rel-norm 5e-2 (bf16
-rounds in other places in the two).
+and a ragged M, with Pano-NeRF's 5 density channels and mip-NeRF's 1.
+Tolerances: forward atol 5e-3, parameter gradients of a loss on every
+output rel-norm 2e-2, moment gradients rel-norm 5e-2 (bf16 rounds in
+other places in the two).
 """
 
 import jax
@@ -24,18 +25,19 @@ from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
 
-def setup(M, seed=0):
-    """Moments, viewdir codes and bridged full-width MLPs (JAX, port)."""
+def setup(M, seed=0, C=5):
+    """Moments, viewdir codes and bridged full-width MLPs (JAX, port)
+    with C density channels."""
     rng = np.random.default_rng(seed)
     means = (rng.normal(size=(M, 3)) * 2).astype(np.float32)
     covs = (np.abs(rng.normal(size=(M, 3))) * 0.01).astype(np.float32)
     v = (rng.normal(size=(M, 27)) * 0.5).astype(np.float32)
-    jmlp = JaxMLP(num_density_channels=5, dtype=jnp.bfloat16)
+    jmlp = JaxMLP(num_density_channels=C, dtype=jnp.bfloat16)
     x = jax_mip.integrated_pos_enc(jnp.asarray(means[:2]),
                                    jnp.asarray(covs[:2]), 0, 16)
     params = jax.tree.map(np.asarray, jmlp.init(
         jax.random.PRNGKey(seed), x, jnp.asarray(v[:2])))
-    mlp = NerfMLP(96, 27, num_density_channels=5)
+    mlp = NerfMLP(96, 27, num_density_channels=C)
     mlp.load_state_dict(params_from_jax(params))
     return params, mlp, means, covs, v
 
@@ -49,9 +51,9 @@ def loss_of(outs):
     return loss
 
 
-def jax_run(fn, params, means, covs, v):
+def jax_run(fn, params, means, covs, v, C=5):
     def f(p, m):
-        outs = fn(p, m, jnp.asarray(covs), jnp.asarray(v), 5, 0, 16)
+        outs = fn(p, m, jnp.asarray(covs), jnp.asarray(v), C, 0, 16)
         return loss_of(outs), outs
     (_, outs), (gp, gm) = jax.value_and_grad(f, argnums=(0, 1),
                                              has_aux=True)(
@@ -81,11 +83,18 @@ def interpret(monkeypatch):
     monkeypatch.setenv("PANO_NERF_PALLAS_INTERPRET", "1")
 
 
-@pytest.mark.parametrize("M", [192, 77])
-def test_plain_version_matches_pallas_kernel(interpret, M):
-    params, mlp, means, covs, v = setup(M)
-    j_out, j_gp, j_gm = jax_run(jax_k2, params, means, covs, v)
+# (C, M): Pano-NeRF's 5 density channels keep their ids, mip-NeRF's 1
+# are the C1 cases.
+CASES = [pytest.param(5, 192, id="192"), pytest.param(5, 77, id="77"),
+         pytest.param(1, 192, id="C1-192"), pytest.param(1, 77, id="C1-77")]
+
+
+@pytest.mark.parametrize("C, M", CASES)
+def test_plain_version_matches_pallas_kernel(interpret, C, M):
+    params, mlp, means, covs, v = setup(M, C=C)
+    j_out, j_gp, j_gm = jax_run(jax_k2, params, means, covs, v, C)
     p_out, p_gp, p_gm = port_run(k2.fused_mlp_ipe_apply, mlp, means, covs, v)
+    assert p_out[1].shape == j_out[1].shape == (M, C)
     for a, b in zip(p_out, j_out):
         np.testing.assert_allclose(a, b, atol=5e-3, rtol=0)
     assert rel(p_gp, j_gp) < 2e-2
@@ -126,6 +135,45 @@ def test_unpack_params_inverts_pack_params():
         want = p.detach().to(torch.bfloat16) if name.endswith("weight") \
             else p.detach()
         assert torch.equal(got[name], want), name
+
+
+def test_unpack_params_gives_the_one_channel_head_back():
+    """At C = 1 the packed density head is [16, 256] with rows 1..15 and
+    bias lanes 1..15 zero; unpacking returns the [1, 256] head and its
+    [1] bias, and the padding never leaks into them."""
+    from pano_nerf_tpu_torch.kernels.fused_render import (pack_params,
+                                                          unpack_params)
+    _, mlp, _, _, _ = setup(4, C=1)
+    with torch.no_grad():
+        mlp.density_layer.bias.fill_(0.25)
+    weights, biases = pack_params(mlp)
+    assert biases.numel() == 8 * 256 + 16 + 256 + 128 + 16
+    head = weights[k2.OFF_WD:k2.OFF_WD + 16 * 256].view(16, 256)
+    assert torch.equal(head[0], mlp.density_layer.weight[0].detach().to(
+        torch.bfloat16))
+    assert not head[1:].any()
+    bd = biases[8 * 256:8 * 256 + 16]
+    assert float(bd[0]) == 0.25 and not bd[1:].any()
+    got = unpack_params(mlp, weights, biases)
+    assert got["density_layer.weight"].shape == (1, 256)
+    assert got["density_layer.bias"].shape == (1,)
+    assert float(got["density_layer.bias"]) == 0.25
+    assert torch.equal(got["extra_layer.bias"], mlp.extra_layer.bias.detach())
+
+
+@pytest.mark.parametrize("C, ok", [(1, True), (5, True), (6, False)])
+def test_kernels_take_one_or_five_density_channels_on_the_card(C, ok):
+    """The CUDA library is built for C = 1 (mip-NeRF) and C = 5
+    (Pano-NeRF); any other count is refused on the card and taken by the
+    plain version on the CPU."""
+    mlp = NerfMLP(96, 27, num_density_channels=C)
+    k2.check_kernel_support(mlp, 0, 16, torch.device("cpu"))
+    if ok:
+        k2.check_kernel_support(mlp, 0, 16, torch.device("cuda"))
+        assert k2.BUILDS[C] == (() if C == 5 else ("NERF_NDC=1",))
+    else:
+        with pytest.raises(ValueError, match="num_density_channels"):
+            k2.check_kernel_support(mlp, 0, 16, torch.device("cuda"))
 
 
 def test_widths_other_than_the_kernels_raise_for_the_card_only():
@@ -169,3 +217,26 @@ def test_no_cuda_tensor_reaches_a_plain_version(fn_name, monkeypatch):
                         property(lambda self: torch.device("cuda")))
     with pytest.raises(RuntimeError, match="building fused_mlp.cu"):
         fn(mlp, means, covs, v, min_deg=0, max_deg=16)
+
+
+@pytest.mark.parametrize("fn_name", ["fused_mlp_ipe", "fused_mlp_normals"])
+def test_one_channel_mlp_asks_for_the_one_channel_build(fn_name,
+                                                        monkeypatch):
+    """A CUDA tensor with a 1-channel MLP goes to the library built with
+    NERF_NDC=1 (here: its build, which raises without nvcc or a card)."""
+    from pano_nerf_tpu_torch.kernels import build
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    fn = dict(fused_mlp_ipe=k2.fused_mlp_ipe_apply,
+              fused_mlp_normals=k3.fused_mlp_normals_apply)[fn_name]
+
+    def no_build(source, defines=()):
+        raise RuntimeError(f"building {source} with {list(defines)}")
+
+    monkeypatch.setattr(build, "load_library", no_build)
+    _, mlp, means, covs, v = setup(8, C=1)
+    args = [torch.tensor(x) for x in (means, covs, v)]
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda")))
+    with pytest.raises(RuntimeError,
+                       match=r"building fused_mlp.cu with \['NERF_NDC=1'\]"):
+        fn(mlp, *args, min_deg=0, max_deg=16)
