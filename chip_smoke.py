@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's render and train paths on one H100:
-Pano-NeRF (`configs/panonerf.yaml`) and the mip-NeRF baseline
-(`configs/mipnerf.yaml`).
+Pano-NeRF (`configs/panonerf.yaml`), its HDR presets
+(`configs/panonerf_hdr.yaml`, `configs/panonerf_shadow.yaml`), the
+mip-NeRF baseline (`configs/mipnerf.yaml`) and the novel-view path.
 
 Run from the repository root on a machine with the card:
 
@@ -58,8 +59,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    `--ckpt_dir`, graph against eager on the trained weights.
 5. For phases 4 and 4b each (5b: key on): one train step on the card
    against the same step on the CPU (plain versions), from the same
-   parameters, batch and numpy-made draws: loss parts, and gradients as
-   `check_train_step_against_cpu` says; 16 steps from one state as two
+   parameters, batches (eight of 64 rays) and numpy-made draws: loss
+   parts, and gradients as `check_train_step_against_cpu` says; 16 steps from one state as two
    replays of the 8-step graph against four eager runs, held to twice
    the eager-vs-eager spread (`check_graphed_against_eager`); ms per step
    and train rays/s of the 8-step graph, the one-step graph and eager
@@ -90,15 +91,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step on the card against the CPU, graphed against eager, ms per step
    in turns and the profile, as phases 5 and 6. 8c: 24 steps with
    `loss.ort_loss 0.1` (kernel 3 forward and backward on the fine level).
+2p. The presets' kernel shapes vs the plain versions (run after phase 2,
+   entries `*_presets`): kernel 2 forward and backward on the tight
+   re-read of a batch-512 env march (25,600 rows at covariances x 0.01,
+   where the in-kernel IPE's high degrees are damped least), kernel 2
+   forward on the env-distill march (512 x 16 = 8,192 rows) and kernel
+   3's forward without the saved trunk on an eval chunk's fine level
+   (1,024 x 56 = 57,344 rows); phase 2's tolerances.
+9. `configs/panonerf_hdr.yaml`, 200 steps as in phase 4: per step 4
+   forward and 8 backward launches of kernel 2 (coarse, view
+   consistency, env, tight re-read) and 1 + 2 of kernel 3, 5 of them
+   the weight-gradient pass; losses finite and falling, exact counts, no
+   plain-version call. 10: `configs/panonerf_shadow.yaml`, the same plus
+   one kernel-2 forward per step (the distill march; its tie falls over
+   steps 140-170). 9b/10b: each checkpoint served through `eval
+   --ckpt_dir` (per 1,024-ray chunk 3 kernel-2 forwards and one of
+   kernel 3's; 96 + 32 per panorama), the chunk graph against eager
+   chunks (f32 atol 1e-4), ms per panorama in turns, profile; the HDR
+   preset's render on the card against the CPU. 9c/10c: one step on the
+   card against the CPU, 16 graphed steps against eager ones (the shadow
+   preset's from step 136, so that the tie's weight moves inside both
+   8-step graphs), ms per step in turns, the profile, as phases 5 and 6.
+11. `python -m pano_nerf_tpu_torch.render_path` (in process) on the
+   200-step checkpoints of phases 4 (kernel 4), 9 (kernels 2 and 3) and
+   8 (mip-NeRF): 3 frames each on the interpolated path, 128x256 through
+   the chunk graph, exact launch counts, EXR and PNG frames, finite.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
 weight-gradient pass (`fused_mlp_weight_grads`), shared by the backward
 of kernels 1, 2, 3 and 5, has its own entry; kernels 2 and 3 at one
 density channel have entries of their own (`_c1`), with the launches of
-the mip-NeRF runs. The last lines are the card (nvidia-smi name, power
-limit), one JSON object with each kernel's numbers and
-`{"ok": true, "device": ...}`. No JAX is imported.
+the mip-NeRF runs, and so have the presets' shapes (`_presets`), with
+the launches of phases 9-11's preset runs. The last lines are the card
+(nvidia-smi name, power limit), one JSON object with each kernel's
+numbers and `{"ok": true, "device": ...}`. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -117,6 +144,9 @@ NORMAL_MACS = 507_904      # the fine level's density-gradient chain per row
 TRUNK_MACS = 507_904       # the 8 trunk layers of one row (the chain's count)
 CONFIG = "configs/panonerf.yaml"
 MIP_CONFIG = "configs/mipnerf.yaml"
+HDR_CONFIG = "configs/panonerf_hdr.yaml"
+SHADOW_CONFIG = "configs/panonerf_shadow.yaml"
+PRESETS = (HDR_CONFIG, SHADOW_CONFIG)
 TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=1e-2, albedo=2e-2,
            roughness=2e-2)
 
@@ -283,15 +313,16 @@ def _wgrad_library(ops, normals: bool):
 
 
 def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
-                       shape: str, failures: list, ndc: int = 5) -> dict:
+                       shape: str, failures: list, ndc: int = 5,
+                       total: bool = True) -> dict:
     """The weight-gradient kernel on the operand rows `ops` that a row
     pass just wrote: held against `weight_grads_reference` per weight
     parameter, timed beside its plain version, its bound (the `rows` real
     operand rows read once, not the buffer's idle tile rows; f32 dw
     written once) and the
     torch.matmul yardstick, launched from the library built for `ndc`
-    density channels. Adds the shape to `entry` (into its sums at 5
-    channels, the shapes of the entry's earlier rows); returns the
+    density channels. Adds the shape to `entry` (into its sums with
+    `total`: the shapes of the entry's earlier rows); returns the
     numbers."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -320,9 +351,9 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     library_ms = time_ms(_wgrad_library(ops, normals), reps=20)
     macs = (MLP_MACS + (NORMAL_MACS if normals else 0)) * rows
     bound = _bound(macs, rows * ops.shape[1] * 2 + k2.W_TOTAL * 4)
-    _add(entry, shape, ms, plain_ms, bound, err, total=ndc == 5, rows=rows,
+    _add(entry, shape, ms, plain_ms, bound, err, total=total, rows=rows,
          buffer_rows=ops.shape[0], library_ms=library_ms, rel=rel)
-    if ndc == 5:
+    if total:
         entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
     return dict(ms=ms, bound=bound, library_ms=library_ms, rel=rel)
 
@@ -403,9 +434,21 @@ def check_kernels(model, env, dev) -> dict:
 # Kernel launches per 128x256 val panorama (32,768 rays) of each system:
 # Pano-NeRF 3 of kernel 4 per 1,024-ray chunk; mip-NeRF one of kernel 2
 # (coarse) and one of kernel 3's forward (fine) per 4,096-ray chunk.
+# The presets, per 1,024-ray chunk: kernel 2 on the coarse level, the env
+# march and its tight re-read, kernel 3's forward on the fine level.
 EVAL_LAUNCHES = {CONFIG: {"fused_render_level": 96},
                  MIP_CONFIG: {"fused_mlp_ipe_fwd": 8,
-                              "fused_mlp_normals_fwd": 8}}
+                              "fused_mlp_normals_fwd": 8},
+                 HDR_CONFIG: {"fused_mlp_ipe_fwd": 96,
+                              "fused_mlp_normals_fwd": 32},
+                 SHADOW_CONFIG: {"fused_mlp_ipe_fwd": 96,
+                                 "fused_mlp_normals_fwd": 32}}
+
+
+def _stem(config: str) -> str:
+    """A run directory's prefix for `config`: none for the shipped one."""
+    name = os.path.splitext(os.path.basename(config))[0]
+    return "" if config == CONFIG else name + "_"
 
 
 def forbid_plain_versions():
@@ -445,7 +488,7 @@ def drive_main_path(workdir: str, scene: str, weights: list,
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
     from pano_nerf_tpu_torch.kernels import counters
     mip = config == MIP_CONFIG
-    out = os.path.join(workdir, ("mip_" if mip else "") + "eval_"
+    out = os.path.join(workdir, _stem(config) + "eval_"
                        + "_".join(weights[:1]).strip("-"))
     argv = (["--data_path", scene, "--out_dir", out] + weights
             + ["--config", config, "train.sample_num", "'n0_1'"])
@@ -485,7 +528,8 @@ def drive_main_path(workdir: str, scene: str, weights: list,
         if len(files) != n:
             raise AssertionError(f"{p}: {len(files)} files for {n} images")
     counted = {k: launches[k] for k in per_pano}
-    print(f"[main{'-mip' if mip else ''}] {config} {' '.join(weights)}: "
+    print(f"[main-{_stem(config) or 'panonerf_'}] {config} "
+          f"{' '.join(weights)}: "
           f"{n} panoramas of 128x256 through the chunk graph: launches "
           f"{json.dumps(counted)} ({json.dumps(per_pano)} per panorama + "
           f"the capture's warm-up {json.dumps(warmup)}), "
@@ -654,8 +698,9 @@ def train_shapes(model, env, dev, batch: int = 512):
     """The four kernel calls of one train step at full width, built the
     way the model builds them (random draws, plain version for the
     weights that place the fine samples): name -> (normals?, means, covs,
-    v_enc); and the two levels kernel 5 renders with the key on: name ->
-    (means, covs, viewdirs, t_samples, dirs)."""
+    v_enc); the two levels kernel 5 renders with the key on: name ->
+    (means, covs, viewdirs, t_samples, dirs); and the surface points
+    [batch, 3] the env march starts from."""
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (
@@ -711,7 +756,41 @@ def train_shapes(model, env, dev, batch: int = 512):
     return {"coarse": (False, m0, c0, v), "fine": (True, m1, c1, v),
             "vc": (False, m1, c1, venc(d_alt)),
             "env": (False, lm.contiguous(), lc.contiguous(),
-                    venc(ld))}, levels
+                    venc(ld))}, levels, surf
+
+
+# The presets' env read: configs/panonerf_hdr.yaml `nerf.env_tight_rgb`
+# and configs/panonerf_shadow.yaml `nerf.env_distill_samples`.
+PRESET_TIGHT = 0.01
+PRESET_DISTILL = 16
+PRESET_FWD_ONLY = ("distill", "eval_fine")
+
+
+def preset_shapes(model, env, dev, calls, surf) -> dict:
+    """The kernel calls the presets add, at full width, built the way
+    `models/pano_mip_nerf.py` builds them: the tight re-read of a train
+    step's env march (`calls["env"]`, 25,600 rows at covs x 0.01; kernel
+    2 forward and backward), the env-distill march of one random env
+    direction per surface point of `surf` (512 x 16 = 8,192 rows; kernel
+    2 forward only) and the fine level of an eval chunk (1,024 x 56 =
+    57,344 rows; kernel 3's forward, no saved trunk). name -> (normals?,
+    means, covs, v_enc)."""
+    import torch
+    from pano_nerf_tpu_torch.ops import mip
+    _, lm, lc, v_env = calls["env"]
+    B, D = surf.shape[0], env.directions.shape[0]
+    g = torch.Generator(device=dev).manual_seed(13)
+    idx = torch.randint(0, D, (B, 1), generator=g, device=dev)
+    t, (m, c), d = mip.sample_env_rays_hemisphere(
+        surf, env.directions[idx[:, 0]][:, None, :], PRESET_DISTILL,
+        env.near[:1, :1], env.far[:1, :1], env.radii[:1, :1],
+        t_rand=torch.rand((B, 1, PRESET_DISTILL + 1), generator=g,
+                          device=dev))
+    args = main_path_inputs(model, env, dev)["fine"][0]
+    return {"tight": (False, lm, (lc * PRESET_TIGHT).contiguous(), v_env),
+            "distill": (False, m.contiguous(), c.contiguous(),
+                        model._venc(d)),
+            "eval_fine": (True, args[0], args[1], model._venc(args[2]))}
 
 
 MIP_BATCH = 2048    # configs/mipnerf.yaml train.batch_size
@@ -823,15 +902,18 @@ def _train_bound_ms(normals: bool, direction: str, rows: int,
 
 
 def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
-                        forward_only=(), tag: str = "[kernel]") -> list:
+                        forward_only=(), tag: str = "[kernel]",
+                        sfx: str = "") -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
     the shapes `calls` (name -> (normals?, means, covs, v_enc)) of the
     model's main path, built for its `ndc` density channels, and the
     weight-gradient pass on each backward's own operand rows (into
-    `wentry`); the shapes in `forward_only` are eval shapes, run forward
-    only and without saved activations. Raises on a disagreement. Returns
-    the four JSON entries (launches filled in by the main path's runs;
-    names carry `_c1` at one channel)."""
+    `wentry`); the shapes in `forward_only` are run forward only and
+    without saved activations (as the eval render and the env-distill
+    march run them). Raises on a disagreement. Returns the JSON entries
+    that got a shape (launches filled in by the main path's runs; names
+    carry `sfx`, and only the unsuffixed shapes add into the
+    weight-gradient entry's sums)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -841,7 +923,6 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
     packed = pack_params(mlp)
     lib = k2.kernel_library(ndc)
-    sfx = "" if ndc == 5 else f"_c{ndc}"
     entries = {name: _entry(name + sfx, "fused_mlp.cu", src_line)
                for name, src_line in (
                    ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
@@ -947,7 +1028,7 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
             + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
         wg = check_weight_grads(mlp, ops, normals, M, wentry,
                                 f"k{3 if normals else 2}{sfx}_{shape}",
-                                failures, ndc=ndc)
+                                failures, ndc=ndc, total=sfx == "")
         del ops, dw_r, db_r, dmc_r
         with torch.no_grad():
             plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
@@ -985,7 +1066,7 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     if failures:
         raise AssertionError("training kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
-    return list(entries.values())
+    return [e for e in entries.values() if e["per_shape"]]
 
 
 # Kernel 5's weights are held tighter than the eval render's: at S = 56 a
@@ -1265,30 +1346,41 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
 
 TRAIN_STEPS = 200
 MIP_ORT_STEPS = 24   # phase 8c: the orientation-loss variant
+# The shadow preset's tie falls from `loss.env_distill_end` 0.7 of the run
+# over `_fall` 0.15: steps 140-170 of 200. Phase 10 holds 16 graphed
+# steps from this step against eager ones, across that edge.
+SHADOW_WINDOW = int(0.7 * TRAIN_STEPS) - 4
 
 
 # Kernel launches of one train step. Pano-NeRF: kernel 2 for coarse, view
 # consistency and env, 1 for view consistency alone with the key on,
-# kernel 5 taking coarse and env; kernel 3 for the fine level. mip-NeRF:
-# kernel 2 for both levels, or for the coarse one and kernel 3 for the
-# fine one with the orientation loss (`ort`). Each backward is two
-# launches, the row pass and the weight-gradient pass; no model path
-# calls kernel 1.
+# kernel 5 taking coarse and env; kernel 3 for the fine level; the
+# presets add kernel 2 for the tight re-read (`tight`, which also keeps
+# the env march off kernel 5) and, forward only, the env-distill march
+# (`distill`). mip-NeRF: kernel 2 for both levels, or for the coarse one
+# and kernel 3 for the fine one with the orientation loss (`ort`). Each
+# backward is two launches, the row pass and the weight-gradient pass;
+# no model path calls kernel 1.
 def per_step_launches(render_kernel: bool, mip: bool = False,
-                      ort: bool = False) -> dict:
+                      ort: bool = False, tight: bool = False,
+                      distill: bool = False) -> dict:
     if mip:
         fwd = dict(fused_mlp_ipe_fwd=1 if ort else 2,
                    fused_mlp_normals_fwd=1 if ort else 0,
                    fused_render_train_fwd=0, fused_mlp_apply_fwd=0)
     else:
-        fwd = dict(fused_mlp_ipe_fwd=1 if render_kernel else 3,
+        env_k5 = render_kernel and not tight
+        fwd = dict(fused_mlp_ipe_fwd=(1 + (not render_kernel)
+                                      + (not env_k5) + tight),
                    fused_mlp_normals_fwd=1,
-                   fused_render_train_fwd=2 if render_kernel else 0,
+                   fused_render_train_fwd=render_kernel + env_k5,
                    fused_mlp_apply_fwd=0)
     want = dict(fwd)
     for k, n in fwd.items():
         want[k.replace("_fwd", "_bwd")] = 2 * n
     want["fused_mlp_weight_grads"] = sum(fwd.values())
+    if distill:
+        want["fused_mlp_ipe_fwd"] += 1
     return want
 
 
@@ -1299,10 +1391,13 @@ def _family(system) -> dict:
     mip = not system.surface
     ort = mip and system.hparams["loss.ort_loss"] > 0
     k5 = cfg.use_train_render_kernel and not mip
+    tight = cfg.env_tight_rgb > 0
+    distill = cfg.env_distill_samples > 0
     sfx = ("-mip" + ("-ort" if ort else "")) if mip else (
-        "-k5" if k5 else "")
+        ("-k5" if k5 else "") + ("-shadow" if distill else "-hdr" if tight
+                                 else ""))
     return dict(mip=mip, k5=k5, sfx=sfx,
-                per_step=per_step_launches(k5, mip, ort))
+                per_step=per_step_launches(k5, mip, ort, tight, distill))
 
 
 def drive_train_path(workdir: str, scene: str,
@@ -1321,7 +1416,8 @@ def drive_train_path(workdir: str, scene: str,
     from pano_nerf_tpu_torch.engine.system import BaseSystem
     from pano_nerf_tpu_torch.kernels import counters
     mip = config == MIP_CONFIG
-    name = ("mip" if mip else "train") + ("_k5" if render_kernel else "") + (
+    name = ("mip" if mip else _stem(config) + "train") + (
+        "_k5" if render_kernel else "") + (
         "_" + "_".join(str(o) for o in opts).replace(".", "") if opts
         else "")
     out = os.path.join(workdir, name)
@@ -1419,6 +1515,67 @@ def drive_train_path(workdir: str, scene: str,
                 save_dir=save_dir)
 
 
+RENDER_FRAMES = 3
+
+
+def drive_render_path(workdir: str, scene: str, save_dir: str,
+                      config: str = CONFIG) -> dict:
+    """`python -m pano_nerf_tpu_torch.render_path` (in process) on the
+    checkpoint in `save_dir` of a `TRAIN_STEPS`-step run of `config`:
+    `RENDER_FRAMES` frames on the path through the 3 training views
+    (`--path interp`), 128x256 each through the chunk graph; launch
+    counts zeroed just before and read just after, exact (the panorama's
+    of `EVAL_LAUNCHES` per frame plus the capture's warm-up), no
+    plain-version call; every frame's EXR read back whole and finite,
+    its PNG an 8-bit PNG."""
+    import numpy as np
+    from pano_nerf_tpu_torch import render_path as rp_entry
+    from pano_nerf_tpu_torch.data.io_exr import read_exr
+    from pano_nerf_tpu_torch.kernels import counters
+    out = os.path.join(workdir, _stem(config) + "frames")
+    argv = ["--data_path", scene, "--ckpt_dir", save_dir, "--config",
+            config, "--out", out, "--n_views", str(RENDER_FRAMES),
+            "--path", "interp", "train.sample_num", "'n0_1_2'"]
+    restore = forbid_plain_versions()
+    counters.reset_launch_counts()
+    try:
+        res = rp_entry.main(argv)
+    finally:
+        launches = counters.launch_counts()
+        warmup = dict(counters.WARMUP)
+        restore()
+    n = len(res["frames"])
+    if n != RENDER_FRAMES or res["step"] != TRAIN_STEPS:
+        raise AssertionError(f"{n} frames of step {res['step']}, expected "
+                             f"{RENDER_FRAMES} of step {TRAIN_STEPS}")
+    per_frame = EVAL_LAUNCHES[config]
+    for k in launches:
+        want = per_frame.get(k, 0) * n + warmup.get(k, 0)
+        if launches[k] != want:
+            raise AssertionError(f"{k}: {launches[k]} launches for {n} "
+                                 f"frames, expected {want} (warm-up "
+                                 f"{warmup})")
+    for stem in res["frames"]:
+        hdr = read_exr(stem + ".exr")
+        if hdr.shape[:2] != tuple(res["size"]) or not np.all(
+                np.isfinite(hdr)):
+            raise AssertionError(f"{stem}.exr: shape {hdr.shape}, finite "
+                                 f"{bool(np.all(np.isfinite(hdr)))}")
+        with open(stem + ".png", "rb") as fp:
+            if fp.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{stem}.png is no PNG")
+    ms = res["ms_per_frame"]
+    print(f"[render_path-{_stem(config) or 'panonerf_'}] {config}: {n} "
+          f"frames of {res['size'][0]}x{res['size'][1]} from step "
+          f"{res['step']} through the chunk graph: host ms per frame "
+          + ", ".join(f"{x:.1f}" for x in ms)
+          + " (the first with the capture); launches "
+          + json.dumps({k: launches[k] for k in per_frame})
+          + f" ({json.dumps(per_frame)} per frame + warm-up "
+          f"{json.dumps(warmup)}); EXR and PNG frames finite", flush=True)
+    return dict(launches=launches, ms_per_frame=ms)
+
+
 def _train_inputs(trainer):
     import torch
     from pano_nerf_tpu_torch.core.rays import rays_to_tensors
@@ -1493,10 +1650,13 @@ def _within_spread(graph, eager, dist, floor):
     return spread, got, tol, got <= tol
 
 
-def check_graphed_against_eager(trainer) -> None:
-    """16 steps from one state (the trained weights, a fresh Adam, one
-    generator seed) four times eagerly and once as two replays of the
-    8-step graph: parameters (rel-norm) and every step's loss."""
+def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
+    """16 steps from one state (the trained weights, a fresh Adam at step
+    `start_step`, one generator seed) four times eagerly and once as two
+    replays of the 8-step graph: parameters (rel-norm) and every step's
+    loss. With an env-distill schedule, its weight at each of the 16
+    steps is printed and must change inside the window: the graph reads
+    it from the device step counter at every replay."""
     import torch
     system = trainer.system
     batch = int(trainer.hparams["train.batch_size"])
@@ -1507,6 +1667,8 @@ def check_graphed_against_eager(trainer) -> None:
     def run(graphed: bool):
         mlp.load_state_dict(start)
         state = system.create_state()
+        state.step = start_step
+        state.step_t.fill_(start_step)
         gen = torch.Generator(device=system.device).manual_seed(31)
         if graphed:
             fn = system.make_graphed_train_step(state, data, gen, True, batch,
@@ -1517,9 +1679,11 @@ def check_graphed_against_eager(trainer) -> None:
             one = system.make_device_step(data, gen, True, batch)
             losses = torch.stack([one(state)["loss"]
                                   for _ in range(GRAPH_STEPS)])
-        if state.step != GRAPH_STEPS or int(state.step_t) != GRAPH_STEPS:
+        end = start_step + GRAPH_STEPS
+        if state.step != end or int(state.step_t) != end:
             raise AssertionError(f"step counts {state.step}, "
-                                 f"{int(state.step_t)} after {GRAPH_STEPS}")
+                                 f"{int(state.step_t)} after {GRAPH_STEPS}"
+                                 f" steps from {start_step}")
         flat = torch.cat([p.detach().reshape(-1) for p in mlp.parameters()])
         return flat.clone(), losses.cpu(), gen.get_state()
 
@@ -1534,6 +1698,17 @@ def check_graphed_against_eager(trainer) -> None:
                           1e-6 * loss_scale)
     same_gen = all(torch.equal(graph[2], e[2]) for e in eager)
     tag = f"[graph{_family(system)['sfx']}]"
+    from pano_nerf_tpu_torch.engine.losses import env_distill_schedule
+    if env_distill_schedule(system.hparams, torch.tensor(0)) is not None:
+        sched = [float(env_distill_schedule(system.hparams,
+                                            torch.tensor(start_step + i)))
+                 for i in range(GRAPH_STEPS)]
+        print(f"{tag} env-distill weight factor at steps {start_step}-"
+              f"{start_step + GRAPH_STEPS - 1}: "
+              + ", ".join(f"{x:.4f}" for x in sched), flush=True)
+        if len(set(sched[:8])) < 2 or len(set(sched[8:])) < 2:
+            raise AssertionError("the env-distill schedule does not move "
+                                 "inside each 8-step graph of the window")
     print(f"{tag} {GRAPH_STEPS} steps from one state: eager vs eager "
           f"spread ({EAGER_RUNS} runs, largest of the pairs) params "
           f"rel-norm {params[0]:.3e}, per-step loss {loss[0]:.3e}; graphed "
@@ -1560,37 +1735,31 @@ def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
         D = int(hp["nerf.num_ray_samples"])
         system.set_env_rays(ds.generate_lit_rays(num=D, near=0.0, far=10.0))
     T = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+
+    def draw(x):   # uniforms as float32, the env-distill index as int64
+        if x is None or np.issubdtype(np.asarray(x).dtype, np.integer):
+            return None if x is None else torch.as_tensor(x).to(dev)
+        return T(x)
+
     rays = Rays(*(T(getattr(ds.rays, k)[idx]) for k in Rays._fields))
     parts = system.make_train_step(True)(
         system.create_state(), rays, T(ds.images[idx]),
-        type(draws_np)(*(T(x) for x in draws_np)))
+        type(draws_np)(*(draw(x) for x in draws_np)))
     grads = torch.cat([p.grad.reshape(-1).cpu() for p in
                        system.model.mlp.parameters()])
     return {k: float(v) for k, v in parts.items()}, grads
 
 
-def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
-    """One train step on the card (kernels) and on the CPU (plain
-    versions) from the same parameters, batch and numpy-made draws.
-
-    Loss parts must agree within 5e-2. The gradient of the shipped loss is
-    ill-conditioned in bf16: the orientation and surface terms normalize
-    per-sample density gradients, some of them tiny, so rounding moves it
-    by tens of percent whichever device computes it (the plain bf16
-    version on the CPU differs from the f32 one as much). So it is held
-    two ways: (a) the card's gradient of the shipped loss must track the
-    f32 gradient at least as well as the CPU's bf16 gradient does (within
-    1.5x, as the JAX kernel tests hold their kernels), and (b) without the
-    two normal-dependent terms the card's and the CPU's bf16 gradients
-    must agree at rel-norm 5e-2."""
+def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
+    """A batch of `num_rays` rays of the trainer's dataset and its draws,
+    made with numpy from `seed`, as `_one_step` takes them."""
     import numpy as np
     from pano_nerf_tpu_torch.models.mip_nerf import MipDraws
     from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
     hp = trainer.hparams
     cfg = trainer.system.model.cfg
     ds = trainer.train_dataset
-    tag = f"[check{_family(trainer.system)['sfx']}]"
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     idx = rng.integers(0, ds.num_rays, num_rays)
     D = int(hp["nerf.num_ray_samples"])
     t_coarse = rng.random((num_rays, cfg.train_coarse_samples() + 1))
@@ -1600,33 +1769,88 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
         t_env=rng.random((num_rays, D, cfg.num_env_samples + 1)),
         d_alt=rng.normal(size=(num_rays, 3))) if trainer.system.surface
         else MipDraws(t_coarse=t_coarse, u_fine=u_fine))
+    if cfg.env_distill_samples > 0:
+        draws_np = draws_np._replace(
+            ed_idx=rng.integers(0, D, (num_rays, 1)),
+            t_ed=rng.random((num_rays, 1, cfg.env_distill_samples + 1)))
+    return idx, draws_np
+
+
+def grad_errors(trainer, seeds, num_rays: int = 64) -> list:
+    """For each seed's batch, from the trainer's parameters: one train
+    step of the shipped loss on the card, in bf16 on the CPU and in f32
+    on the CPU, and one on the card and one in bf16 on the CPU without the
+    orientation and surface terms. Returns per batch the loss parts of
+    the first three and the squared norms of the gradients' differences
+    (`card`, `cpu`: to f32; `plain`: card to CPU without the two terms)
+    and of their references (`f32`, `cpu_plain`)."""
+    hp = trainer.hparams
+    hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
     sd = {k: v.detach().cpu().clone() for k, v in
           trainer.system.model.mlp.state_dict().items()}
-    args = (sd, ds, idx, draws_np)
-    card = _one_step(hp, "cuda", *args)
-    cpu = _one_step(hp, "cpu", *args)
-    f32 = _one_step(dict(hp, **{"train.precision": "f32"}), "cpu", *args)
+    sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
+    out = []
+    for seed in seeds:
+        idx, draws_np = _check_batch(trainer, seed, num_rays)
+        args = (sd, trainer.train_dataset, idx, draws_np)
+        card = _one_step(hp, "cuda", *args)
+        cpu = _one_step(hp, "cpu", *args)
+        f32 = _one_step(dict(hp, **{"train.precision": "f32"}), "cpu", *args)
+        card_p, cpu_p = (_one_step(hp_plain, dev, *args)
+                         for dev in ("cuda", "cpu"))
+        out.append(dict(parts=(card[0], cpu[0], f32[0]),
+                        card=sq(card[1], f32[1]), cpu=sq(cpu[1], f32[1]),
+                        f32=sq(f32[1]), plain=sq(card_p[1], cpu_p[1]),
+                        cpu_plain=sq(cpu_p[1])))
+    return out
+
+
+GRAD_BATCHES = 8
+
+
+def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
+    """Train steps on the card (kernels) and on the CPU (plain versions)
+    from the same parameters, batches and numpy-made draws.
+
+    Loss parts (first batch) must agree within 5e-2. The gradient of the
+    shipped loss is ill-conditioned in bf16: the orientation and surface
+    terms normalize per-sample density gradients, some of them tiny, so
+    rounding moves it by tens of percent whichever device computes it (the
+    plain bf16 version on the CPU differs from the f32 one as much). A
+    batch's distance is set by its few worst rays, so gradients are held
+    over GRAD_BATCHES batches, each distance the rel-norm of all the
+    batches' gradients together, two ways: (a) the card's gradients of
+    the shipped loss must track the f32 gradients at least as well as the
+    CPU's bf16 gradients do (within 1.5x, as the JAX kernel tests hold
+    their kernels), and (b) without the two normal-dependent terms the
+    card's and the CPU's bf16 gradients must agree at rel-norm 5e-2."""
+    import math
+    tag = f"[check{_family(trainer.system)['sfx']}]"
+    errs = grad_errors(trainer, range(5, 5 + GRAD_BATCHES), num_rays)
     failures = []
-    for k, want in cpu[0].items():
-        got = card[0][k]
+    card, cpu, f32 = errs[0]["parts"]
+    for k, want in cpu.items():
+        got = card[k]
         err = abs(got - want) / max(abs(want), 1e-12)
         print(f"{tag} train step {k}: card {got:.6e} cpu {want:.6e} "
-              f"(f32 {f32[0][k]:.6e}) rel {err:.3e}")
+              f"(f32 {f32[k]:.6e}) rel {err:.3e}")
         if not (err <= 5e-2 or abs(got - want) <= 1e-9):
             failures.append(k)
-    e_card, e_cpu = _rel(card[1], f32[1]), _rel(cpu[1], f32[1])
-    print(f"{tag} train step gradients vs f32: card {e_card:.3e}, cpu "
-          f"bf16 {e_cpu:.3e} (card must be <= 1.5x cpu); card vs cpu "
-          f"{_rel(card[1], cpu[1]):.3e}")
+    rel = lambda e, d, ref: math.sqrt(e[d] / e[ref])
+    each = lambda d, ref: " ".join(f"{rel(e, d, ref):.3e}" for e in errs)
+    tot = {d: sum(e[d] for e in errs) for d in errs[0] if d != "parts"}
+    e_card, e_cpu = rel(tot, "card", "f32"), rel(tot, "cpu", "f32")
+    print(f"{tag} train step gradients vs f32 over {GRAD_BATCHES} batches "
+          f"of {num_rays} rays: card {e_card:.3e}, cpu bf16 {e_cpu:.3e} "
+          f"(card must be <= 1.5x cpu); per batch card {each('card', 'f32')}"
+          f"; cpu bf16 {each('cpu', 'f32')}")
     if not e_card <= 1.5 * e_cpu:
         failures.append("grads vs f32")
-    hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
-    card_p, cpu_p = (_one_step(hp_plain, dev, *args) for dev in ("cuda",
-                                                                 "cpu"))
-    e = _rel(card_p[1], cpu_p[1])
+    e = rel(tot, "plain", "cpu_plain")
     print(f"{tag} train step gradients without the orientation and "
           f"surface terms (mip-NeRF's shipped loss has neither): card vs "
-          f"cpu rel-norm {e:.3e} (tolerance 5e-2)")
+          f"cpu rel-norm {e:.3e} over {GRAD_BATCHES} batches (tolerance "
+          f"5e-2); per batch {each('plain', 'cpu_plain')}")
     if not e <= 5e-2:
         failures.append("grads without normal terms")
     if failures:
@@ -1845,17 +2069,21 @@ def main() -> int:
                                             far=10.0, radius=0.0142), dev)
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
-    calls, levels = train_shapes(model, env, dev)
+    calls, levels, surf = train_shapes(model, env, dev)
     wentry = _wgrad_entry()
     train_entries = check_train_kernels(model, dev, calls, wentry)
     k5_entries = check_train_render_kernel(model, dev, levels, wentry)
     k1_entries = check_fused_mlp_kernel(model, dev, levels, wentry)
-    del calls, levels
+    preset_entries = check_train_kernels(
+        model, dev, preset_shapes(model, env, dev, calls, surf), wentry,
+        forward_only=PRESET_FWD_ONLY, tag="[kernel-presets]",
+        sfx="_presets")
+    del calls, levels, surf
     mip_model = MipNeRF.from_hparams(
         load_config(MIP_CONFIG), torch.Generator().manual_seed(0)).to(dev)
     mip_entries = check_train_kernels(
         mip_model, dev, mip_shapes(mip_model, dev), wentry, ndc=1,
-        forward_only=MIP_EVAL, tag="[kernel-mip]")
+        forward_only=MIP_EVAL, tag="[kernel-mip]", sfx="_c1")
     del mip_model
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
@@ -1901,21 +2129,59 @@ def main() -> int:
         mip_ort = drive_train_path(workdir, scene, config=MIP_CONFIG,
                                    opts=("loss.ort_loss", "0.1"),
                                    steps=MIP_ORT_STEPS)
+        del mip_train["trainer"]
+        # 9: the HDR preset, 10: the shadow preset: train (9/10), serve
+        # the checkpoints (9b/10b), one step against the CPU, graphed
+        # steps against eager ones (10: across the tie's fall), times and
+        # the profile (9c/10c).
+        presets = {c: drive_train_path(workdir, scene, config=c)
+                   for c in PRESETS}
+        served = {}
+        for c, t in presets.items():
+            served[c] = drive_main_path(workdir, scene,
+                                        ["--ckpt_dir", t["save_dir"]],
+                                        step=TRAIN_STEPS, config=c)
+            where_the_time_goes(
+                scene, params=t["trainer"].ckpt.restore(
+                    map_location=dev)["params"],
+                tag=f"[eval{_family(t['trainer'].system)['sfx']}-trained]",
+                config=c)
+        check_against_plain(scene, HDR_CONFIG, tag="[check-hdr]")
+        for c, t in presets.items():
+            check_train_step_against_cpu(t["trainer"])
+            check_graphed_against_eager(
+                t["trainer"],
+                start_step=SHADOW_WINDOW if c == SHADOW_CONFIG else 0)
+            time_train_modes(t["trainer"])
+            profile_train_step(t["trainer"])
+            del t["trainer"]
+        # 11: novel-view frames from a checkpoint of each family.
+        saves = {CONFIG: train["save_dir"],
+                 HDR_CONFIG: presets[HDR_CONFIG]["save_dir"],
+                 MIP_CONFIG: mip_train["save_dir"]}
+        frames = {c: drive_render_path(workdir, scene, save, c)
+                  for c, save in saves.items()}
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
     for e in k5_entries:
         e["launches"] = train_k5["launches"][e["name"]]
-    mip_runs = (mip_run, mip_trained, mip_train, mip_ort)
+    mip_runs = (mip_run, mip_trained, mip_train, mip_ort, frames[MIP_CONFIG])
     for e in mip_entries:   # the one-channel build, over the mip-NeRF runs
         e["launches"] = sum(r["launches"][e["name"][:-3]] for r in mip_runs)
-    for e in k1_entries + [wentry]:   # counted over all eight runs
+    preset_runs = (tuple(presets.values()) + tuple(served.values())
+                   + (frames[HDR_CONFIG],))
+    for e in preset_entries:   # the presets' shapes, over the preset runs
+        e["launches"] = sum(r["launches"][e["name"][:-len("_presets")]]
+                            for r in preset_runs)
+    for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
-                            for r in (run, trained, train, train_k5)
-                            + mip_runs)
+                            for r in (run, trained, train, train_k5,
+                                      frames[CONFIG]) + mip_runs
+                            + preset_runs)
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
-                      + k5_entries + mip_entries}))
+                      + k5_entries + mip_entries + preset_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

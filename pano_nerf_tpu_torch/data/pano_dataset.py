@@ -69,6 +69,20 @@ def equirect_radii(directions: np.ndarray) -> np.ndarray:
     return radii.astype(np.float32)
 
 
+def pano_rays_for_pose(origin: np.ndarray, h: int, w: int, near: float,
+                       far: float) -> Rays:
+    """The equirect ray bundle [h, w, ...] of a camera at `origin` [3]
+    with world axes: a novel view of `render_path`."""
+    dirs, noise = equirect_camera_dirs(h, w)
+    ones = np.ones_like(dirs[..., :1])
+    return Rays(
+        origins=np.broadcast_to(np.asarray(origin, np.float32),
+                                dirs.shape).copy(),
+        directions=dirs.astype(np.float32), viewdirs=dirs.astype(np.float32),
+        radii=equirect_radii(dirs), lossmult=ones, near=ones * near,
+        far=ones * far, noise_var=noise.astype(np.float32))
+
+
 def generate_lit_rays(num: int = 10, near: float = 0.0, far: float = 10.0,
                       radius: float = 0.01) -> Rays:
     """Fibonacci-sphere env directions with 4pi/num solid angles (numpy)."""

@@ -1,15 +1,18 @@
 """Training losses of the Pano-NeRF and mip-NeRF systems.
 
 Counterpart of pano_nerf_tpu/engine/losses.py over the terms that
-`configs/panonerf.yaml` turns on (`pano_losses`): coarse / fine / surface
-volume losses on tone-mapped LDR (ground truth quantized to 8 bits,
-predictions tone-mapped without the clamp), the albedo chromaticity
-prior, the orientation loss, the distortion loss, the saturation runaway
-guard and the luma view-consistency tie; and the mip-NeRF baseline's
-(`mipnerf_losses`). Loss keys whose non-default value needs a term the
-port does not have raise NotImplementedError naming the key
-(`check_loss_config`); the baseline reads only its own keys
-(`check_mipnerf_loss_config`).
+`configs/panonerf.yaml`, `panonerf_hdr.yaml` and `panonerf_shadow.yaml`
+turn on (`pano_losses`): coarse / fine / surface volume losses on
+tone-mapped LDR (ground truth quantized to 8 bits, predictions
+tone-mapped without the clamp), the albedo chromaticity prior (with the
+illuminant-chroma gate and the illuminant-compensated target), the
+orientation loss (with `loss.ort_tie_boost`), the distortion loss, the
+saturation runaway guard, the luma view-consistency tie and the env
+distill ties, weighted by the step's trapezoid (`env_distill_schedule`);
+and the mip-NeRF baseline's (`mipnerf_losses`). Loss keys whose
+non-default value needs a term the port does not have raise
+NotImplementedError naming the key (`check_loss_config`); the baseline
+reads only its own keys (`check_mipnerf_loss_config`).
 """
 
 from __future__ import annotations
@@ -39,14 +42,9 @@ EXTENSION_DEFAULTS = {
 UNSUPPORTED: Dict[str, Callable] = {
     "loss.scale_distill": lambda v: float(v) != 0.0,
     "loss.scale_distill_dist": lambda v: float(v) != 0.0,
-    "loss.env_distill": lambda v: float(v) != 0.0,
-    "loss.env_distill_acc": lambda v: float(v) != 0.0,
-    "loss.env_distill_dist": lambda v: float(v) != 0.0,
     "loss.illum_distill": lambda v: float(v) != 0.0,
     "loss.vc_chroma": lambda v: float(v) != 0.0,
     "loss.vc_sat_mask": bool,
-    "loss.chrom_gate": bool,
-    "loss.chrom_illum_comp": bool,
 }
 
 # Radiance that ACES + gamma tone-maps to exactly 1.0 (ops/shading.py
@@ -95,9 +93,58 @@ def _l2_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
                            min=eps)
 
 
-def chromaticity_loss(ldr_gt: Tensor, albedo: Tensor) -> Tensor:
-    """MSE between unit-normalized LDR color and unit-normalized albedo."""
-    return torch.mean((_l2_normalize(ldr_gt) - _l2_normalize(albedo)) ** 2)
+def chromaticity_loss(ldr_gt: Tensor, albedo: Tensor,
+                      weights: Optional[Tensor] = None) -> Tensor:
+    """MSE between unit-normalized LDR color and unit-normalized albedo;
+    with per-pixel `weights` [B, 1], mean(weights x error), a downweighted
+    mean over all pixels (not a weighted mean)."""
+    err = (_l2_normalize(ldr_gt) - _l2_normalize(albedo)) ** 2
+    return torch.mean(err if weights is None else weights * err)
+
+
+def illuminant_chroma_gate(shading: Tensor, sigma: float) -> Tensor:
+    """Per-pixel confidence [B, 1] that the irradiance `shading` [B, 3]
+    is neutral: exp(-(s / sigma)^2), s the distance of its unit vector
+    from the unit white (zero shading: s = 1). The caller detaches."""
+    white = 1.0 / 3.0 ** 0.5
+    s = torch.linalg.norm(_l2_normalize(shading) - white, dim=-1,
+                          keepdim=True)
+    return torch.exp(-(s / sigma) ** 2)
+
+
+def env_distill_schedule(hparams: Dict, step: Optional[Tensor]
+                         ) -> Optional[Tensor]:
+    """The env-distill weights' factor at `step` (a scalar tensor), a
+    trapezoid in [0, 1] over fractions of `optimizer.max_steps`: 0 until
+    `loss.env_distill_start`, a linear ramp over `_ramp`, 1, a linear fall
+    to 0 over `_fall` from `_end`. None when no schedule key is set (a
+    flat weight), or when no env-distill weight is on. ValueError for a
+    fall without an end, or a schedule without a step."""
+    if not any(float(hparams.get(f"loss.env_distill{k}", 0.0)) > 0
+               for k in ("", "_acc", "_dist")):
+        return None
+    start, ramp, end, fall = (float(hparams.get(f"loss.env_distill_{k}",
+                                                0.0))
+                              for k in ("start", "ramp", "end", "fall"))
+    if fall > 0 and end == 0:
+        raise ValueError("loss.env_distill_fall > 0 requires "
+                         "loss.env_distill_end > 0 (the fall window starts "
+                         "at `end`)")
+    if not (start > 0 or ramp > 0 or end > 0):
+        return None
+    if step is None:
+        raise ValueError("step-scheduled loss.env_distill_{start,ramp,end} "
+                         "set but no `step` was passed to pano_losses")
+    max_steps = float(hparams["optimizer.max_steps"])
+    s = step.to(torch.float32)
+    sched = torch.ones_like(s)
+    if start > 0 or ramp > 0:
+        sched = torch.clamp((s - start * max_steps)
+                            / max(ramp * max_steps, 1.0), 0.0, 1.0)
+    if end > 0:
+        sched = sched * (1.0 - torch.clamp(
+            (s - end * max_steps) / max(fall * max_steps, 1.0), 0.0, 1.0))
+    return sched
 
 
 def saturation_loss(pred_hdr: Tensor, ldr_gt: Tensor, mask: Tensor,
@@ -110,12 +157,16 @@ def saturation_loss(pred_hdr: Tensor, ldr_gt: Tensor, mask: Tensor,
 
 
 def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
-                hparams: Dict, enable_surf: bool
+                hparams: Dict, enable_surf: bool,
+                step: Optional[Tensor] = None
                 ) -> Dict[str, Optional[Tensor]]:
     """Pano-NeRF training loss over [coarse, fine] LevelOutputs.
 
-    rgbs_gt: [B, 3] HDR ground truth; mask: [B, 1] lossmult. Returns a
-    dict with 'loss' and each component (None where the term is off).
+    rgbs_gt: [B, 3] HDR ground truth; mask: [B, 1] lossmult; step: the
+    step as a scalar tensor (on the card the device counter, so that a
+    CUDA graph reads it at every replay), needed by the env-distill
+    schedule. Returns a dict with 'loss' and each component (None where
+    the term is off).
     """
     coarse, fine = outputs[0], outputs[-1]
     ldr_gt = hdr_to_ldr(rgbs_gt,
@@ -134,11 +185,37 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
         loss = loss + hparams["loss.surface_loss"] * vol_surface
         parts["vol_surface"] = vol_surface
         if hparams["loss.chrom_loss"] > 0:
-            chrom = chromaticity_loss(ldr_gt, fine.albedo)
+            gate = None
+            if (bool(hparams.get("loss.chrom_gate", False))
+                    and fine.shading is not None):
+                gate = illuminant_chroma_gate(
+                    fine.shading.detach(),
+                    float(hparams.get("loss.chrom_gate_sigma", 0.2)))
+            target = ldr_gt
+            if (bool(hparams.get("loss.chrom_illum_comp", False))
+                    and fine.shading is not None):
+                # GT radiance over the irradiance per channel, the divisor
+                # floored relative to its brightest channel.
+                shade = fine.shading.detach()
+                floor = torch.clamp(float(hparams.get(
+                    "loss.chrom_illum_floor", 0.1)) * torch.amax(
+                        shade, dim=-1, keepdim=True), min=1e-3)
+                target = rgbs_gt / torch.maximum(shade, floor)
+            chrom = chromaticity_loss(target, fine.albedo, gate)
             loss = loss + hparams["loss.chrom_loss"] * chrom
             parts["chrom"] = chrom
+    ed_sched = env_distill_schedule(hparams, step)
+    w_ed, w_eda, w_edd = (float(hparams.get(f"loss.env_distill{k}", 0.0))
+                          for k in ("", "_acc", "_dist"))
     if fine.ort_loss is not None:
-        loss = loss + hparams["loss.ort_loss"] * fine.ort_loss
+        w_ort = hparams["loss.ort_loss"]
+        boost = float(hparams.get("loss.ort_tie_boost", 0.0))
+        if boost > 0 and (w_ed > 0 or w_eda > 0):
+            # Riding the env-distill trapezoid: boost x the weight while
+            # the tie is at full weight, back to it as the tie falls.
+            tie = 1.0 if ed_sched is None else ed_sched
+            w_ort = w_ort * (1.0 + (boost - 1.0) * tie)
+        loss = loss + w_ort * fine.ort_loss
         parts["ort"] = fine.ort_loss
     w_dist = float(hparams.get("loss.distortion_loss", 0.0))
     if w_dist > 0 and fine.dist_loss is not None:
@@ -164,6 +241,21 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
                             torch.log1p(torch.relu(fine.rgb)), mask)
         loss = loss + w_vc * vc
         parts["vc"] = vc
+    # The env-distill ties along each ray's selected env direction, to
+    # stop-gradient targets: radiance in log1p space, opacity raw,
+    # distance in log space.
+    ties = (("env_distill", w_ed, fine.env_read, fine.env_fine,
+             lambda x: torch.log1p(torch.relu(x))),
+            ("env_distill_acc", w_eda, fine.env_read_acc, fine.env_fine_acc,
+             lambda x: x[..., None]),
+            ("env_distill_dist", w_edd, fine.env_read_dist,
+             fine.env_fine_dist,
+             lambda x: torch.log(torch.clamp(x, min=1e-3))[..., None]))
+    for name, w, read, target, f in ties:
+        if w > 0 and read is not None:
+            tie = masked_mse(f(read), f(target), mask)
+            loss = loss + (w if ed_sched is None else w * ed_sched) * tie
+            parts[name] = tie
     parts["loss"] = loss
     return parts
 

@@ -35,7 +35,6 @@ Tensor = torch.Tensor
 TRAIN_UNSUPPORTED: Dict[str, Callable] = {
     "train.randomized": lambda v: not bool(v),
     "nerf.point_normals": bool,
-    "nerf.env_distill_samples": lambda v: int(v) > 0,
     "parallel.num_devices": lambda v: v is not None and int(v) > 1,
 }
 
@@ -171,7 +170,8 @@ class BaseSystem:
         raise NotImplementedError
 
     def _losses(self, outs: Sequence, rgbs: Tensor, mask: Tensor,
-                enable_surf: bool) -> Dict[str, Optional[Tensor]]:
+                enable_surf: bool, step: Tensor
+                ) -> Dict[str, Optional[Tensor]]:
         raise NotImplementedError
 
     def make_draws(self, batch: int, gen: torch.Generator) -> Any:
@@ -262,8 +262,14 @@ class BaseSystem:
                       if self.device.type == "cuda" else None)
             state.optimizer.zero_grad(set_to_none=True)
             outs = self._train_forward(rays, draws, enable_surf, packed)
+            # The step before this one's increment, as JAX reads
+            # state.step; on the card the device counter, which a graph
+            # reads at every replay (a Python int would be frozen into
+            # it at capture).
+            step_now = (torch.tensor(state.step) if state.step_t is None
+                        else state.step_t)
             parts = self._losses(outs, rgbs[..., :3], rays.lossmult,
-                                 enable_surf)
+                                 enable_surf, step_now)
             parts["loss"].backward()
             if clip > 0:
                 clip_by_global_norm_(params, clip)
@@ -429,7 +435,8 @@ class PanoNeRFSystem(BaseSystem):
     Pano-NeRF train forward (kernels 2 and 3 on the card, and kernel 5 for
     the coarse level and the env queries with
     `nerf.use_train_render_kernel`) and `pano_losses`; the eval render
-    through kernel 4, 5 products or (`enable_surf`) 9."""
+    through kernel 4 (with the tight re-read, kernels 2 and 3), 5
+    products or (`enable_surf`) 9."""
 
     mlp_name = "panonerf"
     surface = True
@@ -458,9 +465,9 @@ class PanoNeRFSystem(BaseSystem):
             hp["loss.ort_loss"] > 0,
             float(hp.get("loss.view_consistency", 0.0)) > 0, packed=packed)
 
-    def _losses(self, outs, rgbs, mask, enable_surf):
+    def _losses(self, outs, rgbs, mask, enable_surf, step):
         return losses_lib.pano_losses(outs, rgbs, mask, self.hparams,
-                                      enable_surf)
+                                      enable_surf, step=step)
 
     def make_draws(self, batch: int, gen: torch.Generator):
         return self.model.make_draws(
@@ -499,7 +506,7 @@ class MipNeRFSystem(BaseSystem):
             rays, draws, self.white_bkgd,
             self.hparams["loss.ort_loss"] > 0, packed=packed)
 
-    def _losses(self, outs, rgbs, mask, enable_surf):
+    def _losses(self, outs, rgbs, mask, enable_surf, step):
         return losses_lib.mipnerf_losses(outs, rgbs, mask, self.hparams)
 
     def make_draws(self, batch: int, gen: torch.Generator):

@@ -15,7 +15,7 @@ and K, captured at first use and again after every restore), on the CPU K
 eager steps. Scalars (the last step's of a dispatch, as in JAX) go to
 stdout and `metrics.jsonl` (with `rays_per_sec`) every `log_every_n_step`;
 validation renders through the eval path (on the card kernel 4 for
-Pano-NeRF, kernels 2 and 3 for mip-NeRF) with a
+Pano-NeRF, kernels 2 and 3 for its HDR presets and mip-NeRF) with a
 one-image sanity pass at step 0, every `val.check_every_n_epoch` x 1000
 steps and at the end, each followed by a checkpoint. A non-finite loss is
 triaged as in the JAX trainer: a false alarm when the parameters are

@@ -3,7 +3,8 @@
 Counterpart of scripts/eval.py (`Trainer.validate`): every val panorama is
 rendered through the chunked renderer of the config's system
 (`nerf.mlp_name`: Pano-NeRF through the CUDA fused render kernel,
-mip-NeRF through kernels 2 and 3), the solid-angle-weighted metric family
+its HDR presets and mip-NeRF through kernels 2 and 3), the
+solid-angle-weighted metric family
 is computed, and the image tree is written under
 `<out_dir>/eval_<step>/` (11 products for Pano-NeRF, 8 for mip-NeRF,
 which has no surface path). Prints one JSON line of mean metrics, with

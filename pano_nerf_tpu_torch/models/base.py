@@ -1,14 +1,15 @@
 """Hyperparameters, level outputs and sampling of the two model families.
 
-Counterpart of pano_nerf_tpu/models/base.py: `from_hparams`,
-`_sample_level`, `_env_samples` and `_expected_normals`, shared by
-Pano-NeRF (`models/pano_mip_nerf.py`) and the mip-NeRF baseline
-(`models/mip_nerf.py`). Each model has one eval path and one training
-path through the fused kernels (for Pano-NeRF's eval the whole-level
-render kernel, and the whole-level training kernel for the coarse level
-and env queries when `use_train_render_kernel` is on), so `from_hparams`
-refuses every config key that would need another path (`UNSUPPORTED`)
-with NotImplementedError naming the key,
+Counterpart of pano_nerf_tpu/models/base.py: `from_hparams` (with the
+`__post_init__` checks of the tight re-read's variants), `_sample_level`,
+`_env_samples` and `_expected_normals`, shared by Pano-NeRF
+(`models/pano_mip_nerf.py`) and the mip-NeRF baseline
+(`models/mip_nerf.py`). Each model takes the JAX package's kernel route
+for its config (for Pano-NeRF's eval the whole-level render kernel, or
+kernels 2 and 3 with the tight re-read; the whole-level training kernel
+for the coarse level and env queries when `use_train_render_kernel` is
+on), so `from_hparams` refuses every config key that would need another
+path (`UNSUPPORTED`) with NotImplementedError naming the key,
 instead of silently computing something else. The MLP widths are not
 config-checked: the CUDA kernels raise on widths they were not compiled
 for, while the plain versions on the CPU take any width.
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from pano_nerf_tpu_torch.core.rays import Rays
+from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
 from pano_nerf_tpu_torch.kernels.fused_render import softplus
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
@@ -44,13 +46,23 @@ class LevelOutput(NamedTuple):
     ort_loss: Optional[Tensor] = None  # scalar orientation loss (training)
     dist_loss: Optional[Tensor] = None  # scalar distortion loss (training)
     rgb_alt: Optional[Tensor] = None   # [B, 3] same samples, random viewdir
+    # The env-distill pair along one random env direction per ray
+    # (training): the secondary read and its stop-gradient target from a
+    # finer re-march, as radiance [B, 3], opacity [B], distance [B].
+    env_read: Optional[Tensor] = None
+    env_fine: Optional[Tensor] = None
+    env_read_acc: Optional[Tensor] = None
+    env_fine_acc: Optional[Tensor] = None
+    env_read_dist: Optional[Tensor] = None
+    env_fine_dist: Optional[Tensor] = None
 
 
 # Config keys whose non-default value needs a render path the port does
 # not have: key -> predicate that is True when the value is unsupported.
 UNSUPPORTED: Dict[str, Callable] = {
     "nerf.density_noise": lambda v: float(v) != 0.0,
-    "nerf.env_tight_rgb": lambda v: float(v) != 0.0,
+    # Refused alone, so also beside env_tight_rgb > 0 (under env_resample
+    # JAX skips the tight re-read and marches a second time instead).
     "nerf.env_resample": bool,
     "nerf.illum_field": bool,
     "nerf.emissive_head": bool,
@@ -106,6 +118,19 @@ class NerfConfig:
     eval_coarse_samples: int = 0
     eval_fine_samples: int = 0
     eval_env_samples: int = 0
+    # The secondary march's tight-scale re-read (env_tight_rgb > 0: the
+    # covariance scale; its variants top1 / topk / weights and the
+    # luma-ratio combine env_tight_chroma) and the env-distill re-march
+    # of `env_distill_samples` Gaussians along one random env direction
+    # per ray in training; the JAX package's BaseNeRF fields of the same
+    # names, checked in __post_init__ as there.
+    env_tight_rgb: float = 0.0
+    env_tight_chroma: bool = False
+    env_tight_chroma_eps: float = 0.01
+    env_tight_top1: bool = False
+    env_tight_topk: int = 0
+    env_tight_weights: bool = False
+    env_distill_samples: int = 0
     # Training: render the coarse level and the env queries through the
     # whole-level kernel 5 (`kernels/fused_render_train.py`), spilling its
     # trunk activations for the backward with `train_kernel_save_acts`.
@@ -114,6 +139,35 @@ class NerfConfig:
     use_train_render_kernel: bool = False
     train_kernel_save_acts: bool = False
     train_kernel_scope: str = "all"
+
+    def __post_init__(self):
+        if self.env_tight_chroma and self.env_tight_rgb <= 0:
+            raise ValueError(
+                "env_tight_chroma combines the blurred and tight-scale "
+                "secondary reads, so it requires env_tight_rgb > 0.")
+        if self.env_tight_top1 and not self.env_tight_chroma:
+            raise ValueError(
+                "env_tight_top1 reads only the dominant hit's chroma, so "
+                "it requires env_tight_chroma.")
+        if self.env_tight_topk > 0:
+            if not self.env_tight_chroma:
+                raise ValueError(
+                    "env_tight_topk reads only the top-K hits' chroma, so "
+                    "it requires env_tight_chroma.")
+            if self.env_tight_top1:
+                raise ValueError(
+                    "env_tight_topk and env_tight_top1 are mutually "
+                    "exclusive.")
+        if self.env_tight_weights:
+            if self.env_tight_rgb <= 0:
+                raise ValueError(
+                    "env_tight_weights composites the tight re-read, so "
+                    "it requires env_tight_rgb > 0.")
+            if (self.env_tight_chroma or self.env_tight_top1
+                    or self.env_tight_topk > 0):
+                raise ValueError(
+                    "env_tight_weights needs the full-S tight re-read; "
+                    "leave env_tight_chroma/top1/topk off.")
 
     @classmethod
     def from_hparams(cls, hparams: dict, **overrides) -> "NerfConfig":
@@ -154,6 +208,17 @@ class NerfConfig:
                 hparams.get("nerf.use_train_render_kernel", False)),
             train_kernel_save_acts=bool(
                 hparams.get("nerf.train_kernel_save_acts", False)),
+            env_tight_rgb=float(hparams.get("nerf.env_tight_rgb", 0.0)),
+            env_tight_chroma=bool(hparams.get("nerf.env_tight_chroma",
+                                              False)),
+            env_tight_chroma_eps=float(hparams.get(
+                "nerf.env_tight_chroma_eps", 0.01)),
+            env_tight_top1=bool(hparams.get("nerf.env_tight_top1", False)),
+            env_tight_topk=int(hparams.get("nerf.env_tight_topk", 0)),
+            env_tight_weights=bool(hparams.get("nerf.env_tight_weights",
+                                               False)),
+            env_distill_samples=int(hparams.get("nerf.env_distill_samples",
+                                                0)),
             **overrides,
         )
 
@@ -222,6 +287,20 @@ class NerfModel(nn.Module):
     def _venc(self, dirs: Tensor) -> Tensor:
         """The viewdir encoding [..., 1, 27] of directions [..., 3]."""
         return mip.pos_enc(dirs, 0, self.cfg.deg_view, True)[..., None, :]
+
+    def _march(self, means: Tensor, covs: Tensor, v_enc: Tensor,
+               t_samples: Tensor, dirs: Tensor, white_bkgd: bool,
+               packed: Optional[Tuple[Tensor, Tensor]]
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """One march without normals through kernel 2 and plain
+        compositing: (rgb, distance, acc, weights)."""
+        cfg = self.cfg
+        raw_rgb, raw_density = fused_mlp_ipe_apply(
+            self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
+            max_deg=cfg.max_deg_point, packed=packed)
+        return mip.volumetric_rendering(
+            self._rgb(raw_rgb), self._density(raw_density[..., :1]),
+            t_samples, dirs, white_bkgd)
 
 
 def expected_normals(weights: Tensor, normals: Tensor, directions: Tensor,

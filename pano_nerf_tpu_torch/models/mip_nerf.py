@@ -28,7 +28,6 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from pano_nerf_tpu_torch.core.rays import Rays
-from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
 from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
     fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
@@ -78,20 +77,6 @@ class MipNeRF(NerfModel):
         return LevelOutput(rgb=comp, distance=dist, acc=acc, normal=normal,
                            ort_loss=ort_loss)
 
-    def _level(self, means: Tensor, covs: Tensor, v: Tensor,
-               t_samples: Tensor, rays: Rays, white_bkgd: bool,
-               packed: Optional[Tuple[Tensor, Tensor]]
-               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        """A level without normals through kernel 2: (rgb, distance, acc,
-        weights)."""
-        cfg = self.cfg
-        raw_rgb, raw_density = fused_mlp_ipe_apply(
-            self.mlp, means, covs, v, min_deg=cfg.min_deg_point,
-            max_deg=cfg.max_deg_point, packed=packed)
-        return mip.volumetric_rendering(
-            self._rgb(raw_rgb), self._density(raw_density[..., :1]),
-            t_samples, rays.directions, white_bkgd)
-
     def forward(self, rays: Rays, white_bkgd: bool,
                 packed: Optional[Tuple[Tensor, Tensor]] = None
                 ) -> List[LevelOutput]:
@@ -103,8 +88,8 @@ class MipNeRF(NerfModel):
         cfg = self.cfg
         v = self._venc(rays.viewdirs)
         t0, (m0, c0) = cfg.sample_level(rays, 0, None, None)
-        comp, dist, acc, w0 = self._level(m0, c0, v, t0, rays, white_bkgd,
-                                          packed)
+        comp, dist, acc, w0 = self._march(m0, c0, v, t0, rays.directions,
+                                          white_bkgd, packed)
         coarse = LevelOutput(rgb=comp, distance=dist, acc=acc,
                              normal=torch.ones_like(comp))
         t1, (m1, c1) = cfg.sample_level(rays, 1, t0, w0)
@@ -138,8 +123,8 @@ class MipNeRF(NerfModel):
             rays.origins, rays.directions, rays.radii,
             cfg.train_coarse_samples(), rays.near, rays.far, cfg.disparity,
             t_rand=draws.t_coarse)
-        comp, dist, acc, w0 = self._level(m0, c0, v, t0, rays, white_bkgd,
-                                          packed)
+        comp, dist, acc, w0 = self._march(m0, c0, v, t0, rays.directions,
+                                          white_bkgd, packed)
         ret = [LevelOutput(rgb=comp, distance=dist, acc=acc)]
         t1, (m1, c1) = mip.resample_along_rays(
             rays.origins, rays.directions, rays.radii, t0, w0,
@@ -149,7 +134,7 @@ class MipNeRF(NerfModel):
             ret.append(self._fine_with_normals(rays, m1, c1, v, t1,
                                                white_bkgd, True, packed))
         else:
-            comp, dist, acc, _ = self._level(m1, c1, v, t1, rays,
+            comp, dist, acc, _ = self._march(m1, c1, v, t1, rays.directions,
                                              white_bkgd, packed)
             ret.append(LevelOutput(rgb=comp, distance=dist, acc=acc))
         return ret

@@ -119,6 +119,27 @@ def sample_env_rays(point_origins: Tensor, directions: Tensor,
     return t_samples, cast_rays(t_samples, origins, dirs, radii_b), dirs
 
 
+def sample_env_rays_hemisphere(point_origins: Tensor, directions: Tensor,
+                               num_samples: int, near: Tensor, far: Tensor,
+                               radii: Tensor,
+                               t_rand: Optional[Tensor] = None
+                               ) -> Tuple[Tensor, Tuple[Tensor, Tensor],
+                                          Tensor]:
+    """`sample_env_rays` with per-point directions: point_origins [B, 3],
+    directions [B, D, 3]; near, far, radii [D, 1]; stratified by `t_rand`
+    [B, D, S+1] when given. Returns t_samples [B, D, S+1], (means, covs
+    [B, D, S, 3]), directions."""
+    B, D = directions.shape[:2]
+    u = _linspace(1.0, num_samples + 1, point_origins)
+    t_samples = (near + (far - near) * u).expand(B, D, num_samples + 1)
+    if t_rand is not None:
+        t_samples = stratify(t_samples, t_rand)
+    origins = point_origins[:, None, :].expand(B, D, 3)
+    radii_b = radii[None].expand(B, D, 1)
+    return (t_samples, cast_rays(t_samples, origins, directions, radii_b),
+            directions)
+
+
 def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
                                   num_samples: int,
                                   u_rand: Optional[Tensor] = None) -> Tensor:

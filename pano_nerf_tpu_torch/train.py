@@ -14,7 +14,8 @@ baseline with one density channel). Every MLP evaluation of a train step
 goes through the CUDA kernels 2 and 3 (`kernels/fused_mlp_ipe.py`,
 `kernels/fused_mlp_normals.py`, built for 5 or 1 density channels), and
 for Pano-NeRF 5 with `nerf.use_train_render_kernel`; validation renders
-through kernel 4 (Pano-NeRF) or kernels 2 and 3 (mip-NeRF).
+through kernel 4 (Pano-NeRF) or kernels 2 and 3 (mip-NeRF, and the HDR
+presets `configs/panonerf_hdr.yaml` and `panonerf_shadow.yaml`).
 On the card the steps run as CUDA graphs, `train.steps_per_call` of them
 per replay where the cadences allow (`engine/trainer.py`), and each
 validation chunk is a graph replay. Re-running the same command resumes

@@ -167,6 +167,50 @@ def test_one_channel_kernels_match_plain_versions(cuda_device, normals, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1000, 25600])
+def test_ipe_kernel_matches_plain_version_at_tight_covariances(cuda_device,
+                                                               M):
+    """Kernel 2 on the HDR presets' tight re-read: covariances x 0.01
+    (`nerf.env_tight_rgb`), where the in-kernel IPE damps its high
+    degrees least, at a ragged M and at a batch-512 env march (512 x 10
+    x 5 rows), forward and backward at kernel 2's tolerances."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    mlp, means, covs, v = _mlp_rows(M, cuda_device, seed=2)
+    covs = covs * 0.01
+    got, g_got, m_got = _grads(k2.fused_mlp_ipe_apply, mlp, means, covs, v)
+    want, g_want, m_want = _grads(k2.fused_mlp_ipe_reference, mlp, means,
+                                  covs, v)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-2
+    assert _rel(g_got, g_want) < 2e-2
+    assert _rel(m_got, m_want) < 5e-2
+
+
+@pytest.mark.cuda
+def test_normals_kernel_eval_forward_saves_no_trunk(cuda_device):
+    """Kernel 3's forward at 5 density channels without a gradient (the
+    presets' eval fine level, 1,024 x 56 rows): one launch, no backward,
+    outputs at kernel 3's tolerances; with a gradient the same forward
+    saves its trunk (the backward then runs)."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    mlp, means, covs, v = _mlp_rows(57344, cuda_device, seed=3)
+    counter = k3.fused_mlp_normals_apply
+    before = (counter.launches, counter.backward_launches)
+    with torch.no_grad():
+        got = k3.fused_mlp_normals_apply(mlp, means, covs, v, min_deg=0,
+                                         max_deg=16)
+        want = k3.fused_mlp_normals_reference(mlp, means, covs, v,
+                                              min_deg=0, max_deg=16)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.backward_launches) == (
+        before[0] + 1, before[1])
+    assert got[1].shape == (57344, 5) and not got[0].requires_grad
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= 2e-2
+    assert _rel(got[2], want[2]) < 0.08
+
+
+@pytest.mark.cuda
 def test_fused_mlp_kernels_refuse_other_density_counts_on_the_card(
         cuda_device):
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -381,6 +425,17 @@ def test_graphed_mipnerf_train_steps_match_eager(cuda_device):
     _check_graphed_against_eager(cuda_device, system, data, 2048)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["panonerf_hdr.yaml",
+                                    "panonerf_shadow.yaml"])
+def test_graphed_preset_train_steps_match_eager(cuda_device, config):
+    """The same for the HDR presets at batch 512: the tight re-read on
+    kernel 2 and, for the shadow preset, the env-distill march and its
+    scheduled tie."""
+    system, data = _graph_system(cuda_device, False, config=config)
+    _check_graphed_against_eager(cuda_device, system, data, 512)
+
+
 def _check_graphed_against_eager(cuda_device, system, data, batch):
     import statistics
     from pano_nerf_tpu_torch.kernels import counters
@@ -438,6 +493,16 @@ def test_mipnerf_chunk_graph_matches_eager_chunks(cuda_device):
     system, (rays, _) = _graph_system(cuda_device, False,
                                       config="mipnerf.yaml")
     _check_chunk_graph(system, rays, 11)
+
+
+@pytest.mark.cuda
+def test_preset_chunk_graph_matches_eager_chunks(cuda_device):
+    """The same for `configs/panonerf_hdr.yaml`: 9 products (21 columns)
+    per ray through kernel 2 (coarse, env march, tight re-read) and
+    kernel 3's forward (fine), with plain compositing."""
+    system, (rays, _) = _graph_system(cuda_device, False,
+                                      config="panonerf_hdr.yaml")
+    _check_chunk_graph(system, rays, 21)
 
 
 def _check_chunk_graph(system, rays, width):

@@ -74,7 +74,7 @@ def test_eval_entry_point_without_cpu_request_raises(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("nerf.density_noise", 1.0), ("nerf.env_tight_rgb", 0.01),
+    ("nerf.density_noise", 1.0), ("nerf.env_importance", True),
     ("nerf.env_resample", True), ("nerf.illum_field", True),
     ("nerf.emissive_head", True), ("nerf.chroma_head", True),
     ("nerf.env_rotation", True), ("nerf.env_sampling", "stratified"),
