@@ -59,7 +59,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    `--ckpt_dir`, graph against eager on the trained weights.
 5. For phases 4 and 4b each (5b: key on): one train step on the card
    against the same step on the CPU (plain versions), from the same
-   parameters, batches (eight of 64 rays) and numpy-made draws: loss
+   parameters, batches (sixteen of 64 rays) and numpy-made draws: loss
    parts, and gradients as `check_train_step_against_cpu` says; 16 steps from one state as two
    replays of the 8-step graph against four eager runs, held to twice
    the eager-vs-eager spread (`check_graphed_against_eager`); ms per step
@@ -116,6 +116,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    200-step checkpoints of phases 4 (kernel 4), 9 (kernels 2 and 3) and
    8 (mip-NeRF): 3 frames each on the interpolated path, 128x256 through
    the chunk graph, exact launch counts, EXR and PNG frames, finite.
+2s. The study switches' kernel shapes vs the plain versions (run after
+   phase 2p, entries `*_study`), phase 2's tolerances: kernel 2 forward
+   on the importance probe (512 x 16 cells x 4 = 32,768 rows), forward
+   and backward on the env_resample march (25,600 rows) and on the fine
+   level under point normals (28,672); kernel 3 forward and backward on
+   the point query (512 x 1); kernel 5 on the env level with stratified
+   per-ray directions (5,120 x 5); kernel 4 on an eval chunk's resampled
+   env level (10,240 x 5).
+12. `configs/panonerf.yaml` with `nerf.env_sampling importance`,
+   `nerf.env_resample`, `nerf.illum_field`, `loss.illum_distill 0.05`
+   rising over 0.5-0.75 of the run and `train.illum_freeze 0.5`: 208
+   steps as in phase 4 (the freeze and the rise start at step 104,
+   inside an 8-step graph): per step 5 forward and 6 backward launches
+   of kernel 2 (coarse, view consistency, the resampled env march; the
+   probe and the placing env march forward only) and 1 + 2 of kernel 3;
+   losses finite and falling, exact counts; one step against the CPU;
+   16 graphed steps from step 100 against eager ones (the rise moving
+   inside both graphs); a graphed step from a fresh Adam just before the
+   freeze moves the field, one at the freeze leaves it bit-equal; then
+   12b: the checkpoint through `eval --ckpt_dir` (4 kernel-4 launches
+   per 1,024-ray chunk, 128 per panorama), the chunk graph bit-equal to
+   eager chunks, ms per panorama in turns.
+13. `nerf.env_sampling stratified`, `nerf.point_normals` and the key on:
+   kernel 5 on coarse and on the per-ray env directions (2 + 4), kernel
+   2 on the fine level and view consistency (2 + 4), kernel 3 on the
+   point query (1 + 2); 200 steps with phase 12's checks, ms per step
+   beside phase 4b's of this call.
+14. `nerf.env_rotation` with `nerf.density_noise 1.0` and the key on:
+   density noise keeps kernel 5 off (0 launches; kernel 2 3 + 6, kernel
+   3 1 + 2 per step); the same checks.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -123,7 +153,9 @@ weight-gradient pass (`fused_mlp_weight_grads`), shared by the backward
 of kernels 1, 2, 3 and 5, has its own entry; kernels 2 and 3 at one
 density channel have entries of their own (`_c1`), with the launches of
 the mip-NeRF runs, and so have the presets' shapes (`_presets`), with
-the launches of phases 9-11's preset runs. The last lines are the card
+the launches of phases 9-11's preset runs, and so have the study shapes
+(`_study`), with the launches of phases 12-14 and 12b. The last lines
+are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
 """
@@ -201,10 +233,12 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main_path_inputs(model, env, dev, num_rays: int = 1024):
+def main_path_inputs(model, env, dev, num_rays: int = 1024,
+                     with_surf: bool = False):
     """The three launch shapes of one chunk, built the way the model
     builds them (coarse march, resampled fine march, env march) from
-    random primary rays inside a scene-sized box."""
+    random primary rays inside a scene-sized box; `with_surf`: and the
+    chunk's surface points [num_rays, 3] the env march starts from."""
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.kernels.fused_render import (
@@ -246,7 +280,7 @@ def main_path_inputs(model, env, dev, num_rays: int = 1024):
                       lc.reshape(B * D, S, 3).contiguous(), fd,
                       lt.reshape(B * D, S + 1).contiguous(), fd),
                      dict(kw, need_normals=False, need_extras=False))
-    return shapes
+    return (shapes, surf) if with_surf else shapes
 
 
 def _bound_ms(args, kw, packed) -> float:
@@ -369,17 +403,21 @@ def _wgrad_entry() -> dict:
     return e
 
 
-def check_kernels(model, env, dev) -> dict:
-    """Kernel vs plain version at the main path's shapes; raises on a
-    disagreement. Returns the kernel's JSON entry."""
+def check_kernels(model, env, dev, shapes=None, sfx: str = "",
+                  tag: str = "[kernel]") -> dict:
+    """Kernel vs plain version at the main path's shapes (or at `shapes`:
+    name -> (args, kwargs)); raises on a disagreement. Returns the
+    kernel's JSON entry, named with `sfx`."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_render as fr
-    shapes = main_path_inputs(model, env, dev)
-    # A ragged last tile: 1023 rays of the fine level (2 rays per tile).
-    args, kw = shapes["fine"]
-    shapes["fine_ragged"] = ([a[:1023].contiguous() for a in args], kw)
+    if shapes is None:
+        shapes = main_path_inputs(model, env, dev)
+        # A ragged last tile: 1023 rays of the fine level (2 rays per
+        # tile).
+        args, kw = shapes["fine"]
+        shapes["fine_ragged"] = ([a[:1023].contiguous() for a in args], kw)
     packed = fr.pack_params(model.mlp)
-    entry = _entry("fused_render_level", "fused_render.cu",
+    entry = _entry("fused_render_level" + sfx, "fused_render.cu",
                    "fused_render.py:248")
     failures = []
     for name, (args, kw) in shapes.items():
@@ -414,7 +452,7 @@ def check_kernels(model, env, dev) -> dict:
         # loads, over the measured time.
         tiles = fr.plan_tiles(R, S).num_tiles
         wbytes = tiles * fr.weight_bytes_per_tile(kw["need_normals"])
-        print(f"[kernel] {name:11s} R={R} S={S}: kernel {ms:.3f} ms, plain "
+        print(f"{tag} {name:11s} R={R} S={S}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms; modelled weight "
               f"bytes {tiles} tiles x "
               f"{fr.weight_bytes_per_tile(kw['need_normals'])} B of TMA "
@@ -443,6 +481,16 @@ EVAL_LAUNCHES = {CONFIG: {"fused_render_level": 96},
                               "fused_mlp_normals_fwd": 32},
                  SHADOW_CONFIG: {"fused_mlp_ipe_fwd": 96,
                                  "fused_mlp_normals_fwd": 32}}
+
+
+def eval_launches(config: str, env_resample: bool = False) -> dict:
+    """Kernel launches per 128x256 val panorama of `config`:
+    `EVAL_LAUNCHES`, and with `nerf.env_resample` on kernel 4's route a
+    fourth launch per 1,024-ray chunk (the resampled env march)."""
+    want = dict(EVAL_LAUNCHES[config])
+    if env_resample and "fused_render_level" in want:
+        want["fused_render_level"] += 32
+    return want
 
 
 def _stem(config: str) -> str:
@@ -478,20 +526,21 @@ def forbid_plain_versions():
 
 
 def drive_main_path(workdir: str, scene: str, weights: list,
-                    step: int = 0, config: str = CONFIG) -> dict:
+                    step: int = 0, config: str = CONFIG, opts=()) -> dict:
     """Render every val panorama through the eval entry point (graphed:
     one chunk-graph replay per `val.chunk_size` rays) with the system of
-    `config`; returns the eval metrics and the launch counts of the run.
-    `weights` are the entry's weight arguments (`--init_seed 0`, or
-    `--ckpt_dir` of a training run)."""
+    `config` and the overrides `opts`; returns the eval metrics and the
+    launch counts of the run. `weights` are the entry's weight arguments
+    (`--init_seed 0`, or `--ckpt_dir` of a training run)."""
     from pano_nerf_tpu_torch import eval as eval_entry
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
     from pano_nerf_tpu_torch.kernels import counters
     mip = config == MIP_CONFIG
     out = os.path.join(workdir, _stem(config) + "eval_"
-                       + "_".join(weights[:1]).strip("-"))
+                       + "_".join(weights[:1]).strip("-")
+                       + ("_study" if opts else ""))
     argv = (["--data_path", scene, "--out_dir", out] + weights
-            + ["--config", config, "train.sample_num", "'n0_1'"])
+            + ["--config", config, "train.sample_num", "'n0_1'", *opts])
     restore = forbid_plain_versions()
     counters.reset_launch_counts()
     try:
@@ -508,7 +557,9 @@ def drive_main_path(workdir: str, scene: str, weights: list,
                              f"{step}")
     # Per panorama; the chunk graph's capture first ran eager warm-up
     # chunks (counted apart).
-    per_pano = EVAL_LAUNCHES[config]
+    from pano_nerf_tpu_torch.core.config import load_config
+    per_pano = eval_launches(config, bool(load_config(config, list(
+        opts)).get("nerf.env_resample", False)))
     for k in launches:
         want = per_pano.get(k, 0) * n + warmup.get(k, 0)
         if launches[k] != want:
@@ -577,14 +628,14 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
     return parts
 
 
-def _eval_system(scene: str, config: str, dev: str, factor=None):
-    """The system of `config` on `dev` with weights from seed 0 (env rays
-    set where it has them) and the scene's val split at `factor`
-    (default `val.factor`)."""
+def _eval_system(scene: str, config: str, dev: str, factor=None, opts=()):
+    """The system of `config` with the overrides `opts` on `dev` with
+    weights from seed 0 (env rays set where it has them) and the scene's
+    val split at `factor` (default `val.factor`)."""
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
     from pano_nerf_tpu_torch.engine.system import build_system
-    hp = load_config(config)
+    hp = load_config(config, list(opts))
     ds = PanoDataset(scene, split="val", num=[0, 1],
                      factor=hp["val.factor"] if factor is None else factor)
     system = build_system(hp, device=dev, init_seed=0)
@@ -595,20 +646,21 @@ def _eval_system(scene: str, config: str, dev: str, factor=None):
 
 
 def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
-                        config: str = CONFIG) -> None:
-    """The first val panorama rendered by the system of `config` through
-    the chunk graph and op by op, on the same weights (from `--init_seed
-    0`, or the MLP state dict `params`): the graph's products held
-    against the eager ones (f32 atol 1e-4); ms per panorama of each, in
+                        config: str = CONFIG, opts=()) -> None:
+    """The first val panorama rendered by the system of `config` (with
+    the overrides `opts`) through the chunk graph and op by op, on the
+    same weights (from `--init_seed 0`, or a checkpoint's "params"): the
+    graph's products held against the eager ones (f32 atol 1e-4, and
+    bit-equal where `opts` are given); ms per panorama of each, in
     turns (graph, eager, eager, graph), 3 renders a turn; then one of each
     under torch.profiler (device busy and idle share of the host wall
     time, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
-    system, ds = _eval_system(scene, config, "cuda")
+    system, ds = _eval_system(scene, config, "cuda", opts=opts)
     if params is not None:
-        system.model.mlp.load_state_dict(params)
+        system.model.load_params(params)
     dev = torch.device("cuda")
     flat = rays_to_tensors(rays_map(lambda x: x.reshape(-1, x.shape[-1]),
                                     ds[0][0]), dev)
@@ -618,7 +670,8 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
     errs = {k: float((graphed[k] - eager[k]).abs().max()) for k in eager}
     print(f"{tag} chunk graph vs eager chunks, max abs err per product "
           f"(f32 tolerance 1e-4): " + json.dumps(errs), flush=True)
-    bad = {k: v for k, v in errs.items() if not v <= 1e-4}
+    bad = {k: v for k, v in errs.items() if not v <= (0.0 if opts
+                                                     else 1e-4)}
     if bad:
         raise AssertionError(f"the chunk graph's render differs from the "
                              f"eager render: {bad}")
@@ -694,13 +747,11 @@ ROW_MACS = {False: 2 * MLP_MACS,
             True: MLP_MACS + 2 * NORMAL_MACS + HEADS_MACS}
 
 
-def train_shapes(model, env, dev, batch: int = 512):
-    """The four kernel calls of one train step at full width, built the
-    way the model builds them (random draws, plain version for the
-    weights that place the fine samples): name -> (normals?, means, covs,
-    v_enc); the two levels kernel 5 renders with the key on: name ->
-    (means, covs, viewdirs, t_samples, dirs); and the surface points
-    [batch, 3] the env march starts from."""
+def _train_batch(model, env, dev, batch: int = 512) -> dict:
+    """One train step's batch at full width, built the way the model
+    builds it from random primary rays and draws (seeds 11 and 12; the
+    plain version for the weights that place the fine samples): its rays,
+    levels, surface points and env march, by name."""
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (
@@ -718,17 +769,13 @@ def train_shapes(model, env, dev, batch: int = 512):
     rays = Rays(*(x.to(dev).contiguous() for x in rays))
     gd = torch.Generator(device=dev).manual_seed(12)
     draws = model.make_draws(batch, env.directions.shape[0], gd)
-
-    def venc(x):
-        return mip.pos_enc(x, 0, cfg.deg_view, True)[..., None, :]
-
     kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
     with torch.no_grad():
         t0, (m0, c0) = mip.sample_along_rays(
             rays.origins, rays.directions, rays.radii,
             cfg.train_coarse_samples(), rays.near, rays.far,
             t_rand=draws.t_coarse)
-        v = venc(rays.viewdirs)
+        v = model._venc(rays.viewdirs)
         raw_rgb, raw_den = fused_mlp_ipe_reference(model.mlp, m0, c0, v, **kw)
         _, _, _, w0 = mip.volumetric_rendering(
             model._rgb(raw_rgb), model._density(raw_den[..., :1]), t0,
@@ -738,25 +785,42 @@ def train_shapes(model, env, dev, batch: int = 512):
             cfg.resample_padding, num_samples=cfg.num_samples,
             u_rand=draws.u_fine)
         raw_rgb, raw_den = fused_mlp_ipe_reference(model.mlp, m1, c1, v, **kw)
-        _, dist, _, _ = mip.volumetric_rendering(
+        _, dist, _, w1 = mip.volumetric_rendering(
             model._rgb(raw_rgb), model._density(raw_den[..., :1]), t1,
             rays.directions, False)
         surf = rays.origins + rays.directions * dist[:, None]
         lt, (lm, lc), ld = mip.sample_env_rays(
             surf, env.directions, cfg.num_env_samples, env.near, env.far,
             env.radii, t_rand=draws.t_env)
-        d_alt = mip.safe_normalize(draws.d_alt)
+    return dict(rays=rays, draws=draws, v=v, t0=t0, m0=m0, c0=c0, m1=m1,
+                c1=c1, w1=w1, surf=surf, lt=lt, lm=lm, lc=lc, ld=ld)
+
+
+def train_shapes(model, env, dev, batch: int = 512):
+    """The four kernel calls of one train step at full width
+    (`_train_batch`): name -> (normals?, means, covs, v_enc); the two
+    levels kernel 5 renders with the key on: name -> (means, covs,
+    viewdirs, t_samples, dirs); and the surface points [batch, 3] the env
+    march starts from."""
+    import torch
+    from pano_nerf_tpu_torch.ops import mip
+    b = _train_batch(model, env, dev, batch)
+    rays, v, lm, lc, ld = b["rays"], b["v"], b["lm"], b["lc"], b["ld"]
+    with torch.no_grad():
+        d_alt = mip.safe_normalize(b["draws"].d_alt)
     B, D, S = lm.shape[:3]
     flat_dirs = ld.reshape(B * D, 3).contiguous()
-    levels = {"coarse": (m0.contiguous(), c0.contiguous(), rays.viewdirs,
-                         t0.contiguous(), rays.directions),
+    levels = {"coarse": (b["m0"].contiguous(), b["c0"].contiguous(),
+                         rays.viewdirs, b["t0"].contiguous(),
+                         rays.directions),
               "env": (lm.reshape(B * D, S, 3).contiguous(),
                       lc.reshape(B * D, S, 3).contiguous(), flat_dirs,
-                      lt.reshape(B * D, S + 1).contiguous(), flat_dirs)}
-    return {"coarse": (False, m0, c0, v), "fine": (True, m1, c1, v),
-            "vc": (False, m1, c1, venc(d_alt)),
+                      b["lt"].reshape(B * D, S + 1).contiguous(), flat_dirs)}
+    return {"coarse": (False, b["m0"], b["c0"], v),
+            "fine": (True, b["m1"], b["c1"], v),
+            "vc": (False, b["m1"], b["c1"], model._venc(d_alt)),
             "env": (False, lm.contiguous(), lc.contiguous(),
-                    venc(ld))}, levels, surf
+                    model._venc(ld))}, levels, b["surf"]
 
 
 # The presets' env read: configs/panonerf_hdr.yaml `nerf.env_tight_rgb`
@@ -791,6 +855,95 @@ def preset_shapes(model, env, dev, calls, surf) -> dict:
             "distill": (False, m.contiguous(), c.contiguous(),
                         model._venc(d)),
             "eval_fine": (True, args[0], args[1], model._venc(args[2]))}
+
+
+def study_shapes(model, env, dev):
+    """The kernel calls the study switches add, at full width, built the
+    way `models/pano_mip_nerf.py` builds them from a train step's batch
+    (`_train_batch`) and an eval chunk (`main_path_inputs`), plain
+    versions for the weights that place samples. Kernels 2 and 3: the
+    importance probe (512 x 16 cells x 4 = 32,768 rows, forward only),
+    the env_resample march (512 x 10 x 5 = 25,600 rows, placed by the
+    env march's weights), the fine level under point normals (kernel 2
+    at 28,672 rows) and the point query (kernel 3 at 512 x 1), as
+    name -> (normals?, means, covs, v_enc). Kernel 5: the env level with
+    stratified per-ray directions (5,120 x 5), as name -> (means, covs,
+    viewdirs, t_samples, dirs). Kernel 4: the resampled env level of an
+    eval chunk (10,240 x 5), as name -> (args, kwargs)."""
+    import torch
+    from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (
+        fused_mlp_ipe_reference)
+    from pano_nerf_tpu_torch.kernels.fused_render import (
+        fused_render_level_reference)
+    from pano_nerf_tpu_torch.ops import mip
+    from pano_nerf_tpu_torch.utils import rotation
+    from pano_nerf_tpu_torch.utils.spherical import sample_dir_by_uniform
+    cfg = model.cfg
+    kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
+    b = _train_batch(model, env, dev)
+    surf, v, m1, c1 = b["surf"], b["v"], b["m1"], b["c1"]
+    B, D = surf.shape[0], env.directions.shape[0]
+    g = torch.Generator(device=dev).manual_seed(14)
+    rand = lambda *sh: torch.rand(sh, generator=g, device=dev)
+    with torch.no_grad():
+        R = rotation.random_rotations(torch.randn((B, 4), generator=g,
+                                                  device=dev))
+        cells = rotation.rotate(R, torch.tensor(sample_dir_by_uniform(
+            cfg.env_probe_dirs), device=dev))
+        first = lambda x: x[:1].expand(cfg.env_probe_dirs, 1)
+        _, (pm, pc), pd = mip.sample_env_rays_hemisphere(
+            surf, cells, cfg.env_probe_samples, first(env.near),
+            first(env.far), first(env.radii),
+            t_rand=rand(B, cfg.env_probe_dirs, cfg.env_probe_samples + 1))
+        lt, lm, lc, ld = b["lt"], b["lm"], b["lc"], b["ld"]
+        v_lit = model._venc(ld)
+        raw_rgb, raw_den = fused_mlp_ipe_reference(model.mlp, lm, lc, v_lit,
+                                                   **kw)
+        ew = mip.volumetric_rendering(
+            model._rgb(raw_rgb), model._density(raw_den[..., :1]), lt, ld,
+            False)[3]
+        t2, (m2, c2) = model._resample_env(
+            surf, ld, env.radii, lt, ew,
+            rand(B * D, cfg.num_env_fine_samples + 1))
+        # The point query at the fine level's expected Gaussian.
+        w = b["w1"] / torch.clamp(b["w1"].sum(-1, keepdim=True), min=1e-8)
+        mean_pt = torch.sum(w[..., None] * m1, -2, keepdim=True)
+        cov_pt = torch.sum(w[..., None] * c1, -2, keepdim=True)
+        # Kernel 5 on stratified per-ray directions.
+        sdirs, _ = mip.stratified_env_directions(
+            rotation.rotate(R, env.directions), rand(B, D, 1),
+            rand(B, D, 1))
+        st, (sm, sc), sd = mip.sample_env_rays_hemisphere(
+            surf, sdirs, cfg.num_env_samples, env.near, env.far, env.radii,
+            t_rand=rand(B, D, cfg.num_env_samples + 1))
+        # Kernel 4: an eval chunk's env level, then the resampled one.
+        shapes, esurf = main_path_inputs(model, env, dev, with_surf=True)
+        args, k4kw = shapes["env"]
+        n, S = esurf.shape[0], args[0].shape[1]
+        ew4 = fused_render_level_reference(model.mlp, *args, **k4kw)[
+            "weights"]
+        et, (em, ec) = model._resample_env(
+            esurf, args[2].reshape(n, D, 3), env.radii,
+            args[3].reshape(n, D, S + 1), ew4.reshape(n, D, S), None)
+    Sf, Se = t2.shape[-1] - 1, et.shape[-1] - 1
+    flat = sd.reshape(B * D, 3).contiguous()
+    k2k3 = {"probe": (False, pm.contiguous(), pc.contiguous(),
+                      model._venc(pd)),
+            "env_resampled": (False, m2.contiguous(), c2.contiguous(),
+                              v_lit),
+            "fine_point": (False, m1, c1, v),
+            "point_query": (True, mean_pt.contiguous(), cov_pt.contiguous(),
+                            v)}
+    k5 = {"env_stratified": (sm.reshape(B * D, -1, 3).contiguous(),
+                             sc.reshape(B * D, -1, 3).contiguous(), flat,
+                             st.reshape(B * D, -1).contiguous(), flat)}
+    k4 = {"env_resampled": ((em.reshape(n * D, Se, 3).contiguous(),
+                             ec.reshape(n * D, Se, 3).contiguous(), args[2],
+                             et.reshape(n * D, Se + 1).contiguous(),
+                             args[4]), k4kw)}
+    if Sf != cfg.num_env_fine_samples or Se != cfg.num_env_fine_samples:
+        raise AssertionError(f"resampled {Sf} / {Se} samples")
+    return k2k3, k5, k4
 
 
 MIP_BATCH = 2048    # configs/mipnerf.yaml train.batch_size
@@ -1095,12 +1248,14 @@ def _level_grads(fn, mlp, args, coef, **kw):
     return {k: v.detach() for k, v in out.items()}, flat, m.grad, t.grad
 
 
-def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
+def check_train_render_kernel(model, dev, levels, wentry: dict,
+                              sfx: str = "", tag: str = "[kernel]") -> list:
     """Kernel 5 (forward and backward, `save_acts` off and on) vs its
     plain version at the coarse (512 x 56) and env (5,120 x 5) levels of
     one key-on train step, and the weight-gradient pass on its operand
-    rows (into `wentry`); raises on a disagreement or when the spilled
-    and recomputed runs differ. Returns the two JSON entries."""
+    rows (into `wentry`; into its sums only without `sfx`); raises on a
+    disagreement or when the spilled and recomputed runs differ. Returns
+    the two JSON entries, named with `sfx`."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -1111,9 +1266,9 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
               deg_view=cfg.deg_view, density_bias=cfg.density_bias,
               rgb_padding=cfg.rgb_padding, white_bkgd=False)
     packed = pack_params(mlp)
-    fwd = _entry("fused_render_train_fwd", "fused_render_train.cu",
+    fwd = _entry("fused_render_train_fwd" + sfx, "fused_render_train.cu",
                  "fused_render_train.py:358")
-    bwd = _entry("fused_render_train_bwd", "fused_render_train.cu",
+    bwd = _entry("fused_render_train_bwd" + sfx, "fused_render_train.cu",
                  "fused_render_train.py:399")
     failures = []
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1181,7 +1336,8 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
                 reps=10)
             if not save_acts:
                 wg = check_weight_grads(mlp, ops, False, R * S, wentry,
-                                        f"k5_{shape}", failures)
+                                        f"k5{sfx}_{shape}", failures,
+                                        total=sfx == "")
             del acts, ops, db_r, dmc_r
         with torch.no_grad():
             plain_f = time_ms(lambda: k5.fused_render_train_reference(
@@ -1227,7 +1383,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict) -> list:
              row_bound_ms_save_acts=bounds["rows", True],
              wgrad_ms=wg["ms"], wgrad_bound_ms=wg["bound"],
              wgrad_library_ms=wg["library_ms"])
-        print(f"[kernel] {shape:6s} R={R} S={S} k5: fwd {ms['fwd', False]:.3f}"
+        print(f"{tag} {shape:6s} R={R} S={S} k5: fwd {ms['fwd', False]:.3f}"
               f" ms (save_acts {ms['fwd', True]:.3f}; plain {plain_f:.3f}, "
               f"bound {bounds['fwd', False]:.4f}), bwd "
               f"{ms['bwd', False]:.3f} ms (save_acts {ms['bwd', True]:.3f}; "
@@ -1357,52 +1513,76 @@ SHADOW_WINDOW = int(0.7 * TRAIN_STEPS) - 4
 # kernel 5 taking coarse and env; kernel 3 for the fine level; the
 # presets add kernel 2 for the tight re-read (`tight`, which also keeps
 # the env march off kernel 5) and, forward only, the env-distill march
-# (`distill`). mip-NeRF: kernel 2 for both levels, or for the coarse one
-# and kernel 3 for the fine one with the orientation loss (`ort`). Each
-# backward is two launches, the row pass and the weight-gradient pass;
-# no model path calls kernel 1.
+# (`distill`). The study switches: density noise (`noise`) keeps kernel 5
+# off both levels; the importance probe (`probe`) is a kernel-2 forward;
+# env_resample (`resample`) runs the placing env march as a kernel-2
+# forward and the resampled one forward and backward (the tight re-read
+# and kernel 5 then skip the env); point normals (`point`) move the fine
+# level to kernel 2 and keep one kernel-3 pair for the point query.
+# mip-NeRF: kernel 2 for both levels, or for the coarse one and kernel 3
+# for the fine one with the orientation loss (`ort`). Each backward is
+# two launches, the row pass and the weight-gradient pass; no model path
+# calls kernel 1.
 def per_step_launches(render_kernel: bool, mip: bool = False,
                       ort: bool = False, tight: bool = False,
-                      distill: bool = False) -> dict:
+                      distill: bool = False, noise: bool = False,
+                      probe: bool = False, resample: bool = False,
+                      point: bool = False) -> dict:
+    fwd_only = 0
     if mip:
         fwd = dict(fused_mlp_ipe_fwd=1 if ort else 2,
                    fused_mlp_normals_fwd=1 if ort else 0,
                    fused_render_train_fwd=0, fused_mlp_apply_fwd=0)
     else:
-        env_k5 = render_kernel and not tight
-        fwd = dict(fused_mlp_ipe_fwd=(1 + (not render_kernel)
-                                      + (not env_k5) + tight),
+        k5 = render_kernel and not noise
+        env_k5 = k5 and not tight and not resample
+        fwd = dict(fused_mlp_ipe_fwd=(1 + (not k5) + (not env_k5)
+                                      + (tight and not resample) + point),
                    fused_mlp_normals_fwd=1,
-                   fused_render_train_fwd=render_kernel + env_k5,
+                   fused_render_train_fwd=k5 + env_k5,
                    fused_mlp_apply_fwd=0)
+        fwd_only = distill + probe + resample
     want = dict(fwd)
     for k, n in fwd.items():
         want[k.replace("_fwd", "_bwd")] = 2 * n
     want["fused_mlp_weight_grads"] = sum(fwd.values())
-    if distill:
-        want["fused_mlp_ipe_fwd"] += 1
+    want["fused_mlp_ipe_fwd"] += fwd_only
     return want
 
 
 def _family(system) -> dict:
-    """What the checks need to know of a system: its tag suffix and its
-    launches per train step."""
+    """What the checks need to know of a system: its tag suffix, its
+    launches per train step and per val panorama."""
     cfg = system.model.cfg
     mip = not system.surface
     ort = mip and system.hparams["loss.ort_loss"] > 0
     k5 = cfg.use_train_render_kernel and not mip
     tight = cfg.env_tight_rgb > 0
     distill = cfg.env_distill_samples > 0
+    study = dict(noise=cfg.density_noise > 0,
+                 probe=cfg.env_mode() == "importance",
+                 resample=cfg.env_resample, point=cfg.point_normals)
     sfx = ("-mip" + ("-ort" if ort else "")) if mip else (
         ("-k5" if k5 else "") + ("-shadow" if distill else "-hdr" if tight
                                  else ""))
-    return dict(mip=mip, k5=k5, sfx=sfx,
-                per_step=per_step_launches(k5, mip, ort, tight, distill))
+    if not mip and (cfg.env_mode() != "fixed" or cfg.illum_field
+                    or any(study.values())):
+        sfx += "-" + cfg.env_mode() + "".join(
+            f"-{k}" for k, on in (("resample", cfg.env_resample),
+                                  ("illum", cfg.illum_field),
+                                  ("point", cfg.point_normals),
+                                  ("noise", study["noise"])) if on)
+    per_pano = eval_launches(MIP_CONFIG if mip else HDR_CONFIG if tight
+                             else CONFIG, cfg.env_resample)
+    return dict(mip=mip, k5=k5, sfx=sfx, per_pano=per_pano,
+                per_step=per_step_launches(k5, mip, ort, tight, distill,
+                                           **study))
 
 
 def drive_train_path(workdir: str, scene: str,
                      render_kernel: bool = False, config: str = CONFIG,
-                     opts=(), steps: int = TRAIN_STEPS) -> dict:
+                     opts=(), steps: int = TRAIN_STEPS,
+                     name: str = "") -> dict:
     """Train `steps` steps of `config` through the train entry point (3
     train views, 1 val view at train.factor 4, `train.steps_per_call` 8:
     groups of 8 steps and single steps, each dispatch one CUDA graph
@@ -1416,7 +1596,7 @@ def drive_train_path(workdir: str, scene: str,
     from pano_nerf_tpu_torch.engine.system import BaseSystem
     from pano_nerf_tpu_torch.kernels import counters
     mip = config == MIP_CONFIG
-    name = ("mip" if mip else _stem(config) + "train") + (
+    name = name or ("mip" if mip else _stem(config) + "train") + (
         "_k5" if render_kernel else "") + (
         "_" + "_".join(str(o) for o in opts).replace(".", "") if opts
         else "")
@@ -1477,7 +1657,7 @@ def drive_train_path(workdir: str, scene: str,
         raise AssertionError(f"the loss did not fall over {steps} steps")
     # Per step, per val panorama (the sanity pass and the final one), plus
     # what the captures' eager warm-up steps and chunks launched: exact.
-    per_step, per_pano = family["per_step"], EVAL_LAUNCHES[config]
+    per_step, per_pano = family["per_step"], family["per_pano"]
     for k in launches:
         want = (per_step.get(k, 0) * steps + per_pano.get(k, 0) * 2
                 + warmup.get(k, 0))
@@ -1516,6 +1696,22 @@ def drive_train_path(workdir: str, scene: str,
 
 
 RENDER_FRAMES = 3
+
+# Phases 12-14: `configs/panonerf.yaml` with the study switches (opts,
+# kernel 5's key, steps). Phase 12 runs 208 steps so that its freeze and
+# the rise of its distill (0.5 of the run: step 104) fall inside an
+# 8-step graph (steps 100-107; the log edge at 100 starts a group).
+STUDY_PHASES = {
+    12: (("nerf.env_sampling", "importance", "nerf.env_resample", "True",
+          "nerf.illum_field", "True", "loss.illum_distill", "0.05",
+          "loss.illum_distill_start", "0.5", "loss.illum_distill_ramp",
+          "0.25", "train.illum_freeze", "0.5"), False, 208),
+    13: (("nerf.env_sampling", "stratified", "nerf.point_normals", "True"),
+         True, TRAIN_STEPS),
+    14: (("nerf.env_rotation", "True", "nerf.density_noise", "1.0"), True,
+         TRAIN_STEPS),
+}
+STUDY_WINDOW = 100   # phase 12's graphed-vs-eager window: steps 100-115
 
 
 def drive_render_path(workdir: str, scene: str, save_dir: str,
@@ -1654,18 +1850,19 @@ def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
     """16 steps from one state (the trained weights, a fresh Adam at step
     `start_step`, one generator seed) four times eagerly and once as two
     replays of the 8-step graph: parameters (rel-norm) and every step's
-    loss. With an env-distill schedule, its weight at each of the 16
-    steps is printed and must change inside the window: the graph reads
-    it from the device step counter at every replay."""
+    loss. With an env-distill schedule or an illum-distill rise, its
+    weight at each of the 16 steps is printed and must change inside
+    each 8-step graph: the graph reads it from the device step counter
+    at every replay."""
     import torch
     system = trainer.system
     batch = int(trainer.hparams["train.batch_size"])
     data = _train_inputs(trainer)
-    mlp = system.model.mlp
-    start = {k: v.detach().clone() for k, v in mlp.state_dict().items()}
+    model = system.model
+    start = {k: v.clone() for k, v in model.param_state().items()}
 
     def run(graphed: bool):
-        mlp.load_state_dict(start)
+        model.load_params(start)
         state = system.create_state()
         state.step = start_step
         state.step_t.fill_(start_step)
@@ -1684,12 +1881,12 @@ def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
             raise AssertionError(f"step counts {state.step}, "
                                  f"{int(state.step_t)} after {GRAPH_STEPS}"
                                  f" steps from {start_step}")
-        flat = torch.cat([p.detach().reshape(-1) for p in mlp.parameters()])
+        flat = torch.cat([p.detach().reshape(-1) for p in system.params()])
         return flat.clone(), losses.cpu(), gen.get_state()
 
     eager = [run(False) for _ in range(EAGER_RUNS)]
     graph = run(True)
-    mlp.load_state_dict(start)
+    model.load_params(start)
     loss_scale = float(eager[0][1].abs().max())
     params = _within_spread(graph, eager, lambda a, b: _rel(a[0], b[0]),
                             1e-6)
@@ -1698,16 +1895,19 @@ def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
                           1e-6 * loss_scale)
     same_gen = all(torch.equal(graph[2], e[2]) for e in eager)
     tag = f"[graph{_family(system)['sfx']}]"
-    from pano_nerf_tpu_torch.engine.losses import env_distill_schedule
-    if env_distill_schedule(system.hparams, torch.tensor(0)) is not None:
-        sched = [float(env_distill_schedule(system.hparams,
-                                            torch.tensor(start_step + i)))
+    from pano_nerf_tpu_torch.engine.losses import (env_distill_schedule,
+                                                   illum_distill_rise)
+    for what, fn in (("env-distill", env_distill_schedule),
+                     ("illum-distill", illum_distill_rise)):
+        if fn(system.hparams, torch.tensor(0)) is None:
+            continue
+        sched = [float(fn(system.hparams, torch.tensor(start_step + i)))
                  for i in range(GRAPH_STEPS)]
-        print(f"{tag} env-distill weight factor at steps {start_step}-"
+        print(f"{tag} {what} weight factor at steps {start_step}-"
               f"{start_step + GRAPH_STEPS - 1}: "
               + ", ".join(f"{x:.4f}" for x in sched), flush=True)
         if len(set(sched[:8])) < 2 or len(set(sched[8:])) < 2:
-            raise AssertionError("the env-distill schedule does not move "
+            raise AssertionError(f"the {what} schedule does not move "
                                  "inside each 8-step graph of the window")
     print(f"{tag} {GRAPH_STEPS} steps from one state: eager vs eager "
           f"spread ({EAGER_RUNS} runs, largest of the pairs) params "
@@ -1720,6 +1920,48 @@ def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
                              "beyond the eager-vs-eager spread")
 
 
+def check_illum_freeze(trainer) -> None:
+    """`train.illum_freeze` inside a graph: one graphed step from a fresh
+    Adam at the step before the freeze moves the illuminant field (its
+    gradients are not 0), one from a fresh Adam at the freeze step leaves
+    it bit-equal (its gradients are 0: the device-side mask) while the
+    MLP moves. The trained parameters are put back after."""
+    import torch
+    system, hp = trainer.system, trainer.hparams
+    fstep = float(hp["train.illum_freeze"]) * int(hp["optimizer.max_steps"])
+    first = int(-(-fstep // 1))   # the first frozen step
+    batch = int(hp["train.batch_size"])
+    data = _train_inputs(trainer)
+    saved = {k: v.clone() for k, v in system.model.param_state().items()}
+    field = list(system.model.illum.parameters())
+    mlp = list(system.model.mlp.parameters())
+    res = []
+    for step in (first - 1, first):
+        state = system.create_state()
+        state.step = step
+        state.step_t.fill_(step)
+        gen = torch.Generator(device=system.device).manual_seed(41)
+        run = system.make_graphed_train_step(state, data, gen, True, batch,
+                                             1)
+        before = [p.detach().clone() for p in field + mlp]
+        run(state)
+        moved = [float((p - b).abs().max())
+                 for p, b in zip(field + mlp, before)]
+        res.append((step, max(float(p.grad.abs().max()) for p in field),
+                    max(moved[:len(field)]), min(moved[len(field):])))
+        system.model.load_params(saved)
+    tag = f"[freeze{_family(system)['sfx']}]"
+    print(f"{tag} graphed step from a fresh Adam, illum field frozen from "
+          f"step {fstep:g}: " + "; ".join(
+              f"step {s}: field |grad| max {g:.3e}, field moved {m:.3e}, "
+              f"every MLP leaf moved (least max move {w:.3e})"
+              for s, g, m, w in res), flush=True)
+    (_, g0, m0, w0), (_, g1, m1, w1) = res
+    if not (g0 > 0 and m0 > 0 and g1 == 0.0 and m1 == 0.0 and w0 > 0
+            and w1 > 0):
+        raise AssertionError(f"illum_freeze: {res}")
+
+
 def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
     """One train step (clip off) on `dev` of the config's system, with the
     draws `draws_np` (numpy, of the system's draws type); returns (loss
@@ -1730,7 +1972,7 @@ def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
     from pano_nerf_tpu_torch.engine.system import build_system
     system = build_system(dict(hp, **{"optimizer.grad_clip": 0.0}),
                           device=dev)
-    system.model.mlp.load_state_dict(state_dict)
+    system.model.load_params(state_dict)
     if system.surface:
         D = int(hp["nerf.num_ray_samples"])
         system.set_env_rays(ds.generate_lit_rays(num=D, near=0.0, far=10.0))
@@ -1745,8 +1987,7 @@ def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
     parts = system.make_train_step(True)(
         system.create_state(), rays, T(ds.images[idx]),
         type(draws_np)(*(draw(x) for x in draws_np)))
-    grads = torch.cat([p.grad.reshape(-1).cpu() for p in
-                       system.model.mlp.parameters()])
+    grads = torch.cat([p.grad.reshape(-1).cpu() for p in system.params()])
     return {k: float(v) for k, v in parts.items()}, grads
 
 
@@ -1769,10 +2010,31 @@ def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
         t_env=rng.random((num_rays, D, cfg.num_env_samples + 1)),
         d_alt=rng.normal(size=(num_rays, 3))) if trainer.system.surface
         else MipDraws(t_coarse=t_coarse, u_fine=u_fine))
+    if not trainer.system.surface:
+        return idx, draws_np
     if cfg.env_distill_samples > 0:
         draws_np = draws_np._replace(
             ed_idx=rng.integers(0, D, (num_rays, 1)),
             t_ed=rng.random((num_rays, 1, cfg.env_distill_samples + 1)))
+    mode = cfg.env_mode()
+    if mode != "fixed":
+        draws_np = draws_np._replace(q_rot=rng.normal(size=(num_rays, 4)))
+    if mode in ("stratified", "importance"):
+        draws_np = draws_np._replace(u_cos=rng.random((num_rays, D, 1)),
+                                     u_phi=rng.random((num_rays, D, 1)))
+    if mode == "importance":
+        dp = cfg.env_probe_dirs
+        draws_np = draws_np._replace(
+            gumbel=rng.gumbel(size=(num_rays, D, dp)),
+            t_probe=rng.random((num_rays, dp, cfg.env_probe_samples + 1)))
+    if cfg.env_resample:
+        draws_np = draws_np._replace(u_resample=rng.random(
+            (num_rays * D, cfg.num_env_fine_samples + 1)))
+    if cfg.density_noise > 0:
+        draws_np = draws_np._replace(
+            noise_coarse=rng.normal(size=(num_rays,
+                                          cfg.train_coarse_samples(), 1)),
+            noise_fine=rng.normal(size=(num_rays, cfg.num_samples, 1)))
     return idx, draws_np
 
 
@@ -1787,7 +2049,7 @@ def grad_errors(trainer, seeds, num_rays: int = 64) -> list:
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
     sd = {k: v.detach().cpu().clone() for k, v in
-          trainer.system.model.mlp.state_dict().items()}
+          trainer.system.model.param_state().items()}
     sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
     out = []
     for seed in seeds:
@@ -1805,7 +2067,7 @@ def grad_errors(trainer, seeds, num_rays: int = 64) -> list:
     return out
 
 
-GRAD_BATCHES = 8
+GRAD_BATCHES = 16
 
 
 def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
@@ -2079,6 +2341,18 @@ def main() -> int:
         forward_only=PRESET_FWD_ONLY, tag="[kernel-presets]",
         sfx="_presets")
     del calls, levels, surf
+    # 2s: the study switches' kernel shapes.
+    k2k3_s, k5_s, k4_s = study_shapes(model, env, dev)
+    study_entries = check_train_kernels(
+        model, dev, k2k3_s, wentry, forward_only=("probe",),
+        tag="[kernel-study]", sfx="_study")
+    study_entries += check_train_render_kernel(
+        model, dev, k5_s, wentry, sfx="_study", tag="[kernel-study]")
+    with torch.no_grad():
+        study_entries.append(check_kernels(model, env, dev, shapes=k4_s,
+                                           sfx="_study",
+                                           tag="[kernel-study]"))
+    del k2k3_s, k5_s, k4_s
     mip_model = MipNeRF.from_hparams(
         load_config(MIP_CONFIG), torch.Generator().manual_seed(0)).to(dev)
     mip_entries = check_train_kernels(
@@ -2103,10 +2377,11 @@ def main() -> int:
                                   step=TRAIN_STEPS)
         where_the_time_goes(scene, params=train["trainer"].ckpt.restore(
             map_location=dev)["params"], tag="[eval-trained]")
+        base_times = {}
         for t in (train, train_k5):
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(t["trainer"])
-            time_train_modes(t["trainer"])
+            base_times[t is train_k5] = time_train_modes(t["trainer"])
             profile_train_step(t["trainer"])
         del train["trainer"], train_k5["trainer"]
         # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
@@ -2161,6 +2436,34 @@ def main() -> int:
                  MIP_CONFIG: mip_train["save_dir"]}
         frames = {c: drive_render_path(workdir, scene, save, c)
                   for c, save in saves.items()}
+        # 12-14: the study switches: train, one step against the CPU,
+        # graphed steps against eager ones, ms per step; 12 also the
+        # freeze inside a graph and its checkpoint served (12b).
+        study = {ph: drive_train_path(workdir, scene, render_kernel=k5,
+                                      opts=opts, steps=steps,
+                                      name=f"study{ph}")
+                 for ph, (opts, k5, steps) in STUDY_PHASES.items()}
+        opts12, _, steps12 = STUDY_PHASES[12]
+        served12 = drive_main_path(workdir, scene,
+                                   ["--ckpt_dir", study[12]["save_dir"]],
+                                   step=steps12, opts=opts12)
+        where_the_time_goes(scene, params=study[12]["trainer"].ckpt.restore(
+            map_location=dev)["params"], tag="[eval-study12-trained]",
+            opts=opts12)
+        for ph, t in study.items():
+            check_train_step_against_cpu(t["trainer"])
+            check_graphed_against_eager(
+                t["trainer"], start_step=STUDY_WINDOW if ph == 12 else 0)
+            if ph == 12:
+                check_illum_freeze(t["trainer"])
+            ms = time_train_modes(t["trainer"])
+            g8 = "graph, 8 steps per replay"
+            print(f"[time-study{ph}] graph of 8 steps {ms[g8]:.3f} ms per "
+                  f"step (key {'on' if STUDY_PHASES[ph][1] else 'off'}) vs "
+                  f"the fixed env set in this call: phase 4 (key off) "
+                  f"{base_times[False][g8]:.3f}, phase 4b (key on) "
+                  f"{base_times[True][g8]:.3f}", flush=True)
+            del t["trainer"]
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
@@ -2174,14 +2477,19 @@ def main() -> int:
     for e in preset_entries:   # the presets' shapes, over the preset runs
         e["launches"] = sum(r["launches"][e["name"][:-len("_presets")]]
                             for r in preset_runs)
+    study_runs = tuple(study.values()) + (served12,)
+    for e in study_entries:   # the study shapes, over the study runs
+        e["launches"] = sum(r["launches"][e["name"][:-len("_study")]]
+                            for r in study_runs)
     for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
                             for r in (run, trained, train, train_k5,
                                       frames[CONFIG]) + mip_runs
-                            + preset_runs)
+                            + preset_runs + study_runs)
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
-                      + k5_entries + mip_entries + preset_entries}))
+                      + k5_entries + mip_entries + preset_entries
+                      + study_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,9 @@ tone-mapped LDR (ground truth quantized to 8 bits, predictions
 tone-mapped without the clamp), the albedo chromaticity prior (with the
 illuminant-chroma gate and the illuminant-compensated target), the
 orientation loss (with `loss.ort_tie_boost`), the distortion loss, the
-saturation runaway guard, the luma view-consistency tie and the env
-distill ties, weighted by the step's trapezoid (`env_distill_schedule`);
+saturation runaway guard, the luma view-consistency tie, the env
+distill ties, weighted by the step's trapezoid (`env_distill_schedule`),
+and the illuminant-field distill with its rise (`illum_distill_rise`);
 and the mip-NeRF baseline's (`mipnerf_losses`). Loss keys whose
 non-default value needs a term the port does not have raise
 NotImplementedError naming the key (`check_loss_config`); the baseline
@@ -42,7 +43,6 @@ EXTENSION_DEFAULTS = {
 UNSUPPORTED: Dict[str, Callable] = {
     "loss.scale_distill": lambda v: float(v) != 0.0,
     "loss.scale_distill_dist": lambda v: float(v) != 0.0,
-    "loss.illum_distill": lambda v: float(v) != 0.0,
     "loss.vc_chroma": lambda v: float(v) != 0.0,
     "loss.vc_sat_mask": bool,
 }
@@ -145,6 +145,25 @@ def env_distill_schedule(hparams: Dict, step: Optional[Tensor]
         sched = sched * (1.0 - torch.clamp(
             (s - end * max_steps) / max(fall * max_steps, 1.0), 0.0, 1.0))
     return sched
+
+
+def illum_distill_rise(hparams: Dict, step: Optional[Tensor]
+                       ) -> Optional[Tensor]:
+    """The illum-distill weight's factor at `step` (a scalar tensor): 0
+    until `loss.illum_distill_start` x `optimizer.max_steps`, then a
+    linear rise to 1 over `_ramp` x max_steps (at least one step). None
+    when neither key is set (a flat weight); ValueError when one is set
+    and no step is given."""
+    start = float(hparams.get("loss.illum_distill_start", 0.0))
+    ramp = float(hparams.get("loss.illum_distill_ramp", 0.0))
+    if not (start > 0 or ramp > 0):
+        return None
+    if step is None:
+        raise ValueError("loss.illum_distill_start/_ramp set but no `step` "
+                         "was passed to pano_losses")
+    max_steps = float(hparams["optimizer.max_steps"])
+    return torch.clamp((step.to(torch.float32) - start * max_steps)
+                       / max(ramp * max_steps, 1.0), 0.0, 1.0)
 
 
 def saturation_loss(pred_hdr: Tensor, ldr_gt: Tensor, mask: Tensor,
@@ -256,6 +275,18 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
             tie = masked_mse(f(read), f(target), mask)
             loss = loss + (w if ed_sched is None else w * ed_sched) * tie
             parts[name] = tie
+    # The illuminant-field distill: the pre-tint secondary read's chroma
+    # pulled toward the field's (stop-gradient), per (point, direction).
+    w_ild = float(hparams.get("loss.illum_distill", 0.0))
+    if w_ild > 0 and fine.env_pre_illum is not None:
+        pre = torch.relu(fine.env_pre_illum)
+        pre_chroma = pre / (torch.sum(pre, dim=-1, keepdim=True) + 1e-4)
+        n = pre_chroma.shape[0]
+        ild = masked_mse(pre_chroma.reshape(n, -1),
+                         fine.illum_chroma.detach().reshape(n, -1), mask)
+        rise = illum_distill_rise(hparams, step)
+        loss = loss + (w_ild if rise is None else w_ild * rise) * ild
+        parts["illum_distill"] = ild
     parts["loss"] = loss
     return parts
 

@@ -34,7 +34,6 @@ Tensor = torch.Tensor
 # Keys whose value needs a training path the port does not have.
 TRAIN_UNSUPPORTED: Dict[str, Callable] = {
     "train.randomized": lambda v: not bool(v),
-    "nerf.point_normals": bool,
     "parallel.num_devices": lambda v: v is not None and int(v) > 1,
 }
 
@@ -198,8 +197,13 @@ class BaseSystem:
         """Whether steps and chunks run as CUDA graphs (on the card)."""
         return self.device.type == "cuda"
 
+    def params(self) -> List[Tensor]:
+        """The trained parameters, in `NerfModel.named_params` order: the
+        MLP's, then the illuminant field's."""
+        return [p for _, p in self.model.named_params()]
+
     def create_state(self) -> TrainState:
-        """Step 0 and a fresh Adam over the MLP's parameters.
+        """Step 0 and a fresh Adam over the model's parameters (`params`).
 
         Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
         square root, no weight decay): torch.optim.Adam computes the same
@@ -213,7 +217,7 @@ class BaseSystem:
         """
         return TrainState(
             step=0, optimizer=torch.optim.Adam(
-                self.model.mlp.parameters(), lr=0.0, betas=(0.9, 0.999),
+                self.params(), lr=0.0, betas=(0.9, 0.999),
                 eps=1e-8, capturable=self.graphed),
             step_t=(torch.zeros((), dtype=torch.int64, device=self.device)
                     if self.graphed else None))
@@ -222,7 +226,7 @@ class BaseSystem:
         """Load a checkpoint's parameters, optimizer state and step into
         `state` (the optimizer's tensors are replaced: a graph that holds
         them must be captured again)."""
-        self.model.mlp.load_state_dict(saved["params"])
+        self.model.load_params(saved["params"])
         opt = saved["optimizer"]   # saved on the card or on the CPU
         state.optimizer.load_state_dict(dict(opt, param_groups=[
             dict(g, capturable=self.graphed) for g in opt["param_groups"]]))
@@ -236,7 +240,8 @@ class BaseSystem:
         One optimizer step on a ray batch (flat [B, ...] tensors on the
         system's device), as the JAX `make_train_step`: the family's
         randomized forward (`_train_forward`, the kernels on the card) and
-        loss (`_losses`), backward, the global-norm clip
+        loss (`_losses`), backward, `train.illum_freeze`'s mask on the
+        illuminant field's gradients, the global-norm clip
         (`optimizer.grad_clip`, 0 = none), the learning rate of the step
         (read at `state.step_t` on the device where there is one), Adam.
         The parts are detached tensors; read them only when needed
@@ -254,7 +259,11 @@ class BaseSystem:
             int(hp["optimizer.lr_delay_steps"]),
             float(hp["optimizer.lr_delay_mult"]))).to(self.device)
         last = lrs.shape[0] - 1
-        params = list(model.mlp.parameters())
+        params = self.params()
+        illum = ([] if model.illum is None
+                 else list(model.illum.parameters()))
+        freeze = (float(hp.get("train.illum_freeze", 0.0))
+                  * float(hp["optimizer.max_steps"]))
 
         def train_step(state: TrainState, rays: Rays, rgbs: Tensor,
                        draws: Any) -> Dict[str, Tensor]:
@@ -271,6 +280,20 @@ class BaseSystem:
             parts = self._losses(outs, rgbs[..., :3], rays.lossmult,
                                  enable_surf, step_now)
             parts["loss"].backward()
+            for p in params:
+                # A parameter the step did not reach (the illuminant
+                # field without the surface path) gets JAX's zero
+                # gradient, which Adam still steps.
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if freeze > 0 and illum:
+                # train.illum_freeze (JAX `_freeze_illum_grads`): the
+                # field's gradients x 0 from step freeze x max_steps on,
+                # a mask computed on the device from the step.
+                keep = (step_now.to(torch.float32) < freeze).to(
+                    torch.float32)
+                for p in illum:
+                    p.grad.mul_(keep)
             if clip > 0:
                 clip_by_global_norm_(params, clip)
             if state.step_t is None:
@@ -347,7 +370,7 @@ class BaseSystem:
         step, losses [steps]), static tensors overwritten by the next
         replay."""
         one = self.make_device_step(dataset, gen, enable_surf, batch_size)
-        params = list(self.model.mlp.parameters())
+        params = self.params()
         body = _k_steps(one, steps)
         graph = CapturedGraph(lambda: body(state), warmup=lambda: one(state),
                               snapshot=lambda: rollback_point(state, params,
@@ -368,11 +391,12 @@ class BaseSystem:
     def make_render_image(self, enable_surf: bool = True) -> Callable:
         """Returns render_fn(params, rays) -> dict of [N, C] host tensors.
 
-        `params` is the MLP's state_dict (loaded into the model first) or
-        None to keep the current weights; `rays` are flat [N, ...] tensors
-        on the system's device. Rays are rendered `val.chunk_size` at a
-        time (the last chunk padded with the last ray) into one [N, C]
-        buffer on the device, which comes to the host in one copy. On the
+        `params` is a `NerfModel.param_state` dict (loaded into the model
+        first) or None to keep the current weights; `rays` are flat
+        [N, ...] tensors on the system's device. Rays are rendered
+        `val.chunk_size` at a time (the last chunk padded with the last
+        ray) into one [N, C] buffer on the device, which comes to the host
+        in one copy. On the
         card each chunk is a replay of one CUDA graph of `render_chunk`
         (captured at the first call): the chunk is copied into its static
         input rays, and the weights are packed into its static weight
@@ -390,7 +414,7 @@ class BaseSystem:
                       ) -> Dict[str, Tensor]:
             nonlocal graph, static_rays, static_packed
             if params is not None:
-                model.mlp.load_state_dict(params)
+                model.load_params(params)
             n = rays.origins.shape[0]
             pad = (-n) % chunk
             if pad:

@@ -147,7 +147,7 @@ class Trainer:
 
     def _save(self, state: TrainState, gen: torch.Generator) -> None:
         self.ckpt.save(state.step, dict(
-            params=self.system.model.mlp.state_dict(),
+            params=self.system.model.param_state(),
             optimizer=state.optimizer.state_dict(),
             generator=gen.get_state()))
 
@@ -206,7 +206,7 @@ class Trainer:
         nan_retry, nan_failed_step, nan_cooldown_until = 0, -1, -1
         t0 = self._sync_clock()
         rays_done = 0
-        params = list(system.model.mlp.parameters())
+        params = system.params()
         while state.step < self.max_steps:
             surf = (self.steps_with_surface
                     and state.step >= self.surface_start_step)

@@ -2,7 +2,8 @@
 
 Counterpart of pano_nerf_tpu/models/base.py: `from_hparams` (with the
 `__post_init__` checks of the tight re-read's variants), `_sample_level`,
-`_env_samples` and `_expected_normals`, shared by Pano-NeRF
+`_env_samples`, `_env_mode`, `_density_noise`, the illuminant field's
+parameters (`models/illum.py`) and `_expected_normals`, shared by Pano-NeRF
 (`models/pano_mip_nerf.py`) and the mip-NeRF baseline
 (`models/mip_nerf.py`). Each model takes the JAX package's kernel route
 for its config (for Pano-NeRF's eval the whole-level render kernel, or
@@ -18,7 +19,8 @@ for, while the plain versions on the CPU take any width.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -26,6 +28,7 @@ from torch import nn
 from pano_nerf_tpu_torch.core.rays import Rays
 from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
 from pano_nerf_tpu_torch.kernels.fused_render import softplus
+from pano_nerf_tpu_torch.models.illum import IllumField
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
 
@@ -55,21 +58,23 @@ class LevelOutput(NamedTuple):
     env_fine_acc: Optional[Tensor] = None
     env_read_dist: Optional[Tensor] = None
     env_fine_dist: Optional[Tensor] = None
+    # With the illuminant field (training): the secondary read [B, D, 3]
+    # before the field's re-tint and the field's chroma at the same
+    # (point, direction) pairs, for loss.illum_distill.
+    env_pre_illum: Optional[Tensor] = None
+    illum_chroma: Optional[Tensor] = None
 
+
+# The env-direction estimators of a training step (`nerf.env_sampling`;
+# "auto" resolves from `env_importance` / `env_rotation`, `env_mode`).
+ENV_MODES = ("fixed", "rotated", "stratified", "importance")
 
 # Config keys whose non-default value needs a render path the port does
 # not have: key -> predicate that is True when the value is unsupported.
 UNSUPPORTED: Dict[str, Callable] = {
-    "nerf.density_noise": lambda v: float(v) != 0.0,
-    # Refused alone, so also beside env_tight_rgb > 0 (under env_resample
-    # JAX skips the tight re-read and marches a second time instead).
-    "nerf.env_resample": bool,
-    "nerf.illum_field": bool,
     "nerf.emissive_head": bool,
     "nerf.chroma_head": bool,
-    "nerf.env_rotation": bool,
-    "nerf.env_importance": bool,
-    "nerf.env_sampling": lambda v: v not in ("auto", "fixed"),
+    "nerf.env_sampling": lambda v: v not in ENV_MODES + ("auto",),
     "nerf.disable_integration": bool,
     "nerf.use_viewdirs": lambda v: not bool(v),
     "nerf.append_identity": lambda v: not bool(v),
@@ -139,6 +144,31 @@ class NerfConfig:
     use_train_render_kernel: bool = False
     train_kernel_save_acts: bool = False
     train_kernel_scope: str = "all"
+    # The study switches of training (JAX BaseNeRF fields of the same
+    # names). The env-direction estimator (`env_mode`): the fixed set,
+    # rotated per ray, rotated and jittered in its cells (stratified), or
+    # importance-sampled after a probe march of `env_probe_dirs` cells x
+    # `env_probe_samples` samples; eval keeps the fixed set.
+    env_rotation: bool = False
+    env_importance: bool = False
+    env_probe_dirs: int = 16
+    env_probe_samples: int = 4
+    env_sampling: str = "auto"
+    # A second env march of `num_env_fine_samples` Gaussians placed by the
+    # first one's weights (blurpool CDF), which then carries the radiance.
+    env_resample: bool = False
+    num_env_fine_samples: int = 5
+    # Gaussian noise x density_noise on the raw density of the coarse and
+    # fine levels in training.
+    density_noise: float = 0.0
+    # Training normals from one density-gradient query per ray at the
+    # expected Gaussian instead of the per-sample average.
+    point_normals: bool = False
+    # The illuminant field (`models/illum.py`) re-tinting the env read.
+    illum_field: bool = False
+    illum_sh_deg: int = 2
+    illum_net_width: int = 64
+    illum_posenc_deg: int = 4
 
     def __post_init__(self):
         if self.env_tight_chroma and self.env_tight_rgb <= 0:
@@ -168,6 +198,10 @@ class NerfConfig:
                 raise ValueError(
                     "env_tight_weights needs the full-S tight re-read; "
                     "leave env_tight_chroma/top1/topk off.")
+            if self.env_resample:
+                raise ValueError(
+                    "env_tight_weights and env_resample are alternative "
+                    "second-scale marches; pick one.")
 
     @classmethod
     def from_hparams(cls, hparams: dict, **overrides) -> "NerfConfig":
@@ -219,6 +253,20 @@ class NerfConfig:
                                                False)),
             env_distill_samples=int(hparams.get("nerf.env_distill_samples",
                                                 0)),
+            env_rotation=bool(hparams.get("nerf.env_rotation", False)),
+            env_importance=bool(hparams.get("nerf.env_importance", False)),
+            env_probe_dirs=int(hparams.get("nerf.env_probe_dirs", 16)),
+            env_probe_samples=int(hparams.get("nerf.env_probe_samples", 4)),
+            env_sampling=str(hparams.get("nerf.env_sampling", "auto")),
+            env_resample=bool(hparams.get("nerf.env_resample", False)),
+            num_env_fine_samples=int(hparams.get(
+                "nerf.num_env_fine_samples", 5)),
+            density_noise=float(hparams.get("nerf.density_noise", 0.0)),
+            point_normals=bool(hparams.get("nerf.point_normals", False)),
+            illum_field=bool(hparams.get("nerf.illum_field", False)),
+            illum_sh_deg=int(hparams.get("nerf.illum_sh_deg", 2)),
+            illum_net_width=int(hparams.get("nerf.illum_net_width", 64)),
+            illum_posenc_deg=int(hparams.get("nerf.illum_posenc_deg", 4)),
             **overrides,
         )
 
@@ -257,6 +305,15 @@ class NerfConfig:
         """Samples per secondary (irradiance) env ray at eval."""
         return self.eval_env_samples or self.num_env_samples
 
+    def env_mode(self) -> str:
+        """The training env-direction estimator: `env_sampling`, or with
+        "auto" importance > rotated > fixed from the booleans."""
+        if self.env_sampling != "auto":
+            return self.env_sampling
+        if self.env_importance:
+            return "importance"
+        return "rotated" if self.env_rotation else "fixed"
+
 
 class NerfModel(nn.Module):
     """What both models share: the config, the NerfMLP it specifies (the
@@ -276,6 +333,40 @@ class NerfModel(nn.Module):
             num_rgb_channels=cfg.mlp_num_rgb_channels,
             num_density_channels=cfg.mlp_num_density_channels,
             compute_dtype=cfg.compute_dtype, generator=generator)
+        self.illum = (IllumField(cfg.illum_sh_deg, cfg.illum_net_width,
+                                 cfg.illum_posenc_deg, generator)
+                      if cfg.illum_field else None)
+
+    def named_params(self) -> List[Tuple[str, nn.Parameter]]:
+        """Every trained parameter under its `utils/params.py` name: the
+        MLP's state_dict keys, then the illuminant field's leaves as
+        `illum.<leaf>`. The optimizer, the clip and checkpoints take them
+        in this order."""
+        out = list(self.mlp.named_parameters())
+        if self.illum is not None:
+            out += [(f"illum.{n}", p)
+                    for n, p in self.illum.named_parameters()]
+        return out
+
+    def param_state(self) -> Dict[str, Tensor]:
+        """The parameters by `named_params` name (what a checkpoint's
+        "params" holds)."""
+        return {n: p.detach() for n, p in self.named_params()}
+
+    def load_params(self, params: Mapping[str, Tensor]) -> None:
+        """Load a `param_state` (or `utils/params.params_from_jax`) dict;
+        raises on a missing or unexpected key, an `illum.*` key included
+        when the field is off."""
+        mlp = {k: v for k, v in params.items()
+               if not k.startswith("illum.")}
+        illum = {k[len("illum."):]: v for k, v in params.items()
+                 if k.startswith("illum.")}
+        self.mlp.load_state_dict(mlp)
+        if self.illum is not None:
+            self.illum.load_state_dict(illum)
+        elif illum:
+            raise ValueError("the parameters hold an illuminant field, "
+                             "but nerf.illum_field is off")
 
     def _rgb(self, raw_rgb: Tensor) -> Tensor:
         pad = self.cfg.rgb_padding
@@ -288,18 +379,28 @@ class NerfModel(nn.Module):
         """The viewdir encoding [..., 1, 27] of directions [..., 3]."""
         return mip.pos_enc(dirs, 0, self.cfg.deg_view, True)[..., None, :]
 
+    def _noisy(self, raw_sigma: Tensor, noise: Optional[Tensor]) -> Tensor:
+        """raw_sigma + density_noise x the standard normals `noise` (JAX
+        `_density_noise`); unchanged without them."""
+        if noise is None:
+            return raw_sigma
+        return raw_sigma + self.cfg.density_noise * noise
+
     def _march(self, means: Tensor, covs: Tensor, v_enc: Tensor,
                t_samples: Tensor, dirs: Tensor, white_bkgd: bool,
-               packed: Optional[Tuple[Tensor, Tensor]]
+               packed: Optional[Tuple[Tensor, Tensor]],
+               noise: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """One march without normals through kernel 2 and plain
-        compositing: (rgb, distance, acc, weights)."""
+        compositing, the raw density noised by `noise` when given: (rgb,
+        distance, acc, weights)."""
         cfg = self.cfg
         raw_rgb, raw_density = fused_mlp_ipe_apply(
             self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
             max_deg=cfg.max_deg_point, packed=packed)
         return mip.volumetric_rendering(
-            self._rgb(raw_rgb), self._density(raw_density[..., :1]),
+            self._rgb(raw_rgb),
+            self._density(self._noisy(raw_density[..., :1], noise)),
             t_samples, dirs, white_bkgd)
 
 

@@ -50,10 +50,17 @@ class MipNeRF(NerfModel):
                      generator: Optional[torch.Generator] = None
                      ) -> "MipNeRF":
         """One density channel, whatever `nerf.mlp.num_density_channels`
-        says (JAX's `BaseNeRF` default, which `from_hparams` keeps)."""
-        return cls(NerfConfig.from_hparams(hparams,
-                                           mlp_num_density_channels=1),
-                   generator)
+        says (JAX's `BaseNeRF` default, which `from_hparams` keeps).
+        `nerf.density_noise`, which JAX's mip-NeRF honours and this one
+        does not, raises NotImplementedError naming the key; the other
+        study switches are Pano-NeRF's, and JAX's mip-NeRF ignores them
+        too."""
+        cfg = NerfConfig.from_hparams(hparams, mlp_num_density_channels=1)
+        if cfg.density_noise != 0:
+            raise NotImplementedError(
+                f"nerf.density_noise={cfg.density_noise!r} is not supported "
+                "by the PyTorch/CUDA mip-NeRF")
+        return cls(cfg, generator)
 
     def _fine_with_normals(self, rays: Rays, means: Tensor, covs: Tensor,
                            v: Tensor, t_samples: Tensor, white_bkgd: bool,

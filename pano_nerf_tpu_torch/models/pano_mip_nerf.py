@@ -9,8 +9,8 @@ Two forwards:
   `train_forward` without draws (`_render`);
 * `train_forward`, the training step's forward: counterpart of the
   randomized `__call__` (pano_nerf_tpu/models/pano_mip_nerf.py:310-455,
-  513-750, 773-783) with the fused kernels on (`use_fused_kernel`,
-  `fused_scope="all"`), explicit normals and the fixed env directions.
+  513-783) with the fused kernels on (`use_fused_kernel`,
+  `fused_scope="all"`) and explicit normals.
   Coarse, env and view-consistency queries go through kernel 2
   (`kernels.fused_mlp_ipe`), the fine level with its density gradient
   through kernel 3 (`kernels.fused_mlp_normals`); compositing, losses and
@@ -32,6 +32,23 @@ luma and takes the chroma of the tight one. The env distill
 ray with `env_distill_samples` Gaussians through a kernel 2 forward and
 exposes the blurred read along it with that stop-gradient target.
 
+The study switches (JAX :521-567, :675-690, :753-772, :355-430):
+in training the env directions are the fixed set, rotated per ray
+(`rotated`), rotated and jittered in their cells (`stratified`), or
+importance-sampled after a probe march of Fibonacci cells through a
+kernel-2 forward without gradient (`importance`, `_importance_dirs`),
+with per-ray solid angles in the shading; `env_resample` places a
+second env march by the first one's weights (`_resample_env`; the first
+then runs forward only, and kernel 5 and the tight re-read skip the
+env); `density_noise` noises the raw density of both levels (kernel 5
+off); `point_normals` runs the fine level on kernel 2 and takes the
+normal from one kernel-3 query per ray (`_point_normal`); the
+illuminant field (`models/illum.py`) re-tints the env read before the
+irradiance integral and exposes `env_pre_illum` / `illum_chroma`. Eval
+keeps the fixed set and per-sample normals; there `env_resample` adds
+a fourth kernel-4 launch per chunk and the field re-tints kernel 4's env
+read.
+
 The kernel-4 eval forward runs every MLP evaluation through
 `kernels.fused_render.fused_render_level`, three launches per ray chunk:
 
@@ -49,6 +66,7 @@ does, whatever `nerf.mlp.num_density_channels` says.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -62,7 +80,10 @@ from pano_nerf_tpu_torch.kernels.fused_render import (fused_render_level,
 from pano_nerf_tpu_torch.kernels.fused_render_train import fused_render_train
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
                                              NerfModel, expected_normals)
+from pano_nerf_tpu_torch.models.illum import apply_illum
 from pano_nerf_tpu_torch.ops import mip, shading
+from pano_nerf_tpu_torch.utils import rotation
+from pano_nerf_tpu_torch.utils.spherical import sample_dir_by_uniform
 
 Tensor = torch.Tensor
 
@@ -78,6 +99,22 @@ class TrainDraws(NamedTuple):
     # of each ray's distill march and its stratification.
     ed_idx: Optional[Tensor] = None  # [B, 1] int64 in [0, D)
     t_ed: Optional[Tensor] = None    # [B, 1, S_ed+1] uniforms
+    # Each of the rest is drawn only when its switch is on (else None).
+    # The env estimator (`env_mode`): the per-ray rotation as standard
+    # normals (rotated and stratified: of the env set; importance: of the
+    # probe cells), the cap uniforms (stratified, importance), the
+    # importance pick's Gumbel noise over the Dp probe cells and the
+    # probe march's stratification.
+    q_rot: Optional[Tensor] = None    # [B, 4]
+    u_cos: Optional[Tensor] = None    # [B, D, 1]
+    u_phi: Optional[Tensor] = None    # [B, D, 1]
+    gumbel: Optional[Tensor] = None   # [B, D, Dp]
+    t_probe: Optional[Tensor] = None  # [B, Dp, Sp+1]
+    # env_resample: the second env march's inverse-CDF uniforms.
+    u_resample: Optional[Tensor] = None   # [B * D, S_f+1]
+    # density_noise: standard normals on the coarse and fine raw density.
+    noise_coarse: Optional[Tensor] = None  # [B, Nc, 1]
+    noise_fine: Optional[Tensor] = None    # [B, N, 1]
 
 
 class PanoMipNeRF(NerfModel):
@@ -88,6 +125,16 @@ class PanoMipNeRF(NerfModel):
         return cls(NerfConfig.from_hparams(hparams,
                                            mlp_num_density_channels=5),
                    generator)
+
+    def __init__(self, cfg: NerfConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, generator)
+        if cfg.env_mode() == "importance":
+            # The probe's Fibonacci cells, on the model's device (a copy
+            # from the host inside a captured step would fail).
+            self.register_buffer("probe_dirs", torch.tensor(
+                sample_dir_by_uniform(cfg.env_probe_dirs)),
+                persistent=False)
 
     def forward(self, rays: Rays, env_rays: Rays, white_bkgd: bool,
                 enable_surf: bool,
@@ -139,13 +186,29 @@ class PanoMipNeRF(NerfModel):
                     env_rays.near, env_rays.far, env_rays.radii)
                 B, D, S2 = lm.shape[:3]
                 flat_dirs = lit_dirs.reshape(B * D, 3).contiguous()
-                re = level(lm.reshape(B * D, S2, 3).contiguous(),
-                           lc.reshape(B * D, S2, 3).contiguous(), flat_dirs,
-                           lit_t.reshape(B * D, S2 + 1).contiguous(),
-                           flat_dirs, False, need=False)
+
+                def env_level(t, mc):
+                    (m, c), S = mc, t.shape[-1] - 1
+                    return level(m.reshape(B * D, S, 3).contiguous(),
+                                  c.reshape(B * D, S, 3).contiguous(),
+                                  flat_dirs,
+                                  t.reshape(B * D, S + 1).contiguous(),
+                                  flat_dirs, False, need=False)
+
+                re = env_level(lit_t, (lm, lc))
+                if cfg.env_resample:
+                    # A fourth launch: the march placed by the third's
+                    # weights carries the radiance.
+                    re = env_level(*self._resample_env(
+                        surf_origins, lit_dirs, env_rays.radii, lit_t,
+                        re["weights"].reshape(B, D, S2), None))
+                env_rgb = re["rgb"].reshape(B, D, 3)
+                if cfg.illum_field:
+                    env_rgb = apply_illum(env_rgb,
+                                          self.illum(surf_origins, lit_dirs))
                 surf_rgb, diffuse, _, shade = shading.surface_rendering(
-                    re["rgb"].reshape(B, D, 3), r["albedo"], r["normal"],
-                    lit_dirs, env_rays.lossmult)
+                    env_rgb, r["albedo"], r["normal"], lit_dirs,
+                    env_rays.lossmult)
                 out.update(albedo=r["albedo"], surf_rgb=surf_rgb,
                            diffuse=diffuse, shading=shade)
             ret.append(LevelOutput(**out))
@@ -153,8 +216,10 @@ class PanoMipNeRF(NerfModel):
 
     def make_draws(self, batch: int, num_dirs: int,
                    generator: torch.Generator) -> TrainDraws:
-        """Draw one step's TrainDraws on the generator's device (the
-        env-distill pair last, and only with env_distill_samples > 0)."""
+        """Draw one step's TrainDraws on the generator's device: the four
+        of every step, then the env-distill pair, the env estimator's,
+        the resampled march's and the density noise, each only when its
+        switch is on."""
         cfg, dev = self.cfg, generator.device
         nc, n, s = (cfg.train_coarse_samples(), cfg.num_samples,
                     cfg.num_env_samples)
@@ -162,15 +227,38 @@ class PanoMipNeRF(NerfModel):
         def rand(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
+        def randn(*shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
         draws = TrainDraws(
             t_coarse=rand(batch, nc + 1), u_fine=rand(batch, n + 1),
-            t_env=rand(batch, num_dirs, s + 1),
-            d_alt=torch.randn((batch, 3), generator=generator, device=dev))
+            t_env=rand(batch, num_dirs, s + 1), d_alt=randn(batch, 3))
         if cfg.env_distill_samples > 0:
             draws = draws._replace(
                 ed_idx=torch.randint(0, num_dirs, (batch, 1),
                                      generator=generator, device=dev),
                 t_ed=rand(batch, 1, cfg.env_distill_samples + 1))
+        mode = cfg.env_mode()
+        if mode != "fixed":
+            draws = draws._replace(q_rot=randn(batch, 4))
+        if mode in ("stratified", "importance"):
+            draws = draws._replace(u_cos=rand(batch, num_dirs, 1),
+                                   u_phi=rand(batch, num_dirs, 1))
+        if mode == "importance":
+            dp = cfg.env_probe_dirs
+            # Standard Gumbel noise, -log(-log(u)) with u in [tiny, 1),
+            # as jax.random.gumbel draws it.
+            u = torch.clamp(rand(batch, num_dirs, dp),
+                            min=torch.finfo(torch.float32).tiny)
+            draws = draws._replace(
+                gumbel=-torch.log(-torch.log(u)),
+                t_probe=rand(batch, dp, cfg.env_probe_samples + 1))
+        if cfg.env_resample:
+            draws = draws._replace(u_resample=rand(
+                batch * num_dirs, cfg.num_env_fine_samples + 1))
+        if cfg.density_noise > 0:
+            draws = draws._replace(noise_coarse=randn(batch, nc, 1),
+                                   noise_fine=randn(batch, n, 1))
         return draws
 
     def train_forward(self, rays: Rays, env_rays: Rays, draws: TrainDraws,
@@ -204,7 +292,9 @@ class PanoMipNeRF(NerfModel):
                   packed=packed)
 
         def kernel_level(scope: str) -> bool:
+            # Kernel 5 has no density noise (JAX's gate, :294-296).
             return (train and cfg.use_train_render_kernel
+                    and cfg.density_noise == 0
                     and cfg.train_kernel_scope in ("all", scope))
 
         def render_level(means, covs, viewdirs, t_samples, dirs, white):
@@ -229,13 +319,16 @@ class PanoMipNeRF(NerfModel):
             comp, dist, acc, w0 = render_level(m0, c0, rays.viewdirs, t0,
                                                rays.directions, white_bkgd)
         else:
-            comp, dist, acc, w0 = self._march(m0, c0, v, t0, rays.directions,
-                                              white_bkgd, packed)
+            comp, dist, acc, w0 = self._march(
+                m0, c0, v, t0, rays.directions, white_bkgd, packed,
+                noise=draws.noise_coarse if train else None)
         ret = [LevelOutput(rgb=comp, distance=dist, acc=acc,
                            dist_loss=(mip.distortion_loss(t0, w0) if train
                                       else None))]
 
-        # ---- fine level: MLP + density gradient (kernel 3) ----
+        # ---- fine level: MLP + density gradient (kernel 3), or, with
+        # point normals in training, the MLP alone (kernel 2) and one
+        # kernel-3 query per ray ----
         if train:
             t1, (m1, c1) = mip.resample_along_rays(
                 rays.origins, rays.directions, rays.radii, t0, w0,
@@ -243,18 +336,31 @@ class PanoMipNeRF(NerfModel):
                 u_rand=draws.u_fine)
         else:
             t1, (m1, c1) = cfg.sample_level(rays, 1, t0, w0)
-        raw_rgb, raw_density, d_raw = fused_mlp_normals_apply(
-            self.mlp, m1, c1, v, **kw)
-        raw_sigma = raw_density[..., :1]
+        point = train and cfg.point_normals
+        if point:
+            raw_rgb, raw_density = fused_mlp_ipe_apply(self.mlp, m1, c1, v,
+                                                       **kw)
+        else:
+            raw_rgb, raw_density, d_raw = fused_mlp_normals_apply(
+                self.mlp, m1, c1, v, **kw)
+        raw_sigma = self._noisy(raw_density[..., :1],
+                                draws.noise_fine if train else None)
         albedos = torch.sigmoid(raw_density[..., 1:4]) * 0.77 + 0.03
         roughness = softplus(raw_density[..., 4:5] - 1.0)
-        # d density / d means = sigmoid(raw_sigma + bias) * d raw_sigma.
-        d_means = torch.sigmoid(raw_sigma + cfg.density_bias) * d_raw
         comp, dist, acc, w1 = mip.volumetric_rendering(
             self._rgb(raw_rgb), self._density(raw_sigma), t1,
             rays.directions, white_bkgd)
-        normal, ort_loss, w_norm = expected_normals(
-            w1, -d_means, rays.directions, use_ort_loss)
+        if point:
+            normal, ort_loss = self._point_normal(m1, c1, v, w1,
+                                                  rays.directions,
+                                                  use_ort_loss, packed)
+            w_norm = w1[..., None] / torch.sum(w1, dim=-1)[..., None, None]
+        else:
+            # d density / d means = sigmoid(raw_sigma + bias) * d raw_sigma
+            # (the noised raw_sigma, as in JAX).
+            d_means = torch.sigmoid(raw_sigma + cfg.density_bias) * d_raw
+            normal, ort_loss, w_norm = expected_normals(
+                w1, -d_means, rays.directions, use_ort_loss)
         out = dict(rgb=comp, distance=dist, acc=acc,
                    dist_loss=mip.distortion_loss(t1, w1) if train else None,
                    ort_loss=ort_loss, normal=normal,
@@ -277,12 +383,10 @@ class PanoMipNeRF(NerfModel):
             # The collocated surface point keeps its gradient through the
             # distance (the env means' cotangent comes back from kernel 2).
             surf_origins = rays.origins + rays.directions * dist[..., None]
-            lit_t, (lm, lc), lit_dirs = mip.sample_env_rays(
-                surf_origins, env_rays.directions,
-                cfg.num_env_samples if train else cfg.env_samples(),
-                env_rays.near, env_rays.far, env_rays.radii,
-                t_rand=draws.t_env if train else None)
-            if kernel_level("env") and cfg.env_tight_rgb == 0:
+            lit_t, (lm, lc), lit_dirs, solid_angle = self._env_rays(
+                surf_origins, normal, env_rays, draws, packed)
+            if (kernel_level("env") and cfg.env_tight_rgb == 0
+                    and not cfg.env_resample):
                 B, D, S2 = lm.shape[:3]
                 flat_dirs = lit_dirs.reshape(B * D, 3)
                 e_rgb, e_dist, e_acc, _ = render_level(
@@ -294,9 +398,18 @@ class PanoMipNeRF(NerfModel):
                                               e_acc.reshape(B, D))
             else:
                 v_lit = self._venc(lit_dirs)
-                env_rgb, env_dist, env_acc, env_w = self._march(
-                    lm, lc, v_lit, lit_t, lit_dirs, False, packed)
-                if cfg.env_tight_rgb > 0:
+                # Under env_resample the blurred march only places the
+                # second one (its weights carry no gradient): no backward.
+                with torch.no_grad() if cfg.env_resample else nullcontext():
+                    env_rgb, env_dist, env_acc, env_w = self._march(
+                        lm, lc, v_lit, lit_t, lit_dirs, False, packed)
+                if cfg.env_resample:
+                    t2, (m2, c2) = self._resample_env(
+                        surf_origins, lit_dirs, env_rays.radii, lit_t, env_w,
+                        draws.u_resample if train else None)
+                    env_rgb, env_dist, env_acc, _ = self._march(
+                        m2, c2, v_lit, t2, lit_dirs, False, packed)
+                elif cfg.env_tight_rgb > 0:
                     env_rgb = self._tight_read(lm, lc, v_lit, lit_t,
                                                lit_dirs, env_rgb, env_w,
                                                packed)
@@ -304,12 +417,135 @@ class PanoMipNeRF(NerfModel):
                 out.update(self._env_distill(
                     surf_origins, lit_dirs, env_rgb, env_acc, env_dist,
                     env_rays, draws, packed))
+            if cfg.illum_field:
+                # After the distill's read (which supervises the radiance
+                # field itself), before the irradiance integral.
+                chroma = self.illum(surf_origins, lit_dirs)
+                if train:
+                    out.update(env_pre_illum=env_rgb, illum_chroma=chroma)
+                env_rgb = apply_illum(env_rgb, chroma)
             surf_rgb, diffuse, _, shade = shading.surface_rendering(
-                env_rgb, albedo, normal, lit_dirs, env_rays.lossmult)
+                env_rgb, albedo, normal, lit_dirs, solid_angle)
             out.update(albedo=albedo, surf_rgb=surf_rgb, diffuse=diffuse,
                        shading=shade)
         ret.append(LevelOutput(**out))
         return ret
+
+    def _env_rays(self, surf_origins: Tensor, normal: Tensor,
+                  env_rays: Rays, draws: Optional[TrainDraws],
+                  packed: Optional[Tuple[Tensor, Tensor]]):
+        """The secondary rays from the surface points (JAX :521-567): the
+        fixed env directions, or in training with `env_mode` rotated per
+        ray, rotated and jittered in their cells (stratified), or
+        importance-sampled (`_importance_dirs`). Returns t [B, D, S+1],
+        (means, covs [B, D, S, 3]), dirs [B, D, 3] and the solid angle of
+        each direction: env_rays.lossmult [D, 1] for fixed and rotated,
+        else [B, D, 1]."""
+        cfg = self.cfg
+        train = draws is not None
+        S = cfg.num_env_samples if train else cfg.env_samples()
+        t_rand = draws.t_env if train else None
+        near, far, radii = env_rays.near, env_rays.far, env_rays.radii
+        mode = cfg.env_mode() if train else "fixed"
+        if mode == "fixed":
+            return (*mip.sample_env_rays(surf_origins, env_rays.directions,
+                                         S, near, far, radii,
+                                         t_rand=t_rand), env_rays.lossmult)
+        solid_angle = env_rays.lossmult
+        if mode == "importance":
+            with torch.no_grad():
+                dirs, solid_angle = self._importance_dirs(
+                    surf_origins.detach(), normal.detach(), env_rays,
+                    draws, packed)
+        else:
+            dirs = rotation.rotate(rotation.random_rotations(draws.q_rot),
+                                   env_rays.directions)
+            if mode == "stratified":
+                dirs, solid_angle = mip.stratified_env_directions(
+                    dirs, draws.u_cos, draws.u_phi)
+        return (*mip.sample_env_rays_hemisphere(surf_origins, dirs, S, near,
+                                                far, radii, t_rand=t_rand),
+                solid_angle)
+
+    def _importance_dirs(self, origins: Tensor, normal: Tensor,
+                         env_rays: Rays, draws: TrainDraws,
+                         packed: Optional[Tuple[Tensor, Tensor]]
+                         ) -> Tuple[Tensor, Tensor]:
+        """The importance-sampled env directions (JAX `_importance_dirs`,
+        :77-114), without gradient (JAX stops it at the probe's luma and
+        the normal): a probe march of env_probe_samples Gaussians along
+        each of the env_probe_dirs Fibonacci cells rotated per ray
+        (`draws.q_rot`), from the surface point over the first env ray's
+        [near, far] at its radius, through a kernel-2 forward; its luma x
+        (relu(cell . normal) + 0.05) weighs the cells of
+        `mip.importance_env_directions`. Returns dirs [B, D, 3] and their
+        solid angles [B, D, 1]."""
+        cfg = self.cfg
+        Dp = cfg.env_probe_dirs
+        cells = rotation.rotate(rotation.random_rotations(draws.q_rot),
+                                self.probe_dirs)              # [B, Dp, 3]
+
+        def first(x):   # the first env ray's value for every probe cell
+            return x[:1].expand(Dp, 1)
+
+        t, (m, c), d = mip.sample_env_rays_hemisphere(
+            origins, cells, cfg.env_probe_samples, first(env_rays.near),
+            first(env_rays.far), first(env_rays.radii), t_rand=draws.t_probe)
+        rgb = self._march(m, c, self._venc(d), t, d, False, packed)[0]
+        luma = shading.compute_illumination(rgb)[..., 0]       # [B, Dp]
+        cosw = torch.relu(torch.sum(cells * normal[:, None, :], dim=-1)
+                          ) + 0.05
+        return mip.importance_env_directions(
+            cells, (luma + 1e-3) * cosw, env_rays.directions.shape[0],
+            draws.gumbel, draws.u_cos, draws.u_phi)
+
+    def _resample_env(self, surf_origins: Tensor, lit_dirs: Tensor,
+                      radii: Tensor, lit_t: Tensor, env_w: Tensor,
+                      u_rand: Optional[Tensor]
+                      ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+        """The env_resample march (JAX `_resample_env`, :142-166):
+        num_env_fine_samples Gaussians per env ray, placed by the blurpool
+        CDF of the first march's weights env_w [B, D, S] (no gradient
+        through the placement), at the uniforms u_rand [B * D, S_f+1] or
+        evenly. Returns t [B, D, S_f+1], (means, covs [B, D, S_f, 3])."""
+        B, D = lit_dirs.shape[:2]
+        S, Sf = lit_t.shape[-1] - 1, self.cfg.num_env_fine_samples
+        origins = surf_origins[:, None, :].expand(B, D, 3)
+        rad = radii.reshape(1, -1, 1)[:, :D].expand(B, D, 1)
+        t, (m, c) = mip.resample_along_rays(
+            origins.reshape(B * D, 3), lit_dirs.reshape(B * D, 3),
+            rad.reshape(B * D, 1), lit_t.reshape(B * D, S + 1),
+            env_w.reshape(B * D, S), self.cfg.resample_padding,
+            num_samples=Sf, u_rand=u_rand)
+        return (t.reshape(B, D, Sf + 1),
+                (m.reshape(B, D, Sf, 3), c.reshape(B, D, Sf, 3)))
+
+    def _point_normal(self, means: Tensor, covs: Tensor, v_enc: Tensor,
+                      weights: Tensor, directions: Tensor,
+                      use_ort_loss: bool,
+                      packed: Optional[Tuple[Tensor, Tensor]]
+                      ) -> Tuple[Tensor, Optional[Tensor]]:
+        """The training normal of point_normals (JAX `_point_normal`,
+        base.py:772-819): -d raw_sigma / d x at the per-ray expected
+        Gaussian (the compositing-weight averages of the fine level's
+        means and covariances, detached), one kernel-3 query per ray (S =
+        1); gradients flow through the chain. With `use_ort_loss` the
+        orientation loss mean relu(n . d)^2."""
+        cfg = self.cfg
+        w = (weights / torch.clamp(torch.sum(weights, dim=-1, keepdim=True),
+                                   min=1e-8)).detach()
+        mean_pt = torch.sum(w[..., None] * means, dim=-2,
+                            keepdim=True).detach()
+        cov_pt = torch.sum(w[..., None] * covs, dim=-2, keepdim=True).detach()
+        _, _, d_raw = fused_mlp_normals_apply(
+            self.mlp, mean_pt, cov_pt, v_enc, min_deg=cfg.min_deg_point,
+            max_deg=cfg.max_deg_point, packed=packed)
+        normal = mip.safe_normalize(-d_raw[..., 0, :])
+        ort_loss = None
+        if use_ort_loss:
+            dot = torch.sum(normal * directions, dim=-1)
+            ort_loss = torch.mean(torch.relu(dot) ** 2)
+        return normal, ort_loss
 
     def _tight_read(self, means: Tensor, covs: Tensor, v_enc: Tensor,
                     t_samples: Tensor, dirs: Tensor, blur_rgb: Tensor,

@@ -3,9 +3,10 @@
 Counterpart of the eval and training subsets of pano_nerf_tpu/ops/mip.py:
 conical frustum Gaussians, stratified ray and env-ray sampling, blurpool
 inverse-CDF resampling, integrated and classic positional encodings,
-alpha compositing, the distortion loss and `safe_normalize`. Everything
-is float32. Randomness is injected: the randomized samplers take their
-standard uniforms as arguments (`t_rand`, `u_rand`), drawn by the caller
+alpha compositing, the distortion loss, `safe_normalize` and the
+importance-sampled and stratified env directions. Everything is
+float32. Randomness is injected: the randomized samplers take their
+standard uniforms (or Gumbel noise) as arguments, drawn by the caller
 (a `torch.Generator` in training, JAX's key schedule replayed in the
 tests), and are deterministic without them.
 """
@@ -291,3 +292,83 @@ def safe_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
     sq = torch.sum(x * x, dim=-1, keepdim=True)
     norm = torch.sqrt(torch.clamp(sq, min=eps * eps))
     return torch.where(sq >= eps * eps, x / norm, torch.zeros_like(x))
+
+
+def _cap_directions(mu: Tensor, cos_half: float, u_cos: Tensor,
+                    u_phi: Tensor) -> Tensor:
+    """Directions uniform on the spherical caps of half-angle cosine
+    `cos_half` around unit centers mu [B, D, 3], at the uniforms u_cos
+    (cos theta in [cos_half, 1]) and u_phi (phi in [0, 2pi)), [B, D, 1]
+    each. The frame around mu is branch-free: its reference axis is x
+    where |mu_z| > 0.9, else z (built by arithmetic, so no constant
+    tensor is copied to the device)."""
+    ct = cos_half + (1.0 - cos_half) * u_cos
+    st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    phi = u_phi * 2.0 * math.pi
+    near_z = (torch.abs(mu[..., 2:3]) > 0.9).to(mu.dtype)
+    ref = torch.cat([near_z, torch.zeros_like(near_z), 1.0 - near_z], -1)
+    a = safe_normalize(torch.linalg.cross(mu, ref, dim=-1))
+    b = torch.linalg.cross(mu, a, dim=-1)
+    dirs = ct * mu + st * (torch.cos(phi) * a + torch.sin(phi) * b)
+    return safe_normalize(dirs)
+
+
+def _caps_containing(dirs: Tensor, cell_dirs: Tensor,
+                     cos_half: float) -> Tensor:
+    """[B, D, C] 1.0 where direction d lies in the cap around cell c
+    (with a 1e-6 slack, so a sample on its own cap's edge counts)."""
+    dots = torch.sum(dirs[..., :, None, :] * cell_dirs[..., None, :, :],
+                     dim=-1)
+    return (dots >= cos_half - 1e-6).to(dirs.dtype)
+
+
+def importance_env_directions(cell_dirs: Tensor, cell_weights: Tensor,
+                              num_dirs: int, gumbel: Tensor, u_cos: Tensor,
+                              u_phi: Tensor, uniform_mix: float = 0.5,
+                              cap_scale: float = 2.0
+                              ) -> Tuple[Tensor, Tensor]:
+    """Env directions importance-sampled from per-cell weights, with the
+    exact density of the process (JAX `mip.importance_env_directions`).
+
+    Per ray: a cell c ~ p = uniform_mix / Dp + (1 - uniform_mix) w_c /
+    sum(w) (uniform where every weight is 0), then a direction uniform on
+    the cap of area cap_scale 4pi/Dp around its center; the pdf of a
+    direction sums p over every cap that contains it. The categorical draw
+    is JAX's Gumbel argmax: `gumbel` [B, num_dirs, Dp] holds the standard
+    Gumbel noise (`jax.random.gumbel`), and the cell is argmax(gumbel +
+    log p). u_cos, u_phi: [B, num_dirs, 1] uniforms for the cap.
+
+    cell_dirs: [B, Dp, 3] unit cell centers; cell_weights: [B, Dp] >= 0.
+    Returns dirs [B, num_dirs, 3] and inv_density [B, num_dirs, 1] =
+    1 / (num_dirs pdf), the solid-angle weight of each direction.
+    """
+    Dp = cell_weights.shape[-1]
+    wsum = torch.sum(cell_weights, dim=-1, keepdim=True)
+    p = (uniform_mix / Dp + (1.0 - uniform_mix) * cell_weights
+         / torch.clamp(wsum, min=1e-12))
+    p = torch.where(wsum > 0, p, torch.full_like(p, 1.0 / Dp))
+    cells = torch.argmax(gumbel + torch.log(p)[:, None, :], dim=-1)
+    mu = torch.gather(cell_dirs, 1, cells[..., None].expand(-1, -1, 3))
+    cos_half = 1.0 - cap_scale * 2.0 / Dp
+    A_cap = 2.0 * math.pi * (1.0 - cos_half)
+    dirs = _cap_directions(mu, cos_half, u_cos, u_phi)
+    inside = _caps_containing(dirs, cell_dirs, cos_half)
+    pdf = torch.sum(p[:, None, :] * inside, dim=-1) / A_cap
+    inv_density = 1.0 / (num_dirs * torch.clamp(pdf, min=1e-12))
+    return dirs, inv_density[..., None]
+
+
+def stratified_env_directions(cell_dirs: Tensor, u_cos: Tensor,
+                              u_phi: Tensor, cap_scale: float = 2.0
+                              ) -> Tuple[Tensor, Tensor]:
+    """One direction per cell, uniform on the cap of area cap_scale 4pi/D
+    around each of the D centers cell_dirs [B, D, 3], at the uniforms
+    u_cos, u_phi [B, D, 1] (JAX `mip.stratified_env_directions`). Returns
+    dirs [B, D, 3] and the overlap-exact weight A_cap / n(w) [B, D, 1],
+    n the number of caps containing the direction."""
+    D = cell_dirs.shape[1]
+    cos_half = 1.0 - cap_scale * 2.0 / D
+    A_cap = 2.0 * math.pi * (1.0 - cos_half)
+    dirs = _cap_directions(cell_dirs, cos_half, u_cos, u_phi)
+    n = torch.sum(_caps_containing(dirs, cell_dirs, cos_half), dim=-1)
+    return dirs, (A_cap / torch.clamp(n, min=1.0))[..., None]

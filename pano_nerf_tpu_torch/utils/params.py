@@ -25,6 +25,8 @@ import torch
 _STATIC_MAP = {"density": "density_layer", "bottleneck": "extra_layer",
                "color": "color_layer"}
 _LEAVES = (("kernel", "weight"), ("bias", "bias"))
+# The illuminant field's subtree (`nerf.illum_field`), same name both sides.
+ILLUM = "illum"
 
 
 def _torch_name(flax_name: str) -> str:
@@ -47,10 +49,16 @@ def _flax_name(torch_name: str) -> str:
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX tree ({"params": ...} or its inner dict, numpy-able leaves)
-    -> NerfMLP state_dict of float32 tensors."""
+    -> NerfMLP state_dict of float32 tensors, plus the illuminant
+    field's leaves as `illum.<leaf>` (JAX layout, no transpose) where the
+    tree has the `illum` subtree (`NerfModel.load_params` takes both)."""
     inner = tree.get("params", tree)
     out = {}
     for flax_name, leaves in inner.items():
+        if flax_name == ILLUM:
+            out.update({f"{ILLUM}.{k}": torch.tensor(
+                np.asarray(v, dtype=np.float32)) for k, v in leaves.items()})
+            continue
         tname = _torch_name(flax_name)
         for jax_leaf, torch_leaf in _LEAVES:
             val = np.asarray(leaves[jax_leaf], dtype=np.float32)
@@ -61,11 +69,15 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Inverse of `params_from_jax`: state_dict -> {"params": tree}."""
+    """Inverse of `params_from_jax`: state_dict (with or without
+    `illum.<leaf>` entries) -> {"params": tree}."""
     inner: Dict[str, Dict[str, np.ndarray]] = {}
     for key, val in state_dict.items():
         tname, leaf = key.rsplit(".", 1)
         arr = val.detach().cpu().float().numpy()
+        if tname == ILLUM:
+            inner.setdefault(ILLUM, {})[leaf] = arr
+            continue
         jax_leaf = "kernel" if leaf == "weight" else "bias"
         inner.setdefault(_flax_name(tname), {})[jax_leaf] = (
             np.ascontiguousarray(arr.T) if jax_leaf == "kernel" else arr)

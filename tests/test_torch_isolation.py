@@ -74,14 +74,29 @@ def test_eval_entry_point_without_cpu_request_raises(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("nerf.density_noise", 1.0), ("nerf.env_importance", True),
-    ("nerf.env_resample", True), ("nerf.illum_field", True),
     ("nerf.emissive_head", True), ("nerf.chroma_head", True),
-    ("nerf.env_rotation", True), ("nerf.env_sampling", "stratified"),
-    ("nerf.mlp.net_depth", 6), ("val.randomized", True)])
+    ("nerf.env_sampling", "hemisphere"), ("nerf.mlp.net_depth", 6),
+    ("val.randomized", True)])
 def test_unsupported_config_raises_naming_the_key(key, value):
     from pano_nerf_tpu_torch.models.base import NerfConfig
     hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
     hp[key] = value
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         NerfConfig.from_hparams(hp)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("nerf.density_noise", 1.0), ("nerf.env_importance", True),
+    ("nerf.env_resample", True), ("nerf.illum_field", True),
+    ("nerf.env_rotation", True), ("nerf.env_sampling", "stratified")])
+def test_study_switches_are_accepted(key, value):
+    """The keys that were refused until the port had their paths
+    (tests/test_torch_env_modes.py, test_torch_illum.py and
+    test_torch_point_normals.py hold them to JAX)."""
+    from pano_nerf_tpu_torch.models.base import NerfConfig
+    hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
+    hp[key] = value
+    cfg = NerfConfig.from_hparams(hp)
+    name = key.split(".")[1]
+    assert getattr(cfg, name) == (value if name != "env_sampling"
+                                  else "stratified")

@@ -193,8 +193,27 @@ def test_tight_read_checks_raise_value_error_as_in_jax(bad):
 
 
 def test_env_resample_stays_refused_beside_the_tight_read():
-    hp = dict(load_config(HDR), **{"nerf.env_resample": True})
-    with pytest.raises(NotImplementedError, match=r"nerf\.env_resample"):
+    """Accepted since the port has env_resample: beside the HDR preset's
+    tight re-read, JAX skips the re-read and marches a second time
+    (pano_mip_nerf.py:593, :675), and so does the port; held to JAX
+    here on one f32 step at the preset's scale (as `_check_grads`).
+    Beside env_tight_weights it is refused with a ValueError, as in
+    JAX."""
+    from test_torch_env_modes import step_both
+    parts, j_parts, pg, jg, psys = step_both(
+        ["nerf.env_resample", "True", "nerf.env_tight_rgb", "0.01",
+         "nerf.env_tight_chroma", "True"])
+    assert psys.model.cfg.env_resample and psys.model.cfg.env_tight_rgb
+    for k in j_parts:
+        want, got = float(j_parts[k]), float(parts[k])
+        assert abs(got - want) <= 1e-5 * abs(want) + 1e-9, (k, got, want)
+    _check_grads(pg, jg)
+    hp = dict(load_config(HDR), **{"nerf.env_resample": True,
+                                   "nerf.env_tight_chroma": False,
+                                   "nerf.env_tight_weights": True})
+    with pytest.raises(ValueError):
+        jax_build_model(hp)
+    with pytest.raises(ValueError, match="env_resample"):
         build_model(hp)
 
 

@@ -308,9 +308,9 @@ def test_randomized_sampling_matches_jax():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("nerf.point_normals", True), ("train.randomized", False),
+    ("train.randomized", False),
     ("loss.scale_distill", 0.1), ("loss.scale_distill_dist", 0.1),
-    ("loss.illum_distill", 0.1), ("loss.vc_chroma", 0.1),
+    ("loss.vc_chroma", 0.1),
     ("loss.vc_sat_mask", True), ("parallel.num_devices", 4)])
 def test_unsupported_train_keys_raise_naming_the_key(key, value):
     hp = load_config(CONFIG, OPTS)
@@ -322,10 +322,13 @@ def test_unsupported_train_keys_raise_naming_the_key(key, value):
 
 @pytest.mark.parametrize("key,value", [
     ("nerf.env_distill_samples", 4), ("loss.env_distill", 0.1),
-    ("loss.chrom_gate", True), ("loss.chrom_illum_comp", True)])
+    ("loss.chrom_gate", True), ("loss.chrom_illum_comp", True),
+    ("nerf.point_normals", True), ("loss.illum_distill", 0.1)])
 def test_preset_train_keys_are_accepted(key, value):
-    """The keys of the HDR presets' train path, refused until the port
-    had it (tests/test_torch_presets.py holds their steps to JAX's)."""
+    """The keys of the HDR presets' train path and of point normals and
+    the illum distill, refused until the port had them
+    (tests/test_torch_presets.py, test_torch_point_normals.py and
+    test_torch_illum.py hold their steps to JAX's)."""
     hp = load_config(CONFIG, OPTS)
     hp[key] = value
     psys = PanoNeRFSystem(hp, device="cpu")
