@@ -1,13 +1,17 @@
 """Drive the PyTorch/CUDA port's render and train paths on one H100:
 Pano-NeRF (`configs/panonerf.yaml`), its HDR presets
 (`configs/panonerf_hdr.yaml`, `configs/panonerf_shadow.yaml`), the
-mip-NeRF baseline (`configs/mipnerf.yaml`) and the novel-view path.
+mip-NeRF baseline (`configs/mipnerf.yaml`), the novel-view path, the
+plain route (f32, another MLP topology, the heads) and the last loss
+terms.
 
 Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+Phases (any failure exits non-zero; nothing is caught and passed over;
+before a non-zero exit one line `[fail] <phase>: <check> <value> >
+<bound>`, or the failure's message where a check gives no value):
 
 1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
    (one nvcc per source, and `fused_mlp.cu` once per density-channel
@@ -146,6 +150,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 14. `nerf.env_rotation` with `nerf.density_noise 1.0` and the key on:
    density noise keeps kernel 5 off (0 launches; kernel 2 3 + 6, kernel
    3 1 + 2 per step); the same checks.
+2d. Kernel 2 forward and backward on the scale-distill re-march of a
+   batch-512 train step (512 x 5 = 2,560 rows) vs its plain version,
+   phase 2's tolerances (entries `*_sd`, with phase 18's launches).
+15. f32 Pano-NeRF on the plain route (`train.precision f32`, batch 512,
+   TF32 off): 48 graphed steps through the train entry point, every loss
+   finite, the mean of the last 16 below that of the first 16, every
+   kernel counter 0 (`[route] plain on cuda` said); the 48-step
+   weights' first val panorama through the chunk graph against eager
+   chunks (`PLAIN_CHUNK_TOL`), ms per panorama; one f32 step on the card
+   against the f32 step on the CPU over sixteen 64-ray batches, pooled
+   (`check_f32_step_against_cpu`: the loss parts that do not depend on
+   normals at rel 1e-4, the gradient without the orientation and surface
+   terms at rel-norm 1e-3, the normal-dependent parts and the whole
+   gradient at the measured bounds `F32_NORMAL_PART_TOL`,
+   `F32_GRAD_TOL`); 16 graphed steps against eager ones (the 1e-6 floor
+   of every phase); ms per step graphed, one-step graph and eager in
+   turns of 16 steps (phase 18: 48, as phase 4) beside phase 4's; the
+   profile (device busy of the f32 step).
+16. mip-NeRF at `nerf.mlp.net_depth 4`, `net_width 128`,
+   `use_viewdirs false`, bf16, on the plain route: 48 steps, counters 0,
+   the panorama, the step against the CPU bf16 under phase 5's rule,
+   graphed against eager, ms per step.
+17. Both heads on Pano-NeRF (`nerf.emissive_head`, `nerf.chroma_head`,
+   11 density channels), bf16, on the plain route: as phase 16, the
+   panorama and the val tree with the `emission` product.
+18. `loss.scale_distill` and `_dist`, `loss.vc_chroma` with
+   `vc_chroma_sg` and `loss.vc_sat_mask` on the shipped topology: 48
+   steps with one more kernel-2 forward and one more kernel-2 backward
+   (row pass and weight-gradient pass: two launches) per step than
+   phase 4 (the re-march), exact counts; the step against the CPU under
+   phase 5's rule, graphed against eager, ms per step.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -154,8 +189,9 @@ of kernels 1, 2, 3 and 5, has its own entry; kernels 2 and 3 at one
 density channel have entries of their own (`_c1`), with the launches of
 the mip-NeRF runs, and so have the presets' shapes (`_presets`), with
 the launches of phases 9-11's preset runs, and so have the study shapes
-(`_study`), with the launches of phases 12-14 and 12b. The last lines
-are the card
+(`_study`), with the launches of phases 12-14 and 12b, and so has kernel
+2 on the scale-distill re-march (`_sd`), with phase 18's launches. The
+last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
 """
@@ -181,6 +217,23 @@ SHADOW_CONFIG = "configs/panonerf_shadow.yaml"
 PRESETS = (HDR_CONFIG, SHADOW_CONFIG)
 TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=1e-2, albedo=2e-2,
            roughness=2e-2)
+
+
+# The phase `main` is in, for the `[fail]` line.
+PHASE = "1"
+
+
+class CheckFailed(AssertionError):
+    """A check whose value passed its bound."""
+
+    def __init__(self, check: str, value: float, bound: float):
+        super().__init__(f"{check} {value:.3e} > {bound:.3e}")
+
+
+def hold(check: str, value: float, bound: float) -> None:
+    """Raise CheckFailed unless value <= bound."""
+    if not value <= bound:
+        raise CheckFailed(check, value, bound)
 
 
 def card_line() -> str:
@@ -608,7 +661,6 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
     the host."""
     import torch
     from pano_nerf_tpu_torch.core.rays import rays_map
-    from pano_nerf_tpu_torch.kernels.fused_render import pack_params
     chunk = system.val_chunk_size
     n = rays.origins.shape[0]
     pad = (-n) % chunk
@@ -616,7 +668,7 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
         [x, x[-1:].expand(pad, x.shape[-1])], 0), rays)
     names = system.render_products(enable_surf)
     with torch.no_grad():
-        packed = pack_params(system.model.mlp)
+        packed = system.packed()
         outs = [system.render_chunk(rays_map(
             lambda x: x[i:i + chunk].contiguous(), rays), packed,
             enable_surf) for i in range(0, n + pad, chunk)]
@@ -646,12 +698,13 @@ def _eval_system(scene: str, config: str, dev: str, factor=None, opts=()):
 
 
 def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
-                        config: str = CONFIG, opts=()) -> None:
+                        config: str = CONFIG, opts=(), tol=None) -> None:
     """The first val panorama rendered by the system of `config` (with
     the overrides `opts`) through the chunk graph and op by op, on the
     same weights (from `--init_seed 0`, or a checkpoint's "params"): the
     graph's products held against the eager ones (f32 atol 1e-4, and
-    bit-equal where `opts` are given); ms per panorama of each, in
+    bit-equal where `opts` are given; `tol` where given); ms per panorama
+    of each, in
     turns (graph, eager, eager, graph), 3 renders a turn; then one of each
     under torch.profiler (device busy and idle share of the host wall
     time, top kernels)."""
@@ -668,10 +721,10 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
     graphed = render_fn(None, flat)
     eager = eager_render(system, flat, system.surface)
     errs = {k: float((graphed[k] - eager[k]).abs().max()) for k in eager}
+    limit = tol if tol is not None else 0.0 if opts else 1e-4
     print(f"{tag} chunk graph vs eager chunks, max abs err per product "
-          f"(f32 tolerance 1e-4): " + json.dumps(errs), flush=True)
-    bad = {k: v for k, v in errs.items() if not v <= (0.0 if opts
-                                                     else 1e-4)}
+          f"(f32 tolerance {limit:g}): " + json.dumps(errs), flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= limit}
     if bad:
         raise AssertionError(f"the chunk graph's render differs from the "
                              f"eager render: {bad}")
@@ -1574,9 +1627,20 @@ def _family(system) -> dict:
                                   ("noise", study["noise"])) if on)
     per_pano = eval_launches(MIP_CONFIG if mip else HDR_CONFIG if tight
                              else CONFIG, cfg.env_resample)
+    if not system.model.kernels:   # the plain route launches no kernel
+        zero = dict.fromkeys(per_step_launches(False), 0)
+        return dict(mip=mip, k5=False, sfx=sfx + "-plain", per_pano=zero,
+                    per_step=zero)
+    per_step = per_step_launches(k5, mip, ort, tight, distill, **study)
+    from pano_nerf_tpu_torch.engine.losses import use_scale_distill
+    if use_scale_distill(system.hparams):
+        # The re-march: one more kernel-2 forward and backward.
+        sfx += "-sd"
+        for k, n in (("fused_mlp_ipe_fwd", 1), ("fused_mlp_ipe_bwd", 2),
+                     ("fused_mlp_weight_grads", 1)):
+            per_step[k] += n
     return dict(mip=mip, k5=k5, sfx=sfx, per_pano=per_pano,
-                per_step=per_step_launches(k5, mip, ort, tight, distill,
-                                           **study))
+                per_step=per_step)
 
 
 def drive_train_path(workdir: str, scene: str,
@@ -1692,6 +1756,7 @@ def drive_train_path(workdir: str, scene: str,
           + f"; final val psnr_ldr_vol {vals_recs[-1]['psnr_ldr_vol']:.3f}",
           flush=True)
     return dict(launches=launches, trainer=trainer, rays_per_s=mean_rps,
+                losses=vals,
                 save_dir=save_dir)
 
 
@@ -2035,6 +2100,10 @@ def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
             noise_coarse=rng.normal(size=(num_rays,
                                           cfg.train_coarse_samples(), 1)),
             noise_fine=rng.normal(size=(num_rays, cfg.num_samples, 1)))
+    from pano_nerf_tpu_torch.engine.losses import use_scale_distill
+    if use_scale_distill(hp):
+        draws_np = draws_np._replace(
+            t_sd=rng.random((num_rays, cfg.num_env_samples + 1)))
     return idx, draws_np
 
 
@@ -2297,6 +2366,181 @@ def adam_grads_ab(optimizer, steps: int = 5, rounds: int = 3) -> None:
               f"{wall:.4f} ms per step", flush=True)
 
 
+# ---- 2d and 15-18: the scale-distill re-march, the plain route, the last
+# loss terms ----------------------------------------------------------------
+
+PLAIN_STEPS = 48
+# Phases 15-18: (config, overrides). 15-17 take the plain route (f32, a
+# mip-NeRF topology the kernels are not built for, both heads), 18 the
+# kernels with every loss term the port lifted last.
+PLAIN_PHASES = {
+    15: (CONFIG, ("train.precision", "'f32'")),
+    16: (MIP_CONFIG, ("nerf.mlp.net_depth", "4", "nerf.mlp.net_width", "128",
+                      "nerf.use_viewdirs", "False")),
+    17: (CONFIG, ("nerf.emissive_head", "True", "nerf.chroma_head", "True")),
+    18: (CONFIG, ("loss.scale_distill", "0.1", "loss.scale_distill_dist",
+                  "0.1", "loss.vc_chroma", "0.1", "loss.vc_chroma_sg",
+                  "True", "loss.vc_sat_mask", "True")),
+}
+# The bounds of the new gates. Fixed: the f32 loss parts that do not
+# depend on normals and the f32 gradient without the orientation and
+# surface terms, card against CPU. Measured, each at least 3x the largest
+# reading of three full calls on an H100 (PERF.md section 6): the parts
+# that depend on normals (7.8e-5 pooled), the whole f32 gradient (1.7e-2
+# pooled; a batch's distance is set by its few worst rays) and the
+# plain route's chunk graph against eager chunks (0; the 1e-4 of the
+# kernel route's eval check). Graphed against eager steps on the plain
+# route read 0 in every call (eager runs and the graph agreed bit for
+# bit), so they are held at the existing 1e-6 floor.
+F32_PART_TOL = 1e-4
+F32_GRAD_PLAIN_TOL = 1e-3
+F32_NORMAL_PART_TOL = 1e-3
+F32_GRAD_TOL = 1e-1
+PLAIN_CHUNK_TOL = 1e-4
+NORMAL_PARTS = ("loss", "ort", "vol_surface")
+
+
+def scale_distill_shapes(model, env, dev) -> dict:
+    """Kernel 2's call on the scale-distill re-march of a batch-512 train
+    step (`_train_batch`'s rays; num_env_samples Gaussians over [near,
+    far] at uniforms from seed 15): name -> (normals?, means, covs,
+    v_enc)."""
+    import torch
+    from pano_nerf_tpu_torch.ops import mip
+    cfg = model.cfg
+    b = _train_batch(model, env, dev)
+    rays = b["rays"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    u = torch.rand((rays.origins.shape[0], cfg.num_env_samples + 1),
+                   generator=g, device=dev)
+    with torch.no_grad():
+        _, (m, c) = mip.sample_along_rays(
+            rays.origins, rays.directions, rays.radii, cfg.num_env_samples,
+            rays.near, rays.far, cfg.disparity, t_rand=u)
+    return {"scale_distill": (False, m.contiguous(), c.contiguous(),
+                              b["v"])}
+
+
+def check_f32_step_against_cpu(trainer, num_rays: int = 64) -> None:
+    """f32 train steps on the card (the plain route, TF32 off) and on the
+    CPU from the same parameters, batches and numpy-made draws, over the
+    GRAD_BATCHES batches of phase 5, pooled: each loss part as the summed
+    absolute differences over the summed absolute CPU values, within
+    F32_PART_TOL where it does not depend on normals and
+    F32_NORMAL_PART_TOL where it does; the gradient without the
+    orientation and surface terms within F32_GRAD_PLAIN_TOL and the
+    shipped loss's within F32_GRAD_TOL (rel-norm of all batches'
+    gradients together). The two devices order their f32 sums apart
+    (cuBLAS, MKL); the normal-dependent terms normalize tiny density
+    gradients and so show it most."""
+    import math
+    tag = f"[check{_family(trainer.system)['sfx']}]"
+    hp = trainer.hparams
+    hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
+    sd = {k: v.detach().cpu().clone() for k, v in
+          trainer.system.model.param_state().items()}
+    sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
+    parts, tot, each = [], dict.fromkeys(("full", "f", "plain", "p"), 0.0), {
+        "full": [], "plain": []}
+    for seed in range(5, 5 + GRAD_BATCHES):
+        idx, draws_np = _check_batch(trainer, seed, num_rays)
+        args = (sd, trainer.train_dataset, idx, draws_np)
+        card, cpu = (_one_step(hp, dev, *args) for dev in ("cuda", "cpu"))
+        card_p, cpu_p = (_one_step(hp_plain, dev, *args)
+                         for dev in ("cuda", "cpu"))
+        parts.append((card[0], cpu[0]))
+        for name, ref, (a, b) in (("full", "f", (card[1], cpu[1])),
+                                  ("plain", "p", (card_p[1], cpu_p[1]))):
+            tot[name] += sq(a, b)
+            tot[ref] += sq(b)
+            each[name].append(math.sqrt(sq(a, b) / sq(b)))
+    for k in parts[0][1]:
+        diff = sum(abs(c[k] - p[k]) for c, p in parts)
+        rel = diff / max(sum(abs(p[k]) for _, p in parts), 1e-30)
+        bound = F32_NORMAL_PART_TOL if k in NORMAL_PARTS else F32_PART_TOL
+        print(f"{tag} f32 train step {k}: card vs cpu pooled rel {rel:.3e} "
+              f"(bound {bound:g}); per batch " + " ".join(
+                  f"{abs(c[k] - p[k]) / max(abs(p[k]), 1e-30):.2e}"
+                  for c, p in parts), flush=True)
+        hold(f"f32 loss part {k} rel", rel, bound)
+    for name, ref, bound, what in (
+            ("plain", "p", F32_GRAD_PLAIN_TOL,
+             "without the orientation and surface terms"),
+            ("full", "f", F32_GRAD_TOL, "of the shipped loss")):
+        rel = math.sqrt(tot[name] / tot[ref])
+        print(f"{tag} f32 train step gradient {what}: card vs cpu rel-norm "
+              f"{rel:.3e} over {GRAD_BATCHES} batches of {num_rays} rays "
+              f"(bound {bound:g}); per batch "
+              + " ".join(f"{x:.2e}" for x in each[name]), flush=True)
+        hold(f"f32 gradient {what} rel-norm", rel, bound)
+
+
+def drive_plain_phase(ph: int, workdir: str, scene: str,
+                      base_times: dict) -> dict:
+    """Phase `ph` of 15-18 (`PLAIN_PHASES`): 48 steps through the train
+    entry point with exact launch counts (none on the plain route),
+    falling losses; on the plain route the trained weights' panorama,
+    graph against eager chunks; the step against the CPU (15: in f32),
+    graphed steps against eager ones, ms per step beside phase 4's; 15
+    also the profile. Returns the run (its launches)."""
+    global PHASE
+    PHASE = str(ph)
+    config, opts = PLAIN_PHASES[ph]
+    run = drive_train_path(workdir, scene, config=config, opts=opts,
+                           steps=PLAIN_STEPS, name=f"phase{ph}")
+    trainer = run.pop("trainer")
+    system = trainer.system
+    family = _family(system)
+    tag = f"[phase{ph}{family['sfx']}]"
+    plain = not system.model.kernels
+    if plain != (ph != 18):
+        raise AssertionError(f"phase {ph}: kernel route {not plain}")
+    losses = run["losses"]
+    first, last = sum(losses[:16]) / 16, sum(losses[-16:]) / 16
+    print(f"{tag} mean loss of steps 1-16 {first:.6f}, of steps 33-48 "
+          f"{last:.6f}", flush=True)
+    if not last < first:
+        raise CheckFailed("mean loss of steps 33-48 (vs steps 1-16)", last,
+                          first)
+    if ph == 18:
+        base = per_step_launches(False)
+        more = {k: family["per_step"][k] - base[k] for k in base}
+        print(f"{tag} launches per step beyond phase 4's "
+              + json.dumps({k: v for k, v in more.items() if v})
+              + " (counted exactly over the run)", flush=True)
+    else:
+        where_the_time_goes(scene, params=system.model.param_state(),
+                            tag=f"[eval-phase{ph}]", config=config,
+                            opts=opts, tol=PLAIN_CHUNK_TOL)
+    if ph == 17:
+        import numpy as np
+        from pano_nerf_tpu_torch.data.io_exr import read_exr
+        tree = os.path.join(run["save_dir"], f"val_{PLAIN_STEPS:06d}",
+                            "pred_emission")
+        files = sorted(os.listdir(tree))
+        em = read_exr(os.path.join(tree, files[0]))
+        if not (files and np.isfinite(em).all() and em.min() >= 0):
+            raise AssertionError(f"emission product {tree}: {files}")
+        print(f"{tag} val tree's emission product {files[0]}: "
+              f"{em.shape}, mean {float(em.mean()):.4f}", flush=True)
+    if ph == 15:
+        check_f32_step_against_cpu(trainer)
+    else:
+        check_train_step_against_cpu(trainer)
+    check_graphed_against_eager(trainer)
+    # Turns of 16 steps on the slow plain route, of phase 4's 48 on the
+    # kernels (phase 18 is read against phase 4).
+    ms = time_train_modes(trainer, steps=48 if ph == 18 else 16)
+    g8 = "graph, 8 steps per replay"
+    print(f"[time-phase{ph}] graph of 8 steps {ms[g8]:.3f} ms per step "
+          f"(one-step graph {ms['graph, 1 step per replay']:.3f}, eager "
+          f"{ms['eager']:.3f}) vs phase 4 in this call "
+          f"{base_times[False][g8]:.3f}", flush=True)
+    if ph == 15:
+        profile_train_step(trainer)
+    return run
+
+
 def main() -> int:
     try:
         import torch
@@ -2307,6 +2551,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the card only",
               file=sys.stderr)
         return 2
+    global PHASE
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "pano_nerf_tpu_torch", "csrc")):
         print("pano_nerf_tpu_torch not found beside chip_smoke.py: run it "
@@ -2329,6 +2574,7 @@ def main() -> int:
         hp, torch.Generator().manual_seed(0)).to(dev)
     env = rays_to_tensors(generate_lit_rays(hp["nerf.num_ray_samples"],
                                             far=10.0, radius=0.0142), dev)
+    PHASE = "2"
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
     calls, levels, surf = train_shapes(model, env, dev)
@@ -2342,6 +2588,7 @@ def main() -> int:
         sfx="_presets")
     del calls, levels, surf
     # 2s: the study switches' kernel shapes.
+    PHASE = "2s"
     k2k3_s, k5_s, k4_s = study_shapes(model, env, dev)
     study_entries = check_train_kernels(
         model, dev, k2k3_s, wentry, forward_only=("probe",),
@@ -2353,6 +2600,12 @@ def main() -> int:
                                            sfx="_study",
                                            tag="[kernel-study]"))
     del k2k3_s, k5_s, k4_s
+    # 2d: kernel 2 on the scale-distill re-march.
+    PHASE = "2d"
+    sd_entries = check_train_kernels(
+        model, dev, scale_distill_shapes(model, env, dev), wentry,
+        tag="[kernel-sd]", sfx="_sd")
+    PHASE = "2m"
     mip_model = MipNeRF.from_hparams(
         load_config(MIP_CONFIG), torch.Generator().manual_seed(0)).to(dev)
     mip_entries = check_train_kernels(
@@ -2362,10 +2615,12 @@ def main() -> int:
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
+        PHASE = "3"
         scene = make_scene(workdir)
         run = drive_main_path(workdir, scene, ["--init_seed", "0"])
         where_the_time_goes(scene)
         check_against_plain(scene)
+        PHASE = "4"
         train = drive_train_path(workdir, scene)
         train_k5 = drive_train_path(workdir, scene, render_kernel=True)
         print(f"[train-k5] steady train rays/s with the key on "
@@ -2378,6 +2633,7 @@ def main() -> int:
         where_the_time_goes(scene, params=train["trainer"].ckpt.restore(
             map_location=dev)["params"], tag="[eval-trained]")
         base_times = {}
+        PHASE = "5"
         for t in (train, train_k5):
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(t["trainer"])
@@ -2386,10 +2642,12 @@ def main() -> int:
         del train["trainer"], train_k5["trainer"]
         # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
         # 8c: with the orientation loss, kernel 3 forward and backward).
+        PHASE = "7"
         mip_run = drive_main_path(workdir, scene, ["--init_seed", "0"],
                                   config=MIP_CONFIG)
         where_the_time_goes(scene, tag="[eval-mip]", config=MIP_CONFIG)
         check_against_plain(scene, MIP_CONFIG, tag="[check-mip]")
+        PHASE = "8"
         mip_train = drive_train_path(workdir, scene, config=MIP_CONFIG)
         mip_trained = drive_main_path(workdir, scene,
                                       ["--ckpt_dir", mip_train["save_dir"]],
@@ -2409,6 +2667,7 @@ def main() -> int:
         # the checkpoints (9b/10b), one step against the CPU, graphed
         # steps against eager ones (10: across the tie's fall), times and
         # the profile (9c/10c).
+        PHASE = "9"
         presets = {c: drive_train_path(workdir, scene, config=c)
                    for c in PRESETS}
         served = {}
@@ -2423,6 +2682,7 @@ def main() -> int:
                 config=c)
         check_against_plain(scene, HDR_CONFIG, tag="[check-hdr]")
         for c, t in presets.items():
+            PHASE = "9c" if c == HDR_CONFIG else "10c"
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(
                 t["trainer"],
@@ -2431,6 +2691,7 @@ def main() -> int:
             profile_train_step(t["trainer"])
             del t["trainer"]
         # 11: novel-view frames from a checkpoint of each family.
+        PHASE = "11"
         saves = {CONFIG: train["save_dir"],
                  HDR_CONFIG: presets[HDR_CONFIG]["save_dir"],
                  MIP_CONFIG: mip_train["save_dir"]}
@@ -2439,6 +2700,7 @@ def main() -> int:
         # 12-14: the study switches: train, one step against the CPU,
         # graphed steps against eager ones, ms per step; 12 also the
         # freeze inside a graph and its checkpoint served (12b).
+        PHASE = "12"
         study = {ph: drive_train_path(workdir, scene, render_kernel=k5,
                                       opts=opts, steps=steps,
                                       name=f"study{ph}")
@@ -2451,6 +2713,7 @@ def main() -> int:
             map_location=dev)["params"], tag="[eval-study12-trained]",
             opts=opts12)
         for ph, t in study.items():
+            PHASE = str(ph)
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(
                 t["trainer"], start_step=STUDY_WINDOW if ph == 12 else 0)
@@ -2464,6 +2727,11 @@ def main() -> int:
                   f"{base_times[False][g8]:.3f}, phase 4b (key on) "
                   f"{base_times[True][g8]:.3f}", flush=True)
             del t["trainer"]
+        # 15-18: the plain route (f32, a mip-NeRF topology, both heads)
+        # and the last loss terms on the kernels.
+        plain_runs = {ph: drive_plain_phase(ph, workdir, scene, base_times)
+                      for ph in PLAIN_PHASES}
+    PHASE = "report"
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
@@ -2481,15 +2749,18 @@ def main() -> int:
     for e in study_entries:   # the study shapes, over the study runs
         e["launches"] = sum(r["launches"][e["name"][:-len("_study")]]
                             for r in study_runs)
+    for e in sd_entries:   # the re-march's shape, over phase 18's run
+        e["launches"] = plain_runs[18]["launches"][e["name"][:-len("_sd")]]
     for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
                             for r in (run, trained, train, train_k5,
                                       frames[CONFIG]) + mip_runs
-                            + preset_runs + study_runs)
+                            + preset_runs + study_runs
+                            + tuple(plain_runs.values()))
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries + mip_entries + preset_entries
-                      + study_entries}))
+                      + study_entries + sd_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2497,4 +2768,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException as exc:
+        what = (str(exc).splitlines() or [""])[0]
+        if not isinstance(exc, CheckFailed):
+            what = f"{type(exc).__name__}: {what}"
+        print(f"[fail] phase {PHASE}: {what}", flush=True)
+        raise
+    if code:
+        print(f"[fail] phase {PHASE}: exit code {code} (no card or no "
+              "checkout)", flush=True)
+    sys.exit(code)

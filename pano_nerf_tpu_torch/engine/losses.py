@@ -7,13 +7,17 @@ tone-mapped LDR (ground truth quantized to 8 bits, predictions
 tone-mapped without the clamp), the albedo chromaticity prior (with the
 illuminant-chroma gate and the illuminant-compensated target), the
 orientation loss (with `loss.ort_tie_boost`), the distortion loss, the
-saturation runaway guard, the luma view-consistency tie, the env
+saturation runaway guard, the luma view-consistency tie (with the
+saturation-masked per-channel tie `loss.vc_sat_mask`), the log-chroma
+cross-view tie (`loss.vc_chroma`, one-way with `loss.vc_chroma_sg`), the
+cross-scale self-distillation (`loss.scale_distill`, `_dist`), the env
 distill ties, weighted by the step's trapezoid (`env_distill_schedule`),
-and the illuminant-field distill with its rise (`illum_distill_rise`);
-and the mip-NeRF baseline's (`mipnerf_losses`). Loss keys whose
-non-default value needs a term the port does not have raise
-NotImplementedError naming the key (`check_loss_config`); the baseline
-reads only its own keys (`check_mipnerf_loss_config`).
+the illuminant-field distill with its rise (`illum_distill_rise`) and
+the emission sparsity prior; and the mip-NeRF baseline's
+(`mipnerf_losses`). A loss key whose non-default value needs a term the
+port does not have would raise NotImplementedError naming the key
+(`check_loss_config`; none is left); the baseline reads only its own
+keys (`check_mipnerf_loss_config`).
 """
 
 from __future__ import annotations
@@ -39,17 +43,20 @@ EXTENSION_DEFAULTS = {
 }
 
 # Loss keys whose non-default value needs a term the port does not have:
-# key -> predicate that is True when the value is unsupported.
-UNSUPPORTED: Dict[str, Callable] = {
-    "loss.scale_distill": lambda v: float(v) != 0.0,
-    "loss.scale_distill_dist": lambda v: float(v) != 0.0,
-    "loss.vc_chroma": lambda v: float(v) != 0.0,
-    "loss.vc_sat_mask": bool,
-}
+# key -> predicate that is True when the value is unsupported. Every term
+# of the JAX package's `pano_losses` is ported.
+UNSUPPORTED: Dict[str, Callable] = {}
 
 # Radiance that ACES + gamma tone-maps to exactly 1.0 (ops/shading.py
 # constants): a saturated 8-bit pixel says only "radiance >= knee".
 SATURATION_KNEE = (0.56 + (0.3584) ** 0.5) / 0.16
+
+
+def use_scale_distill(hparams: dict) -> bool:
+    """Whether the step needs the scale-distill re-march (JAX's
+    `use_sd`): either of its weights is on."""
+    return any(float(hparams.get(k, 0.0)) > 0
+               for k in ("loss.scale_distill", "loss.scale_distill_dist"))
 
 
 def prepare_hparams(hparams: dict) -> dict:
@@ -255,11 +262,48 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
                 torch.log1p(compute_illumination(torch.relu(fine.rgb_alt))),
                 torch.log1p(compute_illumination(torch.relu(fine.rgb))),
                 mask)
+            if bool(hparams.get("loss.vc_sat_mask", False)):
+                # Plus the per-channel tie on the channels whose ground
+                # truth is unsaturated.
+                unsat = (ldr_gt < 1.0).to(fine.rgb.dtype) * mask
+                diff = (torch.log1p(torch.relu(fine.rgb_alt))
+                        - torch.log1p(torch.relu(fine.rgb)))
+                vc = vc + torch.sum(unsat * diff ** 2) / torch.clamp(
+                    torch.sum(unsat), min=1.0)
         else:
             vc = masked_mse(torch.log1p(torch.relu(fine.rgb_alt)),
                             torch.log1p(torch.relu(fine.rgb)), mask)
         loss = loss + w_vc * vc
         parts["vc"] = vc
+    # The log-chroma tie between the two views of the same samples
+    # (log1p radiance minus its channel mean), the primary side a
+    # stop-gradient target with loss.vc_chroma_sg.
+    w_vcc = float(hparams.get("loss.vc_chroma", 0.0))
+    if w_vcc > 0 and fine.rgb_alt is not None:
+        log_p = torch.log1p(torch.relu(fine.rgb))
+        log_a = torch.log1p(torch.relu(fine.rgb_alt))
+        chroma_p = log_p - torch.mean(log_p, dim=-1, keepdim=True)
+        if bool(hparams.get("loss.vc_chroma_sg", False)):
+            chroma_p = chroma_p.detach()
+        vcc = masked_mse(log_a - torch.mean(log_a, dim=-1, keepdim=True),
+                         chroma_p, mask)
+        loss = loss + w_vcc * vcc
+        parts["vcc"] = vcc
+    # Cross-scale self-distillation: the re-march at the secondary rays'
+    # scale tied to the fine level (stop-gradient targets), radiance in
+    # log1p space and, with its own weight, the expected distance.
+    w_sd = float(hparams.get("loss.scale_distill", 0.0))
+    w_sdd = float(hparams.get("loss.scale_distill_dist", 0.0))
+    if (w_sd > 0 or w_sdd > 0) and fine.rgb_scale is not None:
+        sd = masked_mse(torch.log1p(torch.relu(fine.rgb_scale)),
+                        torch.log1p(torch.relu(fine.rgb)).detach(), mask)
+        if w_sdd > 0 and fine.dist_scale is not None:
+            sd_dist = masked_mse(fine.dist_scale[..., None],
+                                 fine.distance.detach()[..., None], mask)
+            loss = loss + w_sdd * sd_dist
+            parts["scale_distill_dist"] = sd_dist
+        loss = loss + w_sd * sd
+        parts["scale_distill"] = sd
     # The env-distill ties along each ray's selected env direction, to
     # stop-gradient targets: radiance in log1p space, opacity raw,
     # distance in log space.
@@ -287,6 +331,13 @@ def pano_losses(outputs: Sequence, rgbs_gt: Tensor, mask: Tensor,
         rise = illum_distill_rise(hparams, step)
         loss = loss + (w_ild if rise is None else w_ild * rise) * ild
         parts["illum_distill"] = ild
+    # Emission sparsity: L1 of the composited self-emission (non-negative).
+    w_em = float(hparams.get("loss.emission_sparsity", 0.0))
+    if w_em > 0 and fine.emission is not None:
+        em = torch.sum(mask * fine.emission) / (
+            3.0 * torch.clamp(torch.sum(mask), min=1.0))
+        loss = loss + w_em * em
+        parts["emission"] = em
     parts["loss"] = loss
     return parts
 

@@ -10,7 +10,12 @@ and `make_render_image` (chunked by `BaseSystem._chunked`), and
 `build_system`, keyed on `nerf.mlp_name`. Where JAX jits, the port
 captures CUDA graphs on the card (`engine/graphs.py`): the K-step train
 dispatch and the eval chunk; the eager step stays as the body that is
-captured, and is what runs on the CPU.
+captured, and is what runs on the CPU. A model on the plain route
+(`models/base.py` `plain_route_reasons`) is said so once, as
+`[route] plain on <device>: <reasons>`, and gets no packed kernel
+parameters; one on the kernel route with a width or encoding the
+kernels on its device are not built for (`kernel_build_gaps`) is refused
+with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from pano_nerf_tpu_torch.engine.graphs import CapturedGraph
 from pano_nerf_tpu_torch.engine.schedule import lr_table
 from pano_nerf_tpu_torch.kernels.fused_render import pack_params
 from pano_nerf_tpu_torch.models import build_model
+from pano_nerf_tpu_torch.models.base import (kernel_build_gaps,
+                                             plain_route_reasons)
 
 Tensor = torch.Tensor
 
@@ -47,6 +54,19 @@ def check_train_config(hparams: Dict) -> None:
             raise NotImplementedError(
                 f"{key}={hparams[key]!r} is not supported by the "
                 "PyTorch/CUDA train step")
+
+
+_ROUTES_SAID = set()
+
+
+def say_route(device: torch.device, reasons: Sequence[str]) -> None:
+    """Print `[route] plain on <device>: <reasons>` the first time a
+    model on the plain route is built for this device and these
+    reasons."""
+    line = f"[route] plain on {device.type}: {', '.join(reasons)}"
+    if line not in _ROUTES_SAID:
+        _ROUTES_SAID.add(line)
+        print(line, flush=True)
 
 
 def clip_by_global_norm_(params: List[Tensor], max_norm: float) -> Tensor:
@@ -114,14 +134,18 @@ def _k_steps(one: Callable, k: int) -> Callable:
     return run
 
 
-def render_products(enable_surf: bool) -> List[Tuple[str, int]]:
+def render_products(enable_surf: bool, emission: bool = False
+                    ) -> List[Tuple[str, int]]:
     """What `make_render_image` returns per ray, in its order: (name,
-    channels)."""
+    channels); `emission` with the emissive head (JAX's eval tree puts it
+    beside the surface products)."""
     products = [("rgb_coarse", 3), ("dep_coarse", 1), ("rgb_fine", 3),
                 ("dep_fine", 1), ("normal", 3)]
     if enable_surf:
         products += [("albedo", 3), ("roughness", 1), ("surf_rgb", 3),
                      ("shading", 3)]
+        if emission:
+            products.append(("emission", 3))
     return products
 
 
@@ -149,7 +173,17 @@ class BaseSystem:
         self.hparams = hparams = losses_lib.prepare_hparams(hparams)
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(int(init_seed))
-        self.model = build_model(hparams, gen).to(self.device)
+        model = build_model(hparams, gen)
+        if model.kernels:
+            gaps = kernel_build_gaps(model.cfg, self.device)
+            if gaps:
+                raise NotImplementedError(
+                    f"{', '.join(gaps)}: this topology takes the kernels "
+                    f"(as in JAX), which on {self.device.type} are not "
+                    "built for it")
+        else:
+            say_route(self.device, plain_route_reasons(model.cfg))
+        self.model = model.to(self.device)
         self.model.eval()
         self.white_bkgd = bool(hparams["train.white_bkgd"])
         self.val_chunk_size = int(hparams["val.chunk_size"])
@@ -196,6 +230,14 @@ class BaseSystem:
     def graphed(self) -> bool:
         """Whether steps and chunks run as CUDA graphs (on the card)."""
         return self.device.type == "cuda"
+
+    def packed(self) -> Optional[Tuple[Tensor, Tensor]]:
+        """The kernels' packed parameters of the current weights, on the
+        card's kernel route; else None (the plain versions and the plain
+        route take the MLP's own parameters)."""
+        if self.device.type == "cuda" and self.model.kernels:
+            return pack_params(self.model.mlp)
+        return None
 
     def params(self) -> List[Tensor]:
         """The trained parameters, in `NerfModel.named_params` order: the
@@ -267,8 +309,7 @@ class BaseSystem:
 
         def train_step(state: TrainState, rays: Rays, rgbs: Tensor,
                        draws: Any) -> Dict[str, Tensor]:
-            packed = (pack_params(model.mlp)
-                      if self.device.type == "cuda" else None)
+            packed = self.packed()
             state.optimizer.zero_grad(set_to_none=True)
             outs = self._train_forward(rays, draws, enable_surf, packed)
             # The step before this one's increment, as JAX reads
@@ -422,14 +463,14 @@ class BaseSystem:
                     [x, x[-1:].expand(pad, x.shape[-1])], 0), rays)
             slab = torch.empty((n + pad, sum(w for _, w in names)),
                                device=self.device)
-            packed = (pack_params(model.mlp)
-                      if self.device.type == "cuda" else None)
+            packed = self.packed()
             if self.graphed and graph is None:
                 static_rays = rays_map(lambda x: x[:chunk].clone(), rays)
-                static_packed = tuple(t.clone() for t in packed)
+                static_packed = (None if packed is None
+                                 else tuple(t.clone() for t in packed))
                 graph = CapturedGraph(lambda: self.render_chunk(
                     static_rays, static_packed, enable_surf))
-            if self.graphed:
+            if self.graphed and packed is not None:
                 for dst, src in zip(static_packed, packed):
                     dst.copy_(src)
             for start in range(0, n + pad, chunk):
@@ -458,9 +499,10 @@ class PanoNeRFSystem(BaseSystem):
     """Pano-NeRF: the surface path's env rays (`set_env_rays`), the
     Pano-NeRF train forward (kernels 2 and 3 on the card, and kernel 5 for
     the coarse level and the env queries with
-    `nerf.use_train_render_kernel`) and `pano_losses`; the eval render
-    through kernel 4 (with the tight re-read, kernels 2 and 3), 5
-    products or (`enable_surf`) 9."""
+    `nerf.use_train_render_kernel`; the plain NerfMLP on the plain route)
+    and `pano_losses`; the eval render through kernel 4 (with the tight
+    re-read, kernels 2 and 3; on the plain route the plain NerfMLP), 5
+    products or (`enable_surf`) 9, 10 with the emissive head."""
 
     mlp_name = "panonerf"
     surface = True
@@ -495,10 +537,11 @@ class PanoNeRFSystem(BaseSystem):
 
     def make_draws(self, batch: int, gen: torch.Generator):
         return self.model.make_draws(
-            batch, int(self.hparams["nerf.num_ray_samples"]), gen)
+            batch, int(self.hparams["nerf.num_ray_samples"]), gen,
+            scale_distill=losses_lib.use_scale_distill(self.hparams))
 
     def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
-        return render_products(enable_surf)
+        return render_products(enable_surf, self.model.cfg.emissive_head)
 
     def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
                                                               Tensor]],
@@ -509,6 +552,8 @@ class PanoNeRFSystem(BaseSystem):
                 f.normal]
         if enable_surf:
             cols += [f.albedo, f.roughness[:, None], f.surf_rgb, f.shading]
+            if f.emission is not None:
+                cols.append(f.emission)
         return torch.cat([x.float() for x in cols], 1)
 
 

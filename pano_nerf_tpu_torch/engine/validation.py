@@ -16,7 +16,8 @@ from pano_nerf_tpu_torch.ops.shading import hdr_to_ldr
 from pano_nerf_tpu_torch.utils import metrics as M
 from pano_nerf_tpu_torch.utils.vis import hotmap, save_results
 
-# The 11 image products of one validated panorama (directory names).
+# The 11 image products of one validated panorama (directory names), and
+# with the emissive head a 12th, `pred_emission`.
 PRODUCTS = ("gt_hdr", "pred_hdr", "gt_ldr", "pred_ldr", "gt_normal",
             "pred_normal", "gt_depth", "pred_depth", "pred_hdr_surf",
             "pred_ldr_surf", "pred_albedo")
@@ -67,8 +68,9 @@ def save_validation_products(products: Dict[str, np.ndarray],
                              gt_normal: np.ndarray, save_dir: str,
                              index: int, near: float, far: float) -> None:
     """Write the validation image tree: {gt,pred}_{hdr.exr, ldr.png,
-    normal.png, depth.png} and pred_{hdr_surf.exr, ldr_surf.png,
-    albedo.png} when the surface products are present."""
+    normal.png, depth.png}, pred_{hdr_surf.exr, ldr_surf.png, albedo.png}
+    when the surface products are present and pred_emission.exr (the
+    composited self-emission, HDR) with the emissive head."""
     save_dir = Path(save_dir)
     gt_hdr, pred_hdr = gt_rgb[..., :3], products["rgb_fine"]
     name = f"{index:03d}"
@@ -96,3 +98,6 @@ def save_validation_products(products: Dict[str, np.ndarray],
     if "albedo" in products:
         save_results(products["albedo"],
                      save_dir / "pred_albedo" / f"{name}.png")
+    if "emission" in products:
+        save_results(products["emission"],
+                     save_dir / "pred_emission" / f"{name}.exr")

@@ -6,8 +6,9 @@ rendered through the chunked renderer of the config's system
 its HDR presets and mip-NeRF through kernels 2 and 3), the
 solid-angle-weighted metric family
 is computed, and the image tree is written under
-`<out_dir>/eval_<step>/` (11 products for Pano-NeRF, 8 for mip-NeRF,
-which has no surface path). Prints one JSON line of mean metrics, with
+`<out_dir>/eval_<step>/` (11 products for Pano-NeRF, 12 with the
+emissive head, 8 for mip-NeRF, which has no surface path). With f32
+`train.precision` TF32 is off (`core/device.py` `set_precision`). Prints one JSON line of mean metrics, with
 the render's time per panorama and rays/s.
 
 Usage:
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from pano_nerf_tpu_torch.core.config import parse_args
+from pano_nerf_tpu_torch.core.device import set_precision
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.engine import validation as val_lib
 from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
@@ -80,6 +82,7 @@ def prepare_hparams(hparams: dict) -> dict:
 
 def evaluate(hparams: dict, device: Optional[str] = None) -> Dict[str, float]:
     """Render every val panorama, write the products, return mean metrics."""
+    set_precision(hparams)
     data = dict(white_bkgd=hparams["val.white_bkgd"],
                 num=hparams["train.sample_num"], range=hparams["range"],
                 meta_file=hparams["meta_file"],

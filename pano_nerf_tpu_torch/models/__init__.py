@@ -4,7 +4,8 @@
 def build_model(hparams: dict, generator=None):
     """Model factory keyed on `nerf.mlp_name`, as the JAX package's
     `models.build_model`: 'mipnerf' -> MipNeRF (1 density channel),
-    'panonerf' -> PanoMipNeRF (5). `generator` seeds the weight init."""
+    'panonerf' -> PanoMipNeRF (5, + 3 per head). `generator` seeds the
+    weight init."""
     name = hparams["nerf.mlp_name"]
     if name == "mipnerf":
         from pano_nerf_tpu_torch.models.mip_nerf import MipNeRF

@@ -3,17 +3,27 @@
 Counterpart of pano_nerf_tpu/models/base.py: `from_hparams` (with the
 `__post_init__` checks of the tight re-read's variants), `_sample_level`,
 `_env_samples`, `_env_mode`, `_density_noise`, the illuminant field's
-parameters (`models/illum.py`) and `_expected_normals`, shared by Pano-NeRF
+parameters (`models/illum.py`), `_rgb_from_raw` with the chroma head,
+`_expected_normals` and `_kernel_topology_ok`, shared by Pano-NeRF
 (`models/pano_mip_nerf.py`) and the mip-NeRF baseline
-(`models/mip_nerf.py`). Each model takes the JAX package's kernel route
-for its config (for Pano-NeRF's eval the whole-level render kernel, or
-kernels 2 and 3 with the tight re-read; the whole-level training kernel
-for the coarse level and env queries when `use_train_render_kernel` is
-on), so `from_hparams` refuses every config key that would need another
-path (`UNSUPPORTED`) with NotImplementedError naming the key,
-instead of silently computing something else. The MLP widths are not
-config-checked: the CUDA kernels raise on widths they were not compiled
-for, while the plain versions on the CPU take any width.
+(`models/mip_nerf.py`).
+
+Two routes, as in JAX, decided from the config alone when the model is
+built (`plain_route_reasons`, the same on every device): where JAX's
+`_kernel_topology_ok` sends the model to its kernels (the 8-deep trunk
+with its skip at 4, one view layer, view directions, bf16, no emissive
+or chroma head) every MLP query goes through the kernels' wrappers (on
+the CPU their plain versions); otherwise every query goes through the
+general NerfMLP with torch autograd (`NerfModel._query`,
+`_query_normals`: JAX's XLA route). JAX's kernels read the widths and
+encodings from the parameter shapes; the CUDA kernels are built for one
+of each, so on the kernel route a system refuses what they are not built
+for (`kernel_build_gaps`) instead of taking another route. A kernel that
+fails raises; the route never changes at run time. `from_hparams`
+refuses every config key that would need a path the port lacks
+(`UNSUPPORTED`) with
+NotImplementedError naming the key, instead of silently computing
+something else.
 """
 
 from __future__ import annotations
@@ -26,8 +36,12 @@ import torch
 from torch import nn
 
 from pano_nerf_tpu_torch.core.rays import Rays
-from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
+from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (BUILDS,
+                                                      fused_mlp_ipe_apply)
+from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
+    fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.kernels.fused_render import softplus
+from pano_nerf_tpu_torch.models import normals as normals_lib
 from pano_nerf_tpu_torch.models.illum import IllumField
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
@@ -63,6 +77,12 @@ class LevelOutput(NamedTuple):
     # (point, direction) pairs, for loss.illum_distill.
     env_pre_illum: Optional[Tensor] = None
     illum_chroma: Optional[Tensor] = None
+    # With the emissive head: the composited self-emission [B, 3].
+    emission: Optional[Tensor] = None
+    # With loss.scale_distill(_dist) (training): the primary ray re-marched
+    # at num_env_samples Gaussians, radiance [B, 3] and distance [B].
+    rgb_scale: Optional[Tensor] = None
+    dist_scale: Optional[Tensor] = None
 
 
 # The env-direction estimators of a training step (`nerf.env_sampling`;
@@ -72,22 +92,12 @@ ENV_MODES = ("fixed", "rotated", "stratified", "importance")
 # Config keys whose non-default value needs a render path the port does
 # not have: key -> predicate that is True when the value is unsupported.
 UNSUPPORTED: Dict[str, Callable] = {
-    "nerf.emissive_head": bool,
-    "nerf.chroma_head": bool,
     "nerf.env_sampling": lambda v: v not in ENV_MODES + ("auto",),
     "nerf.disable_integration": bool,
-    "nerf.use_viewdirs": lambda v: not bool(v),
-    "nerf.append_identity": lambda v: not bool(v),
     "nerf.ray_shape": lambda v: v != "cone",
     "nerf.num_levels": lambda v: int(v) != 2,
     "nerf.stop_resample_grad": lambda v: not bool(v),
-    "nerf.mlp.net_depth": lambda v: int(v) != 8,
-    "nerf.mlp.skip_index": lambda v: int(v) != 4,
-    "nerf.mlp.net_depth_condition": lambda v: int(v) != 1,
     "nerf.mlp.num_rgb_channels": lambda v: int(v) != 3,
-    "nerf.min_deg_point": lambda v: int(v) != 0,
-    "nerf.max_deg_point": lambda v: int(v) != 16,
-    "nerf.deg_view": lambda v: int(v) != 4,
     "val.randomized": bool,
 }
 
@@ -114,9 +124,12 @@ class NerfConfig:
     mlp_net_width_condition: int = 128
     mlp_skip_index: int = 4
     mlp_num_rgb_channels: int = 3
+    use_viewdirs: bool = True
+    append_identity: bool = True
     # Set by the model class, never by the config (as in JAX, whose
     # `from_hparams` does not read `nerf.mlp.num_density_channels`):
-    # mip-NeRF keeps this default of 1, Pano-NeRF forces 5.
+    # mip-NeRF keeps this default of 1, Pano-NeRF forces 5 (+ 3 for each
+    # head).
     mlp_num_density_channels: int = 1
     num_env_samples: int = 5
     compute_dtype: torch.dtype = torch.bfloat16
@@ -169,6 +182,13 @@ class NerfConfig:
     illum_sh_deg: int = 2
     illum_net_width: int = 64
     illum_posenc_deg: int = 4
+    # Pano-NeRF's heads on the density head: a view-independent
+    # self-emission softplus(raw + emission_bias) added to the radiance of
+    # every query, and a view-independent chroma simplex (softmax) that
+    # multiplies 3 softplus(mean raw_rgb).
+    emissive_head: bool = False
+    emission_bias: float = -3.0
+    chroma_head: bool = False
 
     def __post_init__(self):
         if self.env_tight_chroma and self.env_tight_rgb <= 0:
@@ -232,6 +252,9 @@ class NerfConfig:
                 hparams["nerf.mlp.net_width_condition"]),
             mlp_skip_index=int(hparams["nerf.mlp.skip_index"]),
             mlp_num_rgb_channels=int(hparams["nerf.mlp.num_rgb_channels"]),
+            use_viewdirs=bool(hparams["nerf.use_viewdirs"]),
+            # 'Ture' (the reference config's typo) is truthy, as in JAX.
+            append_identity=bool(hparams["nerf.append_identity"]),
             num_env_samples=int(hparams["nerf.num_env_samples"]),
             compute_dtype=_DTYPES[str(hparams.get("train.precision",
                                                   "bf16"))],
@@ -267,6 +290,9 @@ class NerfConfig:
             illum_sh_deg=int(hparams.get("nerf.illum_sh_deg", 2)),
             illum_net_width=int(hparams.get("nerf.illum_net_width", 64)),
             illum_posenc_deg=int(hparams.get("nerf.illum_posenc_deg", 4)),
+            emissive_head=bool(hparams.get("nerf.emissive_head", False)),
+            emission_bias=float(hparams.get("nerf.emission_bias", -3.0)),
+            chroma_head=bool(hparams.get("nerf.chroma_head", False)),
             **overrides,
         )
 
@@ -276,7 +302,7 @@ class NerfConfig:
 
     @property
     def view_dim(self) -> int:
-        return self.deg_view * 3 * 2 + 3
+        return self.deg_view * 3 * 2 + (3 if self.append_identity else 0)
 
     def sample_level(self, rays: Rays, i_level: int,
                      t_samples: Optional[Tensor], weights: Optional[Tensor]
@@ -315,15 +341,57 @@ class NerfConfig:
         return "rotated" if self.env_rotation else "fixed"
 
 
+def plain_route_reasons(cfg: NerfConfig) -> List[str]:
+    """Why the model takes the plain route, or [] when it takes the
+    kernels: the port's `_kernel_topology_ok`, JAX's conditions
+    (pano_nerf_tpu/models/base.py:609-626), on every device."""
+    checks = (
+        (cfg.use_viewdirs, "nerf.use_viewdirs false"),
+        (cfg.mlp_net_depth == 8, f"nerf.mlp.net_depth {cfg.mlp_net_depth}"),
+        (cfg.mlp_skip_index == 4,
+         f"nerf.mlp.skip_index {cfg.mlp_skip_index}"),
+        (cfg.mlp_net_depth_condition == 1,
+         f"nerf.mlp.net_depth_condition {cfg.mlp_net_depth_condition}"),
+        (cfg.compute_dtype == torch.bfloat16, "train.precision f32"),
+        (not cfg.emissive_head, "nerf.emissive_head"),
+        (not cfg.chroma_head, "nerf.chroma_head"))
+    return [why for ok, why in checks if not ok]
+
+
+def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
+    """What a model on the kernel route needs that the kernels on
+    `device` are not built for, or []: the IPE degrees 0..16 and the deg-4
+    viewdir encoding with identity on every device (the plain versions
+    check them too); on the card also the widths 256 / 128 and a
+    density-channel count of `kernels/fused_mlp_ipe.py` `BUILDS`."""
+    checks = (
+        ((cfg.min_deg_point, cfg.max_deg_point) == (0, 16),
+         f"nerf.min_deg_point..max_deg_point {cfg.min_deg_point}.."
+         f"{cfg.max_deg_point}"),
+        (cfg.deg_view == 4, f"nerf.deg_view {cfg.deg_view}"),
+        (cfg.append_identity, "nerf.append_identity false"))
+    if device.type == "cuda":
+        checks += (
+            (cfg.mlp_net_width == 256,
+             f"nerf.mlp.net_width {cfg.mlp_net_width}"),
+            (cfg.mlp_net_width_condition == 128,
+             f"nerf.mlp.net_width_condition {cfg.mlp_net_width_condition}"),
+            (cfg.mlp_num_density_channels in BUILDS,
+             f"{cfg.mlp_num_density_channels} density channels"))
+    return [why for ok, why in checks if not ok]
+
+
 class NerfModel(nn.Module):
     """What both models share: the config, the NerfMLP it specifies (the
-    density-channel count from the model class) and the activations of
-    the raw outputs."""
+    density-channel count from the model class), the route of its MLP
+    queries (`kernels`: the kernels' wrappers, else the plain NerfMLP)
+    and the activations of the raw outputs."""
 
     def __init__(self, cfg: NerfConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.kernels = not plain_route_reasons(cfg)
         self.mlp = NerfMLP(
             xyz_dim=cfg.xyz_dim, view_dim=cfg.view_dim,
             net_depth=cfg.mlp_net_depth, net_width=cfg.mlp_net_width,
@@ -332,7 +400,8 @@ class NerfModel(nn.Module):
             skip_index=cfg.mlp_skip_index,
             num_rgb_channels=cfg.mlp_num_rgb_channels,
             num_density_channels=cfg.mlp_num_density_channels,
-            compute_dtype=cfg.compute_dtype, generator=generator)
+            compute_dtype=cfg.compute_dtype, generator=generator,
+            use_viewdirs=cfg.use_viewdirs)
         self.illum = (IllumField(cfg.illum_sh_deg, cfg.illum_net_width,
                                  cfg.illum_posenc_deg, generator)
                       if cfg.illum_field else None)
@@ -368,16 +437,80 @@ class NerfModel(nn.Module):
             raise ValueError("the parameters hold an illuminant field, "
                              "but nerf.illum_field is off")
 
-    def _rgb(self, raw_rgb: Tensor) -> Tensor:
+    def _query(self, means: Tensor, covs: Tensor, v_enc: Tensor,
+               packed: Optional[Tuple[Tensor, Tensor]]
+               ) -> Tuple[Tensor, Tensor]:
+        """(raw_rgb, raw_density) at Gaussians [..., 3]: kernel 2, or on
+        the plain route IPE -> NerfMLP (JAX `_raw_outputs`)."""
+        cfg = self.cfg
+        if self.kernels:
+            return fused_mlp_ipe_apply(
+                self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
+                max_deg=cfg.max_deg_point, packed=packed)
+        return self.mlp(mip.integrated_pos_enc(
+            means, covs, cfg.min_deg_point, cfg.max_deg_point), v_enc)
+
+    def _query_normals(self, means: Tensor, covs: Tensor, v_enc: Tensor,
+                       packed: Optional[Tuple[Tensor, Tensor]]
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+        """(raw_rgb, raw_density, d raw_sigma / d means): kernel 3, or on
+        the plain route the explicit chain of `models/normals.py` (JAX
+        `_raw_outputs_density_grad`)."""
+        cfg = self.cfg
+        if self.kernels:
+            return fused_mlp_normals_apply(
+                self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
+                max_deg=cfg.max_deg_point, packed=packed)
+        x = mip.integrated_pos_enc(means, covs, cfg.min_deg_point,
+                                   cfg.max_deg_point)
+        raw_rgb, raw_density, g_enc = normals_lib.mlp_with_density_grad(
+            self.mlp, x, v_enc)
+        return raw_rgb, raw_density, normals_lib.density_means_grad(
+            g_enc, x, cfg.min_deg_point, cfg.max_deg_point)
+
+    def _rgb(self, raw_rgb: Tensor, chroma: Optional[Tensor] = None
+             ) -> Tensor:
+        """The radiance activation with the rgb_padding affine (JAX
+        `_rgb_from_raw`): softplus per channel, or with a chroma simplex
+        3 softplus(mean raw_rgb) chroma."""
         pad = self.cfg.rgb_padding
-        return softplus(raw_rgb) * (1.0 + 2.0 * pad) - pad
+        if chroma is None:
+            rgb = softplus(raw_rgb)
+        else:
+            rgb = 3.0 * softplus(torch.mean(raw_rgb, dim=-1,
+                                            keepdim=True)) * chroma
+        return rgb * (1.0 + 2.0 * pad) - pad
+
+    def _emission(self, raw_density: Tensor) -> Optional[Tensor]:
+        """The self-emission [..., 3] of the emissive head (JAX
+        `_split_emission`), or None."""
+        if not self.cfg.emissive_head:
+            return None
+        return softplus(raw_density[..., 5:8] + self.cfg.emission_bias)
+
+    def _chroma(self, raw_density: Tensor) -> Optional[Tensor]:
+        """The chroma simplex [..., 3] of the chroma head, after the
+        emission channels (JAX `_split_chroma`), or None."""
+        if not self.cfg.chroma_head:
+            return None
+        off = 8 if self.cfg.emissive_head else 5
+        return torch.softmax(raw_density[..., off:off + 3], dim=-1)
+
+    def _radiance(self, raw_rgb: Tensor, raw_density: Tensor) -> Tensor:
+        """A query's radiance: `_rgb` with the chroma head's simplex, plus
+        the emissive head's emission (JAX `make_graph`)."""
+        rgb = self._rgb(raw_rgb, self._chroma(raw_density))
+        emission = self._emission(raw_density)
+        return rgb if emission is None else rgb + emission
 
     def _density(self, raw_sigma: Tensor) -> Tensor:
         return softplus(raw_sigma + self.cfg.density_bias)
 
     def _venc(self, dirs: Tensor) -> Tensor:
-        """The viewdir encoding [..., 1, 27] of directions [..., 3]."""
-        return mip.pos_enc(dirs, 0, self.cfg.deg_view, True)[..., None, :]
+        """The viewdir encoding [..., 1, view_dim] of directions [..., 3]
+        (27 wide at deg_view 4 with identity)."""
+        return mip.pos_enc(dirs, 0, self.cfg.deg_view,
+                           self.cfg.append_identity)[..., None, :]
 
     def _noisy(self, raw_sigma: Tensor, noise: Optional[Tensor]) -> Tensor:
         """raw_sigma + density_noise x the standard normals `noise` (JAX
@@ -391,15 +524,12 @@ class NerfModel(nn.Module):
                packed: Optional[Tuple[Tensor, Tensor]],
                noise: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        """One march without normals through kernel 2 and plain
-        compositing, the raw density noised by `noise` when given: (rgb,
-        distance, acc, weights)."""
-        cfg = self.cfg
-        raw_rgb, raw_density = fused_mlp_ipe_apply(
-            self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
-            max_deg=cfg.max_deg_point, packed=packed)
+        """One march without normals (`_query`: kernel 2 or the plain
+        NerfMLP) and plain compositing, the raw density noised by `noise`
+        when given: (rgb, distance, acc, weights)."""
+        raw_rgb, raw_density = self._query(means, covs, v_enc, packed)
         return mip.volumetric_rendering(
-            self._rgb(raw_rgb),
+            self._radiance(raw_rgb, raw_density),
             self._density(self._noisy(raw_density[..., :1], noise)),
             t_samples, dirs, white_bkgd)
 

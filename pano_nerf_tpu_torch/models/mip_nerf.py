@@ -18,7 +18,12 @@ two forwards, each with one path:
   randomness comes in as `MipDraws`.
 
 Compositing is plain torch (`ops.mip.volumetric_rendering`). There is no
-surface or irradiance path and no env ray.
+surface or irradiance path and no env ray. Where JAX's route predicate
+keeps the model off its kernels (f32, another trunk or view-branch
+depth or skip, no view directions: `models/base.py`
+`plain_route_reasons`), kernels 2 and 3 give way to the plain NerfMLP and
+its explicit chain (`NerfModel._query`, `_query_normals`), JAX's XLA
+route.
 """
 
 from __future__ import annotations
@@ -28,8 +33,6 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from pano_nerf_tpu_torch.core.rays import Rays
-from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
-    fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
                                              NerfModel, expected_normals)
 from pano_nerf_tpu_torch.ops import mip
@@ -67,13 +70,12 @@ class MipNeRF(NerfModel):
                            use_ort_loss: bool,
                            packed: Optional[Tuple[Tensor, Tensor]]
                            ) -> LevelOutput:
-        """The fine level through kernel 3: composited products, the
-        expected normal from d density / d means and (with
+        """The fine level through kernel 3 (`_query_normals`): composited
+        products, the expected normal from d density / d means and (with
         `use_ort_loss`) the orientation loss."""
         cfg = self.cfg
-        raw_rgb, raw_density, d_raw = fused_mlp_normals_apply(
-            self.mlp, means, covs, v, min_deg=cfg.min_deg_point,
-            max_deg=cfg.max_deg_point, packed=packed)
+        raw_rgb, raw_density, d_raw = self._query_normals(means, covs, v,
+                                                          packed)
         raw_sigma = raw_density[..., :1]
         comp, dist, acc, weights = mip.volumetric_rendering(
             self._rgb(raw_rgb), self._density(raw_sigma), t_samples,

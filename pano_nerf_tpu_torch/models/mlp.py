@@ -4,6 +4,9 @@ Counterpart of pano_nerf_tpu/models/mlp.py: an 8x256 ReLU trunk whose
 input encoding is concatenated back after layer `skip_index` (layer 5 reads
 [h4 | x]), a density head, a bottleneck ("extra") layer and a
 view-conditioned branch ([bottleneck | viewdir encoding] -> 1x128 -> rgb).
+Any depth, width, skip index and view-branch depth; without view
+directions (`use_viewdirs=False`, JAX's `view_direction=None`) there is
+no bottleneck and no view branch, and the color head reads the trunk.
 
 Parameters use the reference's torch names and [out, in] layout
 (`layers.{i}.0`, `density_layer`, `extra_layer`, `view_layers.{i}.0`,
@@ -54,7 +57,8 @@ class NerfMLP(nn.Module):
                  net_width_condition: int = 128, skip_index: int = 4,
                  num_rgb_channels: int = 3, num_density_channels: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_viewdirs: bool = True):
         super().__init__()
         self.net_depth = net_depth
         self.net_width = net_width
@@ -66,6 +70,7 @@ class NerfMLP(nn.Module):
         self.xyz_dim = xyz_dim
         self.view_dim = view_dim
         self.compute_dtype = compute_dtype
+        self.use_viewdirs = use_viewdirs
 
         layers, fan_in = [], xyz_dim
         for i in range(net_depth):
@@ -74,13 +79,15 @@ class NerfMLP(nn.Module):
             fan_in = net_width + (xyz_dim if self._concat_after(i) else 0)
         self.layers = nn.ModuleList(layers)
         self.density_layer = _linear(fan_in, num_density_channels, generator)
-        self.extra_layer = _linear(fan_in, net_width, generator)
-        view_layers, vin = [], net_width + view_dim
-        for _ in range(net_depth_condition):
-            view_layers.append(nn.Sequential(
-                _linear(vin, net_width_condition, generator), nn.ReLU()))
-            vin = net_width_condition
-        self.view_layers = nn.ModuleList(view_layers)
+        vin = fan_in
+        if use_viewdirs:
+            self.extra_layer = _linear(fan_in, net_width, generator)
+            view_layers, vin = [], net_width + view_dim
+            for _ in range(net_depth_condition):
+                view_layers.append(nn.Sequential(
+                    _linear(vin, net_width_condition, generator), nn.ReLU()))
+                vin = net_width_condition
+            self.view_layers = nn.ModuleList(view_layers)
         self.color_layer = _linear(vin, num_rgb_channels, generator)
 
     def _concat_after(self, i: int) -> bool:
@@ -96,9 +103,12 @@ class NerfMLP(nn.Module):
         return h, acts
 
     def heads(self, trunk_out: Tensor, v_enc: Tensor) -> Tuple[Tensor, Tensor]:
-        """(raw_rgb, raw_density) from the trunk output and viewdir code."""
+        """(raw_rgb, raw_density) from the trunk output and viewdir code
+        (ignored without view directions)."""
         dt = self.compute_dtype
         raw_density = dense(trunk_out, self.density_layer, dt)
+        if not self.use_viewdirs:
+            return dense(trunk_out, self.color_layer, dt), raw_density
         bottleneck = dense(trunk_out, self.extra_layer, dt)
         v = v_enc.expand(bottleneck.shape[:-1] + v_enc.shape[-1:])
         h = torch.cat([bottleneck, v], dim=-1)

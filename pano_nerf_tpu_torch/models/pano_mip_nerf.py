@@ -61,7 +61,27 @@ The kernel-4 eval forward runs every MLP evaluation through
 
 The MLP's 5 density channels are density | albedo(3) | roughness: the
 model class sets the count (`from_hparams`), as JAX's `PanoMipNeRF`
-does, whatever `nerf.mlp.num_density_channels` says.
+does, whatever `nerf.mlp.num_density_channels` says; the emissive head
+appends 3 emission channels and the chroma head 3 chroma channels after
+them (JAX :37-75). Emission is added to the radiance of every query and
+composited into the `emission` product and the surface render; the
+chroma simplex shapes the radiance of every query (`NerfModel._radiance`).
+
+The plain route (f32, another trunk or view-branch depth or skip, no
+view directions, either head: `models/base.py` `plain_route_reasons`,
+JAX's XLA route): every MLP query of both forwards goes through the
+general NerfMLP with torch autograd and the normals through the explicit
+chain of `models/normals.py` (`NerfModel._query`, `_query_normals`); the
+eval render is `_render` without draws, and kernels 4 and 5 are not
+used. On both routes the normals come from the explicit chain only (JAX's
+`normals_impl="vjp"` is not ported), so JAX's rule that the emissive head
+needs explicit normals holds by construction.
+
+With `loss.scale_distill` or `loss.scale_distill_dist` the training step
+re-marches the primary ray at `num_env_samples` Gaussians (JAX :491-512;
+its uniforms `TrainDraws.t_sd`, drawn only then) and composites it to
+`rgb_scale` / `dist_scale`: one more `_march`, kernel 2 forward and
+backward on the kernel route.
 """
 
 from __future__ import annotations
@@ -72,9 +92,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from pano_nerf_tpu_torch.core.rays import Rays
-from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
-from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
-    fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.kernels.fused_render import (fused_render_level,
                                                       softplus)
 from pano_nerf_tpu_torch.kernels.fused_render_train import fused_render_train
@@ -115,6 +132,8 @@ class TrainDraws(NamedTuple):
     # density_noise: standard normals on the coarse and fine raw density.
     noise_coarse: Optional[Tensor] = None  # [B, Nc, 1]
     noise_fine: Optional[Tensor] = None    # [B, N, 1]
+    # loss.scale_distill(_dist): the re-march's stratification.
+    t_sd: Optional[Tensor] = None    # [B, S+1] uniforms, S num_env_samples
 
 
 class PanoMipNeRF(NerfModel):
@@ -122,9 +141,10 @@ class PanoMipNeRF(NerfModel):
     def from_hparams(cls, hparams: dict,
                      generator: Optional[torch.Generator] = None
                      ) -> "PanoMipNeRF":
-        return cls(NerfConfig.from_hparams(hparams,
-                                           mlp_num_density_channels=5),
-                   generator)
+        heads = sum(bool(hparams.get(f"nerf.{h}_head", False))
+                    for h in ("emissive", "chroma"))
+        return cls(NerfConfig.from_hparams(
+            hparams, mlp_num_density_channels=5 + 3 * heads), generator)
 
     def __init__(self, cfg: NerfConfig,
                  generator: Optional[torch.Generator] = None):
@@ -146,9 +166,10 @@ class PanoMipNeRF(NerfModel):
         their solid angles in `lossmult`. `packed` is the kernel's packed
         parameters (`fused_render.pack_params(self.mlp)`), reused across
         chunks. With the tight re-read, kernels 2 and 3 and plain
-        compositing (`_render`, no autograd); else kernel 4.
+        compositing (`_render`, no autograd); on the plain route
+        `_render` through the plain NerfMLP; else kernel 4.
         """
-        if self.cfg.env_tight_rgb > 0:
+        if self.cfg.env_tight_rgb > 0 or not self.kernels:
             with torch.no_grad():
                 return self._render(rays, env_rays, None, white_bkgd,
                                     enable_surf, False, False, packed)
@@ -215,11 +236,12 @@ class PanoMipNeRF(NerfModel):
         return ret
 
     def make_draws(self, batch: int, num_dirs: int,
-                   generator: torch.Generator) -> TrainDraws:
+                   generator: torch.Generator,
+                   scale_distill: bool = False) -> TrainDraws:
         """Draw one step's TrainDraws on the generator's device: the four
         of every step, then the env-distill pair, the env estimator's,
-        the resampled march's and the density noise, each only when its
-        switch is on."""
+        the resampled march's, the density noise and (`scale_distill`)
+        the scale-distill re-march's, each only when its switch is on."""
         cfg, dev = self.cfg, generator.device
         nc, n, s = (cfg.train_coarse_samples(), cfg.num_samples,
                     cfg.num_env_samples)
@@ -259,6 +281,8 @@ class PanoMipNeRF(NerfModel):
         if cfg.density_noise > 0:
             draws = draws._replace(noise_coarse=randn(batch, nc, 1),
                                    noise_fine=randn(batch, n, 1))
+        if scale_distill:
+            draws = draws._replace(t_sd=rand(batch, s + 1))
         return draws
 
     def train_forward(self, rays: Rays, env_rays: Rays, draws: TrainDraws,
@@ -268,7 +292,8 @@ class PanoMipNeRF(NerfModel):
                       ) -> List[LevelOutput]:
         """Randomized forward of a train step: [coarse, fine] outputs with
         the distortion, orientation and view-consistency products (and the
-        env-distill pair with env_distill_samples > 0).
+        env-distill pair with env_distill_samples > 0, the scale-distill
+        re-march where the draws hold its uniforms `t_sd`).
 
         rays: [B, ...]; env_rays: [D, ...] fixed env directions with their
         solid angles in `lossmult`; `packed` is the kernels' packed
@@ -283,17 +308,19 @@ class PanoMipNeRF(NerfModel):
                 enable_surf: bool, use_ort_loss: bool, use_vc_loss: bool,
                 packed: Optional[Tuple[Tensor, Tensor]]
                 ) -> List[LevelOutput]:
-        """The route of kernels 2, 3 (and 5): randomized by `draws` with
-        the training sample counts, or, without draws, deterministic with
-        the eval counts (`NerfConfig.sample_level`, `env_samples`)."""
+        """The route of kernels 2, 3 (and 5), or of the plain NerfMLP:
+        randomized by `draws` with the training sample counts, or, without
+        draws, deterministic with the eval counts
+        (`NerfConfig.sample_level`, `env_samples`)."""
         cfg = self.cfg
         train = draws is not None
         kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
                   packed=packed)
 
         def kernel_level(scope: str) -> bool:
-            # Kernel 5 has no density noise (JAX's gate, :294-296).
-            return (train and cfg.use_train_render_kernel
+            # Kernel 5 has no density noise (JAX's gate, :294-296) and
+            # takes the kernel route only.
+            return (train and cfg.use_train_render_kernel and self.kernels
                     and cfg.density_noise == 0
                     and cfg.train_kernel_scope in ("all", scope))
 
@@ -328,7 +355,8 @@ class PanoMipNeRF(NerfModel):
 
         # ---- fine level: MLP + density gradient (kernel 3), or, with
         # point normals in training, the MLP alone (kernel 2) and one
-        # kernel-3 query per ray ----
+        # kernel-3 query per ray (on the plain route the plain NerfMLP
+        # and its explicit chain) ----
         if train:
             t1, (m1, c1) = mip.resample_along_rays(
                 rays.origins, rays.directions, rays.radii, t0, w0,
@@ -338,18 +366,18 @@ class PanoMipNeRF(NerfModel):
             t1, (m1, c1) = cfg.sample_level(rays, 1, t0, w0)
         point = train and cfg.point_normals
         if point:
-            raw_rgb, raw_density = fused_mlp_ipe_apply(self.mlp, m1, c1, v,
-                                                       **kw)
+            raw_rgb, raw_density = self._query(m1, c1, v, packed)
         else:
-            raw_rgb, raw_density, d_raw = fused_mlp_normals_apply(
-                self.mlp, m1, c1, v, **kw)
+            raw_rgb, raw_density, d_raw = self._query_normals(m1, c1, v,
+                                                              packed)
         raw_sigma = self._noisy(raw_density[..., :1],
                                 draws.noise_fine if train else None)
         albedos = torch.sigmoid(raw_density[..., 1:4]) * 0.77 + 0.03
         roughness = softplus(raw_density[..., 4:5] - 1.0)
+        emission = self._emission(raw_density)
         comp, dist, acc, w1 = mip.volumetric_rendering(
-            self._rgb(raw_rgb), self._density(raw_sigma), t1,
-            rays.directions, white_bkgd)
+            self._radiance(raw_rgb, raw_density), self._density(raw_sigma),
+            t1, rays.directions, white_bkgd)
         if point:
             normal, ort_loss = self._point_normal(m1, c1, v, w1,
                                                   rays.directions,
@@ -366,18 +394,32 @@ class PanoMipNeRF(NerfModel):
                    ort_loss=ort_loss, normal=normal,
                    roughness=torch.sum(w_norm[..., 0] * roughness[..., 0],
                                        dim=-1))
+        if emission is not None:
+            out["emission"] = torch.sum(w1[..., None] * emission, dim=-2)
         if use_vc_loss and train:
             # The same samples under a random view direction, composited
-            # with stop-gradient weights: a full re-evaluation through
-            # kernel 2 (kernel 3 does not return the bottleneck).
+            # with stop-gradient weights: a full re-evaluation (kernel 2;
+            # kernel 3 does not return the bottleneck), the same values
+            # and gradients as JAX's re-query of the bottleneck. The
+            # heads are view-independent: the same emission and chroma.
             d_alt = mip.safe_normalize(draws.d_alt)
-            raw_alt, _ = fused_mlp_ipe_apply(self.mlp, m1, c1,
-                                             self._venc(d_alt), **kw)
-            rgb_alt = torch.sum(w1.detach()[..., None] * self._rgb(raw_alt),
-                                dim=-2)
+            raw_alt, raw_density_alt = self._query(m1, c1, self._venc(d_alt),
+                                                   packed)
+            rgb_alt = torch.sum(
+                w1.detach()[..., None]
+                * self._radiance(raw_alt, raw_density_alt), dim=-2)
             if white_bkgd:
                 rgb_alt = rgb_alt + (1.0 - acc.detach()[..., None])
             out["rgb_alt"] = rgb_alt
+        if train and draws.t_sd is not None:
+            # The primary ray re-marched at the secondary rays' sampling
+            # (num_env_samples Gaussians over [near, far]), composited.
+            t_sd, (m_sd, c_sd) = mip.sample_along_rays(
+                rays.origins, rays.directions, rays.radii,
+                cfg.num_env_samples, rays.near, rays.far, cfg.disparity,
+                t_rand=draws.t_sd)
+            out["rgb_scale"], out["dist_scale"], _, _ = self._march(
+                m_sd, c_sd, v, t_sd, rays.directions, white_bkgd, packed)
         if enable_surf:
             albedo = torch.sum(w_norm * albedos, dim=-2)
             # The collocated surface point keeps its gradient through the
@@ -426,6 +468,9 @@ class PanoMipNeRF(NerfModel):
                 env_rgb = apply_illum(env_rgb, chroma)
             surf_rgb, diffuse, _, shade = shading.surface_rendering(
                 env_rgb, albedo, normal, lit_dirs, solid_angle)
+            if emission is not None:
+                # Outgoing radiance = self-emission + reflected irradiance.
+                surf_rgb = surf_rgb + out["emission"]
             out.update(albedo=albedo, surf_rgb=surf_rgb, diffuse=diffuse,
                        shading=shade)
         ret.append(LevelOutput(**out))
@@ -531,15 +576,12 @@ class PanoMipNeRF(NerfModel):
         means and covariances, detached), one kernel-3 query per ray (S =
         1); gradients flow through the chain. With `use_ort_loss` the
         orientation loss mean relu(n . d)^2."""
-        cfg = self.cfg
         w = (weights / torch.clamp(torch.sum(weights, dim=-1, keepdim=True),
                                    min=1e-8)).detach()
         mean_pt = torch.sum(w[..., None] * means, dim=-2,
                             keepdim=True).detach()
         cov_pt = torch.sum(w[..., None] * covs, dim=-2, keepdim=True).detach()
-        _, _, d_raw = fused_mlp_normals_apply(
-            self.mlp, mean_pt, cov_pt, v_enc, min_deg=cfg.min_deg_point,
-            max_deg=cfg.max_deg_point, packed=packed)
+        _, _, d_raw = self._query_normals(mean_pt, cov_pt, v_enc, packed)
         normal = mip.safe_normalize(-d_raw[..., 0, :])
         ort_loss = None
         if use_ort_loss:
@@ -561,10 +603,8 @@ class PanoMipNeRF(NerfModel):
         scale = cfg.env_tight_rgb
 
         def read(m, c):
-            raw_rgb, raw_density = fused_mlp_ipe_apply(
-                self.mlp, m, c * scale, v_enc, min_deg=cfg.min_deg_point,
-                max_deg=cfg.max_deg_point, packed=packed)
-            return self._rgb(raw_rgb), raw_density
+            raw_rgb, raw_density = self._query(m, c * scale, v_enc, packed)
+            return self._radiance(raw_rgb, raw_density), raw_density
 
         def gather(x, idx):   # x [B, D, S, 3] at idx [B, D, K]
             return torch.gather(x, -2, idx[..., None].expand(*idx.shape, 3))

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from pano_nerf_tpu_torch.core.config import parse_args
+from pano_nerf_tpu_torch.core.device import set_precision
 from pano_nerf_tpu_torch.data.pano_dataset import (PanoDataset,
                                                    pano_rays_for_pose)
 from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
@@ -92,6 +93,7 @@ def render_path(hparams: dict, device: Optional[str] = None) -> Dict:
     """Render and write every frame; returns the restored step, the
     frame paths and the host time per frame (ms, the first frame with
     the chunk graph's capture apart)."""
+    set_precision(hparams)
     ds = PanoDataset(hparams["data_path"], split="train",
                      factor=hparams["train.factor"],
                      num=hparams["train.sample_num"], range=hparams["range"],

@@ -16,6 +16,10 @@ goes through the CUDA kernels 2 and 3 (`kernels/fused_mlp_ipe.py`,
 for Pano-NeRF 5 with `nerf.use_train_render_kernel`; validation renders
 through kernel 4 (Pano-NeRF) or kernels 2 and 3 (mip-NeRF, and the HDR
 presets `configs/panonerf_hdr.yaml` and `panonerf_shadow.yaml`).
+A config the kernels are not built for (f32 `train.precision`, another
+MLP topology, the emissive or chroma head) takes the plain route: every
+MLP query through the general NerfMLP, said once as `[route] plain on
+cuda: <reasons>`; with f32 TF32 is off (`core/device.py`).
 On the card the steps run as CUDA graphs, `train.steps_per_call` of them
 per replay where the cadences allow (`engine/trainer.py`), and each
 validation chunk is a graph replay. Re-running the same command resumes
@@ -32,6 +36,7 @@ import argparse
 import os
 
 from pano_nerf_tpu_torch.core.config import parse_args
+from pano_nerf_tpu_torch.core.device import set_precision
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,6 +77,7 @@ def prepare_hparams(hparams: dict) -> dict:
 def main(argv=None):
     """Train; returns the Trainer (its hparams, system and datasets)."""
     hparams = prepare_hparams(parse_args(build_parser(), argv))
+    set_precision(hparams)
     from pano_nerf_tpu_torch.engine.trainer import Trainer
     trainer = Trainer(hparams, device=hparams["device"],
                       init_seed=hparams.get("init_seed"))

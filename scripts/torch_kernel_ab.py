@@ -153,13 +153,21 @@ def kernel4(model, env, dev, libs, rounds: int, results: dict) -> None:
               f"{wbytes / ms_m / 1e9:.3f} TB/s", flush=True)
 
 
+def train_calls(model, env, dev, batch: int = 512) -> tuple:
+    """The kernel calls and the kernel-5 levels of one train step at
+    `batch` rays (`chip_smoke.train_shapes`, whose surface points are not
+    timed here)."""
+    from chip_smoke import train_shapes
+    calls, levels, _ = train_shapes(model, env, dev, batch)
+    return calls, levels
+
+
 def train_kernels(model, env, dev, libs, rounds: int, results: dict) -> None:
     import torch
-    from chip_smoke import train_shapes
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_render_train as k5
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
-    calls, levels = train_shapes(model, env, dev)
+    calls, levels = train_calls(model, env, dev)
     weights, biases = pack_params(model.mlp)
     cfg = model.cfg
     mine = k2.kernel_library()

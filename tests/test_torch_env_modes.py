@@ -41,7 +41,8 @@ from pano_nerf_tpu_torch.ops import mip
 from pano_nerf_tpu_torch.utils import rotation, spherical
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
-from test_torch_train_step import B, D, N, OPTS, S, _batch, _leaves, _rel
+from test_torch_train_step import (B, D, N, OPTS, S, _batch, _leaves, _rel,
+                                   f32_on_the_kernels)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
@@ -97,9 +98,11 @@ def replay_draws(model, step_key, distill_samples=0):
     return TrainDraws(**d)
 
 
-def systems(extra, precision="f32", perturb_illum=False):
+def systems(extra, precision="f32", perturb_illum=False, on_kernels=True):
     """JAX and port systems of the small model with `extra` opts, on the
     same parameters: (JAX system, JAX params, port system). With
+    `on_kernels` an f32 port system of the kernels' topology takes the
+    kernel route (`test_torch_train_step.f32_on_the_kernels`). With
     `perturb_illum` the illuminant field's output layer (zero at init, so
     that its hidden layers get no gradient) is drawn from a numpy seed,
     N(0, 0.1^2), beside JAX's Xavier hidden layers."""
@@ -114,6 +117,8 @@ def systems(extra, precision="f32", perturb_illum=False):
             illum[k] = (0.1 * rng.normal(size=illum[k].shape)).astype(
                 np.float32)
     psys = PanoNeRFSystem(load_config(CONFIG, opts), device="cpu")
+    if on_kernels:
+        f32_on_the_kernels(psys)
     psys.model.load_params(params_from_jax(params))
     psys.set_env_rays(generate_lit_rays(D, 0.0, 10.0))
     return jsys, params, psys

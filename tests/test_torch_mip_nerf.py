@@ -49,7 +49,7 @@ from pano_nerf_tpu_torch.models.base import LevelOutput
 from pano_nerf_tpu_torch.models.mip_nerf import MipDraws, MipNeRF
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
-from test_torch_train_step import _leaves, _rel
+from test_torch_train_step import _leaves, _rel, f32_on_the_kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "mipnerf.yaml")
@@ -77,7 +77,8 @@ def _systems(precision, extra=()):
     opts = OPTS + ["train.precision", f"'{precision}'", *extra]
     jsys = JaxMipSystem(jax_load_config(CONFIG, opts))
     state = jsys.create_state(jax.random.PRNGKey(0))
-    psys = build_system(load_config(CONFIG, opts), device="cpu")
+    psys = f32_on_the_kernels(build_system(load_config(CONFIG, opts),
+                                           device="cpu"))
     psys.model.mlp.load_state_dict(params_from_jax(
         jax.tree.map(np.asarray, state.params)))
     return jsys, state, psys

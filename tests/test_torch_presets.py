@@ -57,7 +57,8 @@ from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
 from pano_nerf_tpu_torch.ops import mip
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
-from test_torch_train_step import B, D, N, OPTS, S, _batch, _leaves, _rel
+from test_torch_train_step import (B, D, N, OPTS, S, _batch, _leaves, _rel,
+                                   f32_on_the_kernels)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HDR = os.path.join(REPO, "configs", "panonerf_hdr.yaml")
@@ -97,7 +98,8 @@ def _systems(config, precision, extra=()):
     jsys.set_env_rays(jax_lit(num=D, far=10.0))
     params = jax.tree.map(np.asarray,
                           jsys.model.init(jax.random.PRNGKey(0)))
-    psys = build_system(load_config(config, opts), device="cpu")
+    psys = f32_on_the_kernels(build_system(load_config(config, opts),
+                                           device="cpu"))
     assert isinstance(psys, PanoNeRFSystem)
     psys.model.mlp.load_state_dict(params_from_jax(params))
     psys.set_env_rays(generate_lit_rays(D, 0.0, 10.0))

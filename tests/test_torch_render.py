@@ -34,6 +34,8 @@ from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
 from pano_nerf_tpu_torch.engine.validation import PRODUCTS
 from pano_nerf_tpu_torch.utils.params import params_from_jax
 
+from test_torch_train_step import f32_on_the_kernels
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
 OPTS = ["nerf.num_samples", "8", "nerf.num_env_samples", "4",
@@ -80,7 +82,7 @@ def _render_both(scene, precision):
     want = {k: np.asarray(v) for k, v in want.items()}
 
     thp = load_config(CONFIG, opts)
-    tsys = PanoNeRFSystem(thp, device="cpu")
+    tsys = f32_on_the_kernels(PanoNeRFSystem(thp, device="cpu"))
     tsys.set_env_rays(generate_lit_rays(num=4, far=10.0))
     rays = rays_to_tensors(JaxRays(*rays_np), torch.device("cpu"))
     got = tsys.make_render_image(enable_surf=True)(params_from_jax(params),

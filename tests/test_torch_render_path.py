@@ -38,6 +38,8 @@ from pano_nerf_tpu_torch.engine.system import build_system
 from pano_nerf_tpu_torch.utils import vis
 from pano_nerf_tpu_torch.utils.params import params_to_jax
 
+from test_torch_train_step import f32_on_the_kernels
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {name: os.path.join(REPO, "configs", f"{name}.yaml")
            for name in ("panonerf", "panonerf_hdr", "mipnerf")}
@@ -148,7 +150,7 @@ def test_render_path_frame_matches_jax(monkeypatch, scene, name):
         np.stack([np.asarray(m) for m in jds.camtoworlds]), 3)[:, :3, 3]
     np.testing.assert_allclose(origins, want_origins, atol=1e-6)
 
-    system = build_system(hp, device="cpu", init_seed=3)
+    system = f32_on_the_kernels(build_system(hp, device="cpu", init_seed=3))
     jsys = jax_build_system(jhp)
     if system.surface:
         system.set_env_rays(ds.generate_lit_rays(num=4, far=10.0))

@@ -38,6 +38,8 @@ from pano_nerf_tpu_torch.core.rays import rays_to_tensors
 from pano_nerf_tpu_torch.data.pano_dataset import generate_lit_rays
 from pano_nerf_tpu_torch.engine import schedule, system as port_system
 from pano_nerf_tpu_torch.engine.system import PanoNeRFSystem
+from pano_nerf_tpu_torch.models.base import (kernel_build_gaps,
+                                             plain_route_reasons)
 from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
 from pano_nerf_tpu_torch.ops import mip
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
@@ -48,6 +50,21 @@ B, N, D, S = 16, 8, 4, 4
 OPTS = ["nerf.num_samples", str(N), "nerf.num_env_samples", str(S),
         "nerf.num_ray_samples", str(D), "nerf.mlp.net_width", "64",
         "nerf.mlp.net_width_condition", "32"]
+
+
+def f32_on_the_kernels(psys):
+    """Put an f32 system of the kernels' topology on the kernel route, to
+    hold that route's wiring (kernels 2-5 as the model calls them) to JAX
+    at f32 tolerances. f32 takes the plain route on every device
+    (`models/base.py` `plain_route_reasons`, JAX's `_kernel_topology_ok`),
+    but on the CPU the kernel route runs the kernels' plain versions,
+    which take f32 as well. Only where f32 is the one reason for the
+    plain route and the plain versions take the model; returns `psys`."""
+    cfg = psys.model.cfg
+    if (plain_route_reasons(cfg) == ["train.precision f32"]
+            and not kernel_build_gaps(cfg, torch.device("cpu"))):
+        psys.model.kernels = True
+    return psys
 
 
 def _batch(seed=0):
@@ -114,7 +131,7 @@ def _run_both(precision, extra=()):
     j_new = jax.tree.map(np.asarray, new_state.params)
 
     hp = load_config(CONFIG, opts)
-    psys = PanoNeRFSystem(hp, device="cpu")
+    psys = f32_on_the_kernels(PanoNeRFSystem(hp, device="cpu"))
     psys.model.mlp.load_state_dict(params_from_jax(params0))
     psys.set_env_rays(generate_lit_rays(D, 0.0, 10.0))
     pstate = psys.create_state()
@@ -190,7 +207,7 @@ def _port_step(extra, scope="all"):
     """One f32 port step on the test batch; returns (loss parts, grads)."""
     import dataclasses
     hp = load_config(CONFIG, OPTS + ["train.precision", "'f32'", *extra])
-    psys = PanoNeRFSystem(hp, device="cpu")
+    psys = f32_on_the_kernels(PanoNeRFSystem(hp, device="cpu"))
     model = psys.model
     model.cfg = dataclasses.replace(model.cfg, train_kernel_scope=scope)
     psys.set_env_rays(generate_lit_rays(D, 0.0, 10.0))
@@ -308,10 +325,7 @@ def test_randomized_sampling_matches_jax():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("train.randomized", False),
-    ("loss.scale_distill", 0.1), ("loss.scale_distill_dist", 0.1),
-    ("loss.vc_chroma", 0.1),
-    ("loss.vc_sat_mask", True), ("parallel.num_devices", 4)])
+    ("train.randomized", False), ("parallel.num_devices", 4)])
 def test_unsupported_train_keys_raise_naming_the_key(key, value):
     hp = load_config(CONFIG, OPTS)
     hp[key] = value
@@ -323,12 +337,15 @@ def test_unsupported_train_keys_raise_naming_the_key(key, value):
 @pytest.mark.parametrize("key,value", [
     ("nerf.env_distill_samples", 4), ("loss.env_distill", 0.1),
     ("loss.chrom_gate", True), ("loss.chrom_illum_comp", True),
-    ("nerf.point_normals", True), ("loss.illum_distill", 0.1)])
+    ("nerf.point_normals", True), ("loss.illum_distill", 0.1),
+    ("loss.scale_distill", 0.1), ("loss.scale_distill_dist", 0.1),
+    ("loss.vc_chroma", 0.1), ("loss.vc_sat_mask", True)])
 def test_preset_train_keys_are_accepted(key, value):
-    """The keys of the HDR presets' train path and of point normals and
-    the illum distill, refused until the port had them
-    (tests/test_torch_presets.py, test_torch_point_normals.py and
-    test_torch_illum.py hold their steps to JAX's)."""
+    """The keys of the HDR presets' train path, of point normals, the
+    illum distill and the last loss terms, refused until the port had
+    them (tests/test_torch_presets.py, test_torch_point_normals.py,
+    test_torch_illum.py and test_torch_loss_switches.py hold their steps
+    to JAX's)."""
     hp = load_config(CONFIG, OPTS)
     hp[key] = value
     psys = PanoNeRFSystem(hp, device="cpu")
