@@ -2,8 +2,8 @@
 Pano-NeRF (`configs/panonerf.yaml`), its HDR presets
 (`configs/panonerf_hdr.yaml`, `configs/panonerf_shadow.yaml`), the
 mip-NeRF baseline (`configs/mipnerf.yaml`), the novel-view path, the
-plain route (f32, another MLP topology, the heads) and the last loss
-terms.
+plain route (f32, another MLP topology, the heads), the last loss
+terms, and the level loop with the last model and system keys.
 
 Run from the repository root on a machine with the card:
 
@@ -32,7 +32,10 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    against `weight_grads_reference` on the same rows (rel-norm 1e-4 per
    weight) and timed beside torch.matmul on the same products (the
    yardstick, `library_ms`; the port never calls it), each pass beside
-   its own bound. Prints the errors beside their tolerances, per-launch
+   its own bound. The gradients of kernels 2, 3 and 5 are held w.r.t.
+   the parameters, the means and the covariances (`dcov_rel`: they carry
+   one with `nerf.stop_resample_grad: false`), kernel 5's under a loss
+   on its weights too. Prints the errors beside their tolerances, per-launch
    times of kernel and plain version (CUDA events, warm-up excluded) and
    the bounds.
 3. Eval main path: a 4-view 512x1024 synthetic scene, rendered at
@@ -64,7 +67,9 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 5. For phases 4 and 4b each (5b: key on): one train step on the card
    against the same step on the CPU (plain versions), from the same
    parameters, batches (sixteen of 64 rays) and numpy-made draws: loss
-   parts, and gradients as `check_train_step_against_cpu` says; 16 steps from one state as two
+   parts pooled over the batches, and gradients by the median of the
+   per-batch ratios, as `check_train_step_against_cpu` says (the same
+   statistic in every phase that calls it); 16 steps from one state as two
    replays of the 8-step graph against four eager runs, held to twice
    the eager-vs-eager spread (`check_graphed_against_eager`); ms per step
    and train rays/s of the 8-step graph, the one-step graph and eager
@@ -181,6 +186,33 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    (row pass and weight-gradient pass: two launches) per step than
    phase 4 (the re-march), exact counts; the step against the CPU under
    phase 5's rule, graphed against eager, ms per step.
+19. `nerf.num_levels 3`, `nerf.stop_resample_grad false`,
+   `nerf.disable_integration true` (zero covariances into kernels 2-5)
+   and the key on: 200 steps with 3 + 6 launches of kernel 5 per step
+   (levels 0 and 1 and the env march), 1 + 2 of kernel 2 and 1 + 2 of
+   kernel 3, exact counts, the loss falling; the checkpoint served
+   through `eval --ckpt_dir` (4 kernel-4 launches per 1,024-ray chunk,
+   128 per panorama), the chunk graph bit-equal to eager chunks, ms per
+   panorama; a 16x32 view of the checkpoint on the card against the CPU
+   (phase 3's check, each product within twice the CPU's own change
+   under 1e-6 shifts of the origins, the normals printed, not held); the
+   step against the CPU under phase 5's rule, its normal-dependent parts
+   and normal-free gradient printed, not held (set by f32 rounding of
+   the positions there: `LEVEL_PHASES`), kernels 2-5
+   held to their plain versions on zero covariances at phase 2's shapes
+   and tolerances on the trained weights, 16 graphed steps against eager
+   ones, ms per graphed step beside phase 4b's.
+20. `train.randomized false`: 200 steps with 2 + 4 launches of kernel 2
+   (no view-consistency query) and 1 + 2 of kernel 3 per step, no draws;
+   served with `val.randomized true` (every chunk randomized by the same
+   numbers, drawn once from a generator seeded with 0): two graphed
+   renders bit-equal, graph bit-equal to eager chunks; the view on the
+   card against the CPU with the same draws; the step against the CPU,
+   graphed against eager, ms per step beside phase 4's. 20m: mip-NeRF at
+   `nerf.num_levels 1` with `nerf.density_noise 1.0` and
+   `loss.ort_loss 0.1` (kernel 3 forward and backward on the one level),
+   64 steps, served randomized (8 kernel-3 forwards per panorama), the
+   same checks.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -221,6 +253,17 @@ TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=1e-2, albedo=2e-2,
 
 # The phase `main` is in, for the `[fail]` line.
 PHASE = "1"
+START = time.perf_counter()
+
+
+def enter_phase(name: str) -> None:
+    """Mark the start of phase `name` (what a failure names) and print the
+    seconds since the script started, so a call's log shows where its
+    wall time went."""
+    global PHASE
+    PHASE = name
+    print(f"[clock] phase {name} at {time.perf_counter() - START:.1f} s",
+          flush=True)
 
 
 class CheckFailed(AssertionError):
@@ -536,13 +579,18 @@ EVAL_LAUNCHES = {CONFIG: {"fused_render_level": 96},
                                  "fused_mlp_normals_fwd": 32}}
 
 
-def eval_launches(config: str, env_resample: bool = False) -> dict:
+def eval_launches(config: str, env_resample: bool = False,
+                  levels: int = 2) -> dict:
     """Kernel launches per 128x256 val panorama of `config`:
-    `EVAL_LAUNCHES`, and with `nerf.env_resample` on kernel 4's route a
-    fourth launch per 1,024-ray chunk (the resampled env march)."""
+    `EVAL_LAUNCHES`, with `nerf.env_resample` on kernel 4's route a
+    further launch per 1,024-ray chunk (the resampled env march), and one
+    more or fewer per chunk for each level above or below two (kernel 4;
+    mip-NeRF's kernel 2)."""
     want = dict(EVAL_LAUNCHES[config])
-    if env_resample and "fused_render_level" in want:
-        want["fused_render_level"] += 32
+    if "fused_render_level" in want:
+        want["fused_render_level"] += 32 * (env_resample + levels - 2)
+    elif config == MIP_CONFIG:
+        want["fused_mlp_ipe_fwd"] += 8 * (levels - 2)
     return want
 
 
@@ -579,19 +627,21 @@ def forbid_plain_versions():
 
 
 def drive_main_path(workdir: str, scene: str, weights: list,
-                    step: int = 0, config: str = CONFIG, opts=()) -> dict:
+                    step: int = 0, config: str = CONFIG, opts=(),
+                    name: str = "") -> dict:
     """Render every val panorama through the eval entry point (graphed:
     one chunk-graph replay per `val.chunk_size` rays) with the system of
-    `config` and the overrides `opts`; returns the eval metrics and the
-    launch counts of the run. `weights` are the entry's weight arguments
-    (`--init_seed 0`, or `--ckpt_dir` of a training run)."""
+    `config` and the overrides `opts` into `workdir`/`name` (by default
+    named after them); returns the eval metrics and the launch counts of
+    the run. `weights` are the entry's weight arguments (`--init_seed
+    0`, or `--ckpt_dir` of a training run)."""
     from pano_nerf_tpu_torch import eval as eval_entry
     from pano_nerf_tpu_torch.engine.validation import PRODUCTS
     from pano_nerf_tpu_torch.kernels import counters
     mip = config == MIP_CONFIG
-    out = os.path.join(workdir, _stem(config) + "eval_"
-                       + "_".join(weights[:1]).strip("-")
-                       + ("_study" if opts else ""))
+    out = os.path.join(workdir, name or (
+        _stem(config) + "eval_" + "_".join(weights[:1]).strip("-")
+        + ("_study" if opts else "")))
     argv = (["--data_path", scene, "--out_dir", out] + weights
             + ["--config", config, "train.sample_num", "'n0_1'", *opts])
     restore = forbid_plain_versions()
@@ -611,8 +661,10 @@ def drive_main_path(workdir: str, scene: str, weights: list,
     # Per panorama; the chunk graph's capture first ran eager warm-up
     # chunks (counted apart).
     from pano_nerf_tpu_torch.core.config import load_config
-    per_pano = eval_launches(config, bool(load_config(config, list(
-        opts)).get("nerf.env_resample", False)))
+    hp = load_config(config, list(opts))
+    per_pano = eval_launches(config, bool(hp.get("nerf.env_resample",
+                                                 False)),
+                             int(hp["nerf.num_levels"]))
     for k in launches:
         want = per_pano.get(k, 0) * n + warmup.get(k, 0)
         if launches[k] != want:
@@ -669,9 +721,10 @@ def eager_render(system, rays, enable_surf: bool = True) -> dict:
     names = system.render_products(enable_surf)
     with torch.no_grad():
         packed = system.packed()
+        draws = system.eval_draws()   # None unless val.randomized
         outs = [system.render_chunk(rays_map(
             lambda x: x[i:i + chunk].contiguous(), rays), packed,
-            enable_surf) for i in range(0, n + pad, chunk)]
+            enable_surf, draws) for i in range(0, n + pad, chunk)]
         host = torch.cat(outs, 0)[:n].cpu()
     parts, col = {}, 0
     for name, width in names:
@@ -719,6 +772,15 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
                                     ds[0][0]), dev)
     render_fn = system.make_render_image(system.surface)
     graphed = render_fn(None, flat)
+    if system.val_randomized:
+        # A randomized render replays the same draws: two renders agree.
+        again = render_fn(None, flat)
+        same = all(torch.equal(graphed[k], again[k]) for k in graphed)
+        print(f"{tag} val.randomized: two graphed renders bit-equal: "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError("two randomized renders of the same "
+                                 "weights differ")
     eager = eager_render(system, flat, system.surface)
     errs = {k: float((graphed[k] - eager[k]).abs().max()) for k in eager}
     limit = tol if tol is not None else 0.0 if opts else 1e-4
@@ -754,31 +816,73 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
 
 
 def check_against_plain(scene: str, config: str = CONFIG,
-                        tag: str = "[check]") -> None:
-    """A 16x32 view of the scene rendered by the system of `config` on the
-    card (kernels) and on the CPU (plain versions) with the same weights
-    must agree."""
+                        tag: str = "[check]", opts=(), params=None,
+                        shifts: int = 0) -> None:
+    """A 16x32 view of the scene rendered by the system of `config` (with
+    the overrides `opts`; weights from seed 0, or a checkpoint's
+    `params`) on the card (kernels) and on the CPU (plain versions) must
+    agree: each product within 5e-2, the normals' median cosine above
+    0.99. Under `val.randomized` both renders take the same draws, made
+    on the CPU from a generator seeded with 0. With `shifts` the CPU
+    also renders the view with its ray origins moved by 1e-6 (numpy
+    seeds 0..shifts-1), each product's bound becomes the larger of 5e-2
+    and twice the CPU's own largest change, and the normals are printed,
+    not held: where f32 rounding of the positions sets the render
+    (`nerf.disable_integration`), the card is held to the CPU no tighter
+    than the CPU holds itself."""
     import numpy as np
     import torch
     from pano_nerf_tpu_torch.engine import validation as V
-    out = {}
-    for dev in ("cuda", "cpu"):
-        system, ds = _eval_system(scene, config, dev, factor=32)
-        out[dev] = V.render_full_pano(
-            system.make_render_image(system.surface), None, ds[0][0], ds.h,
-            ds.w, torch.device(dev))
+    out, draws = {}, None
+    for dev in ("cpu", "cuda"):
+        system, ds = _eval_system(scene, config, dev, factor=32, opts=opts)
+        if params is not None:
+            system.model.load_params({k: v.to(dev) for k, v in
+                                      params.items()})
+        if system.val_randomized and draws is None:
+            draws = system.make_draws(system.val_chunk_size,
+                                      torch.Generator().manual_seed(0),
+                                      eval_counts=True)
+        on_dev = None if draws is None else type(draws)(
+            *(None if x is None else x.to(dev) for x in draws))
+        render = system.make_render_image(system.surface, draws=on_dev)
+        rays = ds[0][0]
+        out[dev] = V.render_full_pano(render, None, rays, ds.h, ds.w,
+                                      torch.device(dev))
+        if dev == "cpu":
+            for seed in range(shifts):
+                d = np.random.default_rng(seed).normal(
+                    size=rays.origins.shape)
+                d *= 1e-6 / np.linalg.norm(d, axis=-1, keepdims=True)
+                moved = rays._replace(origins=(rays.origins + d).astype(
+                    rays.origins.dtype))
+                out[f"shift{seed}"] = V.render_full_pano(
+                    render, None, moved, ds.h, ds.w, torch.device(dev))
+    moved = [out[f"shift{seed}"] for seed in range(shifts)]
     for k in ("rgb_fine", "dep_fine", "rgb_coarse", "dep_coarse",
               "albedo", "roughness"):
         if k not in out["cpu"]:
             continue
         err = float(np.abs(out["cuda"][k] - out["cpu"][k]).max())
-        print(f"{tag} {k}: kernel vs plain max abs err {err:.3e}")
-        if not err <= 5e-2:
+        own = max((float(np.abs(m[k] - out["cpu"][k]).max())
+                   for m in moved), default=0.0)
+        tol = max(5e-2, 2 * own)
+        print(f"{tag} {k}: kernel vs plain max abs err {err:.3e} (bound "
+              f"{tol:.3e}" + (f"; the CPU's own change {own:.3e}"
+                              if shifts else "") + ")")
+        if not err <= tol:
             raise AssertionError(f"{k}: kernel render differs from the "
                                  f"plain render by {err}")
-    cos = np.sum(out["cuda"]["normal"] * out["cpu"]["normal"], -1)
-    print(f"{tag} normal cos median {np.median(cos):.5f}")
-    if not np.median(cos) > 0.99:
+    cos = lambda a: float(np.median(np.sum(a["normal"]
+                                           * out["cpu"]["normal"], -1)))
+    card = cos(out["cuda"])
+    if shifts:
+        print(f"{tag} normal cos median {card:.5f} (not held; the CPU's "
+              f"own under the shifts " + ", ".join(f"{cos(m):.5f}"
+                                                   for m in moved) + ")")
+        return
+    print(f"{tag} normal cos median {card:.5f}")
+    if not card > 0.99:
         raise AssertionError("normals of kernel and plain render disagree")
 
 
@@ -826,7 +930,7 @@ def _train_batch(model, env, dev, batch: int = 512) -> dict:
     with torch.no_grad():
         t0, (m0, c0) = mip.sample_along_rays(
             rays.origins, rays.directions, rays.radii,
-            cfg.train_coarse_samples(), rays.near, rays.far,
+            cfg.coarse_samples(False), rays.near, rays.far,
             t_rand=draws.t_coarse)
         v = model._venc(rays.viewdirs)
         raw_rgb, raw_den = fused_mlp_ipe_reference(model.mlp, m0, c0, v, **kw)
@@ -1048,7 +1152,7 @@ def mip_shapes(model, dev) -> dict:
         v = model._venc(rays.viewdirs)
         t0, (m0, c0) = mip.sample_along_rays(
             rays.origins, rays.directions, rays.radii,
-            cfg.train_coarse_samples(), rays.near, rays.far, cfg.disparity,
+            cfg.coarse_samples(False), rays.near, rays.far, cfg.disparity,
             t_rand=draws.t_coarse)
         t1, (m1, c1) = mip.resample_along_rays(
             rays.origins, rays.directions, rays.radii, t0,
@@ -1068,23 +1172,27 @@ def mip_shapes(model, dev) -> dict:
             for k, (n, m, c, v) in calls.items()}
 
 
-def _outs_and_grads(fn, mlp, means, covs, v_enc, **kw):
+def _outs_and_grads(fn, mlp, means, covs, v_enc, dsig_scale=0.1, **kw):
     """Outputs and the gradients of a loss on every output (a mean over
-    the rows, so the gradients are O(1)), w.r.t. the parameters (flat),
-    the means and, apart, the density head (weight and bias, flat)."""
+    the rows, so the gradients are O(1); the density gradient enters as
+    sin(dsig_scale x d raw_sigma / d means)), w.r.t. the parameters
+    (flat), the means, the density head (weight and bias, flat) and the
+    covariances (which carry a gradient where the fenceposts do:
+    `nerf.stop_resample_grad: false`)."""
     import torch
     mlp.zero_grad(set_to_none=True)
     m = means.detach().clone().requires_grad_(True)
-    outs = fn(mlp, m, covs, v_enc, **kw)
+    c = covs.detach().clone().requires_grad_(True)
+    outs = fn(mlp, m, c, v_enc, **kw)
     loss = torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()
     if len(outs) == 3:
-        loss = loss + torch.sin(0.1 * outs[2]).sum()
+        loss = loss + torch.sin(dsig_scale * outs[2]).sum()
     (loss / outs[0][..., 0].numel()).backward()
     flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
     head = torch.cat([mlp.density_layer.weight.grad.reshape(-1),
                       mlp.density_layer.bias.grad])
     mlp.zero_grad(set_to_none=True)
-    return [o.detach() for o in outs], flat, m.grad, head
+    return [o.detach() for o in outs], flat, m.grad, head, c.grad
 
 
 def _rel(a, b) -> float:
@@ -1109,17 +1217,20 @@ def _train_bound_ms(normals: bool, direction: str, rows: int,
 
 def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
                         forward_only=(), tag: str = "[kernel]",
-                        sfx: str = "") -> list:
+                        sfx: str = "", dsig_rms: bool = False) -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
     the shapes `calls` (name -> (normals?, means, covs, v_enc)) of the
     model's main path, built for its `ndc` density channels, and the
     weight-gradient pass on each backward's own operand rows (into
     `wentry`); the shapes in `forward_only` are run forward only and
     without saved activations (as the eval render and the env-distill
-    march run them). Raises on a disagreement. Returns the JSON entries
-    that got a shape (launches filled in by the main path's runs; names
-    carry `sfx`, and only the unsuffixed shapes add into the
-    weight-gradient entry's sums)."""
+    march run them). With `dsig_rms` the loss takes kernel 3's density
+    gradient at 0.1 over its rms instead of at 0.1 (on zero covariances
+    it is ~2^15 times larger, and sin(0.1 x) of it would turn its
+    rounding into other cotangents). Raises on a disagreement. Returns
+    the JSON entries that got a shape (launches filled in by the main
+    path's runs; names carry `sfx`, and only the unsuffixed shapes add
+    into the weight-gradient entry's sums)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -1141,11 +1252,17 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         plain = (k3.fused_mlp_normals_reference if normals
                  else k2.fused_mlp_ipe_reference)
         train = shape not in forward_only
+        scale = 0.1
+        if train and normals and dsig_rms:
+            with torch.no_grad():
+                dsig = plain(mlp, means, covs, v_enc, **kw)[2]
+            scale = 0.1 / float(torch.sqrt(torch.mean(dsig * dsig)))
         if train:
-            got, g_got, m_got, h_got = _outs_and_grads(
-                kern, mlp, means, covs, v_enc, packed=packed, **kw)
-            want, g_want, m_want, h_want = _outs_and_grads(
-                plain, mlp, means, covs, v_enc, **kw)
+            got, g_got, m_got, h_got, c_got = _outs_and_grads(
+                kern, mlp, means, covs, v_enc, dsig_scale=scale,
+                packed=packed, **kw)
+            want, g_want, m_want, h_want, c_want = _outs_and_grads(
+                plain, mlp, means, covs, v_enc, dsig_scale=scale, **kw)
         else:
             with torch.no_grad():
                 got = kern(mlp, means, covs, v_enc, packed=packed, **kw)
@@ -1163,9 +1280,11 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
             errs.update(grad_rel=_rel(g_got, g_want),
                         grad_abs=float((g_got - g_want).abs().max()),
                         head_rel=_rel(h_got, h_want),
-                        dmc_rel=_rel(m_got, m_want))
+                        dmc_rel=_rel(m_got, m_want),
+                        dcov_rel=_rel(c_got, c_want))
             checks += [("grad_rel", grad_tol), ("head_rel", grad_tol),
-                       ("dmc_rel", TRAIN_TOL["dmc_rel"])]
+                       ("dmc_rel", TRAIN_TOL["dmc_rel"]),
+                       ("dcov_rel", TRAIN_TOL["dmc_rel"])]
         if normals:
             errs["dsig_rel"] = _rel(got[2], want[2])
             checks.append(("dsig_rel", TRAIN_TOL["dsig_rel"]))
@@ -1281,24 +1400,26 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
 # written ones. 2e-3 is a tenth of that; bf16 rounding of the density head
 # moves a weight by far less (under 3e-4 on an H100 at both shapes).
 K5_TOL = dict(rgb=2e-2, distance=2e-2, acc=1e-2, weights=2e-3,
-              grad_rel=2e-2, dmc_rel=5e-2, dt_rel=5e-2)
+              grad_rel=2e-2, dmc_rel=5e-2, dcov_rel=5e-2, dt_rel=5e-2)
 K5_OUTS = ("rgb", "distance", "acc", "weights")
 
 
 def _level_grads(fn, mlp, args, coef, **kw):
     """A train level's outputs and the gradients of a random-coefficient
-    loss on all four (a mean over the rays) w.r.t. the parameters (flat),
-    the means and the t_samples."""
+    loss on all four, the weights included (a mean over the rays), w.r.t.
+    the parameters (flat), the means, the t_samples and the covariances."""
     import torch
     mlp.zero_grad(set_to_none=True)
     m = args[0].detach().clone().requires_grad_(True)
+    cv = args[1].detach().clone().requires_grad_(True)
     t = args[3].detach().clone().requires_grad_(True)
-    out = fn(mlp, m, args[1], args[2], t, args[4], **kw)
+    out = fn(mlp, m, cv, args[2], t, args[4], **kw)
     loss = sum(torch.sum(out[k] * c) for k, c in coef.items())
     (loss / m.shape[0]).backward()
     flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
     mlp.zero_grad(set_to_none=True)
-    return {k: v.detach() for k, v in out.items()}, flat, m.grad, t.grad
+    return ({k: v.detach() for k, v in out.items()}, flat, m.grad, t.grad,
+            cv.grad)
 
 
 def check_train_render_kernel(model, dev, levels, wentry: dict,
@@ -1330,7 +1451,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
         coef = {k: torch.randn(sh, generator=g, device=dev) for k, sh in (
             ("rgb", (R, 3)), ("acc", (R,)), ("distance", (R,)),
             ("weights", (R, S)))}
-        want, gp_want, gm_want, gt_want = _level_grads(
+        want, gp_want, gm_want, gt_want, gc_want = _level_grads(
             k5.fused_render_train_reference, mlp, args, coef, **kw)
         runs = {}
         for save_acts in (False, True):
@@ -1339,7 +1460,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
                                            packed=packed, **kw)
         torch.cuda.synchronize()
         errs = {}
-        for save_acts, (got, gp, gm, gt) in runs.items():
+        for save_acts, (got, gp, gm, gt, gc) in runs.items():
             sfx = "_spill" if save_acts else ""
             for k in K5_OUTS:
                 errs[k + sfx] = float((got[k] - want[k]).abs().max())
@@ -1348,6 +1469,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
                                     f"{errs[k + sfx]:.3e} > {K5_TOL[k]}")
             for k, (a, b) in dict(grad_rel=(gp, gp_want),
                                   dmc_rel=(gm, gm_want),
+                                  dcov_rel=(gc, gc_want),
                                   dt_rel=(gt, gt_want)).items():
                 errs[k + sfx] = _rel(a, b)
                 if not errs[k + sfx] <= K5_TOL[k]:
@@ -1576,25 +1698,34 @@ SHADOW_WINDOW = int(0.7 * TRAIN_STEPS) - 4
 # for the fine one with the orientation loss (`ort`). Each backward is
 # two launches, the row pass and the weight-gradient pass; no model path
 # calls kernel 1.
+#
+# `levels` (`nerf.num_levels`): every level before Pano-NeRF's fine one
+# is a coarse-like level (kernel 5 with the key on, else kernel 2); at one
+# level there is no fine level, so no kernel 3, view consistency or env
+# march. `vc`: the view-consistency re-query, off with
+# `train.randomized: false` (as the draws-dependent switches are).
 def per_step_launches(render_kernel: bool, mip: bool = False,
                       ort: bool = False, tight: bool = False,
                       distill: bool = False, noise: bool = False,
                       probe: bool = False, resample: bool = False,
-                      point: bool = False) -> dict:
+                      point: bool = False, levels: int = 2,
+                      vc: bool = True) -> dict:
     fwd_only = 0
     if mip:
-        fwd = dict(fused_mlp_ipe_fwd=1 if ort else 2,
+        fwd = dict(fused_mlp_ipe_fwd=levels - 1 if ort else levels,
                    fused_mlp_normals_fwd=1 if ort else 0,
                    fused_render_train_fwd=0, fused_mlp_apply_fwd=0)
     else:
         k5 = render_kernel and not noise
-        env_k5 = k5 and not tight and not resample
-        fwd = dict(fused_mlp_ipe_fwd=(1 + (not k5) + (not env_k5)
-                                      + (tight and not resample) + point),
-                   fused_mlp_normals_fwd=1,
-                   fused_render_train_fwd=k5 + env_k5,
+        fine = levels >= 2
+        env_k5 = fine and k5 and not tight and not resample
+        before = levels - fine
+        fwd = dict(fused_mlp_ipe_fwd=(before * (not k5) + fine * (
+            vc + (not env_k5) + (tight and not resample) + point)),
+                   fused_mlp_normals_fwd=int(fine),
+                   fused_render_train_fwd=before * k5 + env_k5,
                    fused_mlp_apply_fwd=0)
-        fwd_only = distill + probe + resample
+        fwd_only = fine * (distill + probe + resample)
     want = dict(fwd)
     for k, n in fwd.items():
         want[k.replace("_fwd", "_bwd")] = 2 * n
@@ -1608,12 +1739,13 @@ def _family(system) -> dict:
     launches per train step and per val panorama."""
     cfg = system.model.cfg
     mip = not system.surface
+    rnd = system.train_randomized
     ort = mip and system.hparams["loss.ort_loss"] > 0
     k5 = cfg.use_train_render_kernel and not mip
     tight = cfg.env_tight_rgb > 0
-    distill = cfg.env_distill_samples > 0
-    study = dict(noise=cfg.density_noise > 0,
-                 probe=cfg.env_mode() == "importance",
+    distill = cfg.env_distill_samples > 0 and rnd
+    study = dict(noise=cfg.density_noise > 0 and rnd,
+                 probe=cfg.env_mode() == "importance" and rnd,
                  resample=cfg.env_resample, point=cfg.point_normals)
     sfx = ("-mip" + ("-ort" if ort else "")) if mip else (
         ("-k5" if k5 else "") + ("-shadow" if distill else "-hdr" if tight
@@ -1625,13 +1757,21 @@ def _family(system) -> dict:
                                   ("illum", cfg.illum_field),
                                   ("point", cfg.point_normals),
                                   ("noise", study["noise"])) if on)
+    elif mip and cfg.density_noise > 0 and rnd:
+        sfx += "-noise"
+    sfx += "".join(tag for tag, on in (
+        (f"-L{cfg.num_levels}", cfg.num_levels != 2),
+        ("-nostop", not cfg.stop_resample_grad),
+        ("-noint", cfg.disable_integration), ("-det", not rnd),
+        ("-valrnd", system.val_randomized)) if on)
     per_pano = eval_launches(MIP_CONFIG if mip else HDR_CONFIG if tight
-                             else CONFIG, cfg.env_resample)
+                             else CONFIG, cfg.env_resample, cfg.num_levels)
     if not system.model.kernels:   # the plain route launches no kernel
         zero = dict.fromkeys(per_step_launches(False), 0)
         return dict(mip=mip, k5=False, sfx=sfx + "-plain", per_pano=zero,
                     per_step=zero)
-    per_step = per_step_launches(k5, mip, ort, tight, distill, **study)
+    per_step = per_step_launches(k5, mip, ort, tight, distill, **study,
+                                 levels=cfg.num_levels, vc=rnd)
     from pano_nerf_tpu_torch.engine.losses import use_scale_distill
     if use_scale_distill(system.hparams):
         # The re-march: one more kernel-2 forward and backward.
@@ -2051,14 +2191,16 @@ def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
     rays = Rays(*(T(getattr(ds.rays, k)[idx]) for k in Rays._fields))
     parts = system.make_train_step(True)(
         system.create_state(), rays, T(ds.images[idx]),
-        type(draws_np)(*(draw(x) for x in draws_np)))
+        None if draws_np is None
+        else type(draws_np)(*(draw(x) for x in draws_np)))
     grads = torch.cat([p.grad.reshape(-1).cpu() for p in system.params()])
     return {k: float(v) for k, v in parts.items()}, grads
 
 
 def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
     """A batch of `num_rays` rays of the trainer's dataset and its draws,
-    made with numpy from `seed`, as `_one_step` takes them."""
+    made with numpy from `seed`, as `_one_step` takes them (None without
+    `train.randomized`)."""
     import numpy as np
     from pano_nerf_tpu_torch.models.mip_nerf import MipDraws
     from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
@@ -2068,14 +2210,28 @@ def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, ds.num_rays, num_rays)
     D = int(hp["nerf.num_ray_samples"])
-    t_coarse = rng.random((num_rays, cfg.train_coarse_samples() + 1))
+    t_coarse = rng.random((num_rays, cfg.coarse_samples(False) + 1))
     u_fine = rng.random((num_rays, cfg.num_samples + 1))
+    if not trainer.system.train_randomized:
+        return idx, None
     draws_np = (TrainDraws(
         t_coarse=t_coarse, u_fine=u_fine,
         t_env=rng.random((num_rays, D, cfg.num_env_samples + 1)),
         d_alt=rng.normal(size=(num_rays, 3))) if trainer.system.surface
         else MipDraws(t_coarse=t_coarse, u_fine=u_fine))
+    more = cfg.num_levels - 2
     if not trainer.system.surface:
+        if cfg.density_noise > 0:
+            draws_np = draws_np._replace(
+                noise_coarse=rng.normal(
+                    size=(num_rays, cfg.coarse_samples(False), 1)),
+                noise_fine=rng.normal(size=(num_rays, cfg.num_samples, 1)))
+        if more > 0:
+            draws_np = draws_np._replace(u_more=rng.random(
+                (more, num_rays, cfg.num_samples + 1)))
+            if cfg.density_noise > 0:
+                draws_np = draws_np._replace(noise_more=rng.normal(
+                    size=(more, num_rays, cfg.num_samples, 1)))
         return idx, draws_np
     if cfg.env_distill_samples > 0:
         draws_np = draws_np._replace(
@@ -2098,23 +2254,30 @@ def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
     if cfg.density_noise > 0:
         draws_np = draws_np._replace(
             noise_coarse=rng.normal(size=(num_rays,
-                                          cfg.train_coarse_samples(), 1)),
+                                          cfg.coarse_samples(False), 1)),
             noise_fine=rng.normal(size=(num_rays, cfg.num_samples, 1)))
     from pano_nerf_tpu_torch.engine.losses import use_scale_distill
     if use_scale_distill(hp):
         draws_np = draws_np._replace(
             t_sd=rng.random((num_rays, cfg.num_env_samples + 1)))
+    if more > 0:
+        draws_np = draws_np._replace(u_more=rng.random(
+            (more, num_rays, cfg.num_samples + 1)))
+        if cfg.density_noise > 0:
+            draws_np = draws_np._replace(noise_more=rng.normal(
+                size=(more, num_rays, cfg.num_samples, 1)))
     return idx, draws_np
 
 
-def grad_errors(trainer, seeds, num_rays: int = 64) -> list:
+def grad_errors(trainer, seeds, num_rays: int = 64,
+                normal_free: bool = True) -> list:
     """For each seed's batch, from the trainer's parameters: one train
     step of the shipped loss on the card, in bf16 on the CPU and in f32
-    on the CPU, and one on the card and one in bf16 on the CPU without the
-    orientation and surface terms. Returns per batch the loss parts of
-    the first three and the squared norms of the gradients' differences
-    (`card`, `cpu`: to f32; `plain`: card to CPU without the two terms)
-    and of their references (`f32`, `cpu_plain`)."""
+    on the CPU, and (`normal_free`) one on the card and one in bf16 on the
+    CPU without the orientation and surface terms. Returns per batch the
+    loss parts of the first three and the squared norms of the gradients'
+    differences (`card`, `cpu`: to f32; `plain`: card to CPU without the
+    two terms) and of their references (`f32`, `cpu_plain`)."""
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
     sd = {k: v.detach().cpu().clone() for k, v in
@@ -2127,63 +2290,95 @@ def grad_errors(trainer, seeds, num_rays: int = 64) -> list:
         card = _one_step(hp, "cuda", *args)
         cpu = _one_step(hp, "cpu", *args)
         f32 = _one_step(dict(hp, **{"train.precision": "f32"}), "cpu", *args)
-        card_p, cpu_p = (_one_step(hp_plain, dev, *args)
-                         for dev in ("cuda", "cpu"))
         out.append(dict(parts=(card[0], cpu[0], f32[0]),
                         card=sq(card[1], f32[1]), cpu=sq(cpu[1], f32[1]),
-                        f32=sq(f32[1]), plain=sq(card_p[1], cpu_p[1]),
-                        cpu_plain=sq(cpu_p[1])))
+                        f32=sq(f32[1])))
+        if normal_free:
+            card_p, cpu_p = (_one_step(hp_plain, dev, *args)
+                             for dev in ("cuda", "cpu"))
+            out[-1].update(plain=sq(card_p[1], cpu_p[1]),
+                           cpu_plain=sq(cpu_p[1]))
     return out
 
 
 GRAD_BATCHES = 16
 
 
-def check_train_step_against_cpu(trainer, num_rays: int = 64) -> None:
+def check_train_step_against_cpu(trainer, num_rays: int = 64,
+                                 well_conditioned: bool = True) -> None:
     """Train steps on the card (kernels) and on the CPU (plain versions)
-    from the same parameters, batches and numpy-made draws.
+    from the same parameters, batches and numpy-made draws, over
+    GRAD_BATCHES batches.
 
-    Loss parts (first batch) must agree within 5e-2. The gradient of the
-    shipped loss is ill-conditioned in bf16: the orientation and surface
-    terms normalize per-sample density gradients, some of them tiny, so
-    rounding moves it by tens of percent whichever device computes it (the
-    plain bf16 version on the CPU differs from the f32 one as much). A
-    batch's distance is set by its few worst rays, so gradients are held
-    over GRAD_BATCHES batches, each distance the rel-norm of all the
-    batches' gradients together, two ways: (a) the card's gradients of
-    the shipped loss must track the f32 gradients at least as well as the
-    CPU's bf16 gradients do (within 1.5x, as the JAX kernel tests hold
-    their kernels), and (b) without the two normal-dependent terms the
-    card's and the CPU's bf16 gradients must agree at rel-norm 5e-2."""
+    Loss parts are pooled over the batches (each part's summed absolute
+    difference over its summed absolute CPU value) and must agree within
+    5e-2. The gradient of the shipped loss is ill-conditioned in bf16: the
+    orientation and surface terms normalize per-sample density gradients,
+    some of them tiny, so rounding moves it by tens of percent whichever
+    device computes it (the plain bf16 version on the CPU differs from
+    the f32 one as much). A batch's distance is set by its few worst
+    rays, so it is held two ways: (a) the card's gradients of the shipped
+    loss must track the f32 gradients about as well as the CPU's bf16
+    gradients do: the median over the batches of the per-batch ratio
+    (card's distance to f32 over the CPU's) within 1.5, as the JAX kernel
+    tests hold their kernels (a median, since one batch's ratio ranged
+    0.1-9.4 on correct kernels: `scripts/torch_check_spread.py`,
+    `scripts/check_statistics.py`); and (b) without the two
+    normal-dependent terms the card's and the CPU's bf16 gradients must
+    agree at rel-norm 5e-2, all the batches' gradients together. Where
+    the rounding of the positions sets the f32 gradient and the normals
+    (not `well_conditioned`: phase 19) (b) is not run, as the CPU's own
+    bf16 gradient is as far from its f32 one as from the card's, and the
+    parts that read the normals (`NORMAL_PARTS`) are printed, not
+    held."""
     import math
+    import statistics
     tag = f"[check{_family(trainer.system)['sfx']}]"
-    errs = grad_errors(trainer, range(5, 5 + GRAD_BATCHES), num_rays)
+    errs = grad_errors(trainer, range(5, 5 + GRAD_BATCHES), num_rays,
+                       well_conditioned)
     failures = []
     card, cpu, f32 = errs[0]["parts"]
-    for k, want in cpu.items():
-        got = card[k]
-        err = abs(got - want) / max(abs(want), 1e-12)
-        print(f"{tag} train step {k}: card {got:.6e} cpu {want:.6e} "
-              f"(f32 {f32[k]:.6e}) rel {err:.3e}")
-        if not (err <= 5e-2 or abs(got - want) <= 1e-9):
+    for k in cpu:
+        diffs = [abs(e["parts"][0][k] - e["parts"][1][k]) for e in errs]
+        refs = [abs(e["parts"][1][k]) for e in errs]
+        err = sum(diffs) / max(sum(refs), 1e-12)
+        print(f"{tag} train step {k}: pooled rel {err:.3e} over "
+              f"{GRAD_BATCHES} batches (bound 5e-2); first batch card "
+              f"{card[k]:.6e} cpu {cpu[k]:.6e} (f32 {f32[k]:.6e}); per batch "
+              + " ".join(f"{d / max(r, 1e-12):.1e}"
+                         for d, r in zip(diffs, refs)))
+        diff = sum(diffs)
+        if not well_conditioned and k in NORMAL_PARTS:
+            print(f"{tag} train step {k}: not held (reads the normals)")
+        elif not (err <= 5e-2 or diff <= 1e-9 * GRAD_BATCHES):
             failures.append(k)
     rel = lambda e, d, ref: math.sqrt(e[d] / e[ref])
     each = lambda d, ref: " ".join(f"{rel(e, d, ref):.3e}" for e in errs)
+    ratios = [rel(e, "card", "cpu") for e in errs]
+    median = statistics.median(ratios)
     tot = {d: sum(e[d] for e in errs) for d in errs[0] if d != "parts"}
     e_card, e_cpu = rel(tot, "card", "f32"), rel(tot, "cpu", "f32")
     print(f"{tag} train step gradients vs f32 over {GRAD_BATCHES} batches "
-          f"of {num_rays} rays: card {e_card:.3e}, cpu bf16 {e_cpu:.3e} "
-          f"(card must be <= 1.5x cpu); per batch card {each('card', 'f32')}"
-          f"; cpu bf16 {each('cpu', 'f32')}")
-    if not e_card <= 1.5 * e_cpu:
+          f"of {num_rays} rays: median of the per-batch ratios card / cpu "
+          f"bf16 {median:.3f} (must be <= 1.5); pooled card {e_card:.3e}, "
+          f"cpu bf16 {e_cpu:.3e} (ratio {e_card / e_cpu:.3f}, not held); "
+          f"per batch ratio " + " ".join(f"{r:.3f}" for r in ratios)
+          + f"; card {each('card', 'f32')}; cpu bf16 {each('cpu', 'f32')}")
+    if not median <= 1.5:
         failures.append("grads vs f32")
-    e = rel(tot, "plain", "cpu_plain")
-    print(f"{tag} train step gradients without the orientation and "
-          f"surface terms (mip-NeRF's shipped loss has neither): card vs "
-          f"cpu rel-norm {e:.3e} over {GRAD_BATCHES} batches (tolerance "
-          f"5e-2); per batch {each('plain', 'cpu_plain')}")
-    if not e <= 5e-2:
-        failures.append("grads without normal terms")
+    if well_conditioned:
+        e = rel(tot, "plain", "cpu_plain")
+        print(f"{tag} train step gradients without the orientation and "
+              f"surface terms (mip-NeRF's shipped loss has neither): card "
+              f"vs cpu rel-norm {e:.3e} over {GRAD_BATCHES} batches "
+              f"(tolerance 5e-2); per batch {each('plain', 'cpu_plain')}")
+        if not e <= 5e-2:
+            failures.append("grads without normal terms")
+    else:
+        print(f"{tag} train step gradients without the orientation and "
+              f"surface terms: not held (the f32 gradient moves 0.64 under "
+              f"1e-6 shifts of the ray origins here, "
+              f"scripts/torch_grad_conditioning.py)", flush=True)
     if failures:
         raise AssertionError(f"train step on the card differs from the CPU "
                              f"in {failures}")
@@ -2483,8 +2678,7 @@ def drive_plain_phase(ph: int, workdir: str, scene: str,
     graph against eager chunks; the step against the CPU (15: in f32),
     graphed steps against eager ones, ms per step beside phase 4's; 15
     also the profile. Returns the run (its launches)."""
-    global PHASE
-    PHASE = str(ph)
+    enter_phase(str(ph))
     config, opts = PLAIN_PHASES[ph]
     run = drive_train_path(workdir, scene, config=config, opts=opts,
                            steps=PLAIN_STEPS, name=f"phase{ph}")
@@ -2541,6 +2735,119 @@ def drive_plain_phase(ph: int, workdir: str, scene: str,
     return run
 
 
+# Phases 19-20: JAX's level loop and the last model and system keys on
+# `configs/panonerf.yaml`. 19: three levels with the resampling gradient
+# and without integration, key on; 20: the deterministic train step,
+# served randomized; 20m: mip-NeRF at one level with density noise and
+# the orientation loss (kernel 3 on the one level), served randomized.
+# Without integration every IPE degree reaches the MLP unattenuated and
+# the step's gradient is set by f32 rounding of the sample positions
+# (moving every ray origin by 1e-6 moves the f32 gradient by 6e-2, 0.64
+# with the other two keys: `scripts/torch_grad_conditioning.py`), and so
+# are the normals (the same shifts leave the CPU's own at a median cosine
+# of -0.04-0.11 with its unshifted render). So 19 holds the median ratio
+# and the loss parts that do not read the normals, and kernels 2-5 to
+# their plain versions on zero covariances on the same inputs; its
+# served view is held card vs CPU within twice the CPU's own change
+# under 1e-6 shifts (`check_against_plain(shifts=)`).
+LEVELS_3 = ("nerf.num_levels", "3", "nerf.stop_resample_grad", "False",
+            "nerf.disable_integration", "True")
+VAL_RANDOMIZED = ("val.randomized", "True")
+# phase -> (config, opts, kernel 5's key, steps, served opts)
+LEVEL_PHASES = {
+    "19": (CONFIG, LEVELS_3, True, TRAIN_STEPS, ()),
+    "20": (CONFIG, ("train.randomized", "False"), False, TRAIN_STEPS,
+           VAL_RANDOMIZED),
+    "20m": (MIP_CONFIG, ("nerf.num_levels", "1", "nerf.density_noise",
+                         "1.0", "loss.ort_loss", "0.1"), False, 64,
+            VAL_RANDOMIZED),
+}
+
+
+def check_zero_covariance_kernels(system) -> None:
+    """Kernels 2-5 against their plain versions on zero covariances (what
+    `nerf.disable_integration` hands them: every IPE degree unattenuated)
+    at phase 2's shapes and tolerances, on the system's trained weights:
+    kernel 4 at an eval chunk's three levels, kernels 2 and 3 (forward
+    and backward) at a train step's four calls, kernel 5 at its two
+    levels. The entries are not reported: the shapes are phase 2's."""
+    import torch
+    model, env, dev = system.model, system.env_rays, system.device
+    zero = lambda xs: tuple(torch.zeros_like(x) if i == 1 else x
+                            for i, x in enumerate(xs))
+    shapes = {n: (list(zero(args)), kw)
+              for n, (args, kw) in main_path_inputs(model, env,
+                                                    dev).items()}
+    with torch.no_grad():
+        check_kernels(model, env, dev, shapes=shapes, sfx="_noint",
+                      tag="[kernel-noint]")
+    calls, levels, _ = train_shapes(model, env, dev)
+    calls = {n: (nm, m, torch.zeros_like(c), v)
+             for n, (nm, m, c, v) in calls.items()}
+    levels = {n: zero(args) for n, args in levels.items()}
+    wentry = _wgrad_entry()
+    check_train_kernels(model, dev, calls, wentry, tag="[kernel-noint]",
+                        sfx="_noint", dsig_rms=True)
+    check_train_render_kernel(model, dev, levels, wentry, sfx="_noint",
+                              tag="[kernel-noint]")
+
+
+def drive_level_phase(ph: str, workdir: str, scene: str,
+                      base_times: dict) -> list:
+    """Phase `ph` of `LEVEL_PHASES`: its steps through the train entry
+    point (graphed, exact launch counts, over 200 steps the loss
+    falling), the checkpoint served through `eval --ckpt_dir` (20, 20m:
+    randomized), the panorama's chunk graph bit-equal to eager chunks and
+    ms per panorama, a view of the checkpoint rendered on the card and on
+    the CPU (`check_against_plain`); the step against the CPU
+    (`check_train_step_against_cpu`; 19 without the normal-free gradient,
+    and kernels 2-5 on zero covariances against their plain versions,
+    `check_zero_covariance_kernels`), 16 graphed steps against eager
+    ones, ms per graphed step beside phase 4's (19: 4b's, key on).
+    Returns the runs (their launches)."""
+    import torch
+    enter_phase(ph)
+    dev = torch.device("cuda")
+    config, opts, key, steps, served_opts = LEVEL_PHASES[ph]
+    mip = config == MIP_CONFIG
+    name = f"phase{ph}"
+    run = drive_train_path(workdir, scene, render_kernel=key, config=config,
+                           opts=opts, steps=steps, name=name)
+    trainer = run.pop("trainer")
+    family = _family(trainer.system)
+    tag = f"[{name}{family['sfx']}]"
+    print(f"{tag} launches per step " + json.dumps(
+        {k: v for k, v in family["per_step"].items() if v})
+        + " and per panorama " + json.dumps(
+            {k: v for k, v in family["per_pano"].items() if v})
+        + " (counted exactly over the run)", flush=True)
+    served_opts = opts + served_opts
+    served = drive_main_path(workdir, scene, ["--ckpt_dir", run["save_dir"]],
+                             step=steps, config=config, opts=served_opts,
+                             name=name + "_served")
+    params = trainer.ckpt.restore(map_location=dev)["params"]
+    where_the_time_goes(scene, params=params, tag=f"[eval-{name}]",
+                        config=config, opts=served_opts)
+    noint = "nerf.disable_integration" in opts
+    check_against_plain(scene, config, tag=f"[check-{name}]",
+                        opts=served_opts, params=params,
+                        shifts=2 if noint else 0)
+    check_train_step_against_cpu(trainer, well_conditioned=not noint)
+    if noint:
+        check_zero_covariance_kernels(trainer.system)
+    check_graphed_against_eager(trainer)
+    ms = time_train_modes(trainer, steps=16)
+    g8 = "graph, 8 steps per replay"
+    base = "" if mip else (
+        f" vs phase 4{'b' if key else ''} in this call "
+        f"{base_times[bool(key)][g8]:.3f}")
+    print(f"[time-{name}] graph of 8 steps {ms[g8]:.3f} ms per step "
+          f"(one-step graph {ms['graph, 1 step per replay']:.3f}, "
+          f"eager {ms['eager']:.3f}){base}", flush=True)
+    del trainer
+    return [run, served]
+
+
 def main() -> int:
     try:
         import torch
@@ -2551,7 +2858,6 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the card only",
               file=sys.stderr)
         return 2
-    global PHASE
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "pano_nerf_tpu_torch", "csrc")):
         print("pano_nerf_tpu_torch not found beside chip_smoke.py: run it "
@@ -2574,7 +2880,7 @@ def main() -> int:
         hp, torch.Generator().manual_seed(0)).to(dev)
     env = rays_to_tensors(generate_lit_rays(hp["nerf.num_ray_samples"],
                                             far=10.0, radius=0.0142), dev)
-    PHASE = "2"
+    enter_phase("2")
     with torch.no_grad():
         entry = check_kernels(model, env, dev)
     calls, levels, surf = train_shapes(model, env, dev)
@@ -2588,7 +2894,7 @@ def main() -> int:
         sfx="_presets")
     del calls, levels, surf
     # 2s: the study switches' kernel shapes.
-    PHASE = "2s"
+    enter_phase("2s")
     k2k3_s, k5_s, k4_s = study_shapes(model, env, dev)
     study_entries = check_train_kernels(
         model, dev, k2k3_s, wentry, forward_only=("probe",),
@@ -2601,11 +2907,11 @@ def main() -> int:
                                            tag="[kernel-study]"))
     del k2k3_s, k5_s, k4_s
     # 2d: kernel 2 on the scale-distill re-march.
-    PHASE = "2d"
+    enter_phase("2d")
     sd_entries = check_train_kernels(
         model, dev, scale_distill_shapes(model, env, dev), wentry,
         tag="[kernel-sd]", sfx="_sd")
-    PHASE = "2m"
+    enter_phase("2m")
     mip_model = MipNeRF.from_hparams(
         load_config(MIP_CONFIG), torch.Generator().manual_seed(0)).to(dev)
     mip_entries = check_train_kernels(
@@ -2615,12 +2921,12 @@ def main() -> int:
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
-        PHASE = "3"
+        enter_phase("3")
         scene = make_scene(workdir)
         run = drive_main_path(workdir, scene, ["--init_seed", "0"])
         where_the_time_goes(scene)
         check_against_plain(scene)
-        PHASE = "4"
+        enter_phase("4")
         train = drive_train_path(workdir, scene)
         train_k5 = drive_train_path(workdir, scene, render_kernel=True)
         print(f"[train-k5] steady train rays/s with the key on "
@@ -2633,7 +2939,7 @@ def main() -> int:
         where_the_time_goes(scene, params=train["trainer"].ckpt.restore(
             map_location=dev)["params"], tag="[eval-trained]")
         base_times = {}
-        PHASE = "5"
+        enter_phase("5")
         for t in (train, train_k5):
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(t["trainer"])
@@ -2642,12 +2948,12 @@ def main() -> int:
         del train["trainer"], train_k5["trainer"]
         # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
         # 8c: with the orientation loss, kernel 3 forward and backward).
-        PHASE = "7"
+        enter_phase("7")
         mip_run = drive_main_path(workdir, scene, ["--init_seed", "0"],
                                   config=MIP_CONFIG)
         where_the_time_goes(scene, tag="[eval-mip]", config=MIP_CONFIG)
         check_against_plain(scene, MIP_CONFIG, tag="[check-mip]")
-        PHASE = "8"
+        enter_phase("8")
         mip_train = drive_train_path(workdir, scene, config=MIP_CONFIG)
         mip_trained = drive_main_path(workdir, scene,
                                       ["--ckpt_dir", mip_train["save_dir"]],
@@ -2667,7 +2973,7 @@ def main() -> int:
         # the checkpoints (9b/10b), one step against the CPU, graphed
         # steps against eager ones (10: across the tie's fall), times and
         # the profile (9c/10c).
-        PHASE = "9"
+        enter_phase("9")
         presets = {c: drive_train_path(workdir, scene, config=c)
                    for c in PRESETS}
         served = {}
@@ -2682,7 +2988,7 @@ def main() -> int:
                 config=c)
         check_against_plain(scene, HDR_CONFIG, tag="[check-hdr]")
         for c, t in presets.items():
-            PHASE = "9c" if c == HDR_CONFIG else "10c"
+            enter_phase("9c" if c == HDR_CONFIG else "10c")
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(
                 t["trainer"],
@@ -2691,7 +2997,7 @@ def main() -> int:
             profile_train_step(t["trainer"])
             del t["trainer"]
         # 11: novel-view frames from a checkpoint of each family.
-        PHASE = "11"
+        enter_phase("11")
         saves = {CONFIG: train["save_dir"],
                  HDR_CONFIG: presets[HDR_CONFIG]["save_dir"],
                  MIP_CONFIG: mip_train["save_dir"]}
@@ -2700,7 +3006,7 @@ def main() -> int:
         # 12-14: the study switches: train, one step against the CPU,
         # graphed steps against eager ones, ms per step; 12 also the
         # freeze inside a graph and its checkpoint served (12b).
-        PHASE = "12"
+        enter_phase("12")
         study = {ph: drive_train_path(workdir, scene, render_kernel=k5,
                                       opts=opts, steps=steps,
                                       name=f"study{ph}")
@@ -2713,7 +3019,7 @@ def main() -> int:
             map_location=dev)["params"], tag="[eval-study12-trained]",
             opts=opts12)
         for ph, t in study.items():
-            PHASE = str(ph)
+            enter_phase(str(ph))
             check_train_step_against_cpu(t["trainer"])
             check_graphed_against_eager(
                 t["trainer"], start_step=STUDY_WINDOW if ph == 12 else 0)
@@ -2731,7 +3037,11 @@ def main() -> int:
         # and the last loss terms on the kernels.
         plain_runs = {ph: drive_plain_phase(ph, workdir, scene, base_times)
                       for ph in PLAIN_PHASES}
-    PHASE = "report"
+        # 19-20: the level loop and the last model and system keys.
+        level_runs = [r for ph in LEVEL_PHASES
+                      for r in drive_level_phase(ph, workdir, scene,
+                                                 base_times)]
+    enter_phase("report")
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
         e["launches"] = train["launches"][e["name"]]
@@ -2756,7 +3066,8 @@ def main() -> int:
                             for r in (run, trained, train, train_k5,
                                       frames[CONFIG]) + mip_runs
                             + preset_runs + study_runs
-                            + tuple(plain_runs.values()))
+                            + tuple(plain_runs.values())
+                            + tuple(level_runs))
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries + mip_entries + preset_entries

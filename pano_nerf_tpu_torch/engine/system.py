@@ -15,7 +15,9 @@ captured, and is what runs on the CPU. A model on the plain route
 `[route] plain on <device>: <reasons>`, and gets no packed kernel
 parameters; one on the kernel route with a width or encoding the
 kernels on its device are not built for (`kernel_build_gaps`) is refused
-with NotImplementedError.
+with NotImplementedError. `train.randomized` and `val.randomized` are
+JAX's: a step draws its random numbers only with the first, and under
+the second every eval chunk is randomized by the same numbers.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ Tensor = torch.Tensor
 
 # Keys whose value needs a training path the port does not have.
 TRAIN_UNSUPPORTED: Dict[str, Callable] = {
-    "train.randomized": lambda v: not bool(v),
     "parallel.num_devices": lambda v: v is not None and int(v) > 1,
 }
 
@@ -187,11 +188,18 @@ class BaseSystem:
         self.model.eval()
         self.white_bkgd = bool(hparams["train.white_bkgd"])
         self.val_chunk_size = int(hparams["val.chunk_size"])
+        # JAX's `randomized` of the train step and of the eval render
+        # (pano_nerf_tpu/engine/system.py:63-64).
+        self.train_randomized = bool(hparams.get("train.randomized", True))
+        self.val_randomized = bool(hparams.get("val.randomized", False))
 
     # ---- the family's parts ----
 
     def _check_ready(self, enable_surf: bool) -> None:
         """Raise if a step or render with `enable_surf` lacks an input."""
+
+    def _check_render(self) -> None:
+        """Raise if the family's eval render cannot serve the config."""
 
     def _check_losses(self) -> None:
         """Raise on a loss key the family's loss cannot honour."""
@@ -207,8 +215,10 @@ class BaseSystem:
                 ) -> Dict[str, Optional[Tensor]]:
         raise NotImplementedError
 
-    def make_draws(self, batch: int, gen: torch.Generator) -> Any:
-        """One step's random numbers, drawn on `gen`'s device."""
+    def make_draws(self, batch: int, gen: torch.Generator,
+                   eval_counts: bool = False) -> Any:
+        """One step's random numbers (at `eval_counts` one randomized eval
+        chunk's), drawn on `gen`'s device."""
         raise NotImplementedError
 
     def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
@@ -218,9 +228,10 @@ class BaseSystem:
 
     def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
                                                               Tensor]],
-                     enable_surf: bool = True) -> Tensor:
-        """The eval forward of one chunk of rays: [chunk, C], the products
-        of `render_products(enable_surf)` side by side. The body the eval
+                     enable_surf: bool = True, draws: Any = None) -> Tensor:
+        """The eval forward of one chunk of rays, randomized by `draws`
+        (`val.randomized`) or deterministic: [chunk, C], the products of
+        `render_products(enable_surf)` side by side. The body the eval
         chunk graph captures."""
         raise NotImplementedError
 
@@ -275,6 +286,15 @@ class BaseSystem:
         state.step = int(saved["step"])
         if state.step_t is not None:
             state.step_t.fill_(state.step)
+
+    def eval_draws(self) -> Any:
+        """The random numbers of every eval chunk under `val.randomized`,
+        else None: JAX renders every chunk with `PRNGKey(0)`, the port
+        draws one chunk's on the device from a generator seeded with 0."""
+        if not self.val_randomized:
+            return None
+        return self.make_draws(self.val_chunk_size, torch.Generator(
+            device=self.device).manual_seed(0), eval_counts=True)
 
     def make_train_step(self, enable_surf: bool) -> Callable:
         """Returns train_step(state, rays, rgbs, draws) -> loss parts.
@@ -359,8 +379,8 @@ class BaseSystem:
         batch drawn on the device, the JAX `one_step` of
         `make_train_step_device_data`. `dataset` is the flattened training
         set on the device (Rays [N, ...], rgbs [N, C]); the batch is drawn
-        uniformly with replacement, then the step's random numbers, all
-        from `gen`."""
+        uniformly with replacement, then (`train.randomized`) the step's
+        random numbers, all from `gen`."""
         rays_all, rgbs_all = dataset
         n = rgbs_all.shape[0]
         step = self.make_train_step(enable_surf)
@@ -369,7 +389,8 @@ class BaseSystem:
             idx = torch.randint(0, n, (batch_size,), generator=gen,
                                 device=self.device)
             rays = rays_map(lambda x: x[idx], rays_all)
-            draws = self.make_draws(batch_size, gen)
+            draws = (self.make_draws(batch_size, gen)
+                     if self.train_randomized else None)
             return step(state, rays, rgbs_all[idx], draws)
 
         return device_step
@@ -429,7 +450,8 @@ class BaseSystem:
         run.graph = graph
         return run
 
-    def make_render_image(self, enable_surf: bool = True) -> Callable:
+    def make_render_image(self, enable_surf: bool = True,
+                          draws: Any = None) -> Callable:
         """Returns render_fn(params, rays) -> dict of [N, C] host tensors.
 
         `params` is a `NerfModel.param_state` dict (loaded into the model
@@ -442,10 +464,21 @@ class BaseSystem:
         (captured at the first call): the chunk is copied into its static
         input rays, and the weights are packed into its static weight
         buffer once per call, so each call renders the current weights.
+
+        With `val.randomized` every chunk is randomized by the same
+        numbers: `draws` (one chunk's, `make_draws(chunk, gen,
+        eval_counts=True)`), by default `eval_draws()`. They stay put in
+        memory, so each replay of the chunk graph reads them, and two
+        renders of the same weights agree.
         """
         self._check_ready(enable_surf)
+        self._check_render()
         model, chunk = self.model, self.val_chunk_size
         names = self.render_products(enable_surf)
+        if not self.val_randomized:
+            draws = None
+        elif draws is None:
+            draws = self.eval_draws()
         graph: Optional[CapturedGraph] = None
         static_rays: Optional[Rays] = None
         static_packed: Optional[Tuple[Tensor, Tensor]] = None
@@ -469,7 +502,7 @@ class BaseSystem:
                 static_packed = (None if packed is None
                                  else tuple(t.clone() for t in packed))
                 graph = CapturedGraph(lambda: self.render_chunk(
-                    static_rays, static_packed, enable_surf))
+                    static_rays, static_packed, enable_surf, draws))
             if self.graphed and packed is not None:
                 for dst, src in zip(static_packed, packed):
                     dst.copy_(src)
@@ -483,7 +516,7 @@ class BaseSystem:
                 else:
                     out = self.render_chunk(rays_map(
                         lambda x: x.contiguous(), chunk_rays), packed,
-                        enable_surf)
+                        enable_surf, draws)
                 slab[start:start + chunk].copy_(out)
             host = slab[:n].cpu()
             parts, col = {}, 0
@@ -521,6 +554,14 @@ class PanoNeRFSystem(BaseSystem):
         if self.env_rays is None and enable_surf:
             raise RuntimeError("call set_env_rays() first")
 
+    def _check_render(self) -> None:
+        if self.model.cfg.num_levels < 2:
+            raise NotImplementedError(
+                f"nerf.num_levels={self.model.cfg.num_levels}: the eval "
+                "products read the fine level's normal and roughness, and "
+                "at one level there is none (nor in JAX, whose render "
+                "raises there: pano_nerf_tpu/engine/system.py:347-354)")
+
     def _check_losses(self) -> None:
         losses_lib.check_loss_config(self.hparams)
 
@@ -535,19 +576,23 @@ class PanoNeRFSystem(BaseSystem):
         return losses_lib.pano_losses(outs, rgbs, mask, self.hparams,
                                       enable_surf, step=step)
 
-    def make_draws(self, batch: int, gen: torch.Generator):
+    def make_draws(self, batch: int, gen: torch.Generator,
+                   eval_counts: bool = False):
         return self.model.make_draws(
             batch, int(self.hparams["nerf.num_ray_samples"]), gen,
-            scale_distill=losses_lib.use_scale_distill(self.hparams))
+            scale_distill=(not eval_counts
+                           and losses_lib.use_scale_distill(self.hparams)),
+            eval_counts=eval_counts)
 
     def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
         return render_products(enable_surf, self.model.cfg.emissive_head)
 
     def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
                                                               Tensor]],
-                     enable_surf: bool = True) -> Tensor:
-        c, f = self.model(rays, self.env_rays, self.white_bkgd, enable_surf,
-                          packed=packed)
+                     enable_surf: bool = True, draws: Any = None) -> Tensor:
+        outs = self.model(rays, self.env_rays, self.white_bkgd, enable_surf,
+                          packed=packed, draws=draws)
+        c, f = outs[0], outs[-1]
         cols = [c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
                 f.normal]
         if enable_surf:
@@ -578,16 +623,18 @@ class MipNeRFSystem(BaseSystem):
     def _losses(self, outs, rgbs, mask, enable_surf, step):
         return losses_lib.mipnerf_losses(outs, rgbs, mask, self.hparams)
 
-    def make_draws(self, batch: int, gen: torch.Generator):
-        return self.model.make_draws(batch, gen)
+    def make_draws(self, batch: int, gen: torch.Generator,
+                   eval_counts: bool = False):
+        return self.model.make_draws(batch, gen, eval_counts=eval_counts)
 
     def render_products(self, enable_surf: bool) -> List[Tuple[str, int]]:
         return render_products(False)
 
     def render_chunk(self, rays: Rays, packed: Optional[Tuple[Tensor,
                                                               Tensor]],
-                     enable_surf: bool = False) -> Tensor:
-        c, f = self.model(rays, self.white_bkgd, packed=packed)
+                     enable_surf: bool = False, draws: Any = None) -> Tensor:
+        outs = self.model(rays, self.white_bkgd, packed=packed, draws=draws)
+        c, f = outs[0], outs[-1]
         return torch.cat([x.float() for x in (
             c.rgb, c.distance[:, None], f.rgb, f.distance[:, None],
             f.normal)], 1)

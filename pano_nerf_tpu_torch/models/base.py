@@ -89,16 +89,19 @@ class LevelOutput(NamedTuple):
 # "auto" resolves from `env_importance` / `env_rotation`, `env_mode`).
 ENV_MODES = ("fixed", "rotated", "stratified", "importance")
 
+# `nerf.ray_shape` is accepted and not read: JAX casts every ray as a cone
+# whatever it says (pano_nerf_tpu/ops/mip.py:85-102 `cast_rays`).
 # Config keys whose non-default value needs a render path the port does
-# not have: key -> predicate that is True when the value is unsupported.
-UNSUPPORTED: Dict[str, Callable] = {
-    "nerf.env_sampling": lambda v: v not in ENV_MODES + ("auto",),
-    "nerf.disable_integration": bool,
-    "nerf.ray_shape": lambda v: v != "cone",
-    "nerf.num_levels": lambda v: int(v) != 2,
-    "nerf.stop_resample_grad": lambda v: not bool(v),
-    "nerf.mlp.num_rgb_channels": lambda v: int(v) != 3,
-    "val.randomized": bool,
+# not have: key -> (predicate that is True when the value is unsupported,
+# what the refusal adds where JAX reads the key but cannot run it either).
+UNSUPPORTED: Dict[str, Tuple[Callable, str]] = {
+    "nerf.env_sampling": (lambda v: v not in ENV_MODES + ("auto",), ""),
+    "nerf.mlp.num_rgb_channels": (
+        lambda v: int(v) != 3,
+        "; JAX cannot train or serve it either: the surface render "
+        "multiplies the radiance with 3-channel albedo and irradiance "
+        "(pano_nerf_tpu/ops/shading.py:127) and the losses meet 3-channel "
+        "targets (pano_nerf_tpu/engine/losses.py:71)"),
 }
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -112,6 +115,12 @@ class NerfConfig:
     num_coarse_samples: int = 0
     num_levels: int = 2
     resample_padding: float = 0.01
+    # Whether the resampled fenceposts carry no gradient back into the
+    # previous level's weights (JAX's `stop_resample_grad`).
+    stop_resample_grad: bool = True
+    # Zero covariances before every MLP query: the point encoding of NeRF
+    # instead of the integrated one (JAX's `disable_integration`).
+    disable_integration: bool = False
     disparity: bool = False
     min_deg_point: int = 0
     max_deg_point: int = 16
@@ -228,16 +237,20 @@ class NerfConfig:
         """Build from a flat dot-key config; raise on unsupported keys.
         `overrides` are fields the model class sets (its density-channel
         count)."""
-        for key, unsupported in UNSUPPORTED.items():
+        for key, (unsupported, why) in UNSUPPORTED.items():
             if key in hparams and unsupported(hparams[key]):
                 raise NotImplementedError(
                     f"{key}={hparams[key]!r} is not supported by the "
-                    "PyTorch/CUDA render path")
+                    "PyTorch/CUDA render path" + why)
         return cls(
             num_samples=int(hparams["nerf.num_samples"]),
             num_coarse_samples=int(hparams.get("nerf.num_coarse_samples", 0)),
             num_levels=int(hparams["nerf.num_levels"]),
             resample_padding=float(hparams["nerf.resample_padding"]),
+            stop_resample_grad=bool(hparams.get("nerf.stop_resample_grad",
+                                                True)),
+            disable_integration=bool(hparams.get("nerf.disable_integration",
+                                                 False)),
             disparity=bool(hparams["nerf.disparity"]),
             min_deg_point=int(hparams["nerf.min_deg_point"]),
             max_deg_point=int(hparams["nerf.max_deg_point"]),
@@ -305,27 +318,43 @@ class NerfConfig:
         return self.deg_view * 3 * 2 + (3 if self.append_identity else 0)
 
     def sample_level(self, rays: Rays, i_level: int,
-                     t_samples: Optional[Tensor], weights: Optional[Tensor]
+                     t_samples: Optional[Tensor], weights: Optional[Tensor],
+                     eval_counts: bool = True, u: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-        """Coarse: evenly spaced frustums; fine: blurpool resampling of the
-        coarse weights. The val.* sample overrides apply (eval counts)."""
+        """Level 0: frustums over [near, far], evenly spaced or stratified
+        by the uniforms `u`; a later level: blurpool resampling of the
+        previous level's weights, evenly or at the uniforms `u`, with the
+        resampling's gradient as `stop_resample_grad` says (JAX
+        `_sample_level`). `eval_counts` applies the val.* sample
+        overrides."""
         if i_level == 0:
-            n = (self.eval_coarse_samples or self.num_coarse_samples
-                 or self.num_samples)
             return mip.sample_along_rays(
                 rays.origins, rays.directions, rays.radii,
-                min(n, self.num_samples), rays.near, rays.far,
-                self.disparity)
+                self.coarse_samples(eval_counts), rays.near, rays.far,
+                self.disparity, t_rand=u)
         return mip.resample_along_rays(
             rays.origins, rays.directions, rays.radii, t_samples, weights,
-            self.resample_padding,
-            num_samples=self.eval_fine_samples or self.num_samples)
+            self.resample_padding, num_samples=self.fine_samples(eval_counts),
+            u_rand=u, stop_grad=self.stop_resample_grad)
 
-    def train_coarse_samples(self) -> int:
-        """Coarse samples of a training step: the coarse-only cut, never
-        more than the fine level's count."""
-        return min(self.num_coarse_samples or self.num_samples,
-                   self.num_samples)
+    def coarse_samples(self, eval_counts: bool) -> int:
+        """Samples of level 0: the coarse-only cut (at eval the
+        val.coarse_samples one), never more than the fine level's count."""
+        n = (self.eval_coarse_samples if eval_counts
+             and self.eval_coarse_samples else self.num_coarse_samples
+             or self.num_samples)
+        return min(n, self.num_samples)
+
+    def fine_samples(self, eval_counts: bool) -> int:
+        """Samples of every resampled level (at eval val.fine_samples)."""
+        return (self.eval_fine_samples if eval_counts
+                and self.eval_fine_samples else self.num_samples)
+
+    def fine_level(self, i_level: int) -> bool:
+        """Whether level `i_level` is Pano-NeRF's fine level, the one with
+        normals and the surface path: the last of two or more (JAX
+        `pano_mip_nerf.py:197, 318-319`; at one level there is none)."""
+        return i_level == self.num_levels - 1 and self.num_levels >= 2
 
     def env_samples(self) -> int:
         """Samples per secondary (irradiance) env ray at eval."""
@@ -437,12 +466,21 @@ class NerfModel(nn.Module):
             raise ValueError("the parameters hold an illuminant field, "
                              "but nerf.illum_field is off")
 
+    def _covs(self, covs: Tensor) -> Tensor:
+        """The covariances an MLP query reads: zeros under
+        `disable_integration` (JAX `_raw_outputs`, :652), on every route
+        and query."""
+        if self.cfg.disable_integration:
+            return torch.zeros_like(covs)
+        return covs
+
     def _query(self, means: Tensor, covs: Tensor, v_enc: Tensor,
                packed: Optional[Tuple[Tensor, Tensor]]
                ) -> Tuple[Tensor, Tensor]:
         """(raw_rgb, raw_density) at Gaussians [..., 3]: kernel 2, or on
         the plain route IPE -> NerfMLP (JAX `_raw_outputs`)."""
         cfg = self.cfg
+        covs = self._covs(covs)
         if self.kernels:
             return fused_mlp_ipe_apply(
                 self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
@@ -457,6 +495,7 @@ class NerfModel(nn.Module):
         the plain route the explicit chain of `models/normals.py` (JAX
         `_raw_outputs_density_grad`)."""
         cfg = self.cfg
+        covs = self._covs(covs)
         if self.kernels:
             return fused_mlp_normals_apply(
                 self.mlp, means, covs, v_enc, min_deg=cfg.min_deg_point,
@@ -532,6 +571,29 @@ class NerfModel(nn.Module):
             self._radiance(raw_rgb, raw_density),
             self._density(self._noisy(raw_density[..., :1], noise)),
             t_samples, dirs, white_bkgd)
+
+
+def level_uniforms(draws, i_level: int) -> Optional[Tensor]:
+    """The uniforms that place level `i_level` in `draws` (a TrainDraws or
+    MipDraws, or None: evenly): the stratification of level 0
+    (`t_coarse`), the resampling jitter of level 1 (`u_fine`) or of a
+    later one (`u_more[i_level - 2]`)."""
+    if draws is None:
+        return None
+    if i_level < 2:
+        return (draws.t_coarse, draws.u_fine)[i_level]
+    return draws.u_more[i_level - 2]
+
+
+def level_noise(draws, i_level: int) -> Optional[Tensor]:
+    """The standard normals on level `i_level`'s raw density in `draws`,
+    or None without density noise (`noise_coarse`, `noise_fine`,
+    `noise_more[i_level - 2]`)."""
+    if draws is None or draws.noise_coarse is None:
+        return None
+    if i_level < 2:
+        return (draws.noise_coarse, draws.noise_fine)[i_level]
+    return draws.noise_more[i_level - 2]
 
 
 def expected_normals(weights: Tensor, normals: Tensor, directions: Tensor,

@@ -21,6 +21,21 @@ Two forwards:
   env queries stay on kernel 2 with the tight re-read, as in JAX. Its
   randomness comes in as `TrainDraws`.
 
+Both run JAX's level loop (`nerf.num_levels`, :193 and :314): level 0
+over [near, far], every later level resampled from the one before (with
+the resampling's gradient into that level's weights unless
+`stop_resample_grad`: kernel 3's moment gradient and kernel 5's weights
+cotangent carry it), the last of two or more the fine level with
+normals and the surface path; at one level there is none, and the one
+level's products stand for both. Randomness comes in as `TrainDraws`:
+in training unless `train.randomized: false` (then evenly placed
+samples, no density noise, the fixed env set and none of the randomized
+products: distortion loss, view consistency, the distills); in eval
+under `val.randomized` (the same draws for every chunk; kernel 4 takes
+them without density noise on the fixed env set, else `_render`, JAX's
+gate :276-289). `disable_integration` zeroes the covariances before
+every MLP query, kernels 4 and 5 included (`NerfModel._covs`).
+
 The tight re-read (`_tight_read`, JAX :593-674) evaluates the MLP again
 through kernel 2 at the env march's means with covariances scaled by
 `env_tight_rgb`: at all S samples, weighted by the blurred march's
@@ -96,7 +111,8 @@ from pano_nerf_tpu_torch.kernels.fused_render import (fused_render_level,
                                                       softplus)
 from pano_nerf_tpu_torch.kernels.fused_render_train import fused_render_train
 from pano_nerf_tpu_torch.models.base import (LevelOutput, NerfConfig,
-                                             NerfModel, expected_normals)
+                                             NerfModel, expected_normals,
+                                             level_noise, level_uniforms)
 from pano_nerf_tpu_torch.models.illum import apply_illum
 from pano_nerf_tpu_torch.ops import mip, shading
 from pano_nerf_tpu_torch.utils import rotation
@@ -106,10 +122,15 @@ Tensor = torch.Tensor
 
 
 class TrainDraws(NamedTuple):
-    """The random numbers of one training forward (JAX draws them from
-    its key schedule inside the step; the port takes them as inputs)."""
+    """The random numbers of one randomized forward: a training step, or
+    under `val.randomized` an eval chunk (at the eval sample counts). JAX
+    draws them from its key schedule inside the step; the port takes them
+    as inputs. Level 1 is the resampled level after the coarse one (the
+    fine level at two levels); the levels after it (`nerf.num_levels` >
+    2) have `u_more` and `noise_more`, drawn after everything else (the
+    fields are not in the order of the draws)."""
     t_coarse: Tensor  # [B, Nc+1] uniforms: coarse stratification
-    u_fine: Tensor    # [B, N+1] uniforms: resampling jitter
+    u_fine: Tensor    # [B, N+1] uniforms: resampling jitter of level 1
     t_env: Tensor     # [B, D, S+1] uniforms: env stratification
     d_alt: Tensor     # [B, 3] standard normals: view-consistency direction
     # With env_distill_samples = S_ed > 0 (else None): the env direction
@@ -129,9 +150,13 @@ class TrainDraws(NamedTuple):
     t_probe: Optional[Tensor] = None  # [B, Dp, Sp+1]
     # env_resample: the second env march's inverse-CDF uniforms.
     u_resample: Optional[Tensor] = None   # [B * D, S_f+1]
-    # density_noise: standard normals on the coarse and fine raw density.
+    # density_noise: standard normals on the raw density of levels 0, 1.
     noise_coarse: Optional[Tensor] = None  # [B, Nc, 1]
     noise_fine: Optional[Tensor] = None    # [B, N, 1]
+    # nerf.num_levels L > 2: levels 2..L-1's resampling jitter and (with
+    # density_noise) the normals on their raw density.
+    u_more: Optional[Tensor] = None       # [L-2, B, N+1]
+    noise_more: Optional[Tensor] = None   # [L-2, B, N, 1]
     # loss.scale_distill(_dist): the re-march's stratification.
     t_sd: Optional[Tensor] = None    # [B, S+1] uniforms, S num_env_samples
 
@@ -158,26 +183,33 @@ class PanoMipNeRF(NerfModel):
 
     def forward(self, rays: Rays, env_rays: Rays, white_bkgd: bool,
                 enable_surf: bool,
-                packed: Optional[Tuple[Tensor, Tensor]] = None
-                ) -> List[LevelOutput]:
-        """Deterministic render of a ray chunk: [coarse, fine] outputs.
+                packed: Optional[Tuple[Tensor, Tensor]] = None,
+                draws: Optional[TrainDraws] = None) -> List[LevelOutput]:
+        """The eval render of a ray chunk: one output per level, the last
+        of two or more the fine one.
 
         rays: [B, ...] primary rays; env_rays: [D, ...] env directions with
         their solid angles in `lossmult`. `packed` is the kernel's packed
         parameters (`fused_render.pack_params(self.mlp)`), reused across
-        chunks. With the tight re-read, kernels 2 and 3 and plain
-        compositing (`_render`, no autograd); on the plain route
-        `_render` through the plain NerfMLP; else kernel 4.
+        chunks. `draws` (`make_draws(eval_counts=True)`) randomize the
+        render (`val.randomized`); without them it is deterministic. With
+        the tight re-read, kernels 2 and 3 and plain compositing
+        (`_render`, no autograd); on the plain route `_render` through the
+        plain NerfMLP; randomized with density noise or another env
+        estimator than the fixed set, `_render` too (JAX's gate, :276-289);
+        else kernel 4.
         """
-        if self.cfg.env_tight_rgb > 0 or not self.kernels:
-            with torch.no_grad():
-                return self._render(rays, env_rays, None, white_bkgd,
-                                    enable_surf, False, False, packed)
         cfg = self.cfg
+        if (cfg.env_tight_rgb > 0 or not self.kernels
+                or (draws is not None and (cfg.density_noise > 0
+                                           or cfg.env_mode() != "fixed"))):
+            with torch.no_grad():
+                return self._render(rays, env_rays, draws, False, white_bkgd,
+                                    enable_surf, False, False, packed)
 
         def level(means, covs, viewdirs, t_samples, dirs, white, need):
             return fused_render_level(
-                self.mlp, means, covs, viewdirs, t_samples, dirs,
+                self.mlp, means, self._covs(covs), viewdirs, t_samples, dirs,
                 min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
                 deg_view=cfg.deg_view, density_bias=cfg.density_bias,
                 rgb_padding=cfg.rgb_padding, white_bkgd=white,
@@ -187,8 +219,9 @@ class PanoMipNeRF(NerfModel):
         t_samples, weights = None, None
         for i_level in range(cfg.num_levels):
             t_samples, (means, covs) = cfg.sample_level(
-                rays, i_level, t_samples, weights)
-            fine = i_level == cfg.num_levels - 1
+                rays, i_level, t_samples, weights,
+                u=level_uniforms(draws, i_level))
+            fine = cfg.fine_level(i_level)
             r = level(means.contiguous(), covs.contiguous(), rays.viewdirs,
                       t_samples.contiguous(), rays.directions, white_bkgd,
                       need=fine)
@@ -204,7 +237,8 @@ class PanoMipNeRF(NerfModel):
                                 + rays.directions * r["distance"][:, None])
                 lit_t, (lm, lc), lit_dirs = mip.sample_env_rays(
                     surf_origins, env_rays.directions, cfg.env_samples(),
-                    env_rays.near, env_rays.far, env_rays.radii)
+                    env_rays.near, env_rays.far, env_rays.radii,
+                    t_rand=None if draws is None else draws.t_env)
                 B, D, S2 = lm.shape[:3]
                 flat_dirs = lit_dirs.reshape(B * D, 3).contiguous()
 
@@ -222,7 +256,8 @@ class PanoMipNeRF(NerfModel):
                     # weights carries the radiance.
                     re = env_level(*self._resample_env(
                         surf_origins, lit_dirs, env_rays.radii, lit_t,
-                        re["weights"].reshape(B, D, S2), None))
+                        re["weights"].reshape(B, D, S2),
+                        None if draws is None else draws.u_resample))
                 env_rgb = re["rgb"].reshape(B, D, 3)
                 if cfg.illum_field:
                     env_rgb = apply_illum(env_rgb,
@@ -237,14 +272,18 @@ class PanoMipNeRF(NerfModel):
 
     def make_draws(self, batch: int, num_dirs: int,
                    generator: torch.Generator,
-                   scale_distill: bool = False) -> TrainDraws:
-        """Draw one step's TrainDraws on the generator's device: the four
-        of every step, then the env-distill pair, the env estimator's,
-        the resampled march's, the density noise and (`scale_distill`)
-        the scale-distill re-march's, each only when its switch is on."""
+                   scale_distill: bool = False,
+                   eval_counts: bool = False) -> TrainDraws:
+        """Draw one randomized forward's TrainDraws on the generator's
+        device: the four of every step, then the env-distill pair (in
+        training), the env estimator's, the resampled march's, the density
+        noise and (`scale_distill`) the scale-distill re-march's, each only
+        when its switch is on, then the levels after level 1's. At
+        `eval_counts` (a randomized eval chunk) the shapes are the eval
+        sample counts'."""
         cfg, dev = self.cfg, generator.device
-        nc, n, s = (cfg.train_coarse_samples(), cfg.num_samples,
-                    cfg.num_env_samples)
+        nc, n = cfg.coarse_samples(eval_counts), cfg.fine_samples(eval_counts)
+        s = cfg.env_samples() if eval_counts else cfg.num_env_samples
 
         def rand(*shape):
             return torch.rand(shape, generator=generator, device=dev)
@@ -255,7 +294,7 @@ class PanoMipNeRF(NerfModel):
         draws = TrainDraws(
             t_coarse=rand(batch, nc + 1), u_fine=rand(batch, n + 1),
             t_env=rand(batch, num_dirs, s + 1), d_alt=randn(batch, 3))
-        if cfg.env_distill_samples > 0:
+        if cfg.env_distill_samples > 0 and not eval_counts:
             draws = draws._replace(
                 ed_idx=torch.randint(0, num_dirs, (batch, 1),
                                      generator=generator, device=dev),
@@ -282,96 +321,125 @@ class PanoMipNeRF(NerfModel):
             draws = draws._replace(noise_coarse=randn(batch, nc, 1),
                                    noise_fine=randn(batch, n, 1))
         if scale_distill:
-            draws = draws._replace(t_sd=rand(batch, s + 1))
+            draws = draws._replace(t_sd=rand(batch, cfg.num_env_samples + 1))
+        more = cfg.num_levels - 2
+        if more > 0:
+            draws = draws._replace(u_more=rand(more, batch, n + 1))
+            if cfg.density_noise > 0:
+                draws = draws._replace(noise_more=randn(more, batch, n, 1))
         return draws
 
-    def train_forward(self, rays: Rays, env_rays: Rays, draws: TrainDraws,
-                      white_bkgd: bool, enable_surf: bool,
-                      use_ort_loss: bool, use_vc_loss: bool,
+    def train_forward(self, rays: Rays, env_rays: Rays,
+                      draws: Optional[TrainDraws], white_bkgd: bool,
+                      enable_surf: bool, use_ort_loss: bool,
+                      use_vc_loss: bool,
                       packed: Optional[Tuple[Tensor, Tensor]] = None
                       ) -> List[LevelOutput]:
-        """Randomized forward of a train step: [coarse, fine] outputs with
-        the distortion, orientation and view-consistency products (and the
-        env-distill pair with env_distill_samples > 0, the scale-distill
-        re-march where the draws hold its uniforms `t_sd`).
+        """The forward of a train step: one output per level, the last of
+        two or more the fine one with the orientation and view-consistency
+        products (and the env-distill pair with env_distill_samples > 0,
+        the scale-distill re-march where the draws hold its uniforms
+        `t_sd`), and every level's distortion loss. Randomized by `draws`;
+        with None (`train.randomized: false`) evenly placed, without noise,
+        on the fixed env set and without the randomized products (the
+        distortion loss, view consistency, the distills: JAX's
+        `randomized` gates).
 
         rays: [B, ...]; env_rays: [D, ...] fixed env directions with their
         solid angles in `lossmult`; `packed` is the kernels' packed
         parameters (`fused_render.pack_params(self.mlp)`), shared by the
         kernel calls of the step.
         """
-        return self._render(rays, env_rays, draws, white_bkgd, enable_surf,
-                            use_ort_loss, use_vc_loss, packed)
+        return self._render(rays, env_rays, draws, True, white_bkgd,
+                            enable_surf, use_ort_loss, use_vc_loss, packed)
 
     def _render(self, rays: Rays, env_rays: Rays,
-                draws: Optional[TrainDraws], white_bkgd: bool,
+                draws: Optional[TrainDraws], train: bool, white_bkgd: bool,
                 enable_surf: bool, use_ort_loss: bool, use_vc_loss: bool,
                 packed: Optional[Tuple[Tensor, Tensor]]
                 ) -> List[LevelOutput]:
-        """The route of kernels 2, 3 (and 5), or of the plain NerfMLP:
-        randomized by `draws` with the training sample counts, or, without
-        draws, deterministic with the eval counts
-        (`NerfConfig.sample_level`, `env_samples`)."""
+        """The route of kernels 2, 3 (and 5), or of the plain NerfMLP,
+        over JAX's level loop (:310-455): with the training sample counts
+        (`train`) or the eval ones; randomized by `draws`, or
+        deterministic without them."""
         cfg = self.cfg
-        train = draws is not None
-        kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
-                  packed=packed)
+        rnd = draws is not None
 
         def kernel_level(scope: str) -> bool:
             # Kernel 5 has no density noise (JAX's gate, :294-296) and
             # takes the kernel route only.
             return (train and cfg.use_train_render_kernel and self.kernels
-                    and cfg.density_noise == 0
+                    and (not rnd or cfg.density_noise == 0)
                     and cfg.train_kernel_scope in ("all", scope))
 
-        def render_level(means, covs, viewdirs, t_samples, dirs, white):
-            r = fused_render_train(
-                self.mlp, means.contiguous(), covs.contiguous(),
-                viewdirs.contiguous(), t_samples.contiguous(),
-                dirs.contiguous(), deg_view=cfg.deg_view,
-                density_bias=cfg.density_bias, rgb_padding=cfg.rgb_padding,
-                white_bkgd=white, save_acts=cfg.train_kernel_save_acts, **kw)
-            return r["rgb"], r["distance"], r["acc"], r["weights"]
-
-        # ---- coarse level ----
-        if train:
-            t0, (m0, c0) = mip.sample_along_rays(
-                rays.origins, rays.directions, rays.radii,
-                cfg.train_coarse_samples(), rays.near, rays.far,
-                cfg.disparity, t_rand=draws.t_coarse)
-        else:
-            t0, (m0, c0) = cfg.sample_level(rays, 0, None, None)
         v = self._venc(rays.viewdirs)
-        if kernel_level("coarse"):
-            comp, dist, acc, w0 = render_level(m0, c0, rays.viewdirs, t0,
-                                               rays.directions, white_bkgd)
-        else:
-            comp, dist, acc, w0 = self._march(
-                m0, c0, v, t0, rays.directions, white_bkgd, packed,
-                noise=draws.noise_coarse if train else None)
-        ret = [LevelOutput(rgb=comp, distance=dist, acc=acc,
-                           dist_loss=(mip.distortion_loss(t0, w0) if train
-                                      else None))]
+        ret: List[LevelOutput] = []
+        t, w = None, None
+        for i_level in range(cfg.num_levels):
+            t, (m, c) = cfg.sample_level(rays, i_level, t, w,
+                                         eval_counts=not train,
+                                         u=level_uniforms(draws, i_level))
+            noise = level_noise(draws, i_level)
+            if cfg.fine_level(i_level):
+                ret.append(self._fine_level(
+                    rays, env_rays, draws, train, t, m, c, v, noise,
+                    kernel_level("env"), white_bkgd, enable_surf,
+                    use_ort_loss, use_vc_loss, packed))
+                continue
+            if kernel_level("coarse"):
+                comp, dist, acc, w = self._render_train_level(
+                    m, c, rays.viewdirs, t, rays.directions, white_bkgd,
+                    packed)
+            else:
+                comp, dist, acc, w = self._march(
+                    m, c, v, t, rays.directions, white_bkgd, packed,
+                    noise=noise)
+            ret.append(LevelOutput(
+                rgb=comp, distance=dist, acc=acc,
+                dist_loss=mip.distortion_loss(t, w) if train and rnd
+                else None))
+        return ret
 
-        # ---- fine level: MLP + density gradient (kernel 3), or, with
-        # point normals in training, the MLP alone (kernel 2) and one
-        # kernel-3 query per ray (on the plain route the plain NerfMLP
-        # and its explicit chain) ----
-        if train:
-            t1, (m1, c1) = mip.resample_along_rays(
-                rays.origins, rays.directions, rays.radii, t0, w0,
-                cfg.resample_padding, num_samples=cfg.num_samples,
-                u_rand=draws.u_fine)
-        else:
-            t1, (m1, c1) = cfg.sample_level(rays, 1, t0, w0)
+    def _render_train_level(self, means: Tensor, covs: Tensor,
+                            viewdirs: Tensor, t_samples: Tensor,
+                            dirs: Tensor, white: bool,
+                            packed: Optional[Tuple[Tensor, Tensor]]
+                            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """A whole training level through kernel 5: (rgb, distance, acc,
+        weights)."""
+        cfg = self.cfg
+        r = fused_render_train(
+            self.mlp, means.contiguous(), self._covs(covs).contiguous(),
+            viewdirs.contiguous(), t_samples.contiguous(), dirs.contiguous(),
+            min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
+            deg_view=cfg.deg_view, density_bias=cfg.density_bias,
+            rgb_padding=cfg.rgb_padding, white_bkgd=white,
+            save_acts=cfg.train_kernel_save_acts, packed=packed)
+        return r["rgb"], r["distance"], r["acc"], r["weights"]
+
+    def _fine_level(self, rays: Rays, env_rays: Rays,
+                    draws: Optional[TrainDraws], train: bool, t1: Tensor,
+                    m1: Tensor, c1: Tensor, v: Tensor,
+                    noise: Optional[Tensor], env_kernel: bool,
+                    white_bkgd: bool, enable_surf: bool, use_ort_loss: bool,
+                    use_vc_loss: bool,
+                    packed: Optional[Tuple[Tensor, Tensor]]) -> LevelOutput:
+        """The fine level at fenceposts t1 (frustums m1, c1): MLP + density
+        gradient (kernel 3), or, with point normals in training, the MLP
+        alone (kernel 2) and one kernel-3 query per ray (on the plain
+        route the plain NerfMLP and its explicit chain); its raw density
+        noised by `noise`; then the view-consistency and scale-distill
+        re-queries and the surface path (the env march through kernel 5
+        where `env_kernel` allows)."""
+        cfg = self.cfg
+        rnd = draws is not None
         point = train and cfg.point_normals
         if point:
             raw_rgb, raw_density = self._query(m1, c1, v, packed)
         else:
             raw_rgb, raw_density, d_raw = self._query_normals(m1, c1, v,
                                                               packed)
-        raw_sigma = self._noisy(raw_density[..., :1],
-                                draws.noise_fine if train else None)
+        raw_sigma = self._noisy(raw_density[..., :1], noise)
         albedos = torch.sigmoid(raw_density[..., 1:4]) * 0.77 + 0.03
         roughness = softplus(raw_density[..., 4:5] - 1.0)
         emission = self._emission(raw_density)
@@ -390,13 +458,14 @@ class PanoMipNeRF(NerfModel):
             normal, ort_loss, w_norm = expected_normals(
                 w1, -d_means, rays.directions, use_ort_loss)
         out = dict(rgb=comp, distance=dist, acc=acc,
-                   dist_loss=mip.distortion_loss(t1, w1) if train else None,
+                   dist_loss=(mip.distortion_loss(t1, w1) if train and rnd
+                              else None),
                    ort_loss=ort_loss, normal=normal,
                    roughness=torch.sum(w_norm[..., 0] * roughness[..., 0],
                                        dim=-1))
         if emission is not None:
             out["emission"] = torch.sum(w1[..., None] * emission, dim=-2)
-        if use_vc_loss and train:
+        if use_vc_loss and rnd:
             # The same samples under a random view direction, composited
             # with stop-gradient weights: a full re-evaluation (kernel 2;
             # kernel 3 does not return the bottleneck), the same values
@@ -411,7 +480,7 @@ class PanoMipNeRF(NerfModel):
             if white_bkgd:
                 rgb_alt = rgb_alt + (1.0 - acc.detach()[..., None])
             out["rgb_alt"] = rgb_alt
-        if train and draws.t_sd is not None:
+        if rnd and draws.t_sd is not None:
             # The primary ray re-marched at the secondary rays' sampling
             # (num_env_samples Gaussians over [near, far]), composited.
             t_sd, (m_sd, c_sd) = mip.sample_along_rays(
@@ -426,15 +495,14 @@ class PanoMipNeRF(NerfModel):
             # distance (the env means' cotangent comes back from kernel 2).
             surf_origins = rays.origins + rays.directions * dist[..., None]
             lit_t, (lm, lc), lit_dirs, solid_angle = self._env_rays(
-                surf_origins, normal, env_rays, draws, packed)
-            if (kernel_level("env") and cfg.env_tight_rgb == 0
-                    and not cfg.env_resample):
+                surf_origins, normal, env_rays, draws, train, packed)
+            if env_kernel and cfg.env_tight_rgb == 0 and not cfg.env_resample:
                 B, D, S2 = lm.shape[:3]
                 flat_dirs = lit_dirs.reshape(B * D, 3)
-                e_rgb, e_dist, e_acc, _ = render_level(
+                e_rgb, e_dist, e_acc, _ = self._render_train_level(
                     lm.reshape(B * D, S2, 3), lc.reshape(B * D, S2, 3),
                     flat_dirs, lit_t.reshape(B * D, S2 + 1), flat_dirs,
-                    False)
+                    False, packed)
                 env_rgb, env_dist, env_acc = (e_rgb.reshape(B, D, 3),
                                               e_dist.reshape(B, D),
                                               e_acc.reshape(B, D))
@@ -448,14 +516,14 @@ class PanoMipNeRF(NerfModel):
                 if cfg.env_resample:
                     t2, (m2, c2) = self._resample_env(
                         surf_origins, lit_dirs, env_rays.radii, lit_t, env_w,
-                        draws.u_resample if train else None)
+                        draws.u_resample if rnd else None)
                     env_rgb, env_dist, env_acc, _ = self._march(
                         m2, c2, v_lit, t2, lit_dirs, False, packed)
                 elif cfg.env_tight_rgb > 0:
                     env_rgb = self._tight_read(lm, lc, v_lit, lit_t,
                                                lit_dirs, env_rgb, env_w,
                                                packed)
-            if train and cfg.env_distill_samples > 0:
+            if train and rnd and cfg.env_distill_samples > 0:
                 out.update(self._env_distill(
                     surf_origins, lit_dirs, env_rgb, env_acc, env_dist,
                     env_rays, draws, packed))
@@ -463,7 +531,7 @@ class PanoMipNeRF(NerfModel):
                 # After the distill's read (which supervises the radiance
                 # field itself), before the irradiance integral.
                 chroma = self.illum(surf_origins, lit_dirs)
-                if train:
+                if train and rnd:
                     out.update(env_pre_illum=env_rgb, illum_chroma=chroma)
                 env_rgb = apply_illum(env_rgb, chroma)
             surf_rgb, diffuse, _, shade = shading.surface_rendering(
@@ -473,25 +541,24 @@ class PanoMipNeRF(NerfModel):
                 surf_rgb = surf_rgb + out["emission"]
             out.update(albedo=albedo, surf_rgb=surf_rgb, diffuse=diffuse,
                        shading=shade)
-        ret.append(LevelOutput(**out))
-        return ret
+        return LevelOutput(**out)
 
     def _env_rays(self, surf_origins: Tensor, normal: Tensor,
-                  env_rays: Rays, draws: Optional[TrainDraws],
+                  env_rays: Rays, draws: Optional[TrainDraws], train: bool,
                   packed: Optional[Tuple[Tensor, Tensor]]):
-        """The secondary rays from the surface points (JAX :521-567): the
-        fixed env directions, or in training with `env_mode` rotated per
+        """The secondary rays from the surface points (JAX :521-567), at
+        the training or (not `train`) the eval sample count: the fixed env
+        directions, or randomized (`draws`) with `env_mode` rotated per
         ray, rotated and jittered in their cells (stratified), or
         importance-sampled (`_importance_dirs`). Returns t [B, D, S+1],
         (means, covs [B, D, S, 3]), dirs [B, D, 3] and the solid angle of
         each direction: env_rays.lossmult [D, 1] for fixed and rotated,
         else [B, D, 1]."""
         cfg = self.cfg
-        train = draws is not None
         S = cfg.num_env_samples if train else cfg.env_samples()
-        t_rand = draws.t_env if train else None
+        t_rand = None if draws is None else draws.t_env
         near, far, radii = env_rays.near, env_rays.far, env_rays.radii
-        mode = cfg.env_mode() if train else "fixed"
+        mode = "fixed" if draws is None else cfg.env_mode()
         if mode == "fixed":
             return (*mip.sample_env_rays(surf_origins, env_rays.directions,
                                          S, near, far, radii,

@@ -186,18 +186,22 @@ def resample_along_rays(origins: Tensor, directions: Tensor, radii: Tensor,
                         t_samples: Tensor, weights: Tensor,
                         resample_padding: float,
                         num_samples: Optional[int] = None,
-                        u_rand: Optional[Tensor] = None
+                        u_rand: Optional[Tensor] = None,
+                        stop_grad: bool = True
                         ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """Resample frustums in proportion to the blurpooled coarse weights.
 
     `num_samples` sets the resampled sample count (default: as many as
     the coarse level); `u_rand` [B, num_samples + 1] randomizes the
-    inverse-CDF positions. The new fenceposts carry no gradient
-    (`stop_resample_grad`); the frustums get gradients through the rays
-    only.
+    inverse-CDF positions. With `stop_grad` (`nerf.stop_resample_grad`)
+    the new fenceposts carry no gradient and the frustums get gradients
+    through the rays only; without it the gradient flows through the
+    piecewise-constant inverse CDF into `weights` and `t_samples`, as
+    in JAX's `resample_along_rays(stop_grad=False)`.
     """
-    weights = weights.detach()
-    t_samples = t_samples.detach()
+    if stop_grad:
+        weights = weights.detach()
+        t_samples = t_samples.detach()
     weights_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]],
                             dim=-1)
     weights_max = torch.maximum(weights_pad[..., :-1], weights_pad[..., 1:])

@@ -101,14 +101,30 @@ def test_kernel_ab_script_unpacks_the_train_shapes():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("nerf.env_sampling", "hemisphere"), ("val.randomized", True),
-    ("nerf.ray_shape", "cylinder"), ("nerf.disable_integration", True)])
+    ("nerf.env_sampling", "hemisphere"), ("nerf.mlp.num_rgb_channels", 4)])
 def test_unsupported_config_raises_naming_the_key(key, value):
     from pano_nerf_tpu_torch.models.base import NerfConfig
     hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
     hp[key] = value
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         NerfConfig.from_hparams(hp)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("val.randomized", True), ("nerf.ray_shape", "cylinder"),
+    ("nerf.disable_integration", True), ("nerf.num_levels", 3),
+    ("nerf.stop_resample_grad", False)])
+def test_model_keys_are_accepted(key, value):
+    """The model keys refused until the port had their paths
+    (tests/test_torch_levels.py and test_torch_key_switches.py hold them
+    to JAX); `val.randomized` is the system's."""
+    from pano_nerf_tpu_torch.models.base import NerfConfig
+    hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
+    hp[key] = value
+    cfg = NerfConfig.from_hparams(hp)
+    name = key.split(".")[1]
+    if hasattr(cfg, name):
+        assert getattr(cfg, name) == value
 
 
 @pytest.mark.parametrize("key,value", [

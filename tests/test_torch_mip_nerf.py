@@ -106,13 +106,13 @@ def test_build_system_and_model_choose_mipnerf_with_one_density_channel():
         PanoNeRFSystem(hp, device="cpu")
 
 
-def test_mipnerf_refuses_density_noise_which_jax_honours():
+def test_mipnerf_honours_density_noise_as_jax():
     """JAX's mip-NeRF noises its raw density (models/mip_nerf.py:61-77);
-    the port's refuses the key rather than train without the noise."""
+    so does the port's, which takes the key (the noised step against
+    JAX's is in tests/test_torch_levels.py)."""
     hp = dict(load_config(CONFIG, OPTS), **{"nerf.density_noise": 1.0})
     assert jax_build_model(hp).density_noise == 1.0
-    with pytest.raises(NotImplementedError, match=r"nerf\.density_noise"):
-        build_model(hp)
+    assert build_model(hp).cfg.density_noise == 1.0
 
 
 def test_parameters_round_trip_jax_port_jax_at_one_density_channel():

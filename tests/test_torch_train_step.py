@@ -324,8 +324,7 @@ def test_randomized_sampling_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("train.randomized", False), ("parallel.num_devices", 4)])
+@pytest.mark.parametrize("key,value", [("parallel.num_devices", 4)])
 def test_unsupported_train_keys_raise_naming_the_key(key, value):
     hp = load_config(CONFIG, OPTS)
     hp[key] = value
@@ -339,13 +338,15 @@ def test_unsupported_train_keys_raise_naming_the_key(key, value):
     ("loss.chrom_gate", True), ("loss.chrom_illum_comp", True),
     ("nerf.point_normals", True), ("loss.illum_distill", 0.1),
     ("loss.scale_distill", 0.1), ("loss.scale_distill_dist", 0.1),
-    ("loss.vc_chroma", 0.1), ("loss.vc_sat_mask", True)])
+    ("loss.vc_chroma", 0.1), ("loss.vc_sat_mask", True),
+    ("train.randomized", False)])
 def test_preset_train_keys_are_accepted(key, value):
     """The keys of the HDR presets' train path, of point normals, the
-    illum distill and the last loss terms, refused until the port had
-    them (tests/test_torch_presets.py, test_torch_point_normals.py,
-    test_torch_illum.py and test_torch_loss_switches.py hold their steps
-    to JAX's)."""
+    illum distill, the last loss terms and the deterministic step,
+    refused until the port had them (tests/test_torch_presets.py,
+    test_torch_point_normals.py, test_torch_illum.py,
+    test_torch_loss_switches.py and test_torch_key_switches.py hold
+    their steps to JAX's)."""
     hp = load_config(CONFIG, OPTS)
     hp[key] = value
     psys = PanoNeRFSystem(hp, device="cpu")
