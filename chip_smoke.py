@@ -3,7 +3,8 @@ Pano-NeRF (`configs/panonerf.yaml`), its HDR presets
 (`configs/panonerf_hdr.yaml`, `configs/panonerf_shadow.yaml`), the
 mip-NeRF baseline (`configs/mipnerf.yaml`), the novel-view path, the
 plain route (f32, another MLP topology, the heads), the last loss
-terms, and the level loop with the last model and system keys.
+terms, the level loop with the last model and system keys, and the
+kernel route at other MLP widths and encodings.
 
 Run from the repository root on a machine with the card:
 
@@ -14,9 +15,10 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 <bound>`, or the failure's message where a check gives no value):
 
 1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
-   (one nvcc per source, and `fused_mlp.cu` once per density-channel
-   count, 5 and 1; all started together) and print the build time and
-   the compiler's register/spill report.
+   (one nvcc per source at the shipped shape, `fused_mlp.cu` also at one
+   density channel, and each source a model of `OTHER_SHAPES` runs at
+   that shape: 11 libraries, all started together) and print the build
+   time and the compiler's register/spill report.
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
@@ -171,7 +173,7 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    gradient at the measured bounds `F32_NORMAL_PART_TOL`,
    `F32_GRAD_TOL`); 16 graphed steps against eager ones (the 1e-6 floor
    of every phase); ms per step graphed, one-step graph and eager in
-   turns of 16 steps (phase 18: 48, as phase 4) beside phase 4's; the
+   turns of 16 steps (as every phase) beside phase 4's; the
    profile (device busy of the f32 step).
 16. mip-NeRF at `nerf.mlp.net_depth 4`, `net_width 128`,
    `use_viewdirs false`, bf16, on the plain route: 48 steps, counters 0,
@@ -213,6 +215,26 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    `loss.ort_loss 0.1` (kernel 3 forward and backward on the one level),
    64 steps, served randomized (8 kernel-3 forwards per panorama), the
    same checks.
+2w. Each build at another MLP shape (`OTHER_SHAPES`: A trunk 128 and
+   view branch 64; B IPE degrees 0..10 and deg_view 2; C mip-NeRF at
+   A's widths without identity) against its plain versions at phase 2's
+   tolerances, forward and backward (parameters, means, covariances):
+   at A and B kernel 4 at the three eval shapes, kernels 2 and 3 at a
+   batch-512 step's four calls (28,672 / 25,600 rows), kernel 5
+   (`save_acts` off) at coarse 512 x 56 and env 5,120 x 5, at A also
+   kernel 1 at 28,672 rows; at C kernels 2 and 3 at 131,072 rows. Each
+   timed beside the bound of the shape's own MACs and bytes (entries
+   `_wA`, `_wB`, `_wC`, with the launches of phases 21, 22 and 22m).
+   (Run after phase 2m.)
+21. Shape A with the key on, 22 shape B with the key off, 22m shape C
+   (mip-NeRF) with `loss.ort_loss 0.1`: 64 steps each through the train
+   entry point with the shipped shape's exact launch counts, losses
+   finite; the checkpoint served through `eval --ckpt_dir` (21, 22: 96
+   kernel-4 launches per panorama; 22m: 8 + 8 of kernels 2 and 3), the
+   chunk graph against eager chunks, ms per panorama, a 16x32 view on
+   the card against the CPU (`check_against_plain`); the step against
+   the CPU under phase 5's rule, graphed against eager, ms per step
+   (`SHAPE_PHASES`, run as phase 19's).
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -222,7 +244,10 @@ density channel have entries of their own (`_c1`), with the launches of
 the mip-NeRF runs, and so have the presets' shapes (`_presets`), with
 the launches of phases 9-11's preset runs, and so have the study shapes
 (`_study`), with the launches of phases 12-14 and 12b, and so has kernel
-2 on the scale-distill re-march (`_sd`), with phase 18's launches. The
+2 on the scale-distill re-march (`_sd`), with phase 18's launches, and
+so has every build at another shape (`_wA`, `_wB`, `_wC`), with the
+launches of phases 21, 22 and 22m (kernel 1 at A and kernel 5 at B are
+on no main path: 0). The
 last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
@@ -239,9 +264,6 @@ import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet, 700 W)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-MLP_MACS = 611_328         # one NerfMLP row at full width
-NORMAL_MACS = 507_904      # the fine level's density-gradient chain per row
-TRUNK_MACS = 507_904       # the 8 trunk layers of one row (the chain's count)
 CONFIG = "configs/panonerf.yaml"
 MIP_CONFIG = "configs/mipnerf.yaml"
 HDR_CONFIG = "configs/panonerf_hdr.yaml"
@@ -286,15 +308,47 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# Phase 2w and phases 21-22m: the MLP shapes the kernels are built for
+# beside the shipped one (pano_nerf_tpu_torch/kernels/shapes.py), as
+# config overrides. A: trunk 128, view branch 64; B: IPE degrees 0..10,
+# deg_view 2; C: mip-NeRF at A's widths without identity in the viewdir
+# encoding (kernels 2 and 3 only).
+SHAPE_A = ("nerf.mlp.net_width", "128", "nerf.mlp.net_width_condition",
+           "64")
+SHAPE_B = ("nerf.max_deg_point", "10", "nerf.deg_view", "2")
+SHAPE_C = SHAPE_A + ("nerf.append_identity", "False")
+OTHER_SHAPES = {"A": (CONFIG, SHAPE_A), "B": (CONFIG, SHAPE_B),
+                "C": (MIP_CONFIG, SHAPE_C)}
+
+
+def shape_model(name: str, dev=None):
+    """The model of `OTHER_SHAPES[name]` with weights from seed 0."""
+    import torch
+    from pano_nerf_tpu_torch.core.config import load_config
+    from pano_nerf_tpu_torch.models import build_model
+    config, opts = OTHER_SHAPES[name]
+    model = build_model(load_config(config, list(opts)),
+                        torch.Generator().manual_seed(0))
+    return model if dev is None else model.to(dev)
+
+
 def build_kernels():
-    """Start every library's nvcc together (each source, and `fused_mlp.cu`
-    once per density-channel count), then wait for all."""
-    from pano_nerf_tpu_torch.kernels import build
+    """Start every library's nvcc together (each source at the shipped
+    shape, `fused_mlp.cu` also at one density channel, and every source
+    a model of `OTHER_SHAPES` runs at its shape), then wait for all."""
+    from pano_nerf_tpu_torch.kernels import build, shapes
     from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
                                              fused_render_train)
-    builds = ([(fused_render.SOURCE, ()), (fused_render_train.SOURCE, ())]
-              + [(fused_mlp_ipe.SOURCE, d)
-                 for d in fused_mlp_ipe.BUILDS.values()])
+    builds = [(fused_render.SOURCE, ()), (fused_render_train.SOURCE, ()),
+              (fused_mlp_ipe.SOURCE, ()),
+              (fused_mlp_ipe.SOURCE, shapes.MlpShape(C=1).defines())]
+    for name in OTHER_SHAPES:
+        model = shape_model(name)
+        sh = shapes.shape_of(model.mlp)
+        builds.append((fused_mlp_ipe.SOURCE, sh.defines()))
+        if sh.C == 5 and model.cfg.append_identity:   # kernels 4 and 5
+            builds += [(fused_render.SOURCE, sh.defines(False)),
+                       (fused_render_train.SOURCE, sh.defines(False))]
     t0 = time.perf_counter()
     pending = [build.start_build(*b) for b in builds]
     for p in pending:
@@ -379,11 +433,25 @@ def main_path_inputs(model, env, dev, num_rays: int = 1024,
     return (shapes, surf) if with_surf else shapes
 
 
-def _bound_ms(args, kw, packed) -> float:
+def row_macs(mlp) -> dict:
+    """MACs per sample row of `mlp`, unpadded: `mlp` the whole forward,
+    `trunk` its 8 trunk layers (also the density chain's count), `heads`
+    the bottleneck and the view layer (what kernel 3's backward
+    recomputes). The shipped model: 611,328, 507,904 and 101,760."""
+    W, VW = mlp.net_width, mlp.net_width_condition
+    X, V = mlp.xyz_dim, mlp.view_dim
+    trunk = W * X + 4 * W * W + W * (W + X) + 2 * W * W
+    heads = W * W + VW * (W + V)
+    return dict(mlp=trunk + mlp.num_density_channels * W + heads + 3 * VW,
+                trunk=trunk, heads=heads)
+
+
+def _bound_ms(args, kw, packed, mlp) -> float:
     """Kernel 4's least time on the card: inputs read and outputs written
     once, operations at the bf16 peak."""
     R, S = args[0].shape[:2]
-    macs = MLP_MACS + (NORMAL_MACS if kw["need_normals"] else 0)
+    m = row_macs(mlp)
+    macs = m["mlp"] + (m["trunk"] if kw["need_normals"] else 0)
     return _bound(macs * R * S, R * S * 8 * 4 + R * 8 * 4 + R * (17 + S) * 4
                   + _packed_bytes(packed, False))
 
@@ -426,13 +494,14 @@ def _packed_bytes(packed, grads: bool) -> int:
 WGRAD_TOL = 1e-4   # rel-norm per weight parameter
 
 
-def _wgrad_library(ops, normals: bool):
+def _wgrad_library(ops, normals: bool, shape):
     """The yardstick of the weight-gradient pass: its products as
     torch.matmul (cuBLAS, bf16 in, f32 accumulate, bf16 out) on bf16
     slices of the same operand rows, one call per product (an addmm_ for
-    a NORMALS trunk weight's second pair). The port never calls it."""
+    a NORMALS trunk weight's second pair) of `shape`'s job table. The
+    port never calls it."""
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
-    jobs = k2.wgrad_jobs(normals)
+    jobs = k2.wgrad_jobs(normals, shape)
 
     def call():
         for b1, a1, b2, a2, n, k, _, _ in jobs:
@@ -443,24 +512,24 @@ def _wgrad_library(ops, normals: bool):
 
 
 def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
-                       shape: str, failures: list, ndc: int = 5,
+                       shape: str, failures: list,
                        total: bool = True) -> dict:
     """The weight-gradient kernel on the operand rows `ops` that a row
     pass just wrote: held against `weight_grads_reference` per weight
     parameter, timed beside its plain version, its bound (the `rows` real
     operand rows read once, not the buffer's idle tile rows; f32 dw
     written once) and the
-    torch.matmul yardstick, launched from the library built for `ndc`
-    density channels. Adds the shape to `entry` (into its sums with
-    `total`: the shapes of the entry's earlier rows); returns the
-    numbers."""
+    torch.matmul yardstick, launched from the library built for `mlp`'s
+    shape. Adds the shape to `entry` (into its sums with `total`: the
+    shapes of the entry's earlier rows); returns the numbers."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels.fused_render import unpack_params
-    lib = k2.kernel_library(ndc)
-    dw = torch.zeros(k2.W_TOTAL, device=ops.device)
+    sh = k2.shape_of(mlp)
+    lib = k2.kernel_library(sh)
+    dw = torch.zeros(k2.layout(sh).W_TOTAL, device=ops.device)
     k2.launch_weight_grads(lib, ops, dw, normals)
-    want = k2.weight_grads_reference(ops, normals)
+    want = k2.weight_grads_reference(ops, normals, sh)
     torch.cuda.synchronize()
     db = torch.zeros(lib.fused_mlp_bias_count(), device=ops.device)
     got_p, want_p = unpack_params(mlp, dw, db), unpack_params(mlp, want, db)
@@ -476,11 +545,12 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
         failures.append(f"{shape}.wgrad_rel: {rel:.3e} > {WGRAD_TOL}")
     ms = time_ms(lambda: k2.launch_weight_grads(lib, ops, dw, normals),
                   reps=20)
-    plain_ms = time_ms(lambda: k2.weight_grads_reference(ops, normals),
+    plain_ms = time_ms(lambda: k2.weight_grads_reference(ops, normals, sh),
                         reps=3)
-    library_ms = time_ms(_wgrad_library(ops, normals), reps=20)
-    macs = (MLP_MACS + (NORMAL_MACS if normals else 0)) * rows
-    bound = _bound(macs, rows * ops.shape[1] * 2 + k2.W_TOTAL * 4)
+    library_ms = time_ms(_wgrad_library(ops, normals, sh), reps=20)
+    m = row_macs(mlp)
+    macs = (m["mlp"] + (m["trunk"] if normals else 0)) * rows
+    bound = _bound(macs, rows * ops.shape[1] * 2 + dw.numel() * 4)
     _add(entry, shape, ms, plain_ms, bound, err, total=total, rows=rows,
          buffer_rows=ops.shape[0], library_ms=library_ms, rel=rel)
     if total:
@@ -541,7 +611,7 @@ def check_kernels(model, env, dev, shapes=None, sfx: str = "",
             model.mlp, *args, packed=packed, **kw), reps=20)
         plain_ms = time_ms(lambda: fr.fused_render_level_reference(
             model.mlp, *args, **kw), reps=5)
-        bound = _bound_ms(args, kw, packed)
+        bound = _bound_ms(args, kw, packed, model.mlp)
         R, S = args[0].shape[:2]
         # Weights crossing L2 -> shared memory, modelled (no counter of L2
         # traffic is read): tiles x the bytes of the TMA boxes one tile
@@ -758,7 +828,7 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
     graph's products held against the eager ones (f32 atol 1e-4, and
     bit-equal where `opts` are given; `tol` where given); ms per panorama
     of each, in
-    turns (graph, eager, eager, graph), 3 renders a turn; then one of each
+    turns (graph, eager, eager, graph), one render a turn; then one of each
     under torch.profiler (device busy and idle share of the host wall
     time, top kernels)."""
     import torch
@@ -794,11 +864,10 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
              "eager": lambda: eager_render(system, flat, system.surface)}
     times = {m: [] for m in modes}
     for m in ("graph", "eager", "eager", "graph"):
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            modes[m]()   # ends in the device-to-host copy
-            times[m].append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        modes[m]()   # ends in the device-to-host copy
+        times[m].append(1e3 * (time.perf_counter() - t0))
     rays = ds.h * ds.w
     for m, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -893,15 +962,20 @@ TRAIN_TOL = dict(out_abs=2e-2, dsig_rel=0.08, grad_rel_k2=2e-2,
 # MACs per row. Kernel 2 backward: recompute + data + weight gradients;
 # kernel 3 backward: the MLP's data and weight gradients, the chain's
 # recompute, walk and walk weight gradients, and the heads' recompute.
-HEADS_MACS = 65_536 + 36_224   # bottleneck + view layer
-K2_MACS = dict(fwd=MLP_MACS, bwd=3 * MLP_MACS)
-K3_MACS = dict(fwd=MLP_MACS + NORMAL_MACS,
-               bwd=2 * MLP_MACS + 3 * NORMAL_MACS + HEADS_MACS)
-# The backward's row pass alone (the weight-gradient pass does the rest):
-# kernel 2 recomputes the forward and runs the data gradients; kernel 3
-# recomputes the heads, runs the data gradients, the chain and the walk.
-ROW_MACS = {False: 2 * MLP_MACS,
-            True: MLP_MACS + 2 * NORMAL_MACS + HEADS_MACS}
+def train_macs(mlp, normals: bool, direction: str) -> int:
+    """MACs per row of kernel 2 (3) of `mlp`: `fwd`; `bwd`, recompute, data
+    and weight gradients (kernel 3: the MLP's data and weight gradients,
+    the chain's recompute, walk and walk weight gradients, the heads'
+    recompute); `rows`, the backward's row pass alone (the weight-gradient
+    pass does the rest: kernel 2 recomputes the forward and runs the data
+    gradients; kernel 3 recomputes the heads, runs the data gradients, the
+    chain and the walk)."""
+    m = row_macs(mlp)
+    mlp_m, chain, heads = m["mlp"], m["trunk"], m["heads"]
+    if not normals:
+        return dict(fwd=mlp_m, bwd=3 * mlp_m, rows=2 * mlp_m)[direction]
+    return dict(fwd=mlp_m + chain, bwd=2 * mlp_m + 3 * chain + heads,
+                rows=mlp_m + 2 * chain + heads)[direction]
 
 
 def _train_batch(model, env, dev, batch: int = 512) -> dict:
@@ -1200,19 +1274,25 @@ def _rel(a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def _train_bound_ms(normals: bool, direction: str, rows: int,
+def _train_bound_ms(mlp, normals: bool, direction: str, rows: int,
                     packed, save_acts: bool = True) -> float:
-    """Kernels 2 and 3: inputs read once and outputs written once (kernel
-    3's forward writes its trunk for the backward only with
+    """Kernels 2 and 3 of `mlp`: inputs read once and outputs written once
+    (kernel 3's forward writes its trunk for the backward only with
     `save_acts`, as in training; the eval render saves nothing)."""
-    acts = (12 + (8 * 256 * 2 if save_acts else 0)) if normals else 0
+    W, v = mlp.net_width, _v_bytes(mlp)
+    acts = (12 + (8 * W * 2 if save_acts else 0)) if normals else 0
     if direction == "fwd":
-        bytes_ = rows * (32 + 64 + 64 + acts) + _packed_bytes(packed, False)
+        bytes_ = rows * (32 + v + 64 + acts) + _packed_bytes(packed, False)
     else:   # mc, v, cotangents (+ acts) in; d mc and f32 grads out
-        bytes_ = (rows * (32 + 64 + 64 + 32 + acts)
+        bytes_ = (rows * (32 + v + 64 + 32 + acts)
                   + _packed_bytes(packed, True))
-    return _bound((K3_MACS if normals else K2_MACS)[direction] * rows,
-                  bytes_)
+    return _bound(train_macs(mlp, normals, direction) * rows, bytes_)
+
+
+def _v_bytes(mlp) -> int:
+    """Bytes of one row's bf16 viewdir codes (VP columns: 32 for the
+    shipped encoding's 27)."""
+    return 2 * (-(-mlp.view_dim // 16) * 16)
 
 
 def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
@@ -1220,9 +1300,9 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
                         sfx: str = "", dsig_rms: bool = False) -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
     the shapes `calls` (name -> (normals?, means, covs, v_enc)) of the
-    model's main path, built for its `ndc` density channels, and the
-    weight-gradient pass on each backward's own operand rows (into
-    `wentry`); the shapes in `forward_only` are run forward only and
+    model's main path, built for its MLP's shape (`ndc` density channels
+    among it), and the weight-gradient pass on each backward's own
+    operand rows (into `wentry`); the shapes in `forward_only` are run forward only and
     without saved activations (as the eval render and the env-distill
     march run them). With `dsig_rms` the loss takes kernel 3's density
     gradient at 0.1 over its rms instead of at 0.1 (on zero covariances
@@ -1239,7 +1319,10 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     mlp, cfg = model.mlp, model.cfg
     kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
     packed = pack_params(mlp)
-    lib = k2.kernel_library(ndc)
+    if mlp.num_density_channels != ndc:
+        raise AssertionError(f"the model has {mlp.num_density_channels} "
+                             f"density channels, not {ndc}")
+    lib = k2.kernel_library(k2.shape_of(mlp))
     entries = {name: _entry(name + sfx, "fused_mlp.cu", src_line)
                for name, src_line in (
                    ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
@@ -1300,8 +1383,8 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         M = mc.shape[0]
         out = torch.empty((M, 16), device=dev)
         dsig = torch.empty((M, 3), device=dev)
-        acts = (torch.empty((M, 2048), dtype=torch.bfloat16, device=dev)
-                if normals and train else None)
+        acts = (torch.empty((M, 8 * mlp.net_width), dtype=torch.bfloat16,
+                            device=dev) if normals and train else None)
         stream = torch.cuda.current_stream().cuda_stream
 
         def fwd():
@@ -1317,7 +1400,7 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
             with torch.no_grad():
                 plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc,
                                                 **kw), reps=3)
-            bound_f = _train_bound_ms(normals, "fwd", M, packed,
+            bound_f = _train_bound_ms(mlp, normals, "fwd", M, packed,
                                       save_acts=False)
             base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
             _add(entries[f"{base}_fwd"], shape, ms_f, plain_f, bound_f,
@@ -1348,12 +1431,13 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         ms_r = time_ms(lambda: k2.launch_backward_rows(
             lib, mc, v, *packed, g, q, acts, ops, dmc_r, dw_r, db_r,
             cfg.min_deg_point, normals), reps=10)
-        bound_r = _bound(ROW_MACS[normals] * M, M * (
-            32 + 64 + 64 + 32 + (12 + 8 * 256 * 2 if normals else 0))
+        bound_r = _bound(train_macs(mlp, normals, "rows") * M, M * (
+            32 + _v_bytes(mlp) + 64 + 32
+            + (12 + 8 * mlp.net_width * 2 if normals else 0))
             + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
         wg = check_weight_grads(mlp, ops, normals, M, wentry,
                                 f"k{3 if normals else 2}{sfx}_{shape}",
-                                failures, ndc=ndc, total=sfx == "")
+                                failures, total=sfx == "")
         del ops, dw_r, db_r, dmc_r
         with torch.no_grad():
             plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc, **kw),
@@ -1372,15 +1456,15 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         for direction, ms, pms in (("fwd", ms_f, plain_f),
                                    ("bwd", ms_b, plain_b)):
             _add(entries[f"{base}_{direction}"], shape, ms, pms,
-                 _train_bound_ms(normals, direction, M, packed),
+                 _train_bound_ms(mlp, normals, direction, M, packed),
                  errs["out_abs" if direction == "fwd" else "grad_abs"],
                  rows=M, errors=errs,
                  **(passes if direction == "bwd" else {}))
         print(f"{tag} {shape:6s} M={M} {'k3' if normals else 'k2'} "
               f"C={ndc}: fwd {ms_f:.3f} ms (plain {plain_f:.3f}, bound "
-              f"{_train_bound_ms(normals, 'fwd', M, packed):.4f}), bwd "
+              f"{_train_bound_ms(mlp, normals, 'fwd', M, packed):.4f}), bwd "
               f"{ms_b:.3f} ms (plain {plain_b:.3f}, bound "
-              f"{_train_bound_ms(normals, 'bwd', M, packed):.4f}) = row "
+              f"{_train_bound_ms(mlp, normals, 'bwd', M, packed):.4f}) = row "
               f"pass {ms_r:.4f} ms (its bound {bound_r:.4f}) + weight "
               f"gradients {wg['ms']:.4f} ms (its bound {wg['bound']:.4f}, "
               f"torch.matmul {wg['library_ms']:.4f}, rel vs plain "
@@ -1423,13 +1507,14 @@ def _level_grads(fn, mlp, args, coef, **kw):
 
 
 def check_train_render_kernel(model, dev, levels, wentry: dict,
-                              sfx: str = "", tag: str = "[kernel]") -> list:
-    """Kernel 5 (forward and backward, `save_acts` off and on) vs its
-    plain version at the coarse (512 x 56) and env (5,120 x 5) levels of
-    one key-on train step, and the weight-gradient pass on its operand
-    rows (into `wentry`; into its sums only without `sfx`); raises on a
-    disagreement or when the spilled and recomputed runs differ. Returns
-    the two JSON entries, named with `sfx`."""
+                              sfx: str = "", tag: str = "[kernel]",
+                              spills=(False, True)) -> list:
+    """Kernel 5 (forward and backward, `save_acts` off and on, or as
+    `spills` says) vs its plain version at the coarse (512 x 56) and env
+    (5,120 x 5) levels of one key-on train step, and the weight-gradient
+    pass on its operand rows (into `wentry`; into its sums only without
+    `sfx`); raises on a disagreement or when the spilled and recomputed
+    runs differ. Returns the two JSON entries, named with `sfx`."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -1440,6 +1525,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
               deg_view=cfg.deg_view, density_bias=cfg.density_bias,
               rgb_padding=cfg.rgb_padding, white_bkgd=False)
     packed = pack_params(mlp)
+    mshape = k2.shape_of(mlp)
     fwd = _entry("fused_render_train_fwd" + sfx, "fused_render_train.cu",
                  "fused_render_train.py:358")
     bwd = _entry("fused_render_train_bwd" + sfx, "fused_render_train.cu",
@@ -1454,31 +1540,31 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
         want, gp_want, gm_want, gt_want, gc_want = _level_grads(
             k5.fused_render_train_reference, mlp, args, coef, **kw)
         runs = {}
-        for save_acts in (False, True):
+        for save_acts in spills:
             runs[save_acts] = _level_grads(k5.fused_render_train, mlp, args,
                                            coef, save_acts=save_acts,
                                            packed=packed, **kw)
         torch.cuda.synchronize()
         errs = {}
         for save_acts, (got, gp, gm, gt, gc) in runs.items():
-            sfx = "_spill" if save_acts else ""
+            run = "_spill" if save_acts else ""
             for k in K5_OUTS:
-                errs[k + sfx] = float((got[k] - want[k]).abs().max())
-                if not errs[k + sfx] <= K5_TOL[k]:
-                    failures.append(f"{shape}.{k}{sfx}: "
-                                    f"{errs[k + sfx]:.3e} > {K5_TOL[k]}")
+                errs[k + run] = float((got[k] - want[k]).abs().max())
+                if not errs[k + run] <= K5_TOL[k]:
+                    failures.append(f"{shape}.{k}{run}: "
+                                    f"{errs[k + run]:.3e} > {K5_TOL[k]}")
             for k, (a, b) in dict(grad_rel=(gp, gp_want),
                                   dmc_rel=(gm, gm_want),
                                   dcov_rel=(gc, gc_want),
                                   dt_rel=(gt, gt_want)).items():
-                errs[k + sfx] = _rel(a, b)
-                if not errs[k + sfx] <= K5_TOL[k]:
-                    failures.append(f"{shape}.{k}{sfx}: "
-                                    f"{errs[k + sfx]:.3e} > {K5_TOL[k]}")
-            errs["grad_abs" + sfx] = float((gp - gp_want).abs().max())
-        same = all(torch.equal(runs[False][0][k], runs[True][0][k])
-                   for k in want) and torch.equal(runs[False][2],
-                                                  runs[True][2])
+                errs[k + run] = _rel(a, b)
+                if not errs[k + run] <= K5_TOL[k]:
+                    failures.append(f"{shape}.{k}{run}: "
+                                    f"{errs[k + run]:.3e} > {K5_TOL[k]}")
+            errs["grad_abs" + run] = float((gp - gp_want).abs().max())
+        same = len(runs) < 2 or all(
+            torch.equal(runs[False][0][k], runs[True][0][k]) for k in want
+        ) and torch.equal(runs[False][2], runs[True][2])
         if not same:
             failures.append(f"{shape}: save_acts changed the outputs or "
                             "the moment gradients")
@@ -1486,15 +1572,15 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
         # Timing: the launches alone on the wrapper's inputs, then the
         # plain version's forward and autograd backward.
         lv = k5.Level(R, S, cfg.min_deg_point, cfg.density_bias,
-                      cfg.rgb_padding, False)
+                      cfg.rgb_padding, False, mshape)
         with torch.no_grad():
             mc, clip, v = k5.level_rows(*args, cfg.deg_view)
         g_out = torch.randn(R, k5.OUT8, device=dev)
         g_w = torch.randn(R, S, device=dev)
         dummy = types.SimpleNamespace(backward_launches=0)
         ms = {}
-        tiles = k5.kernel_library().fused_render_train_blocks(R, S)
-        for save_acts in (False, True):
+        tiles = k5.kernel_library(mshape).fused_render_train_blocks(R, S)
+        for save_acts in spills:
             ms["fwd", save_acts] = time_ms(lambda: k5.launch_forward(
                 mc, clip, v, *packed, lv, save_acts), reps=20)
             acts = k5.launch_forward(mc, clip, v, *packed, lv, save_acts)[2]
@@ -1503,8 +1589,9 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
                 reps=10)
             # The row pass alone, then (once) the weight-gradient pass on
             # the operand rows it wrote.
-            ops, _, db_r = k2.backward_buffers(k2.kernel_library(), *packed,
-                                               tiles * k5.TILE_ROWS, False)
+            ops, _, db_r = k2.backward_buffers(k2.kernel_library(mshape),
+                                               *packed, tiles * k5.TILE_ROWS,
+                                               False)
             dmc_r = torch.empty((R * S, 8), device=dev)
             ms["rows", save_acts] = time_ms(lambda: k5.launch_backward_rows(
                 mc, clip, v, *packed, acts, g_out, g_w, lv, ops, dmc_r, db_r),
@@ -1528,43 +1615,53 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
         rows = R * S
         per_ray = R * (2 + k5.OUT8 + S) * 4   # clip in; out, weights out
         w_bytes = _packed_bytes(packed, False)
-        spill = 8 * 256 * 2
-        bounds = {("fwd", False): _bound(MLP_MACS * rows,
-                                         rows * 96 + per_ray + w_bytes),
-                  ("bwd", False): _bound(3 * MLP_MACS * rows,
-                                         rows * 128 + per_ray
+        m = row_macs(mlp)
+        mlp_m, trunk = m["mlp"], m["trunk"]
+        spill = 8 * mlp.net_width * 2
+        row_in = 32 + _v_bytes(mlp)   # moments and viewdir codes
+        bounds = {("fwd", False): _bound(mlp_m * rows,
+                                         rows * row_in + per_ray + w_bytes),
+                  ("bwd", False): _bound(3 * mlp_m * rows,
+                                         rows * (row_in + 32) + per_ray
                                          + _packed_bytes(packed, True))}
-        bounds["fwd", True] = _bound(MLP_MACS * rows, rows * (96 + spill)
+        bounds["fwd", True] = _bound(mlp_m * rows, rows * (row_in + spill)
                                      + per_ray + w_bytes)
-        bounds["bwd", True] = _bound((3 * MLP_MACS - TRUNK_MACS) * rows,
-                                     rows * (128 + spill) + per_ray
+        bounds["bwd", True] = _bound((3 * mlp_m - trunk) * rows,
+                                     rows * (row_in + 32 + spill) + per_ray
                                      + _packed_bytes(packed, True))
-        ops_bytes = rows * k2.OPW_IPE * 2   # real rows, not idle tile rows
+        # Real rows, not idle tile rows.
+        ops_bytes = rows * k2.layout(mshape).OPW_IPE * 2
         for save_acts in (False, True):
             bounds["rows", save_acts] = _bound(
-                (2 * MLP_MACS - (TRUNK_MACS if save_acts else 0)) * rows,
-                rows * (128 + (spill if save_acts else 0)) + per_ray
+                (2 * mlp_m - (trunk if save_acts else 0)) * rows,
+                rows * (row_in + 32 + (spill if save_acts else 0)) + per_ray
                 + ops_bytes + w_bytes)
+        spilled = {k: v for k, v in (
+            ("ms_save_acts", ms.get(("fwd", True))),
+            ("bound_ms_save_acts", bounds["fwd", True])) if True in spills}
+        spill_ms = lambda k: (f"{ms[k, True]:.3f}" if True in spills
+                              else "not run")
+        spilled_b = {} if True not in spills else dict(
+            ms_save_acts=ms["bwd", True],
+            bound_ms_save_acts=bounds["bwd", True],
+            row_ms_save_acts=ms["rows", True],
+            row_bound_ms_save_acts=bounds["rows", True])
         _add(fwd, shape, ms["fwd", False], plain_f, bounds["fwd", False],
              max(v for k, v in errs.items() if k in K5_OUTS), R=R, S=S,
-             ms_save_acts=ms["fwd", True],
-             bound_ms_save_acts=bounds["fwd", True], errors=errs)
+             errors=errs, **spilled)
         _add(bwd, shape, ms["bwd", False], plain_b, bounds["bwd", False],
-             max(errs["grad_abs"], errs["grad_abs_spill"]), R=R, S=S,
-             ms_save_acts=ms["bwd", True],
-             bound_ms_save_acts=bounds["bwd", True],
-             row_ms=ms["rows", False], row_bound_ms=bounds["rows", False],
-             row_ms_save_acts=ms["rows", True],
-             row_bound_ms_save_acts=bounds["rows", True],
-             wgrad_ms=wg["ms"], wgrad_bound_ms=wg["bound"],
-             wgrad_library_ms=wg["library_ms"])
+             max(v for k, v in errs.items() if k.startswith("grad_abs")),
+             R=R, S=S, row_ms=ms["rows", False],
+             row_bound_ms=bounds["rows", False], wgrad_ms=wg["ms"],
+             wgrad_bound_ms=wg["bound"], wgrad_library_ms=wg["library_ms"],
+             **spilled_b)
         print(f"{tag} {shape:6s} R={R} S={S} k5: fwd {ms['fwd', False]:.3f}"
-              f" ms (save_acts {ms['fwd', True]:.3f}; plain {plain_f:.3f}, "
+              f" ms (save_acts {spill_ms('fwd')}; plain {plain_f:.3f}, "
               f"bound {bounds['fwd', False]:.4f}), bwd "
-              f"{ms['bwd', False]:.3f} ms (save_acts {ms['bwd', True]:.3f}; "
+              f"{ms['bwd', False]:.3f} ms (save_acts {spill_ms('bwd')}; "
               f"plain {plain_b:.3f}, bound {bounds['bwd', False]:.4f}) = "
               f"row pass {ms['rows', False]:.4f} ms (save_acts "
-              f"{ms['rows', True]:.4f}; its bound "
+              f"{spill_ms('rows')}; its bound "
               f"{bounds['rows', False]:.4f} / {bounds['rows', True]:.4f}) + "
               f"weight gradients {wg['ms']:.4f} ms (its bound "
               f"{wg['bound']:.4f}, torch.matmul {wg['library_ms']:.4f}, "
@@ -1582,11 +1679,13 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
 K1_TOL = dict(out_abs=2e-2, grad_rel=2e-2, dx_rel=5e-2)
 
 
-def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
+def check_fused_mlp_kernel(model, dev, levels, wentry: dict,
+                           sfx: str = "", tag: str = "[kernel]") -> list:
     """Kernel 1 (forward and backward) vs its plain version on the IPE
     features of the coarse level's 28,672 rows, and the weight-gradient
-    pass on its operand rows (into `wentry`); raises on a disagreement.
-    Returns the two JSON entries (no model path launches kernel 1)."""
+    pass on its operand rows (into `wentry`; into its sums only without
+    `sfx`); raises on a disagreement. Returns the two JSON entries, named
+    with `sfx` (no model path launches kernel 1)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
@@ -1594,12 +1693,14 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
     from pano_nerf_tpu_torch.ops import mip
     mlp, cfg = model.mlp, model.cfg
+    shape = k2.shape_of(mlp)
+    X, V = mlp.xyz_dim, mlp.view_dim
     means, covs, viewdirs = levels["coarse"][:3]
     with torch.no_grad():
         x = mip.integrated_pos_enc(means, covs, cfg.min_deg_point,
-                                   cfg.max_deg_point).reshape(-1, 96)
-        v_enc = mip.pos_enc(viewdirs, 0, cfg.deg_view, True)[:, None, :]
-        v_enc = v_enc.expand(*means.shape[:2], 27).reshape(-1, 27)
+                                   cfg.max_deg_point).reshape(-1, X)
+        v_enc = model._venc(viewdirs)
+        v_enc = v_enc.expand(*means.shape[:2], V).reshape(-1, V)
     x, v_enc = x.contiguous(), v_enc.contiguous()
     M = x.shape[0]
     packed = pack_params(mlp)
@@ -1622,23 +1723,29 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
     failures = [f"{k}: {errs[k]:.3e} > {tol}" for k, tol in K1_TOL.items()
                 if not errs[k] <= tol]
 
-    xb = x.to(torch.bfloat16)
+    XF = shape.XF
+    xb = torch.nn.functional.pad(x, (0, XF - X)).to(torch.bfloat16)
     v = k2.viewdir_rows(v_enc, (M,))
     g = torch.randn(M, k2.OUT_W, device=dev)
     dummy = types.SimpleNamespace(backward_launches=0)
-    ms_f = time_ms(lambda: k1.launch_forward(xb, v, *packed), reps=20)
+    ms_f = time_ms(lambda: k1.launch_forward(xb, v, *packed, shape),
+                   reps=20)
     ms_b = time_ms(lambda: k1.run_backward(dummy, mlp, xb, v, *packed, g),
                     reps=10)
-    lib = k2.kernel_library()
+    lib = k2.kernel_library(shape)
     ops, _, db_r = k2.backward_buffers(lib, *packed, k2.tile_rows(lib, M),
                                        False)
-    dx_r = torch.empty((M, 96), device=dev)
+    dx_r = torch.empty((M, XF), device=dev)
     ms_r = time_ms(lambda: k1.launch_backward_rows(xb, v, *packed, g, ops,
-                                                    dx_r, db_r), reps=10)
-    bound_r = _bound(2 * MLP_MACS * M, M * (192 + 64 + 64 + 384)
+                                                    dx_r, db_r, shape),
+                   reps=10)
+    mlp_m = row_macs(mlp)["mlp"]
+    # bf16 x and viewdir codes, f32 outputs (64 B) in; f32 d x out.
+    io = 2 * XF + _v_bytes(mlp) + 64
+    bound_r = _bound(2 * mlp_m * M, M * (io + 4 * XF)
                      + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
-    wg = check_weight_grads(mlp, ops, False, M, wentry, "k1_coarse",
-                            failures)
+    wg = check_weight_grads(mlp, ops, False, M, wentry, f"k1{sfx}_coarse",
+                            failures, total=sfx == "")
     del ops, db_r, dx_r
     with torch.no_grad():
         plain_f = time_ms(lambda: k1.fused_mlp_apply_reference(
@@ -1650,18 +1757,19 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
         outs, list(mlp.parameters()) + [x_req], cot, retain_graph=True),
         reps=3)
     del outs
-    bound_f = _bound(MLP_MACS * M, M * (192 + 64 + 64)
-                     + _packed_bytes(packed, False))
-    bound_b = _bound(3 * MLP_MACS * M, M * (192 + 64 + 64 + 384)
+    bound_f = _bound(mlp_m * M, M * io + _packed_bytes(packed, False))
+    bound_b = _bound(3 * mlp_m * M, M * (io + 4 * XF)
                      + _packed_bytes(packed, True))
-    fwd = _entry("fused_mlp_apply_fwd", "fused_mlp.cu", "fused_mlp.py:223")
-    bwd = _entry("fused_mlp_apply_bwd", "fused_mlp.cu", "fused_mlp.py:328")
+    fwd = _entry("fused_mlp_apply_fwd" + sfx, "fused_mlp.cu",
+                 "fused_mlp.py:223")
+    bwd = _entry("fused_mlp_apply_bwd" + sfx, "fused_mlp.cu",
+                 "fused_mlp.py:328")
     _add(fwd, "coarse", ms_f, plain_f, bound_f, errs["out_abs"], rows=M,
          errors=errs)
     _add(bwd, "coarse", ms_b, plain_b, bound_b, errs["grad_abs"], rows=M,
          row_ms=ms_r, row_bound_ms=bound_r, wgrad_ms=wg["ms"],
          wgrad_bound_ms=wg["bound"], wgrad_library_ms=wg["library_ms"])
-    print(f"[kernel] coarse M={M} k1: fwd {ms_f:.3f} ms (plain "
+    print(f"{tag} coarse M={M} k1: fwd {ms_f:.3f} ms (plain "
           f"{plain_f:.3f}, bound {bound_f:.4f}), bwd {ms_b:.3f} ms (plain "
           f"{plain_b:.3f}, bound {bound_b:.4f}) = row pass {ms_r:.4f} ms "
           f"(its bound {bound_r:.4f}) + weight gradients {wg['ms']:.4f} ms "
@@ -1673,6 +1781,45 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict) -> list:
         raise AssertionError("fused_mlp_apply disagrees with its plain "
                              "version: " + "; ".join(failures))
     return [fwd, bwd]
+
+
+def check_other_shape_kernels(env, dev, wentry: dict) -> dict:
+    """Phase 2w: each build of `OTHER_SHAPES` against its plain versions
+    on the card at phase 2's tolerances, weights from seed 0: at A and B
+    kernel 4 at the eval path's three shapes, kernels 2 and 3 (forward
+    and backward: parameters, means, covariances) at a batch-512 train
+    step's four calls, kernel 5 (`save_acts` off) at its coarse and env
+    levels, and at A kernel 1 at 28,672 rows; at C (mip-NeRF) kernels 2
+    and 3 at a batch-2048 train step's 131,072 rows. Each with its ms per
+    launch beside the bound from the shape's own MACs and bytes (the
+    weight-gradient pass into `wentry`, out of its sums). Returns the
+    JSON entries by shape, named with `_w<shape>`."""
+    import torch
+    entries = {}
+    for name in OTHER_SHAPES:
+        sfx, tag = f"_w{name}", f"[kernel-w{name}]"
+        model = shape_model(name, dev)
+        if name == "C":
+            calls = {k: v for k, v in mip_shapes(model, dev).items()
+                     if k.startswith("train")}
+            entries[name] = check_train_kernels(model, dev, calls, wentry,
+                                                ndc=1, tag=tag, sfx=sfx)
+            continue
+        with torch.no_grad():
+            got = [check_kernels(model, env, dev,
+                                 shapes=main_path_inputs(model, env, dev),
+                                 sfx=sfx, tag=tag)]
+        calls, levels, _ = train_shapes(model, env, dev)
+        got += check_train_kernels(model, dev, calls, wentry, tag=tag,
+                                   sfx=sfx)
+        got += check_train_render_kernel(model, dev, levels, wentry,
+                                         sfx=sfx, tag=tag, spills=(False,))
+        if name == "A":
+            got += check_fused_mlp_kernel(model, dev, levels, wentry,
+                                          sfx=sfx, tag=tag)
+        entries[name] = got
+        del model, calls, levels
+    return entries
 
 
 TRAIN_STEPS = 200
@@ -1985,7 +2132,7 @@ def _train_inputs(trainer):
             torch.as_tensor(ds.images, dtype=torch.float32).to(dev))
 
 
-def time_train_modes(trainer, steps: int = 48) -> dict:
+def time_train_modes(trainer, steps: int = 16) -> dict:
     """ms per train step and train rays/s of the 8-step graph, the
     one-step graph and eager steps, on the trained system, in turns
     (8, 1, eager, eager, 1, 8) of `steps` steps each; each turn ends in a
@@ -2722,9 +2869,7 @@ def drive_plain_phase(ph: int, workdir: str, scene: str,
     else:
         check_train_step_against_cpu(trainer)
     check_graphed_against_eager(trainer)
-    # Turns of 16 steps on the slow plain route, of phase 4's 48 on the
-    # kernels (phase 18 is read against phase 4).
-    ms = time_train_modes(trainer, steps=48 if ph == 18 else 16)
+    ms = time_train_modes(trainer)
     g8 = "graph, 8 steps per replay"
     print(f"[time-phase{ph}] graph of 8 steps {ms[g8]:.3f} ms per step "
           f"(one-step graph {ms['graph, 1 step per replay']:.3f}, eager "
@@ -2792,10 +2937,21 @@ def check_zero_covariance_kernels(system) -> None:
                               tag="[kernel-noint]")
 
 
+# Phases 21-22m: the shapes of `OTHER_SHAPES` trained and served, 64
+# steps each: 21, A with kernel 5's key on (kernels 2, 3, 5; served
+# through kernel 4); 22, B with the key off (kernels 2 and 3; kernel 4);
+# 22m, C with `loss.ort_loss` (kernels 2 and 3, served through them).
+SHAPE_PHASES = {
+    "21": (CONFIG, SHAPE_A, True, 64, ()),
+    "22": (CONFIG, SHAPE_B, False, 64, ()),
+    "22m": (MIP_CONFIG, SHAPE_C + ("loss.ort_loss", "0.1"), False, 64, ()),
+}
+
+
 def drive_level_phase(ph: str, workdir: str, scene: str,
                       base_times: dict) -> list:
-    """Phase `ph` of `LEVEL_PHASES`: its steps through the train entry
-    point (graphed, exact launch counts, over 200 steps the loss
+    """Phase `ph` of `LEVEL_PHASES` or `SHAPE_PHASES`: its steps through
+    the train entry point (graphed, exact launch counts, over 200 steps the loss
     falling), the checkpoint served through `eval --ckpt_dir` (20, 20m:
     randomized), the panorama's chunk graph bit-equal to eager chunks and
     ms per panorama, a view of the checkpoint rendered on the card and on
@@ -2808,7 +2964,8 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
     import torch
     enter_phase(ph)
     dev = torch.device("cuda")
-    config, opts, key, steps, served_opts = LEVEL_PHASES[ph]
+    config, opts, key, steps, served_opts = {**LEVEL_PHASES,
+                                             **SHAPE_PHASES}[ph]
     mip = config == MIP_CONFIG
     name = f"phase{ph}"
     run = drive_train_path(workdir, scene, render_kernel=key, config=config,
@@ -2836,7 +2993,7 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
     if noint:
         check_zero_covariance_kernels(trainer.system)
     check_graphed_against_eager(trainer)
-    ms = time_train_modes(trainer, steps=16)
+    ms = time_train_modes(trainer)
     g8 = "graph, 8 steps per replay"
     base = "" if mip else (
         f" vs phase 4{'b' if key else ''} in this call "
@@ -2918,6 +3075,9 @@ def main() -> int:
         mip_model, dev, mip_shapes(mip_model, dev), wentry, ndc=1,
         forward_only=MIP_EVAL, tag="[kernel-mip]", sfx="_c1")
     del mip_model
+    # 2w: the builds at the other MLP shapes.
+    enter_phase("2w")
+    shape_entries = check_other_shape_kernels(env, dev, wentry)
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
@@ -3041,6 +3201,9 @@ def main() -> int:
         level_runs = [r for ph in LEVEL_PHASES
                       for r in drive_level_phase(ph, workdir, scene,
                                                  base_times)]
+        # 21-22m: the other MLP shapes, trained and served.
+        shape_runs = {ph: drive_level_phase(ph, workdir, scene, base_times)
+                      for ph in SHAPE_PHASES}
     enter_phase("report")
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
@@ -3061,17 +3224,34 @@ def main() -> int:
                             for r in study_runs)
     for e in sd_entries:   # the re-march's shape, over phase 18's run
         e["launches"] = plain_runs[18]["launches"][e["name"][:-len("_sd")]]
+    # The other shapes' entries, over their phases' runs (train and
+    # served): A over 21, B over 22, C over 22m; kernel 1 at A, as at the
+    # shipped shape, and kernel 5 at B (22 runs with the key off) are on
+    # no main path.
+    for name, ph in (("A", "21"), ("B", "22"), ("C", "22m")):
+        for e in shape_entries[name]:
+            e["launches"] = sum(r["launches"][e["name"][:-len("_wA")]]
+                                for r in shape_runs[ph])
+            if e["launches"] == 0 and not (
+                    e["name"].startswith("fused_mlp_apply")
+                    or e["name"].startswith("fused_render_train")
+                    and name == "B"):
+                raise AssertionError(f"{e['name']}: no launch on phase "
+                                     f"{ph}'s path")
     for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
                             for r in (run, trained, train, train_k5,
                                       frames[CONFIG]) + mip_runs
                             + preset_runs + study_runs
                             + tuple(plain_runs.values())
-                            + tuple(level_runs))
+                            + tuple(level_runs)
+                            + tuple(r for rs in shape_runs.values()
+                                    for r in rs))
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries + mip_entries + preset_entries
-                      + study_entries + sd_entries}))
+                      + study_entries + sd_entries
+                      + [e for es in shape_entries.values() for e in es]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,19 +8,21 @@
 //  * NORMALS: `fused_mlp_normals_apply` (pano_nerf_tpu/kernels/
 //    fused_mlp_normals.py:369; `_sigma_grad_chain` :71, `_fwd_kernel` :94,
 //    `_bwd_kernel` :132). The forward also returns d raw_sigma / d means and
-//    saves the 8 trunk activations (bf16 [M, 8*256]) for the backward.
+//    saves the 8 trunk activations (bf16 [M, 8*W]) for the backward.
 //  * ENCODED: `fused_mlp_apply` (pano_nerf_tpu/kernels/fused_mlp.py:363;
-//    `_fwd_kernel` :198, `_bwd_kernel` :238). The input is x [M, 96] bf16
-//    IPE features instead of moments, and the backward writes d x [M, 96]
+//    `_fwd_kernel` :198, `_bwd_kernel` :238). The input is x [M, XF] bf16
+//    IPE features instead of moments, and the backward writes d x [M, XF]
 //    f32 instead of d moments.
 //
 // Rows are Gaussian moments mc [M, 8] = means(3) | covs(3) | pad(2), f32
-// (or x for ENCODED), and per-row viewdir encodings v [M, 32] bf16 (27
+// (or x for ENCODED), and per-row viewdir encodings v [M, VP] bf16 (VF
 // used). The output slab is [M, 16] f32: raw rgb (3) | raw density (NDC)
-// | 0. NDC, the density channels, is fixed per build (nerf_mlp.cuh): the
-// library is built once with 5 (Pano-NeRF) and once with 1 (mip-NeRF);
-// the backward zeroes the head cotangent past NDC, so padded lanes add
-// nothing to the density head's gradient.
+// | 0. The MLP's shape (density channels NDC, widths W and VW, IPE degrees
+// L, viewdir encoding VF) is fixed per build (nerf_mlp.cuh): the library
+// is built once per shape a model asks for (kernels/fused_mlp_ipe.py
+// `MlpShape`); the backward zeroes the head cotangent past NDC, so padded
+// lanes add nothing to the density head's gradient. The sizes below are
+// the shipped shape's (W 256, VW 128, L 16).
 //
 // The backward is two launches, and each has its own bound on an H100:
 // * The row pass (fused_mlp_bwd_kernel) recomputes the forward (or loads
@@ -68,13 +70,13 @@ enum Variant { IPE = 0, NORMALS = 1, ENCODED = 2 };
 
 struct FwdParams {
   const float* mc;   // [M, 8]        (IPE, NORMALS)
-  const bf16* x;     // [M, 96]       (ENCODED)
-  const bf16* v;     // [M, 32]
+  const bf16* x;     // [M, XF]       (ENCODED)
+  const bf16* v;     // [M, VP]
   const bf16* w;
   const float* b;
   float* out;        // [M, 16]
   float* dsig;       // [M, 3]        (NORMALS)
-  bf16* acts;        // [M, 8 * 256]  (NORMALS, may be null)
+  bf16* acts;        // [M, 8 * W]    (NORMALS, may be null)
   int M, min_deg;
 };
 
@@ -88,7 +90,7 @@ struct BwdParams {
   const float* q;     // [M, 3] cotangent of dsig (NORMALS)
   bf16* ops;          // [grid * 64, OPW] operand rows
   float* dmc;         // [M, 8]   (IPE, NORMALS)
-  float* dx;          // [M, 96]  (ENCODED)
+  float* dx;          // [M, XF]  (ENCODED)
   float* dw;          // [W_TOTAL] f32, zeroed; this kernel adds dWd's sigma row
   float* db;          // [B_TOTAL] f32, zeroed
   int M, min_deg;
@@ -97,7 +99,7 @@ struct BwdParams {
 struct SmemF {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
-  uint32_t mask[8 * 2 * NT];
+  uint32_t mask[8 * MWC * NT];
   float x32[TM * XF];
   float gx[TM * XF];       // NORMALS: d raw_sigma / d x
   float mc[TM * 8];
@@ -108,7 +110,7 @@ struct SmemF {
 struct SmemB {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
-  uint32_t mask[8 * 2 * NT];
+  uint32_t mask[8 * MWC * NT];
   uint32_t hvmask[NT];
   float x32[TM * XF];
   float dx[TM * XF];      // d x; later the cotangent of c1 (NORMALS)
@@ -166,7 +168,7 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
     for (int i = tid; i < nrows * 3; i += NT) {
       const int r = i / 3, d = i % 3;
       float a = 0.f;
-      for (int deg = 0; deg < XP / 3; ++deg) {
+      for (int deg = 0; deg < L; ++deg) {
         for (int half = 0; half < 2; ++half) {
           const int j = half * XP + deg * 3 + d;
           a += s.gx[r * XF + j] * att_cos(s.x32 + r * XF, j) *
@@ -245,27 +247,29 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
       pre_epilogue();
       chain_start(s, p.w);
       post_epilogue();
-      store_blocks(s.act, 0, 4, &maps.ops, O_SZ + 7 * W, orow);
+      store_blocks(s.act, 0, W / 64, &maps.ops, O_SZ + 7 * W, orow);
     }
-    float acc[64], sk5[32], sk0[32];
+    float acc[W / 4], sk5[32], sk0[32];
     for (int layer = 7; layer >= 0; --layer) {
       if (layer == 5) mm<64, 1>(pp, trunk_prod(5, true, W, 128), sk5, s.act, 0);
       if (layer == 0) {
         mm<64, 1>(pp, trunk_prod(0, true, 0, 128), sk0, s.act, 0);
         break;
       }
-      mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+      mm<W / 2, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
       if constexpr (!PRODUCER) {
         pre_epilogue();
         masked_epilogue(s, acc, layer - 1);
         post_epilogue();
-        store_blocks(s.act, 0, 4, &maps.ops, O_SZ + (layer - 1) * W, orow);
+        store_blocks(s.act, 0, W / 64, &maps.ops, O_SZ + (layer - 1) * W,
+                     orow);
       }
     }
     if constexpr (!PRODUCER) {
       // g_x (rounded to bf16 as the TPU backward does); cotangents of the
       // IPE-side products: cot_dy = q . sel_y, cot_gx = cot_dy * c1 (bf16,
-      // the walk's input at act columns 256..351), cot_c1 = cot_dy * g_x.
+      // the walk's input at act columns W..W+XF-1), cot_c1 = cot_dy * g_x;
+      // both zero on the padded feature columns.
       pre_epilogue();
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
@@ -273,6 +277,13 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
         if (j < XF) {
           float cg[2];
           for (int h = 0; h < 2; ++h) {
+            if constexpr (2 * XP < XF) {
+              if (j + h >= 2 * XP) {
+                cg[h] = 0.f;
+                s.dx[r * XF + j + h] = 0.f;
+                continue;
+              }
+            }
             const float gx = __bfloat162float(
                 __float2bfloat16(sk5[i + h] + sk0[i + h]));
             const float cot_dy =
@@ -289,7 +300,7 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
       for (int i = tid; i < TM * 6; i += NT) {
         const int r = i / 6, k = i % 6, d = k % 3;
         float a = 0.f;
-        for (int deg = 0; deg < XP / 3; ++deg) {
+        for (int deg = 0; deg < L; ++deg) {
           for (int half = 0; half < 2; ++half) {
             const int j = half * XP + deg * 3 + d;
             const float cc = s.dx[r * XF + j];
@@ -308,12 +319,15 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
     // c_i = bf16(m_i * (c_{i-1} @ W_i^T)), with [c_4 | cot_gx] into layer 5
     // and cot_gx into layer 0.
     for (int layer = 0; layer < 8; ++layer) {
-      mm<128, 0>(pp, trunk_prod(layer, false), acc, s.act, layer == 0 ? W : 0);
+      mm<W / 2, 0>(pp, trunk_prod(layer, false), acc, s.act,
+                   layer == 0 ? W : 0);
       if constexpr (!PRODUCER) {
         pre_epilogue();
         masked_epilogue(s, acc, layer);
         post_epilogue();
-        if (layer < 7) store_blocks(s.act, 0, 4, &maps.ops, O_C + layer * W, orow);
+        if (layer < 7) {
+          store_blocks(s.act, 0, W / 64, &maps.ops, O_C + layer * W, orow);
+        }
       }
     }
     // s_7 is Wd's sigma row broadcast over the rows: its gradient is the
@@ -525,6 +539,7 @@ int fused_mlp_bias_count() { return B_TOTAL; }
 int fused_mlp_tile_rows() { return TM; }
 int fused_mlp_ops_width(int normals) { return normals ? OPW_NRM : OPW_IPE; }
 int fused_mlp_density_channels() { return NDC; }
+NERF_SHAPE_EXPORT(fused_mlp_shape)
 
 const char* fused_mlp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -551,7 +566,7 @@ int fused_mlp_forward(const float* mc, const void* v, const void* weights,
                        : launch_forward<IPE>(p, st));
 }
 
-// Forward over M rows of encoded features x [M, 96] bf16 (kernel 1).
+// Forward over M rows of encoded features x [M, XF] bf16 (kernel 1).
 int fused_mlp_encoded_forward(const void* x, const void* v,
                               const void* weights, const float* biases,
                               float* out, int M, void* stream) {
@@ -595,7 +610,7 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
                        : launch_backward<IPE>(p, nullptr, st));
 }
 
-// Backward row pass of kernel 1: writes dx [M, 96] f32, the operand rows
+// Backward row pass of kernel 1: writes dx [M, XF] f32, the operand rows
 // (fused_mlp_ops_width(0) wide) and adds the bias gradients into db.
 int fused_mlp_encoded_backward_rows(const void* x, const void* v,
                                     const void* weights, const float* biases,

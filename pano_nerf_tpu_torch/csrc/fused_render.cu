@@ -8,7 +8,9 @@
 //
 // What bounds it on an H100: tensor-core operations. One sample row costs
 // 611,328 MACs of MLP (1.22 MFLOP) plus 507,904 MACs (1.02 MFLOP) of the
-// normal chain on the fine level, against 32 B of input moments. The
+// normal chain on the fine level, against 32 B of input moments (at the
+// shipped shape, W 256, VW 128, L 16; a build takes the MLP's shape as
+// nerf_mlp.cuh's constants, the viewdir encoding's degree from VF). The
 // bf16 weights stay in L2, but every tile streams them from L2 into
 // shared memory once (1.31 MB of TMA boxes for the MLP, 1.05 MB more for
 // the chain), so the rows that share one weight byte set the L2 traffic.
@@ -38,7 +40,7 @@
 //   fine level, density_chain, the chain kernel 3's forward runs too.
 // * Shared memory (the budget decides the ring): activation tiles 2 x 48
 //   KB, per-row and per-ray scalars ~25 KB, and on the fine level the ReLU
-//   masks, 8 layers x 128 rows x 256 bits = 32 KB in fragment order (128
+//   masks, 8 layers x 128 rows x W bits = 32 KB in fragment order (128
 //   accumulators per thread leave no registers for them). So the kernel
 //   comes in two layouts (template NRM): the fine level with the masks and
 //   a 2-slice ring, the coarse and env levels with a 3-slice ring in the
@@ -47,8 +49,9 @@
 //   the six moments of a row, with the very expressions load_ipe uses, so
 //   its values equal the features the column-split fold reads.
 // * g_x is folded straight from the accumulators of layer 5's skip
-//   columns and layer 0 (a thread holds feature j and j + 48 of its rows,
-//   the sin and cos of one degree and dimension), reduced over the four
+//   columns and layer 0 (where 3 L is a multiple of 8, a thread holds
+//   feature j and j + 3 L of its rows, the sin and cos of one degree and
+//   dimension; else each feature is folded alone), reduced over the four
 //   lanes of a row, into d raw_sigma / d means per row.
 // * Compositing, the expectations and the normal average are sequential
 //   f32 scans, one thread per ray, as in kernel 5's `composite`.
@@ -68,7 +71,10 @@ namespace {
 
 using namespace nerf_mlp;
 
-constexpr int VF = 27;        // viewdir encoding: identity + 4 degrees x 3 x 2
+// The viewdir encoding is built here, with identity (as JAX's kernel 4
+// builds it): VF = 3 + 6 deg_view.
+static_assert(VF % 6 == 3, "kernel 4 encodes viewdirs with identity");
+constexpr int DV = (VF - 3) / 6;  // deg_view
 constexpr int OUT_FIXED = 17;
 constexpr int TR = 2 * TM;    // sample rows per tile
 
@@ -96,7 +102,7 @@ struct Smem {
   static constexpr int NS = NRM ? 2 : 3;  // weight-slice stages
   alignas(1024) bf16 act[2 * ACT_ELEMS];
   alignas(1024) unsigned char ring[NS * SLICE];
-  uint32_t mask[NRM ? 8 * 4 * NT : 1];
+  uint32_t mask[NRM ? 8 * (W / 64) * NT : 1];
   float mc[TR * 8];
   float heads[TR * OUT_W];
   float row[NROW * TR];
@@ -112,8 +118,8 @@ __device__ Sm& smem_of(unsigned char* raw) {
                                 ~uintptr_t(1023));
 }
 
-// Viewdir codes [d | sin(2^k d) | cos(2^k d)], k = 0..3, zero in columns
-// 27..31, of tile row r, from its ray's direction (s.ray).
+// Viewdir codes [d | sin(2^k d) | cos(2^k d)], k = 0..DV-1, zero in
+// columns VF..VP-1, of tile row r, from its ray's direction (s.ray).
 struct ViewCodes {
   const float* ray;
   int S;
@@ -131,9 +137,9 @@ struct ViewCodes {
         if (j < 3) {
           v[k] = d[j];
         } else if (j < VF) {
-          const int jj = (j - 3) % 12;
+          const int jj = (j - 3) % (3 * DV);
           float arg = d[jj % 3] * ldexpf(1.f, jj / 3);
-          if (j >= 15) arg = arg + 1.57079632679489662f;
+          if (j >= 3 + 3 * DV) arg = arg + 1.57079632679489662f;
           v[k] = sinf(arg);
         }
       }
@@ -197,28 +203,51 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
 }
 
 // Fold one part of g_x (layer 5's skip columns or layer 0's product, 128
-// columns of which 96 are features) through the IPE Jacobian into
+// columns of which 2 XP are features) through the IPE Jacobian into
 // d raw_sigma / d means (s.dsig, per tile row): d feat_sin / d mean =
 // 2^deg att cos(y), d feat_cos / d mean = -2^deg att sin(y).
 __device__ void fold_gx(Smem<true>& s, int min_deg, int layer,
                         const float (&part)[64]) {
   const int rb = row0_of<true>();
   float g[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  if constexpr (XP % 8 == 0) {
+    // Feature j < XP and its cos partner j + XP sit in one thread, XP / 8
+    // n8 blocks apart: both from one att and y.
+    constexpr int NB = XP / 8, PART = 4 * NB;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float* m = s.mc + (rb + frag_row(2 * h)) * 8;
+    for (int h = 0; h < 2; ++h) {
+      const float* m = s.mc + (rb + frag_row(2 * h)) * 8;
 #pragma unroll
-    for (int jb = 0; jb < 6; ++jb) {
+      for (int jb = 0; jb < NB; ++jb) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 4 * jb + 2 * h + e;  // feature j < 48; i + 24 is j + 48
-        const int j = frag_col(i);
-        const int deg = j / 3 + min_deg, dim = j % 3;
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jb + 2 * h + e;  // feature j < XP; i + PART is j + XP
+          const int j = frag_col(i);
+          const int deg = j / 3 + min_deg, dim = j % 3;
+          const float y = m[dim] * ldexpf(1.f, deg);
+          const float att = expf(-0.5f * (m[3 + dim] * ldexpf(1.f, 2 * deg)));
+          const float ac = att * sinf(y + 1.57079632679489662f);
+          const float as = att * sinf(y);
+          g[h][dim] += (part[i] * ac - part[i + PART] * as) * ldexpf(1.f, deg);
+        }
+      }
+    }
+  } else {
+    // Each feature alone: sin features j < XP, cos features XP..2 XP-1.
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int h = (i >> 1) & 1, j = frag_col(i);
+      if (j < 2 * XP) {
+        const float* m = s.mc + (rb + frag_row(i)) * 8;
+        const int jj = j % XP, deg = jj / 3 + min_deg, dim = jj % 3;
         const float y = m[dim] * ldexpf(1.f, deg);
         const float att = expf(-0.5f * (m[3 + dim] * ldexpf(1.f, 2 * deg)));
-        const float ac = att * sinf(y + 1.57079632679489662f);
-        const float as = att * sinf(y);
-        g[h][dim] += (part[i] * ac - part[i + 24] * as) * ldexpf(1.f, deg);
+        const float v =
+            (j < XP ? part[i] * (att * sinf(y + 1.57079632679489662f))
+                    : -part[i] * (att * sinf(y))) *
+            ldexpf(1.f, deg);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) g[h][d] += d == dim ? v : 0.f;
       }
     }
   }
@@ -348,6 +377,7 @@ extern "C" {
 
 int fused_render_weight_count() { return W_TOTAL; }
 int fused_render_bias_count() { return B_TOTAL; }
+NERF_SHAPE_EXPORT(fused_render_shape)
 
 // Rays per tile at S samples per ray (0: S not taken).
 int fused_render_tile_rays(int S) { return S >= 1 && S <= TM ? TR / S : 0; }

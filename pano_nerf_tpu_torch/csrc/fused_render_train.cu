@@ -12,7 +12,7 @@
 //   out [R, 8] = rgb(3) | acc | distance | 0(3), weights [R, S], f32;
 //   distance = clip(sum w t_mid / max(acc, 1e-10), t_0, t_S), white_bkgd
 //   adds 1 - acc. With `acts` the 8 trunk activations are spilled as bf16
-//   [R*S, 8*256] for the backward.
+//   [R*S, 8*W] for the backward.
 // Backward (derivation at fused_render_train.py:26-43): from the per-ray
 // cotangents of out and weights, per ray in f32,
 //   cot_w_s = sum_c cot_rgb_c rgb_cs + cot_acc + cot_N t_mid_s + g_w_s,
@@ -25,8 +25,10 @@
 // wrapper launches next.
 //
 // What bounds it on an H100: tensor-core operations, as kernel 2: 611,328
-// MACs per sample row forward and 3 x 611,328 backward, against 96 B of
-// inputs per row; compositing is O(S) per ray.
+// MACs per sample row forward and 3 x 611,328 backward at the shipped
+// shape, against 96 B of inputs per row; compositing is O(S) per ray. A
+// build takes the MLP's shape as nerf_mlp.cuh's constants (the viewdir
+// codes arrive encoded, VF of VP columns).
 //
 // Design:
 // * Ray-aligned tiles: compositing needs a whole ray in one block, so a
@@ -63,12 +65,12 @@ enum { R_DELTA, R_TMID, R_SIG, R_DD, R_W, R_TAU, R_RAW, R_RGB = R_RAW + 3,
 struct Params {
   const float* mc;    // [R*S, 8]: means | covs | delta | t_mid
   const float* clip;  // [R, 2]: t_0 | t_S
-  const bf16* v;      // [R*S, 32] viewdir encoding per row
+  const bf16* v;      // [R*S, VP] viewdir encoding per row
   const bf16* w;
   const float* b;
   float* out;         // [R, 8]
   float* weights;     // [R, S]
-  bf16* acts;         // [R*S, 8*256] spill (forward: written if non-null;
+  bf16* acts;         // [R*S, 8*W] spill (forward: written if non-null;
                       // backward: read if non-null, else recomputed)
   const float* g8;    // [R, 8] cotangent of out
   const float* gw;    // [R, S] cotangent of weights
@@ -83,7 +85,7 @@ struct Params {
 struct SmemF {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
-  uint32_t mask[8 * 2 * NT];
+  uint32_t mask[8 * MWC * NT];
   float x32[TM * XF];
   float mc[TM * 8];
   float heads[TM * OUT_W];
@@ -95,7 +97,7 @@ struct SmemF {
 struct SmemB {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
-  uint32_t mask[8 * 2 * NT];
+  uint32_t mask[8 * MWC * NT];
   uint32_t hvmask[NT];
   float x32[TM * XF];
   float dx[TM * XF];
@@ -324,6 +326,8 @@ Params make_params(const float* mc, const float* clip, const void* v,
 }  // namespace
 
 extern "C" {
+
+NERF_SHAPE_EXPORT(fused_render_train_shape)
 
 // Blocks (tiles of 64 rows) of a launch over R rays of S samples; the
 // backward's operand buffer has 64 rows per block.

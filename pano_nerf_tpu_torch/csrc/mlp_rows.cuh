@@ -22,8 +22,9 @@
 //   completion, and keeps the next product's first slices in flight
 //   while the consumers run an epilogue. A weight is read K-major for
 //   x @ W^T and MN-major (wgmma's transpose) for s @ W.
-// * The activation tile (64 rows x 384 columns bf16, six 8 KB blocks of
-//   64 columns) is kept in the same 128-byte-swizzled layout that the
+// * The activation tile (64 rows x up to 384 columns bf16, up to six 8 KB
+//   blocks of 64 columns: the trunk's W and the widest input beside it) is
+//   kept in the same 128-byte-swizzled layout that the
 //   wgmma descriptor and the TMA boxes use, so epilogues write it from
 //   registers and a TMA store copies a block straight into the operand
 //   rows (64-column operands; the narrow ones go out as 16-byte stores).
@@ -45,8 +46,16 @@
 //   and computes all output columns of every product (m64nNk16, N up to
 //   256, 128 accumulators per thread), so each weight slice feeds 128
 //   rows. Per-row scalars are indexed by tile row 64 wg() + r, masks hold
-//   4 words per thread and layer, and a warpgroup synchronises only with
+//   W / 64 words per thread and layer, and a warpgroup synchronises only with
 //   itself (named barrier 2 + wg()).
+// The shapes (nerf_mlp.cuh: W 128 or 256, VW 64 or 128, XF, VP) are
+// compile-time constants of a build. A column-split product of N columns
+// gives each warpgroup N / 2, and wgmma's MN-major B needs 64 of them, so
+// the one MN-major product narrower than 128 columns, the view branch's
+// backward at VW = 64 (d hv = gr @ Wc), runs whole in both warpgroups
+// (K is 16: one wgmma each) and each keeps its own half
+// (`view_backward`); the forward products take N / 2 of any width
+// (m64n32k16 for the 64-wide view branch, m64n8k16 for the heads).
 // Each step is called by every consumer thread; `Smem` is any struct with
 // the members the step names, so a kernel allocates only what it uses.
 // Consumers synchronise among themselves with named barriers (1: all
@@ -58,14 +67,21 @@
 
 namespace nerf_mlp {
 
-constexpr int VP = 32;     // viewdir encoding width, padded (27 used)
 constexpr int OUT_W = 16;  // raw output slab: rgb(3) | density(5) | 0(8)
 constexpr int ROW_THREADS = NT + 128;  // two consumer warpgroups + producer
 constexpr int RING = 3;               // weight-slice stages
 constexpr int BOX = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
 constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
-constexpr int ACT_BLOCKS = 6;         // activation tile: 6 x 64 columns
+// Activation tile: 64-column blocks for the trunk's W columns and the
+// widest of the inputs beside them (IPE features, viewdir codes, the
+// density-head cotangent).
+constexpr int ACT_COLS = W + (XF > VP ? (XF > HP ? XF : HP) : (VP > HP ? VP : HP));
+constexpr int ACT_BLOCKS = (ACT_COLS + 63) / 64;
+static_assert(ACT_BLOCKS <= 6, "the activation tile holds at most 384 columns");
 constexpr int ACT_ELEMS = TM * 64 * ACT_BLOCKS;  // one 64-row tile
+// ReLU-mask words per thread and trunk layer in the column split (W / 2
+// columns per warpgroup, W / 4 accumulators per thread).
+constexpr int MWC = W / 128;
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x
@@ -90,7 +106,7 @@ enum MapId { M_W0, M_W14, M_W5, M_W67, M_WDB, M_WV, M_WC, NW_MAPS };
 struct Maps {
   CUtensorMap w[NW_MAPS];
   CUtensorMap ops;   // operand rows [rows, OPW] (backward row passes)
-  CUtensorMap acts;  // trunk spill [M, 8 * 256] (kernel 3)
+  CUtensorMap acts;  // trunk spill [M, 8 * W] (kernels 3 and 5)
 };
 
 // The weight maps over the packed buffer (host).
@@ -391,8 +407,9 @@ __device__ __forceinline__ float deg_scale(int j, int min_deg) {
 // ---- steps ----
 
 // Load the moments of the tile's rows row0 .. row0 + nrows - 1 into s.mc
-// (by tile row; zero past nrows) and build the IPE features: bf16 at act
-// columns 256..351 and, column split, f32 in x32 (a row-split kernel
+// (by tile row; zero past nrows) and build the IPE features (zero in the
+// padded columns 2 XP..XF-1): bf16 at act columns W..W+XF-1 and, column
+// split, f32 in x32 (a row-split kernel
 // recomputes them where it needs them: 128 rows of x32 do not fit beside
 // its tiles).
 template <bool ROWS = false, class Smem>
@@ -417,6 +434,9 @@ __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
       if (j + h >= XP) y = y + 1.57079632679489662f;
       const float var = m[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
       f[h] = expf(-0.5f * var) * sinf(y);
+      if constexpr (2 * XP < XF) {
+        if (j + h >= 2 * XP) f[h] = 0.f;
+      }
       if constexpr (!ROWS) s.x32[r * XF + j + h] = f[h];
     }
     act_put2(act, r, W + j, f[0], f[1]);
@@ -425,7 +445,7 @@ __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
   tile_sync<ROWS>();
 }
 
-// Load already-encoded bf16 features x [., 96] into act columns 256..351
+// Load already-encoded bf16 features x [., XF] into act columns W..W+XF-1
 // (zero past nrows).
 template <class Smem>
 __device__ void load_encoded(Smem& s, const bf16* x, size_t row0, int nrows) {
@@ -479,10 +499,10 @@ __device__ void relu_epilogue(Smem& s, const float (&acc)[NA],
   }
 }
 
-// Trunk: 8 x (Linear + ReLU) on the features at act columns 256..351, the
-// skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..255 and
-// the ReLU masks; layer i's activation also goes to `out` (if any) at
-// column out.col + 256 i (column split only). Without MASKS (a kernel
+// Trunk: 8 x (Linear + ReLU) on the features at act columns W..W+XF-1,
+// the skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..W-1
+// and the ReLU masks; layer i's activation also goes to `out` (if any) at
+// column out.col + W i (column split only). Without MASKS (a kernel
 // that runs no chain) the masks are not kept.
 template <bool ROWS = false, bool MASKS = true, bool PRODUCER, int NS,
           class Smem>
@@ -499,7 +519,8 @@ __device__ void trunk_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
       post_epilogue<ROWS>();
       if (!ROWS && out != nullptr) {
         if (out->map != nullptr) {
-          store_blocks(s.act, 0, 4, out->map, out->col + layer * W, out->row0);
+          store_blocks(s.act, 0, W / 64, out->map, out->col + layer * W,
+                       out->row0);
         } else {
           copy_cols(s.act, 0, W, out->ptr + out->col + layer * W, out->ld,
                     out->nrows);
@@ -509,19 +530,20 @@ __device__ void trunk_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
   }
 }
 
-// The trunk's activations from a bf16 spill (TMA map `acts` [M, 8 * 256],
+// The trunk's activations from a bf16 spill (TMA map `acts` [M, 8 * W],
 // the tile's first row row0; zero past nrows): masks, operand rows O_A
-// (map `ops`, row ops_row0) and a_7 in act columns 0..255, as
+// (map `ops`, row ops_row0) and a_7 in act columns 0..W-1, as
 // trunk_forward leaves them.
 template <class Smem>
 __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
                            int nrows, const CUtensorMap* ops, int ops_row0) {
+  constexpr int NA = W / 4;  // this thread's accumulator elements
   const int tid = threadIdx.x, g = wg();
   for (int layer = 0; layer < 8; ++layer) {
     pre_epilogue();  // the previous layer's store has read the tile
     if (tid == 0) {
-      hopper::mbar_expect_tx(&s.io, 4 * BOX);
-      for (int b = 0; b < 4; ++b) {
+      hopper::mbar_expect_tx(&s.io, (W / 64) * BOX);
+      for (int b = 0; b < W / 64; ++b) {
         hopper::tma_load(s.act + b * 4096, acts, &s.io, layer * W + 64 * b,
                          row0);
       }
@@ -535,25 +557,27 @@ __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
       hopper::fence_proxy_async();
       consumer_sync();
     }
-    uint32_t m0 = 0, m1 = 0;
+    uint32_t m[MWC];
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int r = frag_row(i), c = g * 128 + frag_col(i);
+    for (int k = 0; k < MWC; ++k) m[k] = 0;
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int r = frag_row(i), c = g * (W / 2) + frag_col(i);
       const __nv_bfloat162 h =
           *reinterpret_cast<const __nv_bfloat162*>(s.act + act_off(r, c));
       const uint32_t bits = (__low2float(h) > 0.f ? 1u : 0u) |
                             (__high2float(h) > 0.f ? 2u : 0u);
-      if (i < 32) m0 |= bits << i; else m1 |= bits << (i - 32);
+      m[i >> 5] |= bits << (i & 31);
     }
-    s.mask[(layer * 2 + 0) * NT + tid] = m0;
-    s.mask[(layer * 2 + 1) * NT + tid] = m1;
+#pragma unroll
+    for (int k = 0; k < MWC; ++k) s.mask[(layer * MWC + k) * NT + tid] = m[k];
     consumer_sync();
-    store_blocks(s.act, 0, 4, ops, O_A + layer * W, ops_row0);
+    store_blocks(s.act, 0, W / 64, ops, O_A + layer * W, ops_row0);
   }
 }
 
 // 16 bytes (codes c .. c + 7) of the viewdir codes of tile row r: from a
-// [., 32] bf16 buffer at the tile's first row, or from a callable
+// [., VP] bf16 buffer at the tile's first row, or from a callable
 // src(r, c) that builds them.
 __device__ __forceinline__ uint4 vcodes(const bf16* v, int r, int c) {
   return *reinterpret_cast<const uint4*>(v + r * VP + c);
@@ -563,14 +587,14 @@ __device__ __forceinline__ uint4 vcodes(const F& src, int r, int c) {
   return src(r, c);
 }
 
-// Heads on a_7 (act columns 0..255) and the viewdir codes v (see vcodes;
+// Heads on a_7 (act columns 0..W-1) and the viewdir codes v (see vcodes;
 // zero past nrows): bottleneck and view branch. With OUT, also the
 // density and color heads: on return s.heads [tile rows x 16] f32 holds
 // raw rgb (+ bias) in columns 0..2 and raw density (+ bias) in columns
 // 3..3+NDC-1. With OPS (column split only), the bottleneck, the viewdir codes
 // and the view-branch activation go to their operand rows (map `ops`,
 // row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves the
-// view-branch activation in act columns 0..127.
+// view-branch activation in act columns 0..VW-1.
 template <bool OPS, bool OUT, bool ROWS = false, bool PRODUCER, int NS,
           class Smem, class VSrc>
 __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
@@ -610,7 +634,7 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
       }
     }
     post_epilogue<ROWS>();
-    if constexpr (OPS) store_blocks(s.act, 0, 4, ops, O_BTL, ops_row0);
+    if constexpr (OPS) store_blocks(s.act, 0, W / 64, ops, O_BTL, ops_row0);
   }
   float hv[NV / 2];
   mm<NV, 0, ROWS>(pp, Prod{M_WV, 0, 0, VK, VW}, hv, act, 0);
@@ -630,7 +654,7 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
     }
     if constexpr (OPS) s.hvmask[threadIdx.x] = m;
     post_epilogue<ROWS>();
-    if constexpr (OPS) store_blocks(s.act, 0, 2, ops, O_HV, ops_row0);
+    if constexpr (OPS) store_blocks(s.act, 0, VW / 64, ops, O_HV, ops_row0);
   }
   if constexpr (OUT) {
     float rgb[NH / 2];
@@ -648,7 +672,7 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
 
 // ---- the density-gradient chain (kernels 3 and 4) ----
 
-// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..255.
+// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..W-1.
 template <bool ROWS = false, class Smem>
 __device__ void chain_start(Smem& s, const bf16* w) {
   constexpr int NA = wg_cols<ROWS>(W) / 2, MW = NA / 32;
@@ -662,7 +686,7 @@ __device__ void chain_start(Smem& s, const bf16* w) {
   }
 }
 
-// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..255.
+// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..W-1.
 template <bool ROWS = false, class Smem, int NA>
 __device__ void masked_epilogue(Smem& s, const float (&acc)[NA], int layer) {
   constexpr int MW = NA / 32;
@@ -679,7 +703,7 @@ __device__ void masked_epilogue(Smem& s, const float (&acc)[NA], int layer) {
 // d raw_sigma / d x through the masked trunk, after trunk_forward left its
 // masks: sz_7 = m_7 Wd[0], sz_{i-1} = bf16(m_{i-1} (sz_i @ W_i)). The
 // parts of g_x = d raw_sigma / d x come out as the skip columns of layer
-// 5's product and layer 0's product (128 columns, 96 used), each handed
+// 5's product and layer 0's product (128 columns, XF used), each handed
 // to sink(layer, part) in accumulator order (layer 5 first, then 0); the
 // sink folds them.
 template <bool ROWS = false, bool PRODUCER, int NS, class Smem, class Sink>
@@ -709,17 +733,47 @@ __device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
   }
 }
 
+// d hv = gr @ Wc (gr the color-head cotangent at act columns 0..15), masked
+// by the view branch's ReLU (s.hvmask, as heads_forward kept it), into act
+// columns 0..VW-1: each warpgroup writes its VW / 2 columns. At VW = 128
+// each computes just those; at VW = 64 (32 columns a side, too few for an
+// MN-major B) both compute all 64 and keep their own half.
+template <bool PRODUCER, class Smem>
+__device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
+  constexpr bool WHOLE = (VW / 2) % 64 != 0;
+  constexpr int NV = WHOLE ? VW : VW / 2;  // columns each warpgroup computes
+  constexpr int OWN = VW / 4;              // of them, its own accumulators
+  float hv[NV / 2];
+  mm<NV, 1, WHOLE>(pp, Prod{M_WC, 0, 0, HP, VW}, hv, s.act, 0);
+  if constexpr (!PRODUCER) {
+    const int g = wg();
+    pre_epilogue();
+    const uint32_t m = s.hvmask[threadIdx.x];
+#pragma unroll
+    for (int i = 0; i < OWN; i += 2) {
+      // Own element i is accumulator i or, WHOLE, accumulator OWN g + i:
+      // the same row, column g VW / 2 + frag_col(i).
+      const float a = WHOLE && g ? hv[(OWN + i) % (NV / 2)] : hv[i];
+      const float b = WHOLE && g ? hv[(OWN + i + 1) % (NV / 2)] : hv[i + 1];
+      act_put2(s.act, frag_row(i), g * (VW / 2) + frag_col(i),
+               (m >> i) & 1u ? a : 0.f, (m >> (i + 1)) & 1u ? b : 0.f);
+    }
+    post_epilogue();
+  }
+}
+
 // MLP backward from the head cotangent s.g ([64 x 16] f32: rgb 0..2,
 // density 3..3+NDC-1, the lanes past them read as zero; zero on rows that
 // must add nothing), after trunk_* and
 // heads_forward filled the masks and the forward operand rows. Writes the
 // cotangent operand rows (map `ops`, row ops_row0; `ops_rows` the tile's
 // first operand row, for the narrow columns), adds the bias gradients
-// into db and leaves d x (f32 [64 x 96]) in s.dx.
+// into db and leaves d x (f32 [64 x XF]) in s.dx.
 template <bool PRODUCER, class Smem>
 __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
                              const CUtensorMap* ops, int ops_row0,
                              bf16* ops_rows, int opw) {
+  constexpr int NW = W / 2, NA = W / 4;  // columns, accumulators per thread
   const int tid = threadIdx.x, g = wg();
   if constexpr (!PRODUCER) {
     pre_epilogue();
@@ -738,42 +792,32 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
     post_epilogue();
     copy_cols(s.act, 0, HP, ops_rows + O_GR, opw, TM);
   }
-  float hv[32];
-  mm<64, 1>(pp, Prod{M_WC, 0, 0, HP, VW}, hv, s.act, 0);  // d hv = gr @ Wc
+  view_backward(pp, s);  // d hv = gr @ Wc, masked
   if constexpr (!PRODUCER) {
-    pre_epilogue();
-    const uint32_t m = s.hvmask[tid];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = frag_row(i), c = g * 64 + frag_col(i);
-      act_put2(s.act, r, c, (m >> i) & 1u ? hv[i] : 0.f,
-               (m >> (i + 1)) & 1u ? hv[i + 1] : 0.f);
-    }
-    post_epilogue();
-    store_blocks(s.act, 0, 2, ops, O_DZV, ops_row0);
+    store_blocks(s.act, 0, VW / 64, ops, O_DZV, ops_row0);
     colsum_atomic(s.act, 0, VW, db + OFF_BV);
   }
-  float acc[64];
-  mm<128, 1>(pp, Prod{M_WV, 0, 0, VW, W}, acc, s.act, 0);  // d btl = dzv @ Wv
+  float acc[NA];
+  mm<NW, 1>(pp, Prod{M_WV, 0, 0, VW, W}, acc, s.act, 0);  // d btl = dzv @ Wv
   if constexpr (!PRODUCER) {
     pre_epilogue();
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      act_put2(s.act, frag_row(i), g * 128 + frag_col(i), acc[i], acc[i + 1]);
+    for (int i = 0; i < NA; i += 2) {
+      act_put2(s.act, frag_row(i), g * NW + frag_col(i), acc[i], acc[i + 1]);
     }
-    for (int i = tid; i < TM * HP / 2; i += NT) {  // gd at columns 256..271
+    for (int i = tid; i < TM * HP / 2; i += NT) {  // gd at columns W..W+15
       const int r = i / (HP / 2), c = 2 * (i % (HP / 2));
       act_put2(s.act, r, W + c, c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f,
                c + 1 < NDC ? s.g[r * OUT_W + 4 + c] : 0.f);
     }
     post_epilogue();
-    store_blocks(s.act, 0, 4, ops, O_DBTL, ops_row0);
+    store_blocks(s.act, 0, W / 64, ops, O_DBTL, ops_row0);
     copy_cols(s.act, W, HP, ops_rows + O_GD, opw, TM);
     colsum_atomic(s.act, 0, W, db + OFF_BB);
   }
   // d a_7 = dbtl @ Wb + gd @ Wd.
-  mm<128, 1>(pp, Prod{M_WDB, HP, 0, W, W}, acc, s.act, 0);
-  mm<128, 1>(pp, Prod{M_WDB, 0, 0, HP, W}, acc, s.act, W, true);
+  mm<NW, 1>(pp, Prod{M_WDB, HP, 0, W, W}, acc, s.act, 0);
+  mm<NW, 1>(pp, Prod{M_WDB, 0, 0, HP, W}, acc, s.act, W, true);
 
   // ---- trunk backward ----
   float skip[32];
@@ -781,13 +825,13 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
     if constexpr (!PRODUCER) {
       pre_epilogue();
 #pragma unroll
-      for (int i = 0; i < 64; i += 2) {
-        act_put2(s.act, frag_row(i), g * 128 + frag_col(i),
-                 mask_bit(s.mask, layer, i) ? acc[i] : 0.f,
-                 mask_bit(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
+      for (int i = 0; i < NA; i += 2) {
+        act_put2(s.act, frag_row(i), g * NW + frag_col(i),
+                 mask_bit<MWC>(s.mask, layer, i) ? acc[i] : 0.f,
+                 mask_bit<MWC>(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
       }
       post_epilogue();
-      store_blocks(s.act, 0, 4, ops, O_DZ + layer * W, ops_row0);
+      store_blocks(s.act, 0, W / 64, ops, O_DZ + layer * W, ops_row0);
       colsum_atomic(s.act, 0, W, db + OFF_BT + layer * W);
     }
     if (layer == 5 || layer == 0) {  // d x: the skip columns, or layer 0's
@@ -804,7 +848,7 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
         }
       }
     }
-    if (layer > 0) mm<128, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+    if (layer > 0) mm<NW, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
   }
   if constexpr (!PRODUCER) consumer_sync();
 }
@@ -816,7 +860,7 @@ __device__ void ipe_backward(Smem& s, int min_deg) {
   for (int i = threadIdx.x; i < TM * 6; i += NT) {
     const int r = i / 6, k = i % 6, d = k % 3;
     float acc = 0.f;
-    for (int deg = 0; deg < XP / 3; ++deg) {
+    for (int deg = 0; deg < L; ++deg) {
       for (int half = 0; half < 2; ++half) {
         const int j = half * XP + deg * 3 + d;
         const float dxj = s.dx[r * XF + j];

@@ -38,15 +38,23 @@ version `weight_grads_reference` runs the same table on the same operand
 rows. The O_* columns mirror the layout the CUDA row passes write
 (`csrc/mlp_rows.cuh`); `kernel_library` checks the widths against it.
 
-The density-channel count C is a compile-time constant of the CUDA
-source (`NDC` in csrc/nerf_mlp.cuh): `fused_mlp.cu` is built once per
-count in `BUILDS` (5 and 1), each a library of its own, and
-`kernel_library(C)` loads the one for C. Both keep the padded 16-lane
-head and the packed layout: the forward writes raw density into lanes
-3..3+C-1 of the output slab and zeros past them, and the backward reads
-the head cotangent of those lanes only, so the padded rows of the packed
-density head get zero gradient and `unpack_params` returns the [C, 256]
-head.
+The MLP's shape is a set of compile-time constants of the CUDA sources
+(csrc/nerf_mlp.cuh): the density-channel count C (5 for Pano-NeRF, 1 for
+mip-NeRF), the trunk width W (128 or 256), the view-branch width VW (64
+or 128), the IPE degree count L = max_deg - min_deg (1..16; min_deg is a
+runtime argument) and the viewdir encoding's width VF (deg_view 1..4,
+with or without identity). `MlpShape` (kernels/shapes.py) holds them;
+`MlpShape.defines` maps a shape to its build's preprocessor definitions
+(none for the shipped shape), `shape_of(mlp)` reads a model's, and
+`kernel_library(shape)` builds and loads the library for it at first
+use. Every shape keeps the
+padded 16-lane head: the forward writes raw density into lanes 3..3+C-1
+of the output slab and zeros past them, and the backward reads the head
+cotangent of those lanes only, so the padded rows of the packed density
+head get zero gradient and `unpack_params` returns the [C, W] head. The
+IPE features are padded to XF (6 L rounded up to 16) and the viewdir
+codes to VP (VF rounded up to 16) with zeros, over zero columns of the
+packed weights.
 
 `fused_mlp_ipe_apply` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_mlp_ipe_reference` (IPE -> NerfMLP, torch
@@ -61,7 +69,8 @@ kernels 1, 2, 3 and 5) also counts in `weight_grads.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,55 +78,33 @@ import torch.nn.functional as F
 from pano_nerf_tpu_torch.kernels import build
 from pano_nerf_tpu_torch.kernels.fused_render import (pack_params,
                                                       unpack_params)
+from pano_nerf_tpu_torch.kernels.shapes import (HP, STANDARD, MlpShape,
+                                                check_built_shape, pad16,
+                                                shape_gaps, shape_of)
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
 
 Tensor = torch.Tensor
 
 SOURCE = "fused_mlp.cu"
-# Density-channel count -> the preprocessor definitions of its build of
-# SOURCE (5 is the header's default): Pano-NeRF's 5, mip-NeRF's 1.
-BUILDS = {5: (), 1: ("NERF_NDC=1",)}
 OUT_W = 16     # output slab: raw rgb (3) | raw density (C) | 0
-V_PAD = 32     # viewdir encoding, padded (27 used)
-_W, _VW, _XF, _VF = 256, 128, 96, 27
 
 
 def check_kernel_support(mlp: NerfMLP, min_deg: int, max_deg: int,
                          device: torch.device) -> None:
-    """Raise ValueError unless the kernels' specialisation covers `mlp`.
-
-    The topology (8-deep trunk with the skip at layer 4, one view layer,
-    3 rgb channels, 16 IPE degrees, the 27-wide viewdir encoding) is
-    required on every device. The widths (256 trunk, 128 view branch),
-    the density-channel counts of `BUILDS` (1 and 5) and bf16 compute are
-    what the CUDA kernels are compiled for; the plain version on the CPU
-    takes any width and any count.
-    """
-    want = dict(net_depth=8, skip_index=4, net_depth_condition=1,
-                num_rgb_channels=3, xyz_dim=_XF, view_dim=_VF)
-    if device.type == "cuda":
-        want.update(net_width=_W, net_width_condition=_VW)
-    bad = {k: getattr(mlp, k) for k, v in want.items()
-           if getattr(mlp, k) != v}
-    if device.type == "cuda" and mlp.num_density_channels not in BUILDS:
-        want["num_density_channels"] = tuple(sorted(BUILDS))
-        bad["num_density_channels"] = mlp.num_density_channels
-    if max_deg - min_deg != 16:
-        bad["deg"] = (min_deg, max_deg)
+    """Raise ValueError unless the kernels cover `mlp` on `device`
+    (`shape_gaps`)."""
+    want, bad = shape_gaps(mlp, min_deg, max_deg, device)
     if bad:
         raise ValueError(f"the fused MLP kernels support only the topology "
-                         f"{want}; got {bad}")
-    if device.type == "cuda" and mlp.compute_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernels compute in bf16; got compute "
-                         f"dtype {mlp.compute_dtype} (train.precision)")
+                         f"and shapes {want}; got {bad}")
 
 
-def check_inputs(name: str, means: Tensor, covs: Tensor, v_enc: Tensor
-                 ) -> Tuple[int, ...]:
-    """Validate [..., 3] moments and a [..., 27] viewdir encoding of the
-    same rank whose leading dims broadcast against the moments'. Returns
-    the leading dims."""
+def check_inputs(name: str, means: Tensor, covs: Tensor, v_enc: Tensor,
+                 view_dim: int) -> Tuple[int, ...]:
+    """Validate [..., 3] moments and a [..., view_dim] viewdir encoding of
+    the same rank whose leading dims broadcast against the moments'.
+    Returns the leading dims."""
     if means.ndim < 2 or means.shape[-1] != 3:
         raise ValueError(f"{name}: means must be [..., 3], got "
                          f"{tuple(means.shape)}")
@@ -125,10 +112,11 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, v_enc: Tensor
         raise ValueError(f"{name}: covs must match means "
                          f"{tuple(means.shape)}, got {tuple(covs.shape)}")
     lead = tuple(means.shape[:-1])
-    if v_enc.ndim != means.ndim or v_enc.shape[-1] != _VF or any(
+    if v_enc.ndim != means.ndim or v_enc.shape[-1] != view_dim or any(
             a not in (1, b) for a, b in zip(v_enc.shape[:-1], lead)):
-        raise ValueError(f"{name}: v_enc must be [..., {_VF}] broadcastable "
-                         f"to {lead}, got {tuple(v_enc.shape)}")
+        raise ValueError(f"{name}: v_enc must be [..., {view_dim}] "
+                         f"broadcastable to {lead}, got "
+                         f"{tuple(v_enc.shape)}")
     for t_name, t in (("means", means), ("covs", covs), ("v_enc", v_enc)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {t_name} must be float32, got "
@@ -146,10 +134,10 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, v_enc: Tensor
     return lead
 
 
-def kernel_library(num_density_channels: int = 5) -> ctypes.CDLL:
-    """The library of SOURCE built for `num_density_channels` (a key of
-    `BUILDS`), built at first use and configured once."""
-    defines = BUILDS[num_density_channels]
+def kernel_library(shape: MlpShape = STANDARD) -> ctypes.CDLL:
+    """The library of SOURCE built for `shape` (`MlpShape.defines`),
+    built at first use and configured once."""
+    defines = shape.defines()
     lib = (build.load_library(SOURCE, defines) if defines
            else build.load_library(SOURCE))
     if not getattr(lib, "_pano_configured", False):
@@ -174,19 +162,17 @@ def kernel_library(num_density_channels: int = 5) -> ctypes.CDLL:
         lib.fused_mlp_ops_width.argtypes = [i32]
         lib.fused_mlp_error_string.argtypes = [i32]
         lib.fused_mlp_error_string.restype = ctypes.c_char_p
+        check_built_shape(lib, "fused_mlp_shape", shape, defines)
         # The job table and the plain version index the operand rows and
-        # the packed weights by this module's constants.
+        # the packed weights by this module's layout of the shape.
+        lay = layout(shape)
         got = (lib.fused_mlp_ops_width(0), lib.fused_mlp_ops_width(1),
                lib.fused_mlp_weight_count())
-        if got != (OPW_IPE, OPW_NRM, W_TOTAL):
+        if got != (lay.OPW_IPE, lay.OPW_NRM, lay.W_TOTAL):
             raise RuntimeError(f"{SOURCE} lays out operand rows and weights "
                                f"as {got}, this module as "
-                               f"{(OPW_IPE, OPW_NRM, W_TOTAL)}")
-        if lib.fused_mlp_density_channels() != num_density_channels:
-            raise RuntimeError(
-                f"{SOURCE} built with {defines} has "
-                f"{lib.fused_mlp_density_channels()} density channels, "
-                f"not {num_density_channels}")
+                               f"{(lay.OPW_IPE, lay.OPW_NRM, lay.W_TOTAL)}")
+        lib._pano_shape = shape
         lib._pano_configured = True
     return lib
 
@@ -214,7 +200,7 @@ def packed_for(mlp: NerfMLP, packed: Optional[Tuple[Tensor, Tensor]],
 def rows_of(means: Tensor, covs: Tensor, v_enc: Tensor,
             lead: Sequence[int]) -> Tuple[Tensor, Tensor]:
     """Kernel rows: moments [M, 8] f32 (means | covs | 0 0) and the
-    viewdir encoding per row [M, 32] bf16 (27 used)."""
+    viewdir encoding per row [M, VP] bf16 (`viewdir_rows`)."""
     M = means.numel() // 3
     mc = torch.cat([means.reshape(M, 3), covs.reshape(M, 3),
                     means.new_zeros(M, 2)], dim=1)
@@ -222,10 +208,12 @@ def rows_of(means: Tensor, covs: Tensor, v_enc: Tensor,
 
 
 def viewdir_rows(v_enc: Tensor, lead: Sequence[int]) -> Tensor:
-    """The viewdir encoding [..., 27], broadcast to the leading dims `lead`,
-    as kernel rows [M, 32] bf16 (27 used); no gradient."""
-    v = v_enc.detach().expand(*lead, _VF).reshape(-1, _VF)
-    return F.pad(v, (0, V_PAD - _VF)).to(torch.bfloat16).contiguous()
+    """The viewdir encoding [..., VF], broadcast to the leading dims
+    `lead`, as kernel rows [M, VP] bf16 (VF rounded up to 16, zero past
+    VF; 32 for the shipped 27); no gradient."""
+    vf = v_enc.shape[-1]
+    v = v_enc.detach().expand(*lead, vf).reshape(-1, vf)
+    return F.pad(v, (0, pad16(vf) - vf)).to(torch.bfloat16).contiguous()
 
 
 def backward_buffers(lib: ctypes.CDLL, weights: Tensor, biases: Tensor,
@@ -241,81 +229,126 @@ def backward_buffers(lib: ctypes.CDLL, weights: Tensor, biases: Tensor,
     return ops, dw, db
 
 
-# Columns of the backward's bf16 operand rows (csrc/mlp_rows.cuh): every
-# operand of every weight-gradient product, one row per sample row.
-O_X = 0                       # MLP input features x (96)
-O_A = O_X + _XF               # trunk activations a_0..a_7
-O_BTL = O_A + 8 * _W          # bottleneck
-O_V = O_BTL + _W              # viewdir encoding (32)
-O_HV = O_V + V_PAD            # view-branch activation (128)
-O_DZ = O_HV + _VW             # trunk cotangents dz_0..dz_7
-O_GD = O_DZ + 8 * _W          # density-head cotangent (16)
-O_DBTL = O_GD + 16            # bottleneck cotangent
-O_DZV = O_DBTL + _W           # view-branch cotangent
-O_GR = O_DZV + _VW            # color-head cotangent (16)
-OPW_IPE = O_GR + 16
-O_CGX = OPW_IPE               # walk: cotangent of g_x (96)
-O_C = O_CGX + _XF             # walk: c_0..c_6
-O_SZ = O_C + 7 * _W           # chain: sz_0..sz_7
-OPW_NRM = O_SZ + 8 * _W
-# Packed weights (csrc/nerf_mlp.cuh), offsets in elements.
-OFF_W0 = 0
-OFF_W1 = OFF_W0 + _W * _XF
-OFF_W5 = OFF_W1 + 4 * _W * _W
-OFF_W6 = OFF_W5 + _W * (_W + _XF)
-OFF_WD = OFF_W6 + 2 * _W * _W
-OFF_WB = OFF_WD + 16 * _W
-OFF_WV = OFF_WB + _W * _W
-OFF_WC = OFF_WV + _VW * 288
-W_TOTAL = OFF_WC + 16 * _VW
+class Layout(NamedTuple):
+    """Columns of a backward's bf16 operand rows (csrc/mlp_rows.cuh: every
+    operand of every weight-gradient product, one row per sample row) and
+    offsets of the packed weights (csrc/nerf_mlp.cuh), in elements, for
+    one `MlpShape`."""
+    O_X: int      # MLP input features x (XF)
+    O_A: int      # trunk activations a_0..a_7
+    O_BTL: int    # bottleneck
+    O_V: int      # viewdir encoding (VP)
+    O_HV: int     # view-branch activation (VW)
+    O_DZ: int     # trunk cotangents dz_0..dz_7
+    O_GD: int     # density-head cotangent (16)
+    O_DBTL: int   # bottleneck cotangent
+    O_DZV: int    # view-branch cotangent
+    O_GR: int     # color-head cotangent (16)
+    OPW_IPE: int
+    O_CGX: int    # walk: cotangent of g_x (XF)
+    O_C: int      # walk: c_0..c_6
+    O_SZ: int     # chain: sz_0..sz_7
+    OPW_NRM: int
+    OFF_W0: int
+    OFF_W1: int
+    OFF_W5: int
+    OFF_W6: int
+    OFF_WD: int
+    OFF_WB: int
+    OFF_WV: int
+    OFF_WC: int
+    W_TOTAL: int
 
 
-def wgrad_jobs(normals: bool) -> List[Tuple[int, ...]]:
+@functools.lru_cache(maxsize=None)
+def layout(shape: MlpShape = STANDARD) -> Layout:
+    W, VW, XF, VP, VK = shape.W, shape.VW, shape.XF, shape.VP, shape.VK
+    o = dict(O_X=0)
+    o["O_A"] = o["O_X"] + XF
+    o["O_BTL"] = o["O_A"] + 8 * W
+    o["O_V"] = o["O_BTL"] + W
+    o["O_HV"] = o["O_V"] + VP
+    o["O_DZ"] = o["O_HV"] + VW
+    o["O_GD"] = o["O_DZ"] + 8 * W
+    o["O_DBTL"] = o["O_GD"] + HP
+    o["O_DZV"] = o["O_DBTL"] + W
+    o["O_GR"] = o["O_DZV"] + VW
+    o["OPW_IPE"] = o["O_GR"] + HP
+    o["O_CGX"] = o["OPW_IPE"]
+    o["O_C"] = o["O_CGX"] + XF
+    o["O_SZ"] = o["O_C"] + 7 * W
+    o["OPW_NRM"] = o["O_SZ"] + 8 * W
+    o["OFF_W0"] = 0
+    o["OFF_W1"] = o["OFF_W0"] + W * XF
+    o["OFF_W5"] = o["OFF_W1"] + 4 * W * W
+    o["OFF_W6"] = o["OFF_W5"] + W * (W + XF)
+    o["OFF_WD"] = o["OFF_W6"] + 2 * W * W
+    o["OFF_WB"] = o["OFF_WD"] + HP * W
+    o["OFF_WV"] = o["OFF_WB"] + W * W
+    o["OFF_WC"] = o["OFF_WV"] + VW * VK
+    o["W_TOTAL"] = o["OFF_WC"] + HP * VW
+    return Layout(**o)
+
+
+# The shipped shape's layout, by name.
+(O_X, O_A, O_BTL, O_V, O_HV, O_DZ, O_GD, O_DBTL, O_DZV, O_GR, OPW_IPE,
+ O_CGX, O_C, O_SZ, OPW_NRM, OFF_W0, OFF_W1, OFF_W5, OFF_W6, OFF_WD, OFF_WB,
+ OFF_WV, OFF_WC, W_TOTAL) = layout(STANDARD)
+
+
+def wgrad_jobs(normals: bool, shape: MlpShape = STANDARD
+               ) -> List[Tuple[int, ...]]:
     """The weight-gradient products of a backward, the job table that
     `launch_weight_grads` hands the CUDA pass (`fused_mlp_weight_grads`)
     and `weight_grads_reference` runs: (b1, a1, b2, a2, n, k, out, ldo),
     dW[n, k] += B1^T A1 (+ B2^T A2) over the rows, B the fan-out side
     (cotangent columns), A the fan-in side (layer inputs), written at
-    `out` with row stride `ldo` in the packed layout; b2 < 0: one pair.
-    NORMALS adds the chain's sz_i against the walk's c_{i-1} to each
-    trunk weight."""
+    `out` with row stride `ldo` in the packed layout of `shape`; b2 < 0:
+    one pair. NORMALS adds the chain's sz_i against the walk's c_{i-1} to
+    each trunk weight."""
+    lay, W, XF, VW = layout(shape), shape.W, shape.XF, shape.VW
+    VK, VP = shape.VK, shape.VP
+
     def pair(i, a_col):   # chain column and walk column of trunk layer i
-        return (O_SZ + i * _W, a_col) if normals else (-1, -1)
-    trunk = [(O_DZ, O_X, *pair(0, O_CGX), _W, _XF, OFF_W0, _XF)]
+        return (lay.O_SZ + i * W, a_col) if normals else (-1, -1)
+    trunk = [(lay.O_DZ, lay.O_X, *pair(0, lay.O_CGX), W, XF, lay.OFF_W0, XF)]
     for i in range(1, 5):
-        trunk.append((O_DZ + i * _W, O_A + (i - 1) * _W,
-                      *pair(i, O_C + (i - 1) * _W), _W, _W,
-                      OFF_W1 + (i - 1) * _W * _W, _W))
-    trunk += [(O_DZ + 5 * _W, O_A + 4 * _W, *pair(5, O_C + 4 * _W), _W, _W,
-               OFF_W5, _W + _XF),
-              (O_DZ + 5 * _W, O_X, *pair(5, O_CGX), _W, _XF, OFF_W5 + _W,
-               _W + _XF)]
+        trunk.append((lay.O_DZ + i * W, lay.O_A + (i - 1) * W,
+                      *pair(i, lay.O_C + (i - 1) * W), W, W,
+                      lay.OFF_W1 + (i - 1) * W * W, W))
+    trunk += [(lay.O_DZ + 5 * W, lay.O_A + 4 * W, *pair(5, lay.O_C + 4 * W),
+               W, W, lay.OFF_W5, W + XF),
+              (lay.O_DZ + 5 * W, lay.O_X, *pair(5, lay.O_CGX), W, XF,
+               lay.OFF_W5 + W, W + XF)]
     for i in (6, 7):
-        trunk.append((O_DZ + i * _W, O_A + (i - 1) * _W,
-                      *pair(i, O_C + (i - 1) * _W), _W, _W,
-                      OFF_W6 + (i - 6) * _W * _W, _W))
+        trunk.append((lay.O_DZ + i * W, lay.O_A + (i - 1) * W,
+                      *pair(i, lay.O_C + (i - 1) * W), W, W,
+                      lay.OFF_W6 + (i - 6) * W * W, W))
     return trunk + [
-        (O_GD, O_A + 7 * _W, -1, -1, 16, _W, OFF_WD, _W),
-        (O_DBTL, O_A + 7 * _W, -1, -1, _W, _W, OFF_WB, _W),
-        (O_DZV, O_BTL, -1, -1, _VW, _W, OFF_WV, 288),
-        (O_DZV, O_V, -1, -1, _VW, V_PAD, OFF_WV + _W, 288),
-        (O_GR, O_HV, -1, -1, 16, _VW, OFF_WC, _VW)]
+        (lay.O_GD, lay.O_A + 7 * W, -1, -1, HP, W, lay.OFF_WD, W),
+        (lay.O_DBTL, lay.O_A + 7 * W, -1, -1, W, W, lay.OFF_WB, W),
+        (lay.O_DZV, lay.O_BTL, -1, -1, VW, W, lay.OFF_WV, VK),
+        (lay.O_DZV, lay.O_V, -1, -1, VW, VP, lay.OFF_WV + W, VK),
+        (lay.O_GR, lay.O_HV, -1, -1, HP, VW, lay.OFF_WC, VW)]
 
 
-def weight_grads_reference(ops: Tensor, normals: bool) -> Tensor:
+def weight_grads_reference(ops: Tensor, normals: bool,
+                           shape: MlpShape = STANDARD) -> Tensor:
     """Plain version of the weight-gradient pass: the packed f32 weight
     gradients [W_TOTAL] of the operand rows `ops` [rows, OPW] (bf16 or
-    f32), one f32 matmul per job (a NORMALS trunk job stacks its two
-    pairs along the rows). Tests and chip_smoke.py hold the kernel
-    against it; no main-path code calls it. The walk's part of Wd's sigma
-    row (the column sum of c_7) is added by the row pass, not here."""
-    width = OPW_NRM if normals else OPW_IPE
+    f32) of `shape`, one f32 matmul per job (a NORMALS trunk job stacks
+    its two pairs along the rows). Tests and chip_smoke.py hold the
+    kernel against it; no main-path code calls it. The walk's part of
+    Wd's sigma row (the column sum of c_7) is added by the row pass, not
+    here."""
+    lay = layout(shape)
+    width = lay.OPW_NRM if normals else lay.OPW_IPE
     if ops.ndim != 2 or ops.shape[1] != width:
         raise ValueError(f"ops must be [rows, {width}], got "
                          f"{tuple(ops.shape)}")
     o = ops.float()
-    dw = torch.zeros(W_TOTAL, dtype=torch.float32, device=ops.device)
-    for b1, a1, b2, a2, n, k, out, ldo in wgrad_jobs(normals):
+    dw = torch.zeros(lay.W_TOTAL, dtype=torch.float32, device=ops.device)
+    for b1, a1, b2, a2, n, k, out, ldo in wgrad_jobs(normals, shape):
         b, a = o[:, b1:b1 + n], o[:, a1:a1 + k]
         if b2 >= 0:
             b = torch.cat([b, o[:, b2:b2 + n]], 0)
@@ -332,32 +365,37 @@ def tile_rows(lib: ctypes.CDLL, M: int) -> int:
 
 def launch_weight_grads(lib: ctypes.CDLL, ops: Tensor, dw: Tensor,
                         normals: bool) -> None:
-    """One launch of the CUDA weight-gradient pass: adds the packed weight
-    gradients of the operand rows `ops` [rows, OPW] bf16 (rows a multiple
-    of 64) into the f32 buffer dw [W_TOTAL]. Not counted."""
-    width = OPW_NRM if normals else OPW_IPE
+    """One launch of the CUDA weight-gradient pass of the library `lib`
+    (built for one `MlpShape`): adds the packed weight gradients of the
+    operand rows `ops` [rows, OPW] bf16 (rows a multiple of 64) into the
+    f32 buffer dw [W_TOTAL]. Not counted."""
+    shape = lib._pano_shape
+    lay = layout(shape)
+    width = lay.OPW_NRM if normals else lay.OPW_IPE
     if (ops.dtype != torch.bfloat16 or ops.ndim != 2
             or ops.shape[1] != width or ops.shape[0] % 64
             or not ops.is_contiguous() or dw.dtype != torch.float32
-            or dw.numel() != W_TOTAL or not dw.is_contiguous()):
+            or dw.numel() != lay.W_TOTAL or not dw.is_contiguous()):
         raise ValueError(f"weight gradients need bf16 ops [64 k, {width}] "
-                         f"and f32 dw [{W_TOTAL}]")
-    jobs = _job_table(normals)
+                         f"and f32 dw [{lay.W_TOTAL}]")
+    jobs = _job_table(normals, shape)
     stream = torch.cuda.current_stream(ops.device).cuda_stream
     check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
         ops.data_ptr(), dw.data_ptr(), ops.shape[0], int(normals), jobs,
         len(jobs) // 8, stream))
 
 
-_JOB_TABLES: Dict[bool, ctypes.Array] = {}
+_JOB_TABLES: Dict[Tuple[bool, MlpShape], ctypes.Array] = {}
 
 
-def _job_table(normals: bool) -> ctypes.Array:
-    """`wgrad_jobs(normals)` flattened into a C int array, made once."""
-    if normals not in _JOB_TABLES:
-        flat = [v for job in wgrad_jobs(normals) for v in job]
-        _JOB_TABLES[normals] = (ctypes.c_int * len(flat))(*flat)
-    return _JOB_TABLES[normals]
+def _job_table(normals: bool, shape: MlpShape = STANDARD) -> ctypes.Array:
+    """`wgrad_jobs(normals, shape)` flattened into a C int array, made
+    once."""
+    key = (normals, shape)
+    if key not in _JOB_TABLES:
+        flat = [v for job in wgrad_jobs(normals, shape) for v in job]
+        _JOB_TABLES[key] = (ctypes.c_int * len(flat))(*flat)
+    return _JOB_TABLES[key]
 
 
 def weight_grads(lib: ctypes.CDLL, counter, mlp: NerfMLP, ops: Tensor,
@@ -385,13 +423,13 @@ def launch_forward(lib: ctypes.CDLL, mc: Tensor, v: Tensor, weights: Tensor,
                    ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
     """One forward launch of the library `lib`; returns out [M, OUT_W]
     and, with `normals`, d sigma / d x [M, 3] and (with `save_acts`) the
-    bf16 trunk spill [M, 2048]. Not counted."""
+    bf16 trunk spill [M, 8 W]. Not counted."""
     M, dev = mc.shape[0], mc.device
     out = torch.empty((M, OUT_W), dtype=torch.float32, device=dev)
     dsig = (torch.empty((M, 3), dtype=torch.float32, device=dev)
             if normals else None)
-    acts = (torch.empty((M, 8 * 256), dtype=torch.bfloat16, device=dev)
-            if normals and save_acts else None)
+    acts = (torch.empty((M, 8 * lib._pano_shape.W), dtype=torch.bfloat16,
+                        device=dev) if normals and save_acts else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check_launch(lib, "fused_mlp forward", lib.fused_mlp_forward(
         mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
@@ -438,9 +476,8 @@ class _FusedMlpIpe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg = meta
-        out, _, _ = launch_forward(kernel_library(mlp.num_density_channels),
-                                   mc, v, weights, biases, min_deg,
-                                   normals=False)
+        out, _, _ = launch_forward(kernel_library(shape_of(mlp)), mc, v,
+                                   weights, biases, min_deg, normals=False)
         fused_mlp_ipe_apply.launches += 1
         ctx.meta = meta
         ctx.save_for_backward(mc, v, weights, biases)
@@ -451,8 +488,8 @@ class _FusedMlpIpe(torch.autograd.Function):
         mc, v, weights, biases = ctx.saved_tensors
         mlp, min_deg = ctx.meta
         dmc, grads = run_backward(
-            kernel_library(mlp.num_density_channels), fused_mlp_ipe_apply,
-            mlp, mc, v, weights, biases, g.contiguous(), None, None, min_deg,
+            kernel_library(shape_of(mlp)), fused_mlp_ipe_apply, mlp, mc, v,
+            weights, biases, g.contiguous(), None, None, min_deg,
             normals=False)
         names = [n for n, _ in mlp.named_parameters()]
         return (dmc, None, None, None, None) + tuple(grads[n] for n in names)
@@ -464,20 +501,22 @@ def fused_mlp_ipe_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
                         ) -> Tuple[Tensor, Tensor]:
     """IPE + NerfMLP on Gaussian moments; differentiable.
 
-    means, covs: [..., 3] float32; v_enc: [..., 27] float32 viewdir
-    encoding of the same rank, broadcastable to the moments' leading dims.
+    means, covs: [..., 3] float32; v_enc: [..., mlp.view_dim] float32
+    viewdir encoding of the same rank, broadcastable to the moments'
+    leading dims.
     `packed` is `fused_render.pack_params(mlp)`, computed here when not
     given (pass it to share one packing between calls of a step). Returns
     raw_rgb [..., 3] and raw_density [..., C], float32 (C =
     `mlp.num_density_channels`).
     """
-    lead = check_inputs("fused_mlp_ipe_apply", means, covs, v_enc)
+    lead = check_inputs("fused_mlp_ipe_apply", means, covs, v_enc,
+                        mlp.view_dim)
     check_kernel_support(mlp, min_deg, max_deg, means.device)
     if means.device.type == "cpu":
         return fused_mlp_ipe_reference(mlp, means, covs, v_enc,
                                        min_deg=min_deg, max_deg=max_deg)
     C = mlp.num_density_channels
-    lib = kernel_library(C)
+    lib = kernel_library(shape_of(mlp))
     weights, biases = packed_for(mlp, packed, means.device, lib)
     mc, v = rows_of(means, covs, v_enc, lead)
     out = _FusedMlpIpe.apply(mc, v, weights, biases, (mlp, min_deg),

@@ -24,8 +24,9 @@ What bounds it on an H100: tensor-core operations. Forward: 611,328 +
 level is 28,672 rows: ~64 GFLOP forward, ~163 GFLOP backward.
 
 Design (csrc/fused_mlp.cu, template NORMALS): as kernel 2, built for
-C = 5 and C = 1 density channels (the chain differentiates channel 0);
-the forward saves the 8 trunk activations as bf16 [M, 8*256] when a gradient is
+each `MlpShape` a model asks for, C = 5 or C = 1 density channels among
+them (the chain differentiates channel 0); the forward saves the 8 trunk
+activations as bf16 [M, 8*W] when a gradient is
 needed (as the TPU kernel's `save_residuals`, by TMA stores of the
 activation tile), and the backward's row pass loads them back by TMA
 (masks built from shared memory) and recomputes the sz-chain from their
@@ -58,8 +59,8 @@ class _FusedMlpNormals(torch.autograd.Function):
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg, save_acts = meta
         out, dsig, acts = k2.launch_forward(
-            k2.kernel_library(mlp.num_density_channels), mc, v, weights,
-            biases, min_deg, normals=True, save_acts=save_acts)
+            k2.kernel_library(k2.shape_of(mlp)), mc, v, weights, biases,
+            min_deg, normals=True, save_acts=save_acts)
         fused_mlp_normals_apply.launches += 1
         ctx.meta = meta
         if save_acts:
@@ -77,9 +78,8 @@ class _FusedMlpNormals(torch.autograd.Function):
         g = mc.new_zeros(M, k2.OUT_W) if g is None else g.contiguous()
         q = mc.new_zeros(M, 3) if q is None else q.contiguous()
         dmc, grads = k2.run_backward(
-            k2.kernel_library(mlp.num_density_channels),
-            fused_mlp_normals_apply, mlp, mc, v, weights, biases, g, q, acts,
-            min_deg, normals=True)
+            k2.kernel_library(k2.shape_of(mlp)), fused_mlp_normals_apply,
+            mlp, mc, v, weights, biases, g, q, acts, min_deg, normals=True)
         names = [n for n, _ in mlp.named_parameters()]
         return (dmc, None, None, None, None) + tuple(grads[n] for n in names)
 
@@ -95,13 +95,14 @@ def fused_mlp_normals_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
     [..., 3], raw_density [..., C] (C = `mlp.num_density_channels`, 5 or
     1 on the card) and d_raw_sigma [..., 3] (of channel 0), float32.
     """
-    lead = k2.check_inputs("fused_mlp_normals_apply", means, covs, v_enc)
+    lead = k2.check_inputs("fused_mlp_normals_apply", means, covs, v_enc,
+                           mlp.view_dim)
     k2.check_kernel_support(mlp, min_deg, max_deg, means.device)
     if means.device.type == "cpu":
         return fused_mlp_normals_reference(mlp, means, covs, v_enc,
                                            min_deg=min_deg, max_deg=max_deg)
     C = mlp.num_density_channels
-    lib = k2.kernel_library(C)
+    lib = k2.kernel_library(k2.shape_of(mlp))
     weights, biases = k2.packed_for(mlp, packed, means.device, lib)
     mc, v = k2.rows_of(means, covs, v_enc, lead)
     params = [p for _, p in mlp.named_parameters()]

@@ -3,14 +3,15 @@
 Replaces the TPU kernel `fused_render_level` (`_render_kernel`) of
 pano_nerf_tpu/kernels/fused_render.py:128-315. One call renders one level
 of a ray chunk: integrated positional encoding of the sample Gaussians, the
-full 8x256 trunk and heads with the viewdir encoding, softplus density and
-radiance, alpha compositing, expected distance, albedo and roughness, and
+full trunk and heads with the viewdir encoding (built in the kernel, with
+identity, as JAX's kernel builds it), softplus density and radiance, alpha compositing, expected distance, albedo and roughness, and
 on the fine level the per-sample density-gradient normals and their
 weighted average. Only per-ray products leave the kernel.
 
-What bounds it on an H100: tensor-core operations. A sample row costs
-611,328 MACs of MLP (1.22 MFLOP), plus 507,904 MACs (1.02 MFLOP) of normal
-chain on the fine level, against 32 B of input moments. A 128x256 panorama
+What bounds it on an H100: tensor-core operations. A sample row of the
+shipped 8x256 / 1x128 model costs 611,328 MACs of MLP (1.22 MFLOP), plus
+507,904 MACs (1.02 MFLOP) of normal chain on the fine level, against 32
+B of input moments. A 128x256 panorama
 (32,768 rays x (56 + 56 + 10*5) rows) is 8.4 TFLOP: >= 8.5 ms at 989
 TFLOP/s dense bf16, while its inputs move in ~0.05 ms at 3.35 TB/s.
 
@@ -22,7 +23,10 @@ accumulators in registers) over all its output columns, while a producer
 warpgroup streams the bf16 weights from L2 by TMA through a 2-stage ring,
 so each weight byte in shared memory serves 128 rows; the ReLU masks are
 kept as bits for the normal chain; compositing is a sequential float32
-scan per ray.
+scan per ray. The source is built once per model shape
+(`shapes.MlpShape`: trunk 128 or 256, view branch 64 or 128, IPE
+degrees 1..16, deg_view 1..4 with identity; 5 density channels), each
+build a library of its own (`kernel_library(shape)`).
 
 `fused_render_level` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_render_level_reference` for CPU tensors and
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from pano_nerf_tpu_torch.kernels import build
+from pano_nerf_tpu_torch.kernels import shapes
 from pano_nerf_tpu_torch.models import normals as normals_lib
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
@@ -50,7 +55,7 @@ TILE_ROWS = 128      # sample rows per tile (whole rays only)
 MAX_SAMPLES = 64     # the largest S the kernel takes
 OUT_FIXED = 17       # rgb(3) | acc | distance | albedo(3) | roughness |
 #                      normal(3) | ort | 0(4), then the S weights
-_W, _XF, _VF, _VK, _VW, _HP = 256, 96, 27, 288, 128, 16
+_HP = 16             # padded head width
 
 
 def softplus(x: Tensor) -> Tensor:
@@ -59,22 +64,26 @@ def softplus(x: Tensor) -> Tensor:
 
 
 def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
-                         max_deg: int, deg_view: int) -> None:
-    """Raise ValueError unless the kernel's specialisation covers this
-    topology and sample count: 8x256 trunk with the skip at layer 4,
-    5-channel density head, 1x128 view branch, 16 IPE degrees, the deg-4
-    viewdir encoding with identity, and 1 <= S <= 64."""
-    want = dict(net_depth=8, net_width=_W, skip_index=4,
-                net_depth_condition=1, net_width_condition=_VW,
-                num_rgb_channels=3, num_density_channels=5, xyz_dim=_XF,
-                view_dim=_VF)
-    bad = {k: getattr(mlp, k) for k, v in want.items()
-           if getattr(mlp, k) != v}
-    if max_deg - min_deg != 16 or deg_view != 4:
-        bad["deg"] = (min_deg, max_deg, deg_view)
+                         max_deg: int, deg_view: int,
+                         device: torch.device) -> None:
+    """Raise ValueError unless the kernel covers this model and sample
+    count on `device`: kernel 2's topology and shapes
+    (`shapes.shape_gaps`: on the card the widths it is built for,
+    on the CPU any), the 5-channel density head, a viewdir encoding of
+    deg_view 1..4 with identity (the kernel builds it so, as JAX's does)
+    and 1 <= S <= 64."""
+    want, bad = shapes.shape_gaps(mlp, min_deg, max_deg, device)
+    want.update(num_density_channels=(5,),
+                view_dim=f"3 + 6 deg_view, deg_view 1.."
+                         f"{shapes.MAX_DEG_VIEW}")
+    if mlp.num_density_channels != 5:
+        bad["num_density_channels"] = mlp.num_density_channels
+    if (not 1 <= deg_view <= shapes.MAX_DEG_VIEW
+            or mlp.view_dim != 3 + 6 * deg_view):
+        bad["view_dim"] = (mlp.view_dim, deg_view)
     if bad:
         raise ValueError(f"fused_render_level supports only the standard "
-                         f"topology {want}; got {bad}")
+                         f"topology and shapes {want}; got {bad}")
     if not 1 <= num_samples <= MAX_SAMPLES:
         raise ValueError(f"fused_render_level takes 1..{MAX_SAMPLES} samples "
                          f"per ray, got {num_samples}")
@@ -113,10 +122,10 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, viewdirs: Tensor,
     if means.ndim != 3 or means.shape[-1] != 3:
         raise ValueError(f"means must be [R, S, 3], got {tuple(means.shape)}")
     R, S = means.shape[:2]
-    shapes = dict(means=(means, (R, S, 3)), covs=(covs, (R, S, 3)),
+    expect = dict(means=(means, (R, S, 3)), covs=(covs, (R, S, 3)),
                   viewdirs=(viewdirs, (R, 3)),
                   t_samples=(t_samples, (R, S + 1)), dirs=(dirs, (R, 3)))
-    for arg, (t, shape) in shapes.items():
+    for arg, (t, shape) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{arg} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -135,38 +144,46 @@ def check_inputs(name: str, means: Tensor, covs: Tensor, viewdirs: Tensor,
 # boxes: trunk 0..7, density, bottleneck, view, color; then the fine
 # level's chain (layers 7..1, the skip columns of layer 5, layer 0).
 _BOX_BYTES = 64 * 64 * 2
-_MLP_PRODUCTS = ([(_XF, _W)] + [(_W, _W)] * 4 + [(_W + _XF, _W)]
-                 + [(_W, _W)] * 2 + [(_W, _HP), (_W, _W), (_VK, _VW),
-                                     (_VW, _HP)])
-_CHAIN_PRODUCTS = [(_W, _W)] * 7 + [(_W, 128)] * 2
 
 
-def weight_bytes_per_tile(need_normals: bool) -> int:
+def weight_bytes_per_tile(need_normals: bool,
+                          shape: shapes.MlpShape = shapes.STANDARD) -> int:
     """Bytes of weights one tile moves from L2 into shared memory (whole
-    TMA boxes, zero-filled edges included)."""
-    prods = _MLP_PRODUCTS + (_CHAIN_PRODUCTS if need_normals else [])
+    TMA boxes, zero-filled edges included) at `shape`."""
+    W, XF, VK, VW = shape.W, shape.XF, shape.VK, shape.VW
+    prods = ([(XF, W)] + [(W, W)] * 4 + [(W + XF, W)] + [(W, W)] * 2
+             + [(W, _HP), (W, W), (VK, VW), (VW, _HP)])
+    if need_normals:
+        prods += [(W, W)] * 7 + [(W, 128)] * 2
     return sum(-(-k // 64) * -(-n // 64) * _BOX_BYTES for k, n in prods)
 
 
 def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
-    """NerfMLP -> (bf16 weights, float32 biases) in the kernel's layout.
+    """NerfMLP -> (bf16 weights, float32 biases) in the kernels' layout
+    (csrc/nerf_mlp.cuh, at the MLP's `shapes.shape_of`).
 
     Weights keep torch's [out, in] layout, zero-padded to multiples of 16:
-    trunk 0..7 (layer 5 is [256, 352] over [h4 | x]), density [16, 256]
-    (rows 0..C-1: C = 5 for Pano-NeRF, 1 for mip-NeRF), bottleneck
-    [256, 256], view [128, 288] (columns 0..282), color [16, 128] (rows
-    0..2). Biases: trunk 8x256, density 16, bottleneck 256, view 128,
-    color 16.
+    trunk 0..7 (layer 0 [W, XF] over the 6 L IPE features; layer 5 [W, W +
+    XF] over [h4 | x]), density [16, W] (rows 0..C-1: C = 5 for
+    Pano-NeRF, 1 for mip-NeRF), bottleneck [W, W], view [VW, W + VP] over
+    [bottleneck | viewdir codes], color [16, VW] (rows 0..2). Biases: trunk
+    8 x W, density 16, bottleneck W, view VW, color 16. At the shipped
+    shape: XF 96, VP 32.
     """
     def pad(w: Tensor, rows: int, cols: int) -> Tensor:
         return F.pad(w.detach().float(),
                      (0, cols - w.shape[1], 0, rows - w.shape[0]))
 
-    ws = [seq[0].weight.detach().float() for seq in mlp.layers]
-    ws += [pad(mlp.density_layer.weight, _HP, _W),
+    sh = shapes.shape_of(mlp)
+    W, XF, VW, VK = sh.W, sh.XF, sh.VW, sh.VK
+    trunk_cols = [XF if i == 0 else W + XF if i == mlp.skip_index + 1 else W
+                  for i in range(len(mlp.layers))]
+    ws = [pad(seq[0].weight, W, cols)
+          for seq, cols in zip(mlp.layers, trunk_cols)]
+    ws += [pad(mlp.density_layer.weight, _HP, W),
            mlp.extra_layer.weight.detach().float(),
-           pad(mlp.view_layers[0][0].weight, _VW, _VK),
-           pad(mlp.color_layer.weight, _HP, _VW)]
+           pad(mlp.view_layers[0][0].weight, VW, VK),
+           pad(mlp.color_layer.weight, _HP, VW)]
     bs = [seq[0].bias.detach().float() for seq in mlp.layers]
     bs += [F.pad(mlp.density_layer.bias.detach().float(),
                  (0, _HP - mlp.num_density_channels)),
@@ -182,10 +199,13 @@ def unpack_params(mlp: NerfMLP, weights: Tensor, biases: Tensor
     """Inverse of `pack_params` for flat tensors in its layout (gradients,
     say): {parameter name of `mlp`: the unpadded slice}, in the flat
     tensors' dtype."""
+    sh = shapes.shape_of(mlp)
     names = [f"layers.{i}.0" for i in range(len(mlp.layers))] + [
         "density_layer", "extra_layer", "view_layers.0.0", "color_layer"]
-    padded = {"density_layer": (_HP, _W), "view_layers.0.0": (_VW, _VK),
-              "color_layer": (_HP, _VW)}
+    padded = {"layers.0.0": (sh.W, sh.XF),
+              f"layers.{mlp.skip_index + 1}.0": (sh.W, sh.W + sh.XF),
+              "density_layer": (_HP, sh.W), "view_layers.0.0": (sh.VW, sh.VK),
+              "color_layer": (_HP, sh.VW)}
     params = dict(mlp.named_parameters())
     out, w_off, b_off = {}, 0, 0
     for name in names:
@@ -199,8 +219,13 @@ def unpack_params(mlp: NerfMLP, weights: Tensor, biases: Tensor
     return out
 
 
-def kernel_library() -> ctypes.CDLL:
-    lib = build.load_library(SOURCE)
+def kernel_library(shape: shapes.MlpShape = shapes.STANDARD) -> ctypes.CDLL:
+    """The library of SOURCE built for `shape` (5 density channels; its
+    other values as `MlpShape.defines`), built at first use and configured
+    once."""
+    defines = shape.defines(with_channels=False)
+    lib = (build.load_library(SOURCE, defines) if defines
+           else build.load_library(SOURCE))
     if not getattr(lib, "_pano_configured", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_render_level_launch.argtypes = [
@@ -214,6 +239,7 @@ def kernel_library() -> ctypes.CDLL:
         for name in ("fused_render_weight_count", "fused_render_bias_count"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
+        shapes.check_built_shape(lib, "fused_render_shape", shape, defines)
         bad = {S: lib.fused_render_tile_rays(S)
                for S in range(1, MAX_SAMPLES + 1)
                if lib.fused_render_tile_rays(S) != TILE_ROWS // S}
@@ -292,7 +318,7 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
     """
     R, S = check_inputs("fused_render_level", means, covs, viewdirs,
                         t_samples, dirs)
-    check_kernel_support(mlp, S, min_deg, max_deg, deg_view)
+    check_kernel_support(mlp, S, min_deg, max_deg, deg_view, means.device)
     if means.device.type == "cpu":
         return fused_render_level_reference(
             mlp, means, covs, viewdirs, t_samples, dirs, min_deg=min_deg,
@@ -306,7 +332,7 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
         raise ValueError("the CUDA kernel computes in bf16; got compute "
                          f"dtype {mlp.compute_dtype} (train.precision)")
     weights, biases = pack_params(mlp) if packed is None else packed
-    lib = kernel_library()
+    lib = kernel_library(shapes.shape_of(mlp))
     if (weights.dtype != torch.bfloat16 or biases.dtype != torch.float32
             or weights.numel() != lib.fused_render_weight_count()
             or biases.numel() != lib.fused_render_bias_count()

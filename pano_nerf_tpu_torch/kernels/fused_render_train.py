@@ -4,7 +4,7 @@ Replaces the TPU kernel `fused_render_train` of
 pano_nerf_tpu/kernels/fused_render_train.py:451 (`_forward_core` :106,
 `_train_bwd_kernel` :188; pallas_call :358 and :399; custom VJP :416-448).
 One forward launch renders one level of a ray batch with no normals: IPE,
-the 8x256 trunk and heads, padded-softplus radiance and density, and
+the trunk and heads, padded-softplus radiance and density, and
 alpha compositing, returning per ray rgb, acc, the clipped expected
 distance and the weights. The backward is hand-derived (derivation at
 fused_render_train.py:26-43): the compositing adjoint per ray, then the
@@ -29,6 +29,11 @@ launches: the row pass (recompute, or load the bf16 trunk spill of
 weight-gradient pass of csrc/fused_mlp.cu, which reduces them; weight
 gradients are rounded to bf16 as the TPU kernel's are.
 
+The source is built once per model shape (`shapes.MlpShape` with 5
+density channels; the viewdir codes arrive encoded, with identity, as
+JAX's kernel 5 encodes them, fused_render_train.py:483, so a model
+without identity is refused: JAX's kernel raises on it).
+
 `fused_render_train` is the wrapper: its plain version
 `fused_render_train_reference` runs for CPU tensors, the CUDA kernels for
 CUDA tensors, anything else raises. Launches are counted in
@@ -44,6 +49,7 @@ import torch
 
 from pano_nerf_tpu_torch.kernels import build
 from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+from pano_nerf_tpu_torch.kernels import shapes
 from pano_nerf_tpu_torch.kernels.fused_render import check_inputs, softplus
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
@@ -58,20 +64,33 @@ TILE_ROWS = 64    # sample rows per block: the largest S the kernel takes
 def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
                          max_deg: int, deg_view: int,
                          device: torch.device) -> None:
-    """Raise ValueError unless the kernels cover this topology and sample
-    count: the checks of `fused_mlp_ipe.check_kernel_support`, the deg-4
-    viewdir encoding and 1 <= S <= 64."""
+    """Raise ValueError unless the kernels cover this model and sample
+    count on `device`: the checks of `fused_mlp_ipe.check_kernel_support`,
+    a viewdir encoding of deg_view 1..4 with identity (JAX's kernel 5
+    encodes it so and raises on an MLP without it), on the card 5 density
+    channels, and 1 <= S <= 64."""
     k2.check_kernel_support(mlp, min_deg, max_deg, device)
-    if deg_view != 4:
-        raise ValueError(f"fused_render_train supports only deg_view 4, got "
-                         f"{deg_view}")
+    if (not 1 <= deg_view <= shapes.MAX_DEG_VIEW
+            or mlp.view_dim != 3 + 6 * deg_view):
+        raise ValueError(f"fused_render_train encodes viewdirs at deg_view "
+                         f"1..{shapes.MAX_DEG_VIEW} with identity; got "
+                         f"deg_view {deg_view} for an MLP of view_dim "
+                         f"{mlp.view_dim}")
+    if device.type == "cuda" and mlp.num_density_channels != 5:
+        raise ValueError(f"fused_render_train is built for 5 density "
+                         f"channels, got {mlp.num_density_channels}")
     if not 1 <= num_samples <= TILE_ROWS:
         raise ValueError(f"fused_render_train takes 1..{TILE_ROWS} samples "
                          f"per ray, got {num_samples}")
 
 
-def kernel_library() -> ctypes.CDLL:
-    lib = build.load_library(SOURCE)
+def kernel_library(shape: shapes.MlpShape = shapes.STANDARD
+                   ) -> ctypes.CDLL:
+    """The library of SOURCE built for `shape` (5 density channels),
+    built at first use and configured once."""
+    defines = shape.defines(with_channels=False)
+    lib = (build.load_library(SOURCE, defines) if defines
+           else build.load_library(SOURCE))
     if not getattr(lib, "_pano_configured", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_render_train_forward.argtypes = (
@@ -83,18 +102,22 @@ def kernel_library() -> ctypes.CDLL:
                    "fused_render_train_backward_rows",
                    "fused_render_train_blocks"):
             getattr(lib, fn).restype = i32
+        shapes.check_built_shape(lib, "fused_render_train_shape", shape,
+                                 defines)
         lib._pano_configured = True
     return lib
 
 
 class Level(NamedTuple):
-    """A launch's static arguments."""
+    """A launch's static arguments (`shape`: the MLP's, which picks the
+    libraries)."""
     R: int
     S: int
     min_deg: int
     density_bias: float
     rgb_padding: float
     white_bkgd: bool
+    shape: shapes.MlpShape = shapes.STANDARD
 
 
 def level_rows(means: Tensor, covs: Tensor, viewdirs: Tensor,
@@ -102,7 +125,7 @@ def level_rows(means: Tensor, covs: Tensor, viewdirs: Tensor,
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """The kernels' inputs: moments [R*S, 8] f32 (means | covs | delta |
     t_mid, differentiable), the clip bounds [R, 2] (t_0 | t_S) and the
-    viewdir encoding per row [R*S, 32] bf16 (both without gradient)."""
+    viewdir encoding per row [R*S, VP] bf16 (both without gradient)."""
     R, S = means.shape[:2]
     t_mids = 0.5 * (t_samples[:, :-1] + t_samples[:, 1:])
     delta = ((t_samples[:, 1:] - t_samples[:, :-1])
@@ -119,14 +142,14 @@ def launch_forward(mc: Tensor, clip: Tensor, v: Tensor, weights: Tensor,
                    biases: Tensor, lv: Level, save_acts: bool,
                    lib: Optional[ctypes.CDLL] = None
                    ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """One forward launch (of `lib`, by default this package's library);
-    returns out [R, 8], weights [R, S] and, with `save_acts`, the bf16
-    trunk spill [R*S, 2048]. Not counted."""
-    lib = kernel_library() if lib is None else lib
+    """One forward launch (of `lib`, by default this package's library for
+    `lv.shape`); returns out [R, 8], weights [R, S] and, with
+    `save_acts`, the bf16 trunk spill [R*S, 8 W]. Not counted."""
+    lib = kernel_library(lv.shape) if lib is None else lib
     dev = mc.device
     out = torch.empty((lv.R, OUT8), dtype=torch.float32, device=dev)
     w = torch.empty((lv.R, lv.S), dtype=torch.float32, device=dev)
-    acts = (torch.empty((lv.R * lv.S, 8 * 256), dtype=torch.bfloat16,
+    acts = (torch.empty((lv.R * lv.S, 8 * lv.shape.W), dtype=torch.bfloat16,
                         device=dev) if save_acts else None)
     err = lib.fused_render_train_forward(
         mc.data_ptr(), clip.data_ptr(), v.data_ptr(), weights.data_ptr(),
@@ -134,7 +157,8 @@ def launch_forward(mc: Tensor, clip: Tensor, v: Tensor, weights: Tensor,
         acts.data_ptr() if save_acts else None, lv.R, lv.S, lv.min_deg,
         lv.density_bias, lv.rgb_padding, int(lv.white_bkgd),
         torch.cuda.current_stream(dev).cuda_stream)
-    k2.check_launch(k2.kernel_library(), "fused_render_train forward", err)
+    k2.check_launch(k2.kernel_library(lv.shape),
+                    "fused_render_train forward", err)
     return out, w, acts
 
 
@@ -144,11 +168,11 @@ def run_backward(counter, mlp: NerfMLP, mc: Tensor, clip: Tensor, v: Tensor,
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Backward row pass + weight-gradient pass, both counted on `counter`;
     returns (d mc [R*S, 8], {parameter name: gradient})."""
-    mlp_lib = k2.kernel_library()
+    mlp_lib = k2.kernel_library(lv.shape)
     ops, dw, db = k2.backward_buffers(
         mlp_lib, weights, biases,
-        kernel_library().fused_render_train_blocks(lv.R, lv.S) * TILE_ROWS,
-        False)
+        kernel_library(lv.shape).fused_render_train_blocks(lv.R, lv.S)
+        * TILE_ROWS, False)
     dmc = torch.empty((lv.R * lv.S, 8), dtype=torch.float32,
                       device=mc.device)
     launch_backward_rows(mc, clip, v, weights, biases, acts, g_out, g_w, lv,
@@ -163,9 +187,9 @@ def launch_backward_rows(mc: Tensor, clip: Tensor, v: Tensor,
                          lv: Level, ops: Tensor, dmc: Tensor, db: Tensor,
                          lib: Optional[ctypes.CDLL] = None) -> None:
     """One launch of the backward row pass (of `lib`, by default this
-    package's library): writes d mc and the operand rows `ops` (64 per
-    block), adds the bias gradients into db. Not counted."""
-    lib = kernel_library() if lib is None else lib
+    package's library for `lv.shape`): writes d mc and the operand rows
+    `ops` (64 per block), adds the bias gradients into db. Not counted."""
+    lib = kernel_library(lv.shape) if lib is None else lib
     err = lib.fused_render_train_backward_rows(
         mc.data_ptr(), clip.data_ptr(), v.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
@@ -173,7 +197,8 @@ def launch_backward_rows(mc: Tensor, clip: Tensor, v: Tensor,
         dmc.data_ptr(), db.data_ptr(), lv.R, lv.S, lv.min_deg,
         lv.density_bias, lv.rgb_padding, int(lv.white_bkgd),
         torch.cuda.current_stream(mc.device).cuda_stream)
-    k2.check_launch(k2.kernel_library(), "fused_render_train backward", err)
+    k2.check_launch(k2.kernel_library(lv.shape),
+                    "fused_render_train backward", err)
 
 
 class _FusedRenderTrain(torch.autograd.Function):
@@ -232,15 +257,16 @@ def fused_render_train(mlp: NerfMLP, means: Tensor, covs: Tensor,
     if means.device.type != "cuda":
         raise ValueError(f"fused_render_train runs on cpu or cuda tensors, "
                          f"got {means.device}")
+    shape = shapes.shape_of(mlp)
     weights, biases = k2.packed_for(mlp, packed, means.device,
-                                    k2.kernel_library())
+                                    k2.kernel_library(shape))
     mc, clip, v = level_rows(means, covs, viewdirs, t_samples, dirs,
                              deg_view)
     params = [p for _, p in mlp.named_parameters()]
     save_acts = bool(save_acts) and torch.is_grad_enabled() and (
         mc.requires_grad or any(p.requires_grad for p in params))
     lv = Level(R, S, min_deg, float(density_bias), float(rgb_padding),
-               bool(white_bkgd))
+               bool(white_bkgd), shape)
     out, w = _FusedRenderTrain.apply(mc, clip, v, weights, biases,
                                      (mlp, lv, save_acts), *params)
     return dict(rgb=out[:, 0:3], acc=out[:, 3], distance=out[:, 4],

@@ -1,0 +1,133 @@
+"""The NerfMLP shapes the port's CUDA kernels are built for.
+
+The kernels' widths and encodings are compile-time constants of the CUDA
+sources (csrc/nerf_mlp.cuh: NERF_NDC, NERF_W, NERF_VW, NERF_L, NERF_VF).
+`MlpShape` is one such shape, `MlpShape.defines` its build's preprocessor
+definitions (none for the shipped shape), `shape_of` a model's shape and
+`shape_gaps` what a model has that the kernels on a device do not take.
+The plain versions on the CPU take any width and density-channel count,
+and the IPE degrees and viewdir encodings the builds take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+
+from pano_nerf_tpu_torch.models.mlp import NerfMLP
+
+HP = 16        # padded head width
+# What the CUDA builds take (csrc/nerf_mlp.cuh's static_asserts).
+WIDTHS = (128, 256)          # trunk
+VIEW_WIDTHS = (64, 128)      # view branch
+DENSITY_CHANNELS = (1, 5)    # mip-NeRF, Pano-NeRF
+MAX_DEGREES = 16             # IPE degrees L = max_deg - min_deg, 1..16
+MAX_DEG_VIEW = 4             # viewdir encoding degrees, 1..4
+
+
+def pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def view_dims() -> Tuple[int, ...]:
+    """The viewdir encoding widths the kernels take: 6 deg_view, or 3 + 6
+    deg_view with identity, deg_view 1..4."""
+    return tuple(sorted(6 * d + i for d in range(1, MAX_DEG_VIEW + 1)
+                        for i in (0, 3)))
+
+
+class MlpShape(NamedTuple):
+    """The NerfMLP shape a build of the CUDA sources is compiled for (the
+    defaults are the shipped one: 8x256 trunk, 1x128 view branch, 5
+    density channels, IPE degrees 0..16, deg-4 viewdir encoding with
+    identity), and the padded widths that follow from it."""
+    C: int = 5      # density channels
+    W: int = 256    # trunk width
+    VW: int = 128   # view-branch width
+    L: int = 16     # IPE degrees
+    VF: int = 27    # viewdir encoding width
+
+    @property
+    def XP(self) -> int:
+        """The IPE's sin block (its cos block follows)."""
+        return 3 * self.L
+
+    @property
+    def XF(self) -> int:
+        """IPE features, padded to wgmma's K step of 16."""
+        return pad16(6 * self.L)
+
+    @property
+    def VP(self) -> int:
+        """Viewdir codes, padded to 16."""
+        return pad16(self.VF)
+
+    @property
+    def VK(self) -> int:
+        """The view layer's input: bottleneck | viewdir codes."""
+        return self.W + self.VP
+
+    def defines(self, with_channels: bool = True) -> Tuple[str, ...]:
+        """The preprocessor definitions of this shape's build: one per
+        value other than the default (so the shipped shape builds with
+        none). `with_channels` False leaves out NERF_NDC, for the render
+        kernels, which take C = 5 only."""
+        names = dict(C="NERF_NDC", W="NERF_W", VW="NERF_VW", L="NERF_L",
+                     VF="NERF_VF")
+        return tuple(f"{names[k]}={v}" for k, v in self._asdict().items()
+                     if v != getattr(STANDARD, k)
+                     and (with_channels or k != "C"))
+
+
+STANDARD = MlpShape()
+
+
+def shape_of(mlp: NerfMLP) -> MlpShape:
+    """The kernel shape of `mlp` (its IPE width is 6 L)."""
+    return MlpShape(mlp.num_density_channels, mlp.net_width,
+                    mlp.net_width_condition, mlp.xyz_dim // 6, mlp.view_dim)
+
+
+def shape_gaps(mlp: NerfMLP, min_deg: int, max_deg: int,
+               device: torch.device) -> Tuple[Dict, Dict]:
+    """(what the kernels take, what `mlp` has that they do not): the
+    topology (8-deep trunk with the skip at layer 4, one view layer, 3 rgb
+    channels), IPE degrees L = max_deg - min_deg in 1..16 over the MLP's
+    6 L features and a viewdir encoding of `view_dims` on every device;
+    on the card also the widths, the density-channel counts and bf16
+    compute the CUDA builds take. The plain versions on the CPU take any
+    width and count."""
+    want = dict(net_depth=(8,), skip_index=(4,), net_depth_condition=(1,),
+                num_rgb_channels=(3,), view_dim=view_dims())
+    if device.type == "cuda":
+        want.update(net_width=WIDTHS, net_width_condition=VIEW_WIDTHS,
+                    num_density_channels=DENSITY_CHANNELS)
+    bad = {k: getattr(mlp, k) for k, v in want.items()
+           if getattr(mlp, k) not in v}
+    L = max_deg - min_deg
+    want["deg"] = f"max_deg - min_deg in 1..{MAX_DEGREES}"
+    if not 1 <= L <= MAX_DEGREES:
+        bad["deg"] = (min_deg, max_deg)
+    elif mlp.xyz_dim != 6 * L:
+        bad["xyz_dim"] = (mlp.xyz_dim, 6 * L)
+    if device.type == "cuda" and mlp.compute_dtype != torch.bfloat16:
+        want["compute_dtype"] = "bf16 (train.precision)"
+        bad["compute_dtype"] = mlp.compute_dtype
+    return want, bad
+
+
+def check_built_shape(lib: ctypes.CDLL, fn: str, shape: MlpShape,
+                      defines: Sequence[str]) -> None:
+    """Raise unless the library's `fn` ({C, W, VW, L, VF} of the build)
+    reports `shape` (the render kernels' builds report C = 5)."""
+    getattr(lib, fn).argtypes = [ctypes.POINTER(ctypes.c_int)]
+    getattr(lib, fn).restype = None
+    got = (ctypes.c_int * 5)()
+    getattr(lib, fn)(got)
+    if tuple(got) != tuple(shape):
+        raise RuntimeError(f"the library built with {list(defines)} has the "
+                           f"shape {tuple(got)}, not {tuple(shape)}")
+
+

@@ -16,9 +16,11 @@ or chroma head) every MLP query goes through the kernels' wrappers (on
 the CPU their plain versions); otherwise every query goes through the
 general NerfMLP with torch autograd (`NerfModel._query`,
 `_query_normals`: JAX's XLA route). JAX's kernels read the widths and
-encodings from the parameter shapes; the CUDA kernels are built for one
-of each, so on the kernel route a system refuses what they are not built
-for (`kernel_build_gaps`) instead of taking another route. A kernel that
+encodings from the parameter shapes; the CUDA kernels are built per shape
+for a set of them (`kernels/shapes.py`: trunk 128 or 256, view branch 64
+or 128, IPE degrees 1..16, deg_view 1..4), so on the kernel route a
+system refuses what they are not built for (`kernel_build_gaps`) instead
+of taking another route. A kernel that
 fails raises; the route never changes at run time. `from_hparams`
 refuses every config key that would need a path the port lacks
 (`UNSUPPORTED`) with
@@ -36,8 +38,8 @@ import torch
 from torch import nn
 
 from pano_nerf_tpu_torch.core.rays import Rays
-from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import (BUILDS,
-                                                      fused_mlp_ipe_apply)
+from pano_nerf_tpu_torch.kernels import shapes
+from pano_nerf_tpu_torch.kernels.fused_mlp_ipe import fused_mlp_ipe_apply
 from pano_nerf_tpu_torch.kernels.fused_mlp_normals import (
     fused_mlp_normals_apply)
 from pano_nerf_tpu_torch.kernels.fused_render import softplus
@@ -389,23 +391,26 @@ def plain_route_reasons(cfg: NerfConfig) -> List[str]:
 
 def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     """What a model on the kernel route needs that the kernels on
-    `device` are not built for, or []: the IPE degrees 0..16 and the deg-4
-    viewdir encoding with identity on every device (the plain versions
-    check them too); on the card also the widths 256 / 128 and a
-    density-channel count of `kernels/fused_mlp_ipe.py` `BUILDS`."""
+    `device` are not built for, or [] (`kernels/shapes.py`): on every
+    device IPE degrees max_deg_point - min_deg_point of 1..16 and a
+    viewdir encoding of deg_view 1..4 (with or without identity; the plain
+    versions check them too); on the card also the trunk widths 128 and
+    256, the view-branch widths 64 and 128 and the density-channel counts
+    1 and 5 (the plain versions on the CPU take any)."""
+    L = cfg.max_deg_point - cfg.min_deg_point
     checks = (
-        ((cfg.min_deg_point, cfg.max_deg_point) == (0, 16),
+        (1 <= L <= shapes.MAX_DEGREES,
          f"nerf.min_deg_point..max_deg_point {cfg.min_deg_point}.."
          f"{cfg.max_deg_point}"),
-        (cfg.deg_view == 4, f"nerf.deg_view {cfg.deg_view}"),
-        (cfg.append_identity, "nerf.append_identity false"))
+        (1 <= cfg.deg_view <= shapes.MAX_DEG_VIEW,
+         f"nerf.deg_view {cfg.deg_view}"))
     if device.type == "cuda":
         checks += (
-            (cfg.mlp_net_width == 256,
+            (cfg.mlp_net_width in shapes.WIDTHS,
              f"nerf.mlp.net_width {cfg.mlp_net_width}"),
-            (cfg.mlp_net_width_condition == 128,
+            (cfg.mlp_net_width_condition in shapes.VIEW_WIDTHS,
              f"nerf.mlp.net_width_condition {cfg.mlp_net_width_condition}"),
-            (cfg.mlp_num_density_channels in BUILDS,
+            (cfg.mlp_num_density_channels in shapes.DENSITY_CHANNELS,
              f"{cfg.mlp_num_density_channels} density channels"))
     return [why for ok, why in checks if not ok]
 

@@ -174,6 +174,15 @@ class PanoMipNeRF(NerfModel):
     def __init__(self, cfg: NerfConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg, generator)
+        if (self.kernels and cfg.use_train_render_kernel
+                and not cfg.append_identity):
+            raise NotImplementedError(
+                "nerf.use_train_render_kernel with nerf.append_identity "
+                "false is not supported by the PyTorch/CUDA render path; "
+                "JAX cannot train it either: its kernel 5 encodes the view "
+                "directions with identity (pano_nerf_tpu/kernels/"
+                "fused_render_train.py:483) for a view layer that takes "
+                "them without, and raises")
         if cfg.env_mode() == "importance":
             # The probe's Fibonacci cells, on the model's device (a copy
             # from the host inside a captured step would fail).
@@ -195,12 +204,14 @@ class PanoMipNeRF(NerfModel):
         render (`val.randomized`); without them it is deterministic. With
         the tight re-read, kernels 2 and 3 and plain compositing
         (`_render`, no autograd); on the plain route `_render` through the
-        plain NerfMLP; randomized with density noise or another env
-        estimator than the fixed set, `_render` too (JAX's gate, :276-289);
-        else kernel 4.
+        plain NerfMLP; without identity in the viewdir encoding (kernel 4
+        builds it with identity), or randomized with density noise or
+        another env estimator than the fixed set, `_render` too (JAX's
+        gate, :276-289); else kernel 4.
         """
         cfg = self.cfg
         if (cfg.env_tight_rgb > 0 or not self.kernels
+                or not cfg.append_identity
                 or (draws is not None and (cfg.density_noise > 0
                                            or cfg.env_mode() != "fixed"))):
             with torch.no_grad():

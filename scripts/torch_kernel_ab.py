@@ -88,6 +88,8 @@ def bind_other(mine: ctypes.CDLL, other: ctypes.CDLL, calls: tuple,
             if a != b:
                 raise SystemExit(f"{name}{args}: this tree {a}, the other "
                                  f"{b}; the two layouts differ")
+    if hasattr(mine, "_pano_shape"):   # the MLP shape both are built for
+        other._pano_shape = mine._pano_shape
     return other
 
 

@@ -81,12 +81,12 @@ def _mlp_rows(M, device, seed=0, C=5):
     return mlp.to(device), means.to(device), covs.to(device), v.to(device)
 
 
-def _grads(fn, mlp, means, covs, v):
+def _grads(fn, mlp, means, covs, v, min_deg=0, max_deg=16):
     """Outputs and the gradients of a loss on all of them: params (flat)
     and means."""
     mlp.zero_grad()
     means = means.clone().requires_grad_(True)
-    outs = fn(mlp, means, covs, v, min_deg=0, max_deg=16)
+    outs = fn(mlp, means, covs, v, min_deg=min_deg, max_deg=max_deg)
     loss = torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()
     if len(outs) == 3:
         loss = loss + torch.sin(0.1 * outs[2]).sum()
@@ -242,7 +242,7 @@ def _render_grads(fn, mlp, args, white_bkgd, **kw):
     means = args[0].clone().requires_grad_(True)
     t = args[3].clone().requires_grad_(True)
     out = fn(mlp, means, args[1], args[2], t, args[4],
-             **dict(KW, white_bkgd=white_bkgd), **kw)
+             **{**KW, "white_bkgd": white_bkgd, **kw})
     sum(torch.sum(out[k] * c) for k, c in coef.items()).backward()
     flat = torch.cat([p.grad.reshape(-1) for p in mlp.parameters()])
     return {k: v.detach() for k, v in out.items()}, flat, means.grad, t.grad
@@ -569,3 +569,152 @@ def test_resumed_graphed_run_continues_the_random_stream(cuda_device,
         assert [r["step"] for r in recs] == [4, 8, 12, 16]
         losses.append([r["loss"] for r in recs])
     assert max(abs(x - y) / abs(y) for x, y in zip(*losses)) < 0.05
+
+
+# The shapes the kernels are built for beside the shipped one
+# (kernels/shapes.py): name -> (density channels, trunk width, view-branch
+# width, min_deg, max_deg, deg_view, identity). A: the narrow model; B:
+# IPE degrees 0..10 (30-column sin block: the fold of kernel 4 takes each
+# feature alone) and deg_view 2; C: mip-NeRF's one channel, narrow,
+# without identity (kernels 2 and 3 only: kernels 4 and 5 encode with
+# identity); D: 7 degrees from 2 (42 features padded to 48), deg_view 1.
+SHAPES = {"A": (5, 128, 64, 0, 16, 4, True),
+          "B": (5, 256, 128, 0, 10, 2, True),
+          "C": (1, 128, 64, 0, 16, 4, False),
+          "D": (5, 128, 128, 2, 9, 1, True)}
+
+
+def _shape_mlp(name, device, seed=1):
+    """A random MLP of shape `name` and its encodings' keywords."""
+    C, W, VW, lo, hi, dv, ident = SHAPES[name]
+    mlp = NerfMLP(6 * (hi - lo), 6 * dv + 3 * ident, net_width=W,
+                  net_width_condition=VW, num_density_channels=C,
+                  generator=torch.Generator().manual_seed(seed))
+    return mlp.to(device), dict(min_deg=lo, max_deg=hi, deg_view=dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
+        cuda_device, shape, normals):
+    """Kernels 2 and 3 built for each other shape, forward and backward,
+    at kernel 2 and 3's tolerances (and the padded feature columns add
+    nothing: the moment gradient matches)."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    kernel, plain = ((k3.fused_mlp_normals_apply,
+                      k3.fused_mlp_normals_reference) if normals else
+                     (k2.fused_mlp_ipe_apply, k2.fused_mlp_ipe_reference))
+    mlp, kw = _shape_mlp(shape, cuda_device)
+    g = torch.Generator().manual_seed(0)
+    M = 1000
+    means = (torch.randn(M, 3, generator=g) * 2).to(cuda_device)
+    covs = (torch.randn(M, 3, generator=g).abs() * 0.01).to(cuda_device)
+    v = (torch.randn(M, mlp.view_dim, generator=g) * 0.5).to(cuda_device)
+    deg = dict(min_deg=kw["min_deg"], max_deg=kw["max_deg"])
+    got, g_got, m_got = _grads(kernel, mlp, means, covs, v, **deg)
+    torch.cuda.synchronize()
+    want, g_want, m_want = _grads(plain, mlp, means, covs, v, **deg)
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= 2e-2
+    if normals:
+        assert _rel(got[2], want[2]) < 0.08
+    assert _rel(g_got, g_want) < (5e-2 if normals else 2e-2)
+    assert _rel(m_got, m_want) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,need_normals", [(37, 56, True),
+                                              (131, 5, False)])
+@pytest.mark.parametrize("shape", ["A", "B", "D"])
+def test_fused_render_kernel_matches_plain_version_at_other_shapes(
+        cuda_device, shape, R, S, need_normals):
+    mlp, kw = _shape_mlp(shape, cuda_device)
+    args = _inputs(R, S, cuda_device)
+    kw = dict(KW, **kw, need_normals=need_normals, need_extras=need_normals)
+    with torch.no_grad():
+        got = fr.fused_render_level(mlp, *args, **kw)
+        want = fr.fused_render_level_reference(mlp, *args, **kw)
+    for k, tol in (("rgb", 2e-2), ("distance", 2e-2), ("acc", 1e-2),
+                   ("weights", 1e-2), ("albedo", 2e-2), ("roughness", 2e-2)):
+        if want[k] is not None:
+            torch.testing.assert_close(got[k], want[k], atol=tol, rtol=0)
+    if need_normals:
+        cos = torch.sum(got["normal"] * want["normal"], -1)
+        assert float(cos.median()) > 0.998 and float(cos.min()) > 0.85
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(37, 56), (131, 5)])
+@pytest.mark.parametrize("shape", ["A", "B", "D"])
+def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
+        cuda_device, shape, R, S):
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    mlp, kw = _shape_mlp(shape, cuda_device)
+    args = _inputs(R, S, cuda_device)
+    want, gp_want, gm_want, gt_want = _render_grads(
+        k5.fused_render_train_reference, mlp, args, False, **kw)
+    for save_acts in (False, True):
+        got, gp, gm, gt = _render_grads(k5.fused_render_train, mlp, args,
+                                        False, save_acts=save_acts, **kw)
+        torch.cuda.synchronize()
+        for k, tol in (("rgb", 2e-2), ("distance", 2e-2), ("acc", 1e-2),
+                       ("weights", 2e-3)):
+            torch.testing.assert_close(got[k], want[k], atol=tol, rtol=0)
+        assert _rel(gp, gp_want) < 2e-2
+        assert _rel(gm, gm_want) < 5e-2 and _rel(gt, gt_want) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["A", "D"])
+def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
+        cuda_device, shape):
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    mlp, _ = _shape_mlp(shape, cuda_device)
+    g = torch.Generator().manual_seed(0)
+    M = 1000
+    x = (torch.randn(M, mlp.xyz_dim, generator=g) * 0.5).to(cuda_device)
+    v = (torch.randn(M, mlp.view_dim, generator=g) * 0.5).to(cuda_device)
+    res = []
+    for fn in (k1.fused_mlp_apply, k1.fused_mlp_apply_reference):
+        mlp.zero_grad()
+        xr = x.clone().requires_grad_(True)
+        outs = fn(mlp, xr, v)
+        (torch.sin(outs[0]).sum() + torch.cos(outs[1]).sum()).backward()
+        res.append(([o.detach() for o in outs], torch.cat(
+            [p.grad.reshape(-1) for p in mlp.parameters()]), xr.grad))
+    torch.cuda.synchronize()
+    (got, gp, gx), (want, gp_want, gx_want) = res
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-2
+    assert _rel(gp, gp_want) < 2e-2
+    assert _rel(gx, gx_want) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
+        cuda_device, shape, normals):
+    """The weight-gradient pass of each other shape's build, over that
+    shape's job table (128- and 64-wide products, 16-wide viewdir codes)
+    on random operand rows, per job at rel-norm 1e-4."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    mlp, _ = _shape_mlp(shape, cuda_device)
+    sh = k2.shape_of(mlp)
+    lay = k2.layout(sh)
+    width = lay.OPW_NRM if normals else lay.OPW_IPE
+    g = torch.Generator(device=cuda_device).manual_seed(int(normals))
+    ops = torch.randn(1088, width, generator=g, device=cuda_device,
+                      dtype=torch.float32).to(torch.bfloat16)
+    dw = torch.zeros(lay.W_TOTAL, device=cuda_device)
+    k2.launch_weight_grads(k2.kernel_library(sh), ops, dw, normals)
+    want = k2.weight_grads_reference(ops, normals, sh)
+    torch.cuda.synchronize()
+    for i, (_, _, _, _, n, k, out, ldo) in enumerate(
+            k2.wgrad_jobs(normals, sh)):
+        a = dw.as_strided((n, k), (ldo, 1), out)
+        b = want.as_strided((n, k), (ldo, 1), out)
+        assert _rel(a, b) <= 1e-4, i
+

@@ -170,7 +170,8 @@ def test_kernels_take_one_or_five_density_channels_on_the_card(C, ok):
     k2.check_kernel_support(mlp, 0, 16, torch.device("cpu"))
     if ok:
         k2.check_kernel_support(mlp, 0, 16, torch.device("cuda"))
-        assert k2.BUILDS[C] == (() if C == 5 else ("NERF_NDC=1",))
+        assert k2.MlpShape(C=C).defines() == (
+            () if C == 5 else ("NERF_NDC=1",))
     else:
         with pytest.raises(ValueError, match="num_density_channels"):
             k2.check_kernel_support(mlp, 0, 16, torch.device("cuda"))

@@ -124,16 +124,30 @@ def test_wrapper_rejects_unsupported_sample_count(mlp256, S):
 
 @pytest.mark.parametrize("change", [
     dict(net_width=64), dict(skip_index=3), dict(num_density_channels=8),
-    dict(net_width_condition=64)])
+    dict(net_width_condition=32)])
 def test_wrapper_rejects_unsupported_topology(change):
+    """A topology kernel 4 does not take is refused on every device; a
+    width its CUDA builds do not take (trunk 64, view branch 32) on the
+    card only: the plain version on the CPU takes any width."""
     mlp = NerfMLP(96, 27, **{"num_density_channels": 5, **change})
-    with pytest.raises(ValueError, match="topology"):
+    cuda = torch.device("cuda")
+    if "net_width" in change or "net_width_condition" in change:
         _call(mlp, _inputs())
+        with pytest.raises(ValueError, match="topology"):
+            fr.check_kernel_support(mlp, 8, 0, 16, 4, cuda)
+    else:
+        with pytest.raises(ValueError, match="topology"):
+            _call(mlp, _inputs())
 
 
 def test_wrapper_rejects_unsupported_encoding_degrees(mlp256):
+    """deg_view 2 for an MLP of the deg-4 encoding (27 wide), and deg_view
+    5, beyond the builds' 1..4, are refused."""
     with pytest.raises(ValueError, match="topology"):
         _call(mlp256, _inputs(), deg_view=2)
+    mlp5 = NerfMLP(96, 33, num_density_channels=5)
+    with pytest.raises(ValueError, match="topology"):
+        _call(mlp5, _inputs(), deg_view=5)
 
 
 def test_wrapper_rejects_shape_mismatch(mlp256):
@@ -224,6 +238,8 @@ class _FakeLibrary:
         self.fused_render_weight_count = lambda: 0
         self.fused_render_bias_count = lambda: 0
         self.fused_render_tile_rays = lambda S: tile_rows // S
+        self.fused_render_shape = lambda out: out.__setitem__(
+            slice(0, 5), list(fr.shapes.STANDARD))
 
 
 @pytest.mark.parametrize("tile_rows, ok", [(fr.TILE_ROWS, True), (64, False)])

@@ -209,10 +209,12 @@ def test_wrapper_rejects_unsupported_inputs():
         big = torch.zeros(2, 65, 3)
         k5.fused_render_train(mlp, big, big, args[2][:2],
                               torch.zeros(2, 66), args[4][:2], **kw)
+    # deg_view 2 for an MLP of the deg-4 encoding; 18 IPE degrees, past
+    # the builds' 1..16.
     with pytest.raises(ValueError, match="deg_view"):
         k5.fused_render_train(mlp, *args, **dict(kw, deg_view=2))
     with pytest.raises(ValueError, match="topology"):
-        k5.fused_render_train(mlp, *args, **dict(kw, max_deg=12))
+        k5.fused_render_train(mlp, *args, **dict(kw, max_deg=18))
     with pytest.raises(ValueError, match="t_samples"):
         k5.fused_render_train(mlp, *args[:3], args[3][:, :-1].contiguous(),
                               args[4], **kw)

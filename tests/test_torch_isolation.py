@@ -156,15 +156,16 @@ def test_plain_route_keys_are_accepted(key, value):
     (tests/test_torch_plain_route.py, test_torch_topology.py,
     test_torch_encodings.py and test_torch_heads.py hold them to JAX):
     the system is built and takes the plain route. The keys of JAX's
-    predicate take it alone; an encoding key takes it with f32 (on the
-    kernel route the kernels are not built for it, tests/
-    test_torch_plain_route.py)."""
+    predicate take it alone; an encoding key takes it with f32, and in
+    bf16 the kernel route (the kernels are built for it, tests/
+    test_torch_kernel_shapes.py)."""
     from pano_nerf_tpu_torch.engine.system import build_system
     from pano_nerf_tpu_torch.models.base import plain_route_reasons
     hp = load_config(os.path.join(REPO, "configs", "panonerf.yaml"))
     hp[key] = value
     if key in ("nerf.min_deg_point", "nerf.max_deg_point", "nerf.deg_view",
                "nerf.append_identity"):
+        assert build_system(hp, device="cpu").model.kernels
         hp["train.precision"] = "f32"
     model = build_system(hp, device="cpu").model
     assert not model.kernels
