@@ -3,8 +3,11 @@ Pano-NeRF (`configs/panonerf.yaml`), its HDR presets
 (`configs/panonerf_hdr.yaml`, `configs/panonerf_shadow.yaml`), the
 mip-NeRF baseline (`configs/mipnerf.yaml`), the novel-view path, the
 plain route (f32, another MLP topology, the heads), the last loss
-terms, the level loop with the last model and system keys, and the
-kernel route at other MLP widths and encodings.
+terms, the level loop with the last model and system keys, the kernel route
+at other MLP widths and encodings, every trunk width up to 256 and view
+width up to 128 padded into those builds, and the library modules
+(reference checkpoints, the native EXR decoder, perspective datasets,
+the 360 ops).
 
 Run from the repository root on a machine with the card:
 
@@ -76,7 +79,7 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    the eager-vs-eager spread (`check_graphed_against_eager`); ms per step
    and train rays/s of the 8-step graph, the one-step graph and eager
    steps, in turns.
-6. Where the time goes in training: 16 steps under torch.profiler,
+6. Where the time goes in training: 8 steps under torch.profiler,
    graphed and eager, with the launch counters held against the kernels
    the profiler saw by name; 6b the same with the key on.
 2m. Kernels 2 and 3 built for one density channel (mip-NeRF) vs their
@@ -173,7 +176,7 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    gradient at the measured bounds `F32_NORMAL_PART_TOL`,
    `F32_GRAD_TOL`); 16 graphed steps against eager ones (the 1e-6 floor
    of every phase); ms per step graphed, one-step graph and eager in
-   turns of 16 steps (as every phase) beside phase 4's; the
+   turns of 8 steps (as every phase) beside phase 4's; the
    profile (device busy of the f32 step).
 16. mip-NeRF at `nerf.mlp.net_depth 4`, `net_width 128`,
    `use_viewdirs false`, bf16, on the plain route: 48 steps, counters 0,
@@ -235,6 +238,40 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    the card against the CPU (`check_against_plain`); the step against
    the CPU under phase 5's rule, graphed against eager, ms per step
    (`SHAPE_PHASES`, run as phase 19's).
+2x. Narrower models zero-padded into the builds (`PADDED_SHAPES`: P1
+   trunk 64 / view branch 32 in shape A's 128 / 64 build, P2 200 / 100 in
+   the shipped one): every kernel against its plain version at the
+   model's own width (the unpadded NerfMLP) at phase 2's tolerances,
+   forward and backward: at P1 kernel 4 at the three eval shapes,
+   kernels 2 and 3 at a batch-512 step's four calls, kernel 5 at its two
+   levels, kernel 1 at 28,672 rows; at P2 kernels 4, 5 and 1 likewise and
+   kernels 2 and 3 at mip-NeRF's one density channel (131,072 rows, the
+   build of phase 23m). The packed weight and bias gradients in the
+   padded slots read exactly 0 over every backward. Each time beside the
+   bound of the model's own MACs and bytes, with the build's MACs per
+   row printed beside the model's (entries `_pP1`, `_pP2`, their
+   `padded` field). (Run after phase 2w.)
+23. P1 Pano-NeRF with kernel 5's key on, 23m P2 mip-NeRF with
+   `loss.ort_loss 0.1` (kernels 2 and 3 at one density channel): as phase
+   21 and 22m (64 steps through the train entry point with the shipped
+   shape's exact launch counts, the checkpoint served, a 16x32 view on
+   the card against the CPU, the step against the CPU under phase 5's
+   rule, graphed against eager, ms per step). After 2x and each of
+   phases 21-23m, `[libs]` prints the preprocessor definitions of every
+   library the phase loaded; a library phase 1 did not build, or any
+   build after phase 1, fails the run.
+24. The library modules: a synthesized reference Lightning checkpoint at
+   P1's widths imported through `python -m
+   pano_nerf_tpu_torch.import_reference_ckpt` (in process), served
+   through `eval --ckpt_dir` (96 kernel-4 launches per panorama) and its
+   16x32 view held to the CPU's; the scene's EXR files read by the native
+   decoder (`csrc/exr_decode.cc`) and the pure-Python codec, bitwise
+   equal, the decoder printed; a 2-view Blender scene written by the
+   port's PNG writer read through `Blender`, its rays on the card; the
+   mip-NeRF 360 ops on the card against the CPU (`OPS360_TOL`).
+
+`[clock] phase X at T s` marks each phase's start and `[clock] <function>
+took T s` each call of the slow helpers (step checks, renders, trains).
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -247,7 +284,9 @@ the launches of phases 9-11's preset runs, and so have the study shapes
 2 on the scale-distill re-march (`_sd`), with phase 18's launches, and
 so has every build at another shape (`_wA`, `_wB`, `_wC`), with the
 launches of phases 21, 22 and 22m (kernel 1 at A and kernel 5 at B are
-on no main path: 0). The
+on no main path: 0), and so has every kernel at the padded widths
+(`_pP1` with the launches of phases 23 and 24, `_pP2` with phase 23m's;
+kernel 1 at either and kernels 4 and 5 at P2 are on no main path: 0). The
 last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
@@ -321,15 +360,68 @@ OTHER_SHAPES = {"A": (CONFIG, SHAPE_A), "B": (CONFIG, SHAPE_B),
                 "C": (MIP_CONFIG, SHAPE_C)}
 
 
+# Phase 2x and phases 23-24: models narrower than a build, run zero-padded
+# in it (kernels/shapes.py `build_shape`). P1: trunk 64, view branch 32,
+# in shape A's 128 / 64 build; P2: trunk 200, view branch 100, in the
+# shipped 256 / 128 build (P2m: mip-NeRF, in the one-channel build).
+SHAPE_P1 = ("nerf.mlp.net_width", "64", "nerf.mlp.net_width_condition",
+            "32")
+SHAPE_P2 = ("nerf.mlp.net_width", "200", "nerf.mlp.net_width_condition",
+            "100")
+PADDED_SHAPES = {"P1": (CONFIG, SHAPE_P1), "P2": (CONFIG, SHAPE_P2),
+                 "P2m": (MIP_CONFIG, SHAPE_P2)}
+
+
 def shape_model(name: str, dev=None):
-    """The model of `OTHER_SHAPES[name]` with weights from seed 0."""
+    """The model of `OTHER_SHAPES[name]` (or `PADDED_SHAPES[name]`) with
+    weights from seed 0."""
     import torch
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.models import build_model
-    config, opts = OTHER_SHAPES[name]
+    config, opts = {**OTHER_SHAPES, **PADDED_SHAPES}[name]
     model = build_model(load_config(config, list(opts)),
                         torch.Generator().manual_seed(0))
     return model if dev is None else model.to(dev)
+
+
+# The libraries phase 1 builds ((source, defines)) and their build logs:
+# no later phase may load or build another (`check_libraries`).
+BUILT: set = set()
+BUILT_LOGS: dict = {}
+
+
+def check_libraries(phase: str) -> None:
+    """Print the preprocessor definitions of every kernel library loaded
+    since the last call (`kernels/build.py` `LOADED`), and fail if one of
+    them is not a library phase 1 built or if anything was built since."""
+    from pano_nerf_tpu_torch.kernels import build
+    used = sorted(build.LOADED)
+    build.LOADED.clear()
+    flags = lambda d: " ".join("-D" + x for x in d) or "no defines"
+    print(f"[libs] phase {phase} loaded " + "; ".join(
+        f"{build.build_name(src, d)} ({flags(d)})" for src, d in used),
+        flush=True)
+    extra = [k for k in used if k not in BUILT]
+    built = sorted(set(build.BUILD_LOGS) - set(BUILT_LOGS))
+    if extra or built:
+        raise AssertionError(f"phase {phase} loaded libraries phase 1 did "
+                             f"not build: {extra}; built {built}")
+
+
+def clocked(fn):
+    """Print the seconds each call of `fn` takes (`[clock] <fn> took`), so
+    a call's log shows where its wall time went inside a phase."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"[clock] {fn.__name__} took "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return run
 
 
 def build_kernels():
@@ -344,7 +436,7 @@ def build_kernels():
               (fused_mlp_ipe.SOURCE, shapes.MlpShape(C=1).defines())]
     for name in OTHER_SHAPES:
         model = shape_model(name)
-        sh = shapes.shape_of(model.mlp)
+        sh = shapes.build_of(model.mlp)
         builds.append((fused_mlp_ipe.SOURCE, sh.defines()))
         if sh.C == 5 and model.cfg.append_identity:   # kernels 4 and 5
             builds += [(fused_render.SOURCE, sh.defines(False)),
@@ -353,6 +445,8 @@ def build_kernels():
     pending = [build.start_build(*b) for b in builds]
     for p in pending:
         build.finish_build(p)
+    BUILT.update((src, tuple(d)) for src, d in builds)
+    BUILT_LOGS.update(build.BUILD_LOGS)
     print(f"[build] {len(builds)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for src, (log, secs) in build.BUILD_LOGS.items():
@@ -446,14 +540,14 @@ def row_macs(mlp) -> dict:
                 trunk=trunk, heads=heads)
 
 
-def _bound_ms(args, kw, packed, mlp) -> float:
+def _bound_ms(args, kw, mlp) -> float:
     """Kernel 4's least time on the card: inputs read and outputs written
     once, operations at the bf16 peak."""
     R, S = args[0].shape[:2]
     m = row_macs(mlp)
     macs = m["mlp"] + (m["trunk"] if kw["need_normals"] else 0)
     return _bound(macs * R * S, R * S * 8 * 4 + R * 8 * 4 + R * (17 + S) * 4
-                  + _packed_bytes(packed, False))
+                  + _weight_bytes(mlp, False))
 
 
 def _entry(name: str, source: str, replaces: str) -> dict:
@@ -483,10 +577,21 @@ def _bound(macs: float, bytes_: float) -> float:
     return 1e3 * max(2.0 * macs / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES)
 
 
-def _packed_bytes(packed, grads: bool) -> int:
-    """Packed weights read once; with `grads` their f32 gradients written."""
-    return sum(t.numel() * (t.element_size() + (4 if grads else 0))
-               for t in packed)
+def _weight_bytes(mlp, grads: bool) -> int:
+    """The MLP's own parameters read once (bf16 weights, f32 biases); with
+    `grads`, their f32 gradients written: the bound of the model's own
+    work (a model padded into a wider build moves the build's bytes)."""
+    return sum(p.numel() * ((2 if n.endswith("weight") else 4)
+                            + (4 if grads else 0))
+               for n, p in mlp.named_parameters())
+
+
+def _own_ops_width(mlp, normals: bool) -> int:
+    """Columns of the operand rows a backward of `mlp`'s own shape would
+    write (the padded build writes its own, wider rows)."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    lay = k2.layout(k2.shape_of(mlp))
+    return lay.OPW_NRM if normals else lay.OPW_IPE
 
 
 # The weight-gradient pass against its plain version on the same operand
@@ -525,7 +630,7 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels.fused_render import unpack_params
-    sh = k2.shape_of(mlp)
+    sh = k2.build_of(mlp)
     lib = k2.kernel_library(sh)
     dw = torch.zeros(k2.layout(sh).W_TOTAL, device=ops.device)
     k2.launch_weight_grads(lib, ops, dw, normals)
@@ -550,7 +655,9 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     library_ms = time_ms(_wgrad_library(ops, normals, sh), reps=20)
     m = row_macs(mlp)
     macs = (m["mlp"] + (m["trunk"] if normals else 0)) * rows
-    bound = _bound(macs, rows * ops.shape[1] * 2 + dw.numel() * 4)
+    own = k2.layout(k2.shape_of(mlp))
+    bound = _bound(macs, rows * _own_ops_width(mlp, normals) * 2
+                   + own.W_TOTAL * 4)
     _add(entry, shape, ms, plain_ms, bound, err, total=total, rows=rows,
          buffer_rows=ops.shape[0], library_ms=library_ms, rel=rel)
     if total:
@@ -576,6 +683,7 @@ def check_kernels(model, env, dev, shapes=None, sfx: str = "",
     kernel's JSON entry, named with `sfx`."""
     import torch
     from pano_nerf_tpu_torch.kernels import fused_render as fr
+    from pano_nerf_tpu_torch.kernels.shapes import build_of
     if shapes is None:
         shapes = main_path_inputs(model, env, dev)
         # A ragged last tile: 1023 rays of the fine level (2 rays per
@@ -611,17 +719,19 @@ def check_kernels(model, env, dev, shapes=None, sfx: str = "",
             model.mlp, *args, packed=packed, **kw), reps=20)
         plain_ms = time_ms(lambda: fr.fused_render_level_reference(
             model.mlp, *args, **kw), reps=5)
-        bound = _bound_ms(args, kw, packed, model.mlp)
+        bound = _bound_ms(args, kw, model.mlp)
         R, S = args[0].shape[:2]
         # Weights crossing L2 -> shared memory, modelled (no counter of L2
         # traffic is read): tiles x the bytes of the TMA boxes one tile
         # loads, over the measured time.
         tiles = fr.plan_tiles(R, S).num_tiles
-        wbytes = tiles * fr.weight_bytes_per_tile(kw["need_normals"])
+        tile_bytes = fr.weight_bytes_per_tile(kw["need_normals"],
+                                              build_of(model.mlp))
+        wbytes = tiles * tile_bytes
         print(f"{tag} {name:11s} R={R} S={S}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms; modelled weight "
               f"bytes {tiles} tiles x "
-              f"{fr.weight_bytes_per_tile(kw['need_normals'])} B of TMA "
+              f"{tile_bytes} B of TMA "
               f"boxes = {wbytes / 1e9:.3f} GB / measured ms = "
               f"{wbytes / ms / 1e9:.3f} TB/s; errors "
               + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
@@ -696,6 +806,7 @@ def forbid_plain_versions():
     return restore
 
 
+@clocked
 def drive_main_path(workdir: str, scene: str, weights: list,
                     step: int = 0, config: str = CONFIG, opts=(),
                     name: str = "") -> dict:
@@ -820,6 +931,7 @@ def _eval_system(scene: str, config: str, dev: str, factor=None, opts=()):
     return system, ds
 
 
+@clocked
 def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
                         config: str = CONFIG, opts=(), tol=None) -> None:
     """The first val panorama rendered by the system of `config` (with
@@ -884,6 +996,7 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
         _report_profile(prof, wall_us, f"one {ds.h}x{ds.w} panorama, {m}")
 
 
+@clocked
 def check_against_plain(scene: str, config: str = CONFIG,
                         tag: str = "[check]", opts=(), params=None,
                         shifts: int = 0) -> None:
@@ -1275,17 +1388,17 @@ def _rel(a, b) -> float:
 
 
 def _train_bound_ms(mlp, normals: bool, direction: str, rows: int,
-                    packed, save_acts: bool = True) -> float:
+                    save_acts: bool = True) -> float:
     """Kernels 2 and 3 of `mlp`: inputs read once and outputs written once
     (kernel 3's forward writes its trunk for the backward only with
     `save_acts`, as in training; the eval render saves nothing)."""
     W, v = mlp.net_width, _v_bytes(mlp)
     acts = (12 + (8 * W * 2 if save_acts else 0)) if normals else 0
     if direction == "fwd":
-        bytes_ = rows * (32 + v + 64 + acts) + _packed_bytes(packed, False)
+        bytes_ = rows * (32 + v + 64 + acts) + _weight_bytes(mlp, False)
     else:   # mc, v, cotangents (+ acts) in; d mc and f32 grads out
         bytes_ = (rows * (32 + v + 64 + 32 + acts)
-                  + _packed_bytes(packed, True))
+                  + _weight_bytes(mlp, True))
     return _bound(train_macs(mlp, normals, direction) * rows, bytes_)
 
 
@@ -1322,7 +1435,7 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     if mlp.num_density_channels != ndc:
         raise AssertionError(f"the model has {mlp.num_density_channels} "
                              f"density channels, not {ndc}")
-    lib = k2.kernel_library(k2.shape_of(mlp))
+    lib = k2.kernel_library(k2.build_of(mlp))
     entries = {name: _entry(name + sfx, "fused_mlp.cu", src_line)
                for name, src_line in (
                    ("fused_mlp_ipe_fwd", "fused_mlp_ipe.py:211"),
@@ -1383,8 +1496,9 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         M = mc.shape[0]
         out = torch.empty((M, 16), device=dev)
         dsig = torch.empty((M, 3), device=dev)
-        acts = (torch.empty((M, 8 * mlp.net_width), dtype=torch.bfloat16,
-                            device=dev) if normals and train else None)
+        acts = (torch.empty((M, 8 * lib._pano_shape.W),
+                            dtype=torch.bfloat16, device=dev)
+                if normals and train else None)
         stream = torch.cuda.current_stream().cuda_stream
 
         def fwd():
@@ -1400,7 +1514,7 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
             with torch.no_grad():
                 plain_f = time_ms(lambda: plain(mlp, means, covs, v_enc,
                                                 **kw), reps=3)
-            bound_f = _train_bound_ms(mlp, normals, "fwd", M, packed,
+            bound_f = _train_bound_ms(mlp, normals, "fwd", M,
                                       save_acts=False)
             base = "fused_mlp_normals" if normals else "fused_mlp_ipe"
             _add(entries[f"{base}_fwd"], shape, ms_f, plain_f, bound_f,
@@ -1434,7 +1548,8 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         bound_r = _bound(train_macs(mlp, normals, "rows") * M, M * (
             32 + _v_bytes(mlp) + 64 + 32
             + (12 + 8 * mlp.net_width * 2 if normals else 0))
-            + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
+            + M * _own_ops_width(mlp, normals) * 2
+            + _weight_bytes(mlp, False))
         wg = check_weight_grads(mlp, ops, normals, M, wentry,
                                 f"k{3 if normals else 2}{sfx}_{shape}",
                                 failures, total=sfx == "")
@@ -1456,15 +1571,15 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         for direction, ms, pms in (("fwd", ms_f, plain_f),
                                    ("bwd", ms_b, plain_b)):
             _add(entries[f"{base}_{direction}"], shape, ms, pms,
-                 _train_bound_ms(mlp, normals, direction, M, packed),
+                 _train_bound_ms(mlp, normals, direction, M),
                  errs["out_abs" if direction == "fwd" else "grad_abs"],
                  rows=M, errors=errs,
                  **(passes if direction == "bwd" else {}))
         print(f"{tag} {shape:6s} M={M} {'k3' if normals else 'k2'} "
               f"C={ndc}: fwd {ms_f:.3f} ms (plain {plain_f:.3f}, bound "
-              f"{_train_bound_ms(mlp, normals, 'fwd', M, packed):.4f}), bwd "
+              f"{_train_bound_ms(mlp, normals, 'fwd', M):.4f}), bwd "
               f"{ms_b:.3f} ms (plain {plain_b:.3f}, bound "
-              f"{_train_bound_ms(mlp, normals, 'bwd', M, packed):.4f}) = row "
+              f"{_train_bound_ms(mlp, normals, 'bwd', M):.4f}) = row "
               f"pass {ms_r:.4f} ms (its bound {bound_r:.4f}) + weight "
               f"gradients {wg['ms']:.4f} ms (its bound {wg['bound']:.4f}, "
               f"torch.matmul {wg['library_ms']:.4f}, rel vs plain "
@@ -1525,7 +1640,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
               deg_view=cfg.deg_view, density_bias=cfg.density_bias,
               rgb_padding=cfg.rgb_padding, white_bkgd=False)
     packed = pack_params(mlp)
-    mshape = k2.shape_of(mlp)
+    mshape = k2.build_of(mlp)
     fwd = _entry("fused_render_train_fwd" + sfx, "fused_render_train.cu",
                  "fused_render_train.py:358")
     bwd = _entry("fused_render_train_bwd" + sfx, "fused_render_train.cu",
@@ -1614,7 +1729,7 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
         del outs
         rows = R * S
         per_ray = R * (2 + k5.OUT8 + S) * 4   # clip in; out, weights out
-        w_bytes = _packed_bytes(packed, False)
+        w_bytes = _weight_bytes(mlp, False)
         m = row_macs(mlp)
         mlp_m, trunk = m["mlp"], m["trunk"]
         spill = 8 * mlp.net_width * 2
@@ -1623,14 +1738,14 @@ def check_train_render_kernel(model, dev, levels, wentry: dict,
                                          rows * row_in + per_ray + w_bytes),
                   ("bwd", False): _bound(3 * mlp_m * rows,
                                          rows * (row_in + 32) + per_ray
-                                         + _packed_bytes(packed, True))}
+                                         + _weight_bytes(mlp, True))}
         bounds["fwd", True] = _bound(mlp_m * rows, rows * (row_in + spill)
                                      + per_ray + w_bytes)
         bounds["bwd", True] = _bound((3 * mlp_m - trunk) * rows,
                                      rows * (row_in + 32 + spill) + per_ray
-                                     + _packed_bytes(packed, True))
+                                     + _weight_bytes(mlp, True))
         # Real rows, not idle tile rows.
-        ops_bytes = rows * k2.layout(mshape).OPW_IPE * 2
+        ops_bytes = rows * _own_ops_width(mlp, False) * 2
         for save_acts in (False, True):
             bounds["rows", save_acts] = _bound(
                 (2 * mlp_m - (trunk if save_acts else 0)) * rows,
@@ -1693,7 +1808,7 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict,
     from pano_nerf_tpu_torch.kernels.fused_render import pack_params
     from pano_nerf_tpu_torch.ops import mip
     mlp, cfg = model.mlp, model.cfg
-    shape = k2.shape_of(mlp)
+    shape = k2.build_of(mlp)
     X, V = mlp.xyz_dim, mlp.view_dim
     means, covs, viewdirs = levels["coarse"][:3]
     with torch.no_grad():
@@ -1743,7 +1858,8 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict,
     # bf16 x and viewdir codes, f32 outputs (64 B) in; f32 d x out.
     io = 2 * XF + _v_bytes(mlp) + 64
     bound_r = _bound(2 * mlp_m * M, M * (io + 4 * XF)
-                     + M * ops.shape[1] * 2 + _packed_bytes(packed, False))
+                     + M * _own_ops_width(mlp, False) * 2
+                     + _weight_bytes(mlp, False))
     wg = check_weight_grads(mlp, ops, False, M, wentry, f"k1{sfx}_coarse",
                             failures, total=sfx == "")
     del ops, db_r, dx_r
@@ -1757,9 +1873,9 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict,
         outs, list(mlp.parameters()) + [x_req], cot, retain_graph=True),
         reps=3)
     del outs
-    bound_f = _bound(mlp_m * M, M * io + _packed_bytes(packed, False))
+    bound_f = _bound(mlp_m * M, M * io + _weight_bytes(mlp, False))
     bound_b = _bound(3 * mlp_m * M, M * (io + 4 * XF)
-                     + _packed_bytes(packed, True))
+                     + _weight_bytes(mlp, True))
     fwd = _entry("fused_mlp_apply_fwd" + sfx, "fused_mlp.cu",
                  "fused_mlp.py:223")
     bwd = _entry("fused_mlp_apply_bwd" + sfx, "fused_mlp.cu",
@@ -1817,6 +1933,148 @@ def check_other_shape_kernels(env, dev, wentry: dict) -> dict:
         if name == "A":
             got += check_fused_mlp_kernel(model, dev, levels, wentry,
                                           sfx=sfx, tag=tag)
+        entries[name] = got
+        del model, calls, levels
+    return entries
+
+
+def padded_macs(mlp) -> dict:
+    """MACs per sample row of `mlp` (`row_macs`) and of the build it runs
+    in, with the model's share of the build's."""
+    import types
+    from pano_nerf_tpu_torch.kernels import shapes
+    b = shapes.build_of(mlp)
+    built = types.SimpleNamespace(
+        net_width=b.W, net_width_condition=b.VW, xyz_dim=mlp.xyz_dim,
+        view_dim=mlp.view_dim, num_density_channels=mlp.num_density_channels)
+    own, wide = row_macs(mlp)["mlp"], row_macs(built)["mlp"]
+    return dict(model_macs_per_row=own, build_macs_per_row=wide,
+                build=f"W={b.W} VW={b.VW} C={b.C}", share=own / wide)
+
+
+def check_padded_slots(model, calls, levels, k1: bool, tag: str) -> None:
+    """Every backward of the wrappers (kernels 2 and 3 at `calls`, kernel
+    5 at `levels`, kernel 1 with `k1`) on a model padded into a wider
+    build: the packed weight gradients (rounded to bf16, as the step
+    takes them) and bias gradients in the slots the build pads
+    (`fused_render.padded_slots`) must be exactly 0."""
+    import torch
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1m
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    from pano_nerf_tpu_torch.kernels.fused_render import (pack_params,
+                                                          padded_slots)
+    from pano_nerf_tpu_torch.ops import mip
+    mlp, cfg = model.mlp, model.cfg
+    w_pad, b_pad = padded_slots(mlp)
+    packed = pack_params(mlp)
+    kw = dict(min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point)
+    seen, unpack = [], k2.unpack_params
+
+    def spy(m, weights, biases):
+        if m is mlp:
+            seen.append(torch.stack([weights[w_pad].abs().max(),
+                                     biases[b_pad].abs().max()]))
+        return unpack(m, weights, biases)
+
+    k2.unpack_params = spy
+    try:
+        for normals, means, covs, v_enc in calls.values():
+            fn = (k3.fused_mlp_normals_apply if normals
+                  else k2.fused_mlp_ipe_apply)
+            _outs_and_grads(fn, mlp, means, covs, v_enc, packed=packed, **kw)
+        g = torch.Generator(device="cuda").manual_seed(23)
+        for args in levels.values():
+            R, S = args[0].shape[:2]
+            coef = {k: torch.randn(sh, generator=g, device=args[0].device)
+                    for k, sh in (("rgb", (R, 3)), ("acc", (R,)),
+                                  ("distance", (R,)), ("weights", (R, S)))}
+            _level_grads(k5.fused_render_train, mlp, args, coef,
+                         deg_view=cfg.deg_view,
+                         density_bias=cfg.density_bias,
+                         rgb_padding=cfg.rgb_padding, white_bkgd=False,
+                         packed=packed, **kw)
+        if k1:
+            means, covs, viewdirs = levels["coarse"][:3]
+            with torch.no_grad():
+                x = mip.integrated_pos_enc(means, covs, **kw).reshape(
+                    -1, mlp.xyz_dim).contiguous()
+                v = model._venc(viewdirs).expand(
+                    *means.shape[:2], mlp.view_dim).reshape(
+                        -1, mlp.view_dim).contiguous()
+            mlp.zero_grad(set_to_none=True)
+            out = k1m.fused_mlp_apply(mlp, x.requires_grad_(True), v,
+                                      packed=packed)
+            (out[0].sum() + out[1].sum()).backward()
+            mlp.zero_grad(set_to_none=True)
+    finally:
+        k2.unpack_params = unpack
+    worst = float(torch.stack(seen).max()) if seen else float("nan")
+    print(f"{tag} padded gradient slots ({int(w_pad.sum())} weights, "
+          f"{int(b_pad.sum())} biases of the packed layout) over "
+          f"{len(seen)} backwards: largest |value| {worst:.3e} (must be "
+          f"exactly 0)", flush=True)
+    want = len(calls) + len(levels) + int(k1)
+    if len(seen) != want:
+        raise AssertionError(f"{len(seen)} backwards seen, expected {want}")
+    hold(f"{tag} padded gradient slots", worst, 0.0)
+
+
+def check_padded_kernels(env, dev, wentry: dict) -> dict:
+    """Phase 2x: every kernel at P1 and P2 against its plain version at
+    the model's own width (the unpadded NerfMLP) at phase 2's tolerances,
+    forward and backward (parameters, means, covariances), weights from
+    seed 0: at P1 kernel 4 at the eval path's three shapes, kernels 2 and
+    3 at a batch-512 step's four calls, kernel 5 (`save_acts` off) at its
+    coarse and env levels and kernel 1 at 28,672 rows; at P2 kernels 4,
+    5 and 1 likewise and kernels 2 and 3 at mip-NeRF's one density
+    channel (P2m, phase 23m's build) on a batch-2048 step's 131,072 rows.
+    The padded gradient slots read exactly 0 (`check_padded_slots`).
+    Each time beside the bound of the model's own MACs and bytes, the
+    build's MACs beside them (the entries' `padded`). Returns the JSON
+    entries by shape, named with `_pP1`, `_pP2`."""
+    import torch
+    entries = {}
+    for name in ("P1", "P2"):
+        sfx, tag = f"_p{name}", f"[kernel-p{name}]"
+        model = shape_model(name, dev)
+        macs = padded_macs(model.mlp)
+        print(f"{tag} MACs per row: model {macs['model_macs_per_row']:,}, "
+              f"build ({macs['build']}) {macs['build_macs_per_row']:,}: "
+              f"{100 * macs['share']:.1f}% of the build's", flush=True)
+        with torch.no_grad():
+            got = [check_kernels(model, env, dev,
+                                 shapes=main_path_inputs(model, env, dev),
+                                 sfx=sfx, tag=tag)]
+        calls, levels, _ = train_shapes(model, env, dev)
+        if name == "P1":
+            got += check_train_kernels(model, dev, calls, wentry, tag=tag,
+                                       sfx=sfx)
+        got += check_train_render_kernel(model, dev, levels, wentry,
+                                         sfx=sfx, tag=tag, spills=(False,))
+        got += check_fused_mlp_kernel(model, dev, levels, wentry, sfx=sfx,
+                                      tag=tag)
+        check_padded_slots(model, calls if name == "P1" else {}, levels,
+                           True, tag)
+        for e in got:
+            e["padded"] = macs
+        if name == "P2":
+            mip_model = shape_model("P2m", dev)
+            mcalls = {k: v for k, v in mip_shapes(mip_model, dev).items()
+                      if k.startswith("train")}
+            mmacs = padded_macs(mip_model.mlp)
+            print(f"{tag} mip-NeRF MACs per row: model "
+                  f"{mmacs['model_macs_per_row']:,}, build "
+                  f"({mmacs['build']}) {mmacs['build_macs_per_row']:,}: "
+                  f"{100 * mmacs['share']:.1f}%", flush=True)
+            mip_entries = check_train_kernels(mip_model, dev, mcalls, wentry,
+                                              ndc=1, tag=tag, sfx=sfx)
+            check_padded_slots(mip_model, mcalls, {}, False, tag + "[mip]")
+            for e in mip_entries:
+                e["padded"] = mmacs
+            got += mip_entries
+            del mip_model, mcalls
         entries[name] = got
         del model, calls, levels
     return entries
@@ -1930,6 +2188,7 @@ def _family(system) -> dict:
                 per_step=per_step)
 
 
+@clocked
 def drive_train_path(workdir: str, scene: str,
                      render_kernel: bool = False, config: str = CONFIG,
                      opts=(), steps: int = TRAIN_STEPS,
@@ -2066,6 +2325,7 @@ STUDY_PHASES = {
 STUDY_WINDOW = 100   # phase 12's graphed-vs-eager window: steps 100-115
 
 
+@clocked
 def drive_render_path(workdir: str, scene: str, save_dir: str,
                       config: str = CONFIG) -> dict:
     """`python -m pano_nerf_tpu_torch.render_path` (in process) on the
@@ -2132,7 +2392,15 @@ def _train_inputs(trainer):
             torch.as_tensor(ds.images, dtype=torch.float32).to(dev))
 
 
-def time_train_modes(trainer, steps: int = 16) -> dict:
+# Timing turns and the profiled window are 8 steps (one replay of the
+# 8-step graph), cut from 16 to pay for phases 2x and 23-24 within the
+# call's time budget; no check reads them but the profile's launch-count
+# match, which holds at any count.
+TIMED_STEPS = 8
+
+
+@clocked
+def time_train_modes(trainer, steps: int = TIMED_STEPS) -> dict:
     """ms per train step and train rays/s of the 8-step graph, the
     one-step graph and eager steps, on the trained system, in turns
     (8, 1, eager, eager, 1, 8) of `steps` steps each; each turn ends in a
@@ -2198,6 +2466,7 @@ def _within_spread(graph, eager, dist, floor):
     return spread, got, tol, got <= tol
 
 
+@clocked
 def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
     """16 steps from one state (the trained weights, a fresh Adam at step
     `start_step`, one generator seed) four times eagerly and once as two
@@ -2272,6 +2541,7 @@ def check_graphed_against_eager(trainer, start_step: int = 0) -> None:
                              "beyond the eager-vs-eager spread")
 
 
+@clocked
 def check_illum_freeze(trainer) -> None:
     """`train.illum_freeze` inside a graph: one graphed step from a fresh
     Adam at the step before the freeze moves the illuminant field (its
@@ -2451,6 +2721,7 @@ def grad_errors(trainer, seeds, num_rays: int = 64,
 GRAD_BATCHES = 16
 
 
+@clocked
 def check_train_step_against_cpu(trainer, num_rays: int = 64,
                                  well_conditioned: bool = True) -> None:
     """Train steps on the card (kernels) and on the CPU (plain versions)
@@ -2548,9 +2819,10 @@ PROFILED_KERNELS = {
 }
 
 
-def profile_train_step(trainer, steps: int = 16) -> None:
+@clocked
+def profile_train_step(trainer, steps: int = TIMED_STEPS) -> None:
     """torch.profiler over `steps` train steps of the trained system, as
-    two replays of the 8-step graph and as eager steps (each after its
+    replays of the 8-step graph and as eager steps (each after its
     own warm-up): the device's busy and idle share of the host wall time
     and the top device ops; the launch counters' increments over the
     graphed window held against the kernels the profiler saw by name."""
@@ -2667,6 +2939,7 @@ def _report_profile(prof, wall_us: float, what: str) -> None:
               f"the device, of which kernels busy {inside / 1e3:.3f} ms")
 
 
+@clocked
 def adam_grads_ab(optimizer, steps: int = 5, rounds: int = 3) -> None:
     """Adam's device cost with the gradients as a train step leaves them
     against the same gradients cloned into fresh contiguous tensors, in
@@ -2763,6 +3036,7 @@ def scale_distill_shapes(model, env, dev) -> dict:
                               b["v"])}
 
 
+@clocked
 def check_f32_step_against_cpu(trainer, num_rays: int = 64) -> None:
     """f32 train steps on the card (the plain route, TF32 off) and on the
     CPU from the same parameters, batches and numpy-made draws, over the
@@ -2909,6 +3183,7 @@ LEVEL_PHASES = {
 }
 
 
+@clocked
 def check_zero_covariance_kernels(system) -> None:
     """Kernels 2-5 against their plain versions on zero covariances (what
     `nerf.disable_integration` hands them: every IPE degree unattenuated)
@@ -2937,14 +3212,19 @@ def check_zero_covariance_kernels(system) -> None:
                               tag="[kernel-noint]")
 
 
-# Phases 21-22m: the shapes of `OTHER_SHAPES` trained and served, 64
-# steps each: 21, A with kernel 5's key on (kernels 2, 3, 5; served
-# through kernel 4); 22, B with the key off (kernels 2 and 3; kernel 4);
-# 22m, C with `loss.ort_loss` (kernels 2 and 3, served through them).
+# Phases 21-23m: the shapes of `OTHER_SHAPES` and the padded widths
+# trained and served, 64 steps each: 21, A with kernel 5's key on
+# (kernels 2, 3, 5; served through kernel 4); 22, B with the key off
+# (kernels 2 and 3; kernel 4); 22m, C with `loss.ort_loss` (kernels 2 and
+# 3, served through them); 23, P1 (trunk 64, view 32, in the 128 / 64
+# build) as 21; 23m, P2 mip-NeRF (200 / 100, in the one-channel 256 /
+# 128 build) as 22m.
 SHAPE_PHASES = {
     "21": (CONFIG, SHAPE_A, True, 64, ()),
     "22": (CONFIG, SHAPE_B, False, 64, ()),
     "22m": (MIP_CONFIG, SHAPE_C + ("loss.ort_loss", "0.1"), False, 64, ()),
+    "23": (CONFIG, SHAPE_P1, True, 64, ()),
+    "23m": (MIP_CONFIG, SHAPE_P2 + ("loss.ort_loss", "0.1"), False, 64, ()),
 }
 
 
@@ -3005,6 +3285,141 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
     return [run, served]
 
 
+OPS360_TOL = 1e-4   # card vs CPU, over max(1, the output's largest value)
+
+
+@clocked
+def drive_library_phase(workdir: str, scene: str) -> dict:
+    """Phase 24, the library modules on the card: (1) a synthesized
+    reference Lightning checkpoint at P1's widths (`state_dict` under
+    `mip_nerf.mlp.`, `hyper_parameters` with `nerf.*`) imported through
+    `import_reference_ckpt`, served through `eval --ckpt_dir` (kernel 4,
+    96 launches per panorama) and held to the same checkpoint rendered on
+    the CPU (`check_against_plain`); (2) the scene's EXR files read by
+    the native decoder and by the pure-Python codec, bitwise equal, the
+    decoder's name printed; (3) a 2-view Blender scene written with the
+    port's PNG writer read through `Blender`, its rays put on the card;
+    (4) the 360 ops on CUDA tensors held to the same ops on the CPU
+    (`OPS360_TOL`). Returns the served run (its launches)."""
+    import glob
+    import numpy as np
+    import torch
+    from pano_nerf_tpu_torch import import_reference_ckpt
+    from pano_nerf_tpu_torch.core.rays import RAYS_KEYS, rays_to_tensors
+    from pano_nerf_tpu_torch.data import io_exr
+    from pano_nerf_tpu_torch.data.perspective_datasets import Blender
+    from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
+    from pano_nerf_tpu_torch.models.mlp import NerfMLP
+    from pano_nerf_tpu_torch.ops import mip
+    from pano_nerf_tpu_torch.utils.vis import write_png
+    enter_phase("24")
+    dev = torch.device("cuda")
+    W, VW = int(SHAPE_P1[1]), int(SHAPE_P1[3])
+    ref = NerfMLP(96, 27, net_width=W, net_width_condition=VW,
+                  num_density_channels=5,
+                  generator=torch.Generator().manual_seed(24))
+    ckpt = os.path.join(workdir, "reference.ckpt")
+    torch.save({"state_dict": {"mip_nerf.mlp." + k: v for k, v in
+                               ref.state_dict().items()},
+                "hyper_parameters": {"nerf.mlp.net_width": W,
+                                     "nerf.mlp.net_width_condition": VW}},
+               ckpt)
+    imported = import_reference_ckpt.main([
+        "--torch_ckpt", ckpt, "--out_dir", os.path.join(workdir, "imported"),
+        "--config", CONFIG, "train.sample_num", "'n0_1'"])
+    served = drive_main_path(workdir, scene,
+                             ["--ckpt_dir", imported["ckpt_dir"]], step=0,
+                             opts=SHAPE_P1, name="imported_served")
+    params = Checkpointer(os.path.join(imported["ckpt_dir"], "checkpoints")
+                          ).restore()["params"]
+    check_against_plain(scene, CONFIG, tag="[check-imported]",
+                        opts=SHAPE_P1, params=params)
+
+    files = sorted(glob.glob(os.path.join(scene, "**", "*.exr"),
+                             recursive=True))
+    secs, decoders = {"native": 0.0, "python": 0.0}, set()
+    for f in files:
+        t0 = time.perf_counter()
+        a = io_exr.read_exr(f)
+        secs["native"] += time.perf_counter() - t0
+        decoders.add(io_exr.read_exr.decoder)
+        t0 = time.perf_counter()
+        b = io_exr.read_exr(f, native=False)
+        secs["python"] += time.perf_counter() - t0
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"{f}: the native EXR decoder differs "
+                                 f"from the pure-Python codec")
+    print(f"[exr] {len(files)} EXR files of the scene read by decoder "
+          f"{sorted(decoders)} in {secs['native']:.2f} s, bitwise equal to "
+          f"the pure-Python codec ({secs['python']:.2f} s)"
+          + (f"; native unavailable: {io_exr.native_error()}"
+             if io_exr.native_error() else ""), flush=True)
+    if not files or decoders != {"native"}:
+        raise AssertionError(f"the native EXR decoder read {decoders} of "
+                             f"{len(files)} files: {io_exr.native_error()}")
+
+    root = os.path.join(workdir, "blender")
+    os.makedirs(os.path.join(root, "r"))
+    rng = np.random.default_rng(24)
+    for split in ("train", "val"):
+        frames = []
+        for i in range(2):
+            write_png(os.path.join(root, f"r/{split}_{i}.png"),
+                      rng.integers(0, 256, (64, 48, 4), dtype=np.uint8))
+            c2w = np.eye(4)
+            c2w[:3, 3] = rng.uniform(-1, 1, 3)
+            frames.append(dict(file_path=f"r/{split}_{i}",
+                               transform_matrix=c2w.tolist()))
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fp:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, fp)
+    ds = Blender(root, split="train", white_bkgd=True)
+    rays = rays_to_tensors(ds.rays, dev)
+    for k in RAYS_KEYS:
+        x = getattr(rays, k)
+        host = torch.as_tensor(np.asarray(getattr(ds.rays, k), np.float32))
+        if x.device.type != "cuda" or not torch.equal(x.cpu(), host):
+            raise AssertionError(f"Blender rays {k} on the card differ")
+    rgb = torch.as_tensor(ds.images).to(dev)
+    if not (bool(torch.isfinite(rgb).all()) and 0 <= float(rgb.min())
+            and float(rgb.max()) <= 1):
+        raise AssertionError("Blender images outside [0, 1]")
+    print(f"[blender] 2 views of 64x48 written by write_png, read by "
+          f"Blender: {ds.num_rays} rays and images {tuple(rgb.shape)} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    g = torch.Generator().manual_seed(24)
+    B, N = 4096, 32
+    ins = dict(o=torch.randn(B, 3, generator=g) * 0.3,
+               d=torch.randn(B, 3, generator=g),
+               r=torch.rand(B, 1, generator=g) * 0.01 + 1e-3,
+               near=torch.full((B, 1), 0.5), far=torch.full((B, 1), 20.0),
+               u=torch.rand(B, N + 1, generator=g),
+               rgb=torch.rand(B, N, 3, generator=g),
+               density=torch.rand(B, N, 1, generator=g) * 3)
+    out = {}
+    for where in ("cpu", "cuda"):
+        x = {k: v.to(where) for k, v in ins.items()}
+        t_inv, (m, c) = mip.sample_along_rays_360(
+            x["o"], x["d"], x["r"], N, x["near"], x["far"], t_rand=x["u"])
+        comp = mip.volumetric_lighting_composing(
+            x["rgb"], x["density"], 1.0 / t_inv, x["d"], True)
+        out[where] = dict(t_inv=t_inv, means=m, covs=c,
+                          ipe=mip.integrated_pos_enc_360(m, c),
+                          contract=mip.contract(m), comp_rgb=comp[0],
+                          distance=comp[1], acc=comp[2], weights=comp[3])
+    errs = {}
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k].cpu()
+        errs[k] = float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+    print(f"[ops360] {B} rays x {N} samples, card vs CPU, max abs err over "
+          f"max(1, scale) (tolerance {OPS360_TOL:g}): " + json.dumps(
+              {k: float(f"{v:.3e}") for k, v in errs.items()}), flush=True)
+    for k, v in errs.items():
+        hold(f"ops360 {k}", v, OPS360_TOL)
+    return served
+
+
 def main() -> int:
     try:
         import torch
@@ -3023,8 +3438,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    print(f"[card] {card}", flush=True)
+    print(f"[card] {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.get_num_threads()} CPU threads",
+          flush=True)
     build_kernels()
+    from pano_nerf_tpu_torch.kernels import build
 
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.core.rays import rays_to_tensors
@@ -3078,6 +3496,11 @@ def main() -> int:
     # 2w: the builds at the other MLP shapes.
     enter_phase("2w")
     shape_entries = check_other_shape_kernels(env, dev, wentry)
+    # 2x: narrower models padded into the builds.
+    enter_phase("2x")
+    build.LOADED.clear()
+    padded_entries = check_padded_kernels(env, dev, wentry)
+    check_libraries("2x")
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
@@ -3201,9 +3624,17 @@ def main() -> int:
         level_runs = [r for ph in LEVEL_PHASES
                       for r in drive_level_phase(ph, workdir, scene,
                                                  base_times)]
-        # 21-22m: the other MLP shapes, trained and served.
-        shape_runs = {ph: drive_level_phase(ph, workdir, scene, base_times)
-                      for ph in SHAPE_PHASES}
+        # 21-23m: the other MLP shapes and the padded widths, trained and
+        # served, each phase's libraries printed and checked.
+        shape_runs = {}
+        for ph in SHAPE_PHASES:
+            build.LOADED.clear()
+            shape_runs[ph] = drive_level_phase(ph, workdir, scene,
+                                               base_times)
+            check_libraries(ph)
+        # 24: the library modules (a reference checkpoint imported and
+        # served, the native EXR decoder, the Blender loader, 360 ops).
+        imported = drive_library_phase(workdir, scene)
     enter_phase("report")
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
@@ -3238,6 +3669,22 @@ def main() -> int:
                     and name == "B"):
                 raise AssertionError(f"{e['name']}: no launch on phase "
                                      f"{ph}'s path")
+    # The padded widths' entries: P1 over phase 23 and the imported P1
+    # checkpoint served in phase 24; P2's kernels 2 and 3 (one density
+    # channel) over phase 23m; kernel 1 at either, and kernels 4 and 5 at
+    # P2 (23m is mip-NeRF), are on no main path.
+    padded_runs = {"P1": tuple(shape_runs["23"]) + (imported,),
+                   "P2": tuple(shape_runs["23m"])}
+    for name, runs in padded_runs.items():
+        for e in padded_entries[name]:
+            base = e["name"][:-len("_pP1")]
+            e["launches"] = sum(r["launches"][base] for r in runs)
+            on_path = (not base.startswith("fused_mlp_apply")
+                       if name == "P1" else base.startswith(
+                           ("fused_mlp_ipe", "fused_mlp_normals")))
+            if on_path and e["launches"] == 0:
+                raise AssertionError(f"{e['name']}: no launch on its "
+                                     f"phases' path")
     for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
                             for r in (run, trained, train, train_k5,
@@ -3246,12 +3693,13 @@ def main() -> int:
                             + tuple(plain_runs.values())
                             + tuple(level_runs)
                             + tuple(r for rs in shape_runs.values()
-                                    for r in rs))
+                                    for r in rs) + (imported,))
     print(f"[card] {card}")
     print(json.dumps({"kernels": k1_entries + train_entries + [wentry, entry]
                       + k5_entries + mip_entries + preset_entries
                       + study_entries + sd_entries
-                      + [e for es in shape_entries.values() for e in es]}))
+                      + [e for es in shape_entries.values() for e in es]
+                      + [e for es in padded_entries.values() for e in es]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,12 @@
 """Self-contained OpenEXR scanline codec (pure Python + numpy + zlib).
 
-Copy of pano_nerf_tpu/data/io_exr.py without its optional native decoder:
+Copy of pano_nerf_tpu/data/io_exr.py, with its native decoder: `read_exr`
+first tries the C++ decoder `csrc/exr_decode.cc` (built with g++ at first
+use, `kernels/build.py` `load_host_library`), as JAX's reader tries
+pano_nerf_tpu/native; when the build fails or the decoder declines a file
+it reads with the pure-Python codec below. Which one read the last file
+is `read_exr.decoder` ("native" or "python"), and why the native one is
+unavailable, where it is, `native_error()`.
 
 * read: NO_COMPRESSION, ZIPS (1 scanline/chunk) and ZIP (16 scanlines/chunk)
   with HALF / FLOAT / UINT channels.
@@ -12,9 +18,11 @@ delta predictor) around zlib; both directions are vectorized with numpy.
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -73,11 +81,70 @@ def _predict(data: np.ndarray) -> bytes:
     return t.astype(np.uint8).tobytes()
 
 
-def read_exr(filename: Union[str, "object"], channels: Sequence[str] = ("R", "G", "B")
-             ) -> np.ndarray:
+_NATIVE = dict(lib=None, tried=False, error="")
+_NATIVE_LOCK = threading.Lock()
+
+
+def _native_library() -> Optional[ctypes.CDLL]:
+    """The bound C++ decoder, built at first use; None when it cannot be
+    built or loaded (`native_error` says why)."""
+    with _NATIVE_LOCK:
+        if _NATIVE["tried"]:
+            return _NATIVE["lib"]
+        _NATIVE["tried"] = True
+        from pano_nerf_tpu_torch.kernels import build
+        try:
+            lib = build.load_host_library("exr_decode.cc")
+        except (RuntimeError, OSError) as exc:
+            _NATIVE["error"] = str(exc)
+            return None
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.exr_probe.restype = ctypes.c_int
+        lib.exr_probe.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32p, i32p,
+                                  i32p, ctypes.c_char_p, ctypes.c_int32,
+                                  i32p, i32p]
+        lib.exr_decode.restype = ctypes.c_int
+        lib.exr_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_float)]
+        _NATIVE["lib"] = lib
+        return lib
+
+
+def native_error() -> str:
+    """Why the native decoder is unavailable ('' when it is, or before
+    the first read)."""
+    return _NATIVE["error"]
+
+
+def _native_planes(buf: bytes) -> Optional[Dict[str, np.ndarray]]:
+    """Decode with the C++ decoder: {channel: [H, W] float32}, or None
+    when it is unavailable or declines the file (an unsupported
+    compression, say)."""
+    lib = _native_library()
+    if lib is None:
+        return None
+    width, height, nchan, comp = (ctypes.c_int32() for _ in range(4))
+    names = ctypes.create_string_buffer(64 * 32)
+    types = (ctypes.c_int32 * 64)()
+    rc = lib.exr_probe(buf, len(buf), ctypes.byref(width),
+                       ctypes.byref(height), ctypes.byref(nchan), names, 64,
+                       types, ctypes.byref(comp))
+    if rc != 0 or nchan.value > 64:
+        return None
+    out = np.empty((nchan.value, height.value, width.value), np.float32)
+    if lib.exr_decode(buf, len(buf), out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float))) != 0:
+        return None
+    return {names.raw[32 * c:32 * (c + 1)].split(b"\x00")[0].decode("ascii"):
+            out[c] for c in range(nchan.value)}
+
+
+def read_exr(filename: Union[str, "object"], channels: Sequence[str] = ("R", "G", "B"),
+             native: bool = True) -> np.ndarray:
     """Read an EXR image to a float32 [H, W, len(channels)] array.
 
-    Accepts a path or an open binary file object.
+    Accepts a path or an open binary file object. `native` False reads
+    with the pure-Python codec only.
     """
     if hasattr(filename, "read"):
         buf = filename.read()
@@ -85,6 +152,17 @@ def read_exr(filename: Union[str, "object"], channels: Sequence[str] = ("R", "G"
         with open(filename, "rb") as f:
             buf = f.read()
 
+    planes = _native_planes(buf) if native else None
+    if planes is not None:
+        if all(c in planes for c in channels):
+            read_exr.decoder = "native"
+            return np.stack([planes[c] for c in channels], axis=-1)
+        if len(planes) == 1:
+            read_exr.decoder = "native"
+            return np.stack([next(iter(planes.values()))] * len(channels),
+                            axis=-1)
+        # other channel sets: the pure-Python reader says what is missing
+    read_exr.decoder = "python"
     magic, version = struct.unpack_from("<ii", buf, 0)
     if magic != _MAGIC:
         raise ValueError("not an EXR file")
@@ -149,6 +227,9 @@ def read_exr(filename: Union[str, "object"], channels: Sequence[str] = ("R", "G"
             return np.stack([only] * len(channels), axis=-1)
         raise KeyError(f"channels {missing} not in EXR (has {list(planes)})")
     return np.stack([planes[c] for c in channels], axis=-1)
+
+
+read_exr.decoder = None
 
 
 def write_exr(filename: str, data: np.ndarray,

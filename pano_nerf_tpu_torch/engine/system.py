@@ -278,11 +278,15 @@ class BaseSystem:
     def restore_state(self, state: TrainState, saved: Mapping) -> None:
         """Load a checkpoint's parameters, optimizer state and step into
         `state` (the optimizer's tensors are replaced: a graph that holds
-        them must be captured again)."""
+        them must be captured again). An imported reference checkpoint
+        (`import_reference_ckpt`) has no optimizer state: Adam starts
+        fresh from it."""
         self.model.load_params(saved["params"])
-        opt = saved["optimizer"]   # saved on the card or on the CPU
-        state.optimizer.load_state_dict(dict(opt, param_groups=[
-            dict(g, capturable=self.graphed) for g in opt["param_groups"]]))
+        opt = saved.get("optimizer")   # saved on the card or on the CPU
+        if opt is not None:
+            state.optimizer.load_state_dict(dict(opt, param_groups=[
+                dict(g, capturable=self.graphed)
+                for g in opt["param_groups"]]))
         state.step = int(saved["step"])
         if state.step_t is not None:
             state.step_t.fill_(state.step)

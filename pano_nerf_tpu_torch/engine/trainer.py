@@ -155,7 +155,8 @@ class Trainer:
                  ckpt: Checkpointer) -> None:
         saved = ckpt.restore(map_location=self.device)
         self.system.restore_state(state, saved)
-        gen.set_state(saved["generator"].cpu())
+        if "generator" in saved:   # an imported checkpoint has none
+            gen.set_state(saved["generator"].cpu())
 
     def fit(self, resume_path: Optional[str] = None,
             sanity_val: bool = True) -> None:

@@ -10,6 +10,9 @@ the definitions, so an edited source or header is rebuilt and a stale
 library is never loaded. Nothing
 is compiled when a module is imported: the first launch on a CUDA tensor
 builds, and a machine without `nvcc` raises there.
+
+`load_host_library` builds a host C++ source of `csrc/` (the EXR decoder,
+`exr_decode.cc`) with `g++` the same way, for `data/io_exr.py`.
 """
 
 from __future__ import annotations
@@ -25,10 +28,15 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pano_nerf_tpu_torch"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+GXX_LIBS = ("-lz",)   # the EXR decoder inflates with zlib
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+# Every (source, defines) asked of `load_library`, so a caller can see
+# which builds a run used (chip_smoke.py clears and reads it).
+LOADED: set = set()
 # Compiler output (ptxas register/spill report) and build seconds, by
 # library (`build_name`).
 BUILD_LOGS: Dict[str, Tuple[str, float]] = {}
@@ -105,9 +113,43 @@ def load_library(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library compiled from `source` with
     the preprocessor definitions `defines`."""
     key = (source, tuple(defines))
+    LOADED.add(key)
     lib = _LIBS.get(key)
     if lib is None:
         finish_build(start_build(source, key[1]))
         lib = ctypes.CDLL(str(library_path(source, key[1])))
         _LIBS[key] = lib
+    return lib
+
+
+def load_host_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host C++ source `source` of csrc/
+    with g++ (`GXX_FLAGS`, linked against `GXX_LIBS`) into BUILD_DIR (the
+    name carries a hash of the source and the flags). Raises RuntimeError
+    when the build fails, with the compiler's output."""
+    key = (source, ("host",))
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    flags = GXX_FLAGS + GXX_LIBS
+    digest = hashlib.sha1((CSRC / source).read_bytes()
+                          + " ".join(flags).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"{Path(source).stem}_host_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        gxx = shutil.which("g++") or "g++"
+        cmd = [gxx, *GXX_FLAGS, str(CSRC / source), "-o", str(tmp),
+               *GXX_LIBS]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            raise RuntimeError(f"g++ failed on {source}: {exc}") from exc
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LIBS[key] = lib
     return lib

@@ -104,7 +104,7 @@ def run_backward(counter, mlp: NerfMLP, xb: Tensor, v: Tensor,
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Backward row pass + weight-gradient pass, both counted on `counter`;
     returns (d x [M, XF] f32, {parameter name: gradient})."""
-    shape = k2.shape_of(mlp)
+    shape = k2.build_of(mlp)
     lib = k2.kernel_library(shape)
     M = xb.shape[0]
     ops, dw, db = k2.backward_buffers(lib, weights, biases,
@@ -134,7 +134,7 @@ def launch_backward_rows(xb: Tensor, v: Tensor, weights: Tensor,
 class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, v, weights, biases, mlp, *params):
-        shape = k2.shape_of(mlp)
+        shape = k2.build_of(mlp)
         xb = F.pad(x.detach(), (0, shape.XF - x.shape[-1])).to(
             torch.bfloat16).contiguous()
         out = launch_forward(xb, v, weights, biases, shape)
@@ -168,7 +168,7 @@ def fused_mlp_apply(mlp: NerfMLP, x_enc: Tensor, v_enc: Tensor, *,
     check_kernel_support(mlp, x_enc.device)
     if x_enc.device.type == "cpu":
         return fused_mlp_apply_reference(mlp, x_enc, v_enc)
-    lib = k2.kernel_library(k2.shape_of(mlp))
+    lib = k2.kernel_library(k2.build_of(mlp))
     weights, biases = k2.packed_for(mlp, packed, x_enc.device, lib)
     v = k2.viewdir_rows(v_enc, lead)
     out = _FusedMlp.apply(x_enc.reshape(-1, mlp.xyz_dim), v, weights,

@@ -45,9 +45,11 @@ or 128), the IPE degree count L = max_deg - min_deg (1..16; min_deg is a
 runtime argument) and the viewdir encoding's width VF (deg_view 1..4,
 with or without identity). `MlpShape` (kernels/shapes.py) holds them;
 `MlpShape.defines` maps a shape to its build's preprocessor definitions
-(none for the shipped shape), `shape_of(mlp)` reads a model's, and
-`kernel_library(shape)` builds and loads the library for it at first
-use. Every shape keeps the
+(none for the shipped shape), `shape_of(mlp)` reads a model's,
+`build_of(mlp)` names the build it runs in (a narrower trunk or view
+branch zero-padded to the next build's width by `pack_params`, the
+gradients sliced back by `unpack_params`), and `kernel_library(shape)`
+builds and loads the library for a build at first use. Every shape keeps the
 padded 16-lane head: the forward writes raw density into lanes 3..3+C-1
 of the output slab and zeros past them, and the backward reads the head
 cotangent of those lanes only, so the padded rows of the packed density
@@ -79,8 +81,8 @@ from pano_nerf_tpu_torch.kernels import build
 from pano_nerf_tpu_torch.kernels.fused_render import (pack_params,
                                                       unpack_params)
 from pano_nerf_tpu_torch.kernels.shapes import (HP, STANDARD, MlpShape,
-                                                check_built_shape, pad16,
-                                                shape_gaps, shape_of)
+                                                build_of, check_built_shape,
+                                                pad16, shape_gaps, shape_of)
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.ops import mip
 
@@ -476,7 +478,7 @@ class _FusedMlpIpe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg = meta
-        out, _, _ = launch_forward(kernel_library(shape_of(mlp)), mc, v,
+        out, _, _ = launch_forward(kernel_library(build_of(mlp)), mc, v,
                                    weights, biases, min_deg, normals=False)
         fused_mlp_ipe_apply.launches += 1
         ctx.meta = meta
@@ -488,7 +490,7 @@ class _FusedMlpIpe(torch.autograd.Function):
         mc, v, weights, biases = ctx.saved_tensors
         mlp, min_deg = ctx.meta
         dmc, grads = run_backward(
-            kernel_library(shape_of(mlp)), fused_mlp_ipe_apply, mlp, mc, v,
+            kernel_library(build_of(mlp)), fused_mlp_ipe_apply, mlp, mc, v,
             weights, biases, g.contiguous(), None, None, min_deg,
             normals=False)
         names = [n for n, _ in mlp.named_parameters()]
@@ -516,7 +518,7 @@ def fused_mlp_ipe_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
         return fused_mlp_ipe_reference(mlp, means, covs, v_enc,
                                        min_deg=min_deg, max_deg=max_deg)
     C = mlp.num_density_channels
-    lib = kernel_library(shape_of(mlp))
+    lib = kernel_library(build_of(mlp))
     weights, biases = packed_for(mlp, packed, means.device, lib)
     mc, v = rows_of(means, covs, v_enc, lead)
     out = _FusedMlpIpe.apply(mc, v, weights, biases, (mlp, min_deg),

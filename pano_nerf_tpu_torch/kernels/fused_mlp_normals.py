@@ -59,7 +59,7 @@ class _FusedMlpNormals(torch.autograd.Function):
     def forward(ctx, mc, v, weights, biases, meta, *params):
         mlp, min_deg, save_acts = meta
         out, dsig, acts = k2.launch_forward(
-            k2.kernel_library(k2.shape_of(mlp)), mc, v, weights, biases,
+            k2.kernel_library(k2.build_of(mlp)), mc, v, weights, biases,
             min_deg, normals=True, save_acts=save_acts)
         fused_mlp_normals_apply.launches += 1
         ctx.meta = meta
@@ -78,7 +78,7 @@ class _FusedMlpNormals(torch.autograd.Function):
         g = mc.new_zeros(M, k2.OUT_W) if g is None else g.contiguous()
         q = mc.new_zeros(M, 3) if q is None else q.contiguous()
         dmc, grads = k2.run_backward(
-            k2.kernel_library(k2.shape_of(mlp)), fused_mlp_normals_apply,
+            k2.kernel_library(k2.build_of(mlp)), fused_mlp_normals_apply,
             mlp, mc, v, weights, biases, g, q, acts, min_deg, normals=True)
         names = [n for n, _ in mlp.named_parameters()]
         return (dmc, None, None, None, None) + tuple(grads[n] for n in names)
@@ -102,7 +102,7 @@ def fused_mlp_normals_apply(mlp: NerfMLP, means: Tensor, covs: Tensor,
         return fused_mlp_normals_reference(mlp, means, covs, v_enc,
                                            min_deg=min_deg, max_deg=max_deg)
     C = mlp.num_density_channels
-    lib = k2.kernel_library(k2.shape_of(mlp))
+    lib = k2.kernel_library(k2.build_of(mlp))
     weights, biases = k2.packed_for(mlp, packed, means.device, lib)
     mc, v = k2.rows_of(means, covs, v_enc, lead)
     params = [p for _, p in mlp.named_parameters()]

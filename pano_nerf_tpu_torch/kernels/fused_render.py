@@ -26,7 +26,8 @@ kept as bits for the normal chain; compositing is a sequential float32
 scan per ray. The source is built once per model shape
 (`shapes.MlpShape`: trunk 128 or 256, view branch 64 or 128, IPE
 degrees 1..16, deg_view 1..4 with identity; 5 density channels), each
-build a library of its own (`kernel_library(shape)`).
+build a library of its own (`kernel_library(shape)`); a narrower trunk
+or view branch runs zero-padded in the next build (`pack_params`).
 
 `fused_render_level` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_render_level_reference` for CPU tensors and
@@ -37,7 +38,7 @@ launches in `fused_render_level.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,7 +150,8 @@ _BOX_BYTES = 64 * 64 * 2
 def weight_bytes_per_tile(need_normals: bool,
                           shape: shapes.MlpShape = shapes.STANDARD) -> int:
     """Bytes of weights one tile moves from L2 into shared memory (whole
-    TMA boxes, zero-filled edges included) at `shape`."""
+    TMA boxes, zero-filled edges included) at `shape`, a build's
+    (`shapes.build_of(mlp)`: a padded model moves its build's bytes)."""
     W, XF, VK, VW = shape.W, shape.XF, shape.VK, shape.VW
     prods = ([(XF, W)] + [(W, W)] * 4 + [(W + XF, W)] + [(W, W)] * 2
              + [(W, _HP), (W, W), (VK, VW), (VW, _HP)])
@@ -158,65 +160,110 @@ def weight_bytes_per_tile(need_normals: bool,
     return sum(-(-k // 64) * -(-n // 64) * _BOX_BYTES for k, n in prods)
 
 
+# A packed layer: (parameter prefix, rows in the model, rows in the build,
+# column blocks as (columns in the model, columns in the build)).
+Block = Tuple[str, int, int, Tuple[Tuple[int, int], ...]]
+
+
+def layer_blocks(mlp: NerfMLP) -> List[Block]:
+    """The packed layers of `mlp` in the kernels' order, each with its
+    rows and its column blocks in the model and in the build
+    (`shapes.build_of`). Two layers split their input at the trunk width
+    and so pad each block apart: the skip layer over [h4 | x] and the
+    view layer over [bottleneck | viewdir codes]."""
+    sh, b = shapes.shape_of(mlp), shapes.build_of(mlp)
+    W, X, VW = (sh.W, b.W), (mlp.xyz_dim, b.XF), (sh.VW, b.VW)
+    blocks = []
+    for i in range(len(mlp.layers)):
+        cols = ((X,) if i == 0 else (W, X) if i == mlp.skip_index + 1
+                else (W,))
+        blocks.append((f"layers.{i}.0", *W, cols))
+    return blocks + [
+        ("density_layer", sh.C, _HP, (W,)), ("extra_layer", *W, (W,)),
+        ("view_layers.0.0", *VW, (W, (mlp.view_dim, b.VP))),
+        ("color_layer", 3, _HP, (VW,))]
+
+
+def pack_tensors(mlp: NerfMLP, tensors: Dict[str, Tensor]
+                 ) -> Tuple[Tensor, Tensor]:
+    """Per-parameter tensors of `mlp` (its parameters, their gradients)
+    by parameter name -> flat float32 (weights, biases) in the kernels'
+    layout at the build shape, every padded slot zero."""
+    ws, bs = [], []
+    for name, rows, brows, cols in layer_blocks(mlp):
+        w = tensors[f"{name}.weight"].detach().float()
+        parts, c0 = [], 0
+        for c, bc in cols:
+            parts.append(F.pad(w[:, c0:c0 + c], (0, bc - c)))
+            c0 += c
+        ws.append(F.pad(torch.cat(parts, 1), (0, 0, 0, brows - rows)))
+        bs.append(F.pad(tensors[f"{name}.bias"].detach().float(),
+                        (0, brows - rows)))
+    return (torch.cat([w.reshape(-1) for w in ws]).contiguous(),
+            torch.cat(bs).contiguous())
+
+
 def pack_params(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
     """NerfMLP -> (bf16 weights, float32 biases) in the kernels' layout
-    (csrc/nerf_mlp.cuh, at the MLP's `shapes.shape_of`).
+    (csrc/nerf_mlp.cuh) at the build the MLP runs in (`shapes.build_of`:
+    the model's own shape when it is a build's).
 
-    Weights keep torch's [out, in] layout, zero-padded to multiples of 16:
-    trunk 0..7 (layer 0 [W, XF] over the 6 L IPE features; layer 5 [W, W +
-    XF] over [h4 | x]), density [16, W] (rows 0..C-1: C = 5 for
-    Pano-NeRF, 1 for mip-NeRF), bottleneck [W, W], view [VW, W + VP] over
-    [bottleneck | viewdir codes], color [16, VW] (rows 0..2). Biases: trunk
-    8 x W, density 16, bottleneck W, view VW, color 16. At the shipped
-    shape: XF 96, VP 32.
+    Weights keep torch's [out, in] layout, zero-padded: trunk 0..7 (layer
+    0 [W, XF] over the 6 L IPE features; layer 5 [W, W + XF] over [h4 |
+    x]), density [16, W] (rows 0..C-1: C = 5 for Pano-NeRF, 1 for
+    mip-NeRF), bottleneck [W, W], view [VW, W + VP] over [bottleneck |
+    viewdir codes], color [16, VW] (rows 0..2). Biases: trunk 8 x W,
+    density 16, bottleneck W, view VW, color 16. W, VW, XF (6 L rounded
+    up to 16) and VP (the viewdir codes rounded up to 16) are the
+    build's; a narrower model's rows and each block of its columns sit at
+    the front of the build's, zeros after them (`layer_blocks`). At the
+    shipped shape: XF 96, VP 32. The parameters themselves keep the
+    model's shapes.
     """
-    def pad(w: Tensor, rows: int, cols: int) -> Tensor:
-        return F.pad(w.detach().float(),
-                     (0, cols - w.shape[1], 0, rows - w.shape[0]))
-
-    sh = shapes.shape_of(mlp)
-    W, XF, VW, VK = sh.W, sh.XF, sh.VW, sh.VK
-    trunk_cols = [XF if i == 0 else W + XF if i == mlp.skip_index + 1 else W
-                  for i in range(len(mlp.layers))]
-    ws = [pad(seq[0].weight, W, cols)
-          for seq, cols in zip(mlp.layers, trunk_cols)]
-    ws += [pad(mlp.density_layer.weight, _HP, W),
-           mlp.extra_layer.weight.detach().float(),
-           pad(mlp.view_layers[0][0].weight, VW, VK),
-           pad(mlp.color_layer.weight, _HP, VW)]
-    bs = [seq[0].bias.detach().float() for seq in mlp.layers]
-    bs += [F.pad(mlp.density_layer.bias.detach().float(),
-                 (0, _HP - mlp.num_density_channels)),
-           mlp.extra_layer.bias.detach().float(),
-           mlp.view_layers[0][0].bias.detach().float(),
-           F.pad(mlp.color_layer.bias.detach().float(), (0, _HP - 3))]
-    weights = torch.cat([w.reshape(-1) for w in ws]).to(torch.bfloat16)
-    return weights.contiguous(), torch.cat(bs).contiguous()
+    weights, biases = pack_tensors(mlp, dict(mlp.named_parameters()))
+    return weights.to(torch.bfloat16), biases
 
 
 def unpack_params(mlp: NerfMLP, weights: Tensor, biases: Tensor
                   ) -> Dict[str, Tensor]:
     """Inverse of `pack_params` for flat tensors in its layout (gradients,
-    say): {parameter name of `mlp`: the unpadded slice}, in the flat
-    tensors' dtype."""
-    sh = shapes.shape_of(mlp)
-    names = [f"layers.{i}.0" for i in range(len(mlp.layers))] + [
-        "density_layer", "extra_layer", "view_layers.0.0", "color_layer"]
-    padded = {"layers.0.0": (sh.W, sh.XF),
-              f"layers.{mlp.skip_index + 1}.0": (sh.W, sh.W + sh.XF),
-              "density_layer": (_HP, sh.W), "view_layers.0.0": (sh.VW, sh.VK),
-              "color_layer": (_HP, sh.VW)}
-    params = dict(mlp.named_parameters())
+    say): {parameter name of `mlp`: the slice at the model's shape}, in
+    the flat tensors' dtype (views where a layer's blocks are contiguous
+    in the build)."""
     out, w_off, b_off = {}, 0, 0
-    for name in names:
-        w = params[f"{name}.weight"]
-        rows, cols = padded.get(name, tuple(w.shape))
-        block = weights[w_off:w_off + rows * cols].view(rows, cols)
-        out[f"{name}.weight"] = block[:w.shape[0], :w.shape[1]]
-        out[f"{name}.bias"] = biases[b_off:b_off + w.shape[0]]
-        w_off += rows * cols
-        b_off += rows
+    for name, rows, brows, cols in layer_blocks(mlp):
+        bcols = sum(bc for _, bc in cols)
+        block = weights[w_off:w_off + brows * bcols].view(brows, bcols)
+        if all(c == bc for c, bc in cols[:-1]):
+            w = block[:rows, :sum(c for c, _ in cols)]
+        else:
+            parts, c0 = [], 0
+            for c, bc in cols:
+                parts.append(block[:rows, c0:c0 + c])
+                c0 += bc
+            w = torch.cat(parts, 1)
+        out[f"{name}.weight"] = w
+        out[f"{name}.bias"] = biases[b_off:b_off + rows]
+        w_off += brows * bcols
+        b_off += brows
     return out
+
+
+def padded_slots(mlp: NerfMLP) -> Tuple[Tensor, Tensor]:
+    """Boolean masks over `pack_params(mlp)`'s flat (weights, biases):
+    True where a slot lies outside the model (rows, columns and lanes the
+    build pads with zeros), whose gradients must be exactly zero."""
+    weights, biases = pack_params(mlp)
+    dev = weights.device
+    masks = dict(weight=torch.ones(weights.numel(), dtype=torch.bool,
+                                   device=dev),
+                 bias=torch.ones(biases.numel(), dtype=torch.bool,
+                                 device=dev))
+    idx = unpack_params(mlp, torch.arange(weights.numel(), device=dev),
+                        torch.arange(biases.numel(), device=dev))
+    for name, t in idx.items():
+        masks[name.rsplit(".", 1)[1]][t.reshape(-1)] = False
+    return masks["weight"], masks["bias"]
 
 
 def kernel_library(shape: shapes.MlpShape = shapes.STANDARD) -> ctypes.CDLL:
@@ -332,7 +379,7 @@ def fused_render_level(mlp: NerfMLP, means: Tensor, covs: Tensor,
         raise ValueError("the CUDA kernel computes in bf16; got compute "
                          f"dtype {mlp.compute_dtype} (train.precision)")
     weights, biases = pack_params(mlp) if packed is None else packed
-    lib = kernel_library(shapes.shape_of(mlp))
+    lib = kernel_library(shapes.build_of(mlp))
     if (weights.dtype != torch.bfloat16 or biases.dtype != torch.float32
             or weights.numel() != lib.fused_render_weight_count()
             or biases.numel() != lib.fused_render_bias_count()

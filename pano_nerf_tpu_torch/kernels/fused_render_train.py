@@ -257,7 +257,7 @@ def fused_render_train(mlp: NerfMLP, means: Tensor, covs: Tensor,
     if means.device.type != "cuda":
         raise ValueError(f"fused_render_train runs on cpu or cuda tensors, "
                          f"got {means.device}")
-    shape = shapes.shape_of(mlp)
+    shape = shapes.build_of(mlp)
     weights, biases = k2.packed_for(mlp, packed, means.device,
                                     k2.kernel_library(shape))
     mc, clip, v = level_rows(means, covs, viewdirs, t_samples, dirs,

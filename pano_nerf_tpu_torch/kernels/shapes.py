@@ -3,10 +3,17 @@
 The kernels' widths and encodings are compile-time constants of the CUDA
 sources (csrc/nerf_mlp.cuh: NERF_NDC, NERF_W, NERF_VW, NERF_L, NERF_VF).
 `MlpShape` is one such shape, `MlpShape.defines` its build's preprocessor
-definitions (none for the shipped shape), `shape_of` a model's shape and
+definitions (none for the shipped shape), `shape_of` a model's shape,
+`build_shape` / `build_of` the build a model runs in on the card and
 `shape_gaps` what a model has that the kernels on a device do not take.
 The plain versions on the CPU take any width and density-channel count,
 and the IPE degrees and viewdir encodings the builds take.
+
+A model narrower than a build runs in it zero-padded
+(`fused_render.pack_params`): a padded hidden unit has zero weights in
+and out and a zero bias, so it outputs relu(0) = 0, adds nothing, and
+its cotangent and every weight gradient that touches it are exactly 0.
+So a 64-wide trunk in the 128 build computes what the 64-wide MLP does.
 """
 
 from __future__ import annotations
@@ -90,19 +97,45 @@ def shape_of(mlp: NerfMLP) -> MlpShape:
                     mlp.net_width_condition, mlp.xyz_dim // 6, mlp.view_dim)
 
 
+def _round_up(n: int, sizes: Sequence[int], what: str) -> int:
+    for size in sizes:
+        if 1 <= n <= size:
+            return size
+    raise ValueError(f"no kernel build takes {what} {n} (builds: "
+                     f"{tuple(sizes)})")
+
+
+def build_shape(shape: MlpShape) -> MlpShape:
+    """The build a model of `shape` runs in on the card: the trunk width
+    rounded up to the next of WIDTHS (1..128 -> 128, 129..256 -> 256),
+    the view branch to the next of VIEW_WIDTHS (1..64 -> 64, 65..128 ->
+    128); C, L and VF unchanged. ValueError past the widest build."""
+    return shape._replace(W=_round_up(shape.W, WIDTHS, "trunk width"),
+                          VW=_round_up(shape.VW, VIEW_WIDTHS,
+                                       "view-branch width"))
+
+
+def build_of(mlp: NerfMLP) -> MlpShape:
+    """`build_shape` of `shape_of(mlp)`: the shape of the library the
+    wrappers load for `mlp` on the card."""
+    return build_shape(shape_of(mlp))
+
+
 def shape_gaps(mlp: NerfMLP, min_deg: int, max_deg: int,
                device: torch.device) -> Tuple[Dict, Dict]:
     """(what the kernels take, what `mlp` has that they do not): the
     topology (8-deep trunk with the skip at layer 4, one view layer, 3 rgb
     channels), IPE degrees L = max_deg - min_deg in 1..16 over the MLP's
     6 L features and a viewdir encoding of `view_dims` on every device;
-    on the card also the widths, the density-channel counts and bf16
-    compute the CUDA builds take. The plain versions on the CPU take any
-    width and count."""
+    on the card also trunk widths 1..256 and view-branch widths 1..128
+    (each runs in the build `build_shape` names), the density-channel
+    counts and bf16 compute the CUDA builds take. The plain versions on
+    the CPU take any width and count."""
     want = dict(net_depth=(8,), skip_index=(4,), net_depth_condition=(1,),
                 num_rgb_channels=(3,), view_dim=view_dims())
     if device.type == "cuda":
-        want.update(net_width=WIDTHS, net_width_condition=VIEW_WIDTHS,
+        want.update(net_width=range(1, WIDTHS[-1] + 1),
+                    net_width_condition=range(1, VIEW_WIDTHS[-1] + 1),
                     num_density_channels=DENSITY_CHANNELS)
     bad = {k: getattr(mlp, k) for k, v in want.items()
            if getattr(mlp, k) not in v}

@@ -18,9 +18,10 @@ general NerfMLP with torch autograd (`NerfModel._query`,
 `_query_normals`: JAX's XLA route). JAX's kernels read the widths and
 encodings from the parameter shapes; the CUDA kernels are built per shape
 for a set of them (`kernels/shapes.py`: trunk 128 or 256, view branch 64
-or 128, IPE degrees 1..16, deg_view 1..4), so on the kernel route a
-system refuses what they are not built for (`kernel_build_gaps`) instead
-of taking another route. A kernel that
+or 128, IPE degrees 1..16, deg_view 1..4; a narrower trunk or view
+branch runs zero-padded in the next build), so on the kernel route a
+system refuses what they are not built for (`kernel_build_gaps`: trunks
+above 256, view branches above 128) instead of taking another route. A kernel that
 fails raises; the route never changes at run time. `from_hparams`
 refuses every config key that would need a path the port lacks
 (`UNSUPPORTED`) with
@@ -394,9 +395,11 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     `device` are not built for, or [] (`kernels/shapes.py`): on every
     device IPE degrees max_deg_point - min_deg_point of 1..16 and a
     viewdir encoding of deg_view 1..4 (with or without identity; the plain
-    versions check them too); on the card also the trunk widths 128 and
-    256, the view-branch widths 64 and 128 and the density-channel counts
-    1 and 5 (the plain versions on the CPU take any)."""
+    versions check them too); on the card also a trunk width of at most
+    256 and a view-branch width of at most 128 (a narrower one runs
+    zero-padded in the next build, `shapes.build_shape`) and the
+    density-channel counts 1 and 5 (the plain versions on the CPU take
+    any)."""
     L = cfg.max_deg_point - cfg.min_deg_point
     checks = (
         (1 <= L <= shapes.MAX_DEGREES,
@@ -406,9 +409,9 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
          f"nerf.deg_view {cfg.deg_view}"))
     if device.type == "cuda":
         checks += (
-            (cfg.mlp_net_width in shapes.WIDTHS,
+            (1 <= cfg.mlp_net_width <= shapes.WIDTHS[-1],
              f"nerf.mlp.net_width {cfg.mlp_net_width}"),
-            (cfg.mlp_net_width_condition in shapes.VIEW_WIDTHS,
+            (1 <= cfg.mlp_net_width_condition <= shapes.VIEW_WIDTHS[-1],
              f"nerf.mlp.net_width_condition {cfg.mlp_net_width_condition}"),
             (cfg.mlp_num_density_channels in shapes.DENSITY_CHANNELS,
              f"{cfg.mlp_num_density_channels} density channels"))

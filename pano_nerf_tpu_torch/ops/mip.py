@@ -3,8 +3,10 @@
 Counterpart of the eval and training subsets of pano_nerf_tpu/ops/mip.py:
 conical frustum Gaussians, stratified ray and env-ray sampling, blurpool
 inverse-CDF resampling, integrated and classic positional encodings,
-alpha compositing, the distortion loss, `safe_normalize` and the
-importance-sampled and stratified env directions. Everything is
+alpha compositing, the distortion loss, `safe_normalize`, the
+importance-sampled and stratified env directions, and the mip-NeRF 360
+ops (`sample_along_rays_360`, `contract`, `integrated_pos_enc_360`) and
+`volumetric_lighting_composing`, which no model path calls. Everything is
 float32. Randomness is injected: the randomized samplers take their
 standard uniforms (or Gumbel noise) as arguments, drawn by the caller
 (a `torch.Generator` in training, JAX's key schedule replayed in the
@@ -16,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -34,19 +37,32 @@ def _linspace(stop: float, num: int, like: Tensor) -> Tensor:
 
 
 def lift_gaussian(directions: Tensor, t_mean: Tensor, t_var: Tensor,
-                  r_var: Tensor) -> Tuple[Tensor, Tensor]:
-    """1-D Gaussians along rays -> diagonal 3-D Gaussians [..., N, 3]."""
+                  r_var: Tensor, diagonal: bool = True
+                  ) -> Tuple[Tensor, Tensor]:
+    """1-D Gaussians along rays -> 3-D Gaussians: means [..., N, 3] and
+    diagonal covariances [..., N, 3] (`diagonal`) or full ones [..., N,
+    3, 3] (mip-NeRF 360)."""
     mean = directions[..., None, :] * t_mean[..., :, None]
     d_sq = directions ** 2
     d_norm_sq = torch.sum(d_sq, dim=-1, keepdim=True) + 1e-10
-    null_outer_diag = 1.0 - d_sq / d_norm_sq
-    t_cov_diag = t_var[..., :, None] * d_sq[..., None, :]
-    xy_cov_diag = r_var[..., :, None] * null_outer_diag[..., None, :]
-    return mean, t_cov_diag + xy_cov_diag
+    if diagonal:
+        null_outer_diag = 1.0 - d_sq / d_norm_sq
+        t_cov_diag = t_var[..., :, None] * d_sq[..., None, :]
+        xy_cov_diag = r_var[..., :, None] * null_outer_diag[..., None, :]
+        return mean, t_cov_diag + xy_cov_diag
+    d_outer = directions[..., :, None] * directions[..., None, :]
+    eye = torch.eye(directions.shape[-1], dtype=directions.dtype,
+                    device=directions.device)
+    null_outer = eye - directions[..., :, None] * (
+        directions / d_norm_sq)[..., None, :]
+    t_cov = t_var[..., None, None] * d_outer[..., None, :, :]
+    xy_cov = r_var[..., None, None] * null_outer[..., None, :, :]
+    return mean, t_cov + xy_cov
 
 
 def conical_frustum_to_gaussian(directions: Tensor, t0: Tensor, t1: Tensor,
-                                base_radius: Tensor) -> Tuple[Tensor, Tensor]:
+                                base_radius: Tensor, diagonal: bool = True
+                                ) -> Tuple[Tensor, Tensor]:
     """Stable Gaussian approximation of conical frustums [t0, t1]."""
     mu = (t0 + t1) / 2.0
     hw = (t1 - t0) / 2.0
@@ -56,14 +72,17 @@ def conical_frustum_to_gaussian(directions: Tensor, t0: Tensor, t1: Tensor,
         (hw ** 4 * (12.0 * mu ** 2 - hw ** 2)) / denom ** 2)
     r_var = base_radius ** 2 * ((mu ** 2) / 4.0 + (5.0 / 12.0) * hw ** 2
                                 - (4.0 / 15.0) * (hw ** 4) / denom)
-    return lift_gaussian(directions, t_mean, t_var, r_var)
+    return lift_gaussian(directions, t_mean, t_var, r_var, diagonal)
 
 
 def cast_rays(t_samples: Tensor, origins: Tensor, directions: Tensor,
-              radii: Tensor) -> Tuple[Tensor, Tensor]:
-    """Fencepost distances [..., N+1] -> means, covs [..., N, 3]."""
+              radii: Tensor, diagonal: bool = True
+              ) -> Tuple[Tensor, Tensor]:
+    """Fencepost distances [..., N+1] -> means [..., N, 3] and covs
+    [..., N, 3] (or [..., N, 3, 3] without `diagonal`)."""
     means, covs = conical_frustum_to_gaussian(
-        directions, t_samples[..., :-1], t_samples[..., 1:], radii)
+        directions, t_samples[..., :-1], t_samples[..., 1:], radii,
+        diagonal)
     return means + origins[..., None, :], covs
 
 
@@ -376,3 +395,106 @@ def stratified_env_directions(cell_dirs: Tensor, u_cos: Tensor,
     dirs = _cap_directions(cell_dirs, cos_half, u_cos, u_phi)
     n = torch.sum(_caps_containing(dirs, cell_dirs, cos_half), dim=-1)
     return dirs, (A_cap / torch.clamp(n, min=1.0))[..., None]
+
+
+# ---------------------------------------------------------------------------
+# mip-NeRF 360 extensions and the inverse-square compositing variant (in
+# the JAX package and the reference, outside their main paths)
+# ---------------------------------------------------------------------------
+
+def sample_along_rays_360(origins: Tensor, directions: Tensor, radii: Tensor,
+                          num_samples: int, near: Tensor, far: Tensor,
+                          t_rand: Optional[Tensor] = None
+                          ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """Linear-in-disparity sampling with full covariances (mip-NeRF 360),
+    stratified in inverse depth by the uniforms `t_rand` [B, N+1] when
+    given. Returns t in inverse depth [B, N+1] and (means [B, N, 3],
+    covs [B, N, 3, 3]) of the frustums cast at t = 1 / t_inv."""
+    u = _linspace(1.0, num_samples + 1, origins)
+    t_inv = (1.0 / far) * u + (1.0 - u) * (1.0 / near)
+    t_inv = t_inv.expand(origins.shape[:-1] + (num_samples + 1,))
+    if t_rand is not None:
+        t_inv = stratify(t_inv, t_rand)
+    means, covs = cast_rays(1.0 / t_inv, origins, directions, radii,
+                            diagonal=False)
+    return t_inv, (means, covs)
+
+
+# The 21 directions of the mip-NeRF 360 IPE basis (a subdivided
+# icosahedron's upper half), [3, 21].
+_ICOSAHEDRON_BASIS = np.array([
+    [0.8506508, 0.0, 0.5257311], [0.809017, 0.5, 0.309017],
+    [0.5257311, 0.8506508, 0.0], [1.0, 0.0, 0.0],
+    [0.809017, 0.5, -0.309017], [0.8506508, 0.0, -0.5257311],
+    [0.309017, 0.809017, -0.5], [0.0, 0.5257311, -0.8506508],
+    [0.5, 0.309017, -0.809017], [0.0, 1.0, 0.0],
+    [-0.5257311, 0.8506508, 0.0], [-0.309017, 0.809017, -0.5],
+    [0.0, 0.5257311, 0.8506508], [-0.309017, 0.809017, 0.5],
+    [0.309017, 0.809017, 0.5], [0.5, 0.309017, 0.809017],
+    [0.5, -0.309017, 0.809017], [0.0, 0.0, 1.0],
+    [-0.5, 0.309017, 0.809017], [-0.809017, 0.5, 0.309017],
+    [-0.809017, 0.5, -0.309017]], dtype=np.float32).T
+
+
+def contract(x: Tensor) -> Tensor:
+    """mip-NeRF 360 scene contraction (2 - 1/|x|) x / |x|: R^3 into the
+    radius-2 ball (`parameterization` applies it where |x| > 1)."""
+    norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+    return (2.0 - 1.0 / norm) * x / norm
+
+
+def parameterization(means: Tensor, covs: Tensor) -> Tuple[Tensor, Tensor]:
+    """Contract the means outside the unit ball and carry their full
+    covariances [..., 3, 3] by the contraction's Jacobian, J cov J^T:
+    J = f I + f'(n) / n x x^T with f(n) = 2/n - 1/n^2. The norm is
+    clamped to 1 from below, where the contraction with n = 1 is the
+    identity, so no branch is needed."""
+    n = torch.clamp(torch.linalg.norm(means, dim=-1, keepdim=True), min=1.0)
+    new_means = (2.0 - 1.0 / n) * means / n
+    f = (2.0 / n - 1.0 / n ** 2)[..., None]
+    g = ((2.0 / n ** 3 - 2.0 / n ** 2) / n)[..., None]
+    eye = torch.eye(3, dtype=means.dtype, device=means.device)
+    jac = f * eye + g * means[..., :, None] * means[..., None, :]
+    return new_means, jac @ covs @ jac.transpose(-1, -2)
+
+
+def integrated_pos_enc_360(means: Tensor, covs: Tensor) -> Tensor:
+    """IPE over the 21-direction icosahedral basis with full covariances
+    (mip-NeRF 360): E[sin] of [y | y + pi/2] over the contracted
+    Gaussians projected on the basis, [..., 42]."""
+    P = torch.as_tensor(_ICOSAHEDRON_BASIS, dtype=means.dtype,
+                        device=means.device)
+    means, covs = parameterization(means, covs)
+    y = means @ P
+    y_var = torch.sum((covs @ P) * P, dim=-2)
+    return torch.exp(-0.5 * torch.cat([y_var, y_var], -1)) * torch.sin(
+        torch.cat([y, y + 0.5 * math.pi], -1))
+
+
+def volumetric_lighting_composing(rgb: Tensor, density: Tensor,
+                                  t_samples: Tensor, dirs: Tensor,
+                                  white_bkgd: bool
+                                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Volume rendering with inverse-square attenuation of the radiance,
+    comp = sum_i w_i rgb_i / (1 + t_i^2) (the reference's env-light
+    compositing experiment); returns (comp_rgb, distance, acc,
+    weights) as `volumetric_rendering`."""
+    t_mids = 0.5 * (t_samples[..., :-1] + t_samples[..., 1:])
+    delta = (t_samples[..., 1:] - t_samples[..., :-1]) * torch.linalg.norm(
+        dirs, dim=-1, keepdim=True)
+    density_delta = density[..., 0] * delta
+    alpha = 1.0 - torch.exp(-density_delta)
+    trans = torch.exp(-torch.cat([
+        torch.zeros_like(density_delta[..., :1]),
+        torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
+    weights = alpha * trans
+    attenuation = 1.0 / (1.0 + t_mids ** 2)
+    comp_rgb = torch.sum((weights * attenuation)[..., None] * rgb, dim=-2)
+    acc = torch.sum(weights, dim=-1)
+    distance = torch.sum(weights * t_mids, dim=-1) / torch.clamp(acc,
+                                                                 min=1e-10)
+    distance = torch.minimum(torch.maximum(distance, t_samples[..., 0]),
+                             t_samples[..., -1])
+    if white_bkgd:
+        comp_rgb = comp_rgb + (1.0 - acc[..., None])
+    return comp_rgb, distance, acc, weights

@@ -1,18 +1,52 @@
 """Image, geometry and solid-angle-weighted panorama metrics (numpy).
 
-Counterpart of the validation metrics of pano_nerf_tpu/utils/metrics.py.
-Images are channels-last [H, W, C]. Metrics run on the host in float64
-after the render, so no device arithmetic (TF32 convolutions included)
-enters them.
+Counterpart of pano_nerf_tpu/utils/metrics.py, without `calc_lpips`
+(it needs the `lpips` package and its weights). Images are channels-last
+[H, W, C]. Metrics run on the host in float64 after the render, so no
+device arithmetic (TF32 convolutions included) enters them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
 from pano_nerf_tpu_torch.ops.shading import solid_angle_refinement
+
+
+def _f64(x) -> np.ndarray:
+    return np.asarray(x, np.float64)
+
+
+def mse(x: np.ndarray, y: np.ndarray) -> float:
+    return float(np.mean((_f64(x) - y) ** 2))
+
+
+def rmse(x: np.ndarray, y: np.ndarray) -> float:
+    return float(np.sqrt(mse(x, y)))
+
+
+def l1(x: np.ndarray, y: np.ndarray) -> float:
+    return float(np.mean(np.abs(_f64(x) - y)))
+
+
+def psnr(x: np.ndarray, y: np.ndarray) -> float:
+    return float(-10.0 * np.log10(mse(x, y)))
+
+
+def _angles(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Angles in degrees between the 3-vectors of x and y, [...]."""
+    x, y = _f64(x), _f64(y)
+    denom = np.linalg.norm(x, axis=-1) * np.linalg.norm(y, axis=-1)
+    cos = np.sum(x * y, axis=-1) / np.maximum(denom, 1e-12)
+    return np.nan_to_num(np.arccos(np.clip(cos, -1.0, 1.0)) / np.pi * 180.0)
+
+
+def mean_angular_error(x: np.ndarray, y: np.ndarray) -> float:
+    """Mean angle between two 3-vector fields, in degrees."""
+    return float(np.mean(_angles(np.reshape(x, (-1, 3)),
+                                 np.reshape(y, (-1, 3)))))
 
 
 def scale_invariant_mse(x: np.ndarray, y: np.ndarray) -> float:
@@ -79,19 +113,49 @@ def _ws_weights(h: int, w: int) -> np.ndarray:
     return weights.astype(np.float64) / weights.sum(dtype=np.float64)
 
 
+def ws_mse(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Solid-angle-weighted MSE of [H, W, C] images."""
+    h, w = pred.shape[:2]
+    return float(np.sum((_f64(pred) - gt) ** 2 * _ws_weights(h, w)))
+
+
 def ws_psnr(pred: np.ndarray, gt: np.ndarray) -> float:
     """Solid-angle-weighted PSNR of [H, W, C] images."""
+    return float(-10.0 * np.log10(ws_mse(pred, gt)))
+
+
+def ws_rmse(pred: np.ndarray, gt: np.ndarray) -> float:
+    return float(np.sqrt(ws_mse(pred, gt)))
+
+
+def ws_l1(pred: np.ndarray, gt: np.ndarray) -> float:
     h, w = pred.shape[:2]
-    err = (np.asarray(pred, np.float64) - gt) ** 2 * _ws_weights(h, w)
-    return float(-10.0 * np.log10(np.sum(err)))
+    return float(np.sum(np.abs(_f64(pred) - gt) * _ws_weights(h, w)))
 
 
 def ws_mae(pred: np.ndarray, gt: np.ndarray) -> float:
     """Solid-angle-weighted mean angular error (degrees), [H, W, 3]."""
     h, w = pred.shape[:2]
-    pred = np.asarray(pred, np.float64)
-    gt = np.asarray(gt, np.float64)
+    return float(np.sum(_angles(pred, gt) * _ws_weights(h, w)[..., 0]))
+
+
+def ws_cos_similarity(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Solid-angle-weighted cosine similarity of [H, W, 3] fields."""
+    h, w = pred.shape[:2]
+    pred, gt = _f64(pred), _f64(gt)
     denom = np.linalg.norm(pred, axis=-1) * np.linalg.norm(gt, axis=-1)
     cos = np.sum(pred * gt, axis=-1) / np.maximum(denom, 1e-12)
-    angle = np.arccos(np.clip(cos, -1.0, 1.0)) / np.pi * 180.0
-    return float(np.sum(np.nan_to_num(angle) * _ws_weights(h, w)[..., 0]))
+    return float(np.sum(cos * _ws_weights(h, w)[..., 0]))
+
+
+def eval_errors(pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
+    """PSNR and SSIM of an [H, W, 3] LDR pair."""
+    return {"psnr": psnr(pred, gt), "ssim": ssim(pred, gt)}
+
+
+def summarize_metrics(records: List[dict]) -> Dict[str, float]:
+    """Mean of each numeric key over a list of per-image metric dicts."""
+    keys = {k for r in records for k, v in r.items()
+            if isinstance(v, (int, float))}
+    return {k: float(np.mean([r[k] for r in records if k in r]))
+            for k in sorted(keys)}

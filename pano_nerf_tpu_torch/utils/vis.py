@@ -50,19 +50,20 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def write_png(path: Union[str, Path], rgb8: np.ndarray) -> None:
-    """Write [H, W, 3] uint8 as an 8-bit RGB PNG (filter 0 on each row)."""
+    """Write [H, W, 3] (or [H, W, 4]) uint8 as an 8-bit RGB (RGBA) PNG
+    (filter 0 on each row; `data/png.py` reads it back)."""
     h, w, c = rgb8.shape
-    if c != 3 or rgb8.dtype != np.uint8:
-        raise ValueError(f"write_png takes [H, W, 3] uint8, got "
+    if c not in (3, 4) or rgb8.dtype != np.uint8:
+        raise ValueError(f"write_png takes [H, W, 3 or 4] uint8, got "
                          f"{rgb8.shape} {rgb8.dtype}")
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          rgb8.reshape(h, w * 3)], axis=1).tobytes()
+                          rgb8.reshape(h, w * c)], axis=1).tobytes()
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
     with open(path, "wb") as fp:
         fp.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
                  + chunk(b"IDAT", zlib.compress(raw, 6))

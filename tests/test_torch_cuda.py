@@ -582,11 +582,17 @@ SHAPES = {"A": (5, 128, 64, 0, 16, 4, True),
           "B": (5, 256, 128, 0, 10, 2, True),
           "C": (1, 128, 64, 0, 16, 4, False),
           "D": (5, 128, 128, 2, 9, 1, True)}
+# Narrower widths, zero-padded into a build (kernels/shapes.py
+# `build_shape`): P1 in A's 128 / 64 build, P2 in the shipped one, P2m
+# mip-NeRF's one channel in the one-channel build.
+PADDED = {"P1": (5, 64, 32, 0, 16, 4, True),
+          "P2": (5, 200, 100, 0, 16, 4, True),
+          "P2m": (1, 200, 100, 0, 16, 4, True)}
 
 
 def _shape_mlp(name, device, seed=1):
     """A random MLP of shape `name` and its encodings' keywords."""
-    C, W, VW, lo, hi, dv, ident = SHAPES[name]
+    C, W, VW, lo, hi, dv, ident = {**SHAPES, **PADDED}[name]
     mlp = NerfMLP(6 * (hi - lo), 6 * dv + 3 * ident, net_width=W,
                   net_width_condition=VW, num_density_channels=C,
                   generator=torch.Generator().manual_seed(seed))
@@ -595,7 +601,7 @@ def _shape_mlp(name, device, seed=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("shape", sorted(SHAPES) + sorted(PADDED))
 def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
         cuda_device, shape, normals):
     """Kernels 2 and 3 built for each other shape, forward and backward,
@@ -627,7 +633,7 @@ def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S,need_normals", [(37, 56, True),
                                               (131, 5, False)])
-@pytest.mark.parametrize("shape", ["A", "B", "D"])
+@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2"])
 def test_fused_render_kernel_matches_plain_version_at_other_shapes(
         cuda_device, shape, R, S, need_normals):
     mlp, kw = _shape_mlp(shape, cuda_device)
@@ -647,7 +653,7 @@ def test_fused_render_kernel_matches_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S", [(37, 56), (131, 5)])
-@pytest.mark.parametrize("shape", ["A", "B", "D"])
+@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2"])
 def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
         cuda_device, shape, R, S):
     from pano_nerf_tpu_torch.kernels import fused_render_train as k5
@@ -667,7 +673,7 @@ def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["A", "D"])
+@pytest.mark.parametrize("shape", ["A", "D", "P1", "P2"])
 def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
         cuda_device, shape):
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
@@ -718,3 +724,40 @@ def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
         b = want.as_strided((n, k), (ldo, 1), out)
         assert _rel(a, b) <= 1e-4, i
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+@pytest.mark.parametrize("shape", sorted(PADDED))
+def test_padded_gradient_slots_are_zero(cuda_device, shape, normals):
+    """A backward of kernel 2 (3) on a model padded into a wider build:
+    the packed weight and bias gradients in the padded slots are exactly
+    0, and the rest unpack to the model's own shapes."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    mlp, kw = _shape_mlp(shape, cuda_device)
+    weights, biases = fr.pack_params(mlp)
+    lib = k2.kernel_library(k2.build_of(mlp))
+    g = torch.Generator().manual_seed(2)
+    M = 1000
+    means = (torch.randn(M, 3, generator=g) * 2).to(cuda_device)
+    covs = (torch.randn(M, 3, generator=g).abs() * 0.01).to(cuda_device)
+    v = (torch.randn(M, mlp.view_dim, generator=g) * 0.5).to(cuda_device)
+    mc, vr = k2.rows_of(means, covs, v, (M,))
+    _, _, acts = k2.launch_forward(lib, mc, vr, weights, biases,
+                                   kw["min_deg"], normals, save_acts=normals)
+    ops, dw, db = k2.backward_buffers(lib, weights, biases,
+                                      k2.tile_rows(lib, M), normals)
+    dmc = torch.empty((M, 8), device=cuda_device)
+    gout = torch.randn(M, k2.OUT_W, device=cuda_device)
+    q = torch.randn(M, 3, device=cuda_device) if normals else None
+    k2.launch_backward_rows(lib, mc, vr, weights, biases, gout, q, acts, ops,
+                            dmc, dw, db, kw["min_deg"], normals)
+    k2.launch_weight_grads(lib, ops, dw, normals)
+    torch.cuda.synchronize()
+    w_pad, b_pad = fr.padded_slots(mlp)
+    assert torch.count_nonzero(dw[w_pad]) == 0
+    assert torch.count_nonzero(db[b_pad]) == 0
+    assert torch.count_nonzero(dw[~w_pad]) > 0
+    grads = fr.unpack_params(mlp, dw, db)
+    for n, p in mlp.named_parameters():
+        assert grads[n].shape == p.shape, n

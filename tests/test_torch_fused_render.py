@@ -123,18 +123,22 @@ def test_wrapper_rejects_unsupported_sample_count(mlp256, S):
 
 
 @pytest.mark.parametrize("change", [
-    dict(net_width=64), dict(skip_index=3), dict(num_density_channels=8),
-    dict(net_width_condition=32)])
+    dict(net_width=320), dict(skip_index=3), dict(num_density_channels=8),
+    dict(net_width_condition=160)])
 def test_wrapper_rejects_unsupported_topology(change):
     """A topology kernel 4 does not take is refused on every device; a
-    width its CUDA builds do not take (trunk 64, view branch 32) on the
-    card only: the plain version on the CPU takes any width."""
+    width no CUDA build takes (trunk above 256, view branch above 128) on
+    the card only: the plain version on the CPU takes any width, and a
+    narrower one runs padded in the next build."""
     mlp = NerfMLP(96, 27, **{"num_density_channels": 5, **change})
     cuda = torch.device("cuda")
     if "net_width" in change or "net_width_condition" in change:
         _call(mlp, _inputs())
         with pytest.raises(ValueError, match="topology"):
             fr.check_kernel_support(mlp, 8, 0, 16, 4, cuda)
+        narrow = {k: v // 5 for k, v in change.items()}
+        fr.check_kernel_support(NerfMLP(96, 27, num_density_channels=5,
+                                        **narrow), 8, 0, 16, 4, cuda)
     else:
         with pytest.raises(ValueError, match="topology"):
             _call(mlp, _inputs())

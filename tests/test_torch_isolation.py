@@ -27,9 +27,11 @@ def test_every_module_is_listed():
     for name in ("train", "kernels.fused_mlp_ipe", "kernels.fused_mlp_normals",
                  "kernels.fused_mlp", "kernels.fused_render_train",
                  "engine.losses", "engine.schedule", "engine.checkpoint",
-                 "engine.trainer"):
+                 "engine.trainer", "import_reference_ckpt",
+                 "utils.import_torch", "utils.profiling", "data.png",
+                 "data.perspective_datasets"):
         assert f"pano_nerf_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 32
+    assert len(MODULES) >= 37
 
 
 def test_importing_the_port_loads_no_jax():

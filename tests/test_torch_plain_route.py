@@ -257,8 +257,8 @@ def test_route_table(opts, why):
 
 
 @pytest.mark.parametrize("opts,cuda,cpu", [
-    (["nerf.mlp.net_width", "64", "nerf.mlp.net_width_condition", "32"],
-     ["nerf.mlp.net_width 64", "nerf.mlp.net_width_condition 32"], []),
+    (["nerf.mlp.net_width", "320", "nerf.mlp.net_width_condition", "160"],
+     ["nerf.mlp.net_width 320", "nerf.mlp.net_width_condition 160"], []),
     (["nerf.max_deg_point", "18"],
      ["nerf.min_deg_point..max_deg_point 0..18"],
      ["nerf.min_deg_point..max_deg_point 0..18"]),
@@ -268,8 +268,8 @@ def test_kernel_route_refuses_what_the_kernels_are_not_built_for(
         opts, cuda, cpu):
     """On the kernel route (bf16, the standard topology) a width or an
     encoding the kernels are not built for is refused, never sent to the
-    plain route: the CUDA builds take trunk widths 128 / 256 and view
-    widths 64 / 128, and the kernels on every device IPE degrees 1..16 and
+    plain route: the CUDA builds take trunk widths up to 256 and view
+    widths up to 128, and the kernels on every device IPE degrees 1..16 and
     viewdir encodings of deg_view 1..4 (with or without identity)."""
     hp = load_config(CONFIG, opts)
     model = build_model(hp)
