@@ -5,9 +5,10 @@ mip-NeRF baseline (`configs/mipnerf.yaml`), the novel-view path, the
 plain route (f32, another MLP topology, the heads), the last loss
 terms, the level loop with the last model and system keys, the kernel route
 at other MLP widths and encodings, every trunk width up to 256 and view
-width up to 128 padded into those builds, and the library modules
+width up to 128 padded into those builds, the library modules
 (reference checkpoints, the native EXR decoder, perspective datasets,
-the 360 ops).
+the 360 ops), and the 512 / 256 builds (trunk 257..512, view branch
+129..256).
 
 Run from the repository root on a machine with the card:
 
@@ -19,9 +20,10 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 
 1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
    (one nvcc per source at the shipped shape, `fused_mlp.cu` also at one
-   density channel, and each source a model of `OTHER_SHAPES` runs at
-   that shape: 11 libraries, all started together) and print the build
-   time and the compiler's register/spill report.
+   density channel, and each source a model of `OTHER_SHAPES` or D / Dm
+   of `WIDE_SHAPES` runs at that shape: 15 libraries, all started
+   together) and print the build time and the compiler's register/spill
+   report.
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
@@ -269,9 +271,37 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    equal, the decoder printed; a 2-view Blender scene written by the
    port's PNG writer read through `Blender`, its rays on the card; the
    mip-NeRF 360 ops on the card against the CPU (`OPS360_TOL`).
+2y. The 512 / 256 builds (`WIDE_SHAPES`: D Pano-NeRF at trunk 512 / view
+   branch 256, built `-DNERF_W=512 -DNERF_VW=256`; Dm mip-NeRF at D's
+   widths, `-DNERF_NDC=1` too; P3 384 / 192 zero-padded into D's build):
+   every kernel against its plain version at phase 2's tolerances,
+   forward and backward, each backward also as its two passes: at D
+   kernel 4 at the three eval shapes, kernels 2 and 3 at a batch-512
+   step's four calls, kernel 5 (`save_acts` off and on) at its two
+   levels, kernel 1 at 28,672 rows; at Dm kernels 2 and 3 at 131,072
+   train rows and 262,144 eval rows; at P3 kernels 4, 2, 3, 5 and 1 as
+   at D, the padded gradient slots exactly 0. At D kernel 3's moment and
+   covariance gradients are held at phase 2's 5e-2 on the check loss
+   without its density-gradient term (the whole loss's printed: there
+   bf16 rounding moves the plain version's own by 26% from f32); P3 and
+   Dm hold them on the whole loss (`check_train_kernels`). Each timed
+   beside the bound of the model's own MACs and bytes (entries `_wD`,
+   `_wDm`, `_pP3`).
+   (Run after phase 2x.)
+25. D Pano-NeRF with kernel 5's key on, 25m Dm mip-NeRF with
+   `loss.ort_loss 0.1`: as phases 21 and 22m (64 steps through the train
+   entry point with the shipped shape's exact launch counts, every loss
+   finite and the mean of the last 20 below that of the first 20, the
+   checkpoint served, a 16x32 view on the card against the CPU, the step
+   against the CPU under phase 5's rule, graphed against eager, ms per
+   step beside phase 4b's and ms per panorama graph vs eager in turns),
+   each phase's libraries printed and checked. (Run after phase 24.)
 
 `[clock] phase X at T s` marks each phase's start and `[clock] <function>
 took T s` each call of the slow helpers (step checks, renders, trains).
+The CPU steps of the card-vs-CPU step checks run in four worker
+processes of two threads each (`cpu_pool`, spawned at the first check and
+stopped at exit) while the card's steps of the same check run here.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -286,7 +316,10 @@ so has every build at another shape (`_wA`, `_wB`, `_wC`), with the
 launches of phases 21, 22 and 22m (kernel 1 at A and kernel 5 at B are
 on no main path: 0), and so has every kernel at the padded widths
 (`_pP1` with the launches of phases 23 and 24, `_pP2` with phase 23m's;
-kernel 1 at either and kernels 4 and 5 at P2 are on no main path: 0). The
+kernel 1 at either and kernels 4 and 5 at P2 are on no main path: 0), and
+so has every kernel of the 512 / 256 builds (`_wD` with phase 25's
+launches, `_wDm` with phase 25m's; kernel 1 at D and every kernel at P3,
+which no phase trains, are on no main path: 0). The
 last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
@@ -372,13 +405,26 @@ PADDED_SHAPES = {"P1": (CONFIG, SHAPE_P1), "P2": (CONFIG, SHAPE_P2),
                  "P2m": (MIP_CONFIG, SHAPE_P2)}
 
 
+# Phase 2y and phases 25-25m: the 512 / 256 builds, whose trunk products
+# split at 512 columns (csrc/mlp_rows.cuh `mm`). D: Pano-NeRF at trunk
+# 512, view branch 256 (kernels 1-5); Dm: mip-NeRF at D's widths (kernels
+# 2 and 3 at one density channel, `-DNERF_NDC=1`); P3: Pano-NeRF at trunk
+# 384, view branch 192, zero-padded into D's build.
+SHAPE_D = ("nerf.mlp.net_width", "512", "nerf.mlp.net_width_condition",
+           "256")
+SHAPE_P3 = ("nerf.mlp.net_width", "384", "nerf.mlp.net_width_condition",
+            "192")
+WIDE_SHAPES = {"D": (CONFIG, SHAPE_D), "Dm": (MIP_CONFIG, SHAPE_D),
+               "P3": (CONFIG, SHAPE_P3)}
+
+
 def shape_model(name: str, dev=None):
-    """The model of `OTHER_SHAPES[name]` (or `PADDED_SHAPES[name]`) with
-    weights from seed 0."""
+    """The model of `OTHER_SHAPES[name]` (or `PADDED_SHAPES[name]`,
+    `WIDE_SHAPES[name]`) with weights from seed 0."""
     import torch
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.models import build_model
-    config, opts = {**OTHER_SHAPES, **PADDED_SHAPES}[name]
+    config, opts = {**OTHER_SHAPES, **PADDED_SHAPES, **WIDE_SHAPES}[name]
     model = build_model(load_config(config, list(opts)),
                         torch.Generator().manual_seed(0))
     return model if dev is None else model.to(dev)
@@ -427,14 +473,15 @@ def clocked(fn):
 def build_kernels():
     """Start every library's nvcc together (each source at the shipped
     shape, `fused_mlp.cu` also at one density channel, and every source
-    a model of `OTHER_SHAPES` runs at its shape), then wait for all."""
+    a model of `OTHER_SHAPES` or D and Dm of `WIDE_SHAPES` runs at its
+    shape: 15 libraries), then wait for all."""
     from pano_nerf_tpu_torch.kernels import build, shapes
     from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
                                              fused_render_train)
     builds = [(fused_render.SOURCE, ()), (fused_render_train.SOURCE, ()),
               (fused_mlp_ipe.SOURCE, ()),
               (fused_mlp_ipe.SOURCE, shapes.MlpShape(C=1).defines())]
-    for name in OTHER_SHAPES:
+    for name in list(OTHER_SHAPES) + ["D", "Dm"]:
         model = shape_model(name)
         sh = shapes.build_of(model.mlp)
         builds.append((fused_mlp_ipe.SOURCE, sh.defines()))
@@ -724,7 +771,7 @@ def check_kernels(model, env, dev, shapes=None, sfx: str = "",
         # Weights crossing L2 -> shared memory, modelled (no counter of L2
         # traffic is read): tiles x the bytes of the TMA boxes one tile
         # loads, over the measured time.
-        tiles = fr.plan_tiles(R, S).num_tiles
+        tiles = fr.plan_tiles(R, S, build_of(model.mlp)).num_tiles
         tile_bytes = fr.weight_bytes_per_tile(kw["need_normals"],
                                               build_of(model.mlp))
         wbytes = tiles * tile_bytes
@@ -1410,7 +1457,8 @@ def _v_bytes(mlp) -> int:
 
 def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
                         forward_only=(), tag: str = "[kernel]",
-                        sfx: str = "", dsig_rms: bool = False) -> list:
+                        sfx: str = "", dsig_rms: bool = False,
+                        dsig_free_moments: bool = False) -> list:
     """Kernels 2 and 3 (forward and backward) vs their plain versions at
     the shapes `calls` (name -> (normals?, means, covs, v_enc)) of the
     model's main path, built for its MLP's shape (`ndc` density channels
@@ -1420,10 +1468,16 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     march run them). With `dsig_rms` the loss takes kernel 3's density
     gradient at 0.1 over its rms instead of at 0.1 (on zero covariances
     it is ~2^15 times larger, and sin(0.1 x) of it would turn its
-    rounding into other cotangents). Raises on a disagreement. Returns
-    the JSON entries that got a shape (launches filled in by the main
-    path's runs; names carry `sfx`, and only the unsuffixed shapes add
-    into the weight-gradient entry's sums)."""
+    rounding into other cotangents). With `dsig_free_moments` (phase 2y
+    at D) kernel 3's moment and covariance gradients are held on the
+    same loss without the density-gradient term, the rest on the whole
+    loss: at D's fine call the bf16 plain version's own moment gradient
+    there lies 2.6e-1 from its f32 run, the kernel's 2.1e-1, all of the
+    kernel-plain distance in 1% of the rows (PERF.md section 6); the term's
+    path through the same code is held whole at P3 and Dm. Raises on a
+    disagreement. Returns the JSON entries that got a shape (launches filled
+    in by the main path's runs; names carry `sfx`, and only the unsuffixed
+    shapes add into the weight-gradient entry's sums)."""
     import types
     import torch
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
@@ -1484,6 +1538,17 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
         if normals:
             errs["dsig_rel"] = _rel(got[2], want[2])
             checks.append(("dsig_rel", TRAIN_TOL["dsig_rel"]))
+        if train and normals and dsig_free_moments:
+            # The whole loss's moment gradients are printed, not held.
+            errs.update(dmc_rel_whole=errs["dmc_rel"],
+                        dcov_rel_whole=errs["dcov_rel"])
+            _, _, m0, _, c0 = _outs_and_grads(
+                kern, mlp, means, covs, v_enc, dsig_scale=0.0,
+                packed=packed, **kw)
+            _, _, m1, _, c1 = _outs_and_grads(
+                plain, mlp, means, covs, v_enc, dsig_scale=0.0, **kw)
+            errs.update(dmc_rel=_rel(m0, m1), dcov_rel=_rel(c0, c1))
+            del m0, c0, m1, c1
         for k, tol in checks:
             if not errs[k] <= tol:
                 failures.append(f"{shape}.{k}: {errs[k]:.3e} > {tol}")
@@ -2080,6 +2145,59 @@ def check_padded_kernels(env, dev, wentry: dict) -> dict:
     return entries
 
 
+def check_wide_kernels(env, dev, wentry: dict) -> dict:
+    """Phase 2y: every kernel of the 512 / 256 builds against its plain
+    version on the card at phase 2's tolerances, forward and backward
+    (each backward also as its two passes; the weight-gradient pass
+    against `weight_grads_reference` at WGRAD_TOL, torch.matmul beside
+    it), weights from seed 0: at D kernel 4 at the eval path's three
+    shapes, kernels 2 and 3 at a batch-512 train step's four calls,
+    kernel 5 (`save_acts` off and on) at its coarse and env levels and
+    kernel 1 at 28,672 rows; at Dm (mip-NeRF, one density channel)
+    kernels 2 and 3 at a batch-2048 step's 131,072 rows and an eval
+    chunk's 262,144; at P3 (384 / 192, zero-padded into D's build) kernels
+    4, 2, 3, 5 and 1 likewise at the model's own width, the padded
+    gradient slots exactly 0 (`check_padded_slots`). At D kernel 3's
+    moment and covariance gradients are held on the loss without its
+    density-gradient term (`check_train_kernels` `dsig_free_moments`).
+    Each time beside the bound of the model's own MACs and bytes. Returns
+    the JSON entries by shape, named with `_wD`, `_wDm`, `_pP3`."""
+    import torch
+    entries = {}
+    for name in ("D", "P3"):
+        sfx = f"_w{name}" if name == "D" else f"_p{name}"
+        tag = f"[kernel{sfx[1:]}]"
+        model = shape_model(name, dev)
+        macs = padded_macs(model.mlp)
+        print(f"{tag} MACs per row: model {macs['model_macs_per_row']:,}, "
+              f"build ({macs['build']}) {macs['build_macs_per_row']:,}",
+              flush=True)
+        with torch.no_grad():
+            got = [check_kernels(model, env, dev,
+                                 shapes=main_path_inputs(model, env, dev),
+                                 sfx=sfx, tag=tag)]
+        calls, levels, _ = train_shapes(model, env, dev)
+        got += check_train_kernels(model, dev, calls, wentry, tag=tag,
+                                   sfx=sfx, dsig_free_moments=name == "D")
+        got += check_train_render_kernel(
+            model, dev, levels, wentry, sfx=sfx, tag=tag,
+            spills=(False, True) if name == "D" else (False,))
+        got += check_fused_mlp_kernel(model, dev, levels, wentry, sfx=sfx,
+                                      tag=tag)
+        if name == "P3":
+            check_padded_slots(model, calls, levels, True, tag)
+            for e in got:
+                e["padded"] = macs
+        entries[name] = got
+        del model, calls, levels
+    model = shape_model("Dm", dev)
+    entries["Dm"] = check_train_kernels(
+        model, dev, mip_shapes(model, dev), wentry, ndc=1,
+        forward_only=MIP_EVAL, tag="[kernel-wDm]", sfx="_wDm")
+    del model
+    return entries
+
+
 TRAIN_STEPS = 200
 MIP_ORT_STEPS = 24   # phase 8c: the orientation-loss variant
 # The shadow preset's tie falls from `loss.env_distill_end` 0.7 of the run
@@ -2443,11 +2561,12 @@ def time_train_modes(trainer, steps: int = TIMED_STEPS) -> dict:
 
 
 # Graphed steps are held against eager steps from the same state and
-# generator: the weight-gradient pass adds f32 partials from unordered
-# blocks, so two eager runs already differ in the last bits, and Adam's
-# normalisation of tiny gradients grows that over the steps. The spread is
-# measured in the same call: four eager runs, the largest distance of the
-# six pairs. The graph's median distance to the four runs must stay within
+# generator: where an op of the step sums in an order that varies between
+# runs, two eager runs already differ in the last bits, and Adam's
+# normalisation of tiny gradients grows that over the steps (the kernels'
+# backwards add in a fixed order: on the kernel route the spread is 0).
+# The spread is measured in the same call: four eager runs, the largest
+# distance of the six pairs. The graph's median distance to the four runs must stay within
 # twice it, or within f32 rounding (1e-6 rel) where the spread is smaller:
 # a graph that drew other numbers, read a stale learning rate or lost a
 # step lands orders of magnitude further off.
@@ -2584,20 +2703,75 @@ def check_illum_freeze(trainer) -> None:
         raise AssertionError(f"illum_freeze: {res}")
 
 
-def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
-    """One train step (clip off) on `dev` of the config's system, with the
-    draws `draws_np` (numpy, of the system's draws type); returns (loss
-    parts, flat gradient on the CPU)."""
+# The CPU side of the step checks runs in CPU_WORKERS processes of
+# CPU_THREADS threads each, spawned once (`cpu_pool`), beside the card's
+# steps: on the card's 8-core host a batch-64 step keeps 8 threads of one
+# process far from busy, and four steps at a time in four processes take
+# less time than the four in turn. The steps, their inputs and the
+# statistics over them are the same; the CPU's sums may order apart.
+CPU_WORKERS, CPU_THREADS = 4, 2
+_CPU_POOL = None
+
+
+def _init_cpu_worker(threads: int) -> None:
+    import torch
+    torch.set_num_threads(threads)
+
+
+def cpu_pool():
+    """The worker processes of the CPU steps (started at first use)."""
+    global _CPU_POOL
+    if _CPU_POOL is None:
+        import concurrent.futures
+        import multiprocessing
+        _CPU_POOL = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_init_cpu_worker, initargs=(CPU_THREADS,))
+    return _CPU_POOL
+
+
+def close_cpu_pool() -> None:
+    global _CPU_POOL
+    if _CPU_POOL is not None:
+        _CPU_POOL.shutdown(wait=True, cancel_futures=True)
+        _CPU_POOL = None
+
+
+def _step_args(trainer, seed: int, num_rays: int) -> tuple:
+    """`_one_step`'s arguments after the config and device for the batch
+    of `_check_batch(trainer, seed, num_rays)`: the trainer's parameters,
+    the batch's rays, targets and env rays (numpy) and its draws."""
+    import numpy as np
+    from pano_nerf_tpu_torch.core.rays import Rays
+    ds = trainer.train_dataset
+    idx, draws_np = _check_batch(trainer, seed, num_rays)
+    sd = {k: v.detach().cpu().numpy().copy() for k, v in
+          trainer.system.model.param_state().items()}
+    D = int(trainer.hparams["nerf.num_ray_samples"])
+    rays = Rays(*(np.asarray(getattr(ds.rays, k)[idx], np.float32)
+                  for k in Rays._fields))
+    batch = (rays, np.asarray(ds.images[idx], np.float32),
+             ds.generate_lit_rays(num=D, near=0.0, far=10.0))
+    return sd, batch, draws_np
+
+
+def _one_step(hp, dev, state_dict, batch, draws_np) -> tuple:
+    """One train step (clip off) on `dev` of the config's system from the
+    parameters `state_dict` (numpy) on `batch` (rays, targets, env rays:
+    numpy, `_step_args`) with the draws `draws_np` (numpy, of the
+    system's draws type); returns (loss parts, flat gradient on the
+    CPU)."""
     import numpy as np
     import torch
     from pano_nerf_tpu_torch.core.rays import Rays
     from pano_nerf_tpu_torch.engine.system import build_system
     system = build_system(dict(hp, **{"optimizer.grad_clip": 0.0}),
                           device=dev)
-    system.model.load_params(state_dict)
+    system.model.load_params({k: torch.from_numpy(v)
+                              for k, v in state_dict.items()})
+    rays_np, rgbs_np, env_np = batch
     if system.surface:
-        D = int(hp["nerf.num_ray_samples"])
-        system.set_env_rays(ds.generate_lit_rays(num=D, near=0.0, far=10.0))
+        system.set_env_rays(env_np)
     T = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
 
     def draw(x):   # uniforms as float32, the env-distill index as int64
@@ -2605,13 +2779,29 @@ def _one_step(hp, dev, state_dict, ds, idx, draws_np) -> tuple:
             return None if x is None else torch.as_tensor(x).to(dev)
         return T(x)
 
-    rays = Rays(*(T(getattr(ds.rays, k)[idx]) for k in Rays._fields))
     parts = system.make_train_step(True)(
-        system.create_state(), rays, T(ds.images[idx]),
+        system.create_state(), Rays(*(T(x) for x in rays_np)), T(rgbs_np),
         None if draws_np is None
         else type(draws_np)(*(draw(x) for x in draws_np)))
     grads = torch.cat([p.grad.reshape(-1).cpu() for p in system.params()])
     return {k: float(v) for k, v in parts.items()}, grads
+
+
+def _steps(jobs) -> list:
+    """Run `_one_step` on each (hp, dev, *args) of `jobs`: the CPU ones in
+    `cpu_pool`, the card's here meanwhile; returns the results in order
+    (gradients as torch tensors)."""
+    import torch
+    pool = cpu_pool()
+    futs = [pool.submit(_one_step, hp, dev, *args) if dev == "cpu"
+            else None for hp, dev, *args in jobs]
+    out = [_one_step(hp, dev, *args) if f is None else None
+           for f, (hp, dev, *args) in zip(futs, jobs)]
+    for i, f in enumerate(futs):
+        if f is not None:
+            parts, grads = f.result()
+            out[i] = (parts, torch.as_tensor(grads))
+    return out
 
 
 def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
@@ -2697,22 +2887,21 @@ def grad_errors(trainer, seeds, num_rays: int = 64,
     two terms) and of their references (`f32`, `cpu_plain`)."""
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
-    sd = {k: v.detach().cpu().clone() for k, v in
-          trainer.system.model.param_state().items()}
+    hp_f32 = dict(hp, **{"train.precision": "f32"})
     sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
+    runs = [(hp, "cuda"), (hp, "cpu"), (hp_f32, "cpu")]
+    if normal_free:
+        runs += [(hp_plain, "cuda"), (hp_plain, "cpu")]
+    batches = [_step_args(trainer, seed, num_rays) for seed in seeds]
+    res = _steps([(h, dev, *args) for args in batches for h, dev in runs])
     out = []
-    for seed in seeds:
-        idx, draws_np = _check_batch(trainer, seed, num_rays)
-        args = (sd, trainer.train_dataset, idx, draws_np)
-        card = _one_step(hp, "cuda", *args)
-        cpu = _one_step(hp, "cpu", *args)
-        f32 = _one_step(dict(hp, **{"train.precision": "f32"}), "cpu", *args)
+    for b in range(len(batches)):
+        card, cpu, f32, *plain = res[b * len(runs):(b + 1) * len(runs)]
         out.append(dict(parts=(card[0], cpu[0], f32[0]),
                         card=sq(card[1], f32[1]), cpu=sq(cpu[1], f32[1]),
                         f32=sq(f32[1])))
         if normal_free:
-            card_p, cpu_p = (_one_step(hp_plain, dev, *args)
-                             for dev in ("cuda", "cpu"))
+            card_p, cpu_p = plain
             out[-1].update(plain=sq(card_p[1], cpu_p[1]),
                            cpu_plain=sq(cpu_p[1]))
     return out
@@ -3053,17 +3242,15 @@ def check_f32_step_against_cpu(trainer, num_rays: int = 64) -> None:
     tag = f"[check{_family(trainer.system)['sfx']}]"
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
-    sd = {k: v.detach().cpu().clone() for k, v in
-          trainer.system.model.param_state().items()}
     sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
     parts, tot, each = [], dict.fromkeys(("full", "f", "plain", "p"), 0.0), {
         "full": [], "plain": []}
-    for seed in range(5, 5 + GRAD_BATCHES):
-        idx, draws_np = _check_batch(trainer, seed, num_rays)
-        args = (sd, trainer.train_dataset, idx, draws_np)
-        card, cpu = (_one_step(hp, dev, *args) for dev in ("cuda", "cpu"))
-        card_p, cpu_p = (_one_step(hp_plain, dev, *args)
-                         for dev in ("cuda", "cpu"))
+    runs = [(hp, "cuda"), (hp, "cpu"), (hp_plain, "cuda"), (hp_plain, "cpu")]
+    batches = [_step_args(trainer, seed, num_rays)
+               for seed in range(5, 5 + GRAD_BATCHES)]
+    res = _steps([(h, dev, *args) for args in batches for h, dev in runs])
+    for b in range(len(batches)):
+        card, cpu, card_p, cpu_p = res[b * len(runs):(b + 1) * len(runs)]
         parts.append((card[0], cpu[0]))
         for name, ref, (a, b) in (("full", "f", (card[1], cpu[1])),
                                   ("plain", "p", (card_p[1], cpu_p[1]))):
@@ -3172,14 +3359,15 @@ def drive_plain_phase(ph: int, workdir: str, scene: str,
 LEVELS_3 = ("nerf.num_levels", "3", "nerf.stop_resample_grad", "False",
             "nerf.disable_integration", "True")
 VAL_RANDOMIZED = ("val.randomized", "True")
-# phase -> (config, opts, kernel 5's key, steps, served opts)
+# phase -> (config, opts, kernel 5's key, steps, served opts, the mean
+# loss of the last 20 steps held below that of the first 20)
 LEVEL_PHASES = {
-    "19": (CONFIG, LEVELS_3, True, TRAIN_STEPS, ()),
+    "19": (CONFIG, LEVELS_3, True, TRAIN_STEPS, (), False),
     "20": (CONFIG, ("train.randomized", "False"), False, TRAIN_STEPS,
-           VAL_RANDOMIZED),
+           VAL_RANDOMIZED, False),
     "20m": (MIP_CONFIG, ("nerf.num_levels", "1", "nerf.density_noise",
                          "1.0", "loss.ort_loss", "0.1"), False, 64,
-            VAL_RANDOMIZED),
+            VAL_RANDOMIZED, False),
 }
 
 
@@ -3212,19 +3400,26 @@ def check_zero_covariance_kernels(system) -> None:
                               tag="[kernel-noint]")
 
 
-# Phases 21-23m: the shapes of `OTHER_SHAPES` and the padded widths
-# trained and served, 64 steps each: 21, A with kernel 5's key on
-# (kernels 2, 3, 5; served through kernel 4); 22, B with the key off
-# (kernels 2 and 3; kernel 4); 22m, C with `loss.ort_loss` (kernels 2 and
-# 3, served through them); 23, P1 (trunk 64, view 32, in the 128 / 64
-# build) as 21; 23m, P2 mip-NeRF (200 / 100, in the one-channel 256 /
-# 128 build) as 22m.
+# Phases 21-23m and 25-25m: the shapes of `OTHER_SHAPES`, the padded
+# widths and the 512 / 256 builds trained and served, 64 steps each: 21,
+# A with kernel 5's key on (kernels 2, 3, 5; served through kernel 4);
+# 22, B with the key off (kernels 2 and 3; kernel 4); 22m, C with
+# `loss.ort_loss` (kernels 2 and 3, served through them); 23, P1 (trunk
+# 64, view 32, in the 128 / 64 build) as 21; 23m, P2 mip-NeRF (200 / 100,
+# in the one-channel 256 / 128 build) as 22m; 25, D (trunk 512, view 256)
+# as 21; 25m, Dm (mip-NeRF at 512 / 256) as 22m, each with its loss held
+# falling. Entries as in `LEVEL_PHASES`.
 SHAPE_PHASES = {
-    "21": (CONFIG, SHAPE_A, True, 64, ()),
-    "22": (CONFIG, SHAPE_B, False, 64, ()),
-    "22m": (MIP_CONFIG, SHAPE_C + ("loss.ort_loss", "0.1"), False, 64, ()),
-    "23": (CONFIG, SHAPE_P1, True, 64, ()),
-    "23m": (MIP_CONFIG, SHAPE_P2 + ("loss.ort_loss", "0.1"), False, 64, ()),
+    "21": (CONFIG, SHAPE_A, True, 64, (), False),
+    "22": (CONFIG, SHAPE_B, False, 64, (), False),
+    "22m": (MIP_CONFIG, SHAPE_C + ("loss.ort_loss", "0.1"), False, 64, (),
+            False),
+    "23": (CONFIG, SHAPE_P1, True, 64, (), False),
+    "23m": (MIP_CONFIG, SHAPE_P2 + ("loss.ort_loss", "0.1"), False, 64, (),
+            False),
+    "25": (CONFIG, SHAPE_D, True, 64, (), True),
+    "25m": (MIP_CONFIG, SHAPE_D + ("loss.ort_loss", "0.1"), False, 64, (),
+            True),
 }
 
 
@@ -3232,7 +3427,8 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
                       base_times: dict) -> list:
     """Phase `ph` of `LEVEL_PHASES` or `SHAPE_PHASES`: its steps through
     the train entry point (graphed, exact launch counts, over 200 steps the loss
-    falling), the checkpoint served through `eval --ckpt_dir` (20, 20m:
+    falling; where the entry asks, the last 20 steps' mean below the first
+    20's), the checkpoint served through `eval --ckpt_dir` (20, 20m:
     randomized), the panorama's chunk graph bit-equal to eager chunks and
     ms per panorama, a view of the checkpoint rendered on the card and on
     the CPU (`check_against_plain`); the step against the CPU
@@ -3244,13 +3440,19 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
     import torch
     enter_phase(ph)
     dev = torch.device("cuda")
-    config, opts, key, steps, served_opts = {**LEVEL_PHASES,
-                                             **SHAPE_PHASES}[ph]
+    config, opts, key, steps, served_opts, falls = {**LEVEL_PHASES,
+                                                    **SHAPE_PHASES}[ph]
     mip = config == MIP_CONFIG
     name = f"phase{ph}"
     run = drive_train_path(workdir, scene, render_kernel=key, config=config,
                            opts=opts, steps=steps, name=name)
     trainer = run.pop("trainer")
+    if falls:
+        losses = run["losses"]
+        first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+        if not last < first:
+            raise CheckFailed(f"mean loss of steps {steps - 19}-{steps} (vs "
+                              "steps 1-20)", last, first)
     family = _family(trainer.system)
     tag = f"[{name}{family['sfx']}]"
     print(f"{tag} launches per step " + json.dumps(
@@ -3501,6 +3703,10 @@ def main() -> int:
     build.LOADED.clear()
     padded_entries = check_padded_kernels(env, dev, wentry)
     check_libraries("2x")
+    # 2y: the 512 / 256 builds.
+    enter_phase("2y")
+    wide_entries = check_wide_kernels(env, dev, wentry)
+    check_libraries("2y")
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
@@ -3625,9 +3831,10 @@ def main() -> int:
                       for r in drive_level_phase(ph, workdir, scene,
                                                  base_times)]
         # 21-23m: the other MLP shapes and the padded widths, trained and
-        # served, each phase's libraries printed and checked.
+        # served, each phase's libraries printed and checked (25-25m, the
+        # 512 / 256 builds, after phase 24).
         shape_runs = {}
-        for ph in SHAPE_PHASES:
+        for ph in (p for p in SHAPE_PHASES if not p.startswith("25")):
             build.LOADED.clear()
             shape_runs[ph] = drive_level_phase(ph, workdir, scene,
                                                base_times)
@@ -3635,6 +3842,12 @@ def main() -> int:
         # 24: the library modules (a reference checkpoint imported and
         # served, the native EXR decoder, the Blender loader, 360 ops).
         imported = drive_library_phase(workdir, scene)
+        # 25-25m: the 512 / 256 builds trained and served.
+        for ph in ("25", "25m"):
+            build.LOADED.clear()
+            shape_runs[ph] = drive_level_phase(ph, workdir, scene,
+                                               base_times)
+            check_libraries(ph)
     enter_phase("report")
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
@@ -3685,6 +3898,19 @@ def main() -> int:
             if on_path and e["launches"] == 0:
                 raise AssertionError(f"{e['name']}: no launch on its "
                                      f"phases' path")
+    # The 512 / 256 builds' entries: D over phase 25, Dm over 25m; kernel
+    # 1 at D and every kernel at P3 (a model no phase trains) are on no
+    # main path.
+    for name, sfx, runs in (("D", "_wD", shape_runs["25"]),
+                            ("Dm", "_wDm", shape_runs["25m"]),
+                            ("P3", "_pP3", ())):
+        for e in wide_entries[name]:
+            base = e["name"][:-len(sfx)]
+            e["launches"] = sum(r["launches"][base] for r in runs)
+            on_path = name != "P3" and not base.startswith("fused_mlp_apply")
+            if on_path and e["launches"] == 0:
+                raise AssertionError(f"{e['name']}: no launch on its "
+                                     f"phase's path")
     for e in k1_entries + [wentry]:   # counted over every run
         e["launches"] = sum(r["launches"][e["name"]]
                             for r in (run, trained, train, train_k5,
@@ -3699,7 +3925,8 @@ def main() -> int:
                       + k5_entries + mip_entries + preset_entries
                       + study_entries + sd_entries
                       + [e for es in shape_entries.values() for e in es]
-                      + [e for es in padded_entries.values() for e in es]}))
+                      + [e for es in padded_entries.values() for e in es]
+                      + [e for es in wide_entries.values() for e in es]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3715,6 +3942,8 @@ if __name__ == "__main__":
             what = f"{type(exc).__name__}: {what}"
         print(f"[fail] phase {PHASE}: {what}", flush=True)
         raise
+    finally:
+        close_cpu_pool()
     if code:
         print(f"[fail] phase {PHASE}: exit code {code} (no card or no "
               "checkout)", flush=True)

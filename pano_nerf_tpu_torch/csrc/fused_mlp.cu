@@ -22,7 +22,10 @@
 // is built once per shape a model asks for (kernels/fused_mlp_ipe.py
 // `MlpShape`); the backward zeroes the head cotangent past NDC, so padded
 // lanes add nothing to the density head's gradient. The sizes below are
-// the shipped shape's (W 256, VW 128, L 16).
+// the shipped shape's (W 256, VW 128, L 16); a 512-wide build runs the
+// same steps column split at N = 512 (two ring stages per K step,
+// mlp_rows.cuh `mm`), with 2 ring stages and the f32 IPE features
+// recomputed from the moments (`feat`).
 //
 // The backward is two launches, and each has its own bound on an H100:
 // * The row pass (fused_mlp_bwd_kernel) recomputes the forward (or loads
@@ -51,10 +54,11 @@
 // (dz_i^T a_{i-1}) and the adjoint walk (sz_i^T c_{i-1}), summed in one
 // accumulator. Ragged last tile: rows past M are loaded as zeros (inputs,
 // cotangents and saved activations), so their dz, sz and c rows are
-// exactly zero and add nothing to any weight gradient. The f32 reductions
-// across blocks (bias sums, dW partials) are atomic, so gradients vary in
-// the last f32 bits between runs; the wrapper rounds weight gradients to
-// bf16, as both JAX paths do. IPE phases are exact power-of-two products
+// exactly zero and add nothing to any weight gradient. The f32 sums
+// across blocks (bias sums, dW partials) add in a fixed order
+// (mlp_rows.cuh `bias_sums`; the weight-gradient pass's chunks in chunk
+// order), so a backward gives the same bits at every run; the wrapper
+// rounds weight gradients to bf16, as both JAX paths do. IPE phases are exact power-of-two products
 // (ldexpf) with the accurate sinf/expf; do not build with --use_fast_math.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C entry
@@ -91,8 +95,7 @@ struct BwdParams {
   bf16* ops;          // [grid * 64, OPW] operand rows
   float* dmc;         // [M, 8]   (IPE, NORMALS)
   float* dx;          // [M, XF]  (ENCODED)
-  float* dw;          // [W_TOTAL] f32, zeroed; this kernel adds dWd's sigma row
-  float* db;          // [B_TOTAL] f32, zeroed
+  BiasSums sums;      // db and (NORMALS) dWd's sigma row, written
   int M, min_deg;
 };
 
@@ -100,7 +103,7 @@ struct SmemF {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
-  float x32[TM * XF];
+  float x32[X32_ELEMS];
   float gx[TM * XF];       // NORMALS: d raw_sigma / d x
   float mc[TM * 8];
   float heads[TM * OUT_W];
@@ -111,8 +114,8 @@ struct SmemB {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
-  uint32_t hvmask[NT];
-  float x32[TM * XF];
+  uint32_t hvmask[HVW * NT];
+  float x32[X32_ELEMS];
   float dx[TM * XF];      // d x; later the cotangent of c1 (NORMALS)
   float g[TM * OUT_W];
   float q[TM * 4];
@@ -120,6 +123,8 @@ struct SmemB {
   float mc[TM * 8];
   uint64_t full[RING], empty[RING], io;
 };
+static_assert(sizeof(SmemF) + 1024 <= SMEM_LIMIT, "forward shared memory");
+static_assert(sizeof(SmemB) + 1024 <= SMEM_LIMIT, "backward shared memory");
 
 template <class Smem>
 __device__ Smem& smem_of(unsigned char* raw) {
@@ -171,7 +176,7 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
       for (int deg = 0; deg < L; ++deg) {
         for (int half = 0; half < 2; ++half) {
           const int j = half * XP + deg * 3 + d;
-          a += s.gx[r * XF + j] * att_cos(s.x32 + r * XF, j) *
+          a += s.gx[r * XF + j] * feat_cos(s, r, j, p.min_deg) *
                ldexpf(1.f, deg + p.min_deg);
         }
       }
@@ -231,10 +236,11 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
   // ---- heads forward (operand rows, masks of hv), then the backward ----
   heads_forward<true, false>(pp, s, p.b, p.v + row0 * VP, nrows, &maps.ops,
                              orow, ops, OPW);
-  mlp_backward(pp, s, p.db, &maps.ops, orow, ops, OPW);
+  mlp_backward(pp, s, part_row(p.sums), &maps.ops, orow, ops, OPW);
   if constexpr (VAR == ENCODED) {
     if constexpr (!PRODUCER) {
       for (int i = tid; i < nrows * XF; i += NT) p.dx[row0 * XF + i] = s.dx[i];
+      bias_sums(p.sums);
     }
     return;
   }
@@ -288,7 +294,7 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
                 __float2bfloat16(sk5[i + h] + sk0[i + h]));
             const float cot_dy =
                 s.q[r * 4 + ((j + h) % XP) % 3] * deg_scale(j + h, p.min_deg);
-            cg[h] = cot_dy * att_cos(s.x32 + r * XF, j + h);
+            cg[h] = cot_dy * feat_cos(s, r, j + h, p.min_deg);
             s.dx[r * XF + j + h] = cot_dy * gx;  // cot_c1
           }
           act_put2(s.act, r, W + j, cg[0], cg[1]);
@@ -305,9 +311,9 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
             const int j = half * XP + deg * 3 + d;
             const float cc = s.dx[r * XF + j];
             if (k < 3) {
-              a -= cc * s.x32[r * XF + j] * ldexpf(1.f, deg + p.min_deg);
+              a -= cc * feat(s, r, j, p.min_deg) * ldexpf(1.f, deg + p.min_deg);
             } else {
-              a -= 0.5f * cc * att_cos(s.x32 + r * XF, j) *
+              a -= 0.5f * cc * feat_cos(s, r, j, p.min_deg) *
                    ldexpf(1.f, 2 * (deg + p.min_deg));
             }
           }
@@ -332,13 +338,16 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
     }
     // s_7 is Wd's sigma row broadcast over the rows: its gradient is the
     // column sum of c_7.
-    if constexpr (!PRODUCER) colsum_atomic(s.act, 0, W, p.dw + OFF_WD);
+    if constexpr (!PRODUCER) {
+      colsum_store(s.act, 0, W, part_row(p.sums) + B_TOTAL);
+    }
   }
   if constexpr (!PRODUCER) {
     consumer_sync();
     for (int i = tid; i < nrows * 8; i += NT) {
       p.dmc[row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
     }
+    bias_sums(p.sums);
   }
 }
 
@@ -364,9 +373,13 @@ __global__ void __launch_bounds__(ROW_THREADS, 1)
 // 64 output rows and run wgmma m64n256k16 on them, both operands MN-major
 // in shared memory (the reduction runs over the rows of `ops`), f32
 // accumulators in registers. The partial tile goes through shared memory
-// into the zeroed f32 dw by bulk reduce-add (cp.reduce.async.bulk), one
-// row of up to 1 KB per instruction. The jobs (which operand columns make
-// which packed weight) come from the caller: kernels/fused_mlp_ipe.py
+// and is added into dw in chunk order: each output tile has a flag in
+// `sync` that holds the number of chunks added so far, and the block of
+// chunk c waits for c before adding its partial and setting c + 1. A block
+// takes its (tile, chunk) from a counter (`sync[0]`) when it starts, chunk
+// by chunk, so the block it waits for has started before it and none can
+// wait on a block that is not running. The jobs (which operand columns
+// make which packed weight) come from the caller: kernels/fused_mlp_ipe.py
 // `wgrad_jobs`, the one table the plain version runs too.
 
 struct Job {
@@ -374,16 +387,18 @@ struct Job {
   int n, k;            // output rows (fan-out) and columns (fan-in, <= 256)
   int out, ldo;        // output offset in the packed f32 buffer, row stride
 };
-constexpr int MAX_JOBS = 16;
+constexpr int MAX_JOBS = 32;  // 24 at W 512 (fan-ins split at 256)
 constexpr int WG_NS = 4;                    // ring stages
 constexpr int WG_BOX = 64 * 64 * 2;         // one TMA box, bytes
 constexpr int WG_STAGE = 6 * WG_BOX;        // 2 boxes of B + 4 of A
 constexpr int WG_ST_LD = 264;               // f32 partial-tile row stride
 constexpr int WG_SMEM = WG_NS * WG_STAGE + 1024;
 constexpr int WG_THREADS = 384;             // 2 consumer warpgroups + producer
+constexpr int WG_MAX_ROWS = 32768;          // operand rows of one chunk, at most
 
 struct WgradParams {
   float* dw;
+  int* sync;  // [1 + tiles] zeroed: the block counter, then a flag per tile
   int rows, chunk_rows, njobs;
   Job jobs[MAX_JOBS];
   int tile_start[MAX_JOBS + 1];  // first output tile of each job
@@ -394,18 +409,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                            const __grid_constant__ WgradParams p) {
   extern __shared__ unsigned char wg_smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_NS], empty[WG_NS];
+  __shared__ int start;
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
-  const int t = blockIdx.x;
-  int j = 0;
-  while (t >= p.tile_start[j + 1]) ++j;
-  const Job jb = p.jobs[j];
-  const int n0 = (t - p.tile_start[j]) * 128;
-  const int m0 = blockIdx.y * p.chunk_rows;
-  const int steps = (min(p.rows, m0 + p.chunk_rows) - m0) / 64;
-  const int niter = (jb.b2 >= 0 ? 2 : 1) * steps;
-  const int nb = jb.n - n0 > 64 ? 2 : 1;  // boxes of B (64 output rows each)
-  const int na = (jb.k + 63) / 64;         // boxes of A
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < WG_NS; ++s) {
@@ -413,8 +419,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     hopper::fence_barrier_init();
+    start = atomicAdd(p.sync, 1);  // the block's place in start order
   }
   __syncthreads();
+  const int order = start;
+  const int t = order % gridDim.x, chunk = order / gridDim.x;
+  int j = 0;
+  while (t >= p.tile_start[j + 1]) ++j;
+  const Job jb = p.jobs[j];
+  const int n0 = (t - p.tile_start[j]) * 128;
+  const int m0 = chunk * p.chunk_rows;
+  const int steps = (min(p.rows, m0 + p.chunk_rows) - m0) / 64;
+  const int niter = (jb.b2 >= 0 ? 2 : 1) * steps;
+  const int nb = jb.n - n0 > 64 ? 2 : 1;  // boxes of B (64 output rows each)
+  const int na = (jb.k + 63) / 64;         // boxes of A
 
   if (tid >= 256) {  // ---- producer warpgroup: one thread issues TMA ----
     hopper::reg_dealloc<40>();
@@ -466,7 +484,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if ((tid & 31) == 0) hopper::mbar_arrive(&empty[st]);
   }
 
-  // ---- partial tile -> shared memory -> bulk reduce-add into dw ----
+  // ---- partial tile -> shared memory -> added into dw in chunk order ----
   hopper::named_sync(1, 256);  // every consumer is done with the ring
   float* stg = reinterpret_cast<float*>(ring);
   const int warp = (tid >> 5) & 3, lane = tid & 31;
@@ -479,14 +497,24 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     *reinterpret_cast<float2*>(stg + (r + 8) * WG_ST_LD + c) =
         make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
   }
-  hopper::fence_proxy_async();
-  hopper::named_sync(1, 256);
-  if (tid < 128 && n0 + tid < jb.n) {
-    hopper::bulk_reduce_add(p.dw + jb.out + (size_t)(n0 + tid) * jb.ldo,
-                            stg + tid * WG_ST_LD, jb.k * 4);
-    hopper::bulk_commit();
-    hopper::bulk_wait();
+  int* flag = p.sync + 1 + t;
+  if (tid == 0) {
+    while (hopper::ld_acquire(flag) != chunk) __nanosleep(64);
   }
+  hopper::named_sync(1, 256);
+  const int k4 = jb.k / 4, rows = min(128, jb.n - n0);
+  for (int i = tid; i < rows * k4; i += 256) {
+    const int row = i / k4, c = 4 * (i % k4);
+    float4* d = reinterpret_cast<float4*>(p.dw + jb.out +
+                                          (size_t)(n0 + row) * jb.ldo + c);
+    const float4 a = __ldcg(d);
+    const float4 b =
+        *reinterpret_cast<const float4*>(stg + row * WG_ST_LD + c);
+    *d = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+  __threadfence();
+  hopper::named_sync(1, 256);
+  if (tid == 0) hopper::st_release(flag, chunk + 1);
 }
 
 template <typename Kernel>
@@ -540,6 +568,7 @@ int fused_mlp_tile_rows() { return TM; }
 int fused_mlp_ops_width(int normals) { return normals ? OPW_NRM : OPW_IPE; }
 int fused_mlp_density_channels() { return NDC; }
 NERF_SHAPE_EXPORT(fused_mlp_shape)
+BIAS_WORKSPACE_EXPORT(fused_mlp_bias_workspace)
 
 const char* fused_mlp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -582,13 +611,16 @@ int fused_mlp_encoded_forward(const void* x, const void* v,
 }
 
 // Backward row pass: writes dmc, the operand rows `ops` ([ceil(M/64)*64,
-// fused_mlp_ops_width(normals)] bf16) and adds the bias gradients (and, for
-// NORMALS, the walk's part of dWd's sigma row) into the zeroed db / dw.
+// fused_mlp_ops_width(normals)] bf16), the bias gradients into db and, for
+// NORMALS, the walk's part of dWd's sigma row into the zeroed dw (which the
+// weight-gradient pass then adds to). `part` and `count` are the scratch
+// of fused_mlp_bias_workspace(ceil(M/64)), count zeroed.
 int fused_mlp_backward_rows(const float* mc, const void* v,
                             const void* weights, const float* biases,
                             const float* g, const float* q, const void* acts,
-                            void* ops, float* dmc, float* dw, float* db, int M,
-                            int min_deg, int normals, void* stream) {
+                            void* ops, float* dmc, float* dw, float* db,
+                            float* part, int* count, int M, int min_deg,
+                            int normals, void* stream) {
   if (M <= 0) return (int)cudaErrorInvalidValue;
   BwdParams p = {};
   p.mc = mc;
@@ -599,8 +631,7 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
   p.q = q;
   p.ops = static_cast<bf16*>(ops);
   p.dmc = dmc;
-  p.dw = dw;
-  p.db = db;
+  p.sums = {part, count, db, normals ? dw + OFF_WD : nullptr};
   p.M = M;
   p.min_deg = min_deg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -611,11 +642,13 @@ int fused_mlp_backward_rows(const float* mc, const void* v,
 }
 
 // Backward row pass of kernel 1: writes dx [M, XF] f32, the operand rows
-// (fused_mlp_ops_width(0) wide) and adds the bias gradients into db.
+// (fused_mlp_ops_width(0) wide) and the bias gradients into db (`part`,
+// `count`: as fused_mlp_backward_rows).
 int fused_mlp_encoded_backward_rows(const void* x, const void* v,
                                     const void* weights, const float* biases,
                                     const float* g, void* ops, float* dx,
-                                    float* db, int M, void* stream) {
+                                    float* db, float* part, int* count, int M,
+                                    void* stream) {
   if (M <= 0) return (int)cudaErrorInvalidValue;
   BwdParams p = {};
   p.x = static_cast<const bf16*>(x);
@@ -625,7 +658,7 @@ int fused_mlp_encoded_backward_rows(const void* x, const void* v,
   p.g = g;
   p.ops = static_cast<bf16*>(ops);
   p.dx = dx;
-  p.db = db;
+  p.sums = {part, count, db, nullptr};
   p.M = M;
   return (int)launch_backward<ENCODED>(p, nullptr,
                                        static_cast<cudaStream_t>(stream));
@@ -641,9 +674,10 @@ int fused_mlp_encoded_backward_rows(const void* x, const void* v,
 // the table the plain version and the CPU tests use; it is checked here
 // against the operand width and the packed layout.
 int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
-                           const int* jobs, int njobs, void* stream) {
+                           const int* jobs, int njobs, int* sync, int nsync,
+                           void* stream) {
   if (M <= 0 || M % TM != 0 || jobs == nullptr || njobs <= 0 ||
-      njobs > MAX_JOBS) {
+      njobs > MAX_JOBS || sync == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const int ld = normals ? OPW_NRM : OPW_IPE;
@@ -666,7 +700,9 @@ int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
     p.tile_start[j + 1] = p.tile_start[j] + (jb.n + 127) / 128;
   }
   for (int j = njobs + 1; j <= MAX_JOBS; ++j) p.tile_start[j] = 1 << 30;
+  if (nsync < 1 + p.tile_start[njobs]) return (int)cudaErrorInvalidValue;
   p.dw = dw;
+  p.sync = sync;
   p.rows = M;
   p.njobs = njobs;
   CUtensorMap map;
@@ -676,9 +712,14 @@ int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
   // and block into dw. At one block per SM (194 KB of shared memory), as
   // many chunks as fill one wave of the 132 SMs: 24 tiles x 5 chunks =
   // 120 blocks, so ~3 MB of f32 partials (0.5-0.8 M element adds) instead
-  // of a workspace and a second launch.
+  // of a workspace and a second launch; and at least as many as keep a
+  // chunk within WG_MAX_ROWS rows, since one accumulator summing more rows
+  // drifts from an f32 product (the 512 build's 81 tiles at 131,072 rows
+  // in one chunk: rel-norm 2e-4).
   const int tiles = p.tile_start[p.njobs];
-  const int chunks = max(1, min(132 / tiles, M / TM));
+  const int chunks = min(max(M / TM, 1),
+                         max(max(1, 132 / tiles),
+                             (M + WG_MAX_ROWS - 1) / WG_MAX_ROWS));
   p.chunk_rows = ((M / TM + chunks - 1) / chunks) * TM;
   err = set_smem(fused_mlp_wgrad_kernel, WG_SMEM);
   if (err != cudaSuccess) return (int)err;

@@ -59,6 +59,15 @@
 //   sinf/expf: the phases reach ~1e5, so fast-math intrinsics would garble
 //   the high degrees. Do not build with --use_fast_math. bf16 rounding
 //   where the TPU kernel rounds (every product operand).
+// * The 512-wide build (W 512): two 80 KB activation tiles do not fit a
+//   block, nor 256 accumulators per thread, so a tile is 64 rows of whole
+//   rays (1 ray at S = 56, 12 at S = 5) on the column split of the
+//   training kernels (mlp_rows.cuh, RS false): one activation tile, each
+//   warpgroup half of every product's columns (m64n256k16, two ring
+//   stages per K step), masks in fragment order (32 KB), a 3-stage ring,
+//   and g_x folded feature by feature from each warpgroup's 64 of the
+//   128 skip columns into partial sums per warpgroup, added in
+//   normals_tile. A simple layout that is right; its speed is later work.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C entry
 // point (pano_nerf_tpu_torch/kernels/build.py).
@@ -76,7 +85,10 @@ using namespace nerf_mlp;
 static_assert(VF % 6 == 3, "kernel 4 encodes viewdirs with identity");
 constexpr int DV = (VF - 3) / 6;  // deg_view
 constexpr int OUT_FIXED = 17;
-constexpr int TR = 2 * TM;    // sample rows per tile
+// Row split where two 64-row tiles fit a block (W <= 256), else the
+// column split on one tile (see the header).
+constexpr bool RS = W <= 256;
+constexpr int TR = RS ? 2 * TM : TM;    // sample rows per tile
 
 // Per-row scalars (f32 [NROW][TR]).
 enum {
@@ -97,20 +109,24 @@ struct Params {
 
 // NRM: the fine level's layout, with the chain's ReLU masks and a
 // 2-slice ring; without normals the masks' room goes to a third slice.
+// The column split (W 512) has room for three slices either way; its
+// d raw_sigma / d means is two partial sums, one per warpgroup.
 template <bool NRM>
 struct Smem {
-  static constexpr int NS = NRM ? 2 : 3;  // weight-slice stages
-  alignas(1024) bf16 act[2 * ACT_ELEMS];
+  static constexpr int NS = NRM && RS ? 2 : 3;  // weight-slice stages
+  alignas(1024) bf16 act[(RS ? 2 : 1) * ACT_ELEMS];
   alignas(1024) unsigned char ring[NS * SLICE];
-  uint32_t mask[NRM ? 8 * (W / 64) * NT : 1];
+  uint32_t mask[NRM ? 8 * (RS ? W / 64 : MWC) * NT : 1];
   float mc[TR * 8];
   float heads[TR * OUT_W];
   float row[NROW * TR];
   float ray[TR * 8];
-  float dsig[TR * 4];
+  float dsig[(RS ? 1 : 2) * TR * 4];
   float acc[TR];
   uint64_t full[NS], empty[NS], io;
 };
+static_assert(sizeof(Smem<true>) + 1024 <= SMEM_LIMIT, "fine-level shared memory");
+static_assert(sizeof(Smem<false>) + 1024 <= SMEM_LIMIT, "shared memory");
 
 template <class Sm>
 __device__ Sm& smem_of(unsigned char* raw) {
@@ -205,12 +221,15 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
 // Fold one part of g_x (layer 5's skip columns or layer 0's product, 128
 // columns of which 2 XP are features) through the IPE Jacobian into
 // d raw_sigma / d means (s.dsig, per tile row): d feat_sin / d mean =
-// 2^deg att cos(y), d feat_cos / d mean = -2^deg att sin(y).
+// 2^deg att cos(y), d feat_cos / d mean = -2^deg att sin(y). Column split:
+// this warpgroup's 64 columns into its own partial sums.
+template <int NP>
 __device__ void fold_gx(Smem<true>& s, int min_deg, int layer,
-                        const float (&part)[64]) {
-  const int rb = row0_of<true>();
+                        const float (&part)[NP]) {
+  const int rb = row0_of<RS>(), c0 = col0<RS>(128);
+  float* dsig = s.dsig + (RS ? 0 : wg() * TR * 4);
   float g[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  if constexpr (XP % 8 == 0) {
+  if constexpr (RS && XP % 8 == 0) {
     // Feature j < XP and its cos partner j + XP sit in one thread, XP / 8
     // n8 blocks apart: both from one att and y.
     constexpr int NB = XP / 8, PART = 4 * NB;
@@ -235,8 +254,8 @@ __device__ void fold_gx(Smem<true>& s, int min_deg, int layer,
   } else {
     // Each feature alone: sin features j < XP, cos features XP..2 XP-1.
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int h = (i >> 1) & 1, j = frag_col(i);
+    for (int i = 0; i < NP; ++i) {
+      const int h = (i >> 1) & 1, j = c0 + frag_col(i);
       if (j < 2 * XP) {
         const float* m = s.mc + (rb + frag_row(i)) * 8;
         const int jj = j % XP, deg = jj / 3 + min_deg, dim = jj % 3;
@@ -264,7 +283,7 @@ __device__ void fold_gx(Smem<true>& s, int min_deg, int layer,
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float* o = s.dsig + (rb + frag_row(2 * h)) * 4;
+      float* o = dsig + (rb + frag_row(2 * h)) * 4;
 #pragma unroll
       for (int d = 0; d < 3; ++d) o[d] = layer == 5 ? g[h][d] : o[d] + g[h][d];
     }
@@ -279,7 +298,11 @@ __device__ void normals_tile(Smem<true>& s, const Params& p, int ray0, int nrays
   float* rowf = s.row;
   consumer_sync();  // s.dsig of both warpgroups
   if (tid < nrows) {
-    const float* g = s.dsig + tid * 4;
+    float g[3];
+    for (int c = 0; c < 3; ++c) {
+      g[c] = s.dsig[tid * 4 + c];
+      if constexpr (!RS) g[c] += s.dsig[(TR + tid) * 4 + c];
+    }
     const float nrm = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
     const float inv = 1.f / fmaxf(nrm, 1e-12f);
     const float* d = s.ray + (tid / S) * 8 + 5;
@@ -326,14 +349,14 @@ __device__ void render_tile(Pipe<PRODUCER, NS>& pp, Smem<NRM>& s,
       s.ray[i] = q < nrays ? p.rayinfo[(size_t)(ray0 + q) * 8 + (i & 7)] : 0.f;
     }
     consumer_sync();
-    load_ipe<true>(s, p.mc, row0, nrows, p.min_deg);
+    load_ipe<RS>(s, p.mc, row0, nrows, p.min_deg);
   }
-  trunk_forward<true, NRM>(pp, s, p.b, nullptr);
-  heads_forward<false, true, true>(pp, s, p.b, ViewCodes{s.ray, p.S}, nrows,
-                                   nullptr, 0, nullptr, 0);
+  trunk_forward<RS, NRM>(pp, s, p.b, nullptr);
+  heads_forward<false, true, RS>(pp, s, p.b, ViewCodes{s.ray, p.S}, nrows,
+                                 nullptr, 0, nullptr, 0);
   if constexpr (!PRODUCER) composite_tile(s, p, ray0, nrays);
   if constexpr (NRM) {
-    density_chain<true>(pp, s, p.w, [&](int layer, const float (&part)[64]) {
+    density_chain<RS>(pp, s, p.w, [&](int layer, const auto& part) {
       fold_gx(s, p.min_deg, layer, part);
     });
     if constexpr (!PRODUCER) normals_tile(s, p, ray0, nrays, nrows);

@@ -28,7 +28,8 @@
 // MACs per sample row forward and 3 x 611,328 backward at the shipped
 // shape, against 96 B of inputs per row; compositing is O(S) per ray. A
 // build takes the MLP's shape as nerf_mlp.cuh's constants (the viewdir
-// codes arrive encoded, VF of VP columns).
+// codes arrive encoded, VF of VP columns); a 512-wide build runs the same
+// steps at N = 512 with a 2-stage ring (mlp_rows.cuh).
 //
 // Design:
 // * Ray-aligned tiles: compositing needs a whole ray in one block, so a
@@ -76,7 +77,7 @@ struct Params {
   const float* gw;    // [R, S] cotangent of weights
   bf16* ops;          // [grid * 64, OPW_IPE] operand rows
   float* dmc;         // [R*S, 8]
-  float* db;          // [B_TOTAL] f32, zeroed
+  BiasSums sums;      // db, written
   int R, S, rpb, min_deg;
   float density_bias, rgb_padding;
   int white_bkgd;
@@ -86,7 +87,7 @@ struct SmemF {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
-  float x32[TM * XF];
+  float x32[X32_ELEMS];
   float mc[TM * 8];
   float heads[TM * OUT_W];
   float row[NROW * TM];
@@ -98,8 +99,8 @@ struct SmemB {
   alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
-  uint32_t hvmask[NT];
-  float x32[TM * XF];
+  uint32_t hvmask[HVW * NT];
+  float x32[X32_ELEMS];
   float dx[TM * XF];
   float g[TM * OUT_W];
   float dmc[TM * 8];
@@ -109,6 +110,8 @@ struct SmemB {
   float clip[TM * 2];
   uint64_t full[RING], empty[RING], io;
 };
+static_assert(sizeof(SmemF) + 1024 <= SMEM_LIMIT, "forward shared memory");
+static_assert(sizeof(SmemB) + 1024 <= SMEM_LIMIT, "backward shared memory");
 
 template <class Smem>
 __device__ Smem& smem_of(unsigned char* raw) {
@@ -286,10 +289,11 @@ __device__ void bwd_tile(Pipe<PRODUCER>& pp, SmemB& s, const Params& p,
     }
     consumer_sync();
   }
-  mlp_backward(pp, s, p.db, &maps.ops, ops_row0, ops, OPW_IPE);
+  mlp_backward(pp, s, part_row(p.sums), &maps.ops, ops_row0, ops, OPW_IPE);
   if constexpr (!PRODUCER) {
     ipe_backward(s, p.min_deg);
     for (int i = tid; i < nrows * 8; i += NT) p.dmc[row0 * 8 + i] = s.dmc[i];
+    bias_sums(p.sums);
   }
 }
 
@@ -328,6 +332,7 @@ Params make_params(const float* mc, const float* clip, const void* v,
 extern "C" {
 
 NERF_SHAPE_EXPORT(fused_render_train_shape)
+BIAS_WORKSPACE_EXPORT(fused_render_train_bias_workspace)
 
 // Blocks (tiles of 64 rows) of a launch over R rays of S samples; the
 // backward's operand buffer has 64 rows per block.
@@ -365,15 +370,17 @@ int fused_render_train_forward(const float* mc, const float* clip,
 }
 
 // Backward row pass: writes dmc [R*S, 8], the operand rows `ops`
-// ([blocks * 64, fused_mlp_ops_width(0)] bf16) and adds the bias
-// gradients into the zeroed db. `acts` (the forward's spill) may be null:
-// the trunk is then recomputed.
+// ([blocks * 64, fused_mlp_ops_width(0)] bf16) and the bias gradients
+// into db. `part` and `count` are the scratch of
+// fused_render_train_bias_workspace(blocks), count zeroed. `acts` (the
+// forward's spill) may be null: the trunk is then recomputed.
 int fused_render_train_backward_rows(const float* mc, const float* clip,
                                      const void* v, const void* weights,
                                      const float* biases, const float* g8,
                                      const float* gw, const void* acts,
-                                     void* ops, float* dmc, float* db, int R,
-                                     int S, int min_deg, float density_bias,
+                                     void* ops, float* dmc, float* db,
+                                     float* part, int* count, int R, int S,
+                                     int min_deg, float density_bias,
                                      float rgb_padding, int white_bkgd,
                                      void* stream) {
   const int grid = fused_render_train_blocks(R, S);
@@ -385,7 +392,7 @@ int fused_render_train_backward_rows(const float* mc, const float* clip,
   p.gw = gw;
   p.ops = static_cast<bf16*>(ops);
   p.dmc = dmc;
-  p.db = db;
+  p.sums = {part, count, db, nullptr};
   Maps maps;
   cudaError_t err = make_weight_maps(&maps, p.w);
   if (err == cudaSuccess) {

@@ -75,6 +75,33 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// named_sync that also tells every thread whether any of them passed true.
+__device__ __forceinline__ bool named_sync_or(int id, int count, bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(any)
+      : "r"((uint32_t)pred), "r"(id), "r"(count)
+      : "memory");
+  return any != 0;
+}
+
+// Acquire load and release store of a flag in global memory (gpu scope).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // ---- TMA ----
 
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -93,16 +120,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(col), "r"(row)
-      : "memory");
-}
-
-// dst[0:bytes] += src[0:bytes] as f32, in global memory (bytes % 16 == 0).
-__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
-                                                uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
-      "%2;\n" ::"l"(dst),
-      "r"(smem_u32(src)), "r"(bytes)
       : "memory");
 }
 

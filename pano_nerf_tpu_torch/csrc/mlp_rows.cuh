@@ -17,12 +17,12 @@
 //   registers): the 64-row activation tile is the A operand, and the two
 //   warpgroups split the output columns.
 // * Weights do not depend on the data, so the producer streams them
-//   through a 3-stage ring of 32 KB slices (64 K-rows of the product, up
-//   to four TMA boxes of 64 x 64 bf16, 128-byte swizzle) with mbarrier
-//   completion, and keeps the next product's first slices in flight
-//   while the consumers run an epilogue. A weight is read K-major for
-//   x @ W^T and MN-major (wgmma's transpose) for s @ W.
-// * The activation tile (64 rows x up to 384 columns bf16, up to six 8 KB
+//   through a 3-stage ring (2 in the 512-wide builds) of 32 KB slices (64
+//   K-rows of the product, up to four TMA boxes of 64 x 64 bf16, 128-byte
+//   swizzle) with mbarrier completion, and keeps the next product's first
+//   slices in flight while the consumers run an epilogue. A weight is
+//   read K-major for x @ W^T and MN-major (wgmma's transpose) for s @ W.
+// * The activation tile (64 rows x up to 640 columns bf16, up to ten 8 KB
 //   blocks of 64 columns: the trunk's W and the widest input beside it) is
 //   kept in the same 128-byte-swizzled layout that the
 //   wgmma descriptor and the TMA boxes use, so epilogues write it from
@@ -48,14 +48,19 @@
 //   rows. Per-row scalars are indexed by tile row 64 wg() + r, masks hold
 //   W / 64 words per thread and layer, and a warpgroup synchronises only with
 //   itself (named barrier 2 + wg()).
-// The shapes (nerf_mlp.cuh: W 128 or 256, VW 64 or 128, XF, VP) are
-// compile-time constants of a build. A column-split product of N columns
-// gives each warpgroup N / 2, and wgmma's MN-major B needs 64 of them, so
+// The shapes (nerf_mlp.cuh: W 128, 256 or 512, VW 64, 128 or 256, XF, VP)
+// are compile-time constants of a build. A column-split product of N
+// columns gives each warpgroup N / 2 (m64n256k16 at N = 512: a K step is
+// then eight boxes, two stages, see `mm`), and wgmma's MN-major B needs 64
+// of them, so
 // the one MN-major product narrower than 128 columns, the view branch's
 // backward at VW = 64 (d hv = gr @ Wc), runs whole in both warpgroups
 // (K is 16: one wgmma each) and each keeps its own half
 // (`view_backward`); the forward products take N / 2 of any width
 // (m64n32k16 for the 64-wide view branch, m64n8k16 for the heads).
+// The 512-wide builds run column split only (kernel 4 too: two 80 KB
+// tiles do not fit a block), keep no f32 copy of the IPE features (see
+// `feat`) and give the consumers 240 registers (128 accumulators).
 // Each step is called by every consumer thread; `Smem` is any struct with
 // the members the step names, so a kernel allocates only what it uses.
 // Consumers synchronise among themselves with named barriers (1: all
@@ -69,7 +74,9 @@ namespace nerf_mlp {
 
 constexpr int OUT_W = 16;  // raw output slab: rgb(3) | density(5) | 0(8)
 constexpr int ROW_THREADS = NT + 128;  // two consumer warpgroups + producer
-constexpr int RING = 3;               // weight-slice stages
+// Weight-slice stages: three, or two in the 512-wide builds, whose 80 KB
+// activation tile and 32 KB of masks leave room for no more.
+constexpr int RING = W > 256 ? 2 : 3;
 constexpr int BOX = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
 constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
 // Activation tile: 64-column blocks for the trunk's W columns and the
@@ -77,11 +84,27 @@ constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
 // density-head cotangent).
 constexpr int ACT_COLS = W + (XF > VP ? (XF > HP ? XF : HP) : (VP > HP ? VP : HP));
 constexpr int ACT_BLOCKS = (ACT_COLS + 63) / 64;
-static_assert(ACT_BLOCKS <= 6, "the activation tile holds at most 384 columns");
+static_assert(ACT_BLOCKS <= 10, "the activation tile holds at most 640 columns");
 constexpr int ACT_ELEMS = TM * 64 * ACT_BLOCKS;  // one 64-row tile
 // ReLU-mask words per thread and trunk layer in the column split (W / 2
 // columns per warpgroup, W / 4 accumulators per thread).
 constexpr int MWC = W / 128;
+// View-branch ReLU-mask words per thread in the column split (VW / 4
+// accumulators per thread).
+constexpr int HVW = (VW / 4 + 31) / 32;
+// The f32 IPE features (64 rows x XF) are kept in s.x32 where they fit
+// beside the tile (W <= 256); the 512-wide builds recompute them from the
+// moments (`feat`), with load_ipe's own expression, so the values agree.
+// Recomputing them at the shipped shape too gives the same bits but slows
+// the row passes (scripts/torch_kernel_ab.py, H100 80GB HBM3 at 700 W,
+// 28,672 rows: kernel 2 0.568 -> 0.684 ms, kernel 3 0.863 -> 1.181,
+// kernel 5 at 512 x 56 0.735 -> 0.843; kernel 3's forward 0.418 ->
+// 0.443), so the copy stays where it fits.
+constexpr bool X32 = W <= 256;
+constexpr int X32_ELEMS = X32 ? TM * XF : 1;
+// Shared memory one block may have on an H100 (a kernel's Smem plus the
+// 1024 bytes of alignment slack it allocates).
+constexpr int SMEM_LIMIT = 232448;
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x
@@ -261,52 +284,81 @@ __device__ Pipe<PRODUCER, ring_stages<Smem>()> make_pipe(Smem& s,
 // columns), B the product's weights, K-major for TB = 0 (x @ W^T),
 // MN-major for TB = 1 (s @ W; NW a multiple of 64). The producer issues
 // the slices instead.
+//
+// A column-split product of 512 columns (NW = 256, the 512-wide builds)
+// needs eight boxes per K step, two stages: stage h of a K step holds
+// columns 128 h .. 128 h + 127 of each warpgroup's 256 (boxes 2 g and
+// 2 g + 1 for warpgroup g), and each warpgroup runs m64n128k16 on that
+// half of its accumulators (the same fragment order as m64n256k16: n8
+// block j is accumulators 4 j .. 4 j + 3). Both warpgroups read and
+// release every stage, so the ring's protocol is unchanged.
 template <int NW, int TB, bool ROWS = false, bool PRODUCER, int NS>
 __device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
                    float (&acc)[NW / 2], const bf16* act, int acol,
                    bool accumulate = false) {
+  constexpr bool SPLIT = !ROWS && NW > 128;
+  constexpr int HALVES = SPLIT ? 2 : 1;
   const int nsl = (pd.K + 63) / 64;
   if constexpr (PRODUCER) {
-    const int nbox = (pd.N + 63) / 64;
+    const int nbox = SPLIT ? 4 : (pd.N + 63) / 64;
     const CUtensorMap* map = &pp.maps->w[pd.map];
-    for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
-      const int st = pp.it % NS;
-      if (pp.it >= NS) hopper::mbar_wait(&pp.empty[st], ((pp.it / NS) - 1) & 1);
-      unsigned char* buf = pp.ring + st * SLICE;
-      hopper::mbar_expect_tx(&pp.full[st], nbox * BOX);
-      for (int b = 0; b < nbox; ++b) {
-        if (TB == 0) {
-          hopper::tma_load(buf + b * BOX, map, &pp.full[st], pd.k0 + 64 * kk,
-                           pd.n0 + 64 * b);
-        } else {
-          hopper::tma_load(buf + b * BOX, map, &pp.full[st], pd.n0 + 64 * b,
-                           pd.k0 + 64 * kk);
+    for (int kk = 0; kk < nsl; ++kk) {
+      for (int h = 0; h < HALVES; ++h, ++pp.it) {
+        const int st = pp.it % NS;
+        if (pp.it >= NS) hopper::mbar_wait(&pp.empty[st], ((pp.it / NS) - 1) & 1);
+        unsigned char* buf = pp.ring + st * SLICE;
+        hopper::mbar_expect_tx(&pp.full[st], nbox * BOX);
+        for (int b = 0; b < nbox; ++b) {
+          const int n = SPLIT ? pd.n0 + (b / 2) * NW + 128 * h + 64 * (b % 2)
+                              : pd.n0 + 64 * b;
+          if (TB == 0) {
+            hopper::tma_load(buf + b * BOX, map, &pp.full[st],
+                             pd.k0 + 64 * kk, n);
+          } else {
+            hopper::tma_load(buf + b * BOX, map, &pp.full[st], n,
+                             pd.k0 + 64 * kk);
+          }
         }
       }
     }
   } else {
     static_assert(TB == 0 || NW % 64 == 0, "MN-major splits need 64 columns");
-    const int bcol = ROWS ? 0 : wg() * NW;  // first B column
-    for (int kk = 0; kk < nsl; ++kk, ++pp.it) {
-      const int st = pp.it % NS;
-      hopper::mbar_wait(&pp.full[st], (pp.it / NS) & 1);
-      const unsigned char* buf = pp.ring + st * SLICE;
+    // First B column of the stage: SPLIT, this warpgroup's two boxes.
+    const int bcol = SPLIT ? 128 * wg() : ROWS ? 0 : wg() * NW;
+    for (int kk = 0; kk < nsl; ++kk) {
       const int steps = min(4, (pd.K - 64 * kk + 15) / 16);
-      hopper::wgmma_fence();
-      for (int ks = 0; ks < steps; ++ks) {
-        const int c = acol + 64 * kk + 16 * ks;
-        const uint64_t da = hopper::desc_sw128(act + act_off(0, c), 16, 1024);
-        const uint64_t db =
-            TB == 0 ? hopper::desc_sw128(buf + bcol * 128 + ks * 32, 16, 1024)
-                    : hopper::desc_sw128(buf + (bcol / 64) * BOX + ks * 2048,
-                                         BOX, 1024);
-        // The product's first step overwrites acc unless it accumulates.
-        hopper::wgmma<NW, 0, TB>(acc, da, db, accumulate || kk > 0 || ks > 0);
+      for (int h = 0; h < HALVES; ++h, ++pp.it) {
+        const int st = pp.it % NS;
+        hopper::mbar_wait(&pp.full[st], (pp.it / NS) & 1);
+        const unsigned char* buf = pp.ring + st * SLICE;
+        hopper::wgmma_fence();
+        for (int ks = 0; ks < steps; ++ks) {
+          const int c = acol + 64 * kk + 16 * ks;
+          const uint64_t da = hopper::desc_sw128(act + act_off(0, c), 16, 1024);
+          const uint64_t db =
+              TB == 0 ? hopper::desc_sw128(buf + bcol * 128 + ks * 32, 16, 1024)
+                      : hopper::desc_sw128(buf + (bcol / 64) * BOX + ks * 2048,
+                                           BOX, 1024);
+          // The product's first step overwrites acc unless it accumulates.
+          const int scale = accumulate || kk > 0 || ks > 0;
+          if constexpr (SPLIT) {
+            typedef float Half[NW / 4];
+            if (h == 0) {
+              hopper::wgmma<NW / 2, 0, TB>(*reinterpret_cast<Half*>(acc), da,
+                                           db, scale);
+            } else {
+              hopper::wgmma<NW / 2, 0, TB>(
+                  *reinterpret_cast<Half*>(acc + NW / 4), da, db, scale);
+            }
+          } else {
+            hopper::wgmma<NW, 0, TB>(acc, da, db, scale);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&pp.empty[st]);
       }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait();
-      __syncwarp();
-      if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&pp.empty[st]);
     }
   }
 }
@@ -317,9 +369,11 @@ __device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
 // product and of the skip columns stay in registers) and run it as
 // consumers, then wait for their last TMA stores. A whole producer
 // warpgroup keeps the register pool exact: 128 x 40 + 256 x 232 = 64,512
-// (column split), 128 x 24 + 256 x 240 = 64,512 (row split, whose 128
-// accumulators per thread spill less with 240).
-template <int PR = 40, int CR = 232, class Smem, class Tile>
+// (column split), 128 x 24 + 256 x 240 = 64,512 (row split, and the
+// column split of the 512-wide builds: 128 accumulators per thread spill
+// less with 240).
+template <int PR = (W > 256 ? 24 : 40), int CR = (W > 256 ? 240 : 232),
+          class Smem, class Tile>
 __device__ __forceinline__ void run_roles(Smem& s, const Maps* maps,
                                           Tile tile) {
   if (threadIdx.x >= NT) {
@@ -377,15 +431,85 @@ __device__ void copy_cols(const bf16* act, int c0, int ncols, bf16* dst,
   }
 }
 
-// Sum `ncols` bf16 columns from c0 of the tile over its rows and add the
-// sums to dst (one atomic per column and tile).
-__device__ void colsum_atomic(const bf16* act, int c0, int ncols, float* dst) {
+// Sum `ncols` bf16 columns from c0 of the tile over its rows into dst
+// (the tile's row of partial sums, see `bias_sums`).
+__device__ void colsum_store(const bf16* act, int c0, int ncols, float* dst) {
   for (int c = threadIdx.x; c < ncols; c += NT) {
     float s = 0.f;
     for (int r = 0; r < TM; ++r) s += __bfloat162float(act_get(act, r, c0 + c));
-    atomicAdd(dst + c, s);
+    dst[c] = s;
   }
 }
+
+// Sums over the tiles of a backward row pass, in a fixed order, so that
+// the gradients are the same at every run (atomics would add in the order
+// the tiles finish). Each tile writes its column sums as one f32 row of
+// `part` (PART_W: the B_TOTAL bias gradients, then for NORMALS the W
+// column sums of the walk's c_7, dWd's sigma row); `bias_sums` then adds
+// them up: the last tile of each group of SUM_GROUP tiles to finish adds
+// the group's rows in tile order into a group row after the tiles' rows,
+// and the last group to finish adds the group rows in order and writes
+// db (and the sigma row). `count` holds groups + 1 zeroed counters.
+constexpr int PART_W = B_TOTAL + W;
+constexpr int SUM_GROUP = 32;
+
+__host__ __device__ constexpr int sum_groups(int tiles) {
+  return (tiles + SUM_GROUP - 1) / SUM_GROUP;
+}
+
+struct BiasSums {
+  float* part;      // [tiles + sum_groups(tiles), PART_W] f32
+  int* count;       // [sum_groups(tiles) + 1] int32, zeroed
+  float* db;        // [B_TOTAL]: written
+  float* dw_sigma;  // [W] (NORMALS: dw + OFF_WD, written) or null
+};
+
+// The tile's row of partial sums.
+__device__ __forceinline__ float* part_row(const BiasSums& b) {
+  return b.part + (size_t)blockIdx.x * PART_W;
+}
+
+// Called by every consumer thread of every tile (one tile per block,
+// gridDim.x tiles) after the tile's colsum_store calls.
+__device__ void bias_sums(const BiasSums& b) {
+  const int tiles = gridDim.x, groups = sum_groups(tiles);
+  const int ncols = b.dw_sigma != nullptr ? PART_W : B_TOTAL;
+  const int gi = blockIdx.x / SUM_GROUP, g0 = gi * SUM_GROUP;
+  const int gn = min(SUM_GROUP, tiles - g0);
+  __threadfence();
+  consumer_sync();
+  bool last = threadIdx.x == 0 && atomicAdd(b.count + gi, 1) == gn - 1;
+  if (!hopper::named_sync_or(1, NT, last)) return;
+  __threadfence();
+  float* grow = b.part + (size_t)(tiles + gi) * PART_W;
+  for (int c = threadIdx.x; c < ncols; c += NT) {
+    float s = 0.f;
+    for (int t = 0; t < gn; ++t) s += __ldcg(b.part + (size_t)(g0 + t) * PART_W + c);
+    grow[c] = s;
+  }
+  __threadfence();
+  consumer_sync();
+  last = threadIdx.x == 0 && atomicAdd(b.count + groups, 1) == groups - 1;
+  if (!hopper::named_sync_or(1, NT, last)) return;
+  __threadfence();
+  for (int c = threadIdx.x; c < ncols; c += NT) {
+    float s = 0.f;
+    for (int k = 0; k < groups; ++k) s += __ldcg(b.part + (size_t)(tiles + k) * PART_W + c);
+    if (c < B_TOTAL) {
+      b.db[c] = s;
+    } else {
+      b.dw_sigma[c - B_TOTAL] = s;
+    }
+  }
+}
+
+// The scratch of `bias_sums` for a launch of `tiles` blocks: returns the
+// f32 elements of `part` and sets *ints to those of `count`.
+#define BIAS_WORKSPACE_EXPORT(name)                                   \
+  extern "C" int name(int tiles, int* ints) {                         \
+    *ints = nerf_mlp::sum_groups(tiles) + 1;                          \
+    return (tiles + nerf_mlp::sum_groups(tiles)) * nerf_mlp::PART_W;  \
+  }
 
 // Own element i (of 32 MW) of a layer's ReLU mask, in fragment order.
 template <int MW = 2>
@@ -394,10 +518,37 @@ __device__ __forceinline__ bool mask_bit(const uint32_t* mask, int layer,
   return (mask[(layer * MW + (i >> 5)) * NT + threadIdx.x] >> (i & 31)) & 1u;
 }
 
-// att * cos(y) of IPE feature j, from the f32 features att * sin(y): the
-// cos block is the sin block shifted by pi/2, so it is the other half.
-__device__ __forceinline__ float att_cos(const float* x32row, int j) {
-  return j < XP ? x32row[j + XP] : -x32row[j - XP];
+// IPE feature j < 2 XP of the row with moments m (means | covs), f32:
+// att * sin(y), the cos block as the sin block shifted by pi/2. load_ipe
+// computes the features with this expression.
+__device__ __forceinline__ float ipe_feature(const float* m, int j,
+                                             int min_deg) {
+  const int jj = j % XP;
+  const int deg = jj / 3 + min_deg, dim = jj % 3;
+  float y = m[dim] * ldexpf(1.f, deg);
+  if (j >= XP) y = y + 1.57079632679489662f;
+  const float var = m[3 + dim] * ldexpf(1.f, 2 * deg);
+  return expf(-0.5f * var) * sinf(y);
+}
+
+// f32 IPE feature j < 2 XP of tile row r: from s.x32 where the build keeps
+// it (X32), else recomputed from the row's moments in s.mc.
+template <class Smem>
+__device__ __forceinline__ float feat(const Smem& s, int r, int j,
+                                      int min_deg) {
+  if constexpr (X32) {
+    return s.x32[r * XF + j];
+  } else {
+    return ipe_feature(s.mc + r * 8, j, min_deg);
+  }
+}
+
+// att * cos(y) of IPE feature j: the cos block is the sin block shifted by
+// pi/2, so it is the other half.
+template <class Smem>
+__device__ __forceinline__ float feat_cos(const Smem& s, int r, int j,
+                                          int min_deg) {
+  return j < XP ? feat(s, r, j + XP, min_deg) : -feat(s, r, j - XP, min_deg);
 }
 
 __device__ __forceinline__ float deg_scale(int j, int min_deg) {
@@ -409,9 +560,9 @@ __device__ __forceinline__ float deg_scale(int j, int min_deg) {
 // Load the moments of the tile's rows row0 .. row0 + nrows - 1 into s.mc
 // (by tile row; zero past nrows) and build the IPE features (zero in the
 // padded columns 2 XP..XF-1): bf16 at act columns W..W+XF-1 and, column
-// split, f32 in x32 (a row-split kernel
-// recomputes them where it needs them: 128 rows of x32 do not fit beside
-// its tiles).
+// split where the build keeps them (X32), f32 in x32 (a row-split kernel
+// and the 512-wide builds recompute them where they need them: 128 rows
+// of x32 do not fit beside two tiles, nor 64 beside a 640-column one).
 template <bool ROWS = false, class Smem>
 __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
                          int min_deg) {
@@ -428,16 +579,11 @@ __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
     const int r = i / (XF / 2), j = 2 * (i % (XF / 2));
     float f[2];
     for (int h = 0; h < 2; ++h) {
-      const int jj = (j + h) % XP;
-      const int deg = jj / 3 + min_deg, dim = jj % 3;
-      float y = m[r * 8 + dim] * ldexpf(1.f, deg);
-      if (j + h >= XP) y = y + 1.57079632679489662f;
-      const float var = m[r * 8 + 3 + dim] * ldexpf(1.f, 2 * deg);
-      f[h] = expf(-0.5f * var) * sinf(y);
+      f[h] = ipe_feature(m + r * 8, (j + h) % (2 * XP), min_deg);
       if constexpr (2 * XP < XF) {
         if (j + h >= 2 * XP) f[h] = 0.f;
       }
-      if constexpr (!ROWS) s.x32[r * XF + j + h] = f[h];
+      if constexpr (!ROWS && X32) s.x32[r * XF + j + h] = f[h];
     }
     act_put2(act, r, W + j, f[0], f[1]);
   }
@@ -641,18 +787,24 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
   if constexpr (!PRODUCER) {
     pre_epilogue<ROWS>();
     const int cv = col0<ROWS>(VW);
-    uint32_t m = 0;
+    uint32_t m[HVW];
+#pragma unroll
+    for (int k = 0; k < HVW; ++k) m[k] = 0;
 #pragma unroll
     for (int i = 0; i < NV / 2; i += 2) {
       const int r = frag_row(i), c = cv + frag_col(i);
       const __nv_bfloat162 h = __floats2bfloat162_rn(
           fmaxf(hv[i] + b[OFF_BV + c], 0.f), fmaxf(hv[i + 1] + b[OFF_BV + c + 1], 0.f));
       *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, c)) = h;
-      if constexpr (OPS) {
-        m |= ((__low2float(h) > 0.f ? 1u : 0u) | (__high2float(h) > 0.f ? 2u : 0u)) << i;
+      if constexpr (OPS) {  // column split: VW / 4 bits, HVW words
+        m[i >> 5] |= ((__low2float(h) > 0.f ? 1u : 0u) |
+                      (__high2float(h) > 0.f ? 2u : 0u)) << (i & 31);
       }
     }
-    if constexpr (OPS) s.hvmask[threadIdx.x] = m;
+    if constexpr (OPS) {
+#pragma unroll
+      for (int k = 0; k < HVW; ++k) s.hvmask[k * NT + threadIdx.x] = m[k];
+    }
     post_epilogue<ROWS>();
     if constexpr (OPS) store_blocks(s.act, 0, VW / 64, ops, O_HV, ops_row0);
   }
@@ -748,15 +900,18 @@ __device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
   if constexpr (!PRODUCER) {
     const int g = wg();
     pre_epilogue();
-    const uint32_t m = s.hvmask[threadIdx.x];
+    uint32_t m[HVW];
+#pragma unroll
+    for (int k = 0; k < HVW; ++k) m[k] = s.hvmask[k * NT + threadIdx.x];
 #pragma unroll
     for (int i = 0; i < OWN; i += 2) {
       // Own element i is accumulator i or, WHOLE, accumulator OWN g + i:
       // the same row, column g VW / 2 + frag_col(i).
       const float a = WHOLE && g ? hv[(OWN + i) % (NV / 2)] : hv[i];
       const float b = WHOLE && g ? hv[(OWN + i + 1) % (NV / 2)] : hv[i + 1];
+      const uint32_t bits = m[i >> 5] >> (i & 31);  // i even: i + 1 alike
       act_put2(s.act, frag_row(i), g * (VW / 2) + frag_col(i),
-               (m >> i) & 1u ? a : 0.f, (m >> (i + 1)) & 1u ? b : 0.f);
+               bits & 1u ? a : 0.f, bits & 2u ? b : 0.f);
     }
     post_epilogue();
   }
@@ -767,10 +922,11 @@ __device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
 // must add nothing), after trunk_* and
 // heads_forward filled the masks and the forward operand rows. Writes the
 // cotangent operand rows (map `ops`, row ops_row0; `ops_rows` the tile's
-// first operand row, for the narrow columns), adds the bias gradients
-// into db and leaves d x (f32 [64 x XF]) in s.dx.
+// first operand row, for the narrow columns), the tile's bias gradients
+// into its row `part` of partial sums (all B_TOTAL columns, the padded
+// head slots 0) and leaves d x (f32 [64 x XF]) in s.dx.
 template <bool PRODUCER, class Smem>
-__device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
+__device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
                              const CUtensorMap* ops, int ops_row0,
                              bf16* ops_rows, int opw) {
   constexpr int NW = W / 2, NA = W / 4;  // columns, accumulators per thread
@@ -783,11 +939,16 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
       act_put2(s.act, r, c, c < 3 ? s.g[r * OUT_W + c] : 0.f,
                c + 1 < 3 ? s.g[r * OUT_W + c + 1] : 0.f);
     }
-    // Head biases take the f32 cotangent: d bc, d bd.
-    if (tid < 3 + NDC) {
+    // Head biases take the f32 cotangent: d bd (slots 0..HP-1, channel
+    // d at lane 3 + d), d bc (slots HP.., color c at lane c).
+    if (tid < 2 * HP) {
+      const int d = tid % HP;
+      const int lane = tid < HP ? (d < NDC ? 3 + d : -1) : (d < 3 ? d : -1);
       float a = 0.f;
-      for (int r = 0; r < TM; ++r) a += s.g[r * OUT_W + tid];
-      atomicAdd(db + (tid < 3 ? OFF_BC + tid : OFF_BD + tid - 3), a);
+      if (lane >= 0) {
+        for (int r = 0; r < TM; ++r) a += s.g[r * OUT_W + lane];
+      }
+      part[(tid < HP ? OFF_BD : OFF_BC) + d] = a;
     }
     post_epilogue();
     copy_cols(s.act, 0, HP, ops_rows + O_GR, opw, TM);
@@ -795,7 +956,7 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
   view_backward(pp, s);  // d hv = gr @ Wc, masked
   if constexpr (!PRODUCER) {
     store_blocks(s.act, 0, VW / 64, ops, O_DZV, ops_row0);
-    colsum_atomic(s.act, 0, VW, db + OFF_BV);
+    colsum_store(s.act, 0, VW, part + OFF_BV);
   }
   float acc[NA];
   mm<NW, 1>(pp, Prod{M_WV, 0, 0, VW, W}, acc, s.act, 0);  // d btl = dzv @ Wv
@@ -813,7 +974,7 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
     post_epilogue();
     store_blocks(s.act, 0, W / 64, ops, O_DBTL, ops_row0);
     copy_cols(s.act, W, HP, ops_rows + O_GD, opw, TM);
-    colsum_atomic(s.act, 0, W, db + OFF_BB);
+    colsum_store(s.act, 0, W, part + OFF_BB);
   }
   // d a_7 = dbtl @ Wb + gd @ Wd.
   mm<NW, 1>(pp, Prod{M_WDB, HP, 0, W, W}, acc, s.act, 0);
@@ -832,7 +993,7 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* db,
       }
       post_epilogue();
       store_blocks(s.act, 0, W / 64, ops, O_DZ + layer * W, ops_row0);
-      colsum_atomic(s.act, 0, W, db + OFF_BT + layer * W);
+      colsum_store(s.act, 0, W, part + OFF_BT + layer * W);
     }
     if (layer == 5 || layer == 0) {  // d x: the skip columns, or layer 0's
       mm<64, 1>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128), skip,
@@ -865,9 +1026,10 @@ __device__ void ipe_backward(Smem& s, int min_deg) {
         const int j = half * XP + deg * 3 + d;
         const float dxj = s.dx[r * XF + j];
         if (k < 3) {
-          acc += dxj * att_cos(s.x32 + r * XF, j) * ldexpf(1.f, deg + min_deg);
+          acc += dxj * feat_cos(s, r, j, min_deg) * ldexpf(1.f, deg + min_deg);
         } else {
-          acc += -0.5f * dxj * s.x32[r * XF + j] * ldexpf(1.f, 2 * (deg + min_deg));
+          acc += -0.5f * dxj * feat(s, r, j, min_deg) *
+                 ldexpf(1.f, 2 * (deg + min_deg));
         }
       }
     }

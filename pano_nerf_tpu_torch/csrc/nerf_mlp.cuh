@@ -16,8 +16,8 @@ typedef __nv_bfloat16 bf16;
 // The NerfMLP shape a build is compiled for (kernels/fused_mlp_ipe.py
 // `MlpShape.defines`; the defaults are the shipped 8x256 / 1x128 model on
 // IPE degrees 0..16 and the deg-4 viewdir encoding with identity):
-//   NERF_W   trunk width, 128 or 256;
-//   NERF_VW  view-branch width, 64 or 128;
+//   NERF_W   trunk width, 128, 256 or 512;
+//   NERF_VW  view-branch width, 64, 128 or 256;
 //   NERF_L   IPE degrees, max_deg_point - min_deg_point (1..16; min_deg
 //            is a runtime argument of every kernel);
 //   NERF_VF  viewdir encoding width, 6 deg_view (+ 3 with identity),
@@ -47,8 +47,10 @@ constexpr int VF = NERF_VF;             // viewdir encoding width
 constexpr int VP = (VF + 15) / 16 * 16;  // the same, padded (zero past VF)
 constexpr int VK = W + VP;  // view-layer input: bottleneck | viewdir codes
 constexpr int HP = 16;      // padded head width (density <= 13, color 3)
-static_assert(W == 128 || W == 256, "trunk widths: 128 or 256");
-static_assert(VW == 64 || VW == 128, "view-branch widths: 64 or 128");
+static_assert(W == 128 || W == 256 || W == 512,
+              "trunk widths: 128, 256 or 512");
+static_assert(VW == 64 || VW == 128 || VW == 256,
+              "view-branch widths: 64, 128 or 256");
 static_assert(L >= 1 && L <= 16, "IPE degrees: 1..16");
 static_assert(VF >= 6 && VF <= 27 && (VF % 6 == 0 || VF % 6 == 3),
               "viewdir encodings: deg_view 1..4, with or without identity");

@@ -120,14 +120,19 @@ def launch_backward_rows(xb: Tensor, v: Tensor, weights: Tensor,
                          db: Tensor, shape: k2.MlpShape = k2.STANDARD
                          ) -> None:
     """One launch of the backward row pass of `shape`'s library: writes d
-    x and the operand rows `ops`, adds the bias gradients into db. Not
+    x, the operand rows `ops` and the bias gradients into db. Not
     counted."""
     lib = k2.kernel_library(shape)
+    part, count = k2.bias_workspace(
+        lib.fused_mlp_bias_workspace,
+        k2.tile_rows(lib, xb.shape[0]) // lib.fused_mlp_tile_rows(),
+        xb.device)
     k2.check_launch(lib, "fused_mlp backward",
                     lib.fused_mlp_encoded_backward_rows(
                         xb.data_ptr(), v.data_ptr(), weights.data_ptr(),
                         biases.data_ptr(), g.data_ptr(), ops.data_ptr(),
-                        dx.data_ptr(), db.data_ptr(), xb.shape[0],
+                        dx.data_ptr(), db.data_ptr(), part.data_ptr(),
+                        count.data_ptr(), xb.shape[0],
                         torch.cuda.current_stream(xb.device).cuda_stream))
 
 

@@ -29,10 +29,11 @@ operand, the weights streamed by TMA from a producer warpgroup through a
 written by TMA stores. The weight-gradient pass is a TMA + `wgmma` GEMM:
 128 x 256 output tiles, both operands MN-major in shared memory (the
 reduction runs over the rows), a 4-stage ring fed by a producer warpgroup,
-row chunks split over one wave of blocks and reduced into a zeroed f32
-buffer by bulk reduce-add. The order of those reductions varies between
-runs, so weight gradients vary in the last f32 bits; they are then
-rounded to bf16 as both JAX paths round them. `wgrad_jobs` is the pass's
+row chunks split over one wave of blocks and added into a zeroed f32
+buffer in chunk order. Every f32 sum across blocks (those chunks, the row
+passes' bias sums over tiles: `bias_workspace`) adds in a fixed order,
+so a backward gives the same bits at every run; weight gradients are
+then rounded to bf16 as both JAX paths round them. `wgrad_jobs` is the pass's
 job table: the kernel takes it from here at every launch, and its plain
 version `weight_grads_reference` runs the same table on the same operand
 rows. The O_* columns mirror the layout the CUDA row passes write
@@ -40,11 +41,13 @@ rows. The O_* columns mirror the layout the CUDA row passes write
 
 The MLP's shape is a set of compile-time constants of the CUDA sources
 (csrc/nerf_mlp.cuh): the density-channel count C (5 for Pano-NeRF, 1 for
-mip-NeRF), the trunk width W (128 or 256), the view-branch width VW (64
-or 128), the IPE degree count L = max_deg - min_deg (1..16; min_deg is a
-runtime argument) and the viewdir encoding's width VF (deg_view 1..4,
-with or without identity). `MlpShape` (kernels/shapes.py) holds them;
-`MlpShape.defines` maps a shape to its build's preprocessor definitions
+mip-NeRF), the trunk width W (128, 256 or 512), the view-branch width
+VW (64, 128 or 256), the IPE degree count L = max_deg - min_deg (1..16;
+min_deg is a runtime argument) and the viewdir encoding's width VF
+(deg_view 1..4, with or without identity); the plain version takes any
+width and any number of degrees, as JAX's kernel does. `MlpShape`
+(kernels/shapes.py) holds them; `MlpShape.defines` maps a shape to its
+build's preprocessor definitions
 (none for the shipped shape), `shape_of(mlp)` reads a model's,
 `build_of(mlp)` names the build it runs in (a narrower trunk or view
 branch zero-padded to the next build's width by `pack_params`, the
@@ -145,15 +148,17 @@ def kernel_library(shape: MlpShape = STANDARD) -> ctypes.CDLL:
     if not getattr(lib, "_pano_configured", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fused_mlp_forward.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
-        lib.fused_mlp_backward_rows.argtypes = [ptr] * 11 + [i32, i32, i32,
+        lib.fused_mlp_backward_rows.argtypes = [ptr] * 13 + [i32, i32, i32,
                                                              ptr]
         lib.fused_mlp_weight_grads.argtypes = [ptr, ptr, i32, i32, ptr, i32,
-                                               ptr]
+                                               ptr, i32, ptr]
         lib.fused_mlp_encoded_forward.argtypes = [ptr] * 5 + [i32, ptr]
-        lib.fused_mlp_encoded_backward_rows.argtypes = [ptr] * 8 + [i32, ptr]
+        lib.fused_mlp_encoded_backward_rows.argtypes = [ptr] * 10 + [i32, ptr]
+        lib.fused_mlp_bias_workspace.argtypes = [i32, ptr]
         for fn in ("fused_mlp_forward", "fused_mlp_backward_rows",
                    "fused_mlp_encoded_forward",
                    "fused_mlp_encoded_backward_rows",
+                   "fused_mlp_bias_workspace",
                    "fused_mlp_weight_grads", "fused_mlp_weight_count",
                    "fused_mlp_bias_count", "fused_mlp_tile_rows",
                    "fused_mlp_ops_width", "fused_mlp_density_channels"):
@@ -216,6 +221,18 @@ def viewdir_rows(v_enc: Tensor, lead: Sequence[int]) -> Tensor:
     vf = v_enc.shape[-1]
     v = v_enc.detach().expand(*lead, vf).reshape(-1, vf)
     return F.pad(v, (0, pad16(vf) - vf)).to(torch.bfloat16).contiguous()
+
+
+def bias_workspace(query, tiles: int, device: torch.device
+                   ) -> Tuple[Tensor, Tensor]:
+    """Scratch of the bias sums of a backward row pass over `tiles` blocks
+    (csrc/mlp_rows.cuh `bias_sums`): the f32 partial rows and the zeroed
+    int32 counters, sized by the library's `query` (its
+    `*_bias_workspace` entry point)."""
+    ints = ctypes.c_int()
+    floats = query(tiles, ctypes.byref(ints))
+    return (torch.empty(floats, dtype=torch.float32, device=device),
+            torch.zeros(ints.value, dtype=torch.int32, device=device))
 
 
 def backward_buffers(lib: ctypes.CDLL, weights: Tensor, biases: Tensor,
@@ -298,6 +315,10 @@ def layout(shape: MlpShape = STANDARD) -> Layout:
  OFF_WV, OFF_WC, W_TOTAL) = layout(STANDARD)
 
 
+MAX_FAN_IN = 256   # fan-in columns of one job: the pass's wgmma N
+MAX_JOBS = 32      # jobs of one launch (csrc/fused_mlp.cu MAX_JOBS)
+
+
 def wgrad_jobs(normals: bool, shape: MlpShape = STANDARD
                ) -> List[Tuple[int, ...]]:
     """The weight-gradient products of a backward, the job table that
@@ -307,7 +328,21 @@ def wgrad_jobs(normals: bool, shape: MlpShape = STANDARD
     (cotangent columns), A the fan-in side (layer inputs), written at
     `out` with row stride `ldo` in the packed layout of `shape`; b2 < 0:
     one pair. NORMALS adds the chain's sz_i against the walk's c_{i-1} to
-    each trunk weight."""
+    each trunk weight. A fan-in wider than MAX_FAN_IN (the 512-wide
+    build's) is split into jobs of MAX_FAN_IN columns each."""
+    return [part for job in _layer_jobs(normals, shape)
+            for part in _split_fan_in(job)]
+
+
+def _split_fan_in(job: Tuple[int, ...]) -> List[Tuple[int, ...]]:
+    b1, a1, b2, a2, n, k, out, ldo = job
+    return [(b1, a1 + c, b2, a2 + c if b2 >= 0 else a2, n,
+             min(MAX_FAN_IN, k - c), out + c, ldo)
+            for c in range(0, k, MAX_FAN_IN)]
+
+
+def _layer_jobs(normals: bool, shape: MlpShape) -> List[Tuple[int, ...]]:
+    """One job per packed weight (or per block of its fan-in columns)."""
     lay, W, XF, VW = layout(shape), shape.W, shape.XF, shape.VW
     VK, VP = shape.VK, shape.VP
 
@@ -381,10 +416,19 @@ def launch_weight_grads(lib: ctypes.CDLL, ops: Tensor, dw: Tensor,
         raise ValueError(f"weight gradients need bf16 ops [64 k, {width}] "
                          f"and f32 dw [{lay.W_TOTAL}]")
     jobs = _job_table(normals, shape)
+    # The pass's block counter and one flag per output tile, zeroed.
+    sync = torch.zeros(1 + _job_tiles(normals, shape), dtype=torch.int32,
+                       device=ops.device)
     stream = torch.cuda.current_stream(ops.device).cuda_stream
     check_launch(lib, "fused_mlp weight gradients", lib.fused_mlp_weight_grads(
         ops.data_ptr(), dw.data_ptr(), ops.shape[0], int(normals), jobs,
-        len(jobs) // 8, stream))
+        len(jobs) // 8, sync.data_ptr(), sync.numel(), stream))
+
+
+@functools.lru_cache(maxsize=None)
+def _job_tiles(normals: bool, shape: MlpShape = STANDARD) -> int:
+    """Output tiles (128 fan-out rows of a job) of the pass's job table."""
+    return sum(-(-job[4] // 128) for job in wgrad_jobs(normals, shape))
 
 
 _JOB_TABLES: Dict[Tuple[bool, MlpShape], ctypes.Array] = {}
@@ -446,16 +490,19 @@ def launch_backward_rows(lib: ctypes.CDLL, mc: Tensor, v: Tensor,
                          q: Optional[Tensor], acts: Optional[Tensor],
                          ops: Tensor, dmc: Tensor, dw: Tensor, db: Tensor,
                          min_deg: int, normals: bool) -> None:
-    """One launch of the backward row pass: writes dmc and the operand
-    rows `ops`, adds the bias gradients (and NORMALS' walk part of Wd's
-    sigma row) into db / dw. Not counted."""
+    """One launch of the backward row pass: writes dmc, the operand rows
+    `ops`, the bias gradients into db and (NORMALS) the walk's part of
+    Wd's sigma row into the zeroed dw. Not counted."""
     stream = torch.cuda.current_stream(mc.device).cuda_stream
+    part, count = bias_workspace(lib.fused_mlp_bias_workspace,
+                                 tile_rows(lib, mc.shape[0])
+                                 // lib.fused_mlp_tile_rows(), mc.device)
     check_launch(lib, "fused_mlp backward", lib.fused_mlp_backward_rows(
         mc.data_ptr(), v.data_ptr(), weights.data_ptr(), biases.data_ptr(),
         g.data_ptr(), q.data_ptr() if q is not None else None,
         acts.data_ptr() if acts is not None else None, ops.data_ptr(),
-        dmc.data_ptr(), dw.data_ptr(), db.data_ptr(), mc.shape[0], min_deg,
-        int(normals), stream))
+        dmc.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
+        count.data_ptr(), mc.shape[0], min_deg, int(normals), stream))
 
 
 def run_backward(lib: ctypes.CDLL, counter, mlp: NerfMLP, mc: Tensor,

@@ -23,11 +23,14 @@ accumulators in registers) over all its output columns, while a producer
 warpgroup streams the bf16 weights from L2 by TMA through a 2-stage ring,
 so each weight byte in shared memory serves 128 rows; the ReLU masks are
 kept as bits for the normal chain; compositing is a sequential float32
-scan per ray. The source is built once per model shape
-(`shapes.MlpShape`: trunk 128 or 256, view branch 64 or 128, IPE
-degrees 1..16, deg_view 1..4 with identity; 5 density channels), each
-build a library of its own (`kernel_library(shape)`); a narrower trunk
-or view branch runs zero-padded in the next build (`pack_params`).
+scan per ray. The 512-wide build takes tiles of <= 64 rows (1 ray at
+S=56, 12 at S=5; `tile_rows`) whose two warpgroups split every
+product's columns instead (two 64-row tiles do not fit a block at that
+width). The source is built once per model shape (`shapes.MlpShape`:
+trunk 128, 256 or 512, view branch 64, 128 or 256, IPE degrees 1..16,
+deg_view 1..4 with identity; 5 density channels), each build a library
+of its own (`kernel_library(shape)`); a narrower trunk or view branch
+runs zero-padded in the next build (`pack_params`).
 
 `fused_render_level` is the wrapper: it validates its inputs, runs the
 plain PyTorch version `fused_render_level_reference` for CPU tensors and
@@ -52,7 +55,7 @@ from pano_nerf_tpu_torch.ops import mip
 Tensor = torch.Tensor
 
 SOURCE = "fused_render.cu"
-TILE_ROWS = 128      # sample rows per tile (whole rays only)
+TILE_ROWS = 128      # sample rows per tile (whole rays only), W <= 256
 MAX_SAMPLES = 64     # the largest S the kernel takes
 OUT_FIXED = 17       # rgb(3) | acc | distance | albedo(3) | roughness |
 #                      normal(3) | ort | 0(4), then the S weights
@@ -69,17 +72,17 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
                          device: torch.device) -> None:
     """Raise ValueError unless the kernel covers this model and sample
     count on `device`: kernel 2's topology and shapes
-    (`shapes.shape_gaps`: on the card the widths it is built for,
-    on the CPU any), the 5-channel density head, a viewdir encoding of
-    deg_view 1..4 with identity (the kernel builds it so, as JAX's does)
-    and 1 <= S <= 64."""
+    (`shapes.shape_gaps`: on the card the widths and degrees it is built
+    for, on the CPU any), the 5-channel density head, a viewdir encoding
+    with identity (the kernel builds it so, as JAX's does; on the card
+    deg_view 1..4) and 1 <= S <= 64."""
     want, bad = shapes.shape_gaps(mlp, min_deg, max_deg, device)
+    top = shapes.MAX_DEG_VIEW if device.type == "cuda" else None
     want.update(num_density_channels=(5,),
-                view_dim=f"3 + 6 deg_view, deg_view 1.."
-                         f"{shapes.MAX_DEG_VIEW}")
+                view_dim=f"3 + 6 deg_view, deg_view 1..{top or ''}")
     if mlp.num_density_channels != 5:
         bad["num_density_channels"] = mlp.num_density_channels
-    if (not 1 <= deg_view <= shapes.MAX_DEG_VIEW
+    if (not 1 <= deg_view <= (top or deg_view)
             or mlp.view_dim != 3 + 6 * deg_view):
         bad["view_dim"] = (mlp.view_dim, deg_view)
     if bad:
@@ -105,14 +108,22 @@ class TilePlan(NamedTuple):
         return first, min(first + self.rays_per_tile, self.R)
 
 
-def plan_tiles(R: int, S: int) -> TilePlan:
-    """The kernel's tiling: floor(TILE_ROWS / S) whole rays per tile (at
-    most TILE_ROWS rows), ceil(R / that) tiles. `kernel_library` checks
-    once, for every S, that the library cuts the same way
-    (`fused_render_tile_rays`)."""
+def tile_rows(shape: shapes.MlpShape = shapes.STANDARD) -> int:
+    """Sample rows per tile in the build of `shape`: TILE_ROWS (two
+    64-row tiles, row split) up to trunk 256, 64 (one tile, column split)
+    in the 512-wide build."""
+    return TILE_ROWS if shape.W <= 256 else TILE_ROWS // 2
+
+
+def plan_tiles(R: int, S: int,
+               shape: shapes.MlpShape = shapes.STANDARD) -> TilePlan:
+    """The kernel's tiling in the build of `shape`: floor(tile_rows / S)
+    whole rays per tile (at most `tile_rows(shape)` rows), ceil(R / that)
+    tiles. `kernel_library` checks once, for every S, that the library
+    cuts the same way (`fused_render_tile_rays`)."""
     if R < 1 or not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"no tiling for R={R}, S={S}")
-    per = TILE_ROWS // S
+    per = tile_rows(shape) // S
     return TilePlan(per, -(-R // per), R)
 
 
@@ -289,7 +300,8 @@ def kernel_library(shape: shapes.MlpShape = shapes.STANDARD) -> ctypes.CDLL:
         shapes.check_built_shape(lib, "fused_render_shape", shape, defines)
         bad = {S: lib.fused_render_tile_rays(S)
                for S in range(1, MAX_SAMPLES + 1)
-               if lib.fused_render_tile_rays(S) != TILE_ROWS // S}
+               if lib.fused_render_tile_rays(S)
+               != plan_tiles(1, S, shape).rays_per_tile}
         if bad:
             raise RuntimeError(f"{SOURCE} cuts tiles unlike plan_tiles: "
                                f"rays per tile by S {bad}")

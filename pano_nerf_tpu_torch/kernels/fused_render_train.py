@@ -66,14 +66,15 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
                          device: torch.device) -> None:
     """Raise ValueError unless the kernels cover this model and sample
     count on `device`: the checks of `fused_mlp_ipe.check_kernel_support`,
-    a viewdir encoding of deg_view 1..4 with identity (JAX's kernel 5
-    encodes it so and raises on an MLP without it), on the card 5 density
-    channels, and 1 <= S <= 64."""
+    a viewdir encoding with identity (JAX's kernel 5 encodes it so and
+    raises on an MLP without it; on the card deg_view 1..4), on the card 5
+    density channels, and 1 <= S <= 64."""
     k2.check_kernel_support(mlp, min_deg, max_deg, device)
-    if (not 1 <= deg_view <= shapes.MAX_DEG_VIEW
+    top = shapes.MAX_DEG_VIEW if device.type == "cuda" else None
+    if (not 1 <= deg_view <= (top or deg_view)
             or mlp.view_dim != 3 + 6 * deg_view):
         raise ValueError(f"fused_render_train encodes viewdirs at deg_view "
-                         f"1..{shapes.MAX_DEG_VIEW} with identity; got "
+                         f"1..{top or ''} with identity; got "
                          f"deg_view {deg_view} for an MLP of view_dim "
                          f"{mlp.view_dim}")
     if device.type == "cuda" and mlp.num_density_channels != 5:
@@ -96,11 +97,13 @@ def kernel_library(shape: shapes.MlpShape = shapes.STANDARD
         lib.fused_render_train_forward.argtypes = (
             [ptr] * 8 + [i32, i32, i32, f32, f32, i32, ptr])
         lib.fused_render_train_backward_rows.argtypes = (
-            [ptr] * 11 + [i32, i32, i32, f32, f32, i32, ptr])
+            [ptr] * 13 + [i32, i32, i32, f32, f32, i32, ptr])
         lib.fused_render_train_blocks.argtypes = [i32, i32]
+        lib.fused_render_train_bias_workspace.argtypes = [i32, ptr]
         for fn in ("fused_render_train_forward",
                    "fused_render_train_backward_rows",
-                   "fused_render_train_blocks"):
+                   "fused_render_train_blocks",
+                   "fused_render_train_bias_workspace"):
             getattr(lib, fn).restype = i32
         shapes.check_built_shape(lib, "fused_render_train_shape", shape,
                                  defines)
@@ -187,14 +190,18 @@ def launch_backward_rows(mc: Tensor, clip: Tensor, v: Tensor,
                          lv: Level, ops: Tensor, dmc: Tensor, db: Tensor,
                          lib: Optional[ctypes.CDLL] = None) -> None:
     """One launch of the backward row pass (of `lib`, by default this
-    package's library for `lv.shape`): writes d mc and the operand rows
-    `ops` (64 per block), adds the bias gradients into db. Not counted."""
+    package's library for `lv.shape`): writes d mc, the operand rows
+    `ops` (64 per block) and the bias gradients into db. Not counted."""
     lib = kernel_library(lv.shape) if lib is None else lib
+    part, count = k2.bias_workspace(lib.fused_render_train_bias_workspace,
+                                    lib.fused_render_train_blocks(lv.R, lv.S),
+                                    mc.device)
     err = lib.fused_render_train_backward_rows(
         mc.data_ptr(), clip.data_ptr(), v.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
         acts.data_ptr() if acts is not None else None, ops.data_ptr(),
-        dmc.data_ptr(), db.data_ptr(), lv.R, lv.S, lv.min_deg,
+        dmc.data_ptr(), db.data_ptr(), part.data_ptr(), count.data_ptr(),
+        lv.R, lv.S, lv.min_deg,
         lv.density_bias, lv.rgb_padding, int(lv.white_bkgd),
         torch.cuda.current_stream(mc.device).cuda_stream)
     k2.check_launch(k2.kernel_library(lv.shape),

@@ -6,8 +6,10 @@ sources (csrc/nerf_mlp.cuh: NERF_NDC, NERF_W, NERF_VW, NERF_L, NERF_VF).
 definitions (none for the shipped shape), `shape_of` a model's shape,
 `build_shape` / `build_of` the build a model runs in on the card and
 `shape_gaps` what a model has that the kernels on a device do not take.
-The plain versions on the CPU take any width and density-channel count,
-and the IPE degrees and viewdir encodings the builds take.
+The plain versions on the CPU take any width, density-channel count, IPE
+degree count and viewdir encoding degree, as JAX's kernels do; the
+builds on the card take the widths of WIDTHS / VIEW_WIDTHS and below,
+IPE degrees 1..16 and deg_view 1..4.
 
 A model narrower than a build runs in it zero-padded
 (`fused_render.pack_params`): a padded hidden unit has zero weights in
@@ -27,11 +29,14 @@ from pano_nerf_tpu_torch.models.mlp import NerfMLP
 
 HP = 16        # padded head width
 # What the CUDA builds take (csrc/nerf_mlp.cuh's static_asserts).
-WIDTHS = (128, 256)          # trunk
-VIEW_WIDTHS = (64, 128)      # view branch
+WIDTHS = (128, 256, 512)     # trunk
+VIEW_WIDTHS = (64, 128, 256)  # view branch
 DENSITY_CHANNELS = (1, 5)    # mip-NeRF, Pano-NeRF
-MAX_DEGREES = 16             # IPE degrees L = max_deg - min_deg, 1..16
-MAX_DEG_VIEW = 4             # viewdir encoding degrees, 1..4
+# IPE degrees L = max_deg - min_deg and viewdir encoding degrees the
+# builds take (1..16, 1..4: the activation tile's XF and VP columns); the
+# plain versions on the CPU take any from 1.
+MAX_DEGREES = 16
+MAX_DEG_VIEW = 4
 
 
 def pad16(n: int) -> int:
@@ -39,10 +44,16 @@ def pad16(n: int) -> int:
 
 
 def view_dims() -> Tuple[int, ...]:
-    """The viewdir encoding widths the kernels take: 6 deg_view, or 3 + 6
+    """The viewdir encoding widths the builds take: 6 deg_view, or 3 + 6
     deg_view with identity, deg_view 1..4."""
     return tuple(sorted(6 * d + i for d in range(1, MAX_DEG_VIEW + 1)
                         for i in (0, 3)))
+
+
+def is_view_dim(view_dim: int) -> bool:
+    """Whether `view_dim` is a viewdir encoding's width at any degree:
+    6 deg_view, or 3 + 6 deg_view with identity, deg_view >= 1."""
+    return view_dim >= 6 and view_dim % 6 in (0, 3)
 
 
 class MlpShape(NamedTuple):
@@ -107,9 +118,10 @@ def _round_up(n: int, sizes: Sequence[int], what: str) -> int:
 
 def build_shape(shape: MlpShape) -> MlpShape:
     """The build a model of `shape` runs in on the card: the trunk width
-    rounded up to the next of WIDTHS (1..128 -> 128, 129..256 -> 256),
-    the view branch to the next of VIEW_WIDTHS (1..64 -> 64, 65..128 ->
-    128); C, L and VF unchanged. ValueError past the widest build."""
+    rounded up to the next of WIDTHS (1..128 -> 128, 129..256 -> 256,
+    257..512 -> 512), the view branch to the next of VIEW_WIDTHS (1..64 ->
+    64, 65..128 -> 128, 129..256 -> 256); C, L and VF unchanged.
+    ValueError past the widest build."""
     return shape._replace(W=_round_up(shape.W, WIDTHS, "trunk width"),
                           VW=_round_up(shape.VW, VIEW_WIDTHS,
                                        "view-branch width"))
@@ -125,27 +137,35 @@ def shape_gaps(mlp: NerfMLP, min_deg: int, max_deg: int,
                device: torch.device) -> Tuple[Dict, Dict]:
     """(what the kernels take, what `mlp` has that they do not): the
     topology (8-deep trunk with the skip at layer 4, one view layer, 3 rgb
-    channels), IPE degrees L = max_deg - min_deg in 1..16 over the MLP's
-    6 L features and a viewdir encoding of `view_dims` on every device;
-    on the card also trunk widths 1..256 and view-branch widths 1..128
-    (each runs in the build `build_shape` names), the density-channel
-    counts and bf16 compute the CUDA builds take. The plain versions on
-    the CPU take any width and count."""
+    channels), at least one IPE degree (L = max_deg - min_deg) over the
+    MLP's 6 L features and a viewdir encoding (`is_view_dim`) on every
+    device; on the card also IPE degrees 1..16, viewdir encodings of
+    `view_dims` (deg_view 1..4), trunk widths 1..512 and view-branch
+    widths 1..256 (each runs in the build `build_shape` names), the
+    density-channel counts and bf16 compute the CUDA builds take. The
+    plain versions on the CPU take any width, count and degree."""
+    cuda = device.type == "cuda"
     want = dict(net_depth=(8,), skip_index=(4,), net_depth_condition=(1,),
-                num_rgb_channels=(3,), view_dim=view_dims())
-    if device.type == "cuda":
-        want.update(net_width=range(1, WIDTHS[-1] + 1),
+                num_rgb_channels=(3,))
+    if cuda:
+        want.update(view_dim=view_dims(),
+                    net_width=range(1, WIDTHS[-1] + 1),
                     net_width_condition=range(1, VIEW_WIDTHS[-1] + 1),
                     num_density_channels=DENSITY_CHANNELS)
     bad = {k: getattr(mlp, k) for k, v in want.items()
            if getattr(mlp, k) not in v}
+    if not cuda:
+        want["view_dim"] = "6 deg_view (+ 3 with identity), deg_view >= 1"
+        if not is_view_dim(mlp.view_dim):
+            bad["view_dim"] = mlp.view_dim
     L = max_deg - min_deg
-    want["deg"] = f"max_deg - min_deg in 1..{MAX_DEGREES}"
-    if not 1 <= L <= MAX_DEGREES:
+    want["deg"] = (f"max_deg - min_deg in 1..{MAX_DEGREES}" if cuda
+                   else "max_deg - min_deg >= 1")
+    if L < 1 or (cuda and L > MAX_DEGREES):
         bad["deg"] = (min_deg, max_deg)
     elif mlp.xyz_dim != 6 * L:
         bad["xyz_dim"] = (mlp.xyz_dim, 6 * L)
-    if device.type == "cuda" and mlp.compute_dtype != torch.bfloat16:
+    if cuda and mlp.compute_dtype != torch.bfloat16:
         want["compute_dtype"] = "bf16 (train.precision)"
         bad["compute_dtype"] = mlp.compute_dtype
     return want, bad

@@ -17,11 +17,12 @@ the CPU their plain versions); otherwise every query goes through the
 general NerfMLP with torch autograd (`NerfModel._query`,
 `_query_normals`: JAX's XLA route). JAX's kernels read the widths and
 encodings from the parameter shapes; the CUDA kernels are built per shape
-for a set of them (`kernels/shapes.py`: trunk 128 or 256, view branch 64
-or 128, IPE degrees 1..16, deg_view 1..4; a narrower trunk or view
-branch runs zero-padded in the next build), so on the kernel route a
-system refuses what they are not built for (`kernel_build_gaps`: trunks
-above 256, view branches above 128) instead of taking another route. A kernel that
+for a set of them (`kernels/shapes.py`: trunk 128, 256 or 512, view
+branch 64, 128 or 256, IPE degrees 1..16, deg_view 1..4; a narrower trunk
+or view branch runs zero-padded in the next build), so on the kernel
+route a system on the card refuses what they are not built for
+(`kernel_build_gaps`: trunks above 512, view branches above 256, more
+IPE or viewdir degrees) instead of taking another route. A kernel that
 fails raises; the route never changes at run time. `from_hparams`
 refuses every config key that would need a path the port lacks
 (`UNSUPPORTED`) with
@@ -393,21 +394,22 @@ def plain_route_reasons(cfg: NerfConfig) -> List[str]:
 def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     """What a model on the kernel route needs that the kernels on
     `device` are not built for, or [] (`kernels/shapes.py`): on every
-    device IPE degrees max_deg_point - min_deg_point of 1..16 and a
-    viewdir encoding of deg_view 1..4 (with or without identity; the plain
-    versions check them too); on the card also a trunk width of at most
-    256 and a view-branch width of at most 128 (a narrower one runs
-    zero-padded in the next build, `shapes.build_shape`) and the
-    density-channel counts 1 and 5 (the plain versions on the CPU take
-    any)."""
+    device at least one IPE degree (max_deg_point - min_deg_point) and
+    one viewdir degree; on the card also IPE degrees 1..16 and deg_view
+    1..4 (the builds' XF and VP columns), a trunk width of at most 512 and
+    a view-branch width of at most 256 (a narrower one runs zero-padded
+    in the next build, `shapes.build_shape`) and the density-channel
+    counts 1 and 5. The plain versions on the CPU take any width, count
+    and degree, as JAX's kernels do."""
     L = cfg.max_deg_point - cfg.min_deg_point
+    cuda = device.type == "cuda"
     checks = (
-        (1 <= L <= shapes.MAX_DEGREES,
+        (1 <= L <= (shapes.MAX_DEGREES if cuda else L),
          f"nerf.min_deg_point..max_deg_point {cfg.min_deg_point}.."
          f"{cfg.max_deg_point}"),
-        (1 <= cfg.deg_view <= shapes.MAX_DEG_VIEW,
+        (1 <= cfg.deg_view <= (shapes.MAX_DEG_VIEW if cuda else cfg.deg_view),
          f"nerf.deg_view {cfg.deg_view}"))
-    if device.type == "cuda":
+    if cuda:
         checks += (
             (1 <= cfg.mlp_net_width <= shapes.WIDTHS[-1],
              f"nerf.mlp.net_width {cfg.mlp_net_width}"),

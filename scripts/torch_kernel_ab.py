@@ -175,7 +175,7 @@ def train_kernels(model, env, dev, libs, rounds: int, results: dict) -> None:
     mine = k2.kernel_library()
     other = bind_other(mine, libs["fused_mlp.cu"],
                        ("fused_mlp_forward", "fused_mlp_backward_rows",
-                        "fused_mlp_error_string"),
+                        "fused_mlp_bias_workspace", "fused_mlp_error_string"),
                        {"fused_mlp_weight_count": [()],
                         "fused_mlp_bias_count": [()],
                         "fused_mlp_tile_rows": [()],
@@ -237,7 +237,8 @@ def train_kernels(model, env, dev, libs, rounds: int, results: dict) -> None:
     mine5 = k5.kernel_library()
     other5 = bind_other(mine5, libs["fused_render_train.cu"],
                         ("fused_render_train_forward",
-                         "fused_render_train_backward_rows"),
+                         "fused_render_train_backward_rows",
+                         "fused_render_train_bias_workspace"),
                         {"fused_render_train_blocks": [(R, S)]})
     lv = k5.Level(R, S, cfg.min_deg_point, float(cfg.density_bias),
                   float(cfg.rgb_padding), False)

@@ -365,8 +365,9 @@ def test_weight_grad_kernel_refuses_a_bad_job_table(cuda_device):
                       device=cuda_device)
     dw = torch.zeros(k2.W_TOTAL, device=cuda_device)
     bad = (ctypes.c_int * 8)(k2.O_DZ, k2.O_A, -1, -1, 256, 288, 0, 288)
+    sync = torch.zeros(3, dtype=torch.int32, device=cuda_device)
     err = lib.fused_mlp_weight_grads(
-        ops.data_ptr(), dw.data_ptr(), 64, 0, bad, 1,
+        ops.data_ptr(), dw.data_ptr(), 64, 0, bad, 1, sync.data_ptr(), 3,
         torch.cuda.current_stream(cuda_device).cuda_stream)
     with pytest.raises(RuntimeError, match="weight gradients"):
         k2.check_launch(lib, "fused_mlp weight gradients", err)
@@ -409,10 +410,10 @@ def test_graphed_train_steps_match_eager(cuda_device, render_kernel):
     CUDA graph and, four times, eagerly (as chip_smoke.py holds them on
     the trained system): the generator ends in the same state, and the
     graph's median distance to the eager runs (parameters, per-step
-    losses) is at most twice the largest eager-vs-eager distance (the
-    weight-gradient pass sums unordered f32 partials, and Adam amplifies
-    that over the steps) or f32 rounding; each replay adds one capture's
-    worth of launches to the counters."""
+    losses) is at most twice the largest eager-vs-eager distance or f32
+    rounding (the backwards add their f32 partials in a fixed order, so
+    that spread is 0 where every op of the step is deterministic); each
+    replay adds one capture's worth of launches to the counters."""
     system, data = _graph_system(cuda_device, render_kernel)
     _check_graphed_against_eager(cuda_device, system, data, 512)
 
@@ -475,6 +476,115 @@ def _check_graphed_against_eager(cuda_device, system, data, batch):
                      for b in eager[:i])
         got = statistics.median(dist(graph, e) for e in eager)
         assert got <= max(2 * spread, floor), (got, spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k1", "k5"])
+def test_backward_gives_the_same_bits_at_every_run(cuda_device, kernel):
+    """Each backward, three times on the same inputs: the same gradients
+    bit for bit (the bias sums over tiles and the weight-gradient pass's
+    row chunks add in a fixed order, csrc/mlp_rows.cuh `bias_sums`), at a
+    ragged row count and at a batch-512 train step's (28,672 rows: 448
+    tiles, 14 groups of the bias sums, 5 chunks of the weight-gradient
+    pass)."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp as k1
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    for M in (1000, 28672):
+        if kernel == "k5":
+            R, S = M // 56 + 1, 56
+            mlp = NerfMLP(96, 27, num_density_channels=5, generator=torch.
+                          Generator().manual_seed(1)).to(cuda_device)
+            args = _inputs(R, S, cuda_device)
+            runs = [_render_grads(k5.fused_render_train, mlp, args, False)[1:]
+                    for _ in range(3)]
+        elif kernel == "k1":
+            mlp, *_ = _mlp_rows(M, cuda_device)
+            g = torch.Generator().manual_seed(3)
+            x = (torch.randn(M, 96, generator=g) * 0.5).to(cuda_device)
+            v = (torch.randn(M, 27, generator=g) * 0.5).to(cuda_device)
+
+            def run():
+                mlp.zero_grad()
+                xr = x.clone().requires_grad_(True)
+                raw = k1.fused_mlp_apply(mlp, xr, v)
+                torch.sin(raw[0]).sum().backward()
+                return (torch.cat([p.grad.reshape(-1)
+                                   for p in mlp.parameters()]), xr.grad)
+            runs = [run() for _ in range(3)]
+        else:
+            fn = (k3.fused_mlp_normals_apply if kernel == "k3"
+                  else k2.fused_mlp_ipe_apply)
+            mlp, means, covs, v = _mlp_rows(M, cuda_device)
+            runs = [_grads(fn, mlp, means, covs, v)[1:] for _ in range(3)]
+        for r in runs[1:]:
+            for a, b in zip(r, runs[0]):
+                assert torch.equal(a, b), (kernel, M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k5"])
+def test_bias_gradients_match_plain_version_per_leaf(cuda_device, kernel):
+    """Each bias gradient leaf (the fixed-order sums over tiles, the last
+    group's write of db) against the plain version at a batch-512 train
+    step's 28,672 rows and a ragged 1,000, per leaf at the flat gradient's
+    rel-norm tolerance (2e-2; kernel 3 5e-2), so no layer's bias hides
+    under the others."""
+    from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
+    from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
+    from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    for M in (1000, 28672):
+        if kernel == "k5":
+            R, S = M // 56 + 1, 56
+            mlp = NerfMLP(96, 27, num_density_channels=5, generator=torch.
+                          Generator().manual_seed(1)).to(cuda_device)
+            args = _inputs(R, S, cuda_device)
+            leaves = []
+            for fn in (k5.fused_render_train, k5.fused_render_train_reference):
+                _render_grads(fn, mlp, args, False)
+                leaves.append({n: p.grad.clone() for n, p in
+                               mlp.named_parameters() if n.endswith("bias")})
+        else:
+            kern, plain = ((k3.fused_mlp_normals_apply,
+                            k3.fused_mlp_normals_reference) if kernel == "k3"
+                           else (k2.fused_mlp_ipe_apply,
+                                 k2.fused_mlp_ipe_reference))
+            mlp, means, covs, v = _mlp_rows(M, cuda_device)
+            leaves = []
+            for fn in (kern, plain):
+                _grads(fn, mlp, means, covs, v)
+                leaves.append({n: p.grad.clone() for n, p in
+                               mlp.named_parameters() if n.endswith("bias")})
+        got, want = leaves
+        tol = 5e-2 if kernel == "k3" else 2e-2
+        for n in want:
+            assert _rel(got[n], want[n]) < tol, (kernel, M, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config, render_kernel, batch", [
+    ("panonerf.yaml", False, 512), ("panonerf.yaml", True, 512),
+    ("mipnerf.yaml", False, 2048)])
+def test_eager_train_steps_give_the_same_bits_at_every_run(
+        cuda_device, config, render_kernel, batch):
+    """Four eager train steps from one state, twice: the same parameters
+    bit for bit, so the graphed-vs-eager checks' spread is 0 on the kernel
+    route."""
+    system, data = _graph_system(cuda_device, render_kernel, config=config)
+    start = {k: v.clone() for k, v in system.model.param_state().items()}
+
+    def run():
+        system.model.load_params(start)
+        state = system.create_state()
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        one = system.make_device_step(data, gen, True, batch)
+        for _ in range(4):
+            one(state)
+        return torch.cat([p.detach().reshape(-1)
+                          for p in system.params()]).clone()
+    first = run()
+    assert torch.equal(run(), first)
 
 
 @pytest.mark.cuda
@@ -588,11 +698,17 @@ SHAPES = {"A": (5, 128, 64, 0, 16, 4, True),
 PADDED = {"P1": (5, 64, 32, 0, 16, 4, True),
           "P2": (5, 200, 100, 0, 16, 4, True),
           "P2m": (1, 200, 100, 0, 16, 4, True)}
+# The 512 / 256 builds (chip_smoke.py's D, Dm and P3): the trunk's
+# products split at 512 columns, two ring stages per K step; P3 (384 /
+# 192) runs zero-padded in W512's build.
+WIDE = {"W512": (5, 512, 256, 0, 16, 4, True),
+        "W512m": (1, 512, 256, 0, 16, 4, True),
+        "P3": (5, 384, 192, 0, 16, 4, True)}
 
 
 def _shape_mlp(name, device, seed=1):
     """A random MLP of shape `name` and its encodings' keywords."""
-    C, W, VW, lo, hi, dv, ident = {**SHAPES, **PADDED}[name]
+    C, W, VW, lo, hi, dv, ident = {**SHAPES, **PADDED, **WIDE}[name]
     mlp = NerfMLP(6 * (hi - lo), 6 * dv + 3 * ident, net_width=W,
                   net_width_condition=VW, num_density_channels=C,
                   generator=torch.Generator().manual_seed(seed))
@@ -601,7 +717,8 @@ def _shape_mlp(name, device, seed=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(SHAPES) + sorted(PADDED))
+@pytest.mark.parametrize("shape", sorted(SHAPES) + sorted(PADDED)
+                         + sorted(WIDE))
 def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
         cuda_device, shape, normals):
     """Kernels 2 and 3 built for each other shape, forward and backward,
@@ -633,7 +750,7 @@ def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S,need_normals", [(37, 56, True),
                                               (131, 5, False)])
-@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2"])
+@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2", "W512", "P3"])
 def test_fused_render_kernel_matches_plain_version_at_other_shapes(
         cuda_device, shape, R, S, need_normals):
     mlp, kw = _shape_mlp(shape, cuda_device)
@@ -653,7 +770,7 @@ def test_fused_render_kernel_matches_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S", [(37, 56), (131, 5)])
-@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2"])
+@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2", "W512", "P3"])
 def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
         cuda_device, shape, R, S):
     from pano_nerf_tpu_torch.kernels import fused_render_train as k5
@@ -673,7 +790,7 @@ def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["A", "D", "P1", "P2"])
+@pytest.mark.parametrize("shape", ["A", "D", "P1", "P2", "W512", "P3"])
 def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
         cuda_device, shape):
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
@@ -700,12 +817,13 @@ def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("shape", sorted(SHAPES) + ["W512", "W512m"])
 def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
         cuda_device, shape, normals):
     """The weight-gradient pass of each other shape's build, over that
-    shape's job table (128- and 64-wide products, 16-wide viewdir codes)
-    on random operand rows, per job at rel-norm 1e-4."""
+    shape's job table (128- and 64-wide products, 16-wide viewdir codes;
+    at 512 wide 24 jobs, the fan-ins split at 256) on random operand rows,
+    per job at rel-norm 1e-4."""
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     mlp, _ = _shape_mlp(shape, cuda_device)
     sh = k2.shape_of(mlp)
@@ -728,7 +846,7 @@ def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(PADDED))
+@pytest.mark.parametrize("shape", sorted(PADDED) + ["P3"])
 def test_padded_gradient_slots_are_zero(cuda_device, shape, normals):
     """A backward of kernel 2 (3) on a model padded into a wider build:
     the packed weight and bias gradients in the padded slots are exactly

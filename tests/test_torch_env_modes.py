@@ -98,18 +98,22 @@ def replay_draws(model, step_key, distill_samples=0):
     return TrainDraws(**d)
 
 
-def systems(extra, precision="f32", perturb_illum=False, on_kernels=True):
+def systems(extra, precision="f32", perturb_illum=False, on_kernels=True,
+            jit_init=False):
     """JAX and port systems of the small model with `extra` opts, on the
     same parameters: (JAX system, JAX params, port system). With
     `on_kernels` an f32 port system of the kernels' topology takes the
     kernel route (`test_torch_train_step.f32_on_the_kernels`). With
     `perturb_illum` the illuminant field's output layer (zero at init, so
     that its hidden layers get no gradient) is drawn from a numpy seed,
-    N(0, 0.1^2), beside JAX's Xavier hidden layers."""
+    N(0, 0.1^2), beside JAX's Xavier hidden layers. `jit_init` compiles
+    JAX's initialiser whole (the same parameters bit for bit; quicker
+    than op by op at wide trunks, slower where the ops are cached)."""
     opts = SMALL + ["train.precision", f"'{precision}'", *extra]
     jsys = JaxSystem(jax_load_config(CONFIG, opts))
     jsys.set_env_rays(jax_lit(num=D, far=10.0))
-    params = jax.tree.map(np.asarray, jsys.model.init(jax.random.PRNGKey(0)))
+    init = jax.jit(jsys.model.init) if jit_init else jsys.model.init
+    params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
     if perturb_illum:
         rng = np.random.default_rng(5)
         illum = params["params"]["illum"]

@@ -178,9 +178,9 @@ def test_kernels_take_one_or_five_density_channels_on_the_card(C, ok):
 
 
 def test_widths_other_than_the_kernels_raise_for_the_card_only():
-    """Widths past the widest build (trunk 256, view branch 128) raise on
+    """Widths past the widest build (trunk 512, view branch 256) raise on
     the card only; narrower ones run padded in the next build."""
-    wide = NerfMLP(96, 27, net_width=320, net_width_condition=160,
+    wide = NerfMLP(96, 27, net_width=640, net_width_condition=320,
                    num_density_channels=5)
     k2.check_kernel_support(wide, 0, 16, torch.device("cpu"))
     with pytest.raises(ValueError, match="net_width"):

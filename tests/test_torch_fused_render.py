@@ -123,11 +123,11 @@ def test_wrapper_rejects_unsupported_sample_count(mlp256, S):
 
 
 @pytest.mark.parametrize("change", [
-    dict(net_width=320), dict(skip_index=3), dict(num_density_channels=8),
-    dict(net_width_condition=160)])
+    dict(net_width=640), dict(skip_index=3), dict(num_density_channels=8),
+    dict(net_width_condition=320)])
 def test_wrapper_rejects_unsupported_topology(change):
     """A topology kernel 4 does not take is refused on every device; a
-    width no CUDA build takes (trunk above 256, view branch above 128) on
+    width no CUDA build takes (trunk above 512, view branch above 256) on
     the card only: the plain version on the CPU takes any width, and a
     narrower one runs padded in the next build."""
     mlp = NerfMLP(96, 27, **{"num_density_channels": 5, **change})
@@ -145,13 +145,15 @@ def test_wrapper_rejects_unsupported_topology(change):
 
 
 def test_wrapper_rejects_unsupported_encoding_degrees(mlp256):
-    """deg_view 2 for an MLP of the deg-4 encoding (27 wide), and deg_view
-    5, beyond the builds' 1..4, are refused."""
+    """deg_view 2 for an MLP of the deg-4 encoding (27 wide) is refused;
+    deg_view 5, beyond the builds' 1..4, on the card only (the plain
+    version on the CPU takes it, as JAX's kernel does)."""
     with pytest.raises(ValueError, match="topology"):
         _call(mlp256, _inputs(), deg_view=2)
     mlp5 = NerfMLP(96, 33, num_density_channels=5)
     with pytest.raises(ValueError, match="topology"):
-        _call(mlp5, _inputs(), deg_view=5)
+        fr.check_kernel_support(mlp5, 8, 0, 16, 5, torch.device("cuda"))
+    assert _call(mlp5, _inputs(), deg_view=5)["rgb"].shape == (4, 3)
 
 
 def test_wrapper_rejects_shape_mismatch(mlp256):

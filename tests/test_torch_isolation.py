@@ -18,7 +18,8 @@ MODULES = sorted(
     m.name for m in pkgutil.walk_packages(pano_nerf_tpu_torch.__path__,
                                           "pano_nerf_tpu_torch."))
 # The port's tools beside the package (they import it and chip_smoke).
-TOOLS = ["chip_smoke", "scripts.torch_kernel_ab", "scripts.torch_check_spread"]
+TOOLS = ["chip_smoke", "scripts.torch_kernel_ab", "scripts.torch_check_spread",
+         "scripts.torch_k3_conditioning"]
 
 
 def test_every_module_is_listed():

@@ -523,10 +523,10 @@ def test_kernel_route_takes_the_built_shapes(config, opts):
 
 
 @pytest.mark.parametrize("width,key", [
-    ("257", "nerf.mlp.net_width 257"), ("384", "nerf.mlp.net_width 384"),
-    ("512", "nerf.mlp.net_width 512")])
+    ("513", "nerf.mlp.net_width 513"), ("768", "nerf.mlp.net_width 768"),
+    ("1024", "nerf.mlp.net_width 1024")])
 def test_kernel_route_refuses_unbuilt_widths_on_the_card(width, key):
-    """A trunk width no CUDA build takes (above 256) is refused on the
+    """A trunk width no CUDA build takes (above 512) is refused on the
     card, naming the key (the plain versions on the CPU take it)."""
     hp = load_config(CONFIG, ["nerf.mlp.net_width", width])
     model = build_model(hp)

@@ -20,8 +20,8 @@ one density channel at 64 / 32:
   (`fused_render.padded_slots`);
 - the narrow model held to JAX's NerfMLP on the same numpy weights;
 - `kernel_build_gaps` on the card: every trunk width 1..256 and view
-  width 1..128 accepted, 257 and 512 trunks and 129 view branches
-  refused naming the key.
+  width 1..128 accepted, 513 and 1024 trunks and 257 view branches
+  (past the widest, 512 / 256, build) refused naming the key.
 """
 
 import dataclasses
@@ -203,8 +203,8 @@ def test_every_width_up_to_the_builds_runs_on_the_card(cfg):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mlp_net_width", 257), ("mlp_net_width", 512),
-    ("mlp_net_width_condition", 129)])
+    ("mlp_net_width", 513), ("mlp_net_width", 1024),
+    ("mlp_net_width_condition", 257)])
 def test_widths_past_the_builds_are_refused_naming_the_key(cfg, key, value):
     c = dataclasses.replace(cfg, **{key: value})
     name = {"mlp_net_width": "nerf.mlp.net_width",

@@ -63,14 +63,17 @@ def flat(leaves):
 
 
 def step_both(extra, precision="f32", step=0, scale_distill=False,
-              f64=False):
+              f64=False, on_kernels=False, jit_init=False):
     """One train step of JAX and of the port (f32 on the plain route, as
-    on every device) at `step` on the test batch: (port loss parts, JAX loss parts, port grads, JAX grads
+    on every device; with `on_kernels` on the kernel route, the kernels'
+    plain versions) at `step` on the test batch: (port loss parts, JAX loss parts, port grads, JAX grads
     clipped as JAX's step clips them, port system) and with `f64` the
     port's step in float64 from the same state (loss parts, grads). JAX's
     draws are replayed into the port's TrainDraws, with the
-    scale-distill re-march's (`fold_in(key, 0x5D)`) when asked."""
-    jsys, params, psys = systems(extra, precision, on_kernels=False)
+    scale-distill re-march's (`fold_in(key, 0x5D)`) when asked;
+    `jit_init` as `systems` takes it."""
+    jsys, params, psys = systems(extra, precision, on_kernels=on_kernels,
+                                 jit_init=jit_init)
     rays_np, rgbs_np = _batch()
     key = jax.random.fold_in(jax.random.PRNGKey(7), step)
     hp_j = jsys.hparams
@@ -108,6 +111,7 @@ def step_both(extra, precision="f32", step=0, scale_distill=False,
         return out
     sys64 = copy.deepcopy(psys)
     sys64.model.double()
+    sys64.model.kernels = False   # the kernels' wrappers take f32 only
     sys64.model.load_params({k: v.double() for k, v in
                              params_from_jax(params).items()})
     sys64.env_rays = rays_map(lambda x: x.double(), sys64.env_rays)
@@ -257,20 +261,23 @@ def test_route_table(opts, why):
 
 
 @pytest.mark.parametrize("opts,cuda,cpu", [
-    (["nerf.mlp.net_width", "320", "nerf.mlp.net_width_condition", "160"],
-     ["nerf.mlp.net_width 320", "nerf.mlp.net_width_condition 160"], []),
+    (["nerf.mlp.net_width", "640", "nerf.mlp.net_width_condition", "320"],
+     ["nerf.mlp.net_width 640", "nerf.mlp.net_width_condition 320"], []),
     (["nerf.max_deg_point", "18"],
-     ["nerf.min_deg_point..max_deg_point 0..18"],
-     ["nerf.min_deg_point..max_deg_point 0..18"]),
+     ["nerf.min_deg_point..max_deg_point 0..18"], []),
     (["nerf.deg_view", "5", "nerf.append_identity", "False"],
-     ["nerf.deg_view 5"], ["nerf.deg_view 5"])])
+     ["nerf.deg_view 5"], []),
+    (["nerf.max_deg_point", "0"],
+     ["nerf.min_deg_point..max_deg_point 0..0"],
+     ["nerf.min_deg_point..max_deg_point 0..0"])])
 def test_kernel_route_refuses_what_the_kernels_are_not_built_for(
         opts, cuda, cpu):
     """On the kernel route (bf16, the standard topology) a width or an
     encoding the kernels are not built for is refused, never sent to the
-    plain route: the CUDA builds take trunk widths up to 256 and view
-    widths up to 128, and the kernels on every device IPE degrees 1..16 and
-    viewdir encodings of deg_view 1..4 (with or without identity)."""
+    plain route: the CUDA builds take trunk widths up to 512 and view
+    widths up to 256, IPE degrees 1..16 and viewdir encodings of deg_view
+    1..4 (with or without identity); the plain versions on the CPU any
+    width and any number of degrees from 1, as JAX's kernels."""
     hp = load_config(CONFIG, opts)
     model = build_model(hp)
     assert model.kernels
