@@ -7,8 +7,9 @@ terms, the level loop with the last model and system keys, the kernel route
 at other MLP widths and encodings, every trunk width up to 256 and view
 width up to 128 padded into those builds, the library modules
 (reference checkpoints, the native EXR decoder, perspective datasets,
-the 360 ops), and the 512 / 256 builds (trunk 257..512, view branch
-129..256).
+the 360 ops), the 512 / 256 builds (trunk 257..512, view branch
+129..256) and the 1,024 builds (trunk 513..1,024, view branch 257..512,
+each tile on a cluster of two CTAs).
 
 Run from the repository root on a machine with the card:
 
@@ -20,10 +21,11 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 
 1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
    (one nvcc per source at the shipped shape, `fused_mlp.cu` also at one
-   density channel, and each source a model of `OTHER_SHAPES` or D / Dm
-   of `WIDE_SHAPES` runs at that shape: 15 libraries, all started
-   together) and print the build time and the compiler's register/spill
-   report.
+   density channel, and each source a model of `OTHER_SHAPES`, D / Dm
+   of `WIDE_SHAPES` or E / Em of `PAIR_SHAPES` runs at that shape: 18
+   libraries, all started together; the three 1,024 builds, the slowest,
+   are awaited only before phase 2z) and print each build's seconds and
+   the compiler's register/spill report.
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
@@ -295,13 +297,30 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    checkpoint served, a 16x32 view on the card against the CPU, the step
    against the CPU under phase 5's rule, graphed against eager, ms per
    step beside phase 4b's and ms per panorama graph vs eager in turns),
-   each phase's libraries printed and checked. (Run after phase 24.)
+   each phase's libraries printed and checked. (Run right after phase
+   5, with 26 and 26m.)
+2z. The 1,024 builds (`PAIR_SHAPES`: E Pano-NeRF at trunk 1,024 / view
+   branch 512, built `-DNERF_W=1024 -DNERF_VW=512`; Em mip-NeRF at
+   mip-NeRF 360's NeRF-MLP widths 1,024 / 128, `-DNERF_NDC=1
+   -DNERF_W=1024`; P4 768 / 384 zero-padded into E's build): kernels 1-4
+   against their plain versions at phase 2's tolerances, forward and
+   backward, each backward also as its two passes, as 2y holds D, Dm and
+   P3 (no kernel 5: it is not built at 1,024). E's and Em's kernel-3
+   moment and covariance gradients on the check loss without its
+   density-gradient term (`scripts/torch_k3_conditioning.py`), P4 on the
+   whole loss. Entries `_wE`, `_wEm`, `_pP4`. (Run after phase 2y.)
+26. E Pano-NeRF with kernel 5's key off, 26m Em mip-NeRF with
+   `loss.ort_loss 0.1`: as phases 25 and 25m, ms per step beside phases
+   4's and 25's (25m's). (Run right after phase 25m.)
 
 `[clock] phase X at T s` marks each phase's start and `[clock] <function>
 took T s` each call of the slow helpers (step checks, renders, trains).
-The CPU steps of the card-vs-CPU step checks run in four worker
-processes of two threads each (`cpu_pool`, spawned at the first check and
-stopped at exit) while the card's steps of the same check run here.
+The CPU steps of the card-vs-CPU step checks and the CPU renders of
+`check_against_plain` run in four worker processes of two threads each,
+at a lower priority (`cpu_pool`, spawned at first use and stopped at
+exit), while the card's steps and renders run here at once; each check's
+comparison is queued and run before the report (`finish_step_checks`,
+under its phase's name), so the CPU's work overlaps the later phases'.
 
 Kernel 1 is a library function that no model path calls: its launches are
 counted in phases 3, 3b, 4 and 4b like the others' and must be 0. The
@@ -319,7 +338,9 @@ on no main path: 0), and so has every kernel at the padded widths
 kernel 1 at either and kernels 4 and 5 at P2 are on no main path: 0), and
 so has every kernel of the 512 / 256 builds (`_wD` with phase 25's
 launches, `_wDm` with phase 25m's; kernel 1 at D and every kernel at P3,
-which no phase trains, are on no main path: 0). The
+which no phase trains, are on no main path: 0), and so has every kernel
+of the 1,024 builds (`_wE` with phase 26's launches, `_wEm` with 26m's;
+kernel 1 at E and every kernel at P4 are on no main path: 0). The
 last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
@@ -418,13 +439,31 @@ WIDE_SHAPES = {"D": (CONFIG, SHAPE_D), "Dm": (MIP_CONFIG, SHAPE_D),
                "P3": (CONFIG, SHAPE_P3)}
 
 
+# Phase 2z and phases 26-26m: the 1,024 builds, whose tiles run on a
+# cluster of two CTAs (csrc/mlp_rows.cuh `PAIR`). E: Pano-NeRF at trunk
+# 1,024, view branch 512 (kernels 1-4; kernel 5 is not built there); Em:
+# mip-NeRF at mip-NeRF 360's NeRF-MLP widths, trunk 1,024 / view branch
+# 128 (`configs/360.gin` of google-research/multinerf; kernels 2 and 3 at
+# one density channel); P4: Pano-NeRF at 768 / 384, zero-padded into E's
+# build.
+SHAPE_E = ("nerf.mlp.net_width", "1024", "nerf.mlp.net_width_condition",
+           "512")
+SHAPE_EM = ("nerf.mlp.net_width", "1024", "nerf.mlp.net_width_condition",
+            "128")
+SHAPE_P4 = ("nerf.mlp.net_width", "768", "nerf.mlp.net_width_condition",
+            "384")
+PAIR_SHAPES = {"E": (CONFIG, SHAPE_E), "Em": (MIP_CONFIG, SHAPE_EM),
+               "P4": (CONFIG, SHAPE_P4)}
+
+
 def shape_model(name: str, dev=None):
     """The model of `OTHER_SHAPES[name]` (or `PADDED_SHAPES[name]`,
-    `WIDE_SHAPES[name]`) with weights from seed 0."""
+    `WIDE_SHAPES[name]`, `PAIR_SHAPES[name]`) with weights from seed 0."""
     import torch
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.models import build_model
-    config, opts = {**OTHER_SHAPES, **PADDED_SHAPES, **WIDE_SHAPES}[name]
+    config, opts = {**OTHER_SHAPES, **PADDED_SHAPES, **WIDE_SHAPES,
+                    **PAIR_SHAPES}[name]
     model = build_model(load_config(config, list(opts)),
                         torch.Generator().manual_seed(0))
     return model if dev is None else model.to(dev)
@@ -470,33 +509,70 @@ def clocked(fn):
     return run
 
 
-def build_kernels():
+# The 1,024 builds' nvcc runs, when `build_kernels` leaves them running
+# (`finish_pair_builds` waits for them before phase 2z).
+PAIR_BUILDS: list = []
+
+
+def build_kernels(wait_pair: bool = True):
     """Start every library's nvcc together (each source at the shipped
     shape, `fused_mlp.cu` also at one density channel, and every source
-    a model of `OTHER_SHAPES` or D and Dm of `WIDE_SHAPES` runs at its
-    shape: 15 libraries), then wait for all."""
+    a model of `OTHER_SHAPES`, D and Dm of `WIDE_SHAPES` or E and Em of
+    `PAIR_SHAPES` runs at its shape: 18 libraries), then wait for all, or
+    without `wait_pair` for all but the 1,024 builds (the slowest to
+    compile), which phases 2-2y do not use."""
     from pano_nerf_tpu_torch.kernels import build, shapes
     from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
                                              fused_render_train)
     builds = [(fused_render.SOURCE, ()), (fused_render_train.SOURCE, ()),
               (fused_mlp_ipe.SOURCE, ()),
               (fused_mlp_ipe.SOURCE, shapes.MlpShape(C=1).defines())]
-    for name in list(OTHER_SHAPES) + ["D", "Dm"]:
+    for name in list(OTHER_SHAPES) + ["D", "Dm", "E", "Em"]:
         model = shape_model(name)
         sh = shapes.build_of(model.mlp)
         builds.append((fused_mlp_ipe.SOURCE, sh.defines()))
         if sh.C == 5 and model.cfg.append_identity:   # kernels 4 and 5
-            builds += [(fused_render.SOURCE, sh.defines(False)),
-                       (fused_render_train.SOURCE, sh.defines(False))]
+            builds.append((fused_render.SOURCE, sh.defines(False)))
+            if sh.W <= shapes.TRAIN_RENDER_MAX_W:
+                builds.append((fused_render_train.SOURCE, sh.defines(False)))
     t0 = time.perf_counter()
-    pending = [build.start_build(*b) for b in builds]
-    for p in pending:
-        build.finish_build(p)
+    pending = [(build.start_build(*b), b) for b in builds]
+    pair = f"NERF_W={shapes.PAIR_W}"
+    later = [p for p, (_, d) in pending if not wait_pair and pair in d]
+    for p, _ in pending:
+        if p not in later:
+            build.finish_build(p)
     BUILT.update((src, tuple(d)) for src, d in builds)
-    BUILT_LOGS.update(build.BUILD_LOGS)
-    print(f"[build] {len(builds)} libraries in "
-          f"{time.perf_counter() - t0:.1f} s")
+    PAIR_BUILDS[:] = later
+    print(f"[build] {len(builds) - len(later)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s"
+          + (f" ({len(later)} 1,024 builds still compiling)" if later
+             else ""), flush=True)
+    _report_builds()
+
+
+def finish_pair_builds() -> None:
+    """Wait for the 1,024 builds `build_kernels` left running."""
+    from pano_nerf_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    for p in PAIR_BUILDS:
+        build.finish_build(p)
+    if PAIR_BUILDS:
+        print(f"[build] the {len(PAIR_BUILDS)} 1,024 builds done "
+              f"{time.perf_counter() - t0:.1f} s later", flush=True)
+    PAIR_BUILDS.clear()
+    _report_builds()
+
+
+def _report_builds() -> None:
+    """Print each newly built library's seconds and compiler report
+    (registers, spills, warnings) and record it as phase 1's."""
+    from pano_nerf_tpu_torch.kernels import build
     for src, (log, secs) in build.BUILD_LOGS.items():
+        if src in BUILT_LOGS:
+            continue
+        BUILT_LOGS[src] = (log, secs)
+        print(f"[build] {src}: {secs:.1f} s")
         injected = 0
         for line in log.splitlines():
             if "C7519" in line:   # wgmma register-use hint, one per site
@@ -643,7 +719,13 @@ def _own_ops_width(mlp, normals: bool) -> int:
 
 # The weight-gradient pass against its plain version on the same operand
 # rows: only the order of the f32 sums differs.
-WGRAD_TOL = 1e-4   # rel-norm per weight parameter
+# rel-norm per weight parameter, against `weight_grads_reference` in
+# float64, so the distance is the pass's own f32 rounding and not the sum
+# of it and an f32 reference's (with the f32 reference P3's kernel-5
+# coarse level read 5.3e-5, 5.1e-5 and 1.03e-4 in three calls; the
+# kernel-5 checks draw their cotangents from the unseeded generator, so
+# each call sums other rows).
+WGRAD_TOL = 1e-4
 
 
 def _wgrad_library(ops, normals: bool, shape):
@@ -667,8 +749,9 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
                        shape: str, failures: list,
                        total: bool = True) -> dict:
     """The weight-gradient kernel on the operand rows `ops` that a row
-    pass just wrote: held against `weight_grads_reference` per weight
-    parameter, timed beside its plain version, its bound (the `rows` real
+    pass just wrote: held against `weight_grads_reference` in float64 per
+    weight parameter, timed beside its plain version (f32), its bound (the
+    `rows` real
     operand rows read once, not the buffer's idle tile rows; f32 dw
     written once) and the
     torch.matmul yardstick, launched from the library built for `mlp`'s
@@ -681,7 +764,7 @@ def check_weight_grads(mlp, ops, normals: bool, rows: int, entry: dict,
     lib = k2.kernel_library(sh)
     dw = torch.zeros(k2.layout(sh).W_TOTAL, device=ops.device)
     k2.launch_weight_grads(lib, ops, dw, normals)
-    want = k2.weight_grads_reference(ops, normals, sh)
+    want = k2.weight_grads_reference(ops, normals, sh, torch.float64)
     torch.cuda.synchronize()
     db = torch.zeros(lib.fused_mlp_bias_count(), device=ops.device)
     got_p, want_p = unpack_params(mlp, dw, db), unpack_params(mlp, want, db)
@@ -1058,35 +1141,71 @@ def check_against_plain(scene: str, config: str = CONFIG,
     and twice the CPU's own largest change, and the normals are printed,
     not held: where f32 rounding of the positions sets the render
     (`nerf.disable_integration`), the card is held to the CPU no tighter
-    than the CPU holds itself."""
+    than the CPU holds itself. The card renders now; the CPU's
+    renders run in `cpu_pool` and the comparison is queued
+    (`defer_check`), as the step checks'."""
+    import torch
+    from pano_nerf_tpu_torch.engine import validation as V
+    system, ds = _eval_system(scene, config, "cuda", factor=32, opts=opts)
+    if params is not None:
+        system.model.load_params({k: v.to("cuda") for k, v in
+                                  params.items()})
+    draws = None
+    if system.val_randomized:
+        cpu_system, _ = _eval_system(scene, config, "cpu", factor=32,
+                                     opts=opts)
+        draws = cpu_system.make_draws(cpu_system.val_chunk_size,
+                                      torch.Generator().manual_seed(0),
+                                      eval_counts=True)
+    on_dev = None if draws is None else type(draws)(
+        *(None if x is None else x.to("cuda") for x in draws))
+    render = system.make_render_image(system.surface, draws=on_dev)
+    card = V.render_full_pano(render, None, ds[0][0], ds.h, ds.w,
+                              torch.device("cuda"))
+    np_of = lambda t: None if t is None else t.detach().cpu().numpy()
+    fut = cpu_pool().submit(
+        _plain_renders, scene, config, tuple(opts),
+        None if params is None else {k: np_of(v) for k, v in params.items()},
+        None if draws is None else type(draws)(*(np_of(x) for x in draws)),
+        shifts)
+    defer_check(lambda: _hold_renders(tag, card, fut.result(), shifts))
+
+
+def _plain_renders(scene: str, config: str, opts, params_np, draws_np,
+                   shifts: int) -> dict:
+    """`check_against_plain`'s CPU side (in a `cpu_pool` worker): the view
+    rendered by the plain versions from the parameters `params_np` (numpy;
+    None: seed 0) with the draws `draws_np` (numpy, or None), as "cpu",
+    and with the ray origins moved by 1e-6 (numpy seeds 0..shifts-1) as
+    "shift<seed>"."""
     import numpy as np
     import torch
     from pano_nerf_tpu_torch.engine import validation as V
-    out, draws = {}, None
-    for dev in ("cpu", "cuda"):
-        system, ds = _eval_system(scene, config, dev, factor=32, opts=opts)
-        if params is not None:
-            system.model.load_params({k: v.to(dev) for k, v in
-                                      params.items()})
-        if system.val_randomized and draws is None:
-            draws = system.make_draws(system.val_chunk_size,
-                                      torch.Generator().manual_seed(0),
-                                      eval_counts=True)
-        on_dev = None if draws is None else type(draws)(
-            *(None if x is None else x.to(dev) for x in draws))
-        render = system.make_render_image(system.surface, draws=on_dev)
-        rays = ds[0][0]
-        out[dev] = V.render_full_pano(render, None, rays, ds.h, ds.w,
-                                      torch.device(dev))
-        if dev == "cpu":
-            for seed in range(shifts):
-                d = np.random.default_rng(seed).normal(
-                    size=rays.origins.shape)
-                d *= 1e-6 / np.linalg.norm(d, axis=-1, keepdims=True)
-                moved = rays._replace(origins=(rays.origins + d).astype(
-                    rays.origins.dtype))
-                out[f"shift{seed}"] = V.render_full_pano(
-                    render, None, moved, ds.h, ds.w, torch.device(dev))
+    system, ds = _eval_system(scene, config, "cpu", factor=32, opts=opts)
+    if params_np is not None:
+        system.model.load_params({k: torch.from_numpy(v)
+                                  for k, v in params_np.items()})
+    draws = None if draws_np is None else type(draws_np)(
+        *(None if x is None else torch.as_tensor(x) for x in draws_np))
+    render = system.make_render_image(system.surface, draws=draws)
+    rays = ds[0][0]
+    cpu = torch.device("cpu")
+    out = {"cpu": V.render_full_pano(render, None, rays, ds.h, ds.w, cpu)}
+    for seed in range(shifts):
+        d = np.random.default_rng(seed).normal(size=rays.origins.shape)
+        d *= 1e-6 / np.linalg.norm(d, axis=-1, keepdims=True)
+        moved = rays._replace(origins=(rays.origins + d).astype(
+            rays.origins.dtype))
+        out[f"shift{seed}"] = V.render_full_pano(render, None, moved, ds.h,
+                                                 ds.w, cpu)
+    return out
+
+
+def _hold_renders(tag: str, card: dict, out: dict, shifts: int) -> None:
+    """`check_against_plain`'s comparison of the card's render `card` with
+    the CPU's (`_plain_renders`)."""
+    import numpy as np
+    out = dict(out, cuda=card)
     moved = [out[f"shift{seed}"] for seed in range(shifts)]
     for k in ("rgb_fine", "dep_fine", "rgb_coarse", "dep_coarse",
               "albedo", "roughness"):
@@ -1469,12 +1588,13 @@ def check_train_kernels(model, dev, calls, wentry: dict, ndc: int = 5,
     gradient at 0.1 over its rms instead of at 0.1 (on zero covariances
     it is ~2^15 times larger, and sin(0.1 x) of it would turn its
     rounding into other cotangents). With `dsig_free_moments` (phase 2y
-    at D) kernel 3's moment and covariance gradients are held on the
-    same loss without the density-gradient term, the rest on the whole
-    loss: at D's fine call the bf16 plain version's own moment gradient
-    there lies 2.6e-1 from its f32 run, the kernel's 2.1e-1, all of the
-    kernel-plain distance in 1% of the rows (PERF.md section 6); the term's
-    path through the same code is held whole at P3 and Dm. Raises on a
+    at D, 2z at E and Em) kernel 3's moment and covariance gradients are
+    held on the same loss without the density-gradient term, the rest on
+    the whole loss: at D's fine call the bf16 plain version's own moment
+    gradient there lies 2.6e-1 from its f32 run, the kernel's 2.1e-1, all
+    of the kernel-plain distance in 1% of the rows (PERF.md section 6; E
+    and Em alike); the term's path through the same code is held whole at
+    P3, Dm and P4. Raises on a
     disagreement. Returns the JSON entries that got a shape (launches filled
     in by the main path's runs; names carry `sfx`, and only the unsuffixed
     shapes add into the weight-gradient entry's sums)."""
@@ -2017,9 +2137,11 @@ def padded_macs(mlp) -> dict:
                 build=f"W={b.W} VW={b.VW} C={b.C}", share=own / wide)
 
 
-def check_padded_slots(model, calls, levels, k1: bool, tag: str) -> None:
+def check_padded_slots(model, calls, levels, k1: bool, tag: str,
+                       with_k5: bool = True) -> None:
     """Every backward of the wrappers (kernels 2 and 3 at `calls`, kernel
-    5 at `levels`, kernel 1 with `k1`) on a model padded into a wider
+    5 at `levels` with `with_k5`, kernel 1 with `k1` on the coarse level's
+    rows) on a model padded into a wider
     build: the packed weight gradients (rounded to bf16, as the step
     takes them) and bias gradients in the slots the build pads
     (`fused_render.padded_slots`) must be exactly 0."""
@@ -2050,7 +2172,7 @@ def check_padded_slots(model, calls, levels, k1: bool, tag: str) -> None:
                   else k2.fused_mlp_ipe_apply)
             _outs_and_grads(fn, mlp, means, covs, v_enc, packed=packed, **kw)
         g = torch.Generator(device="cuda").manual_seed(23)
-        for args in levels.values():
+        for args in levels.values() if with_k5 else ():
             R, S = args[0].shape[:2]
             coef = {k: torch.randn(sh, generator=g, device=args[0].device)
                     for k, sh in (("rgb", (R, 3)), ("acc", (R,)),
@@ -2080,7 +2202,7 @@ def check_padded_slots(model, calls, levels, k1: bool, tag: str) -> None:
           f"{int(b_pad.sum())} biases of the packed layout) over "
           f"{len(seen)} backwards: largest |value| {worst:.3e} (must be "
           f"exactly 0)", flush=True)
-    want = len(calls) + len(levels) + int(k1)
+    want = len(calls) + len(levels) * with_k5 + int(k1)
     if len(seen) != want:
         raise AssertionError(f"{len(seen)} backwards seen, expected {want}")
     hold(f"{tag} padded gradient slots", worst, 0.0)
@@ -2194,6 +2316,63 @@ def check_wide_kernels(env, dev, wentry: dict) -> dict:
     entries["Dm"] = check_train_kernels(
         model, dev, mip_shapes(model, dev), wentry, ndc=1,
         forward_only=MIP_EVAL, tag="[kernel-wDm]", sfx="_wDm")
+    del model
+    return entries
+
+
+def check_pair_kernels(env, dev, wentry: dict) -> dict:
+    """Phase 2z: every kernel of the 1,024 builds (each tile on a cluster
+    of two CTAs) against its plain version on the card at phase 2's
+    tolerances, forward and backward (each backward also as its two
+    passes; the weight-gradient pass against `weight_grads_reference` at
+    WGRAD_TOL, torch.matmul beside it), weights from seed 0: at E kernel
+    4 at the eval path's three shapes, kernels 2 and 3 at a batch-512
+    train step's four calls and kernel 1 at 28,672 rows; at Em (mip-NeRF
+    360's 1,024 / 128, one density channel) kernels 2 and 3 at a
+    batch-2048 step's 131,072 rows and an eval chunk's 262,144; at P4
+    (768 / 384, zero-padded into E's build) kernels 4, 2, 3 and 1 likewise
+    at the model's own width, the padded gradient slots exactly 0
+    (`check_padded_slots`). Kernel 5 is not built at these widths. As at
+    D, E's and Em's kernel-3 moment and covariance gradients are held on
+    the loss without its density-gradient term (`check_train_kernels`
+    `dsig_free_moments`; the whole loss's printed): on the whole loss the
+    kernel lies no further from f32 than the bf16 plain version does
+    (`scripts/torch_k3_conditioning.py`: Em's fine call 0.269 and 0.273,
+    E's 0.246 and 0.245), so the two bf16 versions' distance there is
+    rounding. P4 holds them on the whole loss, as P3 and Dm. Each time
+    beside the bound of the model's own MACs and bytes. Returns the JSON
+    entries by shape, named with `_wE`, `_wEm`, `_pP4`."""
+    import torch
+    entries = {}
+    for name in ("E", "P4"):
+        sfx = f"_w{name}" if name == "E" else f"_p{name}"
+        tag = f"[kernel{sfx[1:]}]"
+        model = shape_model(name, dev)
+        macs = padded_macs(model.mlp)
+        print(f"{tag} MACs per row: model {macs['model_macs_per_row']:,}, "
+              f"build ({macs['build']}) {macs['build_macs_per_row']:,}",
+              flush=True)
+        with torch.no_grad():
+            got = [check_kernels(model, env, dev,
+                                 shapes=main_path_inputs(model, env, dev),
+                                 sfx=sfx, tag=tag)]
+        calls, levels, _ = train_shapes(model, env, dev)
+        got += check_train_kernels(model, dev, calls, wentry, tag=tag,
+                                   sfx=sfx, dsig_free_moments=name == "E")
+        got += check_fused_mlp_kernel(model, dev, levels, wentry, sfx=sfx,
+                                      tag=tag)
+        if name == "P4":
+            check_padded_slots(model, calls, levels, True, tag,
+                               with_k5=False)
+            for e in got:
+                e["padded"] = macs
+        entries[name] = got
+        del model, calls, levels
+    model = shape_model("Em", dev)
+    entries["Em"] = check_train_kernels(
+        model, dev, mip_shapes(model, dev), wentry, ndc=1,
+        forward_only=MIP_EVAL, tag="[kernel-wEm]", sfx="_wEm",
+        dsig_free_moments=True)
     del model
     return entries
 
@@ -2703,18 +2882,22 @@ def check_illum_freeze(trainer) -> None:
         raise AssertionError(f"illum_freeze: {res}")
 
 
-# The CPU side of the step checks runs in CPU_WORKERS processes of
-# CPU_THREADS threads each, spawned once (`cpu_pool`), beside the card's
-# steps: on the card's 8-core host a batch-64 step keeps 8 threads of one
-# process far from busy, and four steps at a time in four processes take
-# less time than the four in turn. The steps, their inputs and the
+# The CPU side of the step checks and of `check_against_plain` runs in
+# CPU_WORKERS processes of CPU_THREADS threads each, spawned once
+# (`cpu_pool`), beside the card's work: on the card's 8-core host a
+# batch-64 step keeps 8 threads of one process far from busy, and four
+# steps at a time in four processes take less time than the four in
+# turn. The workers run at a lower priority (CPU_NICE), so the process
+# that drives the card, whose eager steps and renders wait on the host,
+# is not held up by them. The steps, renders, their inputs and the
 # statistics over them are the same; the CPU's sums may order apart.
-CPU_WORKERS, CPU_THREADS = 4, 2
+CPU_WORKERS, CPU_THREADS, CPU_NICE = 4, 2, 10
 _CPU_POOL = None
 
 
 def _init_cpu_worker(threads: int) -> None:
     import torch
+    os.nice(CPU_NICE)
     torch.set_num_threads(threads)
 
 
@@ -2787,21 +2970,52 @@ def _one_step(hp, dev, state_dict, batch, draws_np) -> tuple:
     return {k: float(v) for k, v in parts.items()}, grads
 
 
-def _steps(jobs) -> list:
-    """Run `_one_step` on each (hp, dev, *args) of `jobs`: the CPU ones in
-    `cpu_pool`, the card's here meanwhile; returns the results in order
-    (gradients as torch tensors)."""
+def _steps(jobs):
+    """Run `_one_step` on each (hp, dev, *args) of `jobs`: the CPU ones
+    queued in `cpu_pool`, the card's here now; returns a function that
+    waits for the CPU ones and returns the results in order (gradients as
+    torch tensors)."""
     import torch
     pool = cpu_pool()
     futs = [pool.submit(_one_step, hp, dev, *args) if dev == "cpu"
             else None for hp, dev, *args in jobs]
     out = [_one_step(hp, dev, *args) if f is None else None
            for f, (hp, dev, *args) in zip(futs, jobs)]
-    for i, f in enumerate(futs):
-        if f is not None:
-            parts, grads = f.result()
-            out[i] = (parts, torch.as_tensor(grads))
-    return out
+
+    def results() -> list:
+        for i, f in enumerate(futs):
+            if f is not None:
+                parts, grads = f.result()
+                out[i] = (parts, torch.as_tensor(grads))
+        return out
+    return results
+
+
+# The step checks' comparisons, each waiting for its CPU steps: they run
+# after the card's later phases (`finish_step_checks`, before the report),
+# so the pool's CPU steps overlap the card's work instead of holding it.
+# The steps, statistics and bounds are those of the checks as called.
+PENDING_CHECKS: list = []
+
+
+def defer_check(finish) -> None:
+    """Queue `finish` (a check's comparison) under the current phase."""
+    PENDING_CHECKS.append((PHASE, finish))
+
+
+def finish_step_checks() -> None:
+    """Run every queued comparison in order, each under its phase's name
+    (a failure names the phase that queued it)."""
+    global PHASE
+    here, t0 = PHASE, time.perf_counter()
+    n = len(PENDING_CHECKS)
+    while PENDING_CHECKS:
+        PHASE, finish = PENDING_CHECKS.pop(0)
+        finish()
+    PHASE = here
+    print(f"[clock] finish_step_checks: {n} checks' comparisons took "
+          f"{time.perf_counter() - t0:.1f} s (waiting for their CPU "
+          f"steps)", flush=True)
 
 
 def _check_batch(trainer, seed: int, num_rays: int) -> tuple:
@@ -2884,7 +3098,8 @@ def grad_errors(trainer, seeds, num_rays: int = 64,
     CPU without the orientation and surface terms. Returns per batch the
     loss parts of the first three and the squared norms of the gradients'
     differences (`card`, `cpu`: to f32; `plain`: card to CPU without the
-    two terms) and of their references (`f32`, `cpu_plain`)."""
+    two terms) and of their references (`f32`, `cpu_plain`), from a
+    function that waits for the CPU steps (`_steps`)."""
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
     hp_f32 = dict(hp, **{"train.precision": "f32"})
@@ -2893,18 +3108,22 @@ def grad_errors(trainer, seeds, num_rays: int = 64,
     if normal_free:
         runs += [(hp_plain, "cuda"), (hp_plain, "cpu")]
     batches = [_step_args(trainer, seed, num_rays) for seed in seeds]
-    res = _steps([(h, dev, *args) for args in batches for h, dev in runs])
-    out = []
-    for b in range(len(batches)):
-        card, cpu, f32, *plain = res[b * len(runs):(b + 1) * len(runs)]
-        out.append(dict(parts=(card[0], cpu[0], f32[0]),
-                        card=sq(card[1], f32[1]), cpu=sq(cpu[1], f32[1]),
-                        f32=sq(f32[1])))
-        if normal_free:
-            card_p, cpu_p = plain
-            out[-1].update(plain=sq(card_p[1], cpu_p[1]),
-                           cpu_plain=sq(cpu_p[1]))
-    return out
+    results = _steps([(h, dev, *args) for args in batches
+                      for h, dev in runs])
+
+    def errors() -> list:
+        res, out = results(), []
+        for b in range(len(batches)):
+            card, cpu, f32, *plain = res[b * len(runs):(b + 1) * len(runs)]
+            out.append(dict(parts=(card[0], cpu[0], f32[0]),
+                            card=sq(card[1], f32[1]),
+                            cpu=sq(cpu[1], f32[1]), f32=sq(f32[1])))
+            if normal_free:
+                card_p, cpu_p = plain
+                out[-1].update(plain=sq(card_p[1], cpu_p[1]),
+                               cpu_plain=sq(cpu_p[1]))
+        return out
+    return errors
 
 
 GRAD_BATCHES = 16
@@ -2937,12 +3156,21 @@ def check_train_step_against_cpu(trainer, num_rays: int = 64,
     (not `well_conditioned`: phase 19) (b) is not run, as the CPU's own
     bf16 gradient is as far from its f32 one as from the card's, and the
     parts that read the normals (`NORMAL_PARTS`) are printed, not
-    held."""
+    held. The card's steps run now; the comparison is queued
+    (`defer_check`) until the CPU's are in."""
+    tag = f"[check{_family(trainer.system)['sfx']}]"
+    errors = grad_errors(trainer, range(5, 5 + GRAD_BATCHES), num_rays,
+                         well_conditioned)
+    defer_check(lambda: _hold_step_errors(tag, errors(), num_rays,
+                                          well_conditioned))
+
+
+def _hold_step_errors(tag: str, errs: list, num_rays: int,
+                      well_conditioned: bool) -> None:
+    """`check_train_step_against_cpu`'s comparison of the per-batch
+    errors `errs` (`grad_errors`)."""
     import math
     import statistics
-    tag = f"[check{_family(trainer.system)['sfx']}]"
-    errs = grad_errors(trainer, range(5, 5 + GRAD_BATCHES), num_rays,
-                       well_conditioned)
     failures = []
     card, cpu, f32 = errs[0]["parts"]
     for k in cpu:
@@ -3237,20 +3465,29 @@ def check_f32_step_against_cpu(trainer, num_rays: int = 64) -> None:
     shipped loss's within F32_GRAD_TOL (rel-norm of all batches'
     gradients together). The two devices order their f32 sums apart
     (cuBLAS, MKL); the normal-dependent terms normalize tiny density
-    gradients and so show it most."""
-    import math
+    gradients and so show it most. The comparison is queued as
+    `check_train_step_against_cpu`'s."""
     tag = f"[check{_family(trainer.system)['sfx']}]"
     hp = trainer.hparams
     hp_plain = dict(hp, **{"loss.ort_loss": 0.0, "loss.surface_loss": 0.0})
-    sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
-    parts, tot, each = [], dict.fromkeys(("full", "f", "plain", "p"), 0.0), {
-        "full": [], "plain": []}
     runs = [(hp, "cuda"), (hp, "cpu"), (hp_plain, "cuda"), (hp_plain, "cpu")]
     batches = [_step_args(trainer, seed, num_rays)
                for seed in range(5, 5 + GRAD_BATCHES)]
-    res = _steps([(h, dev, *args) for args in batches for h, dev in runs])
-    for b in range(len(batches)):
-        card, cpu, card_p, cpu_p = res[b * len(runs):(b + 1) * len(runs)]
+    results = _steps([(h, dev, *args) for args in batches
+                      for h, dev in runs])
+    defer_check(lambda: _hold_f32_steps(tag, results(), len(batches),
+                                        len(runs), num_rays))
+
+
+def _hold_f32_steps(tag: str, res: list, nbatch: int, nruns: int,
+                    num_rays: int) -> None:
+    """`check_f32_step_against_cpu`'s comparison of the steps `res`."""
+    import math
+    sq = lambda a, b=0.0: float(((a - b) ** 2).sum())
+    parts, tot, each = [], dict.fromkeys(("full", "f", "plain", "p"), 0.0), {
+        "full": [], "plain": []}
+    for b in range(nbatch):
+        card, cpu, card_p, cpu_p = res[b * nruns:(b + 1) * nruns]
         parts.append((card[0], cpu[0]))
         for name, ref, (a, b) in (("full", "f", (card[1], cpu[1])),
                                   ("plain", "p", (card_p[1], cpu_p[1]))):
@@ -3407,8 +3644,10 @@ def check_zero_covariance_kernels(system) -> None:
 # `loss.ort_loss` (kernels 2 and 3, served through them); 23, P1 (trunk
 # 64, view 32, in the 128 / 64 build) as 21; 23m, P2 mip-NeRF (200 / 100,
 # in the one-channel 256 / 128 build) as 22m; 25, D (trunk 512, view 256)
-# as 21; 25m, Dm (mip-NeRF at 512 / 256) as 22m, each with its loss held
-# falling. Entries as in `LEVEL_PHASES`.
+# as 21; 25m, Dm (mip-NeRF at 512 / 256) as 22m; 26, E (trunk 1,024, view
+# 512) with the key off (kernel 5 is not built there: kernels 2 and 3;
+# kernel 4); 26m, Em (mip-NeRF at 1,024 / 128) as 22m; 25-26m each with
+# its loss held falling. Entries as in `LEVEL_PHASES`.
 SHAPE_PHASES = {
     "21": (CONFIG, SHAPE_A, True, 64, (), False),
     "22": (CONFIG, SHAPE_B, False, 64, (), False),
@@ -3420,7 +3659,14 @@ SHAPE_PHASES = {
     "25": (CONFIG, SHAPE_D, True, 64, (), True),
     "25m": (MIP_CONFIG, SHAPE_D + ("loss.ort_loss", "0.1"), False, 64, (),
             True),
+    "26": (CONFIG, SHAPE_E, False, 64, (), True),
+    "26m": (MIP_CONFIG, SHAPE_EM + ("loss.ort_loss", "0.1"), False, 64, (),
+            True),
 }
+# The phases run after phase 24 (the wide builds), and ms per graphed step
+# of each shape phase, for the next wider build's line.
+LATE_PHASES = ("25", "25m", "26", "26m")
+SHAPE_MS: dict = {}
 
 
 def drive_level_phase(ph: str, workdir: str, scene: str,
@@ -3477,9 +3723,13 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
     check_graphed_against_eager(trainer)
     ms = time_train_modes(trainer)
     g8 = "graph, 8 steps per replay"
+    SHAPE_MS[ph] = ms[g8]
     base = "" if mip else (
         f" vs phase 4{'b' if key else ''} in this call "
         f"{base_times[bool(key)][g8]:.3f}")
+    if ph.startswith("26") and "25" + ph[2:] in SHAPE_MS:
+        base += (f", phase 25{ph[2:]} (512 / 256) "
+                 f"{SHAPE_MS['25' + ph[2:]]:.3f}")
     print(f"[time-{name}] graph of 8 steps {ms[g8]:.3f} ms per step "
           f"(one-step graph {ms['graph, 1 step per replay']:.3f}, "
           f"eager {ms['eager']:.3f}){base}", flush=True)
@@ -3643,7 +3893,7 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.get_num_threads()} CPU threads",
           flush=True)
-    build_kernels()
+    build_kernels(wait_pair=False)
     from pano_nerf_tpu_torch.kernels import build
 
     from pano_nerf_tpu_torch.core.config import load_config
@@ -3707,6 +3957,11 @@ def main() -> int:
     enter_phase("2y")
     wide_entries = check_wide_kernels(env, dev, wentry)
     check_libraries("2y")
+    # 2z: the 1,024 builds, each tile on a pair of CTAs.
+    enter_phase("2z")
+    finish_pair_builds()
+    pair_entries = check_pair_kernels(env, dev, wentry)
+    check_libraries("2z")
     if wentry["max_abs_err"] != wentry["max_abs_err"]:
         raise AssertionError("weight-gradient pass gave NaN")
     with tempfile.TemporaryDirectory() as workdir:
@@ -3735,6 +3990,16 @@ def main() -> int:
             base_times[t is train_k5] = time_train_modes(t["trainer"])
             profile_train_step(t["trainer"])
         del train["trainer"], train_k5["trainer"]
+        # 25-26m: the 512 / 256 and 1,024 builds trained and served, early,
+        # so that their CPU steps (the widest) run in the pool beside the
+        # later phases' card work; each phase's libraries printed and
+        # checked.
+        shape_runs = {}
+        for ph in LATE_PHASES:
+            build.LOADED.clear()
+            shape_runs[ph] = drive_level_phase(ph, workdir, scene,
+                                               base_times)
+            check_libraries(ph)
         # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
         # 8c: with the orientation loss, kernel 3 forward and backward).
         enter_phase("7")
@@ -3831,10 +4096,8 @@ def main() -> int:
                       for r in drive_level_phase(ph, workdir, scene,
                                                  base_times)]
         # 21-23m: the other MLP shapes and the padded widths, trained and
-        # served, each phase's libraries printed and checked (25-25m, the
-        # 512 / 256 builds, after phase 24).
-        shape_runs = {}
-        for ph in (p for p in SHAPE_PHASES if not p.startswith("25")):
+        # served, each phase's libraries printed and checked.
+        for ph in (p for p in SHAPE_PHASES if p not in LATE_PHASES):
             build.LOADED.clear()
             shape_runs[ph] = drive_level_phase(ph, workdir, scene,
                                                base_times)
@@ -3842,12 +4105,8 @@ def main() -> int:
         # 24: the library modules (a reference checkpoint imported and
         # served, the native EXR decoder, the Blender loader, 360 ops).
         imported = drive_library_phase(workdir, scene)
-        # 25-25m: the 512 / 256 builds trained and served.
-        for ph in ("25", "25m"):
-            build.LOADED.clear()
-            shape_runs[ph] = drive_level_phase(ph, workdir, scene,
-                                               base_times)
-            check_libraries(ph)
+        # The step checks' comparisons, as their CPU steps come in.
+        finish_step_checks()
     enter_phase("report")
     entry["launches"] = run["launches"]["fused_render_level"]
     for e in train_entries:
@@ -3901,13 +4160,20 @@ def main() -> int:
     # The 512 / 256 builds' entries: D over phase 25, Dm over 25m; kernel
     # 1 at D and every kernel at P3 (a model no phase trains) are on no
     # main path.
-    for name, sfx, runs in (("D", "_wD", shape_runs["25"]),
-                            ("Dm", "_wDm", shape_runs["25m"]),
-                            ("P3", "_pP3", ())):
-        for e in wide_entries[name]:
+    # The 1,024 builds' likewise: E over phase 26, Em over 26m; kernel 1
+    # at E and every kernel at P4 are on no main path.
+    for name, sfx, runs, es in (
+            ("D", "_wD", shape_runs["25"], wide_entries),
+            ("Dm", "_wDm", shape_runs["25m"], wide_entries),
+            ("P3", "_pP3", (), wide_entries),
+            ("E", "_wE", shape_runs["26"], pair_entries),
+            ("Em", "_wEm", shape_runs["26m"], pair_entries),
+            ("P4", "_pP4", (), pair_entries)):
+        for e in es[name]:
             base = e["name"][:-len(sfx)]
             e["launches"] = sum(r["launches"][base] for r in runs)
-            on_path = name != "P3" and not base.startswith("fused_mlp_apply")
+            on_path = (not name.startswith("P")
+                       and not base.startswith("fused_mlp_apply"))
             if on_path and e["launches"] == 0:
                 raise AssertionError(f"{e['name']}: no launch on its "
                                      f"phase's path")
@@ -3926,7 +4192,8 @@ def main() -> int:
                       + study_entries + sd_entries
                       + [e for es in shape_entries.values() for e in es]
                       + [e for es in padded_entries.values() for e in es]
-                      + [e for es in wide_entries.values() for e in es]}))
+                      + [e for es in wide_entries.values() for e in es]
+                      + [e for es in pair_entries.values() for e in es]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

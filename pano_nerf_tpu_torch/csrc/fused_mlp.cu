@@ -25,7 +25,11 @@
 // the shipped shape's (W 256, VW 128, L 16); a 512-wide build runs the
 // same steps column split at N = 512 (two ring stages per K step,
 // mlp_rows.cuh `mm`), with 2 ring stages and the f32 IPE features
-// recomputed from the moments (`feat`).
+// recomputed from the moments (`feat`). A 1,024-wide build runs each tile
+// on a cluster of two CTAs (mlp_rows.cuh `PAIR`): each computes 512
+// columns of every trunk product as the 512-wide build does and reads the
+// partner's 512 through distributed shared memory; the narrow products
+// run whole in both, and rank 0 writes what both hold.
 //
 // The backward is two launches, and each has its own bound on an H100:
 // * The row pass (fused_mlp_bwd_kernel) recomputes the forward (or loads
@@ -100,7 +104,7 @@ struct BwdParams {
 };
 
 struct SmemF {
-  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) bf16 act[TM * 64 * (ACT_BLOCKS + STAGE_BLOCKS)];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
   float x32[X32_ELEMS];
@@ -111,7 +115,7 @@ struct SmemF {
 };
 
 struct SmemB {
-  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) bf16 act[TM * 64 * (ACT_BLOCKS + STAGE_BLOCKS)];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
   uint32_t hvmask[HVW * NT];
@@ -148,8 +152,9 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
                 VAR == NORMALS && p.acts != nullptr ? &spill : nullptr);
   heads_forward<false, true>(pp, s, p.b, p.v + row0 * VP, nrows, nullptr, 0,
                              nullptr, 0);
+  const bool lead = prank() == 0;  // writes what both CTAs of a pair hold
   if constexpr (!PRODUCER) {
-    for (int i = tid; i < nrows * OUT_W; i += NT) {
+    for (int i = tid; lead && i < nrows * OUT_W; i += NT) {
       const int c = i % OUT_W;
       p.out[row0 * OUT_W + i] = c < 3 + NDC ? s.heads[i] : 0.f;
     }
@@ -170,7 +175,7 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
   });
   if constexpr (!PRODUCER) {
     consumer_sync();
-    for (int i = tid; i < nrows * 3; i += NT) {
+    for (int i = tid; lead && i < nrows * 3; i += NT) {
       const int r = i / 3, d = i % 3;
       float a = 0.f;
       for (int deg = 0; deg < L; ++deg) {
@@ -186,13 +191,13 @@ __device__ void fwd_tile(SmemF& s, const FwdParams& p, const Maps& maps,
 }
 
 template <int VAR>
-__global__ void __launch_bounds__(ROW_THREADS, 1)
+__global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
     fused_mlp_fwd_kernel(const __grid_constant__ Maps maps,
                          const __grid_constant__ FwdParams p) {
   extern __shared__ unsigned char smem_raw[];
   SmemF& s = smem_of<SmemF>(smem_raw);
   pipe_init(s);
-  const size_t row0 = (size_t)blockIdx.x * TM;
+  const size_t row0 = (size_t)(blockIdx.x / PAIR) * TM;
   const int nrows = min(TM, p.M - (int)row0);
   run_roles(s, &maps, [&](auto& pp) { fwd_tile<VAR>(s, p, maps, pp, row0, nrows); });
 }
@@ -204,6 +209,8 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
   constexpr int OPW = VAR == NORMALS ? OPW_NRM : OPW_IPE;
   bf16* ops = p.ops + row0 * OPW;  // this tile's 64 operand rows
   const int orow = (int)row0;
+  const int own0 = prank() * WL;      // the CTA's first trunk column
+  const bool lead = own0 == 0;        // writes what both CTAs of a pair hold
 
   // ---- inputs: cotangents (zero past M), moments and IPE, or x ----
   if constexpr (!PRODUCER) {
@@ -223,7 +230,7 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
     } else {
       load_ipe(s, p.mc, row0, nrows, p.min_deg);
     }
-    copy_cols(s.act, W, XF, ops + O_X, OPW, TM);
+    if (lead) copy_cols(s.act, WL, XF, ops + O_X, OPW, TM);
   }
 
   // ---- trunk activations: saved (NORMALS) or recomputed ----
@@ -239,7 +246,9 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
   mlp_backward(pp, s, part_row(p.sums), &maps.ops, orow, ops, OPW);
   if constexpr (VAR == ENCODED) {
     if constexpr (!PRODUCER) {
-      for (int i = tid; i < nrows * XF; i += NT) p.dx[row0 * XF + i] = s.dx[i];
+      for (int i = tid; lead && i < nrows * XF; i += NT) {
+        p.dx[row0 * XF + i] = s.dx[i];
+      }
       bias_sums(p.sums);
     }
     return;
@@ -253,28 +262,30 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
       pre_epilogue();
       chain_start(s, p.w);
       post_epilogue();
-      store_blocks(s.act, 0, W / 64, &maps.ops, O_SZ + 7 * W, orow);
+      store_blocks(s.act, 0, WL / 64, &maps.ops, O_SZ + 7 * W + own0, orow);
     }
-    float acc[W / 4], sk5[32], sk0[32];
+    float acc[WL / 4], sk5[32], sk0[32];
     for (int layer = 7; layer >= 0; --layer) {
-      if (layer == 5) mm<64, 1>(pp, trunk_prod(5, true, W, 128), sk5, s.act, 0);
+      if (layer == 5) {
+        mm<64, 1>(pp, trunk_prod(5, true, W, 128), sk5, s.act, 0, false, W);
+      }
       if (layer == 0) {
-        mm<64, 1>(pp, trunk_prod(0, true, 0, 128), sk0, s.act, 0);
+        mm<64, 1>(pp, trunk_prod(0, true, 0, 128), sk0, s.act, 0, false, W);
         break;
       }
-      mm<W / 2, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+      mm<WL / 2, 1>(pp, share(trunk_prod(layer, true)), acc, s.act, 0, false, W);
       if constexpr (!PRODUCER) {
         pre_epilogue();
         masked_epilogue(s, acc, layer - 1);
         post_epilogue();
-        store_blocks(s.act, 0, W / 64, &maps.ops, O_SZ + (layer - 1) * W,
-                     orow);
+        store_blocks(s.act, 0, WL / 64, &maps.ops,
+                     O_SZ + (layer - 1) * W + own0, orow);
       }
     }
     if constexpr (!PRODUCER) {
       // g_x (rounded to bf16 as the TPU backward does); cotangents of the
       // IPE-side products: cot_dy = q . sel_y, cot_gx = cot_dy * c1 (bf16,
-      // the walk's input at act columns W..W+XF-1), cot_c1 = cot_dy * g_x;
+      // the walk's input at act columns WL..WL+XF-1), cot_c1 = cot_dy * g_x;
       // both zero on the padded feature columns.
       pre_epilogue();
 #pragma unroll
@@ -297,11 +308,11 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
             cg[h] = cot_dy * feat_cos(s, r, j + h, p.min_deg);
             s.dx[r * XF + j + h] = cot_dy * gx;  // cot_c1
           }
-          act_put2(s.act, r, W + j, cg[0], cg[1]);
+          act_put2(s.act, r, WL + j, cg[0], cg[1]);
         }
       }
       post_epilogue();
-      copy_cols(s.act, W, XF, ops + O_CGX, OPW, TM);
+      if (lead) copy_cols(s.act, WL, XF, ops + O_CGX, OPW, TM);
       // IPE backward of cot_c1: cot_y -= cot_c1 * x, cot_var -= cot_c1 c1 / 2.
       for (int i = tid; i < TM * 6; i += NT) {
         const int r = i / 6, k = i % 6, d = k % 3;
@@ -325,26 +336,27 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
     // c_i = bf16(m_i * (c_{i-1} @ W_i^T)), with [c_4 | cot_gx] into layer 5
     // and cot_gx into layer 0.
     for (int layer = 0; layer < 8; ++layer) {
-      mm<W / 2, 0>(pp, trunk_prod(layer, false), acc, s.act,
-                   layer == 0 ? W : 0);
+      mm<WL / 2, 0>(pp, share(trunk_prod(layer, false)), acc, s.act,
+                    layer == 0 ? WL : 0, false, layer == 0 ? 0 : W);
       if constexpr (!PRODUCER) {
         pre_epilogue();
         masked_epilogue(s, acc, layer);
         post_epilogue();
         if (layer < 7) {
-          store_blocks(s.act, 0, W / 64, &maps.ops, O_C + layer * W, orow);
+          store_blocks(s.act, 0, WL / 64, &maps.ops, O_C + layer * W + own0,
+                       orow);
         }
       }
     }
     // s_7 is Wd's sigma row broadcast over the rows: its gradient is the
     // column sum of c_7.
     if constexpr (!PRODUCER) {
-      colsum_store(s.act, 0, W, part_row(p.sums) + B_TOTAL);
+      colsum_store(s.act, 0, WL, part_row(p.sums) + B_TOTAL + own0);
     }
   }
   if constexpr (!PRODUCER) {
     consumer_sync();
-    for (int i = tid; i < nrows * 8; i += NT) {
+    for (int i = tid; lead && i < nrows * 8; i += NT) {
       p.dmc[row0 * 8 + i] = (i & 7) < 6 ? s.dmc[i] : 0.f;
     }
     bias_sums(p.sums);
@@ -352,13 +364,13 @@ __device__ void bwd_tile(SmemB& s, const BwdParams& p, const Maps& maps,
 }
 
 template <int VAR>
-__global__ void __launch_bounds__(ROW_THREADS, 1)
+__global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
     fused_mlp_bwd_kernel(const __grid_constant__ Maps maps,
                          const __grid_constant__ BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
   SmemB& s = smem_of<SmemB>(smem_raw);
   pipe_init(s);
-  const size_t row0 = (size_t)blockIdx.x * TM;
+  const size_t row0 = (size_t)(blockIdx.x / PAIR) * TM;
   const int nrows = min(TM, p.M - (int)row0);
   run_roles(s, &maps, [&](auto& pp) { bwd_tile<VAR>(s, p, maps, pp, row0, nrows); });
 }
@@ -387,14 +399,14 @@ struct Job {
   int n, k;            // output rows (fan-out) and columns (fan-in, <= 256)
   int out, ldo;        // output offset in the packed f32 buffer, row stride
 };
-constexpr int MAX_JOBS = 32;  // 24 at W 512 (fan-ins split at 256)
+constexpr int MAX_JOBS = 64;  // 24 at W 512, 45 at W 1024 (fan-ins split at 256)
 constexpr int WG_NS = 4;                    // ring stages
 constexpr int WG_BOX = 64 * 64 * 2;         // one TMA box, bytes
 constexpr int WG_STAGE = 6 * WG_BOX;        // 2 boxes of B + 4 of A
 constexpr int WG_ST_LD = 264;               // f32 partial-tile row stride
 constexpr int WG_SMEM = WG_NS * WG_STAGE + 1024;
 constexpr int WG_THREADS = 384;             // 2 consumer warpgroups + producer
-constexpr int WG_MAX_ROWS = 32768;          // operand rows of one chunk, at most
+constexpr int WG_MAX_ROWS = 8192;           // operand rows of one chunk, at most
 
 struct WgradParams {
   float* dw;
@@ -533,8 +545,8 @@ cudaError_t launch_forward(const FwdParams& p, cudaStream_t st) {
   const int smem = (int)sizeof(SmemF) + 1024;
   if (err == cudaSuccess) err = set_smem(fused_mlp_fwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_fwd_kernel<VAR><<<(p.M + TM - 1) / TM, ROW_THREADS, smem, st>>>(
-      maps, p);
+  fused_mlp_fwd_kernel<VAR><<<PAIR * ((p.M + TM - 1) / TM), ROW_THREADS,
+                              smem, st>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -554,7 +566,7 @@ cudaError_t launch_backward(const BwdParams& p, const bf16* acts,
   const int smem = (int)sizeof(SmemB) + 1024;
   if (err == cudaSuccess) err = set_smem(fused_mlp_bwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_bwd_kernel<VAR><<<tiles, ROW_THREADS, smem, st>>>(maps, p);
+  fused_mlp_bwd_kernel<VAR><<<PAIR * tiles, ROW_THREADS, smem, st>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -714,8 +726,9 @@ int fused_mlp_weight_grads(const void* ops, float* dw, int M, int normals,
   // 120 blocks, so ~3 MB of f32 partials (0.5-0.8 M element adds) instead
   // of a workspace and a second launch; and at least as many as keep a
   // chunk within WG_MAX_ROWS rows, since one accumulator summing more rows
-  // drifts from an f32 product (the 512 build's 81 tiles at 131,072 rows
-  // in one chunk: rel-norm 2e-4).
+  // drifts from the exact product (the 512 build's 81 tiles at 131,072
+  // rows in one chunk: rel-norm 2e-4 against f32; at 28,672 rows in one
+  // chunk up to 9.9e-5 against float64 on some draws).
   const int tiles = p.tile_start[p.njobs];
   const int chunks = min(max(M / TM, 1),
                          max(max(1, 132 / tiles),

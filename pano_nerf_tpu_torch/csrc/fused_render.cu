@@ -68,6 +68,13 @@
 //   and g_x folded feature by feature from each warpgroup's 64 of the
 //   128 skip columns into partial sums per warpgroup, added in
 //   normals_tile. A simple layout that is right; its speed is later work.
+// * The 1,024-wide build (W 1024) runs that column split on a cluster of
+//   two CTAs per tile (mlp_rows.cuh `PAIR`): each computes its 512
+//   columns of every trunk product and reads the partner's through
+//   distributed shared memory; the heads, g_x, compositing and normals
+//   run whole in both, and rank 0 writes the slab. The persistent grid is
+//   a whole number of pairs, each walking the tiles together, with a
+//   2-slice ring on the fine level.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C entry
 // point (pano_nerf_tpu_torch/kernels/build.py).
@@ -109,12 +116,13 @@ struct Params {
 
 // NRM: the fine level's layout, with the chain's ReLU masks and a
 // 2-slice ring; without normals the masks' room goes to a third slice.
-// The column split (W 512) has room for three slices either way; its
+// The column split (W 512) has room for three slices either way (a pair
+// CTA, with its staging block, for two on the fine level); its
 // d raw_sigma / d means is two partial sums, one per warpgroup.
 template <bool NRM>
 struct Smem {
-  static constexpr int NS = NRM && RS ? 2 : 3;  // weight-slice stages
-  alignas(1024) bf16 act[(RS ? 2 : 1) * ACT_ELEMS];
+  static constexpr int NS = NRM && (RS || PAIR > 1) ? 2 : 3;  // stages
+  alignas(1024) bf16 act[(RS ? 2 : 1) * ACT_ELEMS + STAGE_BLOCKS * TM * 64];
   alignas(1024) unsigned char ring[NS * SLICE];
   uint32_t mask[NRM ? 8 * (RS ? W / 64 : MWC) * NT : 1];
   float mc[TR * 8];
@@ -187,6 +195,7 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
   }
   consumer_sync();
   const int out_w = OUT_FIXED + S;
+  const bool lead = prank() == 0;  // writes the slab both CTAs of a pair hold
   for (int q = tid; q < nrays; q += NT) {
     float tau = 0.f, acc = 0.f, dist = 0.f, rough = 0.f;
     float rgb[3] = {0.f, 0.f, 0.f}, alb[3] = {0.f, 0.f, 0.f};
@@ -197,7 +206,7 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
       const float w = (1.f - expf(-dd)) * expf(-tau);
       tau += dd;
       rowf[R_W * TR + r] = w;
-      o[OUT_FIXED + k] = w;
+      if (lead) o[OUT_FIXED + k] = w;
       acc += w;
       dist += w * s.mc[r * 8 + 7];
       rough += w * rowf[R_ROUGH * TR + r];
@@ -206,6 +215,8 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
         alb[c] += w * rowf[(R_ALB + c) * TR + r];
       }
     }
+    s.acc[q] = acc;
+    if (!lead) continue;
     const float* ri = s.ray + q * 8;
     for (int c = 0; c < 3; ++c) o[c] = p.white_bkgd ? rgb[c] + (1.f - acc) : rgb[c];
     o[3] = acc;
@@ -214,7 +225,6 @@ __device__ void composite_tile(Sm& s, const Params& p, int ray0,
     for (int c = 0; c < 3; ++c) o[5 + c] = p.need_extras ? alb[c] * inv : 0.f;
     o[8] = p.need_extras ? rough * inv : 0.f;
     for (int c = 9; c < OUT_FIXED; ++c) o[c] = 0.f;
-    s.acc[q] = acc;
   }
 }
 
@@ -317,7 +327,7 @@ __device__ void normals_tile(Smem<true>& s, const Params& p, int ray0, int nrays
   }
   consumer_sync();
   const int out_w = OUT_FIXED + S;
-  for (int q = tid; q < nrays; q += NT) {
+  for (int q = tid; prank() == 0 && q < nrays; q += NT) {
     float n[3] = {0.f, 0.f, 0.f}, ort = 0.f;
     for (int k = 0; k < S; ++k) {
       const int r = q * S + k;
@@ -364,14 +374,14 @@ __device__ void render_tile(Pipe<PRODUCER, NS>& pp, Smem<NRM>& s,
 }
 
 template <bool NRM>
-__global__ void __launch_bounds__(ROW_THREADS, 1)
+__global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
     fused_render_kernel(const __grid_constant__ Maps maps,
                         const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   Smem<NRM>& s = smem_of<Smem<NRM>>(smem_raw);
   pipe_init(s);
   run_roles<24, 240>(s, &maps, [&](auto& pp) {
-    for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+    for (int t = blockIdx.x / PAIR; t < p.ntiles; t += gridDim.x / PAIR) {
       render_tile(pp, s, p, t);
     }
   });
@@ -389,7 +399,8 @@ cudaError_t launch(const Maps& maps, const Params& p, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return err;
-  const int grid = p.ntiles < sms ? p.ntiles : sms;
+  const int pairs = sms / PAIR;  // one block per SM, whole pairs
+  const int grid = PAIR * (p.ntiles < pairs ? p.ntiles : pairs);
   fused_render_kernel<NRM><<<grid, ROW_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }

@@ -54,6 +54,9 @@
 #include "mlp_rows.cuh"
 
 static_assert(nerf_mlp::NDC == 5, "built for the 5-channel density head");
+static_assert(nerf_mlp::PAIR == 1,
+              "built for trunks up to 512: the 1,024-wide CTA pair is not "
+              "written for this kernel yet");
 
 namespace {
 

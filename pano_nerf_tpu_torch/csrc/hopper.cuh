@@ -1,9 +1,10 @@
 // Hopper building blocks of the port's kernels (fused_render.cu,
 // fused_mlp.cu, fused_render_train.cu): mbarriers, TMA loads and stores of 64x64 bf16
-// boxes in the 128-byte swizzle, bulk f32 reduction into global memory,
-// warpgroup matrix products (wgmma) with their shared-memory descriptors,
-// and the host-side tensor map of a bf16 matrix. Written from the PTX ISA
-// for sm_90a; nothing here is a library kernel.
+// boxes in the 128-byte swizzle, warpgroup matrix products (wgmma) with
+// their shared-memory descriptors, cluster ranks, distributed shared
+// memory loads and cluster barriers, and the host-side tensor map of a
+// bf16 matrix. Written from the PTX ISA for sm_90a; nothing here is a
+// library kernel.
 #pragma once
 
 #include <cuda.h>
@@ -100,6 +101,84 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
+}
+
+// ---- clusters (the CTA pairs of the 1,024-wide builds) ----
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `p` (in this CTA's shared memory) in the
+// shared memory of the cluster's CTA `rank` (mapa).
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// 16 bytes from a shared::cluster address (distributed shared memory).
+__device__ __forceinline__ uint4 ld_cluster(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Barrier of every thread of the cluster that has not exited, with
+// release / acquire at cluster scope.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive on this CTA's mbarrier; returns the token of the phase arrived in.
+__device__ __forceinline__ uint64_t mbar_arrive_token(uint64_t* bar) {
+  uint64_t token;
+  asm volatile("mbarrier.arrive.release.cluster.shared::cta.b64 %0, [%1];\n"
+               : "=l"(token)
+               : "r"(smem_u32(bar))
+               : "memory");
+  return token;
+}
+
+// Arrive on another CTA's mbarrier (shared::cluster address), releasing
+// this thread's writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   addr)
+               : "memory");
+}
+
+// Wait until the phase of `token` has completed, acquiring at cluster
+// scope; traps after ~20 s, as mbar_wait.
+__device__ __forceinline__ void mbar_wait_token(uint64_t* bar,
+                                                uint64_t token) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  do {
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "l"(token)
+        : "memory");
+  } while (!done);
 }
 
 // ---- TMA ----

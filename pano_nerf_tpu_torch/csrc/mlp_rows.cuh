@@ -61,6 +61,26 @@
 // The 512-wide builds run column split only (kernel 4 too: two 80 KB
 // tiles do not fit a block), keep no f32 copy of the IPE features (see
 // `feat`) and give the consumers 240 registers (128 accumulators).
+//
+// The 1,024-wide builds (W 1024, PAIR = 2) run every tile on a cluster of
+// two CTAs, since one CTA holds neither the 64 x 1,120 tile beside its
+// masks and ring nor 256 accumulators a thread. CTA `rank` owns the
+// columns rank * WL .. of every trunk-wide product (WL = W / 2; of the
+// view branch, VL = VW / 2): it computes them column split as a 512-wide
+// build does (`share`), keeps them in its own tile at local columns
+// 0..WL-1, and keeps the inputs beside them (IPE features, viewdir codes,
+// head cotangents at local column WL) in both CTAs. A product whose K
+// runs over the split columns (`mm`'s `split`) reads its own half from the
+// tile and the partner's half one 64-column block at a time through
+// distributed shared memory into a staging block after the tile (the
+// wgmma descriptor addresses only the CTA's own shared memory). The
+// narrow products (the heads, the 128 columns of g_x, and at VW 128 the
+// view branch's backward) are computed whole in both CTAs, so no sum
+// crosses the pair and both hold the same bits. A layer's output replaces
+// its input in place, so every epilogue is fenced by a barrier of the
+// pair's consumers (`pair_sync`): before it, the partner has read this
+// CTA's half; after it, the new half is written. Global writes of what
+// both CTAs hold come from rank 0.
 // Each step is called by every consumer thread; `Smem` is any struct with
 // the members the step names, so a kernel allocates only what it uses.
 // Consumers synchronise among themselves with named barriers (1: all
@@ -74,24 +94,32 @@ namespace nerf_mlp {
 
 constexpr int OUT_W = 16;  // raw output slab: rgb(3) | density(5) | 0(8)
 constexpr int ROW_THREADS = NT + 128;  // two consumer warpgroups + producer
-// Weight-slice stages: three, or two in the 512-wide builds, whose 80 KB
-// activation tile and 32 KB of masks leave room for no more.
-constexpr int RING = W > 256 ? 2 : 3;
+// CTAs per tile (the 1,024-wide builds run a pair, see the header) and the
+// trunk and view-branch columns each owns.
+constexpr int PAIR = W > 512 ? 2 : 1;
+constexpr int WL = W / PAIR;
+constexpr int VL = VW / PAIR;
+// Weight-slice stages: three, or two in the 512- and 1,024-wide builds,
+// whose 80 KB activation tile and 32 KB of masks leave room for no more.
+constexpr int RING = WL > 256 ? 2 : 3;
 constexpr int BOX = 64 * 64 * 2;      // one 64 x 64 bf16 TMA box
 constexpr int SLICE = 4 * BOX;        // one stage: up to four boxes
-// Activation tile: 64-column blocks for the trunk's W columns and the
+// Activation tile: 64-column blocks for the CTA's WL trunk columns and the
 // widest of the inputs beside them (IPE features, viewdir codes, the
 // density-head cotangent).
-constexpr int ACT_COLS = W + (XF > VP ? (XF > HP ? XF : HP) : (VP > HP ? VP : HP));
+constexpr int ACT_COLS = WL + (XF > VP ? (XF > HP ? XF : HP) : (VP > HP ? VP : HP));
 constexpr int ACT_BLOCKS = (ACT_COLS + 63) / 64;
 static_assert(ACT_BLOCKS <= 10, "the activation tile holds at most 640 columns");
 constexpr int ACT_ELEMS = TM * 64 * ACT_BLOCKS;  // one 64-row tile
-// ReLU-mask words per thread and trunk layer in the column split (W / 2
-// columns per warpgroup, W / 4 accumulators per thread).
-constexpr int MWC = W / 128;
-// View-branch ReLU-mask words per thread in the column split (VW / 4
+// A pair CTA's staging block for the partner's 64 columns (after the
+// tile: a kernel's act array holds ACT_BLOCKS + STAGE_BLOCKS blocks).
+constexpr int STAGE_BLOCKS = PAIR > 1 ? 1 : 0;
+// ReLU-mask words per thread and trunk layer in the column split (WL / 2
+// columns per warpgroup, WL / 4 accumulators per thread).
+constexpr int MWC = WL / 128;
+// View-branch ReLU-mask words per thread in the column split (VL / 4
 // accumulators per thread).
-constexpr int HVW = (VW / 4 + 31) / 32;
+constexpr int HVW = (VL / 4 + 31) / 32;
 // The f32 IPE features (64 rows x XF) are kept in s.x32 where they fit
 // beside the tile (W <= 256); the 512-wide builds recompute them from the
 // moments (`feat`), with load_ipe's own expression, so the values agree.
@@ -103,8 +131,8 @@ constexpr int HVW = (VW / 4 + 31) / 32;
 constexpr bool X32 = W <= 256;
 constexpr int X32_ELEMS = X32 ? TM * XF : 1;
 // Shared memory one block may have on an H100 (a kernel's Smem plus the
-// 1024 bytes of alignment slack it allocates).
-constexpr int SMEM_LIMIT = 232448;
+// 1024 bytes of alignment slack it allocates), less the pair's barrier.
+constexpr int SMEM_LIMIT = 232448 - (PAIR > 1 ? 16 : 0);
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x
@@ -198,6 +226,76 @@ __device__ __forceinline__ int frag_col(int i) {
 }
 __device__ __forceinline__ int wg() { return threadIdx.x >> 7; }
 
+// ---- the pair (PAIR 2, see the header) ----
+
+#if NERF_W > 512
+// The pair's barrier: 16 arrivals a phase, one from each consumer warp of
+// both CTAs (pipe_init sets it up).
+__shared__ uint64_t pair_bar;
+#endif
+
+// This CTA's rank in its pair (0 without one).
+__device__ __forceinline__ int prank() {
+  if constexpr (PAIR > 1) {
+    return (int)hopper::cluster_rank();
+  } else {
+    return 0;
+  }
+}
+
+// Barrier of the pair's consumers (a no-op without a pair): each consumer
+// warp arrives on its own CTA's barrier and on the partner's, releasing at
+// cluster scope what it wrote and read, and waits for its own barrier's
+// phase. A warp cannot arrive twice in one phase: its next arrival follows
+// its wait, which needs every arrival of this one.
+__device__ __forceinline__ void pair_sync() {
+#if NERF_W > 512
+  uint64_t token = 0;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    token = hopper::mbar_arrive_token(&pair_bar);
+    hopper::mbar_arrive_remote(
+        hopper::map_rank(&pair_bar, hopper::cluster_rank() ^ 1));
+  }
+  token = __shfl_sync(0xffffffffu, token, 0);
+  hopper::mbar_wait_token(&pair_bar, token);
+#endif
+}
+
+// A row kernel's clusters: the pair's two CTAs in the 1,024-wide builds
+// (the grid is PAIR blocks a tile; blockIdx.x / PAIR is the tile).
+#if NERF_W > 512
+#define NERF_PAIR_CLUSTER __cluster_dims__(2, 1, 1)
+#else
+#define NERF_PAIR_CLUSTER
+#endif
+
+// Copy the partner's 64-column block at its local column lc (a multiple of
+// 64) into the staging block after this CTA's tile `act`, as a product's A
+// operand (the partner wrote it before the last pair_sync).
+__device__ void stage_partner(const bf16* act, int lc) {
+  uint4* stage = reinterpret_cast<uint4*>(const_cast<bf16*>(act) + ACT_ELEMS);
+  consumer_sync();  // both warpgroups are done with the last staged block
+  const uint32_t src =
+      hopper::map_rank(act + (lc >> 6) * 4096, hopper::cluster_rank() ^ 1);
+  for (int i = threadIdx.x; i < TM * 64 / 8; i += NT) {
+    stage[i] = hopper::ld_cluster(src + 16 * i);
+  }
+  hopper::fence_proxy_async();
+  consumer_sync();
+}
+
+// The CTA's share of a product over the trunk's or the view branch's
+// width: its N / PAIR columns from rank * N / PAIR (all of them without a
+// pair).
+__device__ __forceinline__ Prod share(Prod p) {
+  if constexpr (PAIR > 1) {
+    p.N /= PAIR;
+    p.n0 += prank() * p.N;
+  }
+  return p;
+}
+
 // ---- the two splits (see the header) ----
 
 // Output columns of an N-wide product that one warpgroup computes.
@@ -266,9 +364,14 @@ __device__ void pipe_init(Smem& s) {
       hopper::mbar_init(&s.empty[i], NT / 32);  // one arrival per warp
     }
     hopper::mbar_init(&s.io, 1);
+#if NERF_W > 512
+    hopper::mbar_init(&pair_bar, 2 * (NT / 32));
+#endif
     hopper::fence_barrier_init();
   }
   __syncthreads();
+  // The partner's barrier is set up before any arrival on it.
+  if constexpr (PAIR > 1) hopper::cluster_sync();
 }
 
 template <bool PRODUCER, class Smem>
@@ -285,6 +388,13 @@ __device__ Pipe<PRODUCER, ring_stages<Smem>()> make_pipe(Smem& s,
 // MN-major for TB = 1 (s @ W; NW a multiple of 64). The producer issues
 // the slices instead.
 //
+// `split` > 0 (acol 0): A's K columns are the logical columns of a pair's
+// split width `split` (W or VW), then its inputs: logical column c <
+// split lives in CTA c / (split / PAIR) at local column c % (split /
+// PAIR), a column c >= split at local column WL + c - split. A block of
+// the partner's is staged (`stage_partner`). Without a pair this is the
+// tile's own columns c, as for split 0.
+//
 // A column-split product of 512 columns (NW = 256, the 512-wide builds)
 // needs eight boxes per K step, two stages: stage h of a K step holds
 // columns 128 h .. 128 h + 127 of each warpgroup's 256 (boxes 2 g and
@@ -295,7 +405,7 @@ __device__ Pipe<PRODUCER, ring_stages<Smem>()> make_pipe(Smem& s,
 template <int NW, int TB, bool ROWS = false, bool PRODUCER, int NS>
 __device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
                    float (&acc)[NW / 2], const bf16* act, int acol,
-                   bool accumulate = false) {
+                   bool accumulate = false, int split = 0) {
   constexpr bool SPLIT = !ROWS && NW > 128;
   constexpr int HALVES = SPLIT ? 2 : 1;
   const int nsl = (pd.K + 63) / 64;
@@ -327,14 +437,32 @@ __device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
     const int bcol = SPLIT ? 128 * wg() : ROWS ? 0 : wg() * NW;
     for (int kk = 0; kk < nsl; ++kk) {
       const int steps = min(4, (pd.K - 64 * kk + 15) / 16);
+      // The K slice's A block: the tile's from column ac, or the staging
+      // block's (ac 0) when it is the partner's.
+      const bf16* ablk = act;
+      int ac = acol + 64 * kk;
+      if constexpr (PAIR > 1) {
+        if (split > 0) {
+          const int c = 64 * kk, half = split / PAIR;
+          if (c >= split) {
+            ac = WL + c - split;
+          } else if (c / half != prank()) {
+            stage_partner(act, c % half);
+            ablk = act + ACT_ELEMS;
+            ac = 0;
+          } else {
+            ac = c % half;
+          }
+        }
+      }
       for (int h = 0; h < HALVES; ++h, ++pp.it) {
         const int st = pp.it % NS;
         hopper::mbar_wait(&pp.full[st], (pp.it / NS) & 1);
         const unsigned char* buf = pp.ring + st * SLICE;
         hopper::wgmma_fence();
         for (int ks = 0; ks < steps; ++ks) {
-          const int c = acol + 64 * kk + 16 * ks;
-          const uint64_t da = hopper::desc_sw128(act + act_off(0, c), 16, 1024);
+          const int c = ac + 16 * ks;
+          const uint64_t da = hopper::desc_sw128(ablk + act_off(0, c), 16, 1024);
           const uint64_t db =
               TB == 0 ? hopper::desc_sw128(buf + bcol * 128 + ks * 32, 16, 1024)
                       : hopper::desc_sw128(buf + (bcol / 64) * BOX + ks * 2048,
@@ -367,12 +495,14 @@ __device__ void mm(Pipe<PRODUCER, NS>& pp, const Prod& pd,
 // drops to PR registers and one of its threads runs `tile` as the
 // producer; the consumer warpgroups take CR (the wgmma accumulators of a
 // product and of the skip columns stay in registers) and run it as
-// consumers, then wait for their last TMA stores. A whole producer
+// consumers, then wait for their last TMA stores. A pair's CTAs then wait
+// for each other, so neither exits while the other may still read its
+// shared memory. A whole producer
 // warpgroup keeps the register pool exact: 128 x 40 + 256 x 232 = 64,512
 // (column split), 128 x 24 + 256 x 240 = 64,512 (row split, and the
 // column split of the 512-wide builds: 128 accumulators per thread spill
 // less with 240).
-template <int PR = (W > 256 ? 24 : 40), int CR = (W > 256 ? 240 : 232),
+template <int PR = (WL > 256 ? 24 : 40), int CR = (WL > 256 ? 240 : 232),
           class Smem, class Tile>
 __device__ __forceinline__ void run_roles(Smem& s, const Maps* maps,
                                           Tile tile) {
@@ -388,22 +518,26 @@ __device__ __forceinline__ void run_roles(Smem& s, const Maps* maps,
     tile(pp);
     if (threadIdx.x == 0) hopper::bulk_wait();
   }
+  if constexpr (PAIR > 1) hopper::cluster_sync();
 }
 
 // Before an epilogue overwrites the activation tile: every product of
-// the consumers that share it has read it, and the last TMA store of it
-// has too (row-split tiles are never stored).
+// the consumers that share it has read it (a pair's partner too), and the
+// last TMA store of it has too (row-split tiles are never stored).
 template <bool ROWS = false>
 __device__ __forceinline__ void pre_epilogue() {
   if (!ROWS && threadIdx.x == 0) hopper::bulk_wait_read();
   tile_sync<ROWS>();
+  if constexpr (PAIR > 1) pair_sync();
 }
 // After an epilogue: its shared-memory writes are visible to the products
-// and TMA stores that read them, and to the consumers that share them.
+// and TMA stores that read them, and to the consumers that share them (a
+// pair's partner too, by distributed shared memory).
 template <bool ROWS = false>
 __device__ __forceinline__ void post_epilogue() {
   hopper::fence_proxy_async();
   tile_sync<ROWS>();
+  if constexpr (PAIR > 1) pair_sync();
 }
 
 // TMA store of activation blocks b0 .. b0 + nb - 1 to the global rows of
@@ -464,21 +598,22 @@ struct BiasSums {
   float* dw_sigma;  // [W] (NORMALS: dw + OFF_WD, written) or null
 };
 
-// The tile's row of partial sums.
+// The tile's row of partial sums (a pair's CTAs write their own columns
+// of it).
 __device__ __forceinline__ float* part_row(const BiasSums& b) {
-  return b.part + (size_t)blockIdx.x * PART_W;
+  return b.part + (size_t)(blockIdx.x / PAIR) * PART_W;
 }
 
-// Called by every consumer thread of every tile (one tile per block,
-// gridDim.x tiles) after the tile's colsum_store calls.
+// Called by every consumer thread of every tile (one tile per block or
+// pair, gridDim.x / PAIR tiles) after the tile's colsum_store calls.
 __device__ void bias_sums(const BiasSums& b) {
-  const int tiles = gridDim.x, groups = sum_groups(tiles);
+  const int tiles = gridDim.x / PAIR, groups = sum_groups(tiles);
   const int ncols = b.dw_sigma != nullptr ? PART_W : B_TOTAL;
-  const int gi = blockIdx.x / SUM_GROUP, g0 = gi * SUM_GROUP;
+  const int gi = blockIdx.x / PAIR / SUM_GROUP, g0 = gi * SUM_GROUP;
   const int gn = min(SUM_GROUP, tiles - g0);
   __threadfence();
   consumer_sync();
-  bool last = threadIdx.x == 0 && atomicAdd(b.count + gi, 1) == gn - 1;
+  bool last = threadIdx.x == 0 && atomicAdd(b.count + gi, 1) == gn * PAIR - 1;
   if (!hopper::named_sync_or(1, NT, last)) return;
   __threadfence();
   float* grow = b.part + (size_t)(tiles + gi) * PART_W;
@@ -559,7 +694,7 @@ __device__ __forceinline__ float deg_scale(int j, int min_deg) {
 
 // Load the moments of the tile's rows row0 .. row0 + nrows - 1 into s.mc
 // (by tile row; zero past nrows) and build the IPE features (zero in the
-// padded columns 2 XP..XF-1): bf16 at act columns W..W+XF-1 and, column
+// padded columns 2 XP..XF-1): bf16 at act columns WL..WL+XF-1 and, column
 // split where the build keeps them (X32), f32 in x32 (a row-split kernel
 // and the 512-wide builds recompute them where they need them: 128 rows
 // of x32 do not fit beside two tiles, nor 64 beside a 640-column one).
@@ -585,19 +720,19 @@ __device__ void load_ipe(Smem& s, const float* mc, size_t row0, int nrows,
       }
       if constexpr (!ROWS && X32) s.x32[r * XF + j + h] = f[h];
     }
-    act_put2(act, r, W + j, f[0], f[1]);
+    act_put2(act, r, WL + j, f[0], f[1]);
   }
   hopper::fence_proxy_async();
   tile_sync<ROWS>();
 }
 
-// Load already-encoded bf16 features x [., XF] into act columns W..W+XF-1
-// (zero past nrows).
+// Load already-encoded bf16 features x [., XF] into act columns
+// WL..WL+XF-1 (zero past nrows).
 template <class Smem>
 __device__ void load_encoded(Smem& s, const bf16* x, size_t row0, int nrows) {
   for (int i = threadIdx.x; i < TM * XF / 8; i += NT) {
     const int r = i / (XF / 8), c = 8 * (i % (XF / 8));
-    act_chunk(s.act, r, W + c) =
+    act_chunk(s.act, r, WL + c) =
         r < nrows ? *reinterpret_cast<const uint4*>(x + (row0 + r) * XF + c)
                   : make_uint4(0, 0, 0, 0);
   }
@@ -617,13 +752,14 @@ struct TrunkOut {
 
 // Trunk layer epilogue from the accumulator (NA of its elements per
 // thread): act = bf16(relu(acc + bias)) and, with MASKS, the ReLU mask
-// bits in fragment order (NA / 32 words per thread and layer).
+// bits in fragment order (NA / 32 words per thread and layer). `bias` is
+// the layer's from the CTA's first column.
 template <bool ROWS = false, bool MASKS = true, class Smem, int NA>
 __device__ void relu_epilogue(Smem& s, const float (&acc)[NA],
                               const float* bias, int layer) {
   constexpr int MW = NA / 32;
   bf16* act = tile_act<ROWS>(s.act);
-  const int c0 = col0<ROWS>(W);
+  const int c0 = col0<ROWS>(WL);
   uint32_t m[MW];
 #pragma unroll
   for (int k = 0; k < MW; ++k) m[k] = 0;
@@ -645,31 +781,33 @@ __device__ void relu_epilogue(Smem& s, const float (&acc)[NA],
   }
 }
 
-// Trunk: 8 x (Linear + ReLU) on the features at act columns W..W+XF-1,
-// the skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..W-1
-// and the ReLU masks; layer i's activation also goes to `out` (if any) at
-// column out.col + W i (column split only). Without MASKS (a kernel
-// that runs no chain) the masks are not kept.
+// Trunk: 8 x (Linear + ReLU) on the features at act columns WL..WL+XF-1,
+// the skip input [h4 | x] into layer 5. Leaves a_7 in act columns 0..WL-1
+// (the CTA's own columns) and the ReLU masks; layer i's activation also
+// goes to `out` (if any) at column out.col + W i (column split only).
+// Without MASKS (a kernel that runs no chain) the masks are not kept.
 template <bool ROWS = false, bool MASKS = true, bool PRODUCER, int NS,
           class Smem>
 __device__ void trunk_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
                               const TrunkOut* out) {
-  constexpr int NW = wg_cols<ROWS>(W);
+  constexpr int NW = wg_cols<ROWS>(WL);
   float acc[NW / 2];
   bf16* act = tile_act<ROWS>(s.act);
+  const int own0 = prank() * WL;  // the CTA's first trunk column
   for (int layer = 0; layer < 8; ++layer) {
-    mm<NW, 0, ROWS>(pp, trunk_prod(layer, false), acc, act, layer == 0 ? W : 0);
+    mm<NW, 0, ROWS>(pp, share(trunk_prod(layer, false)), acc, act,
+                    layer == 0 ? WL : 0, false, layer == 0 ? 0 : W);
     if constexpr (!PRODUCER) {
       pre_epilogue<ROWS>();
-      relu_epilogue<ROWS, MASKS>(s, acc, b + OFF_BT + layer * W, layer);
+      relu_epilogue<ROWS, MASKS>(s, acc, b + OFF_BT + layer * W + own0, layer);
       post_epilogue<ROWS>();
       if (!ROWS && out != nullptr) {
         if (out->map != nullptr) {
-          store_blocks(s.act, 0, W / 64, out->map, out->col + layer * W,
-                       out->row0);
+          store_blocks(s.act, 0, WL / 64, out->map,
+                       out->col + layer * W + own0, out->row0);
         } else {
-          copy_cols(s.act, 0, W, out->ptr + out->col + layer * W, out->ld,
-                    out->nrows);
+          copy_cols(s.act, 0, WL, out->ptr + out->col + layer * W + own0,
+                    out->ld, out->nrows);
         }
       }
     }
@@ -678,26 +816,26 @@ __device__ void trunk_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
 
 // The trunk's activations from a bf16 spill (TMA map `acts` [M, 8 * W],
 // the tile's first row row0; zero past nrows): masks, operand rows O_A
-// (map `ops`, row ops_row0) and a_7 in act columns 0..W-1, as
-// trunk_forward leaves them.
+// (map `ops`, row ops_row0) and a_7 in act columns 0..WL-1, as
+// trunk_forward leaves them (a pair's CTA loads its own columns).
 template <class Smem>
 __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
                            int nrows, const CUtensorMap* ops, int ops_row0) {
-  constexpr int NA = W / 4;  // this thread's accumulator elements
-  const int tid = threadIdx.x, g = wg();
+  constexpr int NA = WL / 4;  // this thread's accumulator elements
+  const int tid = threadIdx.x, g = wg(), own0 = prank() * WL;
   for (int layer = 0; layer < 8; ++layer) {
     pre_epilogue();  // the previous layer's store has read the tile
     if (tid == 0) {
-      hopper::mbar_expect_tx(&s.io, (W / 64) * BOX);
-      for (int b = 0; b < W / 64; ++b) {
-        hopper::tma_load(s.act + b * 4096, acts, &s.io, layer * W + 64 * b,
-                         row0);
+      hopper::mbar_expect_tx(&s.io, (WL / 64) * BOX);
+      for (int b = 0; b < WL / 64; ++b) {
+        hopper::tma_load(s.act + b * 4096, acts, &s.io,
+                         layer * W + own0 + 64 * b, row0);
       }
     }
     hopper::mbar_wait(&s.io, layer & 1);
     if (nrows < TM) {
-      for (int i = tid; i < (TM - nrows) * (W / 8); i += NT) {
-        act_chunk(s.act, nrows + i / (W / 8), 8 * (i % (W / 8))) =
+      for (int i = tid; i < (TM - nrows) * (WL / 8); i += NT) {
+        act_chunk(s.act, nrows + i / (WL / 8), 8 * (i % (WL / 8))) =
             make_uint4(0, 0, 0, 0);
       }
       hopper::fence_proxy_async();
@@ -708,7 +846,7 @@ __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
     for (int k = 0; k < MWC; ++k) m[k] = 0;
 #pragma unroll
     for (int i = 0; i < NA; i += 2) {
-      const int r = frag_row(i), c = g * (W / 2) + frag_col(i);
+      const int r = frag_row(i), c = g * (WL / 2) + frag_col(i);
       const __nv_bfloat162 h =
           *reinterpret_cast<const __nv_bfloat162*>(s.act + act_off(r, c));
       const uint32_t bits = (__low2float(h) > 0.f ? 1u : 0u) |
@@ -717,8 +855,8 @@ __device__ void trunk_load(Smem& s, const CUtensorMap* acts, int row0,
     }
 #pragma unroll
     for (int k = 0; k < MWC; ++k) s.mask[(layer * MWC + k) * NT + tid] = m[k];
-    consumer_sync();
-    store_blocks(s.act, 0, W / 64, ops, O_A + layer * W, ops_row0);
+    post_epilogue();  // and, in a pair, a_7 is there for the partner
+    store_blocks(s.act, 0, WL / 64, ops, O_A + layer * W + own0, ops_row0);
   }
 }
 
@@ -733,36 +871,41 @@ __device__ __forceinline__ uint4 vcodes(const F& src, int r, int c) {
   return src(r, c);
 }
 
-// Heads on a_7 (act columns 0..W-1) and the viewdir codes v (see vcodes;
+// Heads on a_7 (act columns 0..WL-1) and the viewdir codes v (see vcodes;
 // zero past nrows): bottleneck and view branch. With OUT, also the
 // density and color heads: on return s.heads [tile rows x 16] f32 holds
 // raw rgb (+ bias) in columns 0..2 and raw density (+ bias) in columns
-// 3..3+NDC-1. With OPS (column split only), the bottleneck, the viewdir codes
-// and the view-branch activation go to their operand rows (map `ops`,
-// row ops_row0) and the view branch's ReLU mask to s.hvmask. Leaves the
-// view-branch activation in act columns 0..VW-1.
+// 3..3+NDC-1 (both CTAs of a pair hold them). With OPS (column split
+// only), the bottleneck, the viewdir codes and the view-branch activation
+// go to their operand rows (map `ops`, row ops_row0) and the view
+// branch's ReLU mask to s.hvmask. Leaves the view-branch activation in act
+// columns 0..VL-1.
 template <bool OPS, bool OUT, bool ROWS = false, bool PRODUCER, int NS,
           class Smem, class VSrc>
 __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
                               const VSrc& v, int nrows, const CUtensorMap* ops,
                               int ops_row0, bf16* ops_rows, int opw) {
   static_assert(!(OPS && ROWS), "operand rows are written column split");
-  constexpr int NH = wg_cols<ROWS>(HP), NB = wg_cols<ROWS>(W),
-                NV = wg_cols<ROWS>(VW);
+  constexpr int NH = wg_cols<ROWS>(HP), NB = wg_cols<ROWS>(WL),
+                NV = wg_cols<ROWS>(VL);
   const int tid = fill_tid<ROWS>(), rb = row0_of<ROWS>();
   const int own = own_rows<ROWS>(nrows);
+  const int wown = prank() * WL, vown = prank() * VL;  // first own columns
   bf16* act = tile_act<ROWS>(s.act);
   float hd[NH / 2];
-  if constexpr (OUT) mm<NH, 0, ROWS>(pp, Prod{M_WDB, 0, 0, W, HP}, hd, act, 0);
+  if constexpr (OUT) {
+    mm<NH, 0, ROWS>(pp, Prod{M_WDB, 0, 0, W, HP}, hd, act, 0, false, W);
+  }
   float acc[NB / 2];
-  mm<NB, 0, ROWS>(pp, Prod{M_WDB, 0, HP, W, W}, acc, act, 0);
+  mm<NB, 0, ROWS>(pp, share(Prod{M_WDB, 0, HP, W, W}), acc, act, 0, false, W);
   if constexpr (!PRODUCER) {
     pre_epilogue<ROWS>();
-    const int cb = col0<ROWS>(W);
+    const int cb = col0<ROWS>(WL);
+    const float* bb = b + OFF_BB + wown;
 #pragma unroll
     for (int i = 0; i < NB / 2; i += 2) {
       const int r = frag_row(i), c = cb + frag_col(i);
-      act_put2(act, r, c, acc[i] + b[OFF_BB + c], acc[i + 1] + b[OFF_BB + c + 1]);
+      act_put2(act, r, c, acc[i] + bb[c], acc[i + 1] + bb[c + 1]);
     }
     if constexpr (OUT) {
 #pragma unroll
@@ -774,19 +917,24 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
     for (int i = tid; i < TM * VP / 8; i += FILL<ROWS>) {
       const int r = i / (VP / 8), c = 8 * (i % (VP / 8));
       const uint4 vv = r < own ? vcodes(v, rb + r, c) : make_uint4(0, 0, 0, 0);
-      act_chunk(act, r, W + c) = vv;
+      act_chunk(act, r, WL + c) = vv;
       if constexpr (OPS) {
-        *reinterpret_cast<uint4*>(ops_rows + (size_t)r * opw + O_V + c) = vv;
+        if (wown == 0) {
+          *reinterpret_cast<uint4*>(ops_rows + (size_t)r * opw + O_V + c) = vv;
+        }
       }
     }
     post_epilogue<ROWS>();
-    if constexpr (OPS) store_blocks(s.act, 0, W / 64, ops, O_BTL, ops_row0);
+    if constexpr (OPS) {
+      store_blocks(s.act, 0, WL / 64, ops, O_BTL + wown, ops_row0);
+    }
   }
   float hv[NV / 2];
-  mm<NV, 0, ROWS>(pp, Prod{M_WV, 0, 0, VK, VW}, hv, act, 0);
+  mm<NV, 0, ROWS>(pp, share(Prod{M_WV, 0, 0, VK, VW}), hv, act, 0, false, W);
   if constexpr (!PRODUCER) {
     pre_epilogue<ROWS>();
-    const int cv = col0<ROWS>(VW);
+    const int cv = col0<ROWS>(VL);
+    const float* bv = b + OFF_BV + vown;
     uint32_t m[HVW];
 #pragma unroll
     for (int k = 0; k < HVW; ++k) m[k] = 0;
@@ -794,9 +942,9 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
     for (int i = 0; i < NV / 2; i += 2) {
       const int r = frag_row(i), c = cv + frag_col(i);
       const __nv_bfloat162 h = __floats2bfloat162_rn(
-          fmaxf(hv[i] + b[OFF_BV + c], 0.f), fmaxf(hv[i + 1] + b[OFF_BV + c + 1], 0.f));
+          fmaxf(hv[i] + bv[c], 0.f), fmaxf(hv[i + 1] + bv[c + 1], 0.f));
       *reinterpret_cast<__nv_bfloat162*>(act + act_off(r, c)) = h;
-      if constexpr (OPS) {  // column split: VW / 4 bits, HVW words
+      if constexpr (OPS) {  // column split: VL / 4 bits, HVW words
         m[i >> 5] |= ((__low2float(h) > 0.f ? 1u : 0u) |
                       (__high2float(h) > 0.f ? 2u : 0u)) << (i & 31);
       }
@@ -806,11 +954,13 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
       for (int k = 0; k < HVW; ++k) s.hvmask[k * NT + threadIdx.x] = m[k];
     }
     post_epilogue<ROWS>();
-    if constexpr (OPS) store_blocks(s.act, 0, VW / 64, ops, O_HV, ops_row0);
+    if constexpr (OPS) {
+      store_blocks(s.act, 0, VL / 64, ops, O_HV + vown, ops_row0);
+    }
   }
   if constexpr (OUT) {
     float rgb[NH / 2];
-    mm<NH, 0, ROWS>(pp, Prod{M_WC, 0, 0, VW, HP}, rgb, act, 0);
+    mm<NH, 0, ROWS>(pp, Prod{M_WC, 0, 0, VW, HP}, rgb, act, 0, false, VW);
     if constexpr (!PRODUCER) {
 #pragma unroll
       for (int i = 0; i < NH / 2; ++i) {
@@ -824,26 +974,27 @@ __device__ void heads_forward(Pipe<PRODUCER, NS>& pp, Smem& s, const float* b,
 
 // ---- the density-gradient chain (kernels 3 and 4) ----
 
-// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..W-1.
+// The chain's start: sz_7 = m_7 * Wd[sigma row] in act columns 0..WL-1.
 template <bool ROWS = false, class Smem>
 __device__ void chain_start(Smem& s, const bf16* w) {
-  constexpr int NA = wg_cols<ROWS>(W) / 2, MW = NA / 32;
+  constexpr int NA = wg_cols<ROWS>(WL) / 2, MW = NA / 32;
   bf16* act = tile_act<ROWS>(s.act);
-  const int cb = col0<ROWS>(W);
+  const int cb = col0<ROWS>(WL);
+  const bf16* wd = w + OFF_WD + prank() * WL;
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
     const int c = cb + frag_col(i);
     act[act_off(frag_row(i), c)] =
-        mask_bit<MW>(s.mask, 7, i) ? w[OFF_WD + c] : __float2bfloat16(0.f);
+        mask_bit<MW>(s.mask, 7, i) ? wd[c] : __float2bfloat16(0.f);
   }
 }
 
-// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..W-1.
+// sz_{layer-1} (or c_layer) = bf16(m * acc) in act columns 0..WL-1.
 template <bool ROWS = false, class Smem, int NA>
 __device__ void masked_epilogue(Smem& s, const float (&acc)[NA], int layer) {
   constexpr int MW = NA / 32;
   bf16* act = tile_act<ROWS>(s.act);
-  const int cb = col0<ROWS>(W);
+  const int cb = col0<ROWS>(WL);
 #pragma unroll
   for (int i = 0; i < NA; i += 2) {
     act_put2(act, frag_row(i), cb + frag_col(i),
@@ -861,7 +1012,7 @@ __device__ void masked_epilogue(Smem& s, const float (&acc)[NA], int layer) {
 template <bool ROWS = false, bool PRODUCER, int NS, class Smem, class Sink>
 __device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
                               Sink sink) {
-  constexpr int NW = wg_cols<ROWS>(W), NX = wg_cols<ROWS>(128);
+  constexpr int NW = wg_cols<ROWS>(WL), NX = wg_cols<ROWS>(128);
   bf16* act = tile_act<ROWS>(s.act);
   if constexpr (!PRODUCER) {
     pre_epilogue<ROWS>();
@@ -872,11 +1023,11 @@ __device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
   for (int layer = 7; layer >= 0; --layer) {
     if (layer == 5 || layer == 0) {  // g_x: layer 5's skip columns + layer 0
       mm<NX, 1, ROWS>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128),
-                      part, act, 0);
+                      part, act, 0, false, W);
       if constexpr (!PRODUCER) sink(layer, part);
     }
     if (layer == 0) break;
-    mm<NW, 1, ROWS>(pp, trunk_prod(layer, true), acc, act, 0);
+    mm<NW, 1, ROWS>(pp, share(trunk_prod(layer, true)), acc, act, 0, false, W);
     if constexpr (!PRODUCER) {
       pre_epilogue<ROWS>();
       masked_epilogue<ROWS>(s, acc, layer - 1);
@@ -887,16 +1038,17 @@ __device__ void density_chain(Pipe<PRODUCER, NS>& pp, Smem& s, const bf16* w,
 
 // d hv = gr @ Wc (gr the color-head cotangent at act columns 0..15), masked
 // by the view branch's ReLU (s.hvmask, as heads_forward kept it), into act
-// columns 0..VW-1: each warpgroup writes its VW / 2 columns. At VW = 128
-// each computes just those; at VW = 64 (32 columns a side, too few for an
-// MN-major B) both compute all 64 and keep their own half.
+// columns 0..VL-1 (the CTA's own VL columns): each warpgroup writes its
+// VL / 2 columns. At VL = 128 each computes just those; at VL = 64 (32
+// columns a side, too few for an MN-major B) both compute all 64 and keep
+// their own half.
 template <bool PRODUCER, class Smem>
 __device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
-  constexpr bool WHOLE = (VW / 2) % 64 != 0;
-  constexpr int NV = WHOLE ? VW : VW / 2;  // columns each warpgroup computes
-  constexpr int OWN = VW / 4;              // of them, its own accumulators
+  constexpr bool WHOLE = (VL / 2) % 64 != 0;
+  constexpr int NV = WHOLE ? VL : VL / 2;  // columns each warpgroup computes
+  constexpr int OWN = VL / 4;              // of them, its own accumulators
   float hv[NV / 2];
-  mm<NV, 1, WHOLE>(pp, Prod{M_WC, 0, 0, HP, VW}, hv, s.act, 0);
+  mm<NV, 1, WHOLE>(pp, share(Prod{M_WC, 0, 0, HP, VW}), hv, s.act, 0);
   if constexpr (!PRODUCER) {
     const int g = wg();
     pre_epilogue();
@@ -906,11 +1058,11 @@ __device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
 #pragma unroll
     for (int i = 0; i < OWN; i += 2) {
       // Own element i is accumulator i or, WHOLE, accumulator OWN g + i:
-      // the same row, column g VW / 2 + frag_col(i).
+      // the same row, column g VL / 2 + frag_col(i).
       const float a = WHOLE && g ? hv[(OWN + i) % (NV / 2)] : hv[i];
       const float b = WHOLE && g ? hv[(OWN + i + 1) % (NV / 2)] : hv[i + 1];
       const uint32_t bits = m[i >> 5] >> (i & 31);  // i even: i + 1 alike
-      act_put2(s.act, frag_row(i), g * (VW / 2) + frag_col(i),
+      act_put2(s.act, frag_row(i), g * (VL / 2) + frag_col(i),
                bits & 1u ? a : 0.f, bits & 2u ? b : 0.f);
     }
     post_epilogue();
@@ -924,13 +1076,15 @@ __device__ void view_backward(Pipe<PRODUCER>& pp, Smem& s) {
 // cotangent operand rows (map `ops`, row ops_row0; `ops_rows` the tile's
 // first operand row, for the narrow columns), the tile's bias gradients
 // into its row `part` of partial sums (all B_TOTAL columns, the padded
-// head slots 0) and leaves d x (f32 [64 x XF]) in s.dx.
+// head slots 0; a pair's CTAs each write their own columns, rank 0 the
+// heads') and leaves d x (f32 [64 x XF]) in s.dx.
 template <bool PRODUCER, class Smem>
 __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
                              const CUtensorMap* ops, int ops_row0,
                              bf16* ops_rows, int opw) {
-  constexpr int NW = W / 2, NA = W / 4;  // columns, accumulators per thread
+  constexpr int NW = WL / 2, NA = WL / 4;  // columns, accumulators per thread
   const int tid = threadIdx.x, g = wg();
+  const int wown = prank() * WL, vown = prank() * VL;  // first own columns
   if constexpr (!PRODUCER) {
     pre_epilogue();
     // Color-head cotangent (bf16, columns 0..2 of 16) as the A operand.
@@ -941,7 +1095,7 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
     }
     // Head biases take the f32 cotangent: d bd (slots 0..HP-1, channel
     // d at lane 3 + d), d bc (slots HP.., color c at lane c).
-    if (tid < 2 * HP) {
+    if (tid < 2 * HP && wown == 0) {
       const int d = tid % HP;
       const int lane = tid < HP ? (d < NDC ? 3 + d : -1) : (d < 3 ? d : -1);
       float a = 0.f;
@@ -951,34 +1105,35 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
       part[(tid < HP ? OFF_BD : OFF_BC) + d] = a;
     }
     post_epilogue();
-    copy_cols(s.act, 0, HP, ops_rows + O_GR, opw, TM);
+    if (wown == 0) copy_cols(s.act, 0, HP, ops_rows + O_GR, opw, TM);
   }
   view_backward(pp, s);  // d hv = gr @ Wc, masked
   if constexpr (!PRODUCER) {
-    store_blocks(s.act, 0, VW / 64, ops, O_DZV, ops_row0);
-    colsum_store(s.act, 0, VW, part + OFF_BV);
+    store_blocks(s.act, 0, VL / 64, ops, O_DZV + vown, ops_row0);
+    colsum_store(s.act, 0, VL, part + OFF_BV + vown);
   }
   float acc[NA];
-  mm<NW, 1>(pp, Prod{M_WV, 0, 0, VW, W}, acc, s.act, 0);  // d btl = dzv @ Wv
+  // d btl = dzv @ Wv
+  mm<NW, 1>(pp, share(Prod{M_WV, 0, 0, VW, W}), acc, s.act, 0, false, VW);
   if constexpr (!PRODUCER) {
     pre_epilogue();
 #pragma unroll
     for (int i = 0; i < NA; i += 2) {
       act_put2(s.act, frag_row(i), g * NW + frag_col(i), acc[i], acc[i + 1]);
     }
-    for (int i = tid; i < TM * HP / 2; i += NT) {  // gd at columns W..W+15
+    for (int i = tid; i < TM * HP / 2; i += NT) {  // gd at columns WL..WL+15
       const int r = i / (HP / 2), c = 2 * (i % (HP / 2));
-      act_put2(s.act, r, W + c, c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f,
+      act_put2(s.act, r, WL + c, c < NDC ? s.g[r * OUT_W + 3 + c] : 0.f,
                c + 1 < NDC ? s.g[r * OUT_W + 4 + c] : 0.f);
     }
     post_epilogue();
-    store_blocks(s.act, 0, W / 64, ops, O_DBTL, ops_row0);
-    copy_cols(s.act, W, HP, ops_rows + O_GD, opw, TM);
-    colsum_store(s.act, 0, W, part + OFF_BB);
+    store_blocks(s.act, 0, WL / 64, ops, O_DBTL + wown, ops_row0);
+    if (wown == 0) copy_cols(s.act, WL, HP, ops_rows + O_GD, opw, TM);
+    colsum_store(s.act, 0, WL, part + OFF_BB + wown);
   }
   // d a_7 = dbtl @ Wb + gd @ Wd.
-  mm<NW, 1>(pp, Prod{M_WDB, HP, 0, W, W}, acc, s.act, 0);
-  mm<NW, 1>(pp, Prod{M_WDB, 0, 0, HP, W}, acc, s.act, W, true);
+  mm<NW, 1>(pp, share(Prod{M_WDB, HP, 0, W, W}), acc, s.act, 0, false, W);
+  mm<NW, 1>(pp, share(Prod{M_WDB, 0, 0, HP, W}), acc, s.act, WL, true);
 
   // ---- trunk backward ----
   float skip[32];
@@ -992,12 +1147,12 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
                  mask_bit<MWC>(s.mask, layer, i + 1) ? acc[i + 1] : 0.f);
       }
       post_epilogue();
-      store_blocks(s.act, 0, W / 64, ops, O_DZ + layer * W, ops_row0);
-      colsum_store(s.act, 0, W, part + OFF_BT + layer * W);
+      store_blocks(s.act, 0, WL / 64, ops, O_DZ + layer * W + wown, ops_row0);
+      colsum_store(s.act, 0, WL, part + OFF_BT + layer * W + wown);
     }
     if (layer == 5 || layer == 0) {  // d x: the skip columns, or layer 0's
       mm<64, 1>(pp, trunk_prod(layer, true, layer == 5 ? W : 0, 128), skip,
-                s.act, 0);
+                s.act, 0, false, W);
       if constexpr (!PRODUCER) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -1009,7 +1164,9 @@ __device__ void mlp_backward(Pipe<PRODUCER>& pp, Smem& s, float* part,
         }
       }
     }
-    if (layer > 0) mm<NW, 1>(pp, trunk_prod(layer, true), acc, s.act, 0);
+    if (layer > 0) {
+      mm<NW, 1>(pp, share(trunk_prod(layer, true)), acc, s.act, 0, false, W);
+    }
   }
   if constexpr (!PRODUCER) consumer_sync();
 }

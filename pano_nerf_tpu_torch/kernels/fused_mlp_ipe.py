@@ -41,8 +41,9 @@ rows. The O_* columns mirror the layout the CUDA row passes write
 
 The MLP's shape is a set of compile-time constants of the CUDA sources
 (csrc/nerf_mlp.cuh): the density-channel count C (5 for Pano-NeRF, 1 for
-mip-NeRF), the trunk width W (128, 256 or 512), the view-branch width
-VW (64, 128 or 256), the IPE degree count L = max_deg - min_deg (1..16;
+mip-NeRF), the trunk width W (128, 256, 512 or 1024: the 1,024 build
+runs each 64-row tile on a cluster of two CTAs), the view-branch width
+VW (64, 128, 256 or 512), the IPE degree count L = max_deg - min_deg (1..16;
 min_deg is a runtime argument) and the viewdir encoding's width VF
 (deg_view 1..4, with or without identity); the plain version takes any
 width and any number of degrees, as JAX's kernel does. `MlpShape`
@@ -316,7 +317,7 @@ def layout(shape: MlpShape = STANDARD) -> Layout:
 
 
 MAX_FAN_IN = 256   # fan-in columns of one job: the pass's wgmma N
-MAX_JOBS = 32      # jobs of one launch (csrc/fused_mlp.cu MAX_JOBS)
+MAX_JOBS = 64      # jobs of one launch (csrc/fused_mlp.cu MAX_JOBS)
 
 
 def wgrad_jobs(normals: bool, shape: MlpShape = STANDARD
@@ -328,8 +329,9 @@ def wgrad_jobs(normals: bool, shape: MlpShape = STANDARD
     (cotangent columns), A the fan-in side (layer inputs), written at
     `out` with row stride `ldo` in the packed layout of `shape`; b2 < 0:
     one pair. NORMALS adds the chain's sz_i against the walk's c_{i-1} to
-    each trunk weight. A fan-in wider than MAX_FAN_IN (the 512-wide
-    build's) is split into jobs of MAX_FAN_IN columns each."""
+    each trunk weight. A fan-in wider than MAX_FAN_IN (the 512- and
+    1,024-wide builds') is split into jobs of MAX_FAN_IN columns each (24
+    jobs at 512 / 256, 45 at 1,024 / 512)."""
     return [part for job in _layer_jobs(normals, shape)
             for part in _split_fan_in(job)]
 
@@ -370,10 +372,13 @@ def _layer_jobs(normals: bool, shape: MlpShape) -> List[Tuple[int, ...]]:
 
 
 def weight_grads_reference(ops: Tensor, normals: bool,
-                           shape: MlpShape = STANDARD) -> Tensor:
-    """Plain version of the weight-gradient pass: the packed f32 weight
+                           shape: MlpShape = STANDARD,
+                           dtype: torch.dtype = torch.float32) -> Tensor:
+    """Plain version of the weight-gradient pass: the packed weight
     gradients [W_TOTAL] of the operand rows `ops` [rows, OPW] (bf16 or
-    f32) of `shape`, one f32 matmul per job (a NORMALS trunk job stacks
+    f32) of `shape`, one matmul per job in `dtype` (f32; float64 gives
+    chip_smoke.py a reference whose own rounding lies far below the
+    kernel's f32 sums over 28,672-131,072 rows; a NORMALS trunk job stacks
     its two pairs along the rows). Tests and chip_smoke.py hold the
     kernel against it; no main-path code calls it. The walk's part of
     Wd's sigma row (the column sum of c_7) is added by the row pass, not
@@ -383,13 +388,15 @@ def weight_grads_reference(ops: Tensor, normals: bool,
     if ops.ndim != 2 or ops.shape[1] != width:
         raise ValueError(f"ops must be [rows, {width}], got "
                          f"{tuple(ops.shape)}")
-    o = ops.float()
-    dw = torch.zeros(lay.W_TOTAL, dtype=torch.float32, device=ops.device)
+    # Job by job in `dtype`: a whole float64 copy of 131,072 rows of
+    # 34,304 columns would take 36 GB.
+    o = ops.float() if dtype == torch.float32 else ops
+    dw = torch.zeros(lay.W_TOTAL, dtype=dtype, device=ops.device)
     for b1, a1, b2, a2, n, k, out, ldo in wgrad_jobs(normals, shape):
-        b, a = o[:, b1:b1 + n], o[:, a1:a1 + k]
+        b, a = o[:, b1:b1 + n].to(dtype), o[:, a1:a1 + k].to(dtype)
         if b2 >= 0:
-            b = torch.cat([b, o[:, b2:b2 + n]], 0)
-            a = torch.cat([a, o[:, a2:a2 + k]], 0)
+            b = torch.cat([b, o[:, b2:b2 + n].to(dtype)], 0)
+            a = torch.cat([a, o[:, a2:a2 + k].to(dtype)], 0)
         dw.as_strided((n, k), (ldo, 1), out).add_(b.t() @ a)
     return dw
 

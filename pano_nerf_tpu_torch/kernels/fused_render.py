@@ -26,8 +26,10 @@ kept as bits for the normal chain; compositing is a sequential float32
 scan per ray. The 512-wide build takes tiles of <= 64 rows (1 ray at
 S=56, 12 at S=5; `tile_rows`) whose two warpgroups split every
 product's columns instead (two 64-row tiles do not fit a block at that
-width). The source is built once per model shape (`shapes.MlpShape`:
-trunk 128, 256 or 512, view branch 64, 128 or 256, IPE degrees 1..16,
+width); the 1,024-wide build runs those 64-row tiles on a cluster of two
+CTAs, each computing half of every trunk product's columns. The source
+is built once per model shape (`shapes.MlpShape`: trunk 128, 256, 512 or
+1024, view branch 64, 128, 256 or 512, IPE degrees 1..16,
 deg_view 1..4 with identity; 5 density channels), each build a library
 of its own (`kernel_library(shape)`); a narrower trunk or view branch
 runs zero-padded in the next build (`pack_params`).
@@ -111,7 +113,7 @@ class TilePlan(NamedTuple):
 def tile_rows(shape: shapes.MlpShape = shapes.STANDARD) -> int:
     """Sample rows per tile in the build of `shape`: TILE_ROWS (two
     64-row tiles, row split) up to trunk 256, 64 (one tile, column split)
-    in the 512-wide build."""
+    in the 512-wide build and, on a pair of CTAs, in the 1,024-wide one."""
     return TILE_ROWS if shape.W <= 256 else TILE_ROWS // 2
 
 

@@ -28,9 +28,17 @@ import torch
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 
 HP = 16        # padded head width
-# What the CUDA builds take (csrc/nerf_mlp.cuh's static_asserts).
-WIDTHS = (128, 256, 512)     # trunk
-VIEW_WIDTHS = (64, 128, 256)  # view branch
+# What the CUDA builds take (csrc/nerf_mlp.cuh's static_asserts). The
+# 1,024 trunk runs each tile on a pair of CTAs (csrc/mlp_rows.cuh `PAIR`);
+# the 512 view branch is built only beside it, and there the view branch
+# is at least 128 wide.
+WIDTHS = (128, 256, 512, 1024)     # trunk
+VIEW_WIDTHS = (64, 128, 256, 512)  # view branch
+PAIR_W = 1024           # the trunk build whose tiles run on a CTA pair
+PAIR_MIN_VW = 128       # its narrowest view-branch build
+# Kernel 5 (fused_render_train) is built up to the 512 trunk: its tiles
+# have no CTA pair yet.
+TRAIN_RENDER_MAX_W = 512
 DENSITY_CHANNELS = (1, 5)    # mip-NeRF, Pano-NeRF
 # IPE degrees L = max_deg - min_deg and viewdir encoding degrees the
 # builds take (1..16, 1..4: the activation tile's XF and VP columns); the
@@ -119,12 +127,18 @@ def _round_up(n: int, sizes: Sequence[int], what: str) -> int:
 def build_shape(shape: MlpShape) -> MlpShape:
     """The build a model of `shape` runs in on the card: the trunk width
     rounded up to the next of WIDTHS (1..128 -> 128, 129..256 -> 256,
-    257..512 -> 512), the view branch to the next of VIEW_WIDTHS (1..64 ->
-    64, 65..128 -> 128, 129..256 -> 256); C, L and VF unchanged.
-    ValueError past the widest build."""
-    return shape._replace(W=_round_up(shape.W, WIDTHS, "trunk width"),
-                          VW=_round_up(shape.VW, VIEW_WIDTHS,
-                                       "view-branch width"))
+    257..512 -> 512, 513..1024 -> 1024), the view branch to the next of
+    VIEW_WIDTHS (1..64 -> 64, 65..128 -> 128, 129..256 -> 256, 257..512 ->
+    512); a view branch above 256 runs in the 1,024 trunk build, and that
+    build's view branch is at least 128 (`PAIR_MIN_VW`); C, L and VF
+    unchanged. ValueError past the widest build."""
+    W = _round_up(shape.W, WIDTHS, "trunk width")
+    VW = _round_up(shape.VW, VIEW_WIDTHS, "view-branch width")
+    if VW > VIEW_WIDTHS[-2]:
+        W = PAIR_W
+    if W == PAIR_W:
+        VW = max(VW, PAIR_MIN_VW)
+    return shape._replace(W=W, VW=VW)
 
 
 def build_of(mlp: NerfMLP) -> MlpShape:
@@ -140,8 +154,8 @@ def shape_gaps(mlp: NerfMLP, min_deg: int, max_deg: int,
     channels), at least one IPE degree (L = max_deg - min_deg) over the
     MLP's 6 L features and a viewdir encoding (`is_view_dim`) on every
     device; on the card also IPE degrees 1..16, viewdir encodings of
-    `view_dims` (deg_view 1..4), trunk widths 1..512 and view-branch
-    widths 1..256 (each runs in the build `build_shape` names), the
+    `view_dims` (deg_view 1..4), trunk widths 1..1024 and view-branch
+    widths 1..512 (each runs in the build `build_shape` names), the
     density-channel counts and bf16 compute the CUDA builds take. The
     plain versions on the CPU take any width, count and degree."""
     cuda = device.type == "cuda"

@@ -17,12 +17,13 @@ the CPU their plain versions); otherwise every query goes through the
 general NerfMLP with torch autograd (`NerfModel._query`,
 `_query_normals`: JAX's XLA route). JAX's kernels read the widths and
 encodings from the parameter shapes; the CUDA kernels are built per shape
-for a set of them (`kernels/shapes.py`: trunk 128, 256 or 512, view
-branch 64, 128 or 256, IPE degrees 1..16, deg_view 1..4; a narrower trunk
-or view branch runs zero-padded in the next build), so on the kernel
-route a system on the card refuses what they are not built for
-(`kernel_build_gaps`: trunks above 512, view branches above 256, more
-IPE or viewdir degrees) instead of taking another route. A kernel that
+for a set of them (`kernels/shapes.py`: trunk 128, 256, 512 or 1024,
+view branch 64, 128, 256 or 512, IPE degrees 1..16, deg_view 1..4; a
+narrower trunk or view branch runs zero-padded in the next build), so on
+the kernel route a system on the card refuses what they are not built
+for (`kernel_build_gaps`: trunks above 1024, view branches above 512,
+more IPE or viewdir degrees, kernel 5 in the 1,024 build) instead of
+taking another route. A kernel that
 fails raises; the route never changes at run time. `from_hparams`
 refuses every config key that would need a path the port lacks
 (`UNSUPPORTED`) with
@@ -396,11 +397,13 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     `device` are not built for, or [] (`kernels/shapes.py`): on every
     device at least one IPE degree (max_deg_point - min_deg_point) and
     one viewdir degree; on the card also IPE degrees 1..16 and deg_view
-    1..4 (the builds' XF and VP columns), a trunk width of at most 512 and
-    a view-branch width of at most 256 (a narrower one runs zero-padded
-    in the next build, `shapes.build_shape`) and the density-channel
-    counts 1 and 5. The plain versions on the CPU take any width, count
-    and degree, as JAX's kernels do."""
+    1..4 (the builds' XF and VP columns), a trunk width of at most 1024
+    and a view-branch width of at most 512 (a narrower one runs
+    zero-padded in the next build, `shapes.build_shape`), the
+    density-channel counts 1 and 5, and `nerf.use_train_render_kernel`
+    only in a build of a trunk of at most 512 (kernel 5 is not written for
+    the 1,024 build's CTA pair). The plain versions on the CPU take any
+    width, count and degree, as JAX's kernels do."""
     L = cfg.max_deg_point - cfg.min_deg_point
     cuda = device.type == "cuda"
     checks = (
@@ -417,6 +420,14 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
              f"nerf.mlp.net_width_condition {cfg.mlp_net_width_condition}"),
             (cfg.mlp_num_density_channels in shapes.DENSITY_CHANNELS,
              f"{cfg.mlp_num_density_channels} density channels"))
+        if cfg.use_train_render_kernel and all(ok for ok, _ in checks[2:4]):
+            W = shapes.build_shape(shapes.MlpShape(
+                W=cfg.mlp_net_width, VW=cfg.mlp_net_width_condition)).W
+            checks += ((W <= shapes.TRAIN_RENDER_MAX_W,
+                        f"nerf.use_train_render_kernel at "
+                        f"nerf.mlp.net_width {cfg.mlp_net_width}, "
+                        f"nerf.mlp.net_width_condition "
+                        f"{cfg.mlp_net_width_condition}"),)
     return [why for ok, why in checks if not ok]
 
 

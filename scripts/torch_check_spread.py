@@ -57,7 +57,7 @@ def spread(trainer, batches: int) -> dict:
     """Per batch: each loss part's rel error card vs CPU bf16 and the
     gradient ratio; pooled ratios over the first 16 and all batches."""
     import chip_smoke
-    errs = chip_smoke.grad_errors(trainer, range(5, 5 + batches))
+    errs = chip_smoke.grad_errors(trainer, range(5, 5 + batches))()
     rows = []
     for i, e in enumerate(errs):
         card, cpu, _ = e["parts"]

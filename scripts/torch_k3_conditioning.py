@@ -1,7 +1,10 @@
 """How far bf16 rounding moves kernel 3's moment gradients, on one card:
 at the shipped shape and at trunk 512 / view branch 256 (weights from
-seeds 0 and 1), on the fine and coarse calls of a batch-512 train step
-(`chip_smoke.train_shapes`), the gradients of `chip_smoke`'s check loss
+seeds 0 and 1) and at 1,024 / 512 (E), on the fine and coarse calls of a
+batch-512 train step (`chip_smoke.train_shapes`), and for mip-NeRF at
+512 / 256 (Dm) and 1,024 / 128 (Em) on the fine call of a batch-2048
+step with the orientation loss (`chip_smoke.mip_shapes`
+`train_fine_ort`), the gradients of `chip_smoke`'s check loss
 (`_outs_and_grads`; the density gradient's term at 0.1, at 0.1 over its
 rms as phase 19 takes it, and without it, as phase 2y holds D's moment
 gradients) from the CUDA kernel, the bf16 plain version and the plain
@@ -12,7 +15,7 @@ covariance and density gradients, and the share of the kernel-plain
 carry. Where the kernel lies no further from f32 than the bf16 plain
 version, a large kernel-plain distance is rounding, not the kernel.
 
-    python3 scripts/torch_k3_conditioning.py
+    python3 scripts/torch_k3_conditioning.py ["1,024 / 512, seed 0" ...]
 """
 
 from __future__ import annotations
@@ -51,19 +54,29 @@ def main() -> int:
         return float(e.topk(max(1, int(frac * e.numel()))).values.sum()
                      / e.sum())
 
-    cases = {"shipped, seed 0": ((), 0), "512 / 256, seed 0": (cs.SHAPE_D, 0),
-             "512 / 256, seed 1": (cs.SHAPE_D, 1)}
-    for name, (opts, seed) in cases.items():
-        model = build_model(load_config(cs.CONFIG, list(opts)),
+    cases = {"shipped, seed 0": (cs.CONFIG, (), 0),
+             "512 / 256, seed 0": (cs.CONFIG, cs.SHAPE_D, 0),
+             "512 / 256, seed 1": (cs.CONFIG, cs.SHAPE_D, 1),
+             "1,024 / 512, seed 0": (cs.CONFIG, cs.SHAPE_E, 0),
+             "mip-NeRF 512 / 256, seed 0": (cs.MIP_CONFIG, cs.SHAPE_D, 0),
+             "mip-NeRF 1,024 / 128, seed 0": (cs.MIP_CONFIG, cs.SHAPE_EM,
+                                              0)}
+    if len(sys.argv) > 1:   # a subset of the cases by name
+        cases = {k: v for k, v in cases.items() if k in sys.argv[1:]}
+    for name, (config, opts, seed) in cases.items():
+        model = build_model(load_config(config, list(opts)),
                             torch.Generator().manual_seed(seed)).to(dev)
-        calls, _, _ = cs.train_shapes(model, env, dev)
+        if config == cs.MIP_CONFIG:
+            calls = {"fine": cs.mip_shapes(model, dev)["train_fine_ort"]}
+        else:
+            calls, _, _ = cs.train_shapes(model, env, dev)
         mlp = model.mlp
         m32 = copy.deepcopy(mlp)
         m32.compute_dtype = torch.float32
         kw = dict(min_deg=model.cfg.min_deg_point,
                   max_deg=model.cfg.max_deg_point)
         packed = pack_params(mlp)
-        for call in ("fine", "coarse"):
+        for call in ("fine", "coarse") if "coarse" in calls else ("fine",):
             normals, means, covs, v = calls[call]
             kern = (k3.fused_mlp_normals_apply if normals
                     else k2.fused_mlp_ipe_apply)

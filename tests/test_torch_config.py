@@ -12,6 +12,7 @@ import yaml
 
 from pano_nerf_tpu.core import config as jax_config
 from pano_nerf_tpu_torch.core import config as port_config
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))

@@ -12,6 +12,7 @@ import torch
 
 from pano_nerf_tpu_torch.kernels import fused_render as fr
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 KW = dict(min_deg=0, max_deg=16, deg_view=4, density_bias=-1.0,
           rgb_padding=0.0, white_bkgd=False)
@@ -479,18 +480,26 @@ def _check_graphed_against_eager(cuda_device, system, data, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k2", "k3", "k1", "k5"])
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k1", "k5", "k2-W1024",
+                                    "k3-W1024", "k1-W1024"])
 def test_backward_gives_the_same_bits_at_every_run(cuda_device, kernel):
     """Each backward, three times on the same inputs: the same gradients
     bit for bit (the bias sums over tiles and the weight-gradient pass's
     row chunks add in a fixed order, csrc/mlp_rows.cuh `bias_sums`), at a
     ragged row count and at a batch-512 train step's (28,672 rows: 448
     tiles, 14 groups of the bias sums, 5 chunks of the weight-gradient
-    pass)."""
+    pass); `-W1024` at the 1,024 build, whose tiles run on CTA pairs."""
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
     from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+    kernel, _, wide = kernel.partition("-")
+
+    def mlp_rows(M):
+        mlp, means, covs, v = _mlp_rows(M, cuda_device)
+        if wide:
+            mlp, _ = _shape_mlp(wide, cuda_device)
+        return mlp, means, covs, v
     for M in (1000, 28672):
         if kernel == "k5":
             R, S = M // 56 + 1, 56
@@ -500,7 +509,7 @@ def test_backward_gives_the_same_bits_at_every_run(cuda_device, kernel):
             runs = [_render_grads(k5.fused_render_train, mlp, args, False)[1:]
                     for _ in range(3)]
         elif kernel == "k1":
-            mlp, *_ = _mlp_rows(M, cuda_device)
+            mlp, *_ = mlp_rows(M)
             g = torch.Generator().manual_seed(3)
             x = (torch.randn(M, 96, generator=g) * 0.5).to(cuda_device)
             v = (torch.randn(M, 27, generator=g) * 0.5).to(cuda_device)
@@ -516,7 +525,7 @@ def test_backward_gives_the_same_bits_at_every_run(cuda_device, kernel):
         else:
             fn = (k3.fused_mlp_normals_apply if kernel == "k3"
                   else k2.fused_mlp_ipe_apply)
-            mlp, means, covs, v = _mlp_rows(M, cuda_device)
+            mlp, means, covs, v = mlp_rows(M)
             runs = [_grads(fn, mlp, means, covs, v)[1:] for _ in range(3)]
         for r in runs[1:]:
             for a, b in zip(r, runs[0]):
@@ -704,6 +713,13 @@ PADDED = {"P1": (5, 64, 32, 0, 16, 4, True),
 WIDE = {"W512": (5, 512, 256, 0, 16, 4, True),
         "W512m": (1, 512, 256, 0, 16, 4, True),
         "P3": (5, 384, 192, 0, 16, 4, True)}
+# The 1,024 builds (chip_smoke.py's E, Em and P4): each 64-row tile on a
+# cluster of two CTAs, each computing half of every trunk product's
+# columns; Em is mip-NeRF 360's 1,024 / 128, P4 (768 / 384) runs
+# zero-padded in W1024's build. Kernel 5 is not built at these widths.
+WIDE.update({"W1024": (5, 1024, 512, 0, 16, 4, True),
+             "W1024m": (1, 1024, 128, 0, 16, 4, True),
+             "P4": (5, 768, 384, 0, 16, 4, True)})
 
 
 def _shape_mlp(name, device, seed=1):
@@ -750,7 +766,8 @@ def test_fused_mlp_kernels_match_plain_versions_at_other_shapes(
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S,need_normals", [(37, 56, True),
                                               (131, 5, False)])
-@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2", "W512", "P3"])
+@pytest.mark.parametrize("shape", ["A", "B", "D", "P1", "P2", "W512", "P3",
+                                   "W1024", "P4"])
 def test_fused_render_kernel_matches_plain_version_at_other_shapes(
         cuda_device, shape, R, S, need_normals):
     mlp, kw = _shape_mlp(shape, cuda_device)
@@ -790,7 +807,8 @@ def test_fused_render_train_kernels_match_plain_version_at_other_shapes(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["A", "D", "P1", "P2", "W512", "P3"])
+@pytest.mark.parametrize("shape", ["A", "D", "P1", "P2", "W512", "P3",
+                                   "W1024", "P4"])
 def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
         cuda_device, shape):
     from pano_nerf_tpu_torch.kernels import fused_mlp as k1
@@ -817,13 +835,14 @@ def test_fused_mlp_apply_kernels_match_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(SHAPES) + ["W512", "W512m"])
+@pytest.mark.parametrize("shape", sorted(SHAPES) + ["W512", "W512m",
+                                                    "W1024", "W1024m"])
 def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
         cuda_device, shape, normals):
     """The weight-gradient pass of each other shape's build, over that
     shape's job table (128- and 64-wide products, 16-wide viewdir codes;
-    at 512 wide 24 jobs, the fan-ins split at 256) on random operand rows,
-    per job at rel-norm 1e-4."""
+    at 512 wide 24 jobs, at 1,024 wide 45, the fan-ins split at 256) on
+    random operand rows, per job at rel-norm 1e-4."""
     from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
     mlp, _ = _shape_mlp(shape, cuda_device)
     sh = k2.shape_of(mlp)
@@ -846,7 +865,7 @@ def test_weight_grad_kernel_matches_plain_version_at_other_shapes(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("normals", [False, True])
-@pytest.mark.parametrize("shape", sorted(PADDED) + ["P3"])
+@pytest.mark.parametrize("shape", sorted(PADDED) + ["P3", "P4"])
 def test_padded_gradient_slots_are_zero(cuda_device, shape, normals):
     """A backward of kernel 2 (3) on a model padded into a wider build:
     the packed weight and bias gradients in the padded slots are exactly

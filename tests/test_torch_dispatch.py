@@ -39,6 +39,7 @@ from pano_nerf_tpu_torch.engine.system import TrainState
 from pano_nerf_tpu_torch.engine.trainer import Trainer, group_ok
 
 import test_torch_train_step as ts
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

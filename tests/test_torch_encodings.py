@@ -13,6 +13,7 @@ the topology keys.
 import pytest
 
 from test_torch_plain_route import check_render, check_step_f64
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 KEYS = {
     "use_viewdirs": ["nerf.use_viewdirs", "False"],

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from pano_nerf_tpu_torch.data import io_exr
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from pano_nerf_tpu.models.mlp import NerfMLP as JaxMLP
 from pano_nerf_tpu_torch.kernels import fused_mlp as k1
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 @pytest.fixture()

@@ -23,6 +23,7 @@ from pano_nerf_tpu.ops import mip as jax_mip
 from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 def setup(M, seed=0, C=5):
@@ -178,9 +179,9 @@ def test_kernels_take_one_or_five_density_channels_on_the_card(C, ok):
 
 
 def test_widths_other_than_the_kernels_raise_for_the_card_only():
-    """Widths past the widest build (trunk 512, view branch 256) raise on
+    """Widths past the widest build (trunk 1024, view branch 512) raise on
     the card only; narrower ones run padded in the next build."""
-    wide = NerfMLP(96, 27, net_width=640, net_width_condition=320,
+    wide = NerfMLP(96, 27, net_width=1100, net_width_condition=600,
                    num_density_channels=5)
     k2.check_kernel_support(wide, 0, 16, torch.device("cpu"))
     with pytest.raises(ValueError, match="net_width"):

@@ -16,6 +16,7 @@ from pano_nerf_tpu.kernels.fused_mlp_normals import (
 from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
 
 from test_torch_fused_mlp_ipe import CASES, jax_run, port_run, rel, setup
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 @pytest.fixture()

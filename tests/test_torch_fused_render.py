@@ -22,6 +22,7 @@ from pano_nerf_tpu.models.pano_mip_nerf import PanoMipNeRF as JaxPanoMipNeRF
 from pano_nerf_tpu_torch.kernels import fused_render as fr
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 KW = dict(min_deg=0, max_deg=16, deg_view=4, density_bias=-1.0,
           rgb_padding=0.0)
@@ -123,11 +124,11 @@ def test_wrapper_rejects_unsupported_sample_count(mlp256, S):
 
 
 @pytest.mark.parametrize("change", [
-    dict(net_width=640), dict(skip_index=3), dict(num_density_channels=8),
-    dict(net_width_condition=320)])
+    dict(net_width=1100), dict(skip_index=3), dict(num_density_channels=8),
+    dict(net_width_condition=600)])
 def test_wrapper_rejects_unsupported_topology(change):
     """A topology kernel 4 does not take is refused on every device; a
-    width no CUDA build takes (trunk above 512, view branch above 256) on
+    width no CUDA build takes (trunk above 1024, view branch above 512) on
     the card only: the plain version on the CPU takes any width, and a
     narrower one runs padded in the next build."""
     mlp = NerfMLP(96, 27, **{"num_density_channels": 5, **change})

@@ -29,6 +29,7 @@ from pano_nerf_tpu.ops import mip as jax_mip
 from pano_nerf_tpu_torch.kernels import fused_render_train as k5
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 DENSITY_BIAS = -1.0
 KEYS = ("rgb", "acc", "distance", "weights")

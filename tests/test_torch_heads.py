@@ -29,6 +29,7 @@ from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 from test_torch_env_modes import systems
 from test_torch_plain_route import check_render, check_step_f64
 from test_torch_train_step import _batch, _leaves
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 HEADS = {"emissive": ["nerf.emissive_head", "True"],
          "chroma": ["nerf.chroma_head", "True"],

@@ -35,6 +35,7 @@ from pano_nerf_tpu_torch.models.base import kernel_build_gaps
 
 from test_torch_wide_widths import (ORDER, _flat, _level_inputs, _mlp_loss,
                                     models as wide_models, rel)
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

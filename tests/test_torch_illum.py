@@ -40,6 +40,7 @@ from pano_nerf_tpu_torch.utils.params import (load_npz, params_from_jax,
 from test_torch_env_modes import (WIDE, check_step, replay_draws, step_both,
                                   systems)
 from test_torch_train_step import B, D, _batch
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

@@ -30,6 +30,7 @@ from pano_nerf_tpu_torch.engine.checkpoint import Checkpointer
 from pano_nerf_tpu_torch.engine.system import build_system
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils import import_torch
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

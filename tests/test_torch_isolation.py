@@ -12,6 +12,7 @@ import torch
 import pano_nerf_tpu_torch
 from pano_nerf_tpu_torch.core.config import load_config
 from pano_nerf_tpu_torch.core.device import resolve_device
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(

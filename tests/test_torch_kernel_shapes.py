@@ -32,6 +32,7 @@ Here, with numpy-made inputs and bridged parameters:
   on the CPU (kernel 4's plain version takes any width), held to JAX.
 """
 
+import functools
 import os
 
 import jax
@@ -67,6 +68,7 @@ from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 import test_torch_train_step as tt
 from test_torch_plain_route import render_both, render_f64
 from test_torch_train_step import KERNEL5
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
@@ -93,15 +95,24 @@ def interpret(monkeypatch):
     monkeypatch.setenv("PANO_NERF_PALLAS_INTERPRET", "1")
 
 
-def models(name, seed=0):
-    """Bridged bf16 MLPs of shape `name`: (JAX params, port module, its
-    encodings' keywords)."""
+@functools.lru_cache(maxsize=None)
+def _jax_params(name, seed=0):
+    """JAX's parameters of shape `name` (numpy), made once per shape by
+    its initialiser compiled whole (the same parameters bit for bit as op
+    by op, in a fraction of the time)."""
     C, W, VW, lo, hi, dv, ident = SHAPES[name]
     jmlp = JaxMLP(net_width=W, net_width_condition=VW,
                   num_density_channels=C, dtype=jnp.bfloat16)
-    params = jax.tree.map(np.asarray, jmlp.init(
+    return jax.tree.map(np.asarray, jax.jit(jmlp.init)(
         jax.random.PRNGKey(seed), jnp.zeros((2, 6 * (hi - lo))),
         jnp.zeros((2, 6 * dv + 3 * ident))))
+
+
+def models(name, seed=0):
+    """Bridged bf16 MLPs of shape `name`: (JAX params, a fresh port
+    module, its encodings' keywords)."""
+    C, W, VW, lo, hi, dv, ident = SHAPES[name]
+    params = _jax_params(name, seed)
     mlp = NerfMLP(6 * (hi - lo), 6 * dv + 3 * ident, net_width=W,
                   net_width_condition=VW, num_density_channels=C)
     mlp.load_state_dict(params_from_jax(params))
@@ -142,8 +153,8 @@ def test_mlp_plain_versions_match_pallas_kernels(interpret, name, normals):
         outs = jfn(p, m, jnp.asarray(covs), jnp.asarray(v), C,
                    kw["min_deg"], kw["max_deg"])
         return _mlp_loss(outs), outs
-    (_, j_out), (j_gp, j_gm) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(params, jnp.asarray(means))
+    (_, j_out), (j_gp, j_gm) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(params, jnp.asarray(means))
     m = torch.tensor(means, requires_grad=True)
     p_out = pfn(mlp, m, torch.tensor(covs), torch.tensor(v),
                 min_deg=kw["min_deg"], max_deg=kw["max_deg"])
@@ -185,9 +196,9 @@ def test_render_plain_version_matches_pallas_kernel(interpret, name,
     """Kernel 4 at tests/test_torch_fused_render.py's tolerances."""
     params, mlp, kw = models(name)
     x = _level_inputs()
-    want = jax_k4(params, *(x[k] for k in ORDER), 5, kw["min_deg"],
-                  kw["max_deg"], kw["deg_view"], -1.0, 0.0, False,
-                  need_normals, need_normals)
+    want = jax.jit(lambda p, *xs: jax_k4(
+        p, *xs, 5, kw["min_deg"], kw["max_deg"], kw["deg_view"], -1.0, 0.0,
+        False, need_normals, need_normals))(params, *(x[k] for k in ORDER))
     with torch.no_grad():
         got = fr.fused_render_level(
             mlp, *(torch.tensor(x[k]) for k in ORDER), density_bias=-1.0,
@@ -223,9 +234,9 @@ def test_train_render_plain_version_matches_pallas_kernel(interpret, name):
         out = jax_k5(p, m, c, v, t, d, 5, kw["min_deg"], kw["max_deg"],
                      kw["deg_view"], -1.0, 0.0, False)
         return sum(jnp.sum(out[k] * coef[k]) for k in coef), out
-    (_, j_out), (j_gp, j_gm, j_gt) = jax.value_and_grad(
-        f, argnums=(0, 1, 2), has_aux=True)(params, jnp.asarray(x["means"]),
-                                            jnp.asarray(x["t"]))
+    (_, j_out), (j_gp, j_gm, j_gt) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True))(
+            params, jnp.asarray(x["means"]), jnp.asarray(x["t"]))
     m = torch.tensor(x["means"], requires_grad=True)
     t = torch.tensor(x["t"], requires_grad=True)
     out = k5.fused_render_train(mlp, m, torch.tensor(x["covs"]),
@@ -523,10 +534,11 @@ def test_kernel_route_takes_the_built_shapes(config, opts):
 
 
 @pytest.mark.parametrize("width,key", [
-    ("513", "nerf.mlp.net_width 513"), ("768", "nerf.mlp.net_width 768"),
-    ("1024", "nerf.mlp.net_width 1024")])
+    ("1025", "nerf.mlp.net_width 1025"),
+    ("1536", "nerf.mlp.net_width 1536"),
+    ("2048", "nerf.mlp.net_width 2048")])
 def test_kernel_route_refuses_unbuilt_widths_on_the_card(width, key):
-    """A trunk width no CUDA build takes (above 512) is refused on the
+    """A trunk width no CUDA build takes (above 1024) is refused on the
     card, naming the key (the plain versions on the CPU take it)."""
     hp = load_config(CONFIG, ["nerf.mlp.net_width", width])
     model = build_model(hp)

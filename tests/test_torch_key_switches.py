@@ -48,6 +48,7 @@ from test_torch_plain_route import check_render, check_step_f64
 from test_torch_presets import _check_grads
 from test_torch_train_step import B, D, _batch, _leaves, _rel
 from pano_nerf_tpu_torch.utils.params import params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 def _pano_render(extra, draws_of=None):

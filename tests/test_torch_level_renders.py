@@ -19,6 +19,7 @@ from test_torch_levels import CPU, LEVELS, replay
 from test_torch_mip_nerf import _batch as mip_batch
 from test_torch_mip_nerf import _systems as mip_systems
 from test_torch_train_step import D, _batch
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 def _eval_draws(model, chunk):

@@ -45,6 +45,7 @@ from test_torch_mip_nerf import _batch as mip_batch
 from test_torch_mip_nerf import _systems as mip_systems
 from test_torch_presets import SHIFTS, _check_grads, _noise, _shifted
 from test_torch_train_step import B, D, _batch, _leaves, _rel
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 T = torch.tensor
 CPU = torch.device("cpu")

@@ -30,6 +30,7 @@ from pano_nerf_tpu.ops import shading as jax_shading
 from pano_nerf_tpu.utils import metrics as jax_metrics
 from pano_nerf_tpu_torch.ops import mip, shading
 from pano_nerf_tpu_torch.utils import metrics, profiling
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -35,6 +35,7 @@ from pano_nerf_tpu_torch.models.base import LevelOutput
 
 from test_torch_plain_route import check_bf16, check_step_f64, step_both
 from test_torch_train_step import D, N, OPTS, S
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

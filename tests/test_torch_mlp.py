@@ -16,6 +16,7 @@ from pano_nerf_tpu.utils.import_torch import export_mlp_state_dict
 from pano_nerf_tpu_torch.models import normals as tnormals
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils import params as bridge
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 WIDTH = 64
 

@@ -21,6 +21,7 @@ from pano_nerf_tpu_torch.ops import mip as tmip
 from pano_nerf_tpu_torch.ops import shading as tshade
 from pano_nerf_tpu_torch.utils import metrics as tmetrics
 from pano_nerf_tpu_torch.utils.vis import write_png
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -20,8 +20,8 @@ one density channel at 64 / 32:
   (`fused_render.padded_slots`);
 - the narrow model held to JAX's NerfMLP on the same numpy weights;
 - `kernel_build_gaps` on the card: every trunk width 1..256 and view
-  width 1..128 accepted, 513 and 1024 trunks and 257 view branches
-  (past the widest, 512 / 256, build) refused naming the key.
+  width 1..128 accepted, 1025 and 2048 trunks and 513 view branches
+  (past the widest, 1,024 / 512, build) refused naming the key.
 """
 
 import dataclasses
@@ -43,6 +43,7 @@ from pano_nerf_tpu_torch.models import build_model
 from pano_nerf_tpu_torch.models.base import kernel_build_gaps
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
@@ -203,8 +204,8 @@ def test_every_width_up_to_the_builds_runs_on_the_card(cfg):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mlp_net_width", 513), ("mlp_net_width", 1024),
-    ("mlp_net_width_condition", 257)])
+    ("mlp_net_width", 1025), ("mlp_net_width", 2048),
+    ("mlp_net_width_condition", 513)])
 def test_widths_past_the_builds_are_refused_naming_the_key(cfg, key, value):
     c = dataclasses.replace(cfg, **{key: value})
     name = {"mlp_net_width": "nerf.mlp.net_width",

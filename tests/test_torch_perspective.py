@@ -25,6 +25,7 @@ from pano_nerf_tpu.data import perspective_datasets as jax_pd
 from pano_nerf_tpu_torch.core.rays import RAYS_KEYS
 from pano_nerf_tpu_torch.data import perspective_datasets as pd
 from pano_nerf_tpu_torch.data.png import read_png
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 COLOR = {1: 0, 2: 4, 3: 2, 4: 6}   # channels -> PNG color type
 

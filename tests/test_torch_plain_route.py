@@ -51,6 +51,7 @@ from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
 from test_torch_env_modes import replay_draws, systems
 from test_torch_train_step import B, S, _batch, _leaves, _rel
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
@@ -261,8 +262,8 @@ def test_route_table(opts, why):
 
 
 @pytest.mark.parametrize("opts,cuda,cpu", [
-    (["nerf.mlp.net_width", "640", "nerf.mlp.net_width_condition", "320"],
-     ["nerf.mlp.net_width 640", "nerf.mlp.net_width_condition 320"], []),
+    (["nerf.mlp.net_width", "1100", "nerf.mlp.net_width_condition", "600"],
+     ["nerf.mlp.net_width 1100", "nerf.mlp.net_width_condition 600"], []),
     (["nerf.max_deg_point", "18"],
      ["nerf.min_deg_point..max_deg_point 0..18"], []),
     (["nerf.deg_view", "5", "nerf.append_identity", "False"],
@@ -274,8 +275,8 @@ def test_kernel_route_refuses_what_the_kernels_are_not_built_for(
         opts, cuda, cpu):
     """On the kernel route (bf16, the standard topology) a width or an
     encoding the kernels are not built for is refused, never sent to the
-    plain route: the CUDA builds take trunk widths up to 512 and view
-    widths up to 256, IPE degrees 1..16 and viewdir encodings of deg_view
+    plain route: the CUDA builds take trunk widths up to 1024 and view
+    widths up to 512, IPE degrees 1..16 and viewdir encodings of deg_view
     1..4 (with or without identity); the plain versions on the CPU any
     width and any number of degrees from 1, as JAX's kernels."""
     hp = load_config(CONFIG, opts)

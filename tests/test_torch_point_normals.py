@@ -23,6 +23,7 @@ from pano_nerf_tpu_torch.utils.params import params_to_jax
 from test_torch_env_modes import (MODES, WIDE, check_step, step_both,
                                   systems)
 from test_torch_train_step import B, N, _batch, _leaves, _rel
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 POINT = ["nerf.point_normals", "True"]
 

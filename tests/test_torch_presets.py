@@ -59,6 +59,7 @@ from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
 from test_torch_train_step import (B, D, N, OPTS, S, _batch, _leaves, _rel,
                                    f32_on_the_kernels)
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HDR = os.path.join(REPO, "configs", "panonerf_hdr.yaml")

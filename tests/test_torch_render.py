@@ -35,6 +35,7 @@ from pano_nerf_tpu_torch.engine.validation import PRODUCTS
 from pano_nerf_tpu_torch.utils.params import params_from_jax
 
 from test_torch_train_step import f32_on_the_kernels
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

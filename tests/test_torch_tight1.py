@@ -17,6 +17,7 @@ import pytest
 
 from test_torch_presets import MID_FALL, SHADOW, VARIANTS, check_step, \
     check_variant
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

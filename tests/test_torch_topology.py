@@ -16,6 +16,7 @@ import pytest
 
 from test_torch_plain_route import (check_render, check_step_f64,
                                     mip_render_both, mip_step_both)
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 KEYS = {
     "net_depth": ["nerf.mlp.net_depth", "6"],

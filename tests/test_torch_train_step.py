@@ -43,6 +43,7 @@ from pano_nerf_tpu_torch.models.base import (kernel_build_gaps,
 from pano_nerf_tpu_torch.models.pano_mip_nerf import TrainDraws
 from pano_nerf_tpu_torch.ops import mip
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

@@ -23,6 +23,7 @@ from pano_nerf_tpu_torch.core.rays import RAYS_KEYS
 from pano_nerf_tpu_torch.data.pano_dataset import PanoDataset
 from pano_nerf_tpu_torch.data.synthetic import generate_scene
 from pano_nerf_tpu_torch.engine.trainer import Trainer
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")

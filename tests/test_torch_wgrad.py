@@ -30,6 +30,7 @@ from pano_nerf_tpu_torch.kernels import fused_mlp_normals as k3
 from pano_nerf_tpu_torch.kernels.fused_render import pack_params, unpack_params
 from pano_nerf_tpu_torch.models.mlp import round_to
 from pano_nerf_tpu_torch.ops import mip
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 W = 256
 

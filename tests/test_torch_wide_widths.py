@@ -1,5 +1,6 @@
 """The 512 / 256 builds of the kernels (trunk 257..512, view branch
-129..256), on the CPU.
+129..256) and the 1,024 / 512 builds (trunk 513..1,024, view branch
+257..512, each tile on a pair of CTAs), on the CPU.
 
 JAX sends a bf16 model of the standard topology to its Pallas kernels at
 any width. The port's CUDA builds go up to trunk 512 and view branch 256
@@ -20,7 +21,14 @@ numpy-made inputs and bridged parameters:
   tolerances of tests/test_torch_kernel_shapes.py;
 - one whole Pano-NeRF train step at 512 / 256 in f32 against JAX's, at
   tests/test_torch_train_step.py's tolerances (loss parts rel 1e-5,
-  gradients rel-norm 1e-4 per leaf).
+  gradients rel-norm 1e-4 per leaf);
+- the 1,024 builds the same way, as cases of their own: E (Pano-NeRF
+  1,024 / 512), Em (mip-NeRF 360's 1,024 / 128 at one density channel)
+  and P4 (768 / 384, zero-padded into E's build): `build_shape` and
+  `kernel_build_gaps` / `shape_gaps` on the card (1,025 / 513 and kernel
+  5's key in the 1,024 build refused naming the key), P4 packed into E's
+  layout and back with its padded slots zero, the job table (45 jobs), and
+  the plain versions of kernels 2, 3 and 4 against JAX's Pallas kernels.
 """
 
 import dataclasses
@@ -52,11 +60,15 @@ from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
 
 from test_torch_plain_route import check_step_f64
+import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "panonerf.yaml")
 D = shapes.MlpShape(W=512, VW=256)
 WIDE = ["nerf.mlp.net_width", "512", "nerf.mlp.net_width_condition", "256"]
+E = shapes.MlpShape(W=1024, VW=512)
+# The 1,024 builds' models: (density channels, trunk, view branch).
+PAIR = {"E": (5, 1024, 512), "Em": (1, 1024, 128), "P4": (5, 768, 384)}
 
 
 @pytest.fixture()
@@ -88,17 +100,60 @@ def test_widths_up_to_512_run_in_the_512_build(cfg):
     assert shapes.build_shape(shapes.MlpShape(W=384, VW=192)) == D
 
 
+def test_widths_up_to_1024_run_in_the_1024_build(cfg):
+    """Trunks 513..1,024 run in the 1,024 build, view branches 257..512 in
+    its 512 view branch (and so in the 1,024 trunk build whatever the
+    trunk); that build's view branch is at least 128 wide."""
+    cuda = torch.device("cuda")
+    for w in range(513, 1025):
+        assert shapes.build_shape(shapes.MlpShape(W=w)).W == 1024, w
+        c = dataclasses.replace(cfg, mlp_net_width=w)
+        assert kernel_build_gaps(c, cuda) == [], w
+    for vw in range(257, 513):
+        assert shapes.build_shape(shapes.MlpShape(VW=vw)) == E, vw
+        c = dataclasses.replace(cfg, mlp_net_width_condition=vw)
+        assert kernel_build_gaps(c, cuda) == [], vw
+    assert shapes.build_shape(shapes.MlpShape(W=768, VW=384)) == E
+    assert shapes.build_shape(shapes.MlpShape(W=1024, VW=40)).VW == 128
+    for name, (C, W, VW) in PAIR.items():
+        mlp = NerfMLP(96, 27, net_width=W, net_width_condition=VW,
+                      num_density_channels=C)   # bf16, as on the card
+        want, bad = shapes.shape_gaps(mlp, 0, 16, cuda)
+        assert bad == {}, name
+        assert shapes.build_of(mlp).W == 1024, name
+
+
 @pytest.mark.parametrize("key,field,value", [
-    ("nerf.mlp.net_width", "W", 513),
-    ("nerf.mlp.net_width_condition", "VW", 257)])
-def test_past_the_512_build_is_refused_naming_the_key(cfg, key, field,
-                                                      value):
+    ("nerf.mlp.net_width", "W", 1025),
+    ("nerf.mlp.net_width_condition", "VW", 513)])
+def test_past_the_1024_build_is_refused_naming_the_key(cfg, key, field,
+                                                       value):
     with pytest.raises(ValueError, match="no kernel build takes"):
         shapes.build_shape(shapes.MlpShape(**{field: value}))
     attr = dict(W="mlp_net_width", VW="mlp_net_width_condition")[field]
     c = dataclasses.replace(cfg, **{attr: value})
     assert kernel_build_gaps(c, torch.device("cuda")) == [f"{key} {value}"]
     assert kernel_build_gaps(c, torch.device("cpu")) == []
+
+
+@pytest.mark.parametrize("W,VW", [(1024, 512), (768, 384), (600, 128),
+                                  (256, 300)])
+def test_kernel5_key_in_the_1024_build_is_refused_naming_it(cfg, W, VW):
+    """Kernel 5 (`nerf.use_train_render_kernel`) has no CTA pair: on the
+    card a model whose build is the 1,024 one is refused with the key and
+    the widths; the CPU's plain version takes it, as JAX's kernel does."""
+    c = dataclasses.replace(cfg, mlp_net_width=W, mlp_net_width_condition=VW,
+                            use_train_render_kernel=True)
+    assert kernel_build_gaps(c, torch.device("cuda")) == [
+        f"nerf.use_train_render_kernel at nerf.mlp.net_width {W}, "
+        f"nerf.mlp.net_width_condition {VW}"]
+    assert kernel_build_gaps(c, torch.device("cpu")) == []
+    assert kernel_build_gaps(dataclasses.replace(
+        c, use_train_render_kernel=False), torch.device("cuda")) == []
+    mlp = NerfMLP(96, 27, net_width=W, net_width_condition=VW)
+    k5.check_kernel_support(mlp, 56, 0, 16, 4, torch.device("cpu"))
+    with pytest.raises(ValueError, match="nerf.use_train_render_kernel"):
+        k5.check_kernel_support(mlp, 56, 0, 16, 4, torch.device("cuda"))
 
 
 def test_defines_of_the_512_builds():
@@ -108,6 +163,12 @@ def test_defines_of_the_512_builds():
                                          "NERF_VW=256")
 
 
+def test_defines_of_the_1024_builds():
+    assert E.defines() == ("NERF_W=1024", "NERF_VW=512")
+    assert shapes.MlpShape(C=1, W=1024, VW=128).defines() == (
+        "NERF_NDC=1", "NERF_W=1024")
+
+
 def test_kernel4_tiles_64_rows_in_the_512_build():
     """The 512 build's kernel 4 runs 64-row column-split tiles (one ray
     at S = 56, 12 at S = 5), the narrower builds 128-row ones."""
@@ -115,6 +176,8 @@ def test_kernel4_tiles_64_rows_in_the_512_build():
     assert fr.plan_tiles(1024, 56, D)[:2] == (1, 1024)
     assert fr.plan_tiles(10240, 5, D)[:2] == (12, 854)
     assert fr.plan_tiles(1024, 56)[:2] == (2, 512)
+    assert fr.tile_rows(E) == 64
+    assert fr.plan_tiles(10240, 5, E)[:2] == (12, 854)
 
 
 # ---- the packed layout and the job table ----
@@ -145,6 +208,45 @@ def test_p3_packs_into_the_512_layout_and_back():
         p.numel() for n, p in mlp.named_parameters() if n.endswith("weight"))
     assert int((~b_pad).sum()) == sum(
         p.numel() for n, p in mlp.named_parameters() if n.endswith("bias"))
+
+
+def test_p4_packs_into_the_1024_layout_and_back():
+    mlp = _mlp(768, 384)
+    assert shapes.build_of(mlp) == E
+    weights, biases = fr.pack_params(mlp)
+    assert weights.numel() == k2.layout(E).W_TOTAL
+    assert biases.numel() == 8 * 1024 + 16 + 1024 + 512 + 16
+    back = fr.unpack_params(mlp, weights.float(), biases)
+    for n, p in mlp.named_parameters():
+        assert torch.equal(back[n], p.detach()), n
+    w_pad, b_pad = fr.padded_slots(mlp)
+    assert torch.all(weights[w_pad] == 0) and torch.all(biases[b_pad] == 0)
+    assert int((~w_pad).sum()) == sum(
+        p.numel() for n, p in mlp.named_parameters() if n.endswith("weight"))
+    assert int((~b_pad).sum()) == sum(
+        p.numel() for n, p in mlp.named_parameters() if n.endswith("bias"))
+
+
+@pytest.mark.parametrize("normals", [False, True])
+def test_1024_job_table_splits_fan_ins_and_covers_every_weight_once(
+        normals):
+    """At E the fan-ins of 1,024 (and the 512 view branch's) split into
+    jobs of 256 columns: 45 jobs, within the kernel's MAX_JOBS, each
+    within the limits `fused_mlp_weight_grads` checks, every packed weight
+    written once."""
+    lay = k2.layout(E)
+    jobs = k2.wgrad_jobs(normals, E)
+    assert len(jobs) == 45 <= k2.MAX_JOBS
+    width = lay.OPW_NRM if normals else lay.OPW_IPE
+    hits = torch.zeros(lay.W_TOTAL)
+    for b1, a1, b2, a2, n, k, out, ldo in jobs:
+        assert 0 < n and 0 < k <= k2.MAX_FAN_IN and k % 4 == 0
+        assert out % 4 == 0 and ldo % 4 == 0 and ldo >= k
+        assert b1 + n <= width and a1 + k <= width
+        if b2 >= 0:
+            assert b2 + n <= width and a2 + k <= width
+        hits.as_strided((n, k), (ldo, 1), out).add_(1)
+    assert int(hits.min()) == 1 and int(hits.max()) == 1
 
 
 @pytest.mark.parametrize("normals", [False, True])
@@ -209,7 +311,19 @@ def test_mlp_plain_versions_match_pallas_kernels_at_512(interpret, normals):
     """Kernel 2 (3) at 512 / 256: outputs atol 5e-3, the density gradient
     rel-norm 0.08, parameter gradients rel-norm 2e-2 (5e-2), moment
     gradients 5e-2."""
-    params, mlp = models()
+    _check_mlp_plain_versions(*models(), 5, normals)
+
+
+@pytest.mark.parametrize("normals", [False, True], ids=["k2", "k3"])
+@pytest.mark.parametrize("name", sorted(PAIR))
+def test_mlp_plain_versions_match_pallas_kernels_at_1024(interpret, name,
+                                                         normals):
+    """Kernel 2 (3) at E, Em and P4, at the 512 test's tolerances."""
+    C, W, VW = PAIR[name]
+    _check_mlp_plain_versions(*models(C, W, VW), C, normals)
+
+
+def _check_mlp_plain_versions(params, mlp, C, normals):
     rng = np.random.default_rng(1)
     M = 40
     means = (rng.normal(size=(M, 3)) * 2).astype(np.float32)
@@ -219,7 +333,7 @@ def test_mlp_plain_versions_match_pallas_kernels_at_512(interpret, normals):
                 else (jax_k2, k2.fused_mlp_ipe_apply))
 
     def f(p, m):
-        outs = jfn(p, m, jnp.asarray(covs), jnp.asarray(v), 5, 0, 16)
+        outs = jfn(p, m, jnp.asarray(covs), jnp.asarray(v), C, 0, 16)
         return _mlp_loss(outs), outs
     (_, j_out), (j_gp, j_gm) = jax.jit(jax.value_and_grad(
         f, argnums=(0, 1), has_aux=True))(params, jnp.asarray(means))
@@ -256,7 +370,17 @@ ORDER = ("means", "covs", "viewdirs", "t", "dirs")
 def test_render_plain_version_matches_pallas_kernel_at_512(interpret):
     """Kernel 4 with normals and extras, at tests/test_torch_fused_render.py's
     tolerances."""
-    params, mlp = models()
+    _check_render_plain_version(*models())
+
+
+@pytest.mark.parametrize("name", ["E", "P4"])
+def test_render_plain_version_matches_pallas_kernel_at_1024(interpret,
+                                                            name):
+    """Kernel 4 at E and P4, at the 512 test's tolerances."""
+    _check_render_plain_version(*models(*PAIR[name]))
+
+
+def _check_render_plain_version(params, mlp):
     x = _level_inputs()
     want = jax.jit(lambda p, *xs: jax_k4(p, *xs, 5, 0, 16, 4, -1.0, 0.0,
                                          False, True, True))(
