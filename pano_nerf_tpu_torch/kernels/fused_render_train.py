@@ -68,19 +68,14 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
     count on `device`: the checks of `fused_mlp_ipe.check_kernel_support`,
     a viewdir encoding with identity (JAX's kernel 5 encodes it so and
     raises on an MLP without it; on the card deg_view 1..4), on the card 5
-    density channels and a build of a trunk of at most
-    `shapes.TRAIN_RENDER_MAX_W` (the 1,024 build's CTA pair is not written
-    for this kernel; a view branch above 256 runs in that build too), and
-    1 <= S <= 64."""
+    density channels and a build it is built for
+    (`shapes.train_render_gap`), and 1 <= S <= 64."""
     k2.check_kernel_support(mlp, min_deg, max_deg, device)
-    top_w = shapes.TRAIN_RENDER_MAX_W
-    if device.type == "cuda" and shapes.build_of(mlp).W > top_w:
-        raise ValueError(f"fused_render_train (nerf.use_train_render_kernel) "
-                         f"is built for trunks up to {top_w} and view "
-                         f"branches up to {top_w // 2} on the card, got "
-                         f"nerf.mlp.net_width {mlp.net_width}, "
-                         f"nerf.mlp.net_width_condition "
-                         f"{mlp.net_width_condition}")
+    gap = device.type == "cuda" and shapes.train_render_gap(
+        mlp.net_width, mlp.net_width_condition)
+    if gap:
+        raise ValueError(f"fused_render_train is not built on the card for "
+                         f"{gap}")
     top = shapes.MAX_DEG_VIEW if device.type == "cuda" else None
     if (not 1 <= deg_view <= (top or deg_view)
             or mlp.view_dim != 3 + 6 * deg_view):

@@ -147,6 +147,20 @@ def build_of(mlp: NerfMLP) -> MlpShape:
     return build_shape(shape_of(mlp))
 
 
+def train_render_gap(net_width: int, net_width_condition: int) -> str:
+    """'' where kernel 5 (fused_render_train) is built for the build a
+    model of these widths runs in on the card (`build_shape`), else the
+    key and the widths that it is not built for: it is built up to
+    TRAIN_RENDER_MAX_W, and a view branch above 256 runs in the 1,024
+    build too."""
+    W = build_shape(MlpShape(W=net_width, VW=net_width_condition)).W
+    if W <= TRAIN_RENDER_MAX_W:
+        return ""
+    return (f"nerf.use_train_render_kernel at nerf.mlp.net_width "
+            f"{net_width}, nerf.mlp.net_width_condition "
+            f"{net_width_condition}")
+
+
 def shape_gaps(mlp: NerfMLP, min_deg: int, max_deg: int,
                device: torch.device) -> Tuple[Dict, Dict]:
     """(what the kernels take, what `mlp` has that they do not): the

@@ -401,9 +401,10 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     and a view-branch width of at most 512 (a narrower one runs
     zero-padded in the next build, `shapes.build_shape`), the
     density-channel counts 1 and 5, and `nerf.use_train_render_kernel`
-    only in a build of a trunk of at most 512 (kernel 5 is not written for
-    the 1,024 build's CTA pair). The plain versions on the CPU take any
-    width, count and degree, as JAX's kernels do."""
+    only in a build of a trunk of at most 512 (`shapes.train_render_gap`:
+    kernel 5 is not written for the 1,024 build's CTA pair). The plain
+    versions on the CPU take any width, count and degree, as JAX's
+    kernels do."""
     L = cfg.max_deg_point - cfg.min_deg_point
     cuda = device.type == "cuda"
     checks = (
@@ -421,13 +422,9 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
             (cfg.mlp_num_density_channels in shapes.DENSITY_CHANNELS,
              f"{cfg.mlp_num_density_channels} density channels"))
         if cfg.use_train_render_kernel and all(ok for ok, _ in checks[2:4]):
-            W = shapes.build_shape(shapes.MlpShape(
-                W=cfg.mlp_net_width, VW=cfg.mlp_net_width_condition)).W
-            checks += ((W <= shapes.TRAIN_RENDER_MAX_W,
-                        f"nerf.use_train_render_kernel at "
-                        f"nerf.mlp.net_width {cfg.mlp_net_width}, "
-                        f"nerf.mlp.net_width_condition "
-                        f"{cfg.mlp_net_width_condition}"),)
+            gap = shapes.train_render_gap(cfg.mlp_net_width,
+                                          cfg.mlp_net_width_condition)
+            checks += ((not gap, gap),)
     return [why for ok, why in checks if not ok]
 
 

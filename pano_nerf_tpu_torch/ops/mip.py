@@ -160,6 +160,29 @@ def sample_env_rays_hemisphere(point_origins: Tensor, directions: Tensor,
             directions)
 
 
+class _GatherLast(torch.autograd.Function):
+    """`x.gather(-1, idx)` (x and idx alike but for the last dimension)
+    whose backward adds the cotangents that meet at one element in a fixed
+    order. Torch's gather backward is a scatter-add, on CUDA by atomics in
+    the order the threads run, so where indices repeat (every sample that
+    falls into one CDF bin) the gradient's last bits change from run to
+    run; `nerf.stop_resample_grad: false` then makes no two train steps
+    alike. Here each element sums its cotangents by a reduction over the
+    gathered axis, [..., len(idx), len(x)] elements at a time."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, idx: Tensor) -> Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[-1]
+        return x.gather(-1, idx)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        idx, = ctx.saved_tensors
+        hit = idx.unsqueeze(-1) == torch.arange(ctx.n, device=idx.device)
+        return torch.where(hit, g.unsqueeze(-1), 0.0).sum(-2), None
+
+
 def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
                                   num_samples: int,
                                   u_rand: Optional[Tensor] = None) -> Tensor:
@@ -193,8 +216,9 @@ def sorted_piecewise_constant_pdf(bins: Tensor, weights: Tensor,
     hi = torch.searchsorted(cdf.contiguous(), u, right=True)
     hi = hi.clamp(max=cdf.shape[-1] - 1)
     lo = hi - 1
-    bins_lo, bins_hi = bins.gather(-1, lo), bins.gather(-1, hi)
-    cdf_lo, cdf_hi = cdf.gather(-1, lo), cdf.gather(-1, hi)
+    take = _GatherLast.apply
+    bins_lo, bins_hi = take(bins, lo), take(bins, hi)
+    cdf_lo, cdf_hi = take(cdf, lo), take(cdf, hi)
     denom = cdf_hi - cdf_lo
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_lo) / denom

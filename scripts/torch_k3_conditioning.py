@@ -1,8 +1,9 @@
 """How far bf16 rounding moves kernel 3's moment gradients, on one card:
 at the shipped shape and at trunk 512 / view branch 256 (weights from
-seeds 0 and 1) and at 1,024 / 512 (E), on the fine and coarse calls of a
-batch-512 train step (`chip_smoke.train_shapes`), and for mip-NeRF at
-512 / 256 (Dm) and 1,024 / 128 (Em) on the fine call of a batch-2048
+seeds 0 and 1) and at 1,024 / 512 (E; seeds 0 and 1), on the fine and
+coarse calls of a batch-512 train step (`chip_smoke.train_shapes`), and
+for mip-NeRF at 512 / 256 (Dm) and 1,024 / 128 (Em; seeds 0 and 1) on
+the fine call of a batch-2048
 step with the orientation loss (`chip_smoke.mip_shapes`
 `train_fine_ort`), the gradients of `chip_smoke`'s check loss
 (`_outs_and_grads`; the density gradient's term at 0.1, at 0.1 over its
@@ -58,9 +59,12 @@ def main() -> int:
              "512 / 256, seed 0": (cs.CONFIG, cs.SHAPE_D, 0),
              "512 / 256, seed 1": (cs.CONFIG, cs.SHAPE_D, 1),
              "1,024 / 512, seed 0": (cs.CONFIG, cs.SHAPE_E, 0),
+             "1,024 / 512, seed 1": (cs.CONFIG, cs.SHAPE_E, 1),
              "mip-NeRF 512 / 256, seed 0": (cs.MIP_CONFIG, cs.SHAPE_D, 0),
              "mip-NeRF 1,024 / 128, seed 0": (cs.MIP_CONFIG, cs.SHAPE_EM,
-                                              0)}
+                                              0),
+             "mip-NeRF 1,024 / 128, seed 1": (cs.MIP_CONFIG, cs.SHAPE_EM,
+                                              1)}
     if len(sys.argv) > 1:   # a subset of the cases by name
         cases = {k: v for k, v in cases.items() if k in sys.argv[1:]}
     for name, (config, opts, seed) in cases.items():

@@ -375,9 +375,10 @@ def test_weight_grad_kernel_refuses_a_bad_job_table(cuda_device):
 
 
 def _graph_system(cuda_device, render_kernel, n_rays=16384,
-                  config="panonerf.yaml"):
-    """A shipped config at full width on the card, random weights, and a
-    random resident ray set of `n_rays` rays inside a scene-sized box."""
+                  config="panonerf.yaml", opts=()):
+    """A shipped config (with the overrides `opts`) at full width on the
+    card, random weights, and a random resident ray set of `n_rays` rays
+    inside a scene-sized box."""
     import os
     from pano_nerf_tpu_torch.core.config import load_config
     from pano_nerf_tpu_torch.core.rays import Rays
@@ -385,7 +386,7 @@ def _graph_system(cuda_device, render_kernel, n_rays=16384,
     from pano_nerf_tpu_torch.engine.system import build_system
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     hp = load_config(os.path.join(repo, "configs", config),
-                     ["val.chunk_size", "256"])
+                     ["val.chunk_size", "256", *opts])
     hp["nerf.use_train_render_kernel"] = render_kernel
     system = build_system(hp, device=cuda_device, init_seed=0)
     if system.surface:
@@ -571,16 +572,30 @@ def test_bias_gradients_match_plain_version_per_leaf(cuda_device, kernel):
             assert _rel(got[n], want[n]) < tol, (kernel, M, n)
 
 
+# chip_smoke.py's phase 19: three levels with the resampling gradient
+# (`nerf.stop_resample_grad: false`) and without integration, whose step
+# turns any difference in the last bits into a visible one.
+LEVELS_3 = ("nerf.num_levels", "3", "nerf.stop_resample_grad", "False",
+            "nerf.disable_integration", "True")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("config, render_kernel, batch", [
-    ("panonerf.yaml", False, 512), ("panonerf.yaml", True, 512),
-    ("mipnerf.yaml", False, 2048)])
+@pytest.mark.parametrize("config, render_kernel, batch, opts", [
+    pytest.param("panonerf.yaml", False, 512, (),
+                 id="panonerf.yaml-False-512"),
+    pytest.param("panonerf.yaml", True, 512, (),
+                 id="panonerf.yaml-True-512"),
+    pytest.param("mipnerf.yaml", False, 2048, (),
+                 id="mipnerf.yaml-False-2048"),
+    pytest.param("panonerf.yaml", True, 512, LEVELS_3,
+                 id="panonerf.yaml-True-512-levels3")])
 def test_eager_train_steps_give_the_same_bits_at_every_run(
-        cuda_device, config, render_kernel, batch):
+        cuda_device, config, render_kernel, batch, opts):
     """Four eager train steps from one state, twice: the same parameters
     bit for bit, so the graphed-vs-eager checks' spread is 0 on the kernel
     route."""
-    system, data = _graph_system(cuda_device, render_kernel, config=config)
+    system, data = _graph_system(cuda_device, render_kernel, config=config,
+                                 opts=opts)
     start = {k: v.clone() for k, v in system.model.param_state().items()}
 
     def run():
@@ -594,6 +609,35 @@ def test_eager_train_steps_give_the_same_bits_at_every_run(
                           for p in system.params()]).clone()
     first = run()
     assert torch.equal(run(), first)
+
+
+@pytest.mark.cuda
+def test_resample_gradient_gives_the_same_bits_at_every_run(cuda_device):
+    """The inverse CDF's gradient into the coarse weights and fenceposts
+    (`nerf.stop_resample_grad: false`) at a batch-512 step's shape, the
+    PDF peaked so that most samples share a few bins: the same bits in
+    20 runs (torch's gather backward adds them by atomics)."""
+    from pano_nerf_tpu_torch.ops import mip
+    g = torch.Generator().manual_seed(4)
+    B, N = 512, 56
+    d = torch.randn(B, 3, generator=g)
+    ins = [torch.randn(B, 3, generator=g), d, torch.full((B, 1), 0.0142),
+           torch.sort(torch.rand(B, N + 1, generator=g) * 10, -1).values,
+           torch.softmax(torch.randn(B, N, generator=g) * 4, -1),
+           torch.rand(B, N + 1, generator=g),
+           torch.randn(B, N, 3, generator=g)]
+    o, d, r, t, w, u, coef = [x.to(cuda_device) for x in ins]
+
+    def grads():
+        tq, wq = t.clone().requires_grad_(), w.clone().requires_grad_()
+        _, (m, _) = mip.resample_along_rays(o, d, r, tq, wq, 0.01,
+                                            num_samples=N, u_rand=u,
+                                            stop_grad=False)
+        torch.sum(coef * torch.sin(m)).backward()
+        return tq.grad, wq.grad
+    first = grads()
+    for _ in range(19):
+        assert all(torch.equal(a, b) for a, b in zip(grads(), first))
 
 
 @pytest.mark.cuda

@@ -96,6 +96,39 @@ def test_sorted_piecewise_constant_pdf():
           jmip.sorted_piecewise_constant_pdf(None, bins, w, 12, False))
 
 
+@pytest.mark.parametrize("repeats", [False, True])
+def test_resample_gather_backward_sums_like_torch_gather(repeats):
+    """The inverse CDF's gather, whose backward sums in a fixed order: its
+    values and gradient against `torch.gather`'s (a scatter-add), bit for
+    bit where no index repeats, within f32 rounding where many do (every
+    sample of a bin, as in a peaked PDF), and a non-finite cotangent
+    reaches only its own element."""
+    rng = np.random.default_rng(6)
+    x = T(rng.normal(size=(4, 3, 9)).astype(np.float32))
+    if repeats:
+        idx = np.sort(rng.integers(2, 5, (4, 3, 17)), -1)
+    else:
+        idx = np.stack([np.stack([rng.permutation(9)[:7] for _ in range(3)])
+                        for _ in range(4)])
+    idx = torch.from_numpy(idx)
+    g = T(rng.normal(size=tuple(idx.shape)).astype(np.float32))
+    got_x, want_x = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got = tmip._GatherLast.apply(got_x, idx)
+    want = want_x.gather(-1, idx)
+    assert torch.equal(got, want)
+    got.backward(g)
+    want.backward(g)
+    if repeats:
+        close(got_x.grad, want_x.grad, atol=1e-6, rtol=1e-6)
+    else:
+        assert torch.equal(got_x.grad, want_x.grad)
+    g[0, 0, 0] = float("inf")
+    inf_x = x.clone().requires_grad_()
+    tmip._GatherLast.apply(inf_x, idx).backward(g)
+    bad = ~torch.isfinite(inf_x.grad)
+    assert bad.sum() == 1 and bad[0, 0, idx[0, 0, 0]]
+
+
 def test_integrated_pos_enc_and_pos_enc():
     rng = np.random.default_rng(3)
     means = rng.uniform(-3, 3, (6, 7, 3)).astype(np.float32)
