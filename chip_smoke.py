@@ -22,10 +22,9 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 1. Build every CUDA library of the port from `pano_nerf_tpu_torch/csrc/`
    (one nvcc per source at the shipped shape, `fused_mlp.cu` also at one
    density channel, and each source a model of `OTHER_SHAPES`, D / Dm
-   of `WIDE_SHAPES` or E / Em of `PAIR_SHAPES` runs at that shape: 18
-   libraries, all started together; the three 1,024 builds, the slowest,
-   are awaited only before phase 2z) and print each build's seconds and
-   the compiler's register/spill report.
+   of `WIDE_SHAPES` or E / Em of `PAIR_SHAPES` runs at that shape: 25
+   libraries, all started together and all awaited) and print each
+   build's seconds and the compiler's register/spill report.
 2. Kernels vs plain versions on the card, full `configs/panonerf.yaml`
    width, bf16: kernel 4 (`fused_render_level`) at the eval path's three
    shapes (coarse 1024 rays x 56, fine with normals 1024 x 56, env
@@ -224,14 +223,17 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
    same checks.
 2w. Each build at another MLP shape (`OTHER_SHAPES`: A trunk 128 and
    view branch 64; B IPE degrees 0..10 and deg_view 2; C mip-NeRF at
-   A's widths without identity) against its plain versions at phase 2's
-   tolerances, forward and backward (parameters, means, covariances):
-   at A and B kernel 4 at the three eval shapes, kernels 2 and 3 at a
-   batch-512 step's four calls (28,672 / 25,600 rows), kernel 5
-   (`save_acts` off) at coarse 512 x 56 and env 5,120 x 5, at A also
-   kernel 1 at 28,672 rows; at C kernels 2 and 3 at 131,072 rows. Each
-   timed beside the bound of the shape's own MACs and bytes (entries
-   `_wA`, `_wB`, `_wC`, with the launches of phases 21, 22 and 22m).
+   A's widths without identity; H the shipped widths at 20 IPE degrees
+   and deg_view 6; H2 trunk 512 / view branch 256 at 21 IPE degrees and
+   deg_view 5) against its plain versions at phase 2's tolerances,
+   forward and backward (parameters, means, covariances), each backward
+   also as its two passes: at A, B, H and H2 kernel 4 at the three eval
+   shapes, kernels 2 and 3 at a batch-512 step's four calls (28,672 /
+   25,600 rows), kernel 5 (`save_acts` off) at coarse 512 x 56 and env
+   5,120 x 5, at A, H and H2 also kernel 1 at 28,672 rows; at C kernels
+   2 and 3 at 131,072 rows. Each timed beside the bound of the shape's
+   own MACs and bytes (entries `_wA`, `_wB`, `_wC`, `_wH`, `_wH2`, with
+   the launches of phases 21, 22 and 22m; no phase trains H or H2).
    (Run after phase 2m.)
 21. Shape A with the key on, 22 shape B with the key off, 22m shape C
    (mip-NeRF) with `loss.ort_loss 0.1`: 64 steps each through the train
@@ -302,16 +304,20 @@ before a non-zero exit one line `[fail] <phase>: <check> <value> >
 2z. The 1,024 builds (`PAIR_SHAPES`: E Pano-NeRF at trunk 1,024 / view
    branch 512, built `-DNERF_W=1024 -DNERF_VW=512`; Em mip-NeRF at
    mip-NeRF 360's NeRF-MLP widths 1,024 / 128, `-DNERF_NDC=1
-   -DNERF_W=1024`; P4 768 / 384 zero-padded into E's build): kernels 1-4
+   -DNERF_W=1024`; P4 768 / 384 zero-padded into E's build): kernels 1-5
    against their plain versions at phase 2's tolerances, forward and
    backward, each backward also as its two passes, as 2y holds D, Dm and
-   P3 (no kernel 5: it is not built at 1,024). E's and Em's kernel-3
+   P3 (kernel 5 at E and P4 with `save_acts` off and on). E's and Em's kernel-3
    moment and covariance gradients on the check loss without its
    density-gradient term (`scripts/torch_k3_conditioning.py`), P4 on the
    whole loss. Entries `_wE`, `_wEm`, `_pP4`. (Run after phase 2y.)
-26. E Pano-NeRF with kernel 5's key off, 26m Em mip-NeRF with
-   `loss.ort_loss 0.1`: as phases 25 and 25m, ms per step beside phases
-   4's and 25's (25m's). (Run right after phase 25m.)
+26. E Pano-NeRF with kernel 5's key on (kernels 2, 3 and 5 on CTA
+   pairs), 26m Em mip-NeRF with `loss.ort_loss 0.1`: as phases 25 and
+   25m, ms per step beside phases 4b's and 25's (25m's). 26k: E with the
+   key off, 16 steps through the train entry point (exact launch
+   counts), 16 graphed steps against eager ones, ms per step beside
+   26's. (Run right after phase 25m.) The level and shape phases (19-26m)
+   time their served panorama graph vs eager without a profile of it.
 
 `[clock] phase X at T s` marks each phase's start and `[clock] <function>
 took T s` each call of the slow helpers (step checks, renders, trains).
@@ -339,8 +345,9 @@ kernel 1 at either and kernels 4 and 5 at P2 are on no main path: 0), and
 so has every kernel of the 512 / 256 builds (`_wD` with phase 25's
 launches, `_wDm` with phase 25m's; kernel 1 at D and every kernel at P3,
 which no phase trains, are on no main path: 0), and so has every kernel
-of the 1,024 builds (`_wE` with phase 26's launches, `_wEm` with 26m's;
-kernel 1 at E and every kernel at P4 are on no main path: 0). The
+of the 1,024 builds (`_wE` with the launches of phases 26 and 26k,
+`_wEm` with 26m's; kernel 1 at E and every kernel at P4 are on no main
+path: 0); every kernel at H and H2 is on no main path either: 0. The
 last lines are the card
 (nvidia-smi name, power limit), one JSON object with each kernel's
 numbers and `{"ok": true, "device": ...}`. No JAX is imported.
@@ -405,13 +412,20 @@ def card_line() -> str:
 # beside the shipped one (pano_nerf_tpu_torch/kernels/shapes.py), as
 # config overrides. A: trunk 128, view branch 64; B: IPE degrees 0..10,
 # deg_view 2; C: mip-NeRF at A's widths without identity in the viewdir
-# encoding (kernels 2 and 3 only).
+# encoding (kernels 2 and 3 only); H: the shipped widths at 20 IPE
+# degrees (120 features) and deg_view 6; H2: trunk 512 / view branch 256
+# at that build's most IPE degrees (21: 126 of the 128 columns of the g_x
+# and d x products) and deg_view 5 (no phase trains H or H2).
 SHAPE_A = ("nerf.mlp.net_width", "128", "nerf.mlp.net_width_condition",
            "64")
 SHAPE_B = ("nerf.max_deg_point", "10", "nerf.deg_view", "2")
 SHAPE_C = SHAPE_A + ("nerf.append_identity", "False")
+SHAPE_H = ("nerf.max_deg_point", "20", "nerf.deg_view", "6")
+SHAPE_H2 = ("nerf.mlp.net_width", "512", "nerf.mlp.net_width_condition",
+            "256", "nerf.max_deg_point", "21", "nerf.deg_view", "5")
 OTHER_SHAPES = {"A": (CONFIG, SHAPE_A), "B": (CONFIG, SHAPE_B),
-                "C": (MIP_CONFIG, SHAPE_C)}
+                "C": (MIP_CONFIG, SHAPE_C), "H": (CONFIG, SHAPE_H),
+                "H2": (CONFIG, SHAPE_H2)}
 
 
 # Phase 2x and phases 23-24: models narrower than a build, run zero-padded
@@ -441,7 +455,7 @@ WIDE_SHAPES = {"D": (CONFIG, SHAPE_D), "Dm": (MIP_CONFIG, SHAPE_D),
 
 # Phase 2z and phases 26-26m: the 1,024 builds, whose tiles run on a
 # cluster of two CTAs (csrc/mlp_rows.cuh `PAIR`). E: Pano-NeRF at trunk
-# 1,024, view branch 512 (kernels 1-4; kernel 5 is not built there); Em:
+# 1,024, view branch 512 (kernels 1-5); Em:
 # mip-NeRF at mip-NeRF 360's NeRF-MLP widths, trunk 1,024 / view branch
 # 128 (`configs/360.gin` of google-research/multinerf; kernels 2 and 3 at
 # one density channel); P4: Pano-NeRF at 768 / 384, zero-padded into E's
@@ -513,7 +527,7 @@ def build_kernels():
     """Start every library's nvcc together (each source at the shipped
     shape, `fused_mlp.cu` also at one density channel, and every source
     a model of `OTHER_SHAPES`, D and Dm of `WIDE_SHAPES` or E and Em of
-    `PAIR_SHAPES` runs at its shape: 18 libraries), then wait for all."""
+    `PAIR_SHAPES` runs at its shape: 25 libraries), then wait for all."""
     from pano_nerf_tpu_torch.kernels import build, shapes
     from pano_nerf_tpu_torch.kernels import (fused_mlp_ipe, fused_render,
                                              fused_render_train)
@@ -526,9 +540,7 @@ def build_kernels():
         builds.append((fused_mlp_ipe.SOURCE, sh.defines()))
         if sh.C == 5 and model.cfg.append_identity:   # kernels 4 and 5
             builds.append((fused_render.SOURCE, sh.defines(False)))
-            if not shapes.train_render_gap(model.mlp.net_width,
-                                           model.mlp.net_width_condition):
-                builds.append((fused_render_train.SOURCE, sh.defines(False)))
+            builds.append((fused_render_train.SOURCE, sh.defines(False)))
     t0 = time.perf_counter()
     pending = [build.start_build(*b) for b in builds]
     for p in pending:
@@ -1055,16 +1067,17 @@ def _eval_system(scene: str, config: str, dev: str, factor=None, opts=()):
 
 @clocked
 def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
-                        config: str = CONFIG, opts=(), tol=None) -> None:
+                        config: str = CONFIG, opts=(), tol=None,
+                        profiled: bool = True) -> None:
     """The first val panorama rendered by the system of `config` (with
     the overrides `opts`) through the chunk graph and op by op, on the
     same weights (from `--init_seed 0`, or a checkpoint's "params"): the
     graph's products held against the eager ones (f32 atol 1e-4, and
     bit-equal where `opts` are given; `tol` where given); ms per panorama
     of each, in
-    turns (graph, eager, eager, graph), one render a turn; then one of each
-    under torch.profiler (device busy and idle share of the host wall
-    time, top kernels)."""
+    turns (graph, eager, eager, graph), one render a turn; then, where
+    `profiled`, one of each under torch.profiler (device busy and idle
+    share of the host wall time, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pano_nerf_tpu_torch.core.rays import rays_map, rays_to_tensors
@@ -1108,7 +1121,7 @@ def where_the_time_goes(scene: str, params=None, tag: str = "[eval]",
         print(f"{tag} {m}: {ms:.3f} ms per {ds.h}x{ds.w} panorama "
               f"({min(ts):.3f}-{max(ts):.3f} over {len(ts)} renders) = "
               f"{1e3 * rays / ms:.1f} eval rays/s", flush=True)
-    for m, fn in modes.items():
+    for m, fn in modes.items() if profiled else ():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2101,14 +2114,18 @@ def check_fused_mlp_kernel(model, dev, levels, wentry: dict,
 
 def check_other_shape_kernels(env, dev, wentry: dict) -> dict:
     """Phase 2w: each build of `OTHER_SHAPES` against its plain versions
-    on the card at phase 2's tolerances, weights from seed 0: at A and B
-    kernel 4 at the eval path's three shapes, kernels 2 and 3 (forward
-    and backward: parameters, means, covariances) at a batch-512 train
-    step's four calls, kernel 5 (`save_acts` off) at its coarse and env
-    levels, and at A kernel 1 at 28,672 rows; at C (mip-NeRF) kernels 2
-    and 3 at a batch-2048 train step's 131,072 rows. Each with its ms per
-    launch beside the bound from the shape's own MACs and bytes (the
-    weight-gradient pass into `wentry`, out of its sums). Returns the
+    on the card at phase 2's tolerances, weights from seed 0: at A, B, H
+    and H2 kernel 4 at the eval path's three shapes, kernels 2 and 3
+    (forward and backward: parameters, means, covariances) at a
+    batch-512 train step's four calls, kernel 5 (`save_acts` off) at its
+    coarse and env levels, and at A, H and H2 kernel 1 at 28,672 rows; at
+    C (mip-NeRF) kernels 2 and 3 at a batch-2048 train step's 131,072
+    rows. As at D, H2's kernel-3 moment and covariance gradients are held
+    on the check loss without its density-gradient term
+    (`check_train_kernels` `dsig_free_moments`: the 512-wide fine level's
+    bf16 moment gradient moves far from f32 on the whole loss). Each with
+    its ms per launch beside the bound from the shape's own MACs and bytes
+    (the weight-gradient pass into `wentry`, out of its sums). Returns the
     JSON entries by shape, named with `_w<shape>`."""
     import torch
     entries = {}
@@ -2127,10 +2144,10 @@ def check_other_shape_kernels(env, dev, wentry: dict) -> dict:
                                  sfx=sfx, tag=tag)]
         calls, levels, _ = train_shapes(model, env, dev)
         got += check_train_kernels(model, dev, calls, wentry, tag=tag,
-                                   sfx=sfx)
+                                   sfx=sfx, dsig_free_moments=name == "H2")
         got += check_train_render_kernel(model, dev, levels, wentry,
                                          sfx=sfx, tag=tag, spills=(False,))
-        if name == "A":
+        if name in ("A", "H", "H2"):
             got += check_fused_mlp_kernel(model, dev, levels, wentry,
                                           sfx=sfx, tag=tag)
         entries[name] = got
@@ -2342,12 +2359,13 @@ def check_pair_kernels(env, dev, wentry: dict) -> dict:
     passes; the weight-gradient pass against `weight_grads_reference` at
     WGRAD_TOL, torch.matmul beside it), weights from seed 0: at E kernel
     4 at the eval path's three shapes, kernels 2 and 3 at a batch-512
-    train step's four calls and kernel 1 at 28,672 rows; at Em (mip-NeRF
+    train step's four calls, kernel 5 (`save_acts` off and on) at its
+    coarse and env levels and kernel 1 at 28,672 rows; at Em (mip-NeRF
     360's 1,024 / 128, one density channel) kernels 2 and 3 at a
     batch-2048 step's 131,072 rows and an eval chunk's 262,144; at P4
-    (768 / 384, zero-padded into E's build) kernels 4, 2, 3 and 1 likewise
-    at the model's own width, the padded gradient slots exactly 0
-    (`check_padded_slots`). Kernel 5 is not built at these widths. As at
+    (768 / 384, zero-padded into E's build) kernels 4, 2, 3, 5 and 1
+    likewise at the model's own width, the padded gradient slots exactly
+    0 (`check_padded_slots`). As at
     D, E's and Em's kernel-3 moment and covariance gradients are held on
     the loss without its density-gradient term (`check_train_kernels`
     `dsig_free_moments`), and on the whole loss no further from the f32
@@ -2374,11 +2392,12 @@ def check_pair_kernels(env, dev, wentry: dict) -> dict:
         calls, levels, _ = train_shapes(model, env, dev)
         got += check_train_kernels(model, dev, calls, wentry, tag=tag,
                                    sfx=sfx, dsig_free_moments=name == "E")
+        got += check_train_render_kernel(model, dev, levels, wentry,
+                                         sfx=sfx, tag=tag)
         got += check_fused_mlp_kernel(model, dev, levels, wentry, sfx=sfx,
                                       tag=tag)
         if name == "P4":
-            check_padded_slots(model, calls, levels, True, tag,
-                               with_k5=False)
+            check_padded_slots(model, calls, levels, True, tag)
             for e in got:
                 e["padded"] = macs
         entries[name] = got
@@ -3660,9 +3679,10 @@ def check_zero_covariance_kernels(system) -> None:
 # 64, view 32, in the 128 / 64 build) as 21; 23m, P2 mip-NeRF (200 / 100,
 # in the one-channel 256 / 128 build) as 22m; 25, D (trunk 512, view 256)
 # as 21; 25m, Dm (mip-NeRF at 512 / 256) as 22m; 26, E (trunk 1,024, view
-# 512) with the key off (kernel 5 is not built there: kernels 2 and 3;
-# kernel 4); 26m, Em (mip-NeRF at 1,024 / 128) as 22m; 25-26m each with
-# its loss held falling. Entries as in `LEVEL_PHASES`.
+# 512) as 21 (kernels 2, 3 and 5 on CTA pairs; kernel 4); 26m, Em
+# (mip-NeRF at 1,024 / 128) as 22m; 25-26m each with its loss held
+# falling. Entries as in `LEVEL_PHASES`. E with the key off is phase 26k
+# (`drive_key_off_phase`).
 SHAPE_PHASES = {
     "21": (CONFIG, SHAPE_A, True, 64, (), False),
     "22": (CONFIG, SHAPE_B, False, 64, (), False),
@@ -3674,7 +3694,7 @@ SHAPE_PHASES = {
     "25": (CONFIG, SHAPE_D, True, 64, (), True),
     "25m": (MIP_CONFIG, SHAPE_D + ("loss.ort_loss", "0.1"), False, 64, (),
             True),
-    "26": (CONFIG, SHAPE_E, False, 64, (), True),
+    "26": (CONFIG, SHAPE_E, True, 64, (), True),
     "26m": (MIP_CONFIG, SHAPE_EM + ("loss.ort_loss", "0.1"), False, 64, (),
             True),
 }
@@ -3682,6 +3702,32 @@ SHAPE_PHASES = {
 # of each shape phase, for the next wider build's line.
 LATE_PHASES = ("25", "25m", "26", "26m")
 SHAPE_MS: dict = {}
+# Phase 26k's steps: E with the key off, beside phase 26's key on.
+KEY_OFF_STEPS = 16
+
+
+@clocked
+def drive_key_off_phase(workdir: str, scene: str) -> list:
+    """Phase 26k: E with kernel 5's key off (kernels 2 and 3 on CTA
+    pairs), beside phase 26's key on: KEY_OFF_STEPS steps through the
+    train entry point with exact launch counts, 16 graphed steps against
+    eager ones, ms per step beside phase 26's. Returns the run (its
+    launches)."""
+    import torch
+    enter_phase("26k")
+    run = drive_train_path(workdir, scene, config=CONFIG, opts=SHAPE_E,
+                           steps=KEY_OFF_STEPS, name="phase26k")
+    trainer = run.pop("trainer")
+    check_graphed_against_eager(trainer)
+    ms = time_train_modes(trainer)
+    g8 = "graph, 8 steps per replay"
+    print(f"[time-phase26k] graph of 8 steps {ms[g8]:.3f} ms per step "
+          f"(one-step graph {ms['graph, 1 step per replay']:.3f}, eager "
+          f"{ms['eager']:.3f}), key off, vs phase 26 (key on) in this call "
+          f"{SHAPE_MS['26']:.3f}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return [run]
 
 
 def drive_level_phase(ph: str, workdir: str, scene: str,
@@ -3727,7 +3773,7 @@ def drive_level_phase(ph: str, workdir: str, scene: str,
                              name=name + "_served")
     params = trainer.ckpt.restore(map_location=dev)["params"]
     where_the_time_goes(scene, params=params, tag=f"[eval-{name}]",
-                        config=config, opts=served_opts)
+                        config=config, opts=served_opts, profiled=False)
     noint = "nerf.disable_integration" in opts
     check_against_plain(scene, config, tag=f"[check-{name}]",
                         opts=served_opts, params=params,
@@ -4014,6 +4060,9 @@ def main() -> int:
             shape_runs[ph] = drive_level_phase(ph, workdir, scene,
                                                base_times)
             check_libraries(ph)
+        build.LOADED.clear()
+        shape_runs["26k"] = drive_key_off_phase(workdir, scene)
+        check_libraries("26k")
         # 7: mip-NeRF eval; 8: its train path (8b: the checkpoint served;
         # 8c: with the orientation loss, kernel 3 forward and backward).
         enter_phase("7")
@@ -4145,6 +4194,8 @@ def main() -> int:
     # served): A over 21, B over 22, C over 22m; kernel 1 at A, as at the
     # shipped shape, and kernel 5 at B (22 runs with the key off) are on
     # no main path.
+    for e in shape_entries["H"] + shape_entries["H2"]:
+        e["launches"] = 0   # no phase trains H or H2
     for name, ph in (("A", "21"), ("B", "22"), ("C", "22m")):
         for e in shape_entries[name]:
             e["launches"] = sum(r["launches"][e["name"][:-len("_wA")]]
@@ -4174,13 +4225,14 @@ def main() -> int:
     # The 512 / 256 builds' entries: D over phase 25, Dm over 25m; kernel
     # 1 at D and every kernel at P3 (a model no phase trains) are on no
     # main path.
-    # The 1,024 builds' likewise: E over phase 26, Em over 26m; kernel 1
-    # at E and every kernel at P4 are on no main path.
+    # The 1,024 builds' likewise: E over phases 26 (key on) and 26k (key
+    # off), Em over 26m; kernel 1 at E and every kernel at P4 are on no
+    # main path.
     for name, sfx, runs, es in (
             ("D", "_wD", shape_runs["25"], wide_entries),
             ("Dm", "_wDm", shape_runs["25m"], wide_entries),
             ("P3", "_pP3", (), wide_entries),
-            ("E", "_wE", shape_runs["26"], pair_entries),
+            ("E", "_wE", shape_runs["26"] + shape_runs["26k"], pair_entries),
             ("Em", "_wEm", shape_runs["26m"], pair_entries),
             ("P4", "_pP4", (), pair_entries)):
         for e in es[name]:

@@ -120,15 +120,20 @@ struct SmemB {
   uint32_t mask[8 * MWC * NT];
   uint32_t hvmask[HVW * NT];
   float x32[X32_ELEMS];
-  float dx[TM * XF];      // d x; later the cotangent of c1 (NORMALS)
-  float g[TM * OUT_W];
+  // d x (later the cotangent of c1, NORMALS) over the head cotangent g:
+  // mlp_backward reads the last of g before it writes d x, every column
+  // of it at layer 5.
+  union {
+    float dx[TM * XF];
+    float g[TM * OUT_W];
+  };
   float q[TM * 4];
   float dmc[TM * 8];
   float mc[TM * 8];
   uint64_t full[RING], empty[RING], io;
 };
-static_assert(sizeof(SmemF) + 1024 <= SMEM_LIMIT, "forward shared memory");
-static_assert(sizeof(SmemB) + 1024 <= SMEM_LIMIT, "backward shared memory");
+static_assert(smem_bytes<SmemF>() <= SMEM_LIMIT, "forward shared memory");
+static_assert(smem_bytes<SmemB>() <= SMEM_LIMIT, "backward shared memory");
 
 template <class Smem>
 __device__ Smem& smem_of(unsigned char* raw) {
@@ -542,7 +547,7 @@ cudaError_t launch_forward(const FwdParams& p, cudaStream_t st) {
   if (err == cudaSuccess && p.acts != nullptr) {
     err = hopper::make_map(&maps.acts, p.acts, p.M, 8 * W, 8 * W);
   }
-  const int smem = (int)sizeof(SmemF) + 1024;
+  const int smem = smem_bytes<SmemF>();
   if (err == cudaSuccess) err = set_smem(fused_mlp_fwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
   fused_mlp_fwd_kernel<VAR><<<PAIR * ((p.M + TM - 1) / TM), ROW_THREADS,
@@ -563,7 +568,7 @@ cudaError_t launch_backward(const BwdParams& p, const bf16* acts,
   if (err == cudaSuccess && VAR == NORMALS) {
     err = hopper::make_map(&maps.acts, acts, p.M, 8 * W, 8 * W);
   }
-  const int smem = (int)sizeof(SmemB) + 1024;
+  const int smem = smem_bytes<SmemB>();
   if (err == cudaSuccess) err = set_smem(fused_mlp_bwd_kernel<VAR>, smem);
   if (err != cudaSuccess) return err;
   fused_mlp_bwd_kernel<VAR><<<PAIR * tiles, ROW_THREADS, smem, st>>>(maps, p);

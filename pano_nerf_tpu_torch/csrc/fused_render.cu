@@ -133,8 +133,8 @@ struct Smem {
   float acc[TR];
   uint64_t full[NS], empty[NS], io;
 };
-static_assert(sizeof(Smem<true>) + 1024 <= SMEM_LIMIT, "fine-level shared memory");
-static_assert(sizeof(Smem<false>) + 1024 <= SMEM_LIMIT, "shared memory");
+static_assert(smem_bytes<Smem<true>>() <= SMEM_LIMIT, "fine-level shared memory");
+static_assert(smem_bytes<Smem<false>>() <= SMEM_LIMIT, "shared memory");
 
 template <class Sm>
 __device__ Sm& smem_of(unsigned char* raw) {
@@ -389,7 +389,7 @@ __global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
 
 template <bool NRM>
 cudaError_t launch(const Maps& maps, const Params& p, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<NRM>) + 1024;
+  const int smem = smem_bytes<Smem<NRM>>();
   cudaError_t err = cudaFuncSetAttribute(
       fused_render_kernel<NRM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -29,7 +29,8 @@
 // shape, against 96 B of inputs per row; compositing is O(S) per ray. A
 // build takes the MLP's shape as nerf_mlp.cuh's constants (the viewdir
 // codes arrive encoded, VF of VP columns); a 512-wide build runs the same
-// steps at N = 512 with a 2-stage ring (mlp_rows.cuh).
+// steps at N = 512 with a 2-stage ring (mlp_rows.cuh), and a 1,024-wide
+// build runs each tile on a cluster of two CTAs (mlp_rows.cuh `PAIR`).
 //
 // Design:
 // * Ray-aligned tiles: compositing needs a whole ray in one block, so a
@@ -44,6 +45,16 @@
 //   (`acts`) is written with 16-byte stores (a ray tile's rows are not a
 //   whole 64-row box) and read back by TMA. Compositing and its adjoint
 //   are sequential f32 scans, one thread per ray.
+// * The 1,024-wide builds: each ray tile runs on a pair of CTAs, as the
+//   tiles of kernels 2 and 3 do. CTA rank r computes trunk and view-branch
+//   columns r * 512.. (r * VW / 2..) of every product through `mm`'s
+//   split and reads the partner's half through distributed shared
+//   memory; the heads, compositing and its adjoint run whole in both CTAs
+//   from the same bits, so the head cotangent needs no exchange. Each
+//   CTA spills and loads its own trunk columns (`acts`) and writes its
+//   own columns of the operand rows; rank 0 writes what both hold (out,
+//   weights, d mc, the narrow operand columns). The grid is PAIR blocks a
+//   tile (blockIdx.x / PAIR is the tile).
 // * Accurate expf / log1pf for softplus and sigmoid; no --use_fast_math
 //   (IPE phases reach ~1e5). e^{-dd - tau} underflows to 0 for large dd,
 //   never to NaN.
@@ -54,9 +65,6 @@
 #include "mlp_rows.cuh"
 
 static_assert(nerf_mlp::NDC == 5, "built for the 5-channel density head");
-static_assert(nerf_mlp::PAIR == 1,
-              "built for trunks up to 512: the 1,024-wide CTA pair is not "
-              "written for this kernel yet");
 
 namespace {
 
@@ -78,7 +86,7 @@ struct Params {
                       // backward: read if non-null, else recomputed)
   const float* g8;    // [R, 8] cotangent of out
   const float* gw;    // [R, S] cotangent of weights
-  bf16* ops;          // [grid * 64, OPW_IPE] operand rows
+  bf16* ops;          // [tiles * 64, OPW_IPE] operand rows
   float* dmc;         // [R*S, 8]
   BiasSums sums;      // db, written
   int R, S, rpb, min_deg;
@@ -87,7 +95,7 @@ struct Params {
 };
 
 struct SmemF {
-  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) bf16 act[TM * 64 * (ACT_BLOCKS + STAGE_BLOCKS)];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
   float x32[X32_ELEMS];
@@ -98,23 +106,30 @@ struct SmemF {
   uint64_t full[RING], empty[RING], io;
 };
 
+// The backward's head slab, head cotangent and d x share their room (the
+// 1,024-wide build's CTA has no more): tile_forward reads the heads into
+// per-row scalars before bwd_tile zeroes the cotangent, and mlp_backward
+// reads the last of the cotangent before it writes d x, every column of
+// it at layer 5.
 struct SmemB {
-  alignas(1024) bf16 act[TM * 64 * ACT_BLOCKS];
+  alignas(1024) bf16 act[TM * 64 * (ACT_BLOCKS + STAGE_BLOCKS)];
   alignas(1024) unsigned char ring[RING * SLICE];
   uint32_t mask[8 * MWC * NT];
   uint32_t hvmask[HVW * NT];
   float x32[X32_ELEMS];
-  float dx[TM * XF];
-  float g[TM * OUT_W];
+  union {
+    float dx[TM * XF];
+    float g[TM * OUT_W];
+    float heads[TM * OUT_W];
+  };
   float dmc[TM * 8];
   float mc[TM * 8];
-  float heads[TM * OUT_W];
   float row[NROW * TM];
   float clip[TM * 2];
   uint64_t full[RING], empty[RING], io;
 };
-static_assert(sizeof(SmemF) + 1024 <= SMEM_LIMIT, "forward shared memory");
-static_assert(sizeof(SmemB) + 1024 <= SMEM_LIMIT, "backward shared memory");
+static_assert(smem_bytes<SmemF>() <= SMEM_LIMIT, "forward shared memory");
+static_assert(smem_bytes<SmemB>() <= SMEM_LIMIT, "backward shared memory");
 
 template <class Smem>
 __device__ Smem& smem_of(unsigned char* raw) {
@@ -127,7 +142,8 @@ __device__ Smem& smem_of(unsigned char* raw) {
 // The forward (BWD false) spills the trunk to p.acts when that is
 // non-null; the backward loads the spill from p.acts when non-null, else
 // recomputes the trunk, and writes the forward operand rows (`ops` the
-// tile's first operand row, ops_row0 its row in maps.ops).
+// tile's first operand row, ops_row0 its row in maps.ops; a pair's CTAs
+// their own trunk columns, rank 0 the narrow ones).
 template <bool BWD, bool PRODUCER, class Smem>
 __device__ void tile_forward(Pipe<PRODUCER>& pp, Smem& s, const Params& p,
                              const Maps& maps, size_t row0, int ray0,
@@ -143,7 +159,9 @@ __device__ void tile_forward(Pipe<PRODUCER>& pp, Smem& s, const Params& p,
     for (int i = tid; i < TM * 2; i += NT) {
       s.clip[i] = i < nrays * 2 ? p.clip[(size_t)ray0 * 2 + i] : 0.f;
     }
-    if constexpr (BWD) copy_cols(s.act, W, XF, ops + O_X, OPW_IPE, TM);
+    if constexpr (BWD) {
+      if (prank() == 0) copy_cols(s.act, WL, XF, ops + O_X, OPW_IPE, TM);
+    }
   }
   if constexpr (BWD) {
     if (p.acts != nullptr) {
@@ -204,15 +222,18 @@ template <bool PRODUCER>
 __device__ void fwd_tile(Pipe<PRODUCER>& pp, SmemF& s, const Params& p,
                          const Maps& maps) {
   const int S = p.S;
-  const int ray0 = blockIdx.x * p.rpb;
+  const int ray0 = (blockIdx.x / PAIR) * p.rpb;
   const int nrays = min(p.rpb, p.R - ray0);
   const size_t row0 = (size_t)ray0 * S;
   tile_forward<false>(pp, s, p, maps, row0, ray0, nrays, nrays * S, nullptr,
                       0);
-  if constexpr (!PRODUCER) composite_rays(s, p, ray0, nrays);
+  if constexpr (!PRODUCER) {
+    if (prank() == 0) composite_rays(s, p, ray0, nrays);
+  }
 }
 
-// The tile's compositing, one thread per ray: weights and the output row.
+// The tile's compositing, one thread per ray: weights and the output row
+// (a pair's rank 0 alone: both CTAs hold the same per-row scalars).
 __device__ void composite_rays(SmemF& s, const Params& p, int ray0,
                                int nrays) {
   const int S = p.S;
@@ -229,7 +250,7 @@ __device__ void composite_rays(SmemF& s, const Params& p, int ray0,
   }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS, 1)
+__global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
     train_fwd_kernel(const __grid_constant__ Maps maps,
                      const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -243,22 +264,25 @@ __device__ void bwd_tile(Pipe<PRODUCER>& pp, SmemB& s, const Params& p,
                          const Maps& maps) {
   const int tid = threadIdx.x;
   const int S = p.S;
-  const int ray0 = blockIdx.x * p.rpb;
+  const int tile = blockIdx.x / PAIR;
+  const int ray0 = tile * p.rpb;
   const int nrays = min(p.rpb, p.R - ray0);
   const int nrows = nrays * S;
   const size_t row0 = (size_t)ray0 * S;
-  const int ops_row0 = blockIdx.x * TM;
+  const int ops_row0 = tile * TM;
   bf16* ops = p.ops + (size_t)ops_row0 * OPW_IPE;
   float* rowf = s.row;
 
   if constexpr (!PRODUCER) {
-    for (int i = tid; i < TM * OUT_W; i += NT) s.g[i] = 0.f;
     for (int i = tid; i < TM * 8; i += NT) s.dmc[i] = 0.f;
   }
   tile_forward<true>(pp, s, p, maps, row0, ray0, nrays, nrows, ops, ops_row0);
 
   // ---- per-ray adjoints: one thread per ray ----
   if constexpr (!PRODUCER) {
+    // The heads are in rowf now; their room takes the head cotangent.
+    for (int i = tid; i < TM * OUT_W; i += NT) s.g[i] = 0.f;
+    consumer_sync();
     const float scale = 1.f + 2.f * p.rgb_padding;
     for (int q = tid; q < nrays; q += NT) {
       float acc, N, rgb[3];
@@ -295,12 +319,14 @@ __device__ void bwd_tile(Pipe<PRODUCER>& pp, SmemB& s, const Params& p,
   mlp_backward(pp, s, part_row(p.sums), &maps.ops, ops_row0, ops, OPW_IPE);
   if constexpr (!PRODUCER) {
     ipe_backward(s, p.min_deg);
-    for (int i = tid; i < nrows * 8; i += NT) p.dmc[row0 * 8 + i] = s.dmc[i];
+    for (int i = tid; prank() == 0 && i < nrows * 8; i += NT) {
+      p.dmc[row0 * 8 + i] = s.dmc[i];
+    }
     bias_sums(p.sums);
   }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS, 1)
+__global__ void __launch_bounds__(ROW_THREADS, 1) NERF_PAIR_CLUSTER
     train_bwd_kernel(const __grid_constant__ Maps maps,
                      const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -337,8 +363,8 @@ extern "C" {
 NERF_SHAPE_EXPORT(fused_render_train_shape)
 BIAS_WORKSPACE_EXPORT(fused_render_train_bias_workspace)
 
-// Blocks (tiles of 64 rows) of a launch over R rays of S samples; the
-// backward's operand buffer has 64 rows per block.
+// Tiles (of 64 rows, PAIR blocks each) of a launch over R rays of S
+// samples; the backward's operand buffer has 64 rows per tile.
 int fused_render_train_blocks(int R, int S) {
   if (R <= 0 || S <= 0 || S > TM) return -1;
   return (R + TM / S - 1) / (TM / S);
@@ -353,21 +379,21 @@ int fused_render_train_forward(const float* mc, const float* clip,
                                int min_deg, float density_bias,
                                float rgb_padding, int white_bkgd,
                                void* stream) {
-  const int grid = fused_render_train_blocks(R, S);
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  const int tiles = fused_render_train_blocks(R, S);
+  if (tiles <= 0) return (int)cudaErrorInvalidValue;
   Params p = make_params(mc, clip, v, weights, biases, acts, R, S, min_deg,
                          density_bias, rgb_padding, white_bkgd);
   p.out = out;
   p.weights = weights_out;
   Maps maps;
   cudaError_t err = make_weight_maps(&maps, p.w);
-  const int smem = (int)sizeof(SmemF) + 1024;
+  const int smem = smem_bytes<SmemF>();
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(
         train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (err != cudaSuccess) return (int)err;
-  train_fwd_kernel<<<grid, ROW_THREADS, smem,
+  train_fwd_kernel<<<PAIR * tiles, ROW_THREADS, smem,
                      static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }
@@ -375,7 +401,7 @@ int fused_render_train_forward(const float* mc, const float* clip,
 // Backward row pass: writes dmc [R*S, 8], the operand rows `ops`
 // ([blocks * 64, fused_mlp_ops_width(0)] bf16) and the bias gradients
 // into db. `part` and `count` are the scratch of
-// fused_render_train_bias_workspace(blocks), count zeroed. `acts` (the
+// fused_render_train_bias_workspace(tiles), count zeroed. `acts` (the
 // forward's spill) may be null: the trunk is then recomputed.
 int fused_render_train_backward_rows(const float* mc, const float* clip,
                                      const void* v, const void* weights,
@@ -386,8 +412,8 @@ int fused_render_train_backward_rows(const float* mc, const float* clip,
                                      int min_deg, float density_bias,
                                      float rgb_padding, int white_bkgd,
                                      void* stream) {
-  const int grid = fused_render_train_blocks(R, S);
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  const int tiles = fused_render_train_blocks(R, S);
+  if (tiles <= 0) return (int)cudaErrorInvalidValue;
   Params p = make_params(mc, clip, v, weights, biases,
                          const_cast<void*>(acts), R, S, min_deg,
                          density_bias, rgb_padding, white_bkgd);
@@ -399,19 +425,19 @@ int fused_render_train_backward_rows(const float* mc, const float* clip,
   Maps maps;
   cudaError_t err = make_weight_maps(&maps, p.w);
   if (err == cudaSuccess) {
-    err = hopper::make_map(&maps.ops, ops, (uint64_t)grid * TM, OPW_IPE,
+    err = hopper::make_map(&maps.ops, ops, (uint64_t)tiles * TM, OPW_IPE,
                            OPW_IPE);
   }
   if (err == cudaSuccess && acts != nullptr) {
     err = hopper::make_map(&maps.acts, acts, (uint64_t)R * S, 8 * W, 8 * W);
   }
-  const int smem = (int)sizeof(SmemB) + 1024;
+  const int smem = smem_bytes<SmemB>();
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(
         train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (err != cudaSuccess) return (int)err;
-  train_bwd_kernel<<<grid, ROW_THREADS, smem,
+  train_bwd_kernel<<<PAIR * tiles, ROW_THREADS, smem,
                      static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }

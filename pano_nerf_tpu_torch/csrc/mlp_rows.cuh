@@ -87,6 +87,8 @@
 // consumers, consumer_sync), never __syncthreads.
 #pragma once
 
+#include <stddef.h>
+
 #include "hopper.cuh"
 #include "nerf_mlp.cuh"
 
@@ -121,18 +123,28 @@ constexpr int MWC = WL / 128;
 // accumulators per thread).
 constexpr int HVW = (VL / 4 + 31) / 32;
 // The f32 IPE features (64 rows x XF) are kept in s.x32 where they fit
-// beside the tile (W <= 256); the 512-wide builds recompute them from the
-// moments (`feat`), with load_ipe's own expression, so the values agree.
+// beside the tile (W <= 256, at most the shipped 96 features: at 128 the
+// copy and d x leave a 256-wide backward no room); the 512-wide builds
+// and more IPE degrees recompute them from the moments (`feat`), with
+// load_ipe's own expression, so the values agree.
 // Recomputing them at the shipped shape too gives the same bits but slows
 // the row passes (scripts/torch_kernel_ab.py, H100 80GB HBM3 at 700 W,
 // 28,672 rows: kernel 2 0.568 -> 0.684 ms, kernel 3 0.863 -> 1.181,
 // kernel 5 at 512 x 56 0.735 -> 0.843; kernel 3's forward 0.418 ->
 // 0.443), so the copy stays where it fits.
-constexpr bool X32 = W <= 256;
+constexpr bool X32 = W <= 256 && XF <= 96;
 constexpr int X32_ELEMS = X32 ? TM * XF : 1;
 // Shared memory one block may have on an H100 (a kernel's Smem plus the
 // 1024 bytes of alignment slack it allocates), less the pair's barrier.
 constexpr int SMEM_LIMIT = 232448 - (PAIR > 1 ? 16 : 0);
+// The dynamic shared memory a kernel's Smem takes: its members up to its
+// last, the barrier `io` (not its sizeof, which rounds up to the 1024-byte
+// alignment of the tile), and 1024 bytes of slack for `smem_of`'s
+// alignment. kernels/shapes.py `smem_bytes` computes the same sums.
+template <class Smem>
+constexpr int smem_bytes() {
+  return (int)(offsetof(Smem, io) + sizeof(uint64_t)) + 1024;
+}
 
 // Columns of the backward's operand rows (bf16, all multiples of 16).
 constexpr int O_X = 0;                // MLP input features x

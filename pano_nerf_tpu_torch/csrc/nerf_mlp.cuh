@@ -20,10 +20,13 @@ typedef __nv_bfloat16 bf16;
 //            on a pair of CTAs, mlp_rows.cuh `PAIR`);
 //   NERF_VW  view-branch width, 64, 128, 256 or 512 (512 only with trunk
 //            1024, which takes 128 and up);
-//   NERF_L   IPE degrees, max_deg_point - min_deg_point (1..16; min_deg
-//            is a runtime argument of every kernel);
-//   NERF_VF  viewdir encoding width, 6 deg_view (+ 3 with identity),
-//            deg_view 1..4;
+//   NERF_L   IPE degrees, max_deg_point - min_deg_point (1..21: the 6 L
+//            features, padded to XF, within the 128 columns of the g_x and
+//            d x products, mlp_rows.cuh; min_deg is a runtime argument of
+//            every kernel);
+//   NERF_VF  viewdir encoding width, 6 deg_view (+ 3 with identity), as
+//            wide as the activation tile holds beside the trunk
+//            (mlp_rows.cuh `ACT_COLS`);
 //   NERF_NDC density channels of the head, 5 (Pano-NeRF) or 1 (mip-NeRF).
 #ifndef NERF_W
 #define NERF_W 256
@@ -57,9 +60,10 @@ static_assert(W == 1024 ? VW >= 128 : VW <= 256,
               "view-branch widths: 512 only with trunk 1024, which takes 128 "
               "and up (a pair CTA's half of the view branch's backward is an "
               "MN-major product of at least 64 columns)");
-static_assert(L >= 1 && L <= 16, "IPE degrees: 1..16");
-static_assert(VF >= 6 && VF <= 27 && (VF % 6 == 0 || VF % 6 == 3),
-              "viewdir encodings: deg_view 1..4, with or without identity");
+static_assert(L >= 1 && XF <= 128,
+              "IPE degrees: 1..21 (g_x and d x are 128-column products)");
+static_assert(VF >= 6 && (VF % 6 == 0 || VF % 6 == 3),
+              "viewdir encodings: 6 deg_view, with or without identity");
 // Density channels of the head: 5 for Pano-NeRF (sigma | albedo(3) |
 // roughness), 1 for mip-NeRF (sigma). The padded head (HP) and the packed
 // layout are the same for both.

@@ -43,9 +43,11 @@ The MLP's shape is a set of compile-time constants of the CUDA sources
 (csrc/nerf_mlp.cuh): the density-channel count C (5 for Pano-NeRF, 1 for
 mip-NeRF), the trunk width W (128, 256, 512 or 1024: the 1,024 build
 runs each 64-row tile on a cluster of two CTAs), the view-branch width
-VW (64, 128, 256 or 512), the IPE degree count L = max_deg - min_deg (1..16;
-min_deg is a runtime argument) and the viewdir encoding's width VF
-(deg_view 1..4, with or without identity); the plain version takes any
+VW (64, 128, 256 or 512), the IPE degree count L = max_deg - min_deg (up
+to 21, as far as a build's tile and shared memory hold:
+`shapes.max_degrees`; min_deg is a runtime argument) and the viewdir
+encoding's width VF (with or without identity, up to
+`shapes.max_deg_view`); the plain version takes any
 width and any number of degrees, as JAX's kernel does. `MlpShape`
 (kernels/shapes.py) holds them; `MlpShape.defines` maps a shape to its
 build's preprocessor definitions

@@ -29,8 +29,8 @@ product's columns instead (two 64-row tiles do not fit a block at that
 width); the 1,024-wide build runs those 64-row tiles on a cluster of two
 CTAs, each computing half of every trunk product's columns. The source
 is built once per model shape (`shapes.MlpShape`: trunk 128, 256, 512 or
-1024, view branch 64, 128, 256 or 512, IPE degrees 1..16,
-deg_view 1..4 with identity; 5 density channels), each build a library
+1024, view branch 64, 128, 256 or 512, the IPE degrees and deg_view with
+identity the build holds; 5 density channels), each build a library
 of its own (`kernel_library(shape)`); a narrower trunk or view branch
 runs zero-padded in the next build (`pack_params`).
 
@@ -76,16 +76,14 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
     count on `device`: kernel 2's topology and shapes
     (`shapes.shape_gaps`: on the card the widths and degrees it is built
     for, on the CPU any), the 5-channel density head, a viewdir encoding
-    with identity (the kernel builds it so, as JAX's does; on the card
-    deg_view 1..4) and 1 <= S <= 64."""
+    with identity (the kernel builds it so, as JAX's does) and
+    1 <= S <= 64."""
     want, bad = shapes.shape_gaps(mlp, min_deg, max_deg, device)
-    top = shapes.MAX_DEG_VIEW if device.type == "cuda" else None
     want.update(num_density_channels=(5,),
-                view_dim=f"3 + 6 deg_view, deg_view 1..{top or ''}")
+                view_dim=f"3 + 6 deg_view; {want['view_dim']}")
     if mlp.num_density_channels != 5:
         bad["num_density_channels"] = mlp.num_density_channels
-    if (not 1 <= deg_view <= (top or deg_view)
-            or mlp.view_dim != 3 + 6 * deg_view):
+    if deg_view < 1 or mlp.view_dim != 3 + 6 * deg_view:
         bad["view_dim"] = (mlp.view_dim, deg_view)
     if bad:
         raise ValueError(f"fused_render_level supports only the standard "

@@ -21,7 +21,8 @@ level is 512 x 56 = 28,672 rows and the env queries 5,120 x 5 = 25,600.
 Design (csrc/fused_render_train.cu, sharing csrc/mlp_rows.cuh with
 kernels 1-3): one block of two consumer warpgroups and a producer warpgroup
 per tile of floor(64 / S) whole rays, so compositing stays inside a block
-(at S = 56 a tile is one ray and 8 of its 64 rows idle); the MLP on
+(at S = 56 a tile is one ray and 8 of its 64 rows idle; in the 1,024-wide
+build a tile runs on a pair of CTAs, as kernels 2 and 3 do); the MLP on
 `wgmma` products with TMA-streamed weights; compositing and its adjoint
 as sequential f32 scans, one thread per ray. The backward is two
 launches: the row pass (recompute, or load the bf16 trunk spill of
@@ -65,23 +66,16 @@ def check_kernel_support(mlp: NerfMLP, num_samples: int, min_deg: int,
                          max_deg: int, deg_view: int,
                          device: torch.device) -> None:
     """Raise ValueError unless the kernels cover this model and sample
-    count on `device`: the checks of `fused_mlp_ipe.check_kernel_support`,
-    a viewdir encoding with identity (JAX's kernel 5 encodes it so and
-    raises on an MLP without it; on the card deg_view 1..4), on the card 5
-    density channels and a build it is built for
-    (`shapes.train_render_gap`), and 1 <= S <= 64."""
+    count on `device`: the checks of `fused_mlp_ipe.check_kernel_support`
+    (on the card the widths, IPE degrees and viewdir degrees of the
+    builds), a viewdir encoding with identity (JAX's kernel 5 encodes it
+    so and raises on an MLP without it), on the card 5 density channels,
+    and 1 <= S <= 64."""
     k2.check_kernel_support(mlp, min_deg, max_deg, device)
-    gap = device.type == "cuda" and shapes.train_render_gap(
-        mlp.net_width, mlp.net_width_condition)
-    if gap:
-        raise ValueError(f"fused_render_train is not built on the card for "
-                         f"{gap}")
-    top = shapes.MAX_DEG_VIEW if device.type == "cuda" else None
-    if (not 1 <= deg_view <= (top or deg_view)
-            or mlp.view_dim != 3 + 6 * deg_view):
-        raise ValueError(f"fused_render_train encodes viewdirs at deg_view "
-                         f"1..{top or ''} with identity; got "
-                         f"deg_view {deg_view} for an MLP of view_dim "
+    if deg_view < 1 or mlp.view_dim != 3 + 6 * deg_view:
+        raise ValueError(f"fused_render_train encodes viewdirs with "
+                         f"identity at deg_view >= 1; got deg_view "
+                         f"{deg_view} for an MLP of view_dim "
                          f"{mlp.view_dim}")
     if device.type == "cuda" and mlp.num_density_channels != 5:
         raise ValueError(f"fused_render_train is built for 5 density "

@@ -18,12 +18,12 @@ general NerfMLP with torch autograd (`NerfModel._query`,
 `_query_normals`: JAX's XLA route). JAX's kernels read the widths and
 encodings from the parameter shapes; the CUDA kernels are built per shape
 for a set of them (`kernels/shapes.py`: trunk 128, 256, 512 or 1024,
-view branch 64, 128, 256 or 512, IPE degrees 1..16, deg_view 1..4; a
-narrower trunk or view branch runs zero-padded in the next build), so on
-the kernel route a system on the card refuses what they are not built
-for (`kernel_build_gaps`: trunks above 1024, view branches above 512,
-more IPE or viewdir degrees, kernel 5 in the 1,024 build) instead of
-taking another route. A kernel that
+view branch 64, 128, 256 or 512, as many IPE and viewdir degrees as a
+build's tile and shared memory hold; a narrower trunk or view branch runs
+zero-padded in the next build), so on the kernel route a system on the
+card refuses what they are not built for (`kernel_build_gaps`: trunks
+above 1024, view branches above 512, more IPE or viewdir degrees than
+the build takes) instead of taking another route. A kernel that
 fails raises; the route never changes at run time. `from_hparams`
 refuses every config key that would need a path the port lacks
 (`UNSUPPORTED`) with
@@ -396,36 +396,40 @@ def kernel_build_gaps(cfg: NerfConfig, device: torch.device) -> List[str]:
     """What a model on the kernel route needs that the kernels on
     `device` are not built for, or [] (`kernels/shapes.py`): on every
     device at least one IPE degree (max_deg_point - min_deg_point) and
-    one viewdir degree; on the card also IPE degrees 1..16 and deg_view
-    1..4 (the builds' XF and VP columns), a trunk width of at most 1024
+    one viewdir degree; on the card also a trunk width of at most 1024
     and a view-branch width of at most 512 (a narrower one runs
     zero-padded in the next build, `shapes.build_shape`), the
-    density-channel counts 1 and 5, and `nerf.use_train_render_kernel`
-    only in a build of a trunk of at most 512 (`shapes.train_render_gap`:
-    kernel 5 is not written for the 1,024 build's CTA pair). The plain
-    versions on the CPU take any width, count and degree, as JAX's
-    kernels do."""
+    density-channel counts 1 and 5, and at most the IPE degrees and
+    deg_view that build takes (`shapes.max_degrees`,
+    `shapes.max_deg_view`: its activation tile and shared memory), each
+    refusal naming the key and the build's limit. The plain versions on
+    the CPU take any width, count and degree, as JAX's kernels do."""
     L = cfg.max_deg_point - cfg.min_deg_point
-    cuda = device.type == "cuda"
-    checks = (
-        (1 <= L <= (shapes.MAX_DEGREES if cuda else L),
-         f"nerf.min_deg_point..max_deg_point {cfg.min_deg_point}.."
-         f"{cfg.max_deg_point}"),
-        (1 <= cfg.deg_view <= (shapes.MAX_DEG_VIEW if cuda else cfg.deg_view),
-         f"nerf.deg_view {cfg.deg_view}"))
-    if cuda:
-        checks += (
+    deg = (L >= 1, f"nerf.min_deg_point..max_deg_point "
+                   f"{cfg.min_deg_point}..{cfg.max_deg_point}")
+    view = (cfg.deg_view >= 1, f"nerf.deg_view {cfg.deg_view}")
+    widths = ()
+    if device.type == "cuda":
+        widths = (
             (1 <= cfg.mlp_net_width <= shapes.WIDTHS[-1],
              f"nerf.mlp.net_width {cfg.mlp_net_width}"),
             (1 <= cfg.mlp_net_width_condition <= shapes.VIEW_WIDTHS[-1],
              f"nerf.mlp.net_width_condition {cfg.mlp_net_width_condition}"),
             (cfg.mlp_num_density_channels in shapes.DENSITY_CHANNELS,
              f"{cfg.mlp_num_density_channels} density channels"))
-        if cfg.use_train_render_kernel and all(ok for ok, _ in checks[2:4]):
-            gap = shapes.train_render_gap(cfg.mlp_net_width,
-                                          cfg.mlp_net_width_condition)
-            checks += ((not gap, gap),)
-    return [why for ok, why in checks if not ok]
+    if widths and all(ok for ok, _ in (deg, view) + widths):
+        build = shapes.build_shape(shapes.MlpShape(
+            cfg.mlp_num_density_channels, cfg.mlp_net_width,
+            cfg.mlp_net_width_condition, L, cfg.view_dim))
+        if shapes.encoding_gaps(build):
+            top_l = shapes.max_degrees(build)
+            top_v = shapes.max_deg_view(build, cfg.append_identity)
+            name = shapes.build_name(build)
+            deg = (L <= top_l, f"{deg[1]} ({name} takes up to {top_l} IPE "
+                               f"degrees)")
+            view = (cfg.deg_view <= top_v,
+                    f"{view[1]} ({name} takes deg_view up to {top_v})")
+    return [why for ok, why in (deg, view) + widths if not ok]
 
 
 class NerfModel(nn.Module):

@@ -147,14 +147,18 @@ def test_wrapper_rejects_unsupported_topology(change):
 
 def test_wrapper_rejects_unsupported_encoding_degrees(mlp256):
     """deg_view 2 for an MLP of the deg-4 encoding (27 wide) is refused;
-    deg_view 5, beyond the builds' 1..4, on the card only (the plain
-    version on the CPU takes it, as JAX's kernel does)."""
+    deg_view 21, beyond the shipped build's 20 (its 144 padded codes
+    leave kernel 4's two 64-row tiles no room), on the card only (the
+    plain version on the CPU takes it, as JAX's kernel does); deg_view 5
+    runs on the card too."""
     with pytest.raises(ValueError, match="topology"):
         _call(mlp256, _inputs(), deg_view=2)
-    mlp5 = NerfMLP(96, 33, num_density_channels=5)
+    mlp21 = NerfMLP(96, 129, num_density_channels=5)
     with pytest.raises(ValueError, match="topology"):
-        fr.check_kernel_support(mlp5, 8, 0, 16, 5, torch.device("cuda"))
-    assert _call(mlp5, _inputs(), deg_view=5)["rgb"].shape == (4, 3)
+        fr.check_kernel_support(mlp21, 8, 0, 16, 21, torch.device("cuda"))
+    assert _call(mlp21, _inputs(), deg_view=21)["rgb"].shape == (4, 3)
+    fr.check_kernel_support(NerfMLP(96, 33, num_density_channels=5), 8, 0,
+                            16, 5, torch.device("cuda"))
 
 
 def test_wrapper_rejects_shape_mismatch(mlp256):

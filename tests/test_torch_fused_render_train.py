@@ -29,6 +29,7 @@ from pano_nerf_tpu.ops import mip as jax_mip
 from pano_nerf_tpu_torch.kernels import fused_render_train as k5
 from pano_nerf_tpu_torch.models.mlp import NerfMLP
 from pano_nerf_tpu_torch.utils.params import params_from_jax, params_to_jax
+from test_torch_wide_widths import check_train_render_plain_version, models
 import torch_threads  # noqa: F401  (tests/torch_threads.py)
 
 DENSITY_BIAS = -1.0
@@ -210,8 +211,8 @@ def test_wrapper_rejects_unsupported_inputs():
         big = torch.zeros(2, 65, 3)
         k5.fused_render_train(mlp, big, big, args[2][:2],
                               torch.zeros(2, 66), args[4][:2], **kw)
-    # deg_view 2 for an MLP of the deg-4 encoding; 18 IPE degrees, past
-    # the builds' 1..16.
+    # deg_view 2 for an MLP of the deg-4 encoding; 18 IPE degrees for an
+    # MLP of 16 degrees' features.
     with pytest.raises(ValueError, match="deg_view"):
         k5.fused_render_train(mlp, *args, **dict(kw, deg_view=2))
     with pytest.raises(ValueError, match="topology"):
@@ -253,3 +254,12 @@ def test_no_cuda_tensor_reaches_the_plain_version(monkeypatch):
                         property(lambda self: torch.device("cuda")))
     with pytest.raises(RuntimeError, match="building fused_mlp.cu"):
         k5.fused_render_train(mlp, *args, **kw)
+
+
+def test_plain_version_matches_pallas_kernel_at_1024(interpret):
+    """Trunk 1,024 / view branch 512, the build whose tiles run on a pair
+    of CTAs on the card: the plain version against JAX's Pallas kernel on
+    4 rays of 8 samples, the bridged parameters made once per shape and
+    the JAX side jitted (tests/test_torch_wide_widths.py), at this file's
+    bf16 tolerances."""
+    check_train_render_plain_version(*models(5, 1024, 512), R=4)

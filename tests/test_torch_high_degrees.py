@@ -1,19 +1,24 @@
 """IPE degrees above 16 and viewdir degrees above 4, on the CPU.
 
 JAX's kernels build any number of degrees (`_ipe96x` takes any L,
-`_pe27` any deg_view). The port's CUDA builds stop at 16 IPE degrees and
-deg_view 4 (the activation tile's XF and VP columns), so the card refuses
-more, naming the key; the plain versions on the CPU take them, as JAX's
-kernels do. Here, at `nerf.max_deg_point 20` (20 IPE degrees, 120
-features) and `nerf.deg_view 6` (39 viewdir codes with identity), narrow
-bf16 MLPs (trunk 128, view branch 64) with bridged parameters:
+`_pe27` any deg_view). The port's CUDA builds take as many as a build's
+activation tile and shared memory hold (`kernels/shapes.py`
+`max_degrees`, `max_deg_view`: 21 IPE degrees in every build, the
+128-column g_x and d x products; deg_view 42 with identity in the
+128 / 64 build, 20 in the wider ones), so the card refuses more, naming
+the key and the build's limit; the plain versions on the CPU take any,
+as JAX's kernels do. Here, at `nerf.max_deg_point 20` (20 IPE degrees,
+120 features) and `nerf.deg_view 6` (39 viewdir codes with identity),
+narrow bf16 MLPs (trunk 128, view branch 64) with bridged parameters:
 
-- the route: refused on the card naming each key, taken on the CPU;
+- the route: taken on the card and on the CPU; per build, the limits and
+  the refusal one step past each; kernel 5's key at the 1,024 widths;
 - kernel 2's forward and backward and kernel 4 (with normals) through
   their plain versions against JAX's Pallas kernels in interpret mode,
   at the tolerances of tests/test_torch_kernel_shapes.py.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -30,6 +35,7 @@ from pano_nerf_tpu_torch.engine.system import build_system
 from pano_nerf_tpu_torch.kernels import fused_mlp_ipe as k2
 from pano_nerf_tpu_torch.kernels import fused_render as fr
 from pano_nerf_tpu_torch.kernels import fused_render_train as k5
+from pano_nerf_tpu_torch.kernels import shapes
 from pano_nerf_tpu_torch.models import build_model
 from pano_nerf_tpu_torch.models.base import kernel_build_gaps
 
@@ -49,27 +55,71 @@ def interpret(monkeypatch):
 
 
 def test_more_degrees_run_on_the_cpu_and_are_refused_on_the_card():
+    """20 IPE degrees and deg_view 6 (refused on the card until the builds
+    took more than 16 and 4) run on the card's builds and on the CPU."""
     hp = load_config(CONFIG, HIGH + ["nerf.mlp.net_width", "64",
                                      "nerf.mlp.net_width_condition", "32"])
     model = build_model(hp)
     assert model.kernels
     assert kernel_build_gaps(model.cfg, torch.device("cpu")) == []
-    assert kernel_build_gaps(model.cfg, torch.device("cuda")) == [
-        "nerf.min_deg_point..max_deg_point 0..20", "nerf.deg_view 6"]
+    assert kernel_build_gaps(model.cfg, torch.device("cuda")) == []
     assert build_system(hp, device="cpu").model.kernels
     mlp = model.mlp
     assert (mlp.xyz_dim, mlp.view_dim) == (6 * L, 3 + 6 * DV)
-    cuda = torch.device("cuda")
-    with pytest.raises(ValueError, match="topology"):
-        k2.check_kernel_support(mlp, 0, L, cuda)
-    with pytest.raises(ValueError, match="topology"):
-        fr.check_kernel_support(mlp, 8, 0, L, DV, cuda)
-    with pytest.raises(ValueError, match="topology"):
-        k5.check_kernel_support(mlp, 8, 0, L, DV, cuda)
-    cpu = torch.device("cpu")
-    k2.check_kernel_support(mlp, 0, L, cpu)
-    fr.check_kernel_support(mlp, 8, 0, L, DV, cpu)
-    k5.check_kernel_support(mlp, 8, 0, L, DV, cpu)
+    for dev in ("cuda", "cpu"):
+        dev = torch.device(dev)
+        k2.check_kernel_support(mlp, 0, L, dev)
+        fr.check_kernel_support(mlp, 8, 0, L, DV, dev)
+        k5.check_kernel_support(mlp, 8, 0, L, DV, dev)
+
+
+# build (trunk / view branch) -> (IPE degrees, deg_view with identity) it
+# takes at most, by `shapes.smem_bytes` and the tile.
+LIMITS = {(128, 64): (21, 42), (256, 128): (21, 20), (512, 256): (21, 20),
+          (1024, 512): (21, 20)}
+
+
+@pytest.mark.parametrize("W,VW", sorted(LIMITS))
+def test_each_build_takes_its_limits_and_refuses_one_past(W, VW):
+    """At each build's widths the card's gate takes the build's most IPE
+    degrees and deg_view and refuses one more, naming the key and the
+    limit; the CPU takes both."""
+    top_l, top_v = LIMITS[W, VW]
+    build = shapes.MlpShape(W=W, VW=VW)
+    assert shapes.max_degrees(build) == top_l
+    assert shapes.max_deg_view(build) == top_v
+    widths = ["nerf.mlp.net_width", str(W), "nerf.mlp.net_width_condition",
+              str(VW)]
+    name = f"the {W} / {VW} build"
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for key, top, what in (("nerf.max_deg_point", top_l, "IPE degrees"),
+                           ("nerf.deg_view", top_v, "deg_view")):
+        cfg = build_model(load_config(CONFIG, widths + [key, str(top)])).cfg
+        assert kernel_build_gaps(cfg, cuda) == [], key
+        cfg = dataclasses.replace(cfg, **{key.split(".")[1]: top + 1})
+        assert kernel_build_gaps(cfg, cpu) == []
+        want = (f"nerf.min_deg_point..max_deg_point 0..{top + 1} ({name} "
+                f"takes up to {top} IPE degrees)" if what == "IPE degrees"
+                else f"nerf.deg_view {top + 1} ({name} takes deg_view up "
+                f"to {top})")
+        assert kernel_build_gaps(cfg, cuda) == [want]
+        assert shapes.encoding_gaps(shapes.MlpShape(
+            W=W, VW=VW, L=16 if what == "deg_view" else top + 1,
+            VF=27 if what == "IPE degrees" else 3 + 6 * (top + 1)))
+
+
+def test_kernel5_key_at_the_1024_widths_takes_the_kernel_route():
+    """A model at E's widths (trunk 1,024, view branch 512) with
+    `nerf.use_train_render_kernel` takes the kernel route on the card's
+    gate: kernel 5 runs on the 1,024 build's CTA pair."""
+    hp = load_config(CONFIG, ["nerf.mlp.net_width", "1024",
+                              "nerf.mlp.net_width_condition", "512",
+                              "nerf.use_train_render_kernel", "True"])
+    model = build_model(hp)
+    assert model.kernels and model.cfg.use_train_render_kernel
+    assert kernel_build_gaps(model.cfg, torch.device("cuda")) == []
+    assert shapes.build_of(model.mlp).W == shapes.PAIR_W
+    k5.check_kernel_support(model.mlp, 56, 0, 16, 4, torch.device("cuda"))
 
 
 def models():

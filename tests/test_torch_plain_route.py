@@ -264,10 +264,12 @@ def test_route_table(opts, why):
 @pytest.mark.parametrize("opts,cuda,cpu", [
     (["nerf.mlp.net_width", "1100", "nerf.mlp.net_width_condition", "600"],
      ["nerf.mlp.net_width 1100", "nerf.mlp.net_width_condition 600"], []),
-    (["nerf.max_deg_point", "18"],
-     ["nerf.min_deg_point..max_deg_point 0..18"], []),
-    (["nerf.deg_view", "5", "nerf.append_identity", "False"],
-     ["nerf.deg_view 5"], []),
+    (["nerf.max_deg_point", "22"],
+     ["nerf.min_deg_point..max_deg_point 0..22 (the 256 / 128 build takes "
+      "up to 21 IPE degrees)"], []),
+    (["nerf.deg_view", "33", "nerf.append_identity", "False"],
+     ["nerf.deg_view 33 (the 256 / 128 build takes deg_view up to 32)"],
+     []),
     (["nerf.max_deg_point", "0"],
      ["nerf.min_deg_point..max_deg_point 0..0"],
      ["nerf.min_deg_point..max_deg_point 0..0"])])
@@ -276,9 +278,11 @@ def test_kernel_route_refuses_what_the_kernels_are_not_built_for(
     """On the kernel route (bf16, the standard topology) a width or an
     encoding the kernels are not built for is refused, never sent to the
     plain route: the CUDA builds take trunk widths up to 1024 and view
-    widths up to 512, IPE degrees 1..16 and viewdir encodings of deg_view
-    1..4 (with or without identity); the plain versions on the CPU any
-    width and any number of degrees from 1, as JAX's kernels."""
+    widths up to 512, and the IPE and viewdir degrees a build's tile and
+    shared memory hold (the shipped 256 / 128 build: 21 IPE degrees,
+    deg_view 32 without identity), the refusal naming the key and that
+    limit; the plain versions on the CPU any width and any number of
+    degrees from 1, as JAX's kernels."""
     hp = load_config(CONFIG, opts)
     model = build_model(hp)
     assert model.kernels

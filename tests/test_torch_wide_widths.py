@@ -25,8 +25,8 @@ numpy-made inputs and bridged parameters:
 - the 1,024 builds the same way, as cases of their own: E (Pano-NeRF
   1,024 / 512), Em (mip-NeRF 360's 1,024 / 128 at one density channel)
   and P4 (768 / 384, zero-padded into E's build): `build_shape` and
-  `kernel_build_gaps` / `shape_gaps` on the card (1,025 / 513 and kernel
-  5's key in the 1,024 build refused naming the key), P4 packed into E's
+  `kernel_build_gaps` / `shape_gaps` on the card (1,025 / 513 refused
+  naming the key, kernel 5's key taken in the 1,024 build), P4 packed into E's
   layout and back with its padded slots zero, the job table (45 jobs), and
   the plain versions of kernels 2, 3 and 4 against JAX's Pallas kernels.
 """
@@ -139,21 +139,28 @@ def test_past_the_1024_build_is_refused_naming_the_key(cfg, key, field,
 @pytest.mark.parametrize("W,VW", [(1024, 512), (768, 384), (600, 128),
                                   (256, 300)])
 def test_kernel5_key_in_the_1024_build_is_refused_naming_it(cfg, W, VW):
-    """Kernel 5 (`nerf.use_train_render_kernel`) has no CTA pair: on the
-    card a model whose build is the 1,024 one is refused with the key and
-    the widths; the CPU's plain version takes it, as JAX's kernel does."""
+    """Kernel 5 (`nerf.use_train_render_kernel`) runs on the 1,024 build's
+    CTA pair: on the card a model whose build is the 1,024 one takes the
+    key (it was refused there, naming the key and the widths, until kernel
+    5 had the pair); past that build the refusal names the width, key on
+    or off. The CPU's plain version takes any, as JAX's kernel does."""
     c = dataclasses.replace(cfg, mlp_net_width=W, mlp_net_width_condition=VW,
                             use_train_render_kernel=True)
-    assert kernel_build_gaps(c, torch.device("cuda")) == [
-        f"nerf.use_train_render_kernel at nerf.mlp.net_width {W}, "
-        f"nerf.mlp.net_width_condition {VW}"]
+    assert kernel_build_gaps(c, torch.device("cuda")) == []
     assert kernel_build_gaps(c, torch.device("cpu")) == []
-    assert kernel_build_gaps(dataclasses.replace(
-        c, use_train_render_kernel=False), torch.device("cuda")) == []
-    mlp = NerfMLP(96, 27, net_width=W, net_width_condition=VW)
-    k5.check_kernel_support(mlp, 56, 0, 16, 4, torch.device("cpu"))
-    with pytest.raises(ValueError, match="nerf.use_train_render_kernel"):
-        k5.check_kernel_support(mlp, 56, 0, 16, 4, torch.device("cuda"))
+    past = dataclasses.replace(c, mlp_net_width=W + 1024)
+    assert kernel_build_gaps(past, torch.device("cuda")) == [
+        f"nerf.mlp.net_width {W + 1024}"]
+    mlp = NerfMLP(96, 27, net_width=W, net_width_condition=VW,
+                  num_density_channels=5)
+    assert shapes.build_of(mlp).W == 1024
+    for dev in ("cpu", "cuda"):
+        k5.check_kernel_support(mlp, 56, 0, 16, 4, torch.device(dev))
+    with pytest.raises(ValueError, match="topology"):
+        k5.check_kernel_support(NerfMLP(96, 27, net_width=W + 1024,
+                                        net_width_condition=VW,
+                                        num_density_channels=5),
+                                56, 0, 16, 4, torch.device("cuda"))
 
 
 def test_defines_of_the_512_builds():
@@ -403,8 +410,13 @@ def test_train_render_plain_version_matches_pallas_kernel_at_512(interpret):
     """Kernel 5 at tests/test_torch_fused_render_train.py's bf16
     tolerances: outputs, and the gradients of a loss on all four w.r.t.
     the parameters (3e-2), means and t_samples (5e-2)."""
-    params, mlp = models()
-    x = _level_inputs()
+    check_train_render_plain_version(*models())
+
+
+def check_train_render_plain_version(params, mlp, R=6):
+    """Kernel 5's plain version against JAX's Pallas kernel (interpret
+    mode) on R rays of 8 samples, at the tolerances of the 512 test."""
+    x = _level_inputs(R=R)
     rng = np.random.default_rng(2)
     R, S = x["means"].shape[:2]
     coef = {k: rng.normal(size=s).astype(np.float32) for k, s in (
